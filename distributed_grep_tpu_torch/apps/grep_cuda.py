@@ -1,0 +1,99 @@
+"""CUDA grep application: the counterpart of the reference's apps/grep_tpu.
+
+Same Map/Reduce contract and the same output records: key
+``"<filename> (line number #N)"``, value the line's bytes decoded
+utf-8/replace; Reduce is the identity (keys are unique per (file, line)).
+Map scans the whole split with GrepEngine (the CUDA Shift-And kernel) and
+slices only the matched lines out of the buffer.
+
+Options outside this package's slice (pattern sets, -v/-w/-x, counts,
+approximate matching) raise NotImplementedError naming the ROADMAP.md
+item that will port them.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from distributed_grep_tpu_torch.apps.base import KeyValue
+from distributed_grep_tpu_torch.ops.engine import GrepEngine
+from distributed_grep_tpu_torch.ops.lines import line_spans, newline_index
+
+# keys are unique per (file, line) and Reduce is values[0]: the runtime
+# sorts each reduce partition in (file, line) order
+reduce_is_identity = True
+
+_engine: GrepEngine | None = None
+_configured_with: tuple | None = None
+_lock = threading.Lock()
+
+# The worker installs a progress callback per task (thread-local: worker
+# threads share this module); the engine calls it once per segment.
+_progress = threading.local()
+
+_UNPORTED = {
+    "patterns": "item 2 (literal sets: FDR and pairset kernels)",
+    "max_errors": "item 3 (approximate matching kernel)",
+    "invert": "item 7 (the grep app's remaining options)",
+    "word_regexp": "item 7 (the grep app's remaining options)",
+    "line_regexp": "item 7 (the grep app's remaining options)",
+    "count_only": "item 7 (the grep app's remaining options)",
+    "presence_only": "item 7 (the grep app's remaining options)",
+}
+
+
+def set_progress(fn) -> bool:
+    """Worker hook: install (fn) or clear (None) this task's progress
+    callback -- fn() stamps liveness."""
+    _progress.fn = fn
+    return True
+
+
+def configure(
+    pattern: str | bytes = "",
+    ignore_case: bool = False,
+    device: str = "cuda",
+    **options: object,
+) -> None:
+    """Compile the pattern for ``device`` (default "cuda"; raises when CUDA
+    is absent unless "cpu" is asked for).  Engine knobs (target_lanes,
+    segment_bytes, min_chunk) pass through ``options``."""
+    global _engine, _configured_with
+    for name, value in options.items():
+        if name in _UNPORTED and value:
+            raise NotImplementedError(
+                f"grep option {name!r} is not ported yet: ROADMAP.md "
+                f"'Slices still to port', {_UNPORTED[name]}"
+            )
+    engine_opts = {k: v for k, v in options.items() if k not in _UNPORTED}
+    if isinstance(pattern, bytes):
+        pattern = pattern.decode("utf-8", "surrogateescape")
+    key = (pattern, bool(ignore_case), str(device),
+           tuple(sorted(engine_opts.items())))
+    with _lock:
+        if key == _configured_with:
+            return
+        _engine = GrepEngine(pattern, ignore_case=ignore_case, device=device,
+                             **engine_opts)  # type: ignore[arg-type]
+        _configured_with = key
+
+
+def map_fn(filename: str, contents: bytes) -> list[KeyValue]:
+    if _engine is None:
+        raise RuntimeError("grep_cuda used before configure() -- no pattern set")
+    result = _engine.scan(contents, progress=getattr(_progress, "fn", None))
+    lines = result.matched_lines
+    if not lines.size:
+        return []
+    nl = result.nl_index if result.nl_index is not None else newline_index(
+        contents)
+    starts, ends = line_spans(lines, nl, len(contents))
+    head = f"{filename} (line number #"
+    return [
+        KeyValue(f"{head}{n})", contents[s:e].decode("utf-8", "replace"))
+        for n, s, e in zip(lines.tolist(), starts.tolist(), ends.tolist())
+    ]
+
+
+def reduce_fn(key: str, values: list[str]) -> str:
+    return values[0]

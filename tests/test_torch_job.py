@@ -1,0 +1,230 @@
+"""Port MapReduce job and CLI vs the reference package: byte-identical
+mr-out files and stdout, fault tolerance, and the port's import guard."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from distributed_grep_tpu.runtime.job import run_job as ref_run_job
+from distributed_grep_tpu.utils.config import JobConfig as RefJobConfig
+from distributed_grep_tpu.utils.native import partition as ref_partition
+from distributed_grep_tpu_torch.apps import grep_cuda
+from distributed_grep_tpu_torch.runtime import shuffle
+from distributed_grep_tpu_torch.runtime.job import run_job
+from distributed_grep_tpu_torch.runtime.worker import WorkerKilled
+from distributed_grep_tpu_torch.utils.config import JobConfig
+
+REPO = Path(__file__).resolve().parents[1]
+ENGINE_OPTS = {"target_lanes": 64, "min_chunk": 32, "segment_bytes": 4096}
+
+
+@pytest.fixture
+def corpus(tmp_path):
+    rng = np.random.default_rng(42)
+    vocab = [b"the", b"volcano", b"Volcano", b"hello", b"hallo", b"x",
+             b"caf\xc3\xa9", b"\xff\xfe", b"\x00", b"a\tb", b"(line number #7)"]
+    files = []
+    for i, (eol, trailing) in enumerate([(b"\n", True), (b"\r\n", True),
+                                         (b"\n", False), (b"\n", True)]):
+        lines = [b" ".join(vocab[j] for j in rng.integers(0, len(vocab),
+                                                          rng.integers(0, 9)))
+                 for _ in range(700 + 300 * i)]
+        d = tmp_path / ("in" if i % 2 else "in-b")
+        d.mkdir(exist_ok=True)
+        p = d / f"f{i}.txt"
+        p.write_bytes(eol.join(lines) + (eol if trailing else b""))
+        files.append(str(p))
+    empty = tmp_path / "empty.txt"
+    empty.write_bytes(b"")
+    files.append(str(empty))
+    return files
+
+
+def _outputs(paths) -> dict[str, bytes]:
+    return {Path(p).name: Path(p).read_bytes() for p in paths}
+
+
+def _port_job(tmp_path, files, pattern, ic, **kw):
+    cfg = JobConfig(
+        input_files=files,
+        app_options={"pattern": pattern, "ignore_case": ic, **ENGINE_OPTS},
+        work_dir=str(tmp_path / "port"), **kw.pop("cfg", {}),
+    )
+    return run_job(cfg, n_workers=2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("pattern,ic", [
+    ("volcano", False), ("Volcano", True), ("h[ae]llo", False),
+])
+def test_mr_out_files_byte_identical_to_reference(tmp_path, corpus, pattern, ic):
+    ref = ref_run_job(RefJobConfig(
+        input_files=corpus,
+        application="distributed_grep_tpu.apps.grep_tpu",
+        app_options={"pattern": pattern, "ignore_case": ic, "backend": "cpu"},
+        work_dir=str(tmp_path / "ref"),
+    ), n_workers=2)
+    port = _port_job(tmp_path, corpus, pattern, ic)
+    ref_out, port_out = _outputs(ref.output_files), _outputs(port.output_files)
+    assert sorted(port_out) == [f"mr-out-{r}" for r in range(10)]
+    assert port_out == ref_out
+    assert sum(len(v) for v in port_out.values()) > 0
+    assert port.fileline_sorted
+
+
+def test_worker_killed_mid_map_still_identical(tmp_path, corpus):
+    clean = _outputs(_port_job(tmp_path / "a", corpus, "volcano",
+                               False).output_files)
+    killed = {"n": 0}
+
+    def die_once():
+        if killed["n"] == 0:
+            killed["n"] += 1
+            raise WorkerKilled()
+
+    res = _port_job(tmp_path / "b", corpus, "volcano", False,
+                    cfg={"task_timeout_s": 1.0},
+                    fault_hooks_per_worker=[{"before_map_commit": die_once},
+                                            {}])
+    assert killed["n"] == 1
+    assert res.metrics["counters"].get("map_retries", 0) >= 1
+    assert res.metrics["counters"]["map_completed"] == len(corpus)
+    assert _outputs(res.output_files) == clean
+
+
+def test_stalled_attempt_is_reissued_and_first_commit_wins(tmp_path, corpus):
+    import time
+
+    clean = _outputs(_port_job(tmp_path / "a", corpus, "hello",
+                               False).output_files)
+    stalled = {"done": False}
+
+    def stall():
+        if not stalled["done"]:
+            stalled["done"] = True
+            time.sleep(2.0)  # > task_timeout_s: the task is re-issued
+
+    res = _port_job(tmp_path / "b", corpus, "hello", False,
+                    cfg={"task_timeout_s": 0.5},
+                    fault_hooks_per_worker=[{"before_map_commit": stall}, {}])
+    assert res.metrics["counters"].get("map_retries", 0) >= 1
+    assert _outputs(res.output_files) == clean
+
+
+def test_kernel_failure_fails_the_job(tmp_path, corpus, monkeypatch):
+    from distributed_grep_tpu_torch.ops import cuda_scan
+
+    def broken(*a, **k):
+        raise RuntimeError("simulated kernel launch failure")
+
+    monkeypatch.setattr(cuda_scan, "shift_and_scan_words", broken)
+    with pytest.raises(RuntimeError, match="simulated kernel launch failure"):
+        _port_job(tmp_path, corpus, "volcano", False)
+
+
+def _cli(module, args, env_extra=None):
+    env = dict(os.environ, JAX_PLATFORMS="cpu", DGREP_LOG="WARNING",
+               PYTHONPATH=str(REPO))
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-m", module, *args],
+                          capture_output=True, env=env, cwd=REPO, timeout=300)
+
+
+@pytest.mark.parametrize("flags", [["volcano"], ["-i", "h[ae]LLO"]])
+def test_cli_stdout_identical_to_reference_cli(corpus, flags):
+    ref = _cli("distributed_grep_tpu", ["grep", *flags, *corpus,
+                                        "--backend", "cpu"])
+    port = _cli("distributed_grep_tpu_torch", ["grep", *flags, *corpus,
+                                               "--device", "cpu"])
+    assert ref.returncode == 0, ref.stderr
+    assert port.returncode == 0, port.stderr
+    assert port.stdout == ref.stdout and port.stdout
+
+
+def test_cli_exit_codes(corpus, capsys):
+    import torch
+
+    from distributed_grep_tpu_torch.__main__ import main
+
+    assert main(["grep", "zzzq", corpus[0], "--device", "cpu"]) == 1
+    assert main(["grep", "h[", corpus[0], "--device", "cpu"]) == 2
+    assert "invalid pattern" in capsys.readouterr().err
+    assert main(["grep", "a+", corpus[0], "--device", "cpu"]) == 2
+    assert "ROADMAP.md" in capsys.readouterr().err
+    assert main(["grep", "x", corpus[0] + ".missing", "--device", "cpu"]) == 2
+    if not torch.cuda.is_available():
+        assert main(["grep", "x", corpus[0]]) == 2
+        assert "--device cpu" in capsys.readouterr().err
+
+
+def test_entry_points_raise_without_cuda(tmp_path, corpus, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        grep_cuda.configure(pattern="volcano")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_job(JobConfig(input_files=corpus,
+                          app_options={"pattern": "volcano"},
+                          work_dir=str(tmp_path / "w")))
+    grep_cuda.configure(pattern="volcano", device="cpu")
+
+
+@pytest.mark.parametrize("opt", [
+    {"patterns": ["a", "b"]}, {"max_errors": 1}, {"invert": True},
+    {"word_regexp": True}, {"count_only": True},
+])
+def test_unported_app_options_raise(opt):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        grep_cuda.configure(pattern="volcano", device="cpu", **opt)
+
+
+def test_partition_bit_compatible_with_reference():
+    rng = np.random.default_rng(0)
+    keys = [f"/d/f{rng.integers(0, 9)}.txt (line number #{rng.integers(1, 10**7)})"
+            for _ in range(500)]
+    keys += ["", "x", "café (line number #1)", "bad\udcff name",
+             "  (line number #12)"]
+    for n_reduce in (1, 7, 10):
+        want = [ref_partition(k, n_reduce) for k in keys]
+        assert shuffle.partition_many(keys, n_reduce).tolist() == want
+
+
+def test_shuffle_wire_round_trip():
+    from distributed_grep_tpu_torch.apps.base import KeyValue
+
+    recs = [KeyValue("a (line number #1)", "x\ty\r z"),
+            KeyValue("bad\udcff (line number #2)", "�"), KeyValue("k", "")]
+    assert shuffle.decode_records(shuffle.encode_records(recs)) == recs
+
+
+def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
+    """Every port module, plus a tiny job, in a fresh interpreter."""
+    src = tmp_path / "in.txt"
+    src.write_bytes(b"a volcano\nnothing\n")
+    code = f"""
+import importlib, pkgutil, sys
+import distributed_grep_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from distributed_grep_tpu_torch.runtime.job import run_job
+from distributed_grep_tpu_torch.utils.config import JobConfig
+res = run_job(JobConfig(input_files=[{str(src)!r}],
+                        app_options={{"pattern": "volcano"}},
+                        work_dir={str(tmp_path / "w")!r}),
+              n_workers=1, device="cpu")
+assert sum(1 for _ in res.iter_results()) == 1
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "distributed_grep_tpu"
+       or m.startswith("distributed_grep_tpu.")]
+assert not bad, bad
+print("clean", len([m for m in sys.modules if m.startswith(pkg.__name__)]))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         cwd=REPO, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert out.returncode == 0, out.stderr.decode()
+    assert out.stdout.startswith(b"clean")
