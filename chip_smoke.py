@@ -4,21 +4,33 @@
     python3 chip_smoke.py [--seed N] [--file-mb 128] [--n-files 8]
 
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
-         the build of every CUDA source of the package (nvcc, timed).
+         the build of every CUDA source of the package (one nvcc per
+         source, all started together, timed).
 Phase 2  every kernel against its plain PyTorch version on the same inputs
          (bit-identical words: tolerance 0), at the main path's shapes and
-         at small ones, both scan modes, five pattern models.
-Phase 3  the main path at real size: 8 files of 128 MB made from --seed
-         (English-word lines with injected needles), three queries through
-         runtime.job.run_job on "cuda" -- 'volcano' (sparse, rare-class
-         filter), '-i Volcano', 'the' (dense: the on-device dense
-         confirm), 'being it' (its rare-class filter, b??ng???, is
-         defeated by this corpus: dense confirm, then the defeat guard
-         drops the filter) -- each checked line for line against a plain
-         Python oracle, plus the CLI on one file.  The kernel's launch count is
-         zeroed just before the queries and read just after.  Then the
-         kernel, its plain version and the sparse fetch are timed with CUDA
-         events at the main path's segment shape.
+         at small ones: the Shift-And kernel (both scan modes, five
+         models) and the Glushkov NFA kernel (six models of 1 to 4 state
+         words, a '^' model and a model with 51 specials).
+Phase 3  the main path at real size, each query through runtime.job.run_job
+         on "cuda" and checked line for line against a plain Python
+         oracle.  Corpora made from --seed: 8 files of 128 MB of
+         English-word lines with injected needles, 8 files of 128 MB of
+         NASA-HTTP-style access-log lines, and one 128 MB file of lines
+         that defeat a relaxed regex filter.  Queries: 'volcano' (sparse,
+         rare-class filter), '-i Volcano', 'the' (dense: the on-device
+         dense confirm), 'being it' (its rare-class filter is defeated:
+         dense confirm, then the defeat guard drops it); BASELINE config
+         2's 8-word alternation (exact 2-word NFA) and config 4's
+         '-i get /[a-z0-9/.-]{4,24}\\.gif' on the logs (relaxed 1-word
+         filter, dense confirm on the exact 2-word model in every
+         segment); '^the (old|new) ' (stripe-head false lines the stitch
+         removes); 'volcano$' (the DFA-confirmed '$' filter);
+         '\\bvolcano\\b' (the re-confirmed filter); 'x[ab]{2,40}y' (the
+         NFA defeat guard swaps in the exact model) -- plus the CLI on one
+         file.  The launch counts of both kernels are zeroed just before
+         the queries and read just after.  Then the kernels, their plain
+         versions and the sparse fetch are timed with CUDA events at the
+         main path's segment shape.
 
 The last two lines of standard output are one JSON object with every
 kernel's numbers and one JSON object with the device.  Any failure raises
@@ -31,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -46,6 +59,21 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 # counts an FMA as two operations).
 H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 SHIFT_AND_OPS_PER_BYTE = 5  # load, table lookup, shift-or, and, accumulate
+# csrc/nfa.cu per input byte, counting a three-input logic operation as
+# one: 3 (byte load, newline test, output bit) plus 5 per state word (B
+# lookup, chain and-shift, the three-way or of init, anchor and chain, the
+# AND with B, the final test), plus 2 + n_words per special of a word whose
+# special sources are live at that step (the select, then one and-or per
+# target word).
+NFA_OPS_PER_BYTE = 3
+NFA_OPS_PER_WORD = 5
+
+CONFIG2 = ("(volcano|anarchism|philosophy|needle|wikipedia|quantum|zeppelin"
+           "|obsidian)")
+CONFIG4 = r"get /[a-z0-9/.-]{4,24}\.gif"
+WIDE_WORDS = ["volcano", "anarchism", "philosophy", "wikipedia", "quantum",
+              "zeppelin", "obsidian", "telescope", "metabolic", "hurricane",
+              "labyrinth", "xylophone"]
 
 _WORDS = (
     "the of and to in a is that for it as was with be by on not he his but "
@@ -80,27 +108,121 @@ def words_block(rng, n_bytes: int):
     exactly n_bytes bytes."""
     import numpy as np
 
-    vocab = [w.encode() for w in _WORDS]
+    vocab = [w.encode() for w in _WORDS] + [b" ", b"\n"]
+    n_lines = n_bytes // 40 + 16
+    per_line = rng.integers(3, 24, size=n_lines)
+    idx = rng.integers(0, len(_WORDS), size=int(per_line.sum()))
+    sep = np.full(idx.size, len(_WORDS), dtype=np.int64)  # " "
+    sep[np.cumsum(per_line) - 1] = len(_WORDS) + 1  # "\n" ends a line
+    out = gather_tokens(vocab, np.stack([idx, sep], axis=1).reshape(-1))
+    if out.size < n_bytes:  # lines average ~60 bytes: never at these sizes
+        raise RuntimeError("corpus block estimate too small")
+    return out[:n_bytes]
+
+
+def log_block(rng, n_bytes: int):
+    """NASA-HTTP-style access-log lines (the recipe of BASELINE config 4,
+    benchmarks/baseline_configs.py _log_text: 100 hosts, 6 paths of which
+    2 end in .gif, status 200..504, size 0..99999), vectorized: whole
+    lines, at least n_bytes bytes."""
+    import numpy as np
+
+    hosts = [f"host{i}.example.com".encode() for i in range(100)]
+    paths = [b"/images/logo", b"/shuttle/missions", b"/cgi-bin/query",
+             b"/images/KSC-small.gif", b"/history/apollo", b"/icons/menu.gif"]
+    secs = [b"%02d" % i for i in range(60)]
+    codes = [b"%d" % i for i in range(200, 505)]
+    sizes = [b"%d" % i for i in range(100000)]
+    fixed = [b" - - [01/Jul/1995:00:00:", b' -0400] "GET ', b' HTTP/1.0" ',
+             b" ", b"\n"]
+    vocab = hosts + paths + secs + codes + sizes + fixed
+    base = np.cumsum([0, len(hosts), len(paths), len(secs), len(codes),
+                      len(sizes)])
+    f0 = int(base[-1])
+    n_lines = n_bytes // 80 + 16
+    ids = np.empty((n_lines, 10), dtype=np.int64)
+    ids[:, 0] = rng.integers(0, len(hosts), n_lines)
+    ids[:, 1] = f0
+    ids[:, 2] = base[2] + rng.integers(0, 60, n_lines)
+    ids[:, 3] = f0 + 1
+    ids[:, 4] = base[1] + rng.integers(0, len(paths), n_lines)
+    ids[:, 5] = f0 + 2
+    ids[:, 6] = base[3] + rng.integers(0, len(codes), n_lines)
+    ids[:, 7] = f0 + 3
+    ids[:, 8] = base[4] + rng.integers(0, 100000, n_lines)
+    ids[:, 9] = f0 + 4
+    return gather_tokens(vocab, ids.reshape(-1))
+
+
+def gather_tokens(vocab: list[bytes], idx):
+    """The concatenation of vocab[i] for i in idx, vectorized."""
+    import numpy as np
+
     wlen = np.array([len(w) for w in vocab], dtype=np.int64)
     table = np.zeros((len(vocab), int(wlen.max())), dtype=np.uint8)
     for i, w in enumerate(vocab):
         table[i, : len(w)] = np.frombuffer(w, np.uint8)
-    n_lines = n_bytes // 40 + 16
-    per_line = rng.integers(3, 24, size=n_lines)
-    idx = rng.integers(0, len(vocab), size=int(per_line.sum()))
-    tok_len = wlen[idx] + 1  # word + separator
+    tok_len = wlen[idx]
     pos = np.concatenate(([0], np.cumsum(tok_len)[:-1]))
-    total = int(tok_len.sum())
-    if total < n_bytes:  # lines average ~60 bytes: never at these sizes
-        raise RuntimeError("corpus block estimate too small")
-    out = np.empty(total, dtype=np.uint8)
+    out = np.empty(int(tok_len.sum()), dtype=np.uint8)
     for k in range(table.shape[1]):
-        sel = wlen[idx] > k
+        sel = tok_len > k
         out[pos[sel] + k] = table[idx[sel], k]
-    sep = np.full(idx.size, ord(" "), dtype=np.uint8)
-    sep[np.cumsum(per_line) - 1] = ord("\n")
-    out[pos + wlen[idx]] = sep
-    return out[:n_bytes]
+    return out
+
+
+def bc_block(rng, n_bytes: int) -> bytes:
+    """Lines 'a' + 30..100 bytes of [bc] + 'd': every byte keeps some
+    bounded-repeat position of a[bc]{40,90}d live.  Exactly n_bytes."""
+    import numpy as np
+
+    lens = rng.integers(30, 101, size=n_bytes // 32 + 1)
+    ends = np.cumsum(lens + 3)  # 'a' + run + 'd' + '\n'
+    out = rng.choice(np.frombuffer(b"bc", np.uint8), size=int(ends[-1]))
+    out[ends - lens - 3] = ord("a")
+    out[ends - 2] = ord("d")
+    out[ends - 1] = ord("\n")
+    return out[:n_bytes].tobytes()
+
+
+def make_log_corpus(seed: int, n_files: int, file_bytes: int) -> list[Path]:
+    """Access-log files: one block made from ``seed``, each file that block
+    rotated to start at another of its lines."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 4)
+    block = log_block(rng, min(file_bytes, 64 << 20))
+    starts = np.concatenate(([0], np.flatnonzero(block == 10)[:-1] + 1))
+    corpus = WORK / "logs"
+    corpus.mkdir(parents=True, exist_ok=True)
+    paths = []
+    reps = -(-file_bytes // block.size) + 1
+    for i in range(n_files):
+        at = int(starts[rng.integers(0, starts.size)])
+        data = np.tile(np.roll(block, -at), reps)[:file_bytes]
+        path = corpus / f"access-{i:02d}.log"
+        data.tofile(path)
+        paths.append(path)
+    return paths
+
+
+def make_defeat_file(seed: int, file_bytes: int) -> Path:
+    """Lines 'x' + 60 x 'a' + 'y': every one a candidate of the relaxed
+    filter x[ab]{2,}y and none a match of x[ab]{2,40}y, with a few true
+    matches planted."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 7)
+    line = np.frombuffer(b"x" + b"a" * 60 + b"y\n", np.uint8)
+    n_lines = file_bytes // line.size
+    data = np.tile(line, n_lines)
+    hit = np.frombuffer(b"x" + b"ab" * 5 + b"y real " + b"z" * 43, np.uint8)
+    for k in rng.choice(n_lines, size=12, replace=False).tolist():
+        data[k * line.size : k * line.size + hit.size] = hit
+    path = WORK / "defeat" / "lines.txt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    data.tofile(path)
+    return path
 
 
 def make_corpus(seed: int, n_files: int, file_bytes: int) -> list[Path]:
@@ -121,6 +243,12 @@ def make_corpus(seed: int, n_files: int, file_bytes: int) -> list[Path]:
         for p, k in zip(where.tolist(), kinds.tolist()):
             nd = needles[k]
             data[p : p + len(nd)] = np.frombuffer(nd, np.uint8)
+        # 'the new ' at stripe starts (multiples of 1024 bytes, the main
+        # path's stripe length): '^the (old|new) ' then sees a line start
+        # the device cannot tell from a real one
+        heads = rng.choice(file_bytes // 1024 - 1, size=100, replace=False)
+        for p in ((heads + 1) * 1024).tolist():
+            data[p : p + 8] = np.frombuffer(b"the new ", np.uint8)
         path = corpus / f"part-{i:02d}.txt"
         data.tofile(path)
         paths.append(path)
@@ -201,6 +329,73 @@ def phase_kernels(torch, np, cuda_scan, sa_mod) -> int:
     return worst
 
 
+def nfa_models(nfa_mod) -> dict:
+    """The NFA kernel's phase-2 models: 1 to 4 state words, '^', and many
+    specials."""
+    models = {
+        "config4 filter -i": nfa_mod.compile_scan_model(CONFIG4, True)[0],
+        "config4 exact -i": nfa_mod.try_compile_glushkov(CONFIG4, True),
+        "config2 alternation": nfa_mod.try_compile_glushkov(CONFIG2),
+        "4-word alternation": nfa_mod.try_compile_glushkov(
+            "(" + "|".join(WIDE_WORDS) + ")"),
+        "^anchor": nfa_mod.try_compile_glushkov("^anchor"),
+        "a[bc]{40,90}d": nfa_mod.try_compile_glushkov("a[bc]{40,90}d"),
+    }
+    words = {k: m.n_words for k, m in models.items()}
+    assert words == {"config4 filter -i": 1, "config4 exact -i": 2,
+                     "config2 alternation": 2, "4-word alternation": 4,
+                     "^anchor": 1, "a[bc]{40,90}d": 3}, words
+    assert models["a[bc]{40,90}d"].n_specials == 51
+    return models
+
+
+def phase_nfa_kernels(torch, np, nfa_scan, nfa_mod) -> int:
+    """NFA kernel words vs the plain version's (run on the card), bit for
+    bit.  Returns the largest absolute difference seen."""
+    from distributed_grep_tpu_torch.ops.layout import choose_layout, to_device_array
+
+    rng = np.random.default_rng(4321)
+    models = nfa_models(nfa_mod)
+    plants = [b"volcano", b"anarchism", b"labyrinth", b"xylophone",
+              b"GET /images/KSC-small.gif", b"get /icons/menu.gif",
+              b"GET /a/b.gif", b"a" + b"bc" * 30 + b"d", b"\nanchor"]
+    worst = 0
+    for chunk, lanes in [(512, 4096), (1024, 65536), (160, 64)]:
+        text = words_block(rng, chunk * lanes)
+        for p in rng.choice(text.size - 80, size=max(16, text.size // 2000),
+                            replace=False).tolist():
+            nd = plants[p % len(plants)]
+            text[p : p + len(nd)] = np.frombuffer(nd, np.uint8)
+        lay = choose_layout(text.size, target_lanes=lanes, min_chunk=chunk,
+                            lane_multiple=32, chunk_multiple=32)
+        assert (lay.chunk, lay.lanes) == (chunk, lanes), lay
+        arr = to_device_array(text.tobytes(), lay)
+        # stripe heads: 'anchor' at every 5th stripe start (a line start to
+        # the kernel), and a match ending across a word edge
+        arr[0:6, ::5] = np.frombuffer(b"anchor", np.uint8)[:, None]
+        arr[29:36, 3] = np.frombuffer(b"volcano", np.uint8)
+        dev = torch.from_numpy(arr).cuda()
+        for name, model in models.items():
+            got = nfa_scan.nfa_scan_words(dev, model)
+            torch.cuda.synchronize()
+            want = nfa_scan.nfa_scan_words_plain(dev, model)
+            g = got.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            w = want.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            err = int((g - w).abs().max())
+            worst = max(worst, err)
+            nz = int(torch.count_nonzero(w))
+            if not torch.equal(got, want) or err:
+                raise AssertionError(
+                    f"nfa kernel != plain: {name} chunk={chunk} lanes={lanes} "
+                    f"max_abs_err={err}")
+            if name == "^anchor" and not nz:
+                raise AssertionError("no '^anchor' match in the phase-2 text")
+            log(f"  ok nfa {name:20s} chunk={chunk:5d} lanes={lanes:6d} "
+                f"words={model.n_words} specials={model.n_specials:3d} "
+                f"nonzero words={nz}")
+    return worst
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -234,9 +429,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from distributed_grep_tpu_torch.apps import grep_cuda
+        from distributed_grep_tpu_torch.models import nfa as nfa_mod
         from distributed_grep_tpu_torch.models import shift_and as sa_mod
-        from distributed_grep_tpu_torch.ops import _build, cuda_scan
-        from distributed_grep_tpu_torch.ops.layout import choose_layout
+        from distributed_grep_tpu_torch.ops import _build, cuda_scan, nfa_scan
+        from distributed_grep_tpu_torch.ops.layout import (
+            choose_layout,
+            to_device_array,
+        )
         from distributed_grep_tpu_torch.ops.scan_torch import sparse_nonzero
         from distributed_grep_tpu_torch.runtime.job import run_job
         from distributed_grep_tpu_torch.utils.config import JobConfig
@@ -257,60 +456,86 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"({', '.join(_build.SOURCES)})")
+        f"({', '.join(_build.SOURCES)}, one nvcc each, in parallel)")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # ---------------------------------------------------------- phase 2
-    log("== phase 2: kernel vs plain version (tolerance 0: integer words)")
+    log("== phase 2: kernels vs plain versions (tolerance 0: integer words)")
+    t0 = time.perf_counter()
     max_err = phase_kernels(torch, np, cuda_scan, sa_mod)
-    log(f"phase 2 launches (comparisons, not counted): {cuda_scan.launches}")
+    log(f"shift_and checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    nfa_err = phase_nfa_kernels(torch, np, nfa_scan, nfa_mod)
+    log(f"nfa checks: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 2 launches (comparisons, not counted): shift_and "
+        f"{cuda_scan.launches}, nfa {nfa_scan.launches}")
     if args.kernels_only:
         return 0
 
     # ---------------------------------------------------------- phase 3
-    log(f"== phase 3: main path, {args.n_files} x {args.file_mb} MB, "
-        f"seed {args.seed}, card: {card}")
+    log(f"== phase 3: main path, {args.n_files} x {args.file_mb} MB per "
+        f"corpus, seed {args.seed}, card: {card}")
     if WORK.exists():
         shutil.rmtree(WORK)
     try:
         t0 = time.perf_counter()
-        files = make_corpus(args.seed, args.n_files, args.file_mb << 20)
-        total_bytes = sum(p.stat().st_size for p in files)
-        log(f"corpus: {len(files)} files, {total_bytes} bytes, "
-            f"{time.perf_counter() - t0:.1f} s")
+        words = make_corpus(args.seed, args.n_files, args.file_mb << 20)
+        logs = make_log_corpus(args.seed, args.n_files, args.file_mb << 20)
+        defeat = [make_defeat_file(args.seed, args.file_mb << 20)]
+        log(f"corpora: {len(words)} word files, {len(logs)} log files, "
+            f"1 defeat file, {time.perf_counter() - t0:.1f} s")
+
+        def rx(pattern: str, flags: int = 0):
+            return re.compile(pattern.encode(), flags).search
+
+        # (pattern, -i, files, oracle predicate on one line, kernel)
         queries = [
-            ("volcano", False, lambda ln: b"volcano" in ln),
-            ("Volcano", True, lambda ln: b"volcano" in ln.lower()),
-            ("the", False, lambda ln: b"the" in ln),
-            ("being it", False, lambda ln: b"being it" in ln),
+            ("volcano", False, words, lambda ln: b"volcano" in ln, "shift_and"),
+            ("Volcano", True, words, lambda ln: b"volcano" in ln.lower(),
+             "shift_and"),
+            ("the", False, words, lambda ln: b"the" in ln, "shift_and"),
+            ("being it", False, words, lambda ln: b"being it" in ln,
+             "shift_and"),
+            (CONFIG2, False, words, rx(CONFIG2), "nfa"),
+            (CONFIG4, True, logs, rx(CONFIG4, re.I), "nfa"),
+            ("^the (old|new) ", False, words, rx("^the (old|new) "), "nfa"),
+            ("volcano$", False, words, rx("volcano$"), "nfa"),
+            (r"\bvolcano\b", False, words, rx(r"\bvolcano\b"), "nfa"),
+            ("x[ab]{2,40}y", False, defeat, rx("x[ab]{2,40}y"), "nfa"),
         ]
-        segs_per_query = sum(-(-p.stat().st_size // (64 << 20)) for p in files)
+
+        def n_segments(files) -> int:
+            return sum(-(-p.stat().st_size // (64 << 20)) for p in files)
+
         per_query = []
         cuda_scan.reset_launches()
-        for pattern, ic, _pred in queries:
-            before = cuda_scan.launches
+        nfa_scan.reset_launches()
+        for pattern, ic, files, _pred, _k in queries:
+            before = (cuda_scan.launches, nfa_scan.launches)
             cfg = JobConfig(
                 input_files=[str(p) for p in files],
                 app_options={"pattern": pattern, "ignore_case": ic},
                 n_reduce=10, task_timeout_s=60.0,
-                work_dir=str(WORK / f"job-{pattern}-{int(ic)}"),
+                work_dir=str(WORK / f"job-{len(per_query)}"),
             )
             t0 = time.perf_counter()
             res = run_job(cfg, n_workers=args.workers, device="cuda")
             wall = time.perf_counter() - t0
             totals = dict(grep_cuda._engine.totals)
             totals.update(res.metrics["seconds"])
-            per_query.append((pattern, ic, res, wall,
-                              cuda_scan.launches - before, totals))
-        main_launches = cuda_scan.launches
-        log(f"main path launches: {main_launches} "
-            f"(segments per query: {segs_per_query})")
+            launched = {"shift_and": cuda_scan.launches - before[0],
+                        "nfa": nfa_scan.launches - before[1]}
+            per_query.append((res, wall, launched, totals,
+                              grep_cuda._engine.route))
+        main_launches = {"shift_and": cuda_scan.launches,
+                         "nfa": nfa_scan.launches}
+        log(f"main path launches: {main_launches}")
 
-        for (pattern, ic, pred), (_, _, res, wall, n_launch, totals) in zip(
-                queries, per_query):
+        for (pattern, ic, files, pred, kernel), (
+                res, wall, launched, totals, route) in zip(queries, per_query):
             t0 = time.perf_counter()
             got = job_lines(res)
             n_rec = 0
@@ -322,20 +547,32 @@ def main() -> int:
                         f"for {p.name} differs from the oracle "
                         f"({len(got.get(str(p), []))} vs {len(want)} lines)")
                 n_rec += len(want)
-            if n_launch < segs_per_query:
+            segs = n_segments(files)
+            if launched[kernel] < segs:
                 raise AssertionError(
-                    f"query {pattern}: {n_launch} kernel launches for "
-                    f"{segs_per_query} segments")
-            if pattern == "being it" and not (
-                    totals["dense_confirms"] and totals["filter_defeated"]):
+                    f"query {pattern}: {launched[kernel]} {kernel} launches "
+                    f"for {segs} segments")
+            checks = {
+                "being it": totals.get("dense_confirms", 0)
+                and totals.get("filter_defeated", 0),
+                CONFIG4: totals.get("dense_confirms", 0)
+                and launched["nfa"] > segs,
+                "^the (old|new) ": totals.get("stitch_removed", 0) > 0,
+                "volcano$": route == "dfa_filter",
+                r"\bvolcano\b": route == "re_filter",
+                "x[ab]{2,40}y": totals.get("dense_confirms", 0)
+                and totals.get("nfa_filter_defeated", 0),
+            }
+            if not checks.get(pattern, True):
                 raise AssertionError(
-                    f"query {pattern}: expected the dense confirm and the "
-                    f"defeat guard, engine totals {totals}")
-            log(f"query {'-i ' if ic else ''}{pattern!r}: {n_rec} lines "
-                f"identical to the oracle (checked in "
+                    f"query {pattern}: route {route}, launches {launched}, "
+                    f"engine totals {totals}")
+            total_bytes = sum(p.stat().st_size for p in files)
+            log(f"query {'-i ' if ic else ''}{pattern!r} ({route}): {n_rec} "
+                f"lines identical to the oracle (checked in "
                 f"{time.perf_counter() - t0:.1f} s); job wall {wall:.3f} s = "
-                f"{total_bytes / wall / 1e9:.3f} GB/s end to end; "
-                f"{n_launch} launches [{card}]")
+                f"{total_bytes / wall / 1e9:.3f} GB/s end to end over "
+                f"{total_bytes} bytes; launches {launched} [{card}]")
             log("  engine totals (seconds summed over worker threads): "
                 + json.dumps(totals, sort_keys=True))
             shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
@@ -344,23 +581,30 @@ def main() -> int:
         t0 = time.perf_counter()
         cli = subprocess.run(
             [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
-             "volcano", str(files[0]), "--work-dir", str(WORK / "cli")],
+             "volcano", str(words[0]), "--work-dir", str(WORK / "cli")],
             cwd=ROOT, capture_output=True, check=True, timeout=600,
         )
-        want_lines = oracle_lines(files[0], lambda ln: b"volcano" in ln)
-        want = "".join(f"{files[0].resolve()} (line number #{n}) {v}\n"
+        want_lines = oracle_lines(words[0], lambda ln: b"volcano" in ln)
+        want = "".join(f"{words[0].resolve()} (line number #{n}) {v}\n"
                        for n, v in want_lines)
         if cli.stdout != want.encode("utf-8", "surrogateescape"):
             raise AssertionError("CLI output differs from the oracle")
-        log(f"CLI grep volcano {files[0].name}: {len(want_lines)} lines "
+        log(f"CLI grep volcano {words[0].name}: {len(want_lines)} lines "
             f"identical to the oracle ({time.perf_counter() - t0:.1f} s)")
 
         # ------------------------------------------- timings (not counted)
-        seg = files[0].read_bytes()[: 64 << 20]
+        seg = words[0].read_bytes()[: 64 << 20]
         lay = choose_layout(len(seg), **grep_cuda._engine.layout_kwargs())
-        from distributed_grep_tpu_torch.ops.layout import to_device_array
-
         dev = torch.from_numpy(to_device_array(seg, lay)).cuda()
+        log_seg = logs[0].read_bytes()[: 64 << 20]
+        lay_log = choose_layout(len(log_seg),
+                                **grep_cuda._engine.layout_kwargs())
+        assert (lay_log.chunk, lay_log.lanes) == (lay.chunk, lay.lanes)
+        dev_log = torch.from_numpy(to_device_array(log_seg, lay_log)).cuda()
+        n_in = lay.chunk * lay.lanes
+        n_out = (lay.chunk // 32) * lay.lanes * 4
+        bytes_ms = (n_in + n_out) / H100_BYTES_PER_S * 1e3
+
         full = sa_mod.try_compile_shift_and("volcano")
         filt = sa_mod.filtered_for_device(full)
         ms = cuda_ms(torch, lambda: cuda_scan.shift_and_scan_words(
@@ -373,15 +617,12 @@ def main() -> int:
             dev, filt, True), 2)
         rowmajor = dev.t().contiguous()  # the segment as the document lies
         transpose_ms = cuda_ms(torch, lambda: rowmajor.t().contiguous(), 20)
-        words = cuda_scan.shift_and_scan_words(dev, filt, True)
+        sa_words = cuda_scan.shift_and_scan_words(dev, filt, True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(10):
-            idx, _v = sparse_nonzero(words)
+            idx, _v = sparse_nonzero(sa_words)
         fetch_ms = (time.perf_counter() - t0) * 100
-        n_in = lay.chunk * lay.lanes
-        n_out = (lay.chunk // 32) * lay.lanes * 4
-        bytes_ms = (n_in + n_out) / H100_BYTES_PER_S * 1e3
         ops_ms = SHIFT_AND_OPS_PER_BYTE * n_in / H100_INT32_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         gbs = len(seg) / (ms / 1e3) / 1e9
@@ -393,21 +634,70 @@ def main() -> int:
             f"bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}, ops "
             f"{ops_ms:.4f}); sparse fetch of {idx.size} words "
             f"{fetch_ms:.3f} ms [{card}]")
+
+        # the NFA kernel on each model's own corpus segment; the many-
+        # specials model also on lines 'a' + 30..100 of [bc] + 'd', where
+        # its specials are live
+        models = nfa_models(nfa_mod)
+        models["a[bc]{40,90}d on bc lines"] = models["a[bc]{40,90}d"]
+        on_logs = {"config4 filter -i", "config4 exact -i"}
+        dev_bc = torch.from_numpy(to_device_array(
+            bc_block(np.random.default_rng(args.seed + 9), n_in), lay)).cuda()
+        nfa_rows = {}
+        for name, model in models.items():
+            arr = (dev_log if name in on_logs
+                   else dev_bc if name.endswith("bc lines") else dev)
+            k_ms = cuda_ms(torch, lambda: nfa_scan.nfa_scan_words(arr, model),
+                           20)
+            p_ms = cuda_ms(torch, lambda: nfa_scan.nfa_scan_words_plain(
+                arr, model), 1)
+            live = [0] * model.n_words
+            if model.n_specials:  # a second plain pass counts live steps
+                nfa_scan.nfa_scan_words_plain(arr, model, live=live)
+            spec_per_word = [0] * model.n_words
+            for wp, _j, _f in model.specials:
+                spec_per_word[wp] += 1
+            ops = n_in * (NFA_OPS_PER_BYTE + NFA_OPS_PER_WORD * model.n_words)
+            ops += sum(lv * k * (2 + model.n_words)
+                       for lv, k in zip(live, spec_per_word))
+            o_ms = ops / H100_INT32_OPS_PER_S * 1e3
+            nfa_rows[name] = (k_ms, p_ms, max(bytes_ms, o_ms), o_ms)
+            log(f"kernel nfa {name}: words={model.n_words} "
+                f"specials={model.n_specials} (live special-word steps "
+                f"{sum(live)} of {n_in * model.n_words}), chunk={lay.chunk} "
+                f"lanes={lay.lanes}: {k_ms:.4f} ms = "
+                f"{n_in / (k_ms / 1e3) / 1e9:.1f} GB/s; plain version on the "
+                f"card {p_ms:.1f} ms; bound {max(bytes_ms, o_ms):.4f} ms "
+                f"(bytes {bytes_ms:.4f}, ops {o_ms:.4f}) [{card}]")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
+    nfa_ms, nfa_plain_ms, nfa_bound_ms, nfa_ops_ms = nfa_rows[
+        "config2 alternation"]
     print(json.dumps({"kernels": [{
         "name": "shift_and",
         "route": "cuda",
         "source": "distributed_grep_tpu_torch/csrc/shift_and.cu",
         "replaces": "distributed_grep_tpu/ops/pallas_scan.py:91",
-        "launches": main_launches,
+        "launches": main_launches["shift_and"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": "nfa",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/nfa.cu",
+        "replaces": "distributed_grep_tpu/ops/pallas_nfa.py:120",
+        "launches": main_launches["nfa"],
+        "max_abs_err": nfa_err,
+        "ms": nfa_ms,
+        "plain_ms": nfa_plain_ms,
+        "bound_ms": nfa_bound_ms,
+        "bound_by": "bytes" if bytes_ms >= nfa_ops_ms else "operations",
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

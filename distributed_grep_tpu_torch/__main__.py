@@ -7,7 +7,11 @@ Prints ``<abs path> (line number #N) <line>`` for every matching line, in
 (path, line) order -- the reference CLI's default print mode, byte for
 byte.  Exit status: 0 when a line matched, 1 when none did, 2 on error
 (bad pattern, unreadable file, a pattern or device this package cannot
-serve).
+serve).  PATTERN is a grep -E regex: a literal or byte-class sequence
+runs on the Shift-And kernel, any other regex on the Glushkov NFA kernel;
+the few patterns outside both (backreferences and other syntax only
+Python re knows, '^$'-style patterns that match the empty string at a
+line's end) exit 2 naming their ROADMAP.md item.
 """
 
 from __future__ import annotations

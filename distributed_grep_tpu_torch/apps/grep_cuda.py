@@ -3,8 +3,9 @@
 Same Map/Reduce contract and the same output records: key
 ``"<filename> (line number #N)"``, value the line's bytes decoded
 utf-8/replace; Reduce is the identity (keys are unique per (file, line)).
-Map scans the whole split with GrepEngine (the CUDA Shift-And kernel) and
-slices only the matched lines out of the buffer.
+Map scans the whole split with GrepEngine (the CUDA Shift-And kernel for
+literals and byte-class sequences, the Glushkov NFA kernel for other
+regexes) and slices only the matched lines out of the buffer.
 
 Options outside this package's slice (pattern sets, -v/-w/-x, counts,
 approximate matching) raise NotImplementedError naming the ROADMAP.md

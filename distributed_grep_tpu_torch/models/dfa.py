@@ -1,23 +1,49 @@
-"""Regex parser for the grep -E subset: pattern text -> AST of byte masks.
+"""Regex subset -> AST -> Thompson NFA -> newline-reset DFA table.
 
-The port's own copy of the reference package's parser: only the parser
-and its helpers (byte masks, escapes, bracket and POSIX classes, case
-folding).  Automaton construction is not part of this package; the
-Shift-And compiler (models/shift_and.py) walks the AST returned here.
+The port's own copy of the reference package's regex front end (the
+parser, POSIX class expansion, the Thompson construction and the subset
+construction of ``compile_dfa``).  The Shift-And compiler
+(models/shift_and.py) and the Glushkov compiler (models/nfa.py) walk the
+AST and the Thompson NFA built here; the DFA table is the host oracle of
+the regex path (ops/host_match.py).
 
 Supported syntax: literals (UTF-8 as raw byte sequences), '.', escapes
 (\\n \\t \\xHH \\d \\w \\s and their negations, escaped metachars),
 character classes [a-z] / [^...] / [[:alpha:]], alternation '|', groups,
 repeats '* + ? {m,n}', anchors '^' '$' '\\b', and case folding.
+
+Semantics baked into the DFA table:
+
+* **Unanchored search**: the DFA recognizes Sigma*.pattern -- an accepting
+  state means "a match ends at this byte".
+* **Newline reset**: every state's transition on '\\n' goes to the
+  line-start state.  Patterns that would consume '\\n' raise
+  NewlineInPattern, so the reset is semantics-preserving.
+* **Non-consuming anchors**: '^' branches are reachable only at a line
+  start; '$' is a second accept set ``accept_eol`` -- a match iff the line
+  ends right after this byte.  Mid-pattern anchors are position-gated
+  epsilons (ls_eps / eol_eps).
+* **Byte classes**: bytes with the same membership in every transition
+  mask share a column, so the table is [n_states, n_classes].
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+
+import numpy as np
 
 
 class RegexError(ValueError):
     """Malformed pattern."""
+
+
+class TooManyStates(RegexError):
+    """DFA exceeded the state cap (or a repeat the expansion cap)."""
+
+
+class NewlineInPattern(RegexError):
+    """Pattern would consume '\\n'; the newline-reset table cannot express it."""
 
 
 class UnsupportedSyntax(RegexError):
@@ -131,6 +157,115 @@ def _reject_single_bracket_class(src: bytes, open_pos: int) -> None:
         )
 
 
+def _mask_to_class_text(mask: int) -> bytes:
+    """Class-body text (\\xHH / \\xHH-\\xHH runs) denoting `mask` — valid
+    inside a bracket expression for BOTH this module's parser and
+    Python re."""
+    parts = []
+    b = 0
+    while b < 256:
+        if mask >> b & 1:
+            lo = b
+            while b < 256 and mask >> b & 1:
+                b += 1
+            hi = b - 1
+            parts.append(b"\\x%02x" % lo if lo == hi
+                         else b"\\x%02x-\\x%02x" % (lo, hi))
+        else:
+            b += 1
+    return b"".join(parts)
+
+
+_POSIX_EXPANSIONS = {k: _mask_to_class_text(v) for k, v in _POSIX_CLASSES.items()}
+
+
+def expand_posix_classes(pattern):
+    """Rewrite POSIX bracket classes ([[:digit:]] etc.) into \\xHH-range
+    form understood by BOTH this module's parser and Python re.
+
+    This is the single translation point for every code path that hands
+    the user's pattern to re for SEMANTICS — the -w/-x confirm regexes,
+    the CLI's -o matcher, apps/grep.py's reference-mirror matcher, the
+    engine's re fallback: Python re has no POSIX classes and silently
+    misparses ``[[:digit:]]`` as the character set {[ : d i g t}, so any
+    unexpanded handoff would diverge from GNU.  Outside bracket
+    expressions ``[:name:]`` has no special meaning and is left alone;
+    a well-formed ``[:name:]`` with an unknown name raises RegexError
+    (GNU errors on those too).  Accepts str or bytes and returns the
+    same type."""
+    is_str = isinstance(pattern, str)
+    src = pattern.encode("utf-8", "surrogateescape") if is_str else bytes(pattern)
+    out = bytearray()
+    i, n = 0, len(src)
+    in_class = False
+    # previous in-class token kind — "none" (just opened / after ^ or a
+    # leading ]), "member" (char, escaped pair, class, collating symbol),
+    # "dash" (a '-' that follows a member, i.e. a potential range
+    # operator).  Tracked so the range-adjacency guards can't be fooled
+    # by escaped bytes the way raw last-byte peeking was (round-5
+    # review: '[a\\-[:digit:]]' vs '[\\^-[:digit:]]').
+    prev = "none"
+    while i < n:
+        c = src[i]
+        if c == 0x5C and i + 1 < n:  # backslash escape, either context
+            out += src[i:i + 2]
+            i += 2
+            if in_class:
+                prev = "member"
+            continue
+        if not in_class:
+            if c == ord("["):
+                _reject_single_bracket_class(src, i)  # [:name:] like GNU
+            out.append(c)
+            i += 1
+            if c == ord("["):
+                in_class = True
+                prev = "none"
+                # leading '^' and a first ']' are literal class members
+                if i < n and src[i] == ord("^"):
+                    out.append(src[i])
+                    i += 1
+                if i < n and src[i] == ord("]"):
+                    out.append(src[i])
+                    i += 1
+                    prev = "member"
+            continue
+        if c == ord("[") and i + 1 < n and src[i + 1] in (
+            ord(":"), ord("."), ord("=")
+        ):
+            # dash just before: [a-[:digit:]] is GNU "Invalid range end"
+            # (a LEADING '-' as in [-[:digit:]] stays a literal member)
+            if prev == "dash" and src[i + 1] == ord(":"):
+                raise RegexError("invalid range: POSIX class as range end")
+            if src[i + 1] == ord(":"):
+                name, i = _scan_posix_class(src, i)
+                out += _POSIX_EXPANSIONS[name]
+                # dash just after: [[:digit:]-z] is GNU "Invalid range
+                # end" ([[:digit:]-] with the literal dash stays fine)
+                if (i + 1 < n and src[i] == ord("-")
+                        and src[i + 1] != ord("]")):
+                    raise RegexError(
+                        "invalid range: POSIX class as range start"
+                    )
+            else:
+                # [.c.] / [=c=]: the character itself (C locale);
+                # emit \xHH so re can't misread metacharacters
+                byte, i = _scan_collating(src, i)
+                out += b"\\x%02x" % byte
+            prev = "member"
+            continue
+        if c == ord("]"):
+            in_class = False
+        elif c == ord("-"):
+            prev = "dash" if prev == "member" else "member"
+        else:
+            prev = "member"
+        out.append(c)
+        i += 1
+    res = bytes(out)
+    return res.decode("utf-8", "surrogateescape") if is_str else res
+
+
 # --------------------------------------------------------------------- AST
 
 @dataclass
@@ -158,6 +293,9 @@ class Repeat:
 @dataclass
 class Anchor:
     kind: str  # "^" or "$"
+
+
+_REPEAT_EXPANSION_CAP = 512  # total copies a bounded repeat may expand to
 
 
 def _fold_mask(mask: int) -> int:
@@ -502,3 +640,350 @@ class _Parser:
 
     def _peek(self) -> int | None:
         return self.src[self.pos] if self.pos < len(self.src) else None
+
+
+# --------------------------------------------------------------------- NFA
+
+@dataclass
+class _NfaState:
+    # char transitions: list of (mask, target); eps: list of targets.
+    # ls_eps / eol_eps carry mid-pattern anchors (round 5): an ls_eps
+    # edge is traversable only at a line start (offset 0 or right after
+    # '\n' — exactly the newline-reset start state's closure), an
+    # eol_eps edge only when the next byte is '\n' or end-of-input
+    # (folded into the accept_eol plane, like top-level '$').
+    chars: list = field(default_factory=list)
+    eps: list = field(default_factory=list)
+    ls_eps: list = field(default_factory=list)
+    eol_eps: list = field(default_factory=list)
+
+
+class _Nfa:
+    """Thompson construction.  Fragments are (start, accept) state-id pairs."""
+
+    def __init__(self):
+        self.states: list[_NfaState] = []
+
+    def new_state(self) -> int:
+        self.states.append(_NfaState())
+        return len(self.states) - 1
+
+    def build(self, node) -> tuple[int, int]:
+        if isinstance(node, Char):
+            if node.mask >> NL & 1:
+                raise NewlineInPattern(
+                    "pattern consumes '\\n' — not representable with line semantics"
+                )
+            if node.mask == 0:
+                raise RegexError("empty character class matches nothing")
+            s, a = self.new_state(), self.new_state()
+            self.states[s].chars.append((node.mask, a))
+            return s, a
+        if isinstance(node, Concat):
+            s = a = self.new_state()
+            for part in node.parts:
+                ps, pa = self.build(part)
+                self.states[a].eps.append(ps)
+                a = pa
+            return s, a
+        if isinstance(node, Alt):
+            s, a = self.new_state(), self.new_state()
+            for opt in node.options:
+                os_, oa = self.build(opt)
+                self.states[s].eps.append(os_)
+                self.states[oa].eps.append(a)
+            return s, a
+        if isinstance(node, Repeat):
+            return self._build_repeat(node)
+        if isinstance(node, Anchor):
+            # Mid-pattern anchors (round 5 — e.g. '(^a|b)c', 'a(b$|c)'):
+            # a zero-width fragment whose epsilon is position-gated.  The
+            # newline-reset scan represents both exactly: every line-start
+            # position maps to the start state (ls_eps edges are closed
+            # over only there), and EOL validity is the accept_eol plane
+            # (eol_eps edges fold into it at subset-construction time).
+            # Top-level anchors never reach here (_split_anchors pops
+            # them); patterns like 'a^b' simply compile to automata with
+            # no matches, exactly GNU grep's per-line semantics.
+            if node.kind not in ("^", "$"):
+                # \b/\B: wordness of the NEXT byte is one byte of
+                # lookahead the accept planes don't carry — no exact
+                # table form.  Raising routes the engine to its re
+                # fallback, where the device rescue strips the anchors
+                # into a filter and re-confirms candidate lines.
+                raise RegexError(
+                    f"\\{node.kind} assertion has no exact automaton form"
+                )
+            s, a = self.new_state(), self.new_state()
+            edges = self.states[s].ls_eps if node.kind == "^" else self.states[s].eol_eps
+            edges.append(a)
+            return s, a
+        raise AssertionError(f"unknown node {node!r}")
+
+    def _build_repeat(self, node: Repeat) -> tuple[int, int]:
+        m, n = node.min, node.max
+        if n is not None and n > _REPEAT_EXPANSION_CAP:
+            raise TooManyStates(f"repeat bound {n} exceeds expansion cap")
+        if m > _REPEAT_EXPANSION_CAP:
+            raise TooManyStates(f"repeat bound {m} exceeds expansion cap")
+        s = a = self.new_state()
+        for _ in range(m):  # required copies
+            ps, pa = self.build(node.node)
+            self.states[a].eps.append(ps)
+            a = pa
+        if n is None:  # star over one more copy
+            ps, pa = self.build(node.node)
+            self.states[a].eps.append(ps)
+            self.states[pa].eps.append(ps)
+            end = self.new_state()
+            self.states[a].eps.append(end)
+            self.states[pa].eps.append(end)
+            return s, end
+        for _ in range(n - m):  # optional copies: a -> ps..pa -> end, skip a -> end
+            ps, pa = self.build(node.node)
+            end = self.new_state()
+            self.states[a].eps.append(ps)
+            self.states[a].eps.append(end)
+            self.states[pa].eps.append(end)
+            a = end
+        return s, a
+
+
+# --------------------------------------------------------------------- DFA
+
+@dataclass
+class DfaTable:
+    """Dense scan tables of one pattern.
+
+    trans        [n_states, n_classes] uint16 -- next state per byte class
+    byte_to_cls  [256] uint8 -- the byte's class (its column in ``trans``)
+    accept       [n_states] bool -- a match ends at this byte
+    accept_eol   [n_states] bool -- a match ends here iff the line ends
+                 right after this byte (the '$' accept set)
+    start        line-start state (also every state's target on '\\n')
+    """
+
+    trans: np.ndarray
+    byte_to_cls: np.ndarray
+    accept: np.ndarray
+    accept_eol: np.ndarray
+    start: int
+    pattern: str
+
+    @property
+    def n_states(self) -> int:
+        return self.trans.shape[0]
+
+    @property
+    def n_classes(self) -> int:
+        return self.trans.shape[1]
+
+    def full_table(self) -> np.ndarray:
+        """[n_states, 256] uint16, one column per byte (cached: the host
+        oracle reads it for every batch of lines)."""
+        full = getattr(self, "_full_cache", None)
+        if full is None:
+            full = np.ascontiguousarray(self.trans[:, self.byte_to_cls])
+            full.flags.writeable = False  # shared across calls
+            object.__setattr__(self, "_full_cache", full)
+        return full
+
+
+def dfa_table_from_arrays(
+    trans, byte_to_cls, accept, accept_eol, start: int, pattern: str
+) -> DfaTable:
+    """Build a table from plain arrays -- the state a compiled pattern
+    carries (a grep system has no weights; its compiled automaton is what
+    two implementations must share).  Copies every array to a fresh
+    contiguous one of the table's dtypes and checks the shapes."""
+    t = np.ascontiguousarray(np.asarray(trans, dtype=np.uint16)).copy()
+    cls = np.ascontiguousarray(np.asarray(byte_to_cls, dtype=np.uint8)).copy()
+    acc = np.asarray(accept, dtype=bool).copy()
+    eol = np.asarray(accept_eol, dtype=bool).copy()
+    if t.ndim != 2 or cls.shape != (256,):
+        raise ValueError(
+            f"trans must be 2-D and byte_to_cls (256,), got {t.shape} and "
+            f"{cls.shape}"
+        )
+    n_states, n_classes = t.shape
+    if acc.shape != (n_states,) or eol.shape != (n_states,):
+        raise ValueError(f"accept planes must have shape ({n_states},)")
+    if int(cls.max()) >= n_classes or int(t.max(initial=0)) >= n_states:
+        raise ValueError("byte class or target state out of range")
+    if not 0 <= int(start) < n_states:
+        raise ValueError(f"start state {start} out of range")
+    return DfaTable(trans=t, byte_to_cls=cls, accept=acc, accept_eol=eol,
+                    start=int(start), pattern=pattern)
+
+
+def _split_anchors(node):
+    """Pull top-level '^'/'$' anchors out of each alternation branch.
+
+    Returns list of (anchored_start, body, anchored_end) triples.
+    """
+    branches = node.options if isinstance(node, Alt) else [node]
+    out = []
+    for b in branches:
+        parts = list(b.parts) if isinstance(b, Concat) else [b]
+        a_start = a_end = False
+        while parts and isinstance(parts[0], Anchor) and parts[0].kind == "^":
+            a_start = True
+            parts.pop(0)
+        while parts and isinstance(parts[-1], Anchor) and parts[-1].kind == "$":
+            a_end = True
+            parts.pop()
+        body = Concat(parts) if len(parts) != 1 else parts[0]
+        out.append((a_start, body, a_end))
+    return out
+
+
+def compile_dfa(
+    pattern: str,
+    ignore_case: bool = False,
+    max_states: int = 4096,
+) -> DfaTable:
+    """Compile a grep -E subset pattern into newline-reset scan tables."""
+    ast = _Parser(pattern, ignore_case).parse()
+    branches = _split_anchors(ast)
+
+    nfa = _Nfa()
+    root = nfa.new_state()  # line-start entry: active at line starts only
+    floating = nfa.new_state()  # Sigma* self-loop: unanchored search restarts
+    nfa.states[root].eps.append(floating)
+    nfa.states[floating].chars.append((_ANY_NO_NL, floating))
+
+    accepts_now: set[int] = set()
+    accepts_eol: set[int] = set()
+    for a_start, body, a_end in branches:
+        s, a = nfa.build(body)
+        (nfa.states[root] if a_start else nfa.states[floating]).eps.append(s)
+        (accepts_eol if a_end else accepts_now).add(a)
+
+    # --- eps closures -----------------------------------------------------
+    n = len(nfa.states)
+    closures: list[frozenset[int]] = [frozenset()] * n
+
+    def closure(seed: frozenset[int], ls: bool = False) -> frozenset[int]:
+        """Epsilon closure; ``ls=True`` additionally traverses ls_eps
+        edges (mid-pattern '^') — valid only for the start state, whose
+        context IS "at a line start": offset 0 and every post-'\\n'
+        position reset to it, and no other DFA state ever corresponds to
+        a line-start position."""
+        stack, seen = list(seed), set(seed)
+        while stack:
+            s = stack.pop()
+            nxt = nfa.states[s].eps
+            if ls:
+                nxt = nxt + nfa.states[s].ls_eps
+            for t in nxt:
+                if t not in seen:
+                    seen.add(t)
+                    stack.append(t)
+        return frozenset(seen)
+
+    # Mid-pattern '$' (eol_eps edges): a state that can cross an eol edge
+    # and then reach an accept through eps/eol edges ONLY (no byte may be
+    # consumed after asserting end-of-line within a line) accepts at EOL.
+    # ls_eps edges are NOT traversed here: '$^' would need the match to
+    # span a newline, which per-line semantics (and GNU grep) exclude.
+    all_accepts = accepts_now | accepts_eol
+    eol_sources: set[int] = set()
+    for sid in range(len(nfa.states)):
+        targets = nfa.states[sid].eol_eps
+        if not targets:
+            continue
+        stack, seen = list(targets), set(targets)
+        while stack:
+            u = stack.pop()
+            for v in nfa.states[u].eps + nfa.states[u].eol_eps:
+                if v not in seen:
+                    seen.add(v)
+                    stack.append(v)
+        if seen & all_accepts:
+            eol_sources.add(sid)
+
+    # --- byte classes -----------------------------------------------------
+    # Two bytes are equivalent iff they belong to exactly the same set of
+    # transition masks; '\n' is always its own class (the reset column).
+    masks = sorted({m for st in nfa.states for (m, _) in st.chars})
+    sig_to_cls: dict[tuple, int] = {}
+    byte_to_cls = np.zeros(256, dtype=np.uint8)
+    cls_repr: list[int] = []
+    for b in range(256):
+        s = ("NL",) if b == NL else tuple((m >> b) & 1 for m in masks)
+        if s not in sig_to_cls:
+            sig_to_cls[s] = len(sig_to_cls)
+            cls_repr.append(b)
+        byte_to_cls[b] = sig_to_cls[s]
+    n_classes = len(sig_to_cls)
+    nl_cls = int(byte_to_cls[NL])
+
+    # --- subset construction ---------------------------------------------
+    start_set = closure(frozenset({root}), ls=True)
+    dfa_index: dict[frozenset[int], int] = {start_set: 0}
+    order: list[frozenset[int]] = [start_set]
+    rows: list[list[int]] = []
+
+    i = 0
+    while i < len(order):
+        S = order[i]
+        i += 1
+        row = [0] * n_classes
+        for c in range(n_classes):
+            if c == nl_cls:
+                row[c] = 0  # newline reset: every state -> line start
+                continue
+            b = cls_repr[c]
+            moved = set()
+            for s in S:
+                for mask, t in nfa.states[s].chars:
+                    if mask >> b & 1:
+                        moved.add(t)
+            T = closure(frozenset(moved)) if moved else frozenset()
+            if T not in dfa_index:
+                if len(order) >= max_states:
+                    raise TooManyStates(
+                        f"pattern {pattern!r} needs >{max_states} DFA states"
+                    )
+                dfa_index[T] = len(order)
+                order.append(T)
+            row[c] = dfa_index[T]
+        rows.append(row)
+
+    n_states = len(order)
+    trans = np.asarray(rows, dtype=np.uint16)
+    accept = np.array([bool(S & accepts_now) for S in order], dtype=bool)
+    accept_eol = np.array(
+        [bool(S & accepts_eol) or bool(S & eol_sources) for S in order],
+        dtype=bool,
+    )
+    # EMPTY-line case: in the start state at EOL the position is a line
+    # start AND an end-of-line simultaneously, so chains mixing '$' and
+    # '^' in either order ('$^', '$(^|b)') hold there — and only there
+    # (no other DFA state is ever at a line start).  The eol_sources walk
+    # above deliberately excludes ls_eps (mid-line '$^' must stay dead),
+    # so re-walk from the start set with ALL non-consuming edge kinds.
+    if not accept_eol[0]:
+        stack = list(start_set)
+        seen = set(stack)
+        while stack:
+            u = stack.pop()
+            st_u = nfa.states[u]
+            for v in st_u.eps + st_u.ls_eps + st_u.eol_eps:
+                if v not in seen:
+                    seen.add(v)
+                    stack.append(v)
+        # An assertion-only accepting chain from line start is exactly
+        # "the empty line matches".  (If it needed no eol edge at all,
+        # accept[0] is already True and every line matches — setting the
+        # eol plane too is subsumed, not wrong.)
+        if seen & all_accepts:
+            accept_eol[0] = True
+    return DfaTable(
+        trans=trans,
+        byte_to_cls=byte_to_cls,
+        accept=accept,
+        accept_eol=accept_eol,
+        start=0,
+        pattern=pattern if isinstance(pattern, str) else repr(pattern),
+    )

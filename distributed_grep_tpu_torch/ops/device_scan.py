@@ -8,26 +8,38 @@ The document is cut into segments of ``engine.segment_bytes``.  For each:
    -- so segment i+1 is uploading and laid out while segment i scans.
    The transpose runs on the card: on the host, a strided copy of the
    segment costs more than the rest of this pipeline (PERF.md);
-2. dispatch (scanning thread): wait for the copy, launch the coarse
-   Shift-And kernel with the rare-class filter model (or the full model);
+2. dispatch (scanning thread): wait for the copy, launch the kernel of
+   the engine's mode -- the coarse Shift-And kernel with the rare-class
+   filter model (or the full model), or the Glushkov NFA kernel with the
+   relaxed filter model (or the exact one);
 3. collect (two pool threads, overlapping the next segment's scan): fetch
-   the nonzero words (ops/scan_torch.py), decode them to 32-byte span
-   starts, map spans to candidate lines and confirm those exactly:
-   * up to SPAN_CONFIRM_LINE_LIMIT lines: the vectorized host matcher;
-   * above it (the dense confirm): one exact-mode kernel pass over the
-     segment, still on the device, decoded to match-end lines.  If the
-     filter model produced mostly false candidates (true lines * 4 <
-     candidate lines), the remaining segments of this scan run the full
-     model (the defeat guard);
-   then the boundary stitch: a match the device missed must span one of
-   the segment's stripe starts or the segment start, so it lies inside
-   the window of m-1 bytes on either side of that boundary (clipped to
-   the boundary's line; m = pattern length), and the host checks just
-   those windows.
+   the nonzero words (ops/scan_torch.py) and decode them.
 
-Every line the pipeline reports is a confirmed match, so the stitch only
-adds lines, and segments can be collected in any order.  A build, launch
-or CUDA failure raises: nothing falls back to another route.
+   Shift-And: words name 32-byte spans; their lines are candidates.  Up to
+   SPAN_CONFIRM_LINE_LIMIT candidate lines, the vectorized host matcher
+   confirms them; above it (the dense confirm), one exact-mode kernel pass
+   over the segment, still on the device, decoded to match-end lines.  If
+   the filter model produced mostly false candidates (true lines * 4 <
+   candidate lines), the remaining segments of this scan run the full
+   model (the defeat guard).  Then the boundary stitch: a match the device
+   missed must span one of the segment's stripe starts or the segment
+   start, so it lies inside the window of m-1 bytes on either side of that
+   boundary (clipped to the boundary's line; m = pattern length), and the
+   host checks just those windows and adds what it finds.
+
+   NFA: exact words give match-end offsets, hence lines.  A filter's words
+   give candidate lines: up to SPAN_CONFIRM_LINE_LIMIT, the host oracle
+   (the DFA walk or re, ops/host_match.py) confirms them; above it, the
+   exact NFA kernel runs over the segment on the card when an exact model
+   exists (else the host oracle confirms them all), with the same defeat
+   guard swapping in the exact model.  Then the stitch by replacement: a
+   regex match has no length bound and a '^' pattern sees a false line
+   start at every stripe head, so every line containing a stripe start or
+   a segment start after 0 gets the host verdict in place of the device
+   verdict, once all segments are in (ops/lines.stitch_lines).
+
+Segments can be collected in any order.  A build, launch or CUDA failure
+raises: nothing falls back to another route.
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from distributed_grep_tpu_torch.ops import cuda_scan
+from distributed_grep_tpu_torch.ops import cuda_scan, nfa_scan
 from distributed_grep_tpu_torch.ops import engine as engine_mod
 from distributed_grep_tpu_torch.ops import lines as lines_mod
 from distributed_grep_tpu_torch.ops.layout import (
@@ -66,10 +78,15 @@ def _expand_line_ranges(l0: np.ndarray, l1: np.ndarray) -> np.ndarray:
 
 def scan_device(eng, data: bytes, progress=None):
     t_wall0 = time.perf_counter()
+    nfa = eng.mode == "nfa"
     st = {"candidates": 0, "segments": 0, "dense_confirms": 0,
-          "stitch_windows": 0, "filter_defeated": False,
           "feed_wait_seconds": 0.0, "prepare_seconds": 0.0,
-          "collect_seconds": 0.0}
+          "collect_seconds": 0.0, "confirm_seconds": 0.0,
+          "stitch_seconds": 0.0}
+    if nfa:
+        st.update(stitch_lines=0, nfa_filter_defeated=False)
+    else:
+        st.update(stitch_windows=0, filter_defeated=False)
     eng.stats = st
     n = len(data)
     view = memoryview(data)
@@ -81,8 +98,13 @@ def scan_device(eng, data: bytes, progress=None):
     seg = eng.segment_bytes
     seg_starts = list(range(0, n, seg))
     lock = threading.Lock()
-    scan_state = {"filtered": eng._sa_filtered}  # dropped by the defeat guard
+    # scan-local models, swapped by the defeat guards: the Shift-And
+    # filter is dropped, the NFA filter gives way to the exact model
+    scan_state = {"filtered": eng._sa_filtered,
+                  "nfa": (eng.glushkov, eng._nfa_filter)}
     found: list[np.ndarray] = []
+    suspects: list[np.ndarray] = []  # NFA: boundary lines and their
+    verdicts: list[np.ndarray] = []  # host verdicts, replaced at the end
 
     def prepare(i: int):
         t0 = time.perf_counter()
@@ -111,24 +133,34 @@ def scan_device(eng, data: bytes, progress=None):
 
     def confirm(cand: np.ndarray) -> np.ndarray:
         starts, ends = lines_mod.line_spans(cand, nl, n)
-        return cand[eng.lines_match(data, starts, ends)]
-
-    reach = full.length - 1  # bytes a spanning match extends past a boundary
+        return cand[eng.host_line_matcher(data, starts, ends)]
 
     def stitch(bounds: np.ndarray) -> np.ndarray:
-        suspects = np.searchsorted(nl, bounds, side="right") + 1
-        ls, le = lines_mod.line_spans(suspects, nl, n)
-        keep = eng.lines_match(data, np.maximum(ls, bounds - reach),
-                               np.minimum(le, bounds + reach))
-        return np.unique(suspects[keep])
+        reach = full.length - 1  # bytes a spanning match extends past
+        at = np.searchsorted(nl, bounds, side="right") + 1
+        ls, le = lines_mod.line_spans(at, nl, n)
+        keep = eng.host_line_matcher(data, np.maximum(ls, bounds - reach),
+                                     np.minimum(le, bounds + reach))
+        return np.unique(at[keep])
 
-    def collect(*job) -> None:
+    def collect(kind: str, *job) -> None:
         t0 = time.perf_counter()
         try:
-            _collect(*job)
+            if nfa:
+                _collect_nfa(kind, *job)
+            else:
+                _collect(*job)
         finally:
             with lock:
                 st["collect_seconds"] += time.perf_counter() - t0
+
+    def segment_bounds(seg_start: int, seg_len: int, lay) -> np.ndarray:
+        """The segment's stripe starts, and its start after offset 0."""
+        bounds = seg_start + lay.stripe_starts()
+        bounds = bounds[bounds < seg_start + seg_len]
+        if seg_start > 0:
+            bounds = np.concatenate(([seg_start], bounds))
+        return bounds
 
     def _collect(seg_start: int, seg_len: int, lay, arr, words) -> None:
         idx, _ = sparse_nonzero(words)
@@ -136,6 +168,7 @@ def scan_device(eng, data: bytes, progress=None):
         new: list[np.ndarray] = []
         n_cand = 0
         dense = False
+        t0 = time.perf_counter()
         if spans.size:
             g0 = spans + seg_start
             g1 = np.minimum(g0 + 32, n)
@@ -154,14 +187,15 @@ def scan_device(eng, data: bytes, progress=None):
                 new.append(true_lines)
             else:
                 new.append(confirm(cand))
-        bounds = seg_start + lay.stripe_starts()
-        bounds = bounds[bounds < seg_start + seg_len]
-        if seg_start > 0:
-            bounds = np.concatenate(([seg_start], bounds))
+        t1 = time.perf_counter()
+        bounds = segment_bounds(seg_start, seg_len, lay)
         new.append(stitch(bounds))
+        t2 = time.perf_counter()
         with lock:
             found.extend(new)
             st["candidates"] += n_cand
+            st["confirm_seconds"] += t1 - t0
+            st["stitch_seconds"] += t2 - t1
             st["stitch_windows"] += int(bounds.size)
             if dense:
                 st["dense_confirms"] += 1
@@ -172,6 +206,51 @@ def scan_device(eng, data: bytes, progress=None):
                     # THIS scan run the full model
                     scan_state["filtered"] = None
                     st["filter_defeated"] = True
+
+    def _collect_nfa(kind, seg_start: int, seg_len: int, lay, arr,
+                     words) -> None:
+        idx, vals = sparse_nonzero(words)
+        offs = offsets_from_sparse_words(idx, vals, lay) + seg_start
+        n_cand = 0
+        dense = False
+        t0 = time.perf_counter()
+        if kind == "words" or not offs.size:  # exact words
+            lines = lines_mod.unique_match_lines(offs, nl)
+        else:  # a filter's words: candidate lines
+            cand = lines_mod.unique_match_lines(offs, nl)
+            n_cand = int(cand.size)
+            exact = eng.glushkov_exact
+            if n_cand > engine_mod.SPAN_CONFIRM_LINE_LIMIT and exact is not None:
+                # dense confirm: exact end bits of the exact model, on device
+                dense = True
+                e_idx, e_vals = sparse_nonzero(nfa_scan.nfa_scan_words(arr, exact))
+                lines = lines_mod.unique_match_lines(
+                    offsets_from_sparse_words(e_idx, e_vals, lay) + seg_start,
+                    nl)
+            else:
+                lines = confirm(cand)
+        t1 = time.perf_counter()
+        sus = lines_mod.boundary_lines(segment_bounds(seg_start, seg_len, lay),
+                                       nl, n)
+        ls, le = lines_mod.line_spans(sus, nl, n)
+        ver = eng.host_line_matcher(data, ls, le)
+        t2 = time.perf_counter()
+        with lock:
+            found.append(lines)
+            suspects.append(sus)
+            verdicts.append(ver)
+            st["candidates"] += n_cand
+            st["confirm_seconds"] += t1 - t0
+            st["stitch_seconds"] += t2 - t1
+            st["stitch_lines"] += int(sus.size)
+            if dense:
+                st["dense_confirms"] += 1
+                if scan_state["nfa"][1] and lines.size * 4 < n_cand:
+                    # mostly-false candidates: this corpus defeats the
+                    # relaxed filter -- the remaining segments of THIS
+                    # scan run the exact model
+                    scan_state["nfa"] = (eng.glushkov_exact, False)
+                    st["nfa_filter_defeated"] = True
 
     with ThreadPoolExecutor(1, thread_name_prefix="dgrep-feed") as feed, \
             ThreadPoolExecutor(2, thread_name_prefix="dgrep-collect") as pool:
@@ -187,11 +266,18 @@ def scan_device(eng, data: bytes, progress=None):
                 cur = torch.cuda.current_stream(device)
                 cur.wait_event(ready)
                 arr.record_stream(cur)
-            with lock:
-                model = scan_state["filtered"] or full
-            words = cuda_scan.shift_and_scan_words(arr, model, coarse=True)
+            with lock:  # the model and its kind together
+                model, is_filter = scan_state["nfa"]
+                sa_model = scan_state["filtered"] or full
+            if nfa:
+                words = nfa_scan.nfa_scan_words(arr, model)
+                kind = "cand_words" if is_filter else "words"
+            else:
+                words = cuda_scan.shift_and_scan_words(arr, sa_model,
+                                                       coarse=True)
+                kind = "span_words"
             st["segments"] += 1
-            pending.append(pool.submit(collect, seg_start, seg_len, lay,
+            pending.append(pool.submit(collect, kind, seg_start, seg_len, lay,
                                        arr, words))
             while len(pending) > MAX_INFLIGHT:
                 pending.popleft().result()
@@ -204,6 +290,13 @@ def scan_device(eng, data: bytes, progress=None):
 
     lines_arr = (np.unique(np.concatenate(found)).astype(np.int64)
                  if found else np.zeros(0, dtype=np.int64))
+    if nfa and suspects:
+        sus, ver = np.concatenate(suspects), np.concatenate(verdicts)
+        stitched = lines_mod.stitch_lines(lines_arr, sus, ver).astype(np.int64)
+        # device verdicts the stitch overturned, in each direction
+        st["stitch_removed"] = int(np.setdiff1d(lines_arr, stitched).size)
+        st["stitch_added"] = int(np.setdiff1d(stitched, lines_arr).size)
+        lines_arr = stitched
     st["scan_wall_seconds"] = time.perf_counter() - t_wall0
     return engine_mod.ScanResult(lines_arr, int(lines_arr.size), n,
                                  nl_index=nl)

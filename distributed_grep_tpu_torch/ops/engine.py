@@ -1,15 +1,39 @@
 """GrepEngine: one compiled pattern, scanned over documents on a device.
 
-The slice this package covers: a literal or byte-class sequence of at
-most 32 symbols (optionally case-folded), compiled to a Shift-And model
-and scanned by the CUDA kernel (ops/cuda_scan.py) through the segment
-pipeline in ops/device_scan.py.  Patterns outside it raise
-NotImplementedError naming the ROADMAP.md slice that will port them;
-there is no host scanner to fall back to.
+The slices this package covers, routed by ``check_pattern`` as the
+reference engine routes a single pattern
+(``distributed_grep_tpu/ops/engine.py`` GrepEngine.__init__ and
+_scan_impl), in order:
+
+1. a literal or byte-class sequence of at most 32 symbols (optionally
+   case-folded): a Shift-And model, scanned by csrc/shift_and.cu;
+2. any other pattern with a DFA table and a Glushkov model of at most 128
+   positions -- alternations, classes, ``? * + {m,n}``, a leading ``^``:
+   the Glushkov NFA kernel (csrc/nfa.cu).  Where relaxing a bounded repeat
+   saves state words the kernel runs the relaxed FILTER, the host confirms
+   its candidate lines with the DFA, and the exact model stands by for
+   dense segments;
+3. a DFA table but no Glushkov model ('$' accepts, more than 128
+   positions, mid-pattern anchors): the filter of
+   ``compile_device_filter`` on the NFA kernel, every candidate line
+   confirmed with the DFA (its ``accept_eol`` plane carries the '$');
+4. no DFA table (``\\b``/``\\B``, a repeat past the expansion cap, too many
+   DFA states): the Glushkov filter of ``compile_scan_model`` or
+   ``compile_device_filter``, confirmed with Python ``re``;
+5. a pattern that matches the empty string: every line, with no scan.
+
+Two differences from the reference change no output line: a regex that
+denotes a finite literal set runs on the NFA kernel (the reference sends
+it to its FDR literal-set kernel, ROADMAP item 2), and there is no kernel
+cost budget (the reference's ``pallas_nfa.MAX_COST`` exists because the
+TPU kernel unrolls its plan; csrc/nfa.cu reads its plan from memory).
+Patterns outside these routes raise NotImplementedError naming their
+ROADMAP.md item; there is no host scanner to fall back to.
 """
 
 from __future__ import annotations
 
+import re
 import threading
 from dataclasses import dataclass
 
@@ -18,16 +42,26 @@ import torch
 
 from distributed_grep_tpu_torch.models.dfa import (
     NL,
+    DfaTable,
     RegexError,
     UnsupportedSyntax,
+    compile_dfa,
+    expand_posix_classes,
+)
+from distributed_grep_tpu_torch.models.nfa import (
+    GlushkovModel,
+    compile_device_filter,
+    compile_scan_model,
+    try_compile_glushkov,
 )
 from distributed_grep_tpu_torch.models.shift_and import (
-    MAX_SYMBOLS,
     ShiftAndModel,
     filtered_for_device,
     parse_pattern,
     try_compile_shift_and,
 )
+from distributed_grep_tpu_torch.ops import host_match
+from distributed_grep_tpu_torch.ops.lines import count_lines
 from distributed_grep_tpu_torch.utils.device import resolve_device
 
 # Span path: above this many candidate lines per segment, the per-line host
@@ -41,8 +75,9 @@ DEFAULT_TARGET_LANES = 65536
 DEFAULT_SEGMENT_BYTES = 64 * 1024 * 1024
 
 REGEX_SLICE = (
-    "ROADMAP.md 'Slices still to port', item 1 (regex NFA kernel with its "
-    "filter/rescue routes)"
+    "ROADMAP.md 'Slices still to port', item 11 (the reference's host "
+    "routes: its re loop, its native DFA scanner and its XLA DFA device "
+    "path)"
 )
 
 
@@ -54,25 +89,115 @@ class ScanResult:
     nl_index: np.ndarray | None = None  # the document's '\n' offsets
 
 
-def check_pattern(pattern: str, ignore_case: bool = False) -> ShiftAndModel:
-    """The pattern's Shift-And model.  A malformed pattern raises
-    RegexError; a valid one outside this package's slice raises
-    NotImplementedError."""
+@dataclass
+class PatternPlan:
+    """How one pattern is scanned: the outcome of ``check_pattern``.
+
+    mode            "shift_and", "nfa" or "all_lines"
+    route           the routing step that chose it (module docstring):
+                    "shift_and", "nfa", "dfa_filter", "re_filter",
+                    "all_lines"
+    table           the exact DFA (routes 2 and 3): host oracle of the
+                    confirm and the stitch
+    glushkov        the model the NFA kernel runs first
+    glushkov_exact  the exact model (the dense confirm, and the defeat
+                    guard's swap), or None where none fits
+    nfa_filter      True when ``glushkov`` is a candidate superset
+    re_fallback     route 4's oracle: ``re`` over the POSIX-expanded
+                    pattern
+    """
+
+    mode: str
+    route: str
+    shift_and: ShiftAndModel | None = None
+    sa_filtered: ShiftAndModel | None = None
+    table: DfaTable | None = None
+    glushkov: GlushkovModel | None = None
+    glushkov_exact: GlushkovModel | None = None
+    nfa_filter: bool = False
+    re_fallback: re.Pattern | None = None
+
+
+def _unported(pattern: str, why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"pattern {pattern!r} {why}; it belongs to {REGEX_SLICE}"
+    )
+
+
+def _host_re(pattern: str, ignore_case: bool) -> re.Pattern:
+    """The reference's host re matcher for ``pattern`` (POSIX classes
+    expanded first: re has none); RegexError when re rejects it too."""
+    try:
+        return re.compile(
+            expand_posix_classes(pattern.encode("utf-8", "surrogateescape")),
+            re.IGNORECASE if ignore_case else 0,
+        )
+    except re.error as e:
+        raise RegexError(str(e)) from e
+
+
+def _re_rescue(pattern: str, ignore_case: bool, err: RegexError) -> PatternPlan:
+    """Route 4: no DFA table.  A Glushkov filter on the card, every
+    candidate line confirmed with Python re (the reference's engine.py
+    re-fallback branch and its device rescue)."""
+    rx = _host_re(pattern, ignore_case)
+    try:
+        filt, _ = compile_scan_model(pattern, ignore_case=ignore_case)
+    except RegexError:
+        filt = None
+    if filt is None:
+        filt = compile_device_filter(pattern, ignore_case=ignore_case)
+    if filt is None:
+        raise _unported(pattern, f"has no DFA table ({err}) and no device "
+                                 f"filter")
+    # always confirm: with no DFA, even an exact Glushkov model's lines
+    # are re-checked with re
+    return PatternPlan("nfa", "re_filter", glushkov=filt, nfa_filter=True,
+                       re_fallback=rx)
+
+
+def check_pattern(pattern: str, ignore_case: bool = False) -> PatternPlan:
+    """Route ``pattern`` (see the module docstring).  A malformed pattern
+    raises RegexError; a valid one outside the ported routes raises
+    NotImplementedError naming its ROADMAP.md item."""
     try:
         parse_pattern(pattern, ignore_case)
     except UnsupportedSyntax as e:
-        raise NotImplementedError(
-            f"pattern {pattern!r} ({e}) is outside the literal/byte-class "
-            f"slice; it belongs to {REGEX_SLICE}"
-        ) from e
-    model = try_compile_shift_and(pattern, ignore_case=ignore_case)
-    if model is None:
-        raise NotImplementedError(
-            f"pattern {pattern!r} is not a sequence of 1..{MAX_SYMBOLS} "
-            f"single-byte symbols without '\\n' (repeats, alternation, "
-            f"anchors, empty or longer patterns); it belongs to {REGEX_SLICE}"
-        )
-    return model
+        raise _unported(pattern, f"({e}) has no automaton form") from e
+    except RegexError as e:
+        # outside the automaton syntax but valid for re (a possessive
+        # repeat, a lookaround): the reference runs its host re loop
+        try:
+            _host_re(pattern, ignore_case)
+        except RegexError:
+            raise e from None
+        raise _unported(pattern, f"({e}) runs only on a host re loop") from e
+    sa = try_compile_shift_and(pattern, ignore_case=ignore_case)
+    if sa is not None:
+        return PatternPlan("shift_and", "shift_and", shift_and=sa,
+                           sa_filtered=filtered_for_device(sa))
+    try:
+        table = compile_dfa(pattern, ignore_case=ignore_case)
+        glushkov, is_filter = compile_scan_model(pattern,
+                                                 ignore_case=ignore_case)
+    except RegexError as e:
+        return _re_rescue(pattern, ignore_case, e)
+    if table.accept[table.start]:
+        # the empty string matches: every line does (grep semantics)
+        return PatternPlan("all_lines", "all_lines", table=table)
+    if table.accept_eol[table.start]:
+        raise _unported(pattern, "matches the empty string at a line's end "
+                                 "(nullable at '$')")
+    if glushkov is not None:
+        exact = (try_compile_glushkov(pattern, ignore_case=ignore_case)
+                 if is_filter else glushkov)
+        return PatternPlan("nfa", "nfa", table=table, glushkov=glushkov,
+                           glushkov_exact=exact, nfa_filter=is_filter)
+    filt = compile_device_filter(pattern, ignore_case=ignore_case)
+    if filt is None:
+        raise _unported(pattern, "has no Glushkov model and no device filter")
+    return PatternPlan("nfa", "dfa_filter", table=table, glushkov=filt,
+                       nfa_filter=True)
 
 
 def lines_match(
@@ -139,11 +264,19 @@ class GrepEngine:
         self.target_lanes = target_lanes
         self.segment_bytes = segment_bytes
         self.min_chunk = min_chunk
-        self.shift_and = check_pattern(pattern, ignore_case)
+        plan = check_pattern(pattern, ignore_case)
+        self.mode = plan.mode
+        self.route = plan.route
+        self.shift_and = plan.shift_and
         # Rare-class device filter: the kernel checks only the pattern's
         # rarest byte-classes; the span confirm restores exact lines, and
         # the scan drops the filter if a corpus defeats the byte prior.
-        self._sa_filtered = filtered_for_device(self.shift_and)
+        self._sa_filtered = plan.sa_filtered
+        self.table = plan.table
+        self.glushkov = plan.glushkov
+        self.glushkov_exact = plan.glushkov_exact
+        self._nfa_filter = plan.nfa_filter
+        self._re_fallback = plan.re_fallback
         self._stats_local = threading.local()
         self._copy_stream = None
         self._copy_lock = threading.Lock()
@@ -178,9 +311,14 @@ class GrepEngine:
                 self._copy_stream = torch.cuda.Stream(device=self.device)
             return self._copy_stream
 
-    def lines_match(self, data, starts, ends) -> np.ndarray:
-        """Exact host verdicts for [starts, ends) line spans of ``data``."""
-        return lines_match(self.shift_and, data, starts, ends)
+    def host_line_matcher(self, data, starts, ends) -> np.ndarray:
+        """Exact host verdicts for the [starts, ends) line spans of
+        ``data``: the vectorized Shift-And, the DFA walk, or Python re."""
+        if self.mode == "shift_and":
+            return lines_match(self.shift_and, data, starts, ends)
+        if self.table is not None:
+            return host_match.dfa_lines_match(self.table, data, starts, ends)
+        return host_match.re_lines_match(self._re_fallback, data, starts, ends)
 
     def scan(self, data: bytes, progress=None) -> ScanResult:
         """Scan one in-memory document.  ``progress`` (optional callable) is
@@ -190,6 +328,11 @@ class GrepEngine:
         if not data:
             self.stats = {"segments": 0}
             return ScanResult(np.zeros(0, dtype=np.int64), 0, 0)
+        if self.mode == "all_lines":
+            self.stats = {"segments": 0}
+            n_lines = count_lines(data)
+            return ScanResult(np.arange(1, n_lines + 1, dtype=np.int64),
+                              n_lines, len(data))
         res = scan_device(self, data, progress=progress)
         with self._copy_lock:
             for k, v in self.stats.items():
@@ -201,6 +344,7 @@ __all__ = [
     "DEFAULT_SEGMENT_BYTES",
     "DEFAULT_TARGET_LANES",
     "GrepEngine",
+    "PatternPlan",
     "RegexError",
     "SPAN_CONFIRM_LINE_LIMIT",
     "ScanResult",

@@ -1,11 +1,15 @@
 """Host-side line machinery: match offsets -> line numbers, plus exact
 stitching of lines that span stripe/segment boundaries.
 
-The device scan starts every stripe from the empty state.  That is exact
-for every byte after the stripe's first newline; the stripe's head partial
-line may miss a match that spans the boundary.  The fix is exact and local:
-every line that contains a stripe or segment boundary is re-checked on the
-host (ops/device_scan.py checks the bytes around each boundary).
+The device scan starts every stripe from the empty state at a line start.
+That is exact for every byte after the stripe's first newline; the
+stripe's head partial line may miss a match that spans the boundary and,
+for a '^' pattern, may show a false match (the stripe start is taken for a
+line start).  The fix is exact and local: every line that contains a
+stripe or segment boundary is re-checked on the host.  The literal path
+checks only the bytes around each boundary and adds what it finds
+(ops/device_scan.py); the regex path replaces the device verdict of every
+such line with the host verdict (``boundary_lines`` + ``stitch_lines``).
 
 numpy only: the reference's native newline index and line merge are not
 part of this package.
@@ -44,8 +48,37 @@ def line_spans(
     return starts, ends
 
 
+def boundary_lines(
+    boundaries: np.ndarray, nl_index: np.ndarray, n_bytes: int
+) -> np.ndarray:
+    """Sorted unique 1-based numbers of the lines containing any of the
+    byte positions ``boundaries`` (positions outside (0, n_bytes) are
+    ignored)."""
+    p = np.asarray(boundaries, dtype=np.int64)
+    p = p[(p > 0) & (p < n_bytes)]
+    return np.unique(np.searchsorted(nl_index, p, side="right") + 1)
+
+
+def stitch_lines(
+    device_lines: np.ndarray, suspects: np.ndarray, verdicts: np.ndarray
+) -> np.ndarray:
+    """Replace the device verdict with the host verdict on every suspect
+    line: drop the suspects from ``device_lines``, add back those whose
+    host verdict is True.  Sorted unique line numbers."""
+    kept = np.setdiff1d(device_lines, suspects)
+    return np.union1d(kept, np.asarray(suspects)[np.asarray(verdicts, bool)])
+
+
 def newline_index(data: bytes) -> np.ndarray:
     """Byte offsets of every '\\n', as int64."""
     return np.flatnonzero(np.frombuffer(data, dtype=np.uint8) == NL).astype(
         np.int64
     )
+
+
+def count_lines(data: bytes) -> int:
+    """Line count with grep -n semantics: a trailing '\\n' closes the last
+    line rather than opening an empty one; empty input has zero lines."""
+    if not data:
+        return 0
+    return data.count(b"\n") + (0 if data.endswith(b"\n") else 1)

@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-engine and job on "cuda" against themselves on "cpu".
+"""The port on the card: the CUDA kernels against their plain versions, and
+the engine and job on "cuda" against themselves on "cpu".
 
 Every test here needs an NVIDIA card (marker ``cuda``) and skips without
 one.  This file imports only the port, so it also runs where jax is not
@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_grep_tpu_torch.models import nfa as port_nfa
 from distributed_grep_tpu_torch.models import shift_and as port_sa
-from distributed_grep_tpu_torch.ops import cuda_scan, layout
+from distributed_grep_tpu_torch.ops import cuda_scan, layout, nfa_scan
 from distributed_grep_tpu_torch.ops.engine import GrepEngine
 from distributed_grep_tpu_torch.runtime.job import run_job
 from distributed_grep_tpu_torch.utils.config import JobConfig
@@ -97,3 +98,48 @@ def test_job_on_card_byte_identical_to_cpu(card, tmp_path):
                         for p in res.output_files}
     assert outs["cuda"] == outs["cpu"]
     assert any(outs["cuda"].values())
+
+
+NFA_MODELS = [
+    ("(volcano|hallo)", False),  # 1 word
+    (r"get /[a-z0-9/.-]{4,24}\.gif", True),  # 2 words, 21 specials
+    ("(" + "|".join(["volcano", "anarchism", "philosophy", "wikipedia",
+                     "quantum", "zeppelin", "obsidian", "telescope",
+                     "metabolic", "hurricane", "labyrinth", "xylophone"])
+     + ")", False),  # 4 words
+    ("^volc", False),  # init_anchor
+    ("a[bc]{40,90}d", False),  # 3 words, 51 specials
+]
+
+
+@pytest.mark.parametrize("chunk,lanes", [(512, 4096), (1024, 65536), (160, 64)])
+def test_nfa_kernel_matches_plain_on_card(card, chunk, lanes):
+    text = _text(12, chunk * lanes)
+    lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
+    arr = layout.to_device_array(text.tobytes(), lay)
+    arr[0:4, ::5] = np.frombuffer(b"volc", np.uint8)[:, None]  # stripe heads
+    arr[29:36, ::97] = np.frombuffer(b"volcano", np.uint8)[:, None]
+    dev = torch.from_numpy(arr).to(card)
+    for pattern, ic in NFA_MODELS:
+        model = port_nfa.try_compile_glushkov(pattern, ignore_case=ic)
+        before = nfa_scan.launches
+        got = nfa_scan.nfa_scan_words(dev, model)
+        torch.cuda.synchronize()
+        assert nfa_scan.launches == before + 1
+        want = nfa_scan.nfa_scan_words_plain(dev, model)
+        assert torch.equal(got, want), pattern
+
+
+@pytest.mark.parametrize("pattern,ic", [
+    ("(volcano|hallo)", False), ("^volc", True), ("volcano$", False),
+    (r"\bvolcano\b", False), ("vol[a-z]{2,9}o", False), ("hal*o", False),
+])
+def test_regex_engine_on_card_equals_cpu(card, pattern, ic):
+    data = _text(4, 3 << 20).tobytes()
+    opts = dict(target_lanes=4096, min_chunk=32, segment_bytes=1 << 20)
+    before = nfa_scan.launches
+    got = GrepEngine(pattern, ignore_case=ic, device="cuda", **opts).scan(data)
+    assert nfa_scan.launches - before >= 3  # one per segment at least
+    want = GrepEngine(pattern, ignore_case=ic, device="cpu", **opts).scan(data)
+    assert got.matched_lines.tolist() == want.matched_lines.tolist()
+    assert got.matched_lines.size
