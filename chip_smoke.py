@@ -9,28 +9,41 @@ Phase 1  environment: the card's name and power limit, torch/CUDA versions,
 Phase 2  every kernel against its plain PyTorch version on the same inputs
          (bit-identical words: tolerance 0), at the main path's shapes and
          at small ones: the Shift-And kernel (both scan modes, five
-         models) and the Glushkov NFA kernel (six models of 1 to 4 state
-         words, a '^' model and a model with 51 specials).
+         models), the Glushkov NFA kernel (six models of 1 to 4 state
+         words, a '^' model and a model with 51 specials), the FDR filter
+         kernel (the banks of BASELINE configs 2, 3 and 5 and a two-family
+         bank with 1024-entry tables, each with and without case folding)
+         and the pairset kernel (both orientations, a -i set), and both
+         ORing into an existing word plane (out=).
 Phase 3  the main path at real size, each query through runtime.job.run_job
-         on "cuda" and checked line for line against a plain Python
-         oracle.  Corpora made from --seed: 8 files of 128 MB of
-         English-word lines with injected needles, 8 files of 128 MB of
-         NASA-HTTP-style access-log lines, and one 128 MB file of lines
-         that defeat a relaxed regex filter.  Queries: 'volcano' (sparse,
-         rare-class filter), '-i Volcano', 'the' (dense: the on-device
-         dense confirm), 'being it' (its rare-class filter is defeated:
-         dense confirm, then the defeat guard drops it); BASELINE config
-         2's 8-word alternation (exact 2-word NFA) and config 4's
+         on "cuda" and checked line for line against ``LC_ALL=C grep -na``
+         with the query's -F, -E, -i or -f.  Corpora made from --seed: 8
+         files of 128 MB of English-word lines with injected needles (and
+         config 3's members, some across stripe starts, and '#'), 8 files
+         of 128 MB of NASA-HTTP-style access-log lines, 8 files of 128 MB
+         of PCAP-like binary records with config 5's members injected, and
+         one 128 MB file of lines that defeat a relaxed regex filter.
+         Queries:
+         'volcano' (sparse, rare-class filter), '-i Volcano', 'the'
+         (dense: the on-device dense confirm; 4 of the 8 files, as config
+         4, to bound the records they build), 'being it' (its rare-class
+         filter is defeated: dense confirm, then the defeat guard drops
+         it); BASELINE config 2's 8-word alternation (literal
+         decomposition onto the FDR kernel) and config 4's
          '-i get /[a-z0-9/.-]{4,24}\\.gif' on the logs (relaxed 1-word
          filter, dense confirm on the exact 2-word model in every
          segment); '^the (old|new) ' (stripe-head false lines the stitch
          removes); 'volcano$' (the DFA-confirmed '$' filter);
          '\\bvolcano\\b' (the re-confirmed filter); 'x[ab]{2,40}y' (the
-         NFA defeat guard swaps in the exact model) -- plus the CLI on one
-         file.  The launch counts of both kernels are zeroed just before
-         the queries and read just after.  Then the kernels, their plain
-         versions and the sparse fetch are timed with CUDA events at the
-         main path's segment shape.
+         NFA defeat guard swaps in the exact model); config 3's 1,000
+         literals (FDR, sparse, the stitch), config 5's 10,000 literals on
+         the PCAP records (FDR, dense candidates, the host confirm), a
+         2-byte set on the PCAP records (the pairset kernel) and config
+         3's set plus '#' (the FDR kernel with the pairset sidecar) --
+         plus the CLI on one file.  The launch counts of all kernels are
+         zeroed just before the queries and read just after.  Then the
+         kernels, their plain versions, the sparse fetch and the confirm
+         set are timed at the main path's segment shape.
 
 The last two lines of standard output are one JSON object with every
 kernel's numbers and one JSON object with the device.  Any failure raises
@@ -43,7 +56,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -68,8 +80,27 @@ SHIFT_AND_OPS_PER_BYTE = 5  # load, table lookup, shift-or, and, accumulate
 NFA_OPS_PER_BYTE = 3
 NFA_OPS_PER_WORD = 5
 
-CONFIG2 = ("(volcano|anarchism|philosophy|needle|wikipedia|quantum|zeppelin"
-           "|obsidian)")
+# csrc/fdr.cu per input byte: 3 (byte load, fold, output bit), 3 per hash
+# family (two multiplies and the xor), 3 per check (domain mask, table
+# lookup, the AND into its slot) and 1 per slot (the pipeline AND).
+FDR_OPS_PER_BYTE = 3
+FDR_OPS_PER_FAMILY = 3
+FDR_OPS_PER_CHECK = 3
+FDR_OPS_PER_SLOT = 1
+# csrc/pairset.cu per input byte: load, fold, two lookups, shift, and,
+# output bit, carry.
+PAIRSET_OPS_PER_BYTE = 8
+# Shared-memory lookups at random addresses: 32 four-byte banks per SM, one
+# access each per clock, 132 SMs at 1.98 GHz.
+H100_SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
+
+CONFIG2_WORDS = ["volcano", "anarchism", "philosophy", "needle", "wikipedia",
+                 "quantum", "zeppelin", "obsidian"]
+CONFIG2 = "(" + "|".join(CONFIG2_WORDS) + ")"
+PAIR_SET = [b"zq", b"9!", b"Q#", b"~~"]
+# (chunk, lanes) of the set kernels' phase-2 checks: the main path's 64 MB
+# segment and a small multi-word layout
+SET_SHAPES = [(1024, 65536), (160, 64)]
 CONFIG4 = r"get /[a-z0-9/.-]{4,24}\.gif"
 WIDE_WORDS = ["volcano", "anarchism", "philosophy", "wikipedia", "quantum",
               "zeppelin", "obsidian", "telescope", "metabolic", "hurricane",
@@ -225,12 +256,56 @@ def make_defeat_file(seed: int, file_bytes: int) -> Path:
     return path
 
 
+def rand_literals(n: int, lo: int, hi: int, seed: int, alphabet=None) -> list[str]:
+    """n distinct members of lo..hi characters, lowercase unless
+    ``alphabet``: the recipe of benchmarks/baseline_configs.py
+    _rand_literals."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pats = set()
+    while len(pats) < n:
+        k = int(rng.integers(lo, hi + 1))
+        if alphabet is None:
+            chars = rng.integers(97, 123, size=k)  # a-z
+        else:
+            chars = rng.choice(alphabet, size=k)
+        pats.add("".join(chr(c) for c in chars))
+    return sorted(pats)
+
+
+def config3_set() -> list[bytes]:
+    """BASELINE config 3: 1,000 lowercase literals of 6-12 bytes."""
+    return [p.encode() for p in rand_literals(1000, 6, 12, seed=3)]
+
+
+def config5_set() -> list[bytes]:
+    """BASELINE config 5: 10,000 literals of 5-9 bytes over 0x01-0xFF
+    without '\\n' (a Snort-style ruleset)."""
+    import numpy as np
+
+    alphabet = np.arange(1, 256)
+    alphabet = alphabet[alphabet != 0x0A]
+    return [p.encode("latin-1")
+            for p in rand_literals(10_000, 5, 9, seed=5, alphabet=alphabet)]
+
+
+def put(data, where, members) -> None:
+    """Overwrite data at each offset of ``where`` with the next member."""
+    import numpy as np
+
+    for k, p in enumerate(where.tolist()):
+        nd = members[k % len(members)]
+        data[p : p + len(nd)] = np.frombuffer(nd, np.uint8)
+
+
 def make_corpus(seed: int, n_files: int, file_bytes: int) -> list[Path]:
     import numpy as np
 
     rng = np.random.default_rng(seed)
     block = words_block(rng, 64 << 20)
     needles = [b"volcano", b"Volcano", b"VOLCANO", b"volCANo"]
+    members = config3_set()
     corpus = WORK / "corpus"
     corpus.mkdir(parents=True, exist_ok=True)
     paths = []
@@ -240,28 +315,76 @@ def make_corpus(seed: int, n_files: int, file_bytes: int) -> list[Path]:
         n_inj = 1000 * file_bytes // (64 << 20)
         where = np.sort(rng.choice(file_bytes - 16, size=n_inj, replace=False))
         kinds = rng.integers(0, len(needles), size=n_inj)
-        for p, k in zip(where.tolist(), kinds.tolist()):
-            nd = needles[k]
-            data[p : p + len(nd)] = np.frombuffer(nd, np.uint8)
-        # 'the new ' at stripe starts (multiples of 1024 bytes, the main
-        # path's stripe length): '^the (old|new) ' then sees a line start
-        # the device cannot tell from a real one
-        heads = rng.choice(file_bytes // 1024 - 1, size=100, replace=False)
-        for p in ((heads + 1) * 1024).tolist():
-            data[p : p + 8] = np.frombuffer(b"the new ", np.uint8)
+        put(data, where, [needles[k] for k in kinds.tolist()])
+        # config 3's first 50 members once per 64 KiB (the recipe of
+        # benchmarks/baseline_configs.py config_3), and '#' for the mixed set
+        n_set = file_bytes // 65536
+        put(data, rng.integers(0, file_bytes - 64, size=n_set),
+            [members[k] for k in rng.integers(0, 50, size=n_set).tolist()])
+        put(data, rng.integers(0, file_bytes - 64, size=200), [b"#"])
+        # at stripe starts (multiples of 1024 bytes, the main path's stripe
+        # length): 'the new ', which '^the (old|new) ' takes for a line
+        # start, and config 3 members from 3 bytes before it, which the
+        # FDR kernel misses (the stitch adds them)
+        heads = (rng.choice(file_bytes // 1024 - 1, size=200, replace=False)
+                 + 1) * 1024
+        put(data, heads[:100], [b"the new "])
+        put(data, heads[100:] - 3,
+            [members[k] for k in rng.integers(0, 1000, size=100).tolist()])
         path = corpus / f"part-{i:02d}.txt"
         data.tofile(path)
         paths.append(path)
     return paths
 
 
-def oracle_lines(path: Path, pred) -> list[tuple[int, str]]:
-    data = path.read_bytes()
-    lines = data.split(b"\n")
-    if data.endswith(b"\n"):
+def make_pcap_corpus(seed: int, n_files: int, file_bytes: int) -> list[Path]:
+    """PCAP-payload-like records (benchmarks/baseline_configs.py
+    _binary_payload): random bytes, '\\n' re-placed about every 120 bytes,
+    config 5's first 100 members injected once per 64 KiB, and the 2-byte
+    set's members across 100 stripe starts per file."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 5)
+    members = config5_set()[:100]
+    corpus = WORK / "pcap"
+    corpus.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i in range(n_files):
+        data = rng.integers(0, 256, size=file_bytes, dtype=np.uint8)
+        data[data == 0x0A] = 0x0B
+        data[rng.integers(0, file_bytes, size=file_bytes // 120)] = 0x0A
+        n_set = file_bytes // 65536
+        put(data, rng.integers(0, file_bytes - 64, size=n_set),
+            [members[k] for k in rng.integers(0, 100, size=n_set).tolist()])
+        heads = (rng.choice(file_bytes // 1024 - 1, size=100, replace=False)
+                 + 1) * 1024
+        put(data, heads - 1, PAIR_SET)
+        path = corpus / f"records-{i:02d}.bin"
+        data.tofile(path)
+        paths.append(path)
+    return paths
+
+
+def grep_oracle_lines(path: Path, grep_args: list[str]) -> list[tuple[int, str]]:
+    """The oracle: ``LC_ALL=C grep -na ARGS FILE`` (byte semantics; GNU
+    grep's -E, -F, -i and \\b agree with the port's on these queries), read
+    back as (line number, line) pairs, the line decoded as the grep app
+    decodes it."""
+    if shutil.which("grep") is None:
+        raise RuntimeError("grep not found: it is the oracle of every query")
+    out = subprocess.run(["grep", "-na", *grep_args, str(path)],
+                         capture_output=True, timeout=900,
+                         env={**os.environ, "LC_ALL": "C"})
+    if out.returncode > 1:
+        raise RuntimeError(f"grep oracle failed: {out.stderr[:300]!r}")
+    lines = out.stdout.split(b"\n")
+    if lines and not lines[-1]:
         lines.pop()
-    return [(i, ln.decode("utf-8", "replace"))
-            for i, ln in enumerate(lines, 1) if pred(ln)]
+    pairs = []
+    for ln in lines:
+        num, _, text = ln.partition(b":")
+        pairs.append((int(num), text.decode("utf-8", "replace")))
+    return pairs
 
 
 def job_lines(res) -> dict[str, list[tuple[int, str]]]:
@@ -396,6 +519,115 @@ def phase_nfa_kernels(torch, np, nfa_scan, nfa_mod) -> int:
     return worst
 
 
+def set_models(fdr_mod, ps_mod) -> tuple[dict, dict]:
+    """The set kernels' phase-2 models: the FDR banks of BASELINE configs
+    2, 3 and 5 and a two-family bank with 1024-entry tables; pairset
+    models of both orientations and a -i set."""
+    banks = {
+        "config2": fdr_mod.compile_fdr(CONFIG2_WORDS).banks[0],
+        "config3": fdr_mod.compile_fdr(config3_set()).banks[0],
+        "config5": fdr_mod.compile_fdr(config5_set()).banks[0],
+    }
+    group = [p.lower() for p in config3_set()[:400]]
+    checks = ((4, 0, 128), (3, 0, 1024), (2, 0, 256), (0, 0, 1024),
+              (4, 1, 512), (1, 1, 1024))
+    tables = fdr_mod._build_tables(group, fdr_mod._bucket_of(group), 5, checks)
+    banks["two families D1024"] = fdr_mod.fdr_bank_from_arrays(
+        5, checks, tables, group, fdr_mod._fp_of_tables(tables))
+    shapes = {k: (b.m, b.checks) for k, b in banks.items()}
+    assert shapes["config2"] == (2, ((1, 0, 128), (0, 0, 128))), shapes
+    assert shapes["config3"][0] == 5 and len(shapes["config3"][1]) == 5
+    assert banks["config5"].families == (0, 1), shapes
+    pairsets = {
+        "2-byte set": ps_mod.compile_pairset(PAIR_SET),
+        "transposed": ps_mod.compile_pairset(
+            [bytes([100 + i, b"uvwxyz"[j]]) for i in range(40)
+             for j in range(6) if (i + 1) >> j & 1]),
+        "-i": ps_mod.compile_pairset([b"LA", b"he", b"Q#", b"q"],
+                                     ignore_case=True),
+    }
+    assert pairsets["transposed"].transposed
+    assert not pairsets["2-byte set"].transposed
+    return banks, pairsets
+
+
+def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
+                      ps_mod) -> tuple[int, int]:
+    """FDR and pairset kernel words vs their plain versions (run on the
+    card), bit for bit, with and without out=.  Returns the largest
+    absolute difference seen for each kernel."""
+    from distributed_grep_tpu_torch.ops.layout import choose_layout, to_device_array
+
+    rng = np.random.default_rng(2468)
+    banks, pairsets = set_models(fdr_mod, ps_mod)
+    plants = config3_set()[:50] + config5_set()[:50] + PAIR_SET + [
+        w.encode() for w in CONFIG2_WORDS] + [b"NEEDLE", b"LaHe"]
+
+    def err_of(got, want) -> int:
+        g = got.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        w = want.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        return int((g - w).abs().max())
+
+    worst = {"fdr": 0, "pairset": 0}
+    for chunk, lanes in SET_SHAPES:
+        for corpus in ("words", "pcap"):
+            if corpus == "words":
+                text = words_block(rng, chunk * lanes)
+            else:
+                text = rng.integers(0, 256, size=chunk * lanes, dtype=np.uint8)
+                text[rng.integers(0, text.size, size=text.size // 120)] = 0x0A
+            put(text, rng.choice(text.size - 16, size=max(32, text.size // 3000),
+                                 replace=False), plants)
+            lay = choose_layout(text.size, target_lanes=lanes, min_chunk=chunk,
+                                lane_multiple=32, chunk_multiple=32)
+            assert (lay.chunk, lay.lanes) == (chunk, lanes), lay
+            arr = to_device_array(text.tobytes(), lay)
+            arr[0:5, ::7] = np.frombuffer(b"eedle", np.uint8)[:, None]
+            arr[30:33, 3::5] = np.frombuffer(b"Q#q", np.uint8)[:, None]
+            dev = torch.from_numpy(arr).cuda()
+            runs = [("fdr", name, bank, fold)
+                    for name, bank in banks.items() for fold in (False, True)]
+            runs += [("pairset", name, m, m.ignore_case)
+                     for name, m in pairsets.items()]
+            for kernel, name, model, fold in runs:
+                if kernel == "fdr":
+                    got = fdr_scan.fdr_scan_words(dev, model, fold)
+                    torch.cuda.synchronize()
+                    want = fdr_scan.fdr_scan_words_plain(dev, model, fold)
+                else:
+                    got = pairset_scan.pairset_scan_words(dev, model)
+                    torch.cuda.synchronize()
+                    want = pairset_scan.pairset_scan_words_plain(dev, model)
+                err = err_of(got, want)
+                worst[kernel] = max(worst[kernel], err)
+                if not torch.equal(got, want) or err:
+                    raise AssertionError(
+                        f"{kernel} kernel != plain: {name} fold={fold} "
+                        f"{corpus} chunk={chunk} lanes={lanes} "
+                        f"max_abs_err={err}")
+                log(f"  ok {kernel} {name:18s} fold={int(fold)} {corpus:5s} "
+                    f"chunk={chunk:5d} lanes={lanes:6d} "
+                    f"nonzero words={int(torch.count_nonzero(want.view(torch.int32)))}")
+            # out=: later banks and the sidecar OR into one word plane
+            out = fdr_scan.fdr_scan_words(dev, banks["config2"])
+            fdr_scan.fdr_scan_words(dev, banks["config3"], out=out)
+            pairset_scan.pairset_scan_words(dev, pairsets["2-byte set"],
+                                            out=out)
+            torch.cuda.synchronize()
+            want = (fdr_scan.fdr_scan_words_plain(dev, banks["config2"])
+                    .view(torch.int32)
+                    | fdr_scan.fdr_scan_words_plain(dev, banks["config3"])
+                    .view(torch.int32)
+                    | pairset_scan.pairset_scan_words_plain(
+                        dev, pairsets["2-byte set"]).view(torch.int32))
+            if not torch.equal(out.view(torch.int32), want):
+                raise AssertionError(f"out= OR differs from the plain "
+                                     f"versions' OR ({corpus}, chunk={chunk})")
+            log(f"  ok out= OR of config2 + config3 banks + 2-byte set "
+                f"{corpus:5s} chunk={chunk:5d} lanes={lanes:6d}")
+    return worst["fdr"], worst["pairset"]
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -429,14 +661,26 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from distributed_grep_tpu_torch.apps import grep_cuda
+        from distributed_grep_tpu_torch.models import fdr as fdr_mod
         from distributed_grep_tpu_torch.models import nfa as nfa_mod
+        from distributed_grep_tpu_torch.models import pairset as ps_mod
         from distributed_grep_tpu_torch.models import shift_and as sa_mod
-        from distributed_grep_tpu_torch.ops import _build, cuda_scan, nfa_scan
+        from distributed_grep_tpu_torch.ops import (
+            _build,
+            cuda_scan,
+            fdr_scan,
+            nfa_scan,
+            pairset_scan,
+        )
+        from distributed_grep_tpu_torch.ops.confirm_set import ConfirmSet
         from distributed_grep_tpu_torch.ops.layout import (
             choose_layout,
             to_device_array,
         )
         from distributed_grep_tpu_torch.ops.scan_torch import sparse_nonzero
+        from distributed_grep_tpu_torch.ops.sparse import (
+            offsets_from_sparse_words,
+        )
         from distributed_grep_tpu_torch.runtime.job import run_job
         from distributed_grep_tpu_torch.utils.config import JobConfig
     except ImportError as e:
@@ -445,6 +689,8 @@ def main() -> int:
         return 2
     import numpy as np
 
+    counters = {"shift_and": cuda_scan, "nfa": nfa_scan, "fdr": fdr_scan,
+                "pairset": pairset_scan}
     t_all = time.perf_counter()
     # ---------------------------------------------------------- phase 1
     card = card_line()
@@ -470,8 +716,12 @@ def main() -> int:
     t0 = time.perf_counter()
     nfa_err = phase_nfa_kernels(torch, np, nfa_scan, nfa_mod)
     log(f"nfa checks: {time.perf_counter() - t0:.1f} s")
-    log(f"phase 2 launches (comparisons, not counted): shift_and "
-        f"{cuda_scan.launches}, nfa {nfa_scan.launches}")
+    t0 = time.perf_counter()
+    fdr_err, ps_err = phase_set_kernels(torch, np, fdr_scan, pairset_scan,
+                                        fdr_mod, ps_mod)
+    log(f"fdr and pairset checks: {time.perf_counter() - t0:.1f} s")
+    log("phase 2 launches (comparisons, not counted): "
+        + ", ".join(f"{k} {m.launches}" for k, m in counters.items()))
     if args.kernels_only:
         return 0
 
@@ -484,41 +734,75 @@ def main() -> int:
         t0 = time.perf_counter()
         words = make_corpus(args.seed, args.n_files, args.file_mb << 20)
         logs = make_log_corpus(args.seed, args.n_files, args.file_mb << 20)
+        pcap = make_pcap_corpus(args.seed, args.n_files, args.file_mb << 20)
         defeat = [make_defeat_file(args.seed, args.file_mb << 20)]
+        set3, set5 = config3_set(), config5_set()
+        pats = {}
+        for name, members in (("config3", set3), ("config5", set5),
+                              ("pairs", PAIR_SET), ("mixed", set3 + [b"#"])):
+            pats[name] = WORK / f"{name}.pats"
+            pats[name].write_bytes(b"\n".join(members) + b"\n")
         log(f"corpora: {len(words)} word files, {len(logs)} log files, "
-            f"1 defeat file, {time.perf_counter() - t0:.1f} s")
+            f"{len(pcap)} pcap files, 1 defeat file, "
+            f"{time.perf_counter() - t0:.1f} s")
 
-        def rx(pattern: str, flags: int = 0):
-            return re.compile(pattern.encode(), flags).search
+        def single(pattern: str, ic: bool = False) -> dict:
+            return {"pattern": pattern, "ignore_case": ic}
 
-        # (pattern, -i, files, oracle predicate on one line, kernel)
+        def fixed(pattern: str, ic: bool = False) -> list[str]:
+            return ["-F", *(["-i"] if ic else []), "-e", pattern]
+
+        def ere(pattern: str, ic: bool = False) -> list[str]:
+            return ["-E", *(["-i"] if ic else []), "-e", pattern]
+
+        def members(name: str) -> list[str]:
+            return ["-F", "-f", str(pats[name])]
+
+        # 'the' and config 4 build millions of records (ROADMAP item 7):
+        # half the files keep the smoke inside its time limit
+        half = max(1, args.n_files // 2)
+        # (label, app options, files, grep arguments of the oracle,
+        # kernels the query must launch)
         queries = [
-            ("volcano", False, words, lambda ln: b"volcano" in ln, "shift_and"),
-            ("Volcano", True, words, lambda ln: b"volcano" in ln.lower(),
-             "shift_and"),
-            ("the", False, words, lambda ln: b"the" in ln, "shift_and"),
-            ("being it", False, words, lambda ln: b"being it" in ln,
-             "shift_and"),
-            (CONFIG2, False, words, rx(CONFIG2), "nfa"),
-            (CONFIG4, True, logs, rx(CONFIG4, re.I), "nfa"),
-            ("^the (old|new) ", False, words, rx("^the (old|new) "), "nfa"),
-            ("volcano$", False, words, rx("volcano$"), "nfa"),
-            (r"\bvolcano\b", False, words, rx(r"\bvolcano\b"), "nfa"),
-            ("x[ab]{2,40}y", False, defeat, rx("x[ab]{2,40}y"), "nfa"),
+            ("volcano", single("volcano"), words, fixed("volcano"),
+             ["shift_and"]),
+            ("-i Volcano", single("Volcano", True), words,
+             fixed("Volcano", True), ["shift_and"]),
+            ("the", single("the"), words[:half], fixed("the"),
+             ["shift_and"]),
+            ("being it", single("being it"), words, fixed("being it"),
+             ["shift_and"]),
+            ("config2", single(CONFIG2), words, ere(CONFIG2), ["fdr"]),
+            ("config4 -i", single(CONFIG4, True), logs[:half],
+             ere(CONFIG4, True), ["nfa"]),
+            ("^the (old|new) ", single("^the (old|new) "), words,
+             ere("^the (old|new) "), ["nfa"]),
+            ("volcano$", single("volcano$"), words, ere("volcano$"), ["nfa"]),
+            (r"\bvolcano\b", single(r"\bvolcano\b"), words,
+             ere(r"\bvolcano\b"), ["nfa"]),
+            ("x[ab]{2,40}y", single("x[ab]{2,40}y"), defeat,
+             ere("x[ab]{2,40}y"), ["nfa"]),
+            ("config3 -f", {"patterns": set3}, words, members("config3"),
+             ["fdr"]),
+            ("config5 -f", {"patterns": set5}, pcap, members("config5"),
+             ["fdr"]),
+            ("2-byte set", {"patterns": PAIR_SET}, pcap, members("pairs"),
+             ["pairset"]),
+            ("config3 + '#'", {"patterns": set3 + [b"#"]}, words,
+             members("mixed"), ["fdr", "pairset"]),
         ]
 
         def n_segments(files) -> int:
             return sum(-(-p.stat().st_size // (64 << 20)) for p in files)
 
         per_query = []
-        cuda_scan.reset_launches()
-        nfa_scan.reset_launches()
-        for pattern, ic, files, _pred, _k in queries:
-            before = (cuda_scan.launches, nfa_scan.launches)
+        for m in counters.values():
+            m.reset_launches()
+        for label, opts, files, _oracle, _k in queries:
+            before = {k: m.launches for k, m in counters.items()}
             cfg = JobConfig(
                 input_files=[str(p) for p in files],
-                app_options={"pattern": pattern, "ignore_case": ic},
-                n_reduce=10, task_timeout_s=60.0,
+                app_options=dict(opts), n_reduce=10, task_timeout_s=60.0,
                 work_dir=str(WORK / f"job-{len(per_query)}"),
             )
             t0 = time.perf_counter()
@@ -526,53 +810,60 @@ def main() -> int:
             wall = time.perf_counter() - t0
             totals = dict(grep_cuda._engine.totals)
             totals.update(res.metrics["seconds"])
-            launched = {"shift_and": cuda_scan.launches - before[0],
-                        "nfa": nfa_scan.launches - before[1]}
+            launched = {k: m.launches - before[k]
+                        for k, m in counters.items()}
             per_query.append((res, wall, launched, totals,
                               grep_cuda._engine.route))
-        main_launches = {"shift_and": cuda_scan.launches,
-                         "nfa": nfa_scan.launches}
+        main_launches = {k: m.launches for k, m in counters.items()}
         log(f"main path launches: {main_launches}")
 
-        for (pattern, ic, files, pred, kernel), (
+        for (label, opts, files, oracle, kernels), (
                 res, wall, launched, totals, route) in zip(queries, per_query):
             t0 = time.perf_counter()
             got = job_lines(res)
             n_rec = 0
             for p in files:
-                want = oracle_lines(p, pred)
+                want = grep_oracle_lines(p, oracle)
                 if got.get(str(p), []) != want:
                     raise AssertionError(
-                        f"query {'-i ' if ic else ''}{pattern}: job output "
-                        f"for {p.name} differs from the oracle "
-                        f"({len(got.get(str(p), []))} vs {len(want)} lines)")
+                        f"query {label}: job output for {p.name} differs "
+                        f"from the oracle ({len(got.get(str(p), []))} vs "
+                        f"{len(want)} lines)")
                 n_rec += len(want)
             segs = n_segments(files)
-            if launched[kernel] < segs:
-                raise AssertionError(
-                    f"query {pattern}: {launched[kernel]} {kernel} launches "
-                    f"for {segs} segments")
+            for k in kernels:
+                if launched[k] < segs:
+                    raise AssertionError(
+                        f"query {label}: {launched[k]} {k} launches for "
+                        f"{segs} segments")
             checks = {
                 "being it": totals.get("dense_confirms", 0)
                 and totals.get("filter_defeated", 0),
-                CONFIG4: totals.get("dense_confirms", 0)
+                "config2": route == "fdr_literal_set",
+                "config4 -i": totals.get("dense_confirms", 0)
                 and launched["nfa"] > segs,
                 "^the (old|new) ": totals.get("stitch_removed", 0) > 0,
                 "volcano$": route == "dfa_filter",
                 r"\bvolcano\b": route == "re_filter",
                 "x[ab]{2,40}y": totals.get("dense_confirms", 0)
                 and totals.get("nfa_filter_defeated", 0),
+                "config3 -f": route == "fdr"
+                and totals.get("stitch_added", 0) > 0,
+                "config5 -f": route == "fdr" and totals.get("candidates", 0),
+                "2-byte set": route == "pairset"
+                and totals.get("stitch_added", 0) > 0,
+                "config3 + '#'": route == "fdr",
             }
-            if not checks.get(pattern, True):
+            if not checks.get(label, True):
                 raise AssertionError(
-                    f"query {pattern}: route {route}, launches {launched}, "
+                    f"query {label}: route {route}, launches {launched}, "
                     f"engine totals {totals}")
             total_bytes = sum(p.stat().st_size for p in files)
-            log(f"query {'-i ' if ic else ''}{pattern!r} ({route}): {n_rec} "
-                f"lines identical to the oracle (checked in "
-                f"{time.perf_counter() - t0:.1f} s); job wall {wall:.3f} s = "
-                f"{total_bytes / wall / 1e9:.3f} GB/s end to end over "
-                f"{total_bytes} bytes; launches {launched} [{card}]")
+            log(f"query {label!r} ({route}): {n_rec} lines identical to the "
+                f"oracle (checked in {time.perf_counter() - t0:.1f} s); job "
+                f"wall {wall:.3f} s = {total_bytes / wall / 1e9:.3f} GB/s end "
+                f"to end over {total_bytes} bytes; launches {launched} "
+                f"[{card}]")
             log("  engine totals (seconds summed over worker threads): "
                 + json.dumps(totals, sort_keys=True))
             shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
@@ -584,7 +875,7 @@ def main() -> int:
              "volcano", str(words[0]), "--work-dir", str(WORK / "cli")],
             cwd=ROOT, capture_output=True, check=True, timeout=600,
         )
-        want_lines = oracle_lines(words[0], lambda ln: b"volcano" in ln)
+        want_lines = grep_oracle_lines(words[0], fixed("volcano"))
         want = "".join(f"{words[0].resolve()} (line number #{n}) {v}\n"
                        for n, v in want_lines)
         if cli.stdout != want.encode("utf-8", "surrogateescape"):
@@ -593,14 +884,16 @@ def main() -> int:
             f"identical to the oracle ({time.perf_counter() - t0:.1f} s)")
 
         # ------------------------------------------- timings (not counted)
-        seg = words[0].read_bytes()[: 64 << 20]
-        lay = choose_layout(len(seg), **grep_cuda._engine.layout_kwargs())
-        dev = torch.from_numpy(to_device_array(seg, lay)).cuda()
-        log_seg = logs[0].read_bytes()[: 64 << 20]
-        lay_log = choose_layout(len(log_seg),
-                                **grep_cuda._engine.layout_kwargs())
-        assert (lay_log.chunk, lay_log.lanes) == (lay.chunk, lay.lanes)
-        dev_log = torch.from_numpy(to_device_array(log_seg, lay_log)).cuda()
+        def segment(path: Path):
+            data = path.read_bytes()[: 64 << 20]
+            lay = choose_layout(len(data), **grep_cuda._engine.layout_kwargs())
+            return data, lay, torch.from_numpy(to_device_array(data, lay)).cuda()
+
+        seg, lay, dev = segment(words[0])
+        _log_seg, lay_log, dev_log = segment(logs[0])
+        pc_seg, lay_pc, dev_pc = segment(pcap[0])
+        assert {(x.chunk, x.lanes) for x in (lay, lay_log, lay_pc)} == {
+            (lay.chunk, lay.lanes)}
         n_in = lay.chunk * lay.lanes
         n_out = (lay.chunk // 32) * lay.lanes * 4
         bytes_ms = (n_in + n_out) / H100_BYTES_PER_S * 1e3
@@ -617,6 +910,7 @@ def main() -> int:
             dev, filt, True), 2)
         rowmajor = dev.t().contiguous()  # the segment as the document lies
         transpose_ms = cuda_ms(torch, lambda: rowmajor.t().contiguous(), 20)
+        del rowmajor
         sa_words = cuda_scan.shift_and_scan_words(dev, filt, True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -669,12 +963,70 @@ def main() -> int:
                 f"{n_in / (k_ms / 1e3) / 1e9:.1f} GB/s; plain version on the "
                 f"card {p_ms:.1f} ms; bound {max(bytes_ms, o_ms):.4f} ms "
                 f"(bytes {bytes_ms:.4f}, ops {o_ms:.4f}) [{card}]")
+        del dev_bc, dev_log
+
+        # the set kernels on their queries' corpora: the FDR banks of
+        # configs 2 and 3 on words, config 5's on the pcap records
+        banks, pairsets = set_models(fdr_mod, ps_mod)
+        set_rows = {}
+        runs = [("fdr", "config2", banks["config2"], dev),
+                ("fdr", "config3", banks["config3"], dev),
+                ("fdr", "config5", banks["config5"], dev_pc),
+                ("pairset", "2-byte set", pairsets["2-byte set"], dev_pc)]
+        for kernel, name, model, arr in runs:
+            if kernel == "fdr":
+                k_ms = cuda_ms(torch, lambda: fdr_scan.fdr_scan_words(
+                    arr, model), 20)
+                p_ms = cuda_ms(torch, lambda: fdr_scan.fdr_scan_words_plain(
+                    arr, model), 2)
+                per_byte = (FDR_OPS_PER_BYTE
+                            + FDR_OPS_PER_FAMILY * len(model.families)
+                            + FDR_OPS_PER_CHECK * model.n_checks
+                            + FDR_OPS_PER_SLOT * model.m)
+                lookups = model.n_checks
+            else:
+                k_ms = cuda_ms(torch, lambda: pairset_scan.pairset_scan_words(
+                    arr, model), 20)
+                p_ms = cuda_ms(torch, lambda: (
+                    pairset_scan.pairset_scan_words_plain(arr, model)), 2)
+                per_byte, lookups = PAIRSET_OPS_PER_BYTE, 2
+            o_ms = per_byte * n_in / H100_INT32_OPS_PER_S * 1e3
+            s_ms = lookups * n_in / H100_SMEM_LOOKUPS_PER_S * 1e3
+            b_ms = max(bytes_ms, o_ms, s_ms)
+            set_rows[name] = (k_ms, p_ms, b_ms,
+                              "bytes" if b_ms == bytes_ms else "operations")
+            log(f"kernel {kernel} {name}: "
+                + (f"m={model.m} checks={model.checks} "
+                   if kernel == "fdr" else "")
+                + f"chunk={lay.chunk} lanes={lay.lanes}: {k_ms:.4f} ms = "
+                f"{n_in / (k_ms / 1e3) / 1e9:.1f} GB/s; plain version on the "
+                f"card {p_ms:.1f} ms; bound {b_ms:.4f} ms (bytes "
+                f"{bytes_ms:.4f}, ops {o_ms:.4f} at {per_byte} per byte, "
+                f"shared-memory lookups {s_ms:.4f} at {lookups} per byte) "
+                f"[{card}]")
+
+        # the confirm set on config 5's real candidates of one segment
+        words5 = fdr_scan.fdr_scan_words(dev_pc, banks["config5"])
+        c_idx, c_vals = sparse_nonzero(words5)
+        cands = offsets_from_sparse_words(c_idx, c_vals, lay_pc)
+        confirm = ConfirmSet(set5)
+        t0 = time.perf_counter()
+        keep = confirm.confirm(pc_seg, cands)
+        c_s = time.perf_counter() - t0
+        log(f"confirm set, config 5 (10,000 members) on one 64 MB pcap "
+            f"segment: {cands.size} candidates ({cands.size / len(pc_seg):.4f}"
+            f" per byte, analytic {banks['config5'].fp_per_byte:.4f}), "
+            f"{int(keep.sum())} confirmed, {c_s:.3f} s = "
+            f"{c_s / max(cands.size, 1) * 1e9:.1f} ns per candidate (host, "
+            f"one thread)")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     log(f"total {time.perf_counter() - t_all:.1f} s")
     nfa_ms, nfa_plain_ms, nfa_bound_ms, nfa_ops_ms = nfa_rows[
         "config2 alternation"]
+    fdr_ms, fdr_plain_ms, fdr_bound_ms, fdr_by = set_rows["config5"]
+    ps_ms, ps_plain_ms, ps_bound_ms, ps_by = set_rows["2-byte set"]
     print(json.dumps({"kernels": [{
         "name": "shift_and",
         "route": "cuda",
@@ -698,6 +1050,30 @@ def main() -> int:
         "plain_ms": nfa_plain_ms,
         "bound_ms": nfa_bound_ms,
         "bound_by": "bytes" if bytes_ms >= nfa_ops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": "fdr",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/fdr.cu",
+        "replaces": "distributed_grep_tpu/ops/pallas_fdr.py:109",
+        "launches": main_launches["fdr"],
+        "max_abs_err": fdr_err,
+        "ms": fdr_ms,
+        "plain_ms": fdr_plain_ms,
+        "bound_ms": fdr_bound_ms,
+        "bound_by": fdr_by,
+        "library_ms": None,
+    }, {
+        "name": "pairset",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/pairset.cu",
+        "replaces": "distributed_grep_tpu/ops/pallas_pairset.py:66",
+        "launches": main_launches["pairset"],
+        "max_abs_err": ps_err,
+        "ms": ps_ms,
+        "plain_ms": ps_plain_ms,
+        "bound_ms": ps_bound_ms,
+        "bound_by": ps_by,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

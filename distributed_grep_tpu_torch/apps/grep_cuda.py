@@ -4,12 +4,14 @@ Same Map/Reduce contract and the same output records: key
 ``"<filename> (line number #N)"``, value the line's bytes decoded
 utf-8/replace; Reduce is the identity (keys are unique per (file, line)).
 Map scans the whole split with GrepEngine (the CUDA Shift-And kernel for
-literals and byte-class sequences, the Glushkov NFA kernel for other
-regexes) and slices only the matched lines out of the buffer.
+literals and byte-class sequences, the FDR filter and pairset kernels for
+literal sets -- ``patterns`` -- and for regexes that denote one, the
+Glushkov NFA kernel for other regexes) and slices only the matched lines
+out of the buffer.
 
-Options outside this package's slice (pattern sets, -v/-w/-x, counts,
-approximate matching) raise NotImplementedError naming the ROADMAP.md
-item that will port them.
+Options outside this package's slices (-v/-w/-x, counts, approximate
+matching) raise NotImplementedError naming the ROADMAP.md item that will
+port them.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ _lock = threading.Lock()
 _progress = threading.local()
 
 _UNPORTED = {
-    "patterns": "item 2 (literal sets: FDR and pairset kernels)",
     "max_errors": "item 3 (approximate matching kernel)",
     "invert": "item 7 (the grep app's remaining options)",
     "word_regexp": "item 7 (the grep app's remaining options)",
@@ -54,10 +55,13 @@ def configure(
     pattern: str | bytes = "",
     ignore_case: bool = False,
     device: str = "cuda",
+    patterns: list[str | bytes] | None = None,
     **options: object,
 ) -> None:
-    """Compile the pattern for ``device`` (default "cuda"; raises when CUDA
-    is absent unless "cpu" is asked for).  Engine knobs (target_lanes,
+    """Compile the pattern, or the literal set ``patterns`` when given
+    (members str, decoded utf-8/surrogateescape, or bytes; ``pattern`` is
+    then ignored), for ``device`` (default "cuda"; raises when CUDA is
+    absent unless "cpu" is asked for).  Engine knobs (target_lanes,
     segment_bytes, min_chunk) pass through ``options``."""
     global _engine, _configured_with
     for name, value in options.items():
@@ -69,12 +73,15 @@ def configure(
     engine_opts = {k: v for k, v in options.items() if k not in _UNPORTED}
     if isinstance(pattern, bytes):
         pattern = pattern.decode("utf-8", "surrogateescape")
-    key = (pattern, bool(ignore_case), str(device),
+    if patterns is not None:
+        pattern, patterns = None, list(patterns)
+    key = (pattern, tuple(patterns or ()), bool(ignore_case), str(device),
            tuple(sorted(engine_opts.items())))
     with _lock:
         if key == _configured_with:
             return
-        _engine = GrepEngine(pattern, ignore_case=ignore_case, device=device,
+        _engine = GrepEngine(pattern, patterns=patterns,
+                             ignore_case=ignore_case, device=device,
                              **engine_opts)  # type: ignore[arg-type]
         _configured_with = key
 

@@ -297,6 +297,59 @@ class Anchor:
 
 _REPEAT_EXPANSION_CAP = 512  # total copies a bounded repeat may expand to
 
+# Literal decomposition: how many byte strings an alternation or class
+# product may expand to before it stops counting as a literal set.
+LITERAL_SET_CAP = 256
+
+
+def enumerate_literal_set(
+    pattern: str, cap: int = LITERAL_SET_CAP, *, ignore_case: bool = False
+) -> list[bytes] | None:
+    """The byte strings ``pattern`` matches when it denotes a finite
+    literal set -- alternations, concatenations and small class products,
+    with no repeat or anchor -- else None (also past ``cap`` members, or
+    when a member would be empty or hold '\\n').
+
+    The parse is case-SENSITIVE: under -i the set engines fold the members
+    themselves (enumerating folded classes would blow the cap at 2^len).
+    ``ignore_case`` still folds a NEGATED class before it is complemented,
+    or ``[^x]`` would enumerate ``X``, which the set engine folds back to
+    the excluded ``x``.  Members come deduplicated in first-seen order."""
+    try:
+        ast = _Parser(pattern, ignore_case=False,
+                      fold_negated_classes=ignore_case).parse()
+    except RegexError:
+        return None
+
+    def enum(node) -> list[bytes] | None:
+        if isinstance(node, Char):
+            byts = [b for b in range(256) if node.mask >> b & 1]
+            if not byts or len(byts) > cap or NL in byts:
+                return None
+            return [bytes([b]) for b in byts]
+        if isinstance(node, Concat):
+            acc = [b""]
+            for part in node.parts:
+                sub = enum(part)
+                if sub is None or len(acc) * len(sub) > cap:
+                    return None
+                acc = [a + x for a in acc for x in sub]
+            return acc
+        if isinstance(node, Alt):
+            out: list[bytes] = []
+            for opt in node.options:
+                sub = enum(opt)
+                if sub is None or len(out) + len(sub) > cap:
+                    return None
+                out.extend(sub)
+            return out
+        return None  # Repeat, Anchor: unbounded or zero-width
+
+    lits = enum(ast)
+    if lits is None or not lits or any(not x for x in lits):
+        return None
+    return list(dict.fromkeys(lits))
+
 
 def _fold_mask(mask: int) -> int:
     """Case-close a 256-bit byte-class mask (ASCII letters only)."""

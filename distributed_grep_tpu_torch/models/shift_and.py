@@ -141,6 +141,29 @@ def _byte_prior() -> np.ndarray:
 
 _PRIOR = _byte_prior()
 
+
+def _text_prior() -> np.ndarray:
+    """Prose-conditional byte prior: ``_LETTER_FREQ`` rescaled by the
+    letter share of prose (~70% lowercase, 1/15 of that uppercase) around
+    space at ~17%, over printable ASCII and whitespace only.
+
+    ``_byte_prior``'s uniform floor over all 256 values puts ' ' at 6.7%,
+    right for ranking classes by rarity but an underestimate where a
+    density gate needs matches per byte of TEXT
+    (models/pairset.expected_match_density takes the max of both)."""
+    w = np.zeros(256, dtype=np.float64)
+    w[9] = 0.002  # tab
+    w[10] = 0.02  # newline (members never contain it; mass only)
+    w[33:127] = 0.0015  # punctuation floor
+    for ch, f in _LETTER_FREQ.items():
+        w[ord(ch)] = f * 0.70
+        w[ord(ch.upper())] = f * 0.70 / 15
+    w[ord(" ")] = 0.17
+    for d in b"0123456789":
+        w[d] = 0.006
+    return w / w.sum()
+
+
 # Keep adding checked classes until the modeled false-candidate rate drops
 # below this (candidates per byte).
 FILTER_FP_TARGET = 2e-6

@@ -38,6 +38,18 @@ The document is cut into segments of ``engine.segment_bytes``.  For each:
    a segment start after 0 gets the host verdict in place of the device
    verdict, once all segments are in (ops/lines.stitch_lines).
 
+   Literal sets: FDR mode launches one filter kernel per bank, OR'd into
+   one word plane, then the pairset sidecar OR'd in; pairset mode one
+   exact pairset launch.  Collect decodes the end offsets; FDR candidates
+   are confirmed against the WHOLE document (ops/confirm_set.py), so a
+   member reaching back across the segment start still confirms; pairset
+   words are exact.  Then an offset-exact stitch: FDR seeds prev = 0 at
+   every stripe head and so misses a true match only where it ends at b+1
+   .. b+m after a stripe or segment start b (m the bank's slots); pairset
+   seeds prev = '\\n' and misses only at b+1.  The confirm set checks those
+   end offsets (``engine.stitch_window``) and their lines are added;
+   neither kernel can give a false line, so nothing is removed.
+
 Segments can be collected in any order.  A build, launch or CUDA failure
 raises: nothing falls back to another route.
 """
@@ -52,7 +64,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from distributed_grep_tpu_torch.ops import cuda_scan, nfa_scan
+from distributed_grep_tpu_torch.ops import (
+    cuda_scan,
+    fdr_scan,
+    nfa_scan,
+    pairset_scan,
+)
 from distributed_grep_tpu_torch.ops import engine as engine_mod
 from distributed_grep_tpu_torch.ops import lines as lines_mod
 from distributed_grep_tpu_torch.ops.layout import (
@@ -79,14 +96,17 @@ def _expand_line_ranges(l0: np.ndarray, l1: np.ndarray) -> np.ndarray:
 def scan_device(eng, data: bytes, progress=None):
     t_wall0 = time.perf_counter()
     nfa = eng.mode == "nfa"
-    st = {"candidates": 0, "segments": 0, "dense_confirms": 0,
+    lit_set = eng.mode in ("fdr", "pairset")
+    st = {"candidates": 0, "segments": 0,
           "feed_wait_seconds": 0.0, "prepare_seconds": 0.0,
           "collect_seconds": 0.0, "confirm_seconds": 0.0,
           "stitch_seconds": 0.0}
-    if nfa:
-        st.update(stitch_lines=0, nfa_filter_defeated=False)
+    if lit_set:
+        st.update(stitch_offsets=0)
+    elif nfa:
+        st.update(dense_confirms=0, stitch_lines=0, nfa_filter_defeated=False)
     else:
-        st.update(stitch_windows=0, filter_defeated=False)
+        st.update(dense_confirms=0, stitch_windows=0, filter_defeated=False)
     eng.stats = st
     n = len(data)
     view = memoryview(data)
@@ -105,6 +125,7 @@ def scan_device(eng, data: bytes, progress=None):
     found: list[np.ndarray] = []
     suspects: list[np.ndarray] = []  # NFA: boundary lines and their
     verdicts: list[np.ndarray] = []  # host verdicts, replaced at the end
+    stitch_found: list[np.ndarray] = []  # sets: lines the stitch confirmed
 
     def prepare(i: int):
         t0 = time.perf_counter()
@@ -146,7 +167,9 @@ def scan_device(eng, data: bytes, progress=None):
     def collect(kind: str, *job) -> None:
         t0 = time.perf_counter()
         try:
-            if nfa:
+            if lit_set:
+                _collect_set(kind, *job)
+            elif nfa:
                 _collect_nfa(kind, *job)
             else:
                 _collect(*job)
@@ -206,6 +229,32 @@ def scan_device(eng, data: bytes, progress=None):
                     # THIS scan run the full model
                     scan_state["filtered"] = None
                     st["filter_defeated"] = True
+
+    def _collect_set(kind, seg_start: int, seg_len: int, lay, arr,
+                     words) -> None:
+        idx, vals = sparse_nonzero(words)
+        offs = offsets_from_sparse_words(idx, vals, lay) + seg_start
+        n_cand = 0
+        t0 = time.perf_counter()
+        if kind == "cand_words":  # FDR: confirm every candidate end
+            n_cand = int(offs.size)
+            offs = offs[eng.confirm.confirm(data, offs)]
+        lines = lines_mod.unique_match_lines(offs, nl)
+        t1 = time.perf_counter()
+        bounds = segment_bounds(seg_start, seg_len, lay)
+        ends = np.unique((bounds[:, None] + np.arange(
+            1, eng.stitch_window, dtype=np.int64)[None, :]).reshape(-1))
+        ends = ends[ends <= n]
+        added = lines_mod.unique_match_lines(
+            ends[eng.confirm.confirm(data, ends)], nl)
+        t2 = time.perf_counter()
+        with lock:
+            found.append(lines)
+            stitch_found.append(added)
+            st["candidates"] += n_cand
+            st["confirm_seconds"] += t1 - t0
+            st["stitch_seconds"] += t2 - t1
+            st["stitch_offsets"] += int(ends.size)
 
     def _collect_nfa(kind, seg_start: int, seg_len: int, lay, arr,
                      words) -> None:
@@ -269,7 +318,19 @@ def scan_device(eng, data: bytes, progress=None):
             with lock:  # the model and its kind together
                 model, is_filter = scan_state["nfa"]
                 sa_model = scan_state["filtered"] or full
-            if nfa:
+            if eng.mode == "fdr":
+                words = None
+                for bank in eng.fdr.banks:
+                    words = fdr_scan.fdr_scan_words(
+                        arr, bank, fold_case=eng.ignore_case, out=words)
+                if eng.fdr_pairset is not None:
+                    words = pairset_scan.pairset_scan_words(
+                        arr, eng.fdr_pairset, out=words)
+                kind = "cand_words"
+            elif eng.mode == "pairset":
+                words = pairset_scan.pairset_scan_words(arr, eng.pairset)
+                kind = "words"
+            elif nfa:
                 words = nfa_scan.nfa_scan_words(arr, model)
                 kind = "cand_words" if is_filter else "words"
             else:
@@ -297,6 +358,10 @@ def scan_device(eng, data: bytes, progress=None):
         st["stitch_removed"] = int(np.setdiff1d(lines_arr, stitched).size)
         st["stitch_added"] = int(np.setdiff1d(stitched, lines_arr).size)
         lines_arr = stitched
+    elif lit_set and stitch_found:
+        extra = np.unique(np.concatenate(stitch_found))
+        st["stitch_added"] = int(np.setdiff1d(extra, lines_arr).size)
+        lines_arr = np.union1d(lines_arr, extra).astype(np.int64)
     st["scan_wall_seconds"] = time.perf_counter() - t_wall0
     return engine_mod.ScanResult(lines_arr, int(lines_arr.size), n,
                                  nl_index=nl)

@@ -1,34 +1,61 @@
-"""GrepEngine: one compiled pattern, scanned over documents on a device.
+"""GrepEngine: one compiled pattern or literal set, scanned on a device.
 
-The slices this package covers, routed by ``check_pattern`` as the
-reference engine routes a single pattern
-(``distributed_grep_tpu/ops/engine.py`` GrepEngine.__init__ and
+A single pattern is routed by ``check_pattern`` as the reference engine
+routes it (``distributed_grep_tpu/ops/engine.py`` GrepEngine.__init__ and
 _scan_impl), in order:
 
 1. a literal or byte-class sequence of at most 32 symbols (optionally
    case-folded): a Shift-And model, scanned by csrc/shift_and.cu;
-2. any other pattern with a DFA table and a Glushkov model of at most 128
+2. a regex that denotes a finite literal set of at least 2 members
+   (``models/dfa.enumerate_literal_set``: ``(volcano|needle)``,
+   ``x[01][01]``) that ``compile_fdr`` accepts: routed as that set
+   (route "fdr_literal_set", below), keeping the regex as ``pattern``;
+3. any other pattern with a DFA table and a Glushkov model of at most 128
    positions -- alternations, classes, ``? * + {m,n}``, a leading ``^``:
    the Glushkov NFA kernel (csrc/nfa.cu).  Where relaxing a bounded repeat
    saves state words the kernel runs the relaxed FILTER, the host confirms
    its candidate lines with the DFA, and the exact model stands by for
    dense segments;
-3. a DFA table but no Glushkov model ('$' accepts, more than 128
+4. a DFA table but no Glushkov model ('$' accepts, more than 128
    positions, mid-pattern anchors): the filter of
    ``compile_device_filter`` on the NFA kernel, every candidate line
    confirmed with the DFA (its ``accept_eol`` plane carries the '$');
-4. no DFA table (``\\b``/``\\B``, a repeat past the expansion cap, too many
+5. no DFA table (``\\b``/``\\B``, a repeat past the expansion cap, too many
    DFA states): the Glushkov filter of ``compile_scan_model`` or
    ``compile_device_filter``, confirmed with Python ``re``;
-5. a pattern that matches the empty string: every line, with no scan.
+6. a pattern that matches the empty string: every line, with no scan.
 
-Two differences from the reference change no output line: a regex that
-denotes a finite literal set runs on the NFA kernel (the reference sends
-it to its FDR literal-set kernel, ROADMAP item 2), and there is no kernel
-cost budget (the reference's ``pallas_nfa.MAX_COST`` exists because the
-TPU kernel unrolls its plan; csrc/nfa.cu reads its plan from memory).
-Patterns outside these routes raise NotImplementedError naming their
-ROADMAP.md item; there is no host scanner to fall back to.
+A literal set (``GrepEngine(patterns=...)``, ``grep -F``/``-f``) is routed
+by ``check_patterns`` (the reference's engine.py:644-796):
+
+* every member of 1-2 bytes and the set's expected match density under
+  the byte priors at most ``FP_CEILING_PER_BYTE``: the exact pairset
+  kernel (csrc/pairset.cu, mode "pairset"), no confirm;
+* otherwise the members of at least 2 bytes compile to FDR filter banks
+  (csrc/fdr.cu, mode "fdr"); 1-byte members, past the same density gate,
+  ride the pairset kernel as a sidecar whose exact words are OR'd into
+  the candidate words; every candidate end offset is confirmed exactly on
+  the host (ops/confirm_set.py) against all members;
+* an empty member matches every line; a set neither kernel hosts raises.
+
+Differences from the reference, none of which changes an output line:
+
+* no kernel cost budget (the reference's ``pallas_nfa.MAX_COST`` exists
+  because the TPU kernel unrolls its plan; csrc/nfa.cu reads its plan
+  from memory);
+* no native crossover: the reference's ``compile_fdr`` cedes a set to its
+  host scanner when the plan's modelled rate falls below the scanner's;
+  the port has no host scanner and keeps the set on the card;
+* no self-calibration or retune of FDR plans: the port's plans are the
+  default-pricing plans (the reference's constants; re-pricing for the
+  H100 is later work);
+* no Aho-Corasick banks: the reference's CPU engine, XLA fallback and
+  stitch oracle; here the confirm set is the oracle;
+* no kernel-failure fallback: the reference flips a failed FDR kernel to
+  its DFA banks; the port raises.
+
+Patterns and sets outside these routes raise NotImplementedError naming
+their ROADMAP.md item; there is no host scanner to fall back to.
 """
 
 from __future__ import annotations
@@ -46,13 +73,26 @@ from distributed_grep_tpu_torch.models.dfa import (
     RegexError,
     UnsupportedSyntax,
     compile_dfa,
+    enumerate_literal_set,
     expand_posix_classes,
+)
+from distributed_grep_tpu_torch.models.fdr import (
+    FP_CEILING_PER_BYTE,
+    FdrError,
+    FdrModel,
+    compile_fdr,
 )
 from distributed_grep_tpu_torch.models.nfa import (
     GlushkovModel,
     compile_device_filter,
     compile_scan_model,
     try_compile_glushkov,
+)
+from distributed_grep_tpu_torch.models.pairset import (
+    PairsetError,
+    PairsetModel,
+    compile_pairset,
+    expected_match_density,
 )
 from distributed_grep_tpu_torch.models.shift_and import (
     ShiftAndModel,
@@ -61,6 +101,7 @@ from distributed_grep_tpu_torch.models.shift_and import (
     try_compile_shift_and,
 )
 from distributed_grep_tpu_torch.ops import host_match
+from distributed_grep_tpu_torch.ops.confirm_set import ConfirmSet
 from distributed_grep_tpu_torch.ops.lines import count_lines
 from distributed_grep_tpu_torch.utils.device import resolve_device
 
@@ -91,20 +132,27 @@ class ScanResult:
 
 @dataclass
 class PatternPlan:
-    """How one pattern is scanned: the outcome of ``check_pattern``.
+    """How one pattern or set is scanned: the outcome of ``check_pattern``
+    or ``check_patterns``.
 
-    mode            "shift_and", "nfa" or "all_lines"
+    mode            "shift_and", "nfa", "fdr", "pairset" or "all_lines"
     route           the routing step that chose it (module docstring):
-                    "shift_and", "nfa", "dfa_filter", "re_filter",
-                    "all_lines"
-    table           the exact DFA (routes 2 and 3): host oracle of the
+                    "shift_and", "fdr_literal_set", "nfa", "dfa_filter",
+                    "re_filter", "all_lines"; for a set "fdr", "pairset"
+                    or "all_lines"
+    table           the exact DFA (routes 3 and 4): host oracle of the
                     confirm and the stitch
     glushkov        the model the NFA kernel runs first
     glushkov_exact  the exact model (the dense confirm, and the defeat
                     guard's swap), or None where none fits
     nfa_filter      True when ``glushkov`` is a candidate superset
-    re_fallback     route 4's oracle: ``re`` over the POSIX-expanded
+    re_fallback     route 5's oracle: ``re`` over the POSIX-expanded
                     pattern
+    fdr             the FDR filter banks (mode "fdr")
+    pairset         the exact short-set model (mode "pairset")
+    fdr_pairset     mode "fdr": the sidecar model of the 1-byte members
+    confirm         a set's exact host oracle (every member): the FDR
+                    candidates' confirm and the stitch of both set modes
     """
 
     mode: str
@@ -116,12 +164,79 @@ class PatternPlan:
     glushkov_exact: GlushkovModel | None = None
     nfa_filter: bool = False
     re_fallback: re.Pattern | None = None
+    fdr: FdrModel | None = None
+    pairset: PairsetModel | None = None
+    fdr_pairset: PairsetModel | None = None
+    confirm: ConfirmSet | None = None
 
 
 def _unported(pattern: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"pattern {pattern!r} {why}; it belongs to {REGEX_SLICE}"
     )
+
+
+def _member_bytes(p: str | bytes) -> bytes:
+    return p.encode("utf-8", "surrogateescape") if isinstance(p, str) else bytes(p)
+
+
+def _unported_set(n: int, why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"pattern set of {n} members {why}; it belongs to {REGEX_SLICE}"
+    )
+
+
+def check_patterns(patterns, ignore_case: bool = False,
+                   fdr: FdrModel | None = None) -> PatternPlan:
+    """Route a literal set (members str, decoded utf-8/surrogateescape, or
+    bytes; see the module docstring).  ``fdr`` is the set's FDR model when
+    the caller compiled it already.  An empty set raises ValueError; a set
+    neither kernel hosts raises NotImplementedError naming its ROADMAP.md
+    item."""
+    members = [_member_bytes(p) for p in patterns]
+    if not members:
+        raise ValueError("empty pattern set")
+    if any(not m for m in members):
+        # grep -F: an empty pattern matches every line
+        return PatternPlan("all_lines", "all_lines")
+    if any(NL in m for m in members):
+        raise ValueError("a literal of the set contains '\\n'")
+    n = len(members)
+    if max(len(m) for m in members) <= 2:
+        dens = expected_match_density(members, ignore_case=ignore_case)
+        if dens <= FP_CEILING_PER_BYTE:
+            try:
+                ps = compile_pairset(members, ignore_case=ignore_case)
+            except PairsetError:
+                pass
+            else:
+                return PatternPlan("pairset", "pairset", pairset=ps,
+                                   confirm=ConfirmSet(ps.patterns,
+                                                      ignore_case))
+    long_pats = [m for m in members if len(m) >= 2]
+    short_pats = [m for m in members if len(m) < 2]
+    if not long_pats:
+        raise _unported_set(n, "expects more matches per byte than the "
+                               "device ceiling (dense 1-byte members)")
+    try:
+        if short_pats:
+            short_dens = expected_match_density(short_pats,
+                                                ignore_case=ignore_case)
+            if short_dens > FP_CEILING_PER_BYTE:
+                raise FdrError(f"its 1-byte members expect {short_dens:.3g} "
+                               f"matches/byte, over the "
+                               f"{FP_CEILING_PER_BYTE:.2g} device ceiling")
+        if fdr is None:
+            fdr = compile_fdr(long_pats, ignore_case=ignore_case)
+    except FdrError as e:
+        raise _unported_set(n, f"is outside the FDR filter ({e})") from e
+    sidecar = (compile_pairset(short_pats, ignore_case=ignore_case)
+               if short_pats else None)
+    confirm = [p for b in fdr.banks for p in b.patterns]
+    if sidecar is not None:
+        confirm += sidecar.patterns
+    return PatternPlan("fdr", "fdr", fdr=fdr, fdr_pairset=sidecar,
+                       confirm=ConfirmSet(confirm, ignore_case))
 
 
 def _host_re(pattern: str, ignore_case: bool) -> re.Pattern:
@@ -176,6 +291,16 @@ def check_pattern(pattern: str, ignore_case: bool = False) -> PatternPlan:
     if sa is not None:
         return PatternPlan("shift_and", "shift_and", shift_and=sa,
                            sa_filtered=filtered_for_device(sa))
+    lits = enumerate_literal_set(pattern, ignore_case=ignore_case)
+    if lits is not None and len(lits) >= 2:
+        try:
+            model = compile_fdr(lits, ignore_case=ignore_case)
+        except FdrError:
+            pass  # the regex routes below keep it
+        else:
+            plan = check_patterns(lits, ignore_case, fdr=model)
+            plan.route = "fdr_literal_set"
+            return plan
     try:
         table = compile_dfa(pattern, ignore_case=ignore_case)
         glushkov, is_filter = compile_scan_model(pattern,
@@ -239,18 +364,22 @@ def lines_match(
 
 
 class GrepEngine:
-    """Scan documents for one compiled pattern on one device."""
+    """Scan documents for one compiled pattern, or one literal set, on one
+    device.  Exactly one of ``pattern`` and ``patterns`` is given."""
 
     def __init__(
         self,
-        pattern: str | bytes,
+        pattern: str | bytes | None = None,
         *,
+        patterns: list[str | bytes] | None = None,
         ignore_case: bool = False,
         device: str | torch.device = "cuda",
         target_lanes: int = DEFAULT_TARGET_LANES,
         segment_bytes: int = DEFAULT_SEGMENT_BYTES,
         min_chunk: int = 256,
     ):
+        if (pattern is None) == (patterns is None):
+            raise ValueError("exactly one of pattern / patterns is required")
         self.device = resolve_device(device)
         if isinstance(pattern, bytes):
             pattern = pattern.decode("utf-8", "surrogateescape")
@@ -259,12 +388,16 @@ class GrepEngine:
                 "segment_bytes must be positive and target_lanes a positive "
                 "multiple of 32"
             )
-        self.pattern = pattern
         self.ignore_case = ignore_case
         self.target_lanes = target_lanes
         self.segment_bytes = segment_bytes
         self.min_chunk = min_chunk
-        plan = check_pattern(pattern, ignore_case)
+        if patterns is not None:
+            self.pattern = f"<set of {len(patterns)}>"
+            plan = check_patterns(patterns, ignore_case)
+        else:
+            self.pattern = pattern
+            plan = check_pattern(pattern, ignore_case)
         self.mode = plan.mode
         self.route = plan.route
         self.shift_and = plan.shift_and
@@ -277,6 +410,10 @@ class GrepEngine:
         self.glushkov_exact = plan.glushkov_exact
         self._nfa_filter = plan.nfa_filter
         self._re_fallback = plan.re_fallback
+        self.fdr = plan.fdr
+        self.pairset = plan.pairset
+        self.fdr_pairset = plan.fdr_pairset
+        self.confirm = plan.confirm
         self._stats_local = threading.local()
         self._copy_stream = None
         self._copy_lock = threading.Lock()
@@ -311,11 +448,25 @@ class GrepEngine:
                 self._copy_stream = torch.cuda.Stream(device=self.device)
             return self._copy_stream
 
+    @property
+    def stitch_window(self) -> int:
+        """Set modes: a kernel misses a match only where it ends within
+        ``stitch_window - 1`` bytes after a stripe or segment start (FDR
+        seeds prev = 0 and so hashes a wrong pair there, up to its m
+        slots deep; pairset seeds prev = '\\n' and misses only at the
+        first byte)."""
+        if self.mode == "pairset":
+            return self.pairset.window
+        return self.fdr.window
+
     def host_line_matcher(self, data, starts, ends) -> np.ndarray:
         """Exact host verdicts for the [starts, ends) line spans of
-        ``data``: the vectorized Shift-And, the DFA walk, or Python re."""
+        ``data``: the vectorized Shift-And, the confirm set, the DFA walk,
+        or Python re."""
         if self.mode == "shift_and":
             return lines_match(self.shift_and, data, starts, ends)
+        if self.confirm is not None:
+            return self.confirm.lines_match(data, starts, ends)
         if self.table is not None:
             return host_match.dfa_lines_match(self.table, data, starts, ends)
         return host_match.re_lines_match(self._re_fallback, data, starts, ends)
@@ -349,5 +500,6 @@ __all__ = [
     "SPAN_CONFIRM_LINE_LIMIT",
     "ScanResult",
     "check_pattern",
+    "check_patterns",
     "lines_match",
 ]

@@ -131,7 +131,7 @@ def test_nfa_kernel_matches_plain_on_card(card, chunk, lanes):
 
 
 @pytest.mark.parametrize("pattern,ic", [
-    ("(volcano|hallo)", False), ("^volc", True), ("volcano$", False),
+    ("(volcano|hal+o)", False), ("^volc", True), ("volcano$", False),
     (r"\bvolcano\b", False), ("vol[a-z]{2,9}o", False), ("hal*o", False),
 ])
 def test_regex_engine_on_card_equals_cpu(card, pattern, ic):
@@ -143,3 +143,108 @@ def test_regex_engine_on_card_equals_cpu(card, pattern, ic):
     want = GrepEngine(pattern, ignore_case=ic, device="cpu", **opts).scan(data)
     assert got.matched_lines.tolist() == want.matched_lines.tolist()
     assert got.matched_lines.size
+
+
+def _literals(n: int, lo: int, hi: int, seed: int) -> list[str]:
+    rng = np.random.default_rng(seed)
+    pats: set[str] = set()
+    while len(pats) < n:
+        pats.add("".join(chr(c) for c in rng.integers(
+            97, 123, size=int(rng.integers(lo, hi + 1)))))
+    return sorted(pats)
+
+
+def _set_models():
+    from distributed_grep_tpu_torch.models import fdr as port_fdr
+    from distributed_grep_tpu_torch.models import pairset as port_ps
+
+    banks = []
+    for pats in (["volcano", "hallo", "anarchism", "needle"],
+                 _literals(1000, 6, 12, 3), _literals(3000, 4, 6, 5)):
+        banks += port_fdr.compile_fdr(pats).banks
+    pairsets = [
+        port_ps.compile_pairset(["ab", "zq", "x", "Vo"]),
+        port_ps.compile_pairset([bytes([100 + i, b"uvwxyz"[j]])
+                                 for i in range(40) for j in range(6)
+                                 if (i + 1) >> j & 1]),
+        port_ps.compile_pairset(["LA", "he", "q"], ignore_case=True),
+    ]
+    return banks, pairsets
+
+
+@pytest.mark.parametrize("chunk,lanes", [(512, 4096), (1024, 65536), (160, 64)])
+def test_fdr_and_pairset_kernels_match_plain_on_card(card, chunk, lanes):
+    from distributed_grep_tpu_torch.ops import fdr_scan, pairset_scan
+
+    banks, pairsets = _set_models()
+    assert {b.m for b in banks} >= {2, 5} and any(
+        b.families == (0, 1) for b in banks)
+    assert any(p.transposed for p in pairsets)
+    text = _text(13, chunk * lanes)
+    arr = layout.to_device_array(
+        text.tobytes(), layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size))
+    arr[0:5, ::5] = np.frombuffer(b"hallo", np.uint8)[:, None]
+    dev = torch.from_numpy(arr).to(card)
+    for bank in banks:
+        for fold in (False, True):
+            before = fdr_scan.launches
+            got = fdr_scan.fdr_scan_words(dev, bank, fold)
+            torch.cuda.synchronize()
+            assert fdr_scan.launches == before + 1
+            want = fdr_scan.fdr_scan_words_plain(dev, bank, fold)
+            assert torch.equal(got, want), (bank.m, bank.checks, fold)
+    for model in pairsets:
+        got = pairset_scan.pairset_scan_words(dev, model)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pairset_scan.pairset_scan_words_plain(dev,
+                                                                     model))
+    # out=: the later banks and the sidecar OR into one plane
+    out = fdr_scan.fdr_scan_words(dev, banks[0])
+    fdr_scan.fdr_scan_words(dev, banks[1], out=out)
+    pairset_scan.pairset_scan_words(dev, pairsets[0], out=out)
+    want = (fdr_scan.fdr_scan_words_plain(dev, banks[0]).view(torch.int32)
+            | fdr_scan.fdr_scan_words_plain(dev, banks[1]).view(torch.int32)
+            | pairset_scan.pairset_scan_words_plain(dev, pairsets[0]).view(
+                torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want)
+
+
+@pytest.mark.parametrize("patterns,ic", [
+    (["volcano", "hallo", "ano v"], False),
+    (["VOLCANO", "hal", "#", "q"], True),
+    (["ab", "zq", "Vo"], False),
+])
+def test_set_engine_on_card_equals_cpu(card, patterns, ic):
+    from distributed_grep_tpu_torch.ops import fdr_scan, pairset_scan
+
+    data = _text(5, 3 << 20).tobytes()
+    opts = dict(target_lanes=4096, min_chunk=32, segment_bytes=1 << 20)
+    before = fdr_scan.launches + pairset_scan.launches
+    eng = GrepEngine(patterns=patterns, ignore_case=ic, device="cuda", **opts)
+    got = eng.scan(data)
+    assert fdr_scan.launches + pairset_scan.launches - before >= 3
+    want = GrepEngine(patterns=patterns, ignore_case=ic, device="cpu",
+                      **opts).scan(data)
+    assert got.matched_lines.tolist() == want.matched_lines.tolist()
+    assert got.matched_lines.size
+
+
+def test_set_job_on_card_byte_identical_to_cpu(card, tmp_path):
+    files = []
+    for i in range(3):
+        p = tmp_path / f"f{i}.txt"
+        p.write_bytes(_text(30 + i, 1 << 20).tobytes())
+        files.append(str(p))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        res = run_job(JobConfig(
+            input_files=files,
+            app_options={"patterns": _literals(200, 5, 9, 7) + ["volcano"],
+                         "target_lanes": 4096, "min_chunk": 32,
+                         "segment_bytes": 1 << 19},
+            work_dir=str(tmp_path / device)), n_workers=2, device=device)
+        outs[device] = {Path(p).name: Path(p).read_bytes()
+                        for p in res.output_files}
+    assert outs["cuda"] == outs["cpu"]
+    assert any(outs["cuda"].values())

@@ -174,7 +174,7 @@ def test_entry_points_raise_without_cuda(tmp_path, corpus, monkeypatch):
 
 
 @pytest.mark.parametrize("opt", [
-    {"patterns": ["a", "b"]}, {"max_errors": 1}, {"invert": True},
+    {"presence_only": True}, {"max_errors": 1}, {"invert": True},
     {"word_regexp": True}, {"count_only": True},
 ])
 def test_unported_app_options_raise(opt):

@@ -37,7 +37,10 @@ CONFIG4 = r"get /[a-z0-9/.-]{4,24}\.gif"
 
 # (pattern, -i, route): every route over the vocabulary of CASES
 PATTERNS = [
-    ("(volcano|hallo)", False, "nfa"),
+    # a finite literal set: decomposed onto the set kernels (the id dates
+    # from before literal decomposition, when the NFA kernel ran it)
+    pytest.param("(volcano|hallo)", False, "fdr_literal_set",
+                 id="(volcano|hallo)-False-nfa"),
     ("vol(cano)?", True, "nfa"),
     ("h[ae]l+o", False, "nfa"),
     ("^(the|x) ", False, "nfa"),
