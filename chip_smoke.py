@@ -14,7 +14,9 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          kernel (the banks of BASELINE configs 2, 3 and 5 and a two-family
          bank with 1024-entry tables, each with and without case folding)
          and the pairset kernel (both orientations, a -i set), and both
-         ORing into an existing word plane (out=).
+         ORing into an existing word plane (out=); the Wu-Manber approx
+         kernel (k = 1, 2, 3 and -i) and the SWAR packed Shift-And kernel
+         ('volcano', its filter, '-i Volcano', 'being it').
 Phase 3  the main path at real size, each query through runtime.job.run_job
          on "cuda" and checked line for line against ``LC_ALL=C grep -na``
          with the query's -F, -E, -i or -f.  Corpora made from --seed: 8
@@ -39,8 +41,14 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          literals (FDR, sparse, the stitch), config 5's 10,000 literals on
          the PCAP records (FDR, dense candidates, the host confirm), a
          2-byte set on the PCAP records (the pairset kernel) and config
-         3's set plus '#' (the FDR kernel with the pairset sidecar) --
-         plus the CLI on one file.  The launch counts of all kernels are
+         3's set plus '#' (the FDR kernel with the pairset sidecar);
+         '--max-errors 1 volcano', '--max-errors 2 -i volcano' and a k = 3
+         class sequence on the approx kernel, over errorful needles (some
+         across stripe starts: the window stitch), each checked against
+         Sellers' edit-distance DP on the lines ``grep`` finds for any of
+         the pattern's k+1 pieces; 'volcano', '-i Volcano' and 'being it'
+         again with DGREP_SWAR=1 on the SWAR kernel -- plus the CLI on one
+         file.  The launch counts of all kernels are
          zeroed just before the queries and read just after.  Then the
          kernels, their plain versions, the sparse fetch and the confirm
          set are timed at the main path's segment shape.
@@ -66,10 +74,12 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / ".smoke"  # git-ignored: corpus and job state, removed at exit
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-# 32-bit integer issue rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
-# (an SM has half as many INT32 as FP32 lanes; the 67 TFLOP/s fp32 figure
-# counts an FMA as two operations).
-H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit operation issue rate: 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz
+# boost (the 67 TFLOP/s fp32 figure, an FMA counted as two).  An SM has 64
+# INT32 lanes, but the compiler moves integer multiply-adds, moves and
+# shifts (IMAD.*) onto the FP32 pipe, so integer code can retire up to 128
+# operations per clock: the approx kernel ran faster than 64 allow.
+H100_ALU_OPS_PER_S = 132 * 128 * 1.98e9
 SHIFT_AND_OPS_PER_BYTE = 5  # load, table lookup, shift-or, and, accumulate
 # csrc/nfa.cu per input byte, counting a three-input logic operation as
 # one: 3 (byte load, newline test, output bit) plus 5 per state word (B
@@ -93,6 +103,17 @@ PAIRSET_OPS_PER_BYTE = 8
 # Shared-memory lookups at random addresses: 32 four-byte banks per SM, one
 # access each per clock, 132 SMs at 1.98 GHz.
 H100_SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
+# csrc/approx.cu per input byte: 10 (byte load, table lookup and its
+# address, newline test, the two operations of R_0, the select of R_0, the
+# output bit's test, shift and or) plus 9 per further row (its shift and
+# and-or, the shifts of R_{j-1} and of the new R'_{j-1}, the or of the four
+# terms and the seed, the select of the newline reset).
+APPROX_OPS_PER_BYTE = 10
+APPROX_OPS_PER_ROW = 9
+# csrc/shift_and_swar.cu per packed uint32 (four input bytes): three byte
+# extracts, four table lookups, three ors, the shift, the or-and of the step
+# and the accumulate -- 14, so 3.5 per input byte; one lookup per byte.
+SWAR_OPS_PER_BYTE = 3.5
 
 CONFIG2_WORDS = ["volcano", "anarchism", "philosophy", "needle", "wikipedia",
                  "quantum", "zeppelin", "obsidian"]
@@ -105,6 +126,20 @@ CONFIG4 = r"get /[a-z0-9/.-]{4,24}\.gif"
 WIDE_WORDS = ["volcano", "anarchism", "philosophy", "wikipedia", "quantum",
               "zeppelin", "obsidian", "telescope", "metabolic", "hurricane",
               "labyrinth", "xylophone"]
+# The approx queries: (pattern, k, -i, the k+1 pieces of the oracle's
+# prefilter).  A match within k edits leaves one of any k+1 disjoint pieces
+# of the pattern intact (pigeonhole), so the lines that hold a piece are a
+# superset of the matching lines; each split below avoids pieces common in
+# the words corpus where it can ('ano' is in 'another').
+K3 = "[Ss]chwarzen[ae]"  # a name search with typos: 10 symbols, 2 classes
+APPROX_QUERIES = [
+    ("volcano", 1, False, ["vol", "cano"]),
+    ("volcano", 2, True, ["vo", "lc", "ano"]),
+    (K3, 3, False, ["[Ss]c", "hw", "arz", "en[ae]"]),
+]
+# the bases of the errorful needles (1..3 random edits each)
+APPROX_BASES = [b"volcano", b"Volcano", b"VOLCANO", b"Schwarzene",
+                b"schwarzena"]
 
 _WORDS = (
     "the of and to in a is that for it as was with be by on not he his but "
@@ -290,6 +325,22 @@ def config5_set() -> list[bytes]:
             for p in rand_literals(10_000, 5, 9, seed=5, alphabet=alphabet)]
 
 
+def errorful(rng, base: bytes) -> bytes:
+    """``base`` after 1..3 random edits: each substitutes, inserts or
+    deletes a lowercase letter at a random place."""
+    b = bytearray(base)
+    for _ in range(int(rng.integers(1, 4))):
+        op, p = int(rng.integers(0, 3)), int(rng.integers(0, len(b)))
+        ch = int(rng.integers(97, 123))
+        if op == 0:
+            b[p] = ch
+        elif op == 1:
+            b.insert(p, ch)
+        elif len(b) > 1:
+            del b[p]
+    return bytes(b)
+
+
 def put(data, where, members) -> None:
     """Overwrite data at each offset of ``where`` with the next member."""
     import numpy as np
@@ -303,6 +354,7 @@ def make_corpus(seed: int, n_files: int, file_bytes: int) -> list[Path]:
     import numpy as np
 
     rng = np.random.default_rng(seed)
+    erng = np.random.default_rng(seed + 11)
     block = words_block(rng, 64 << 20)
     needles = [b"volcano", b"Volcano", b"VOLCANO", b"volCANo"]
     members = config3_set()
@@ -331,6 +383,19 @@ def make_corpus(seed: int, n_files: int, file_bytes: int) -> list[Path]:
         put(data, heads[:100], [b"the new "])
         put(data, heads[100:] - 3,
             [members[k] for k in rng.integers(0, 1000, size=100).tolist()])
+        # the approx queries' errorful needles, from a generator of their
+        # own (the draws above stay as they were): 500 per 64 MB, and 100
+        # from 3 bytes before stripe starts the lines above left alone,
+        # where the approx kernel misses them and the window stitch adds
+        # them
+        n_err = 500 * file_bytes // (64 << 20)
+        variants = [errorful(erng, APPROX_BASES[k]) for k in erng.integers(
+            0, len(APPROX_BASES), size=n_err + 100).tolist()]
+        put(data, np.sort(erng.choice(file_bytes - 16, size=n_err,
+                                      replace=False)), variants[:n_err])
+        free = np.setdiff1d(np.arange(1, file_bytes // 1024) * 1024, heads)
+        put(data, erng.choice(free, size=100, replace=False) - 3,
+            variants[n_err:])
         path = corpus / f"part-{i:02d}.txt"
         data.tofile(path)
         paths.append(path)
@@ -385,6 +450,99 @@ def grep_oracle_lines(path: Path, grep_args: list[str]) -> list[tuple[int, str]]
         num, _, text = ln.partition(b":")
         pairs.append((int(num), text.decode("utf-8", "replace")))
     return pairs
+
+
+def symbol_masks(pattern: str, ic: bool):
+    """(m, 256) bool: the byte set of each symbol of a literal / bracket
+    sequence (single characters and '[...]' lists of single characters,
+    the forms of APPROX_QUERIES), both cases with ``ic``."""
+    import numpy as np
+
+    sets, i = [], 0
+    while i < len(pattern):
+        if pattern[i] == "[":
+            j = pattern.index("]", i)
+            sets.append(pattern[i + 1 : j])
+            i = j + 1
+        else:
+            sets.append(pattern[i])
+            i += 1
+    masks = np.zeros((len(sets), 256), dtype=bool)
+    for j, chars in enumerate(sets):
+        for ch in chars:
+            for c in {ch, ch.lower(), ch.upper()} if ic else {ch}:
+                masks[j, ord(c)] = True
+    return masks
+
+
+def sellers_match(lines: list[bytes], masks, k: int):
+    """Per line: does some substring match the symbol sequence ``masks``
+    within k edits?  Sellers' edit-distance DP (free start and end in the
+    text), vectorized over lines sorted by length in blocks, one numpy step
+    per text column; the column's deletion chain is a running minimum:
+    D[j] = j + min over i <= j of (T[i] - i), T the substitution /
+    insertion candidates and T[0] = 0.  Independent of the port's
+    bit-parallel recurrence."""
+    import numpy as np
+
+    m = masks.shape[0]
+    lens = np.fromiter((len(x) for x in lines), dtype=np.int64,
+                       count=len(lines))
+    order = np.argsort(lens, kind="stable")
+    out = np.zeros(len(lines), dtype=bool)
+    jcol = np.arange(m + 1, dtype=np.int16)[:, None]
+    for lo in range(0, len(lines), 65536):
+        sel = order[lo : lo + 65536]
+        ln = lens[sel]
+        width = max(int(ln.max()), 1)
+        mat = np.zeros((sel.size, width), dtype=np.uint8)
+        flat = np.frombuffer(b"".join(lines[i] for i in sel.tolist()),
+                             np.uint8)
+        rows = np.repeat(np.arange(sel.size), ln)
+        cols = np.arange(flat.size) - np.repeat(np.cumsum(ln) - ln, ln)
+        mat[rows, cols] = flat
+        prev = np.repeat(jcol, sel.size, axis=1)  # D[0][j] = j
+        best = np.full(sel.size, m, dtype=np.int16)
+        for c in range(width):
+            miss = ~masks[:, mat[:, c]]  # (m, n): symbol j-1 misses
+            t = np.minimum(prev[:-1] + miss, prev[1:] + 1) - jcol[1:]
+            cur = jcol + np.minimum.accumulate(
+                np.vstack((np.zeros((1, sel.size), np.int16), t)), axis=0)
+            live = c < ln
+            best[live] = np.minimum(best[live], cur[m, live])
+            prev = cur
+        out[sel] = best <= k
+    return out
+
+
+def approx_oracle_lines(path: Path, pattern: str, k: int, ic: bool,
+                        pieces: list[str]) -> list[tuple[int, str]]:
+    """The approx queries' oracle: ``LC_ALL=C grep -na -E`` over the
+    pattern's k+1 pieces (with -i) picks the lines that can match, and
+    Sellers' DP (``sellers_match``) keeps those within k edits.  (line
+    number, line) pairs, decoded as the grep app decodes them."""
+    args = ["-E", *(["-i"] if ic else [])]
+    for p in pieces:
+        args += ["-e", p]
+    if shutil.which("grep") is None:
+        raise RuntimeError("grep not found: it is the prefilter of the "
+                           "approx oracle")
+    out = subprocess.run(["grep", "-na", *args, str(path)],
+                         capture_output=True, timeout=900,
+                         env={**os.environ, "LC_ALL": "C"})
+    if out.returncode > 1:
+        raise RuntimeError(f"grep prefilter failed: {out.stderr[:300]!r}")
+    raw = out.stdout.split(b"\n")
+    if raw and not raw[-1]:
+        raw.pop()
+    nums, texts = [], []
+    for ln in raw:
+        num, _, text = ln.partition(b":")
+        nums.append(int(num))
+        texts.append(text)
+    keep = sellers_match(texts, symbol_masks(pattern, ic), k)
+    return [(n, t.decode("utf-8", "replace"))
+            for n, t, ok in zip(nums, texts, keep.tolist()) if ok]
 
 
 def job_lines(res) -> dict[str, list[tuple[int, str]]]:
@@ -551,6 +709,13 @@ def set_models(fdr_mod, ps_mod) -> tuple[dict, dict]:
     return banks, pairsets
 
 
+def words_err(torch, got, want) -> int:
+    """Largest absolute difference of two uint32 word planes."""
+    g = got.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    w = want.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return int((g - w).abs().max())
+
+
 def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
                       ps_mod) -> tuple[int, int]:
     """FDR and pairset kernel words vs their plain versions (run on the
@@ -562,11 +727,6 @@ def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
     banks, pairsets = set_models(fdr_mod, ps_mod)
     plants = config3_set()[:50] + config5_set()[:50] + PAIR_SET + [
         w.encode() for w in CONFIG2_WORDS] + [b"NEEDLE", b"LaHe"]
-
-    def err_of(got, want) -> int:
-        g = got.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-        w = want.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-        return int((g - w).abs().max())
 
     worst = {"fdr": 0, "pairset": 0}
     for chunk, lanes in SET_SHAPES:
@@ -598,7 +758,7 @@ def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
                     got = pairset_scan.pairset_scan_words(dev, model)
                     torch.cuda.synchronize()
                     want = pairset_scan.pairset_scan_words_plain(dev, model)
-                err = err_of(got, want)
+                err = words_err(torch, got, want)
                 worst[kernel] = max(worst[kernel], err)
                 if not torch.equal(got, want) or err:
                     raise AssertionError(
@@ -626,6 +786,121 @@ def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
             log(f"  ok out= OR of config2 + config3 banks + 2-byte set "
                 f"{corpus:5s} chunk={chunk:5d} lanes={lanes:6d}")
     return worst["fdr"], worst["pairset"]
+
+
+def approx_models(ax_mod) -> dict:
+    """The approx kernel's models: the three approx queries (k = 1, 2 with
+    -i, 3 on a class sequence) and k = 3 with -i."""
+    models = {f"{p} k={k}{' -i' if ic else ''}":
+              ax_mod.try_compile_approx(p, k, ignore_case=ic)
+              for p, k, ic, _pieces in APPROX_QUERIES}
+    models["Volcano k=3 -i"] = ax_mod.try_compile_approx("Volcano", 3, True)
+    assert all(m is not None for m in models.values()), models
+    return models
+
+
+def swar_models(sa_mod) -> dict:
+    """The SWAR kernel's models: the SWAR queries' full models and the
+    volcano filter, each ``swar_values``-eligible."""
+    full = sa_mod.try_compile_shift_and("volcano")
+    models = {
+        "volcano": full,
+        "volcano-filter": sa_mod.filtered_for_device(full),
+        "-i Volcano": sa_mod.try_compile_shift_and("Volcano", True),
+        "being it": sa_mod.try_compile_shift_and("being it"),
+    }
+    assert all(sa_mod.swar_values(m) is not None for m in models.values())
+    return models
+
+
+def compare_words(torch, np, label: str, kernel, plain, models: dict,
+                  shapes, lane_multiple: int, seed: int, needles,
+                  edits) -> int:
+    """``kernel`` against ``plain`` (both run on the card) for every model,
+    bit for bit, at each (chunk, lanes) of ``shapes``: words text with
+    ``needles(rng, n)`` put at random places (one per 2000 bytes), then
+    each (rows, lanes, bytes) of ``edits`` written down those lanes of the
+    layout.  Returns the largest absolute difference seen."""
+    from distributed_grep_tpu_torch.ops.layout import choose_layout, to_device_array
+
+    rng = np.random.default_rng(seed)
+    worst = 0
+    for chunk, lanes in shapes:
+        text = words_block(rng, chunk * lanes)
+        n = max(16, text.size // 2000)
+        put(text, rng.choice(text.size - 24, size=n, replace=False),
+            needles(rng, n))
+        lay = choose_layout(text.size, target_lanes=lanes, min_chunk=chunk,
+                            lane_multiple=lane_multiple, chunk_multiple=32)
+        assert (lay.chunk, lay.lanes) == (chunk, lanes), lay
+        arr = to_device_array(text.tobytes(), lay)
+        for rows, cols, needle in edits:
+            arr[rows, cols] = np.frombuffer(needle, np.uint8)[:, None]
+        dev = torch.from_numpy(arr).cuda()
+        for name, model in models.items():
+            got = kernel(dev, model)
+            torch.cuda.synchronize()
+            want = plain(dev, model)
+            err = words_err(torch, got, want)
+            worst = max(worst, err)
+            nz = int(torch.count_nonzero(want.view(torch.int32)))
+            if not torch.equal(got, want) or err or not nz:
+                raise AssertionError(
+                    f"{label} kernel != plain (or no match): {name} "
+                    f"chunk={chunk} lanes={lanes} max_abs_err={err} "
+                    f"nonzero={nz}")
+            log(f"  ok {label} {name:24s} chunk={chunk:5d} lanes={lanes:6d} "
+                f"nonzero words={nz}")
+    return worst
+
+
+def phase_approx_kernels(torch, np, approx_scan, ax_mod) -> int:
+    """Approx kernel words vs the plain version's at the main path's
+    segment shape and a small one: errorful needles in the text, one at
+    every 5th stripe head and one across a word edge."""
+    return compare_words(
+        torch, np, "approx", approx_scan.approx_scan_words,
+        approx_scan.approx_scan_words_plain, approx_models(ax_mod),
+        [(1024, 65536), (160, 64)], 32, 1357,
+        lambda rng, n: [errorful(rng, APPROX_BASES[k]) for k in
+                        rng.integers(0, len(APPROX_BASES), size=n).tolist()],
+        [(slice(0, 7), slice(None, None, 5), b"volcxno"),
+         (slice(27, 37), slice(3, 4), b"Schwarzeen")])
+
+
+def phase_swar_kernels(torch, np, swar_scan, sa_mod) -> int:
+    """SWAR kernel words vs the plain version's at the main path's segment
+    shape and a small one: the queries' needles in the text and 'volcano'
+    across a word edge of every 7th stripe."""
+    return compare_words(
+        torch, np, "swar", swar_scan.swar_scan_words,
+        swar_scan.swar_scan_words_plain, swar_models(sa_mod),
+        [(1024, 65536), (160, 128)], 128, 8642,
+        lambda rng, n: [b"volcano", b"VOLCANO", b"being it"],
+        [(slice(29, 36), slice(1, None, 7), b"volcano")])
+
+
+def sass_counts(build, name: str) -> dict[str, int]:
+    """SASS instructions of each kernel function in the build of
+    csrc/<name>.cu (``cuobjdump -sass`` beside nvcc), or {} without
+    cuobjdump.  A kernel's 32 steps per word are unrolled, so a count over
+    32 is close to its instructions per input byte (per packed uint32 for
+    the SWAR kernel, whose loop holds two words)."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(build._target(name))],
+                         capture_output=True, text=True, timeout=120)
+    counts: dict[str, int] = {}
+    func = None
+    for line in out.stdout.splitlines():
+        text = line.strip()
+        if text.startswith("Function : "):
+            func = text[len("Function : "):]
+            counts[func] = 0
+        elif func is not None and text.startswith("/*") and ";" in text:
+            counts[func] += 1
+    return counts
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -661,16 +936,19 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from distributed_grep_tpu_torch.apps import grep_cuda
+        from distributed_grep_tpu_torch.models import approx as ax_mod
         from distributed_grep_tpu_torch.models import fdr as fdr_mod
         from distributed_grep_tpu_torch.models import nfa as nfa_mod
         from distributed_grep_tpu_torch.models import pairset as ps_mod
         from distributed_grep_tpu_torch.models import shift_and as sa_mod
         from distributed_grep_tpu_torch.ops import (
             _build,
+            approx_scan,
             cuda_scan,
             fdr_scan,
             nfa_scan,
             pairset_scan,
+            swar_scan,
         )
         from distributed_grep_tpu_torch.ops.confirm_set import ConfirmSet
         from distributed_grep_tpu_torch.ops.layout import (
@@ -690,7 +968,8 @@ def main() -> int:
     import numpy as np
 
     counters = {"shift_and": cuda_scan, "nfa": nfa_scan, "fdr": fdr_scan,
-                "pairset": pairset_scan}
+                "pairset": pairset_scan, "approx": approx_scan,
+                "shift_and_swar": swar_scan}
     t_all = time.perf_counter()
     # ---------------------------------------------------------- phase 1
     card = card_line()
@@ -707,6 +986,10 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    for name in ("shift_and", "approx", "shift_and_swar"):
+        for func, n in sass_counts(_build, name).items():
+            log(f"  sass {name}: {func}: {n} instructions ({n / 32:.1f} "
+                f"per step of 32)")
 
     # ---------------------------------------------------------- phase 2
     log("== phase 2: kernels vs plain versions (tolerance 0: integer words)")
@@ -720,6 +1003,12 @@ def main() -> int:
     fdr_err, ps_err = phase_set_kernels(torch, np, fdr_scan, pairset_scan,
                                         fdr_mod, ps_mod)
     log(f"fdr and pairset checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    approx_err = phase_approx_kernels(torch, np, approx_scan, ax_mod)
+    log(f"approx checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    swar_err = phase_swar_kernels(torch, np, swar_scan, sa_mod)
+    log(f"swar checks: {time.perf_counter() - t0:.1f} s")
     log("phase 2 launches (comparisons, not counted): "
         + ", ".join(f"{k} {m.launches}" for k, m in counters.items()))
     if args.kernels_only:
@@ -790,6 +1079,19 @@ def main() -> int:
              ["pairset"]),
             ("config3 + '#'", {"patterns": set3 + [b"#"]}, words,
              members("mixed"), ["fdr", "pairset"]),
+            # approx: the oracle is Sellers' DP over grep's prefilter lines
+            *[(f"--max-errors {k}{' -i' if ic else ''} {p}",
+               {**single(p, ic), "max_errors": k}, words,
+               {"approx": (p, k, ic, pieces)}, ["approx"])
+              for p, k, ic, pieces in APPROX_QUERIES],
+            # SWAR (DGREP_SWAR=1 for these three only): the Shift-And
+            # queries again, on the packed kernel
+            ("SWAR volcano", single("volcano"), words, fixed("volcano"),
+             ["shift_and_swar"]),
+            ("SWAR -i Volcano", single("Volcano", True), words,
+             fixed("Volcano", True), ["shift_and_swar"]),
+            ("SWAR being it", single("being it"), words, fixed("being it"),
+             ["shift_and_swar"]),
         ]
 
         def n_segments(files) -> int:
@@ -800,13 +1102,19 @@ def main() -> int:
             m.reset_launches()
         for label, opts, files, _oracle, _k in queries:
             before = {k: m.launches for k, m in counters.items()}
+            os.environ.pop("DGREP_SWAR", None)
+            if label.startswith("SWAR "):
+                os.environ["DGREP_SWAR"] = "1"
             cfg = JobConfig(
                 input_files=[str(p) for p in files],
                 app_options=dict(opts), n_reduce=10, task_timeout_s=60.0,
                 work_dir=str(WORK / f"job-{len(per_query)}"),
             )
             t0 = time.perf_counter()
-            res = run_job(cfg, n_workers=args.workers, device="cuda")
+            try:
+                res = run_job(cfg, n_workers=args.workers, device="cuda")
+            finally:
+                os.environ.pop("DGREP_SWAR", None)
             wall = time.perf_counter() - t0
             totals = dict(grep_cuda._engine.totals)
             totals.update(res.metrics["seconds"])
@@ -823,7 +1131,9 @@ def main() -> int:
             got = job_lines(res)
             n_rec = 0
             for p in files:
-                want = grep_oracle_lines(p, oracle)
+                want = (approx_oracle_lines(p, *oracle["approx"])
+                        if isinstance(oracle, dict)
+                        else grep_oracle_lines(p, oracle))
                 if got.get(str(p), []) != want:
                     raise AssertionError(
                         f"query {label}: job output for {p.name} differs "
@@ -853,7 +1163,15 @@ def main() -> int:
                 "2-byte set": route == "pairset"
                 and totals.get("stitch_added", 0) > 0,
                 "config3 + '#'": route == "fdr",
+                "SWAR volcano": totals.get("swar", 0),
+                "SWAR -i Volcano": totals.get("swar", 0),
+                "SWAR being it": totals.get("swar", 0)
+                and totals.get("dense_confirms", 0)
+                and totals.get("filter_defeated", 0),
             }
+            if isinstance(oracle, dict):  # approx: the window stitch added
+                checks[label] = (route == "approx"
+                                 and totals.get("stitch_added", 0) > 0)
             if not checks.get(label, True):
                 raise AssertionError(
                     f"query {label}: route {route}, launches {launched}, "
@@ -917,7 +1235,7 @@ def main() -> int:
         for _ in range(10):
             idx, _v = sparse_nonzero(sa_words)
         fetch_ms = (time.perf_counter() - t0) * 100
-        ops_ms = SHIFT_AND_OPS_PER_BYTE * n_in / H100_INT32_OPS_PER_S * 1e3
+        ops_ms = SHIFT_AND_OPS_PER_BYTE * n_in / H100_ALU_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         gbs = len(seg) / (ms / 1e3) / 1e9
         log(f"kernel shift_and coarse, volcano filter, chunk={lay.chunk} "
@@ -954,7 +1272,7 @@ def main() -> int:
             ops = n_in * (NFA_OPS_PER_BYTE + NFA_OPS_PER_WORD * model.n_words)
             ops += sum(lv * k * (2 + model.n_words)
                        for lv, k in zip(live, spec_per_word))
-            o_ms = ops / H100_INT32_OPS_PER_S * 1e3
+            o_ms = ops / H100_ALU_OPS_PER_S * 1e3
             nfa_rows[name] = (k_ms, p_ms, max(bytes_ms, o_ms), o_ms)
             log(f"kernel nfa {name}: words={model.n_words} "
                 f"specials={model.n_specials} (live special-word steps "
@@ -990,7 +1308,7 @@ def main() -> int:
                 p_ms = cuda_ms(torch, lambda: (
                     pairset_scan.pairset_scan_words_plain(arr, model)), 2)
                 per_byte, lookups = PAIRSET_OPS_PER_BYTE, 2
-            o_ms = per_byte * n_in / H100_INT32_OPS_PER_S * 1e3
+            o_ms = per_byte * n_in / H100_ALU_OPS_PER_S * 1e3
             s_ms = lookups * n_in / H100_SMEM_LOOKUPS_PER_S * 1e3
             b_ms = max(bytes_ms, o_ms, s_ms)
             set_rows[name] = (k_ms, p_ms, b_ms,
@@ -1004,6 +1322,57 @@ def main() -> int:
                 f"{bytes_ms:.4f}, ops {o_ms:.4f} at {per_byte} per byte, "
                 f"shared-memory lookups {s_ms:.4f} at {lookups} per byte) "
                 f"[{card}]")
+
+        # the approx kernel on the words segment, one model per k
+        n_smem_ms = n_in / H100_SMEM_LOOKUPS_PER_S * 1e3  # one lookup a byte
+        approx_rows = {}
+        for name, model in approx_models(ax_mod).items():
+            if name.startswith("Volcano"):
+                continue  # phase 2's extra -i model: the queries' three
+            k_ms = cuda_ms(torch, lambda: approx_scan.approx_scan_words(
+                dev, model), 20)
+            p_ms = cuda_ms(torch, lambda: approx_scan.approx_scan_words_plain(
+                dev, model), 1)
+            per_byte = APPROX_OPS_PER_BYTE + APPROX_OPS_PER_ROW * model.k
+            o_ms = per_byte * n_in / H100_ALU_OPS_PER_S * 1e3
+            b_ms = max(bytes_ms, o_ms, n_smem_ms)
+            approx_rows[model.k] = (k_ms, p_ms, b_ms,
+                                    "bytes" if b_ms == bytes_ms
+                                    else "operations")
+            log(f"kernel approx {name}: chunk={lay.chunk} lanes={lay.lanes}: "
+                f"{k_ms:.4f} ms = {n_in / (k_ms / 1e3) / 1e9:.1f} GB/s; plain "
+                f"version on the card {p_ms:.1f} ms; bound {b_ms:.4f} ms "
+                f"(bytes {bytes_ms:.4f}, ops {o_ms:.4f} at {per_byte} per "
+                f"byte, shared-memory lookups {n_smem_ms:.4f}) [{card}]")
+
+        # the SWAR kernel beside the Shift-And kernel on the same tensor and
+        # model (the volcano filter), in turns: unpacked, packed, packed,
+        # unpacked
+        sw_out = n_in // 32  # (chunk / 32) x (lanes / 4) uint32
+        sw_bytes_ms = (n_in + sw_out) / H100_BYTES_PER_S * 1e3
+        sw_ops_ms = SWAR_OPS_PER_BYTE * n_in / H100_ALU_OPS_PER_S * 1e3
+        sw_bound_ms = max(sw_bytes_ms, sw_ops_ms, n_smem_ms)
+        turns = []
+        for packed in (False, True, True, False):
+            turns.append(cuda_ms(torch, (
+                lambda: swar_scan.swar_scan_words(dev, filt)) if packed else (
+                lambda: cuda_scan.shift_and_scan_words(dev, filt, True)), 20))
+        sw_ms = (turns[1] + turns[2]) / 2
+        sa_turn_ms = (turns[0] + turns[3]) / 2
+        sw_full_ms = cuda_ms(torch, lambda: swar_scan.swar_scan_words(
+            dev, full), 20)
+        sw_plain_ms = cuda_ms(torch, lambda: swar_scan.swar_scan_words_plain(
+            dev, filt), 2)
+        log(f"kernel shift_and_swar, volcano filter, chunk={lay.chunk} "
+            f"lanes={lay.lanes}: {sw_ms:.4f} ms = "
+            f"{n_in / (sw_ms / 1e3) / 1e9:.1f} GB/s (turns "
+            f"{turns[1]:.4f}, {turns[2]:.4f}) vs csrc/shift_and.cu "
+            f"{sa_turn_ms:.4f} ms (turns {turns[0]:.4f}, {turns[3]:.4f}): "
+            f"SWAR {sa_turn_ms / sw_ms:.3f}x; full model {sw_full_ms:.4f} ms; "
+            f"plain version on the card {sw_plain_ms:.2f} ms; bound "
+            f"{sw_bound_ms:.4f} ms (bytes {sw_bytes_ms:.4f}, ops "
+            f"{sw_ops_ms:.4f}, shared-memory lookups {n_smem_ms:.4f}) "
+            f"[{card}]")
 
         # the confirm set on config 5's real candidates of one segment
         words5 = fdr_scan.fdr_scan_words(dev_pc, banks["config5"])
@@ -1062,6 +1431,31 @@ def main() -> int:
         "plain_ms": fdr_plain_ms,
         "bound_ms": fdr_bound_ms,
         "bound_by": fdr_by,
+        "library_ms": None,
+    }, {
+        "name": "approx",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/approx.cu",
+        "replaces": "distributed_grep_tpu/ops/pallas_approx.py:43",
+        "launches": main_launches["approx"],
+        "max_abs_err": approx_err,
+        "ms": approx_rows[1][0],
+        "plain_ms": approx_rows[1][1],
+        "bound_ms": approx_rows[1][2],
+        "bound_by": approx_rows[1][3],
+        "library_ms": None,
+    }, {
+        "name": "shift_and_swar",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/shift_and_swar.cu",
+        "replaces": "distributed_grep_tpu/ops/pallas_scan.py:319",
+        "launches": main_launches["shift_and_swar"],
+        "max_abs_err": swar_err,
+        "ms": sw_ms,
+        "plain_ms": sw_plain_ms,
+        "bound_ms": sw_bound_ms,
+        "bound_by": ("bytes" if sw_bound_ms == sw_bytes_ms
+                     else "operations"),
         "library_ms": None,
     }, {
         "name": "pairset",

@@ -1,7 +1,7 @@
 """Command line: distributed grep on the card.
 
     python -m distributed_grep_tpu_torch grep [PATTERN] FILE... [-i]
-        [-e PATTERN]... [-f FILE] [-F] [-E]
+        [-e PATTERN]... [-f FILE] [-F] [-E] [--max-errors K]
         [--workers N] [--n-reduce R] [--device cuda|cpu] [--work-dir DIR]
 
 Prints ``<abs path> (line number #N) <line>`` for every matching line, in
@@ -26,6 +26,12 @@ CLI (and GNU grep):
   -F          PATTERN / -e patterns are literal strings; a newline inside
               one separates members of a set;
   -E          with -f: the lines are regexes (-E with -F exits 2).
+
+  --max-errors K
+              agrep: lines holding a match of PATTERN within K edit
+              errors (K = 1..3), on the Wu-Manber kernel; PATTERN must be
+              one literal or class sequence of at most 32 symbols (exit 2
+              otherwise, and with -f or a set of -F patterns).
 
 A positional PATTERN displaced by -e or -f is the first input file.
 Literal sets run on the FDR filter kernel, with an exact host confirm, or,
@@ -59,6 +65,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="treat PATTERN / -e patterns as literal strings")
     g.add_argument("-E", "--extended-regexp", action="store_true",
                    help="with -f: treat pattern-file lines as regexes")
+    g.add_argument("--max-errors", type=int, default=0, metavar="K",
+                   help="agrep: match within K edit errors (literal/class "
+                        "patterns, K=1..3)")
     g.add_argument("--workers", type=int, default=2,
                    help="in-process worker threads")
     g.add_argument("--n-reduce", type=int, default=10)
@@ -186,6 +195,22 @@ def _resolve_pattern_args(args: argparse.Namespace) -> tuple[int, list | None]:
     return 0, patterns
 
 
+def _check_max_errors(args: argparse.Namespace, patterns) -> int:
+    """The reference CLI's --max-errors refusals: 0, or 2 after printing
+    the diagnostic."""
+    from distributed_grep_tpu_torch.models.approx import MAX_ERRORS
+    from distributed_grep_tpu_torch.models.shift_and import try_compile_shift_and
+
+    if patterns:
+        return _error("--max-errors applies to a single pattern, not -f")[0]
+    if not 1 <= args.max_errors <= MAX_ERRORS:
+        return _error(f"--max-errors must be 1..{MAX_ERRORS}")[0]
+    if try_compile_shift_and(args.pattern, ignore_case=args.ignore_case) is None:
+        return _error("--max-errors needs a literal/class-sequence pattern "
+                      "of <= 32 symbols")[0]
+    return 0
+
+
 def cmd_grep(args: argparse.Namespace) -> int:
     from distributed_grep_tpu_torch.models.dfa import RegexError
     from distributed_grep_tpu_torch.ops.engine import check_pattern
@@ -198,10 +223,14 @@ def cmd_grep(args: argparse.Namespace) -> int:
     rc, patterns = _resolve_pattern_args(args)
     if rc:
         return rc
+    if args.max_errors:
+        rc = _check_max_errors(args, patterns)
+        if rc:
+            return rc
     if not args.files:
         print("error: no input FILE given", file=sys.stderr)
         return 2
-    if patterns is None:
+    if patterns is None and not args.max_errors:
         try:
             check_pattern(args.pattern, args.ignore_case)
         except RegexError as e:
@@ -213,7 +242,7 @@ def cmd_grep(args: argparse.Namespace) -> int:
         print(f"error: cannot read: {', '.join(bad)}", file=sys.stderr)
         return 2
     query = ({"patterns": patterns} if patterns is not None
-             else {"pattern": args.pattern})
+             else {"pattern": args.pattern, "max_errors": args.max_errors})
     cfg = JobConfig(
         input_files=[str(Path(f).resolve()) for f in args.files],
         app_options={**query, "ignore_case": args.ignore_case},

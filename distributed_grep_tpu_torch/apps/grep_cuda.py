@@ -6,12 +6,12 @@ utf-8/replace; Reduce is the identity (keys are unique per (file, line)).
 Map scans the whole split with GrepEngine (the CUDA Shift-And kernel for
 literals and byte-class sequences, the FDR filter and pairset kernels for
 literal sets -- ``patterns`` -- and for regexes that denote one, the
-Glushkov NFA kernel for other regexes) and slices only the matched lines
+Glushkov NFA kernel for other regexes, the Wu-Manber kernel for
+``max_errors=k`` approximate matching) and slices only the matched lines
 out of the buffer.
 
-Options outside this package's slices (-v/-w/-x, counts, approximate
-matching) raise NotImplementedError naming the ROADMAP.md item that will
-port them.
+Options outside this package's slices (-v/-w/-x, counts) raise
+NotImplementedError naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -35,7 +35,6 @@ _lock = threading.Lock()
 _progress = threading.local()
 
 _UNPORTED = {
-    "max_errors": "item 3 (approximate matching kernel)",
     "invert": "item 7 (the grep app's remaining options)",
     "word_regexp": "item 7 (the grep app's remaining options)",
     "line_regexp": "item 7 (the grep app's remaining options)",
@@ -61,7 +60,8 @@ def configure(
     """Compile the pattern, or the literal set ``patterns`` when given
     (members str, decoded utf-8/surrogateescape, or bytes; ``pattern`` is
     then ignored), for ``device`` (default "cuda"; raises when CUDA is
-    absent unless "cpu" is asked for).  Engine knobs (target_lanes,
+    absent unless "cpu" is asked for).  ``max_errors=k`` (1..3) matches
+    the single pattern within k edit errors.  Engine knobs (target_lanes,
     segment_bytes, min_chunk) pass through ``options``."""
     global _engine, _configured_with
     for name, value in options.items():

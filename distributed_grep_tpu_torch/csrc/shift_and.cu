@@ -27,8 +27,10 @@
 // Bound.  Per input byte the kernel does about five integer operations
 // (load, table lookup, shift-or, and, accumulate) and moves 1 byte in and
 // 1/8 byte out.  On an H100 SXM the byte traffic bounds it: for a 64 MB
-// segment, 72 MiB at 3.35 TB/s is 0.0225 ms, against 0.0201 ms for the
-// operations at 64 INT32 lanes per SM per clock.  chip_smoke.py measures
+// segment, 72 MiB at 3.35 TB/s is 0.0225 ms, against 0.0101 ms for the
+// operations at 128 per SM per clock (4 schedulers x 32 lanes; integer
+// code can use the FP32 pipe as well as the 64 INT32 lanes).  chip_smoke.py
+// measures
 // 0.080 ms on an H100 80GB HBM3 at 700 W, 3.5x the bound: this first
 // version loads one byte per thread per step and keeps the shared-memory
 // table unreplicated (lookups of different bytes that share a bank

@@ -110,6 +110,40 @@ def try_compile_shift_and(
     )
 
 
+# ------------------------------------------------------------------ SWAR
+
+# The SWAR Shift-And kernel (csrc/shift_and_swar.cu) packs FOUR stripes'
+# automata into each uint32, one byte per stripe, so the whole automaton --
+# state bits and match bit -- must fit a byte.  The reference's packed TPU
+# kernel also needs every checked class to be a small set of exact byte
+# values (its zero-byte detect tests equality), and the port routes by the
+# same rule so that both take the packed path for the same patterns;
+# wildcard positions (the rare-class filter) cost nothing.
+SWAR_MAX_SYMBOLS = 8  # state + match bit within each stripe's byte
+SWAR_MAX_VALUES = 16  # total equality tests per byte step (the reference's budget)
+
+
+def swar_values(model: ShiftAndModel) -> list[tuple[int, ...]] | None:
+    """Per-symbol byte values for the SWAR packed kernel, or None when the
+    model is ineligible (too long, non-singleton ranges, value budget).
+    An empty tuple marks a wildcard position (checked nowhere)."""
+    if model.length > SWAR_MAX_SYMBOLS:
+        return None
+    out: list[tuple[int, ...]] = []
+    total = 0
+    for ranges in model.sym_ranges:
+        vals = []
+        for lo, hi in ranges:
+            if lo != hi:
+                return None  # a real range: no packed equality form
+            vals.append(lo)
+        total += len(vals)
+        out.append(tuple(vals))
+    if total > SWAR_MAX_VALUES:
+        return None
+    return out
+
+
 # ------------------------------------------------------- rare-class filter
 
 # Byte-frequency prior for choosing which classes the device filter checks.

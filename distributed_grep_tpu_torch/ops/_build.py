@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-SOURCES = ("shift_and", "nfa", "fdr", "pairset")
+SOURCES = ("shift_and", "nfa", "fdr", "pairset", "approx", "shift_and_swar")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

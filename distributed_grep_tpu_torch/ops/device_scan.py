@@ -38,6 +38,27 @@ The document is cut into segments of ``engine.segment_bytes``.  For each:
    a segment start after 0 gets the host verdict in place of the device
    verdict, once all segments are in (ops/lines.stitch_lines).
 
+   SWAR (``DGREP_SWAR=1``, ``use_swar``): the same Shift-And path with
+   the packed kernel (four stripes per uint32, csrc/shift_and_swar.cu) in
+   place of the coarse one, its words decoded to the same span starts;
+   the lane multiple becomes 128, and the dense confirm keeps the exact
+   unpacked kernel on the same tensor.
+
+   Approx (``max_errors=k``): the kernel's words are exact match ends, so
+   collect decodes them to lines with no confirm.  The kernel seeds every
+   stripe head with the line-start rows, so each match it reports lies
+   inside one line: it reports no false line.  It misses a match only
+   where the match's text starts before a stripe or segment start b and
+   ends at or after b (the lane from b sees only the text's tail).  That
+   text holds at most m + k bytes (m symbols, at most k insertions), so it
+   lies inside [b - (m+k-1), b + (m+k-1)), and it holds no '\\n', so also
+   inside b's line.  The stitch checks just those windows, clipped to b's
+   line, with the host recurrence (``host_match.approx_windows_match``)
+   and adds the lines that match: every line it adds is a true line and
+   every missed line is found, so the result equals the reference's,
+   which replaces the verdict of every boundary line with a per-line
+   Python check.
+
    Literal sets: FDR mode launches one filter kernel per bank, OR'd into
    one word plane, then the pairset sidecar OR'd in; pairset mode one
    exact pairset launch.  Collect decodes the end offsets; FDR candidates
@@ -64,11 +85,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from distributed_grep_tpu_torch.models.shift_and import swar_values
 from distributed_grep_tpu_torch.ops import (
+    approx_scan,
     cuda_scan,
     fdr_scan,
     nfa_scan,
     pairset_scan,
+    swar_scan,
 )
 from distributed_grep_tpu_torch.ops import engine as engine_mod
 from distributed_grep_tpu_torch.ops import lines as lines_mod
@@ -80,10 +104,25 @@ from distributed_grep_tpu_torch.ops.layout import (
 from distributed_grep_tpu_torch.ops.scan_torch import sparse_nonzero
 from distributed_grep_tpu_torch.ops.sparse import (
     offsets_from_sparse_words,
+    span_starts_from_packed_words,
     span_starts_from_sparse_words,
 )
 
 MAX_INFLIGHT = 2  # segments dispatched but not yet collected
+# The SWAR route's lane multiple: 4 stripes per packed uint32 element and
+# 32 elements per warp.
+SWAR_LANE_MULTIPLE = 128
+
+
+def use_swar(eng) -> bool:
+    """The reference's SWAR rule (its device_scan.py:313-328): enabled
+    (``DGREP_SWAR=1``, read now), a Shift-And engine, and both the full
+    model and the rare-class filter ``swar_values``-eligible -- the defeat
+    guard swaps one for the other mid-scan, on the same packed layout."""
+    return (eng.mode == "shift_and" and swar_scan.swar_enabled()
+            and swar_values(eng.shift_and) is not None
+            and (eng._sa_filtered is None
+                 or swar_values(eng._sa_filtered) is not None))
 
 
 def _expand_line_ranges(l0: np.ndarray, l1: np.ndarray) -> np.ndarray:
@@ -97,6 +136,8 @@ def scan_device(eng, data: bytes, progress=None):
     t_wall0 = time.perf_counter()
     nfa = eng.mode == "nfa"
     lit_set = eng.mode in ("fdr", "pairset")
+    approx = eng.mode == "approx"
+    swar = use_swar(eng)
     st = {"candidates": 0, "segments": 0,
           "feed_wait_seconds": 0.0, "prepare_seconds": 0.0,
           "collect_seconds": 0.0, "confirm_seconds": 0.0,
@@ -105,8 +146,11 @@ def scan_device(eng, data: bytes, progress=None):
         st.update(stitch_offsets=0)
     elif nfa:
         st.update(dense_confirms=0, stitch_lines=0, nfa_filter_defeated=False)
+    elif approx:
+        st.update(stitch_windows=0)
     else:
-        st.update(dense_confirms=0, stitch_windows=0, filter_defeated=False)
+        st.update(dense_confirms=0, stitch_windows=0, filter_defeated=False,
+                  swar=swar)
     eng.stats = st
     n = len(data)
     view = memoryview(data)
@@ -115,6 +159,12 @@ def scan_device(eng, data: bytes, progress=None):
     on_cuda = device.type == "cuda"
     full = eng.shift_and
     lay_kwargs = eng.layout_kwargs()
+    if swar:
+        lay_kwargs["lane_multiple"] = SWAR_LANE_MULTIPLE
+    # bytes a match missed at a boundary b can reach past it on either
+    # side: m - 1 for Shift-And, m + k - 1 for approx (module docstring)
+    reach = (eng.approx.length + eng.approx.k - 1 if approx
+             else full.length - 1 if full is not None else 0)
     seg = eng.segment_bytes
     seg_starts = list(range(0, n, seg))
     lock = threading.Lock()
@@ -125,7 +175,7 @@ def scan_device(eng, data: bytes, progress=None):
     found: list[np.ndarray] = []
     suspects: list[np.ndarray] = []  # NFA: boundary lines and their
     verdicts: list[np.ndarray] = []  # host verdicts, replaced at the end
-    stitch_found: list[np.ndarray] = []  # sets: lines the stitch confirmed
+    stitch_found: list[np.ndarray] = []  # sets, approx: lines the stitch added
 
     def prepare(i: int):
         t0 = time.perf_counter()
@@ -157,7 +207,6 @@ def scan_device(eng, data: bytes, progress=None):
         return cand[eng.host_line_matcher(data, starts, ends)]
 
     def stitch(bounds: np.ndarray) -> np.ndarray:
-        reach = full.length - 1  # bytes a spanning match extends past
         at = np.searchsorted(nl, bounds, side="right") + 1
         ls, le = lines_mod.line_spans(at, nl, n)
         keep = eng.host_line_matcher(data, np.maximum(ls, bounds - reach),
@@ -171,8 +220,10 @@ def scan_device(eng, data: bytes, progress=None):
                 _collect_set(kind, *job)
             elif nfa:
                 _collect_nfa(kind, *job)
+            elif approx:
+                _collect_approx(*job)
             else:
-                _collect(*job)
+                _collect(kind, *job)
         finally:
             with lock:
                 st["collect_seconds"] += time.perf_counter() - t0
@@ -185,9 +236,11 @@ def scan_device(eng, data: bytes, progress=None):
             bounds = np.concatenate(([seg_start], bounds))
         return bounds
 
-    def _collect(seg_start: int, seg_len: int, lay, arr, words) -> None:
-        idx, _ = sparse_nonzero(words)
-        spans = span_starts_from_sparse_words(idx, lay)
+    def _collect(kind, seg_start: int, seg_len: int, lay, arr, words) -> None:
+        idx, vals = sparse_nonzero(words)
+        spans = (span_starts_from_packed_words(idx, vals, lay)
+                 if kind == "span_words_packed"
+                 else span_starts_from_sparse_words(idx, lay))
         new: list[np.ndarray] = []
         n_cand = 0
         dense = False
@@ -229,6 +282,21 @@ def scan_device(eng, data: bytes, progress=None):
                     # THIS scan run the full model
                     scan_state["filtered"] = None
                     st["filter_defeated"] = True
+
+    def _collect_approx(seg_start: int, seg_len: int, lay, arr,
+                        words) -> None:
+        idx, vals = sparse_nonzero(words)
+        lines = lines_mod.unique_match_lines(
+            offsets_from_sparse_words(idx, vals, lay) + seg_start, nl)
+        t1 = time.perf_counter()
+        bounds = segment_bounds(seg_start, seg_len, lay)
+        added = stitch(bounds)
+        t2 = time.perf_counter()
+        with lock:
+            found.append(lines)
+            stitch_found.append(added)
+            st["stitch_seconds"] += t2 - t1
+            st["stitch_windows"] += int(bounds.size)
 
     def _collect_set(kind, seg_start: int, seg_len: int, lay, arr,
                      words) -> None:
@@ -333,6 +401,12 @@ def scan_device(eng, data: bytes, progress=None):
             elif nfa:
                 words = nfa_scan.nfa_scan_words(arr, model)
                 kind = "cand_words" if is_filter else "words"
+            elif approx:
+                words = approx_scan.approx_scan_words(arr, eng.approx)
+                kind = "words"
+            elif swar:
+                words = swar_scan.swar_scan_words(arr, sa_model)
+                kind = "span_words_packed"
             else:
                 words = cuda_scan.shift_and_scan_words(arr, sa_model,
                                                        coarse=True)
@@ -358,7 +432,7 @@ def scan_device(eng, data: bytes, progress=None):
         st["stitch_removed"] = int(np.setdiff1d(lines_arr, stitched).size)
         st["stitch_added"] = int(np.setdiff1d(stitched, lines_arr).size)
         lines_arr = stitched
-    elif lit_set and stitch_found:
+    elif stitch_found:  # sets and approx: the stitch only adds lines
         extra = np.unique(np.concatenate(stitch_found))
         st["stitch_added"] = int(np.setdiff1d(extra, lines_arr).size)
         lines_arr = np.union1d(lines_arr, extra).astype(np.int64)

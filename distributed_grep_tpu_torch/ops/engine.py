@@ -38,6 +38,15 @@ by ``check_patterns`` (the reference's engine.py:644-796):
   the host (ops/confirm_set.py) against all members;
 * an empty member matches every line; a set neither kernel hosts raises.
 
+A single pattern with ``max_errors=k`` (agrep, k = 1..3) is routed by
+``check_approx``: a literal or class sequence of at most 32 symbols on the
+Wu-Manber kernel (csrc/approx.cu, mode "approx"), whose words are exact;
+a pattern of at most k symbols matches every line.  With SWAR enabled
+(``DGREP_SWAR=1``, read at scan time) a Shift-And pattern whose full and
+filter models both pass ``swar_values`` runs the packed kernel
+(csrc/shift_and_swar.cu) in place of csrc/shift_and.cu
+(ops/device_scan.py).
+
 Differences from the reference, none of which changes an output line:
 
 * no kernel cost budget (the reference's ``pallas_nfa.MAX_COST`` exists
@@ -67,6 +76,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from distributed_grep_tpu_torch.models.approx import MAX_ERRORS, ApproxModel
 from distributed_grep_tpu_torch.models.dfa import (
     NL,
     DfaTable,
@@ -135,11 +145,13 @@ class PatternPlan:
     """How one pattern or set is scanned: the outcome of ``check_pattern``
     or ``check_patterns``.
 
-    mode            "shift_and", "nfa", "fdr", "pairset" or "all_lines"
+    mode            "shift_and", "nfa", "fdr", "pairset", "approx" or
+                    "all_lines"
     route           the routing step that chose it (module docstring):
                     "shift_and", "fdr_literal_set", "nfa", "dfa_filter",
                     "re_filter", "all_lines"; for a set "fdr", "pairset"
-                    or "all_lines"
+                    or "all_lines"; with max_errors "approx" or
+                    "all_lines"
     table           the exact DFA (routes 3 and 4): host oracle of the
                     confirm and the stitch
     glushkov        the model the NFA kernel runs first
@@ -153,6 +165,7 @@ class PatternPlan:
     fdr_pairset     mode "fdr": the sidecar model of the 1-byte members
     confirm         a set's exact host oracle (every member): the FDR
                     candidates' confirm and the stitch of both set modes
+    approx          the k-error model (mode "approx")
     """
 
     mode: str
@@ -168,6 +181,7 @@ class PatternPlan:
     pairset: PairsetModel | None = None
     fdr_pairset: PairsetModel | None = None
     confirm: ConfirmSet | None = None
+    approx: ApproxModel | None = None
 
 
 def _unported(pattern: str, why: str) -> NotImplementedError:
@@ -325,6 +339,26 @@ def check_pattern(pattern: str, ignore_case: bool = False) -> PatternPlan:
                        nfa_filter=True)
 
 
+def check_approx(pattern: str, k: int, ignore_case: bool = False) -> PatternPlan:
+    """Route ``pattern`` with at most ``k`` edit errors (the reference's
+    engine.py:621-643): a literal / class sequence of at most 32 symbols on
+    the approx kernel (csrc/approx.cu), or every line when the pattern is
+    no longer than k (deleting it all costs at most k edits).  No literal
+    decomposition: approximate matching keeps the pattern's own form.
+    Raises ValueError for k outside 1..MAX_ERRORS or another pattern."""
+    if not 1 <= k <= MAX_ERRORS:
+        raise ValueError(f"max_errors must be 1..{MAX_ERRORS}")
+    base = try_compile_shift_and(pattern, ignore_case=ignore_case)
+    if base is None:
+        raise ValueError(
+            "approximate matching needs a literal/class-sequence "
+            "pattern of <= 32 symbols (no anchors/alternation/repeats)"
+        )
+    if base.length <= k:
+        return PatternPlan("all_lines", "all_lines")
+    return PatternPlan("approx", "approx", approx=ApproxModel(base=base, k=k))
+
+
 def lines_match(
     model: ShiftAndModel, data, starts: np.ndarray, ends: np.ndarray
 ) -> np.ndarray:
@@ -373,6 +407,7 @@ class GrepEngine:
         *,
         patterns: list[str | bytes] | None = None,
         ignore_case: bool = False,
+        max_errors: int = 0,
         device: str | torch.device = "cuda",
         target_lanes: int = DEFAULT_TARGET_LANES,
         segment_bytes: int = DEFAULT_SEGMENT_BYTES,
@@ -380,6 +415,8 @@ class GrepEngine:
     ):
         if (pattern is None) == (patterns is None):
             raise ValueError("exactly one of pattern / patterns is required")
+        if max_errors and patterns is not None:
+            raise ValueError("max_errors applies to a single pattern, not a set")
         self.device = resolve_device(device)
         if isinstance(pattern, bytes):
             pattern = pattern.decode("utf-8", "surrogateescape")
@@ -395,6 +432,9 @@ class GrepEngine:
         if patterns is not None:
             self.pattern = f"<set of {len(patterns)}>"
             plan = check_patterns(patterns, ignore_case)
+        elif max_errors:
+            self.pattern = pattern
+            plan = check_approx(pattern, int(max_errors), ignore_case)
         else:
             self.pattern = pattern
             plan = check_pattern(pattern, ignore_case)
@@ -414,6 +454,7 @@ class GrepEngine:
         self.pairset = plan.pairset
         self.fdr_pairset = plan.fdr_pairset
         self.confirm = plan.confirm
+        self.approx = plan.approx
         self._stats_local = threading.local()
         self._copy_stream = None
         self._copy_lock = threading.Lock()
@@ -461,10 +502,14 @@ class GrepEngine:
 
     def host_line_matcher(self, data, starts, ends) -> np.ndarray:
         """Exact host verdicts for the [starts, ends) line spans of
-        ``data``: the vectorized Shift-And, the confirm set, the DFA walk,
+        ``data``: the vectorized Shift-And, the approx recurrence (short
+        spans only: the stitch's windows), the confirm set, the DFA walk,
         or Python re."""
         if self.mode == "shift_and":
             return lines_match(self.shift_and, data, starts, ends)
+        if self.approx is not None:
+            return host_match.approx_windows_match(self.approx, data, starts,
+                                                   ends)
         if self.confirm is not None:
             return self.confirm.lines_match(data, starts, ends)
         if self.table is not None:
@@ -499,6 +544,7 @@ __all__ = [
     "RegexError",
     "SPAN_CONFIRM_LINE_LIMIT",
     "ScanResult",
+    "check_approx",
     "check_pattern",
     "check_patterns",
     "lines_match",

@@ -15,6 +15,13 @@ when few long lines remain, a plain Python loop per line finishes them
 DFA expresses (word boundaries, repeats past the expansion cap): Python
 ``re`` per line.
 
+``approx_windows_match(model, data, starts, ends)`` is the approx path's
+stitch oracle: the Wu-Manber recurrence (models/approx.py) over many short
+spans at once.  The reference re-checks every boundary line with a
+Python-int loop (about 1 MB/s); at 65536 boundaries per 64 MB segment that
+would cost tens of seconds per GiB, while the spans here are the stitch's
+short windows, stepped together one numpy column at a time.
+
 The reference's oracle is a native C DFA scanner (its ``utils/native``);
 this package keeps numpy only.  A per-line Python DFA walk would take
 seconds per 64 MB segment on the ~65536 boundary lines the stitch checks
@@ -28,6 +35,7 @@ import re
 
 import numpy as np
 
+from distributed_grep_tpu_torch.models.approx import NL, ApproxModel
 from distributed_grep_tpu_torch.models.dfa import DfaTable
 
 # Below this many lines still walking, the remaining bytes go through the
@@ -94,6 +102,55 @@ def dfa_lines_match(
     hit |= accept_eol[state]
     out[order] = hit
     return out
+
+
+# approx_windows_match serves the stitch's windows (at most 2 * (32 + 3 -
+# 1) bytes each), not whole lines: one numpy step per column of the widest
+# span would make a long line cost its length for every span.
+APPROX_SPAN_CAP = 1024
+
+
+def approx_windows_match(
+    model: ApproxModel, data, starts: np.ndarray, ends: np.ndarray
+) -> np.ndarray:
+    """Verdicts (bool per span) of ``model``: True where [starts[i],
+    ends[i]) of ``data`` contains a match with at most ``model.k`` edits.
+    The spans are gathered into one (n, W) uint8 matrix padded with '\\n'
+    (the rows reset there, so padding adds no match) and the k+1 rows of
+    every span step over the W columns together as numpy uint32 vectors.
+    Spans must hold no '\\n' and be at most APPROX_SPAN_CAP bytes."""
+    starts = np.asarray(starts, dtype=np.int64)
+    lens = np.asarray(ends, dtype=np.int64) - starts
+    n = starts.size
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    width = int(lens.max())
+    if width > APPROX_SPAN_CAP:
+        raise ValueError(f"approx span of {width} bytes is over the "
+                         f"{APPROX_SPAN_CAP}-byte cap (windows, not lines)")
+    arr = np.frombuffer(data, dtype=np.uint8)
+    cols = np.arange(width, dtype=np.int64)
+    inside = cols[None, :] < lens[:, None]
+    text = np.full((n, width), NL, dtype=np.uint8)
+    text[inside] = arr[(starts[:, None] + cols[None, :])[inside]]
+    table = model.base.b_table.astype(np.uint32)
+    k, mb = model.k, np.uint32(model.match_bit)
+    seeds = [np.uint32(s) for s in model.seeds]
+    rows = [np.full(n, s, dtype=np.uint32) for s in seeds]
+    hit = np.zeros(n, dtype=bool)
+    one = np.uint32(1)
+    for c in range(width):
+        byte = text[:, c]
+        b = table[byte]
+        nl = byte == NL
+        new = [((rows[0] << one) | one) & b]
+        for j in range(1, k + 1):
+            new.append((((rows[j] << one) | one) & b) | rows[j - 1]
+                       | (rows[j - 1] << one) | (new[j - 1] << one)
+                       | seeds[j])
+        rows = [np.where(nl, seeds[j], new[j]) for j in range(k + 1)]
+        hit |= (rows[k] & mb) != 0
+    return hit
 
 
 def re_lines_match(

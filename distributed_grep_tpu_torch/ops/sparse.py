@@ -34,6 +34,29 @@ def span_starts_from_sparse_words(idx: np.ndarray, layout: Layout) -> np.ndarray
     return starts
 
 
+def span_starts_from_packed_words(
+    idx: np.ndarray, vals: np.ndarray, layout: Layout
+) -> np.ndarray:
+    """Decode the SWAR kernel's packed COARSE words (ops/swar_scan.py):
+    the plane is (chunk // 32, lanes // 4), flat index ``w * (lanes // 4)
+    + j``, and a nonzero byte k of the value names a candidate 32-byte span
+    of stripe 4j + k.  Returns sorted document offsets of span starts, the
+    ``span_starts_from_sparse_words`` contract."""
+    if idx.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    w, j = np.divmod(idx.astype(np.int64), layout.lanes // 4)
+    vals = vals.astype(np.uint32)
+    out = []
+    for k in range(4):
+        sel = (vals >> np.uint32(8 * k)) & np.uint32(0xFF) != 0
+        if sel.any():
+            out.append((4 * j[sel] + k) * layout.chunk + w[sel] * 32)
+    starts = np.concatenate(out) if out else np.zeros(0, dtype=np.int64)
+    starts = starts[starts < layout.n_real]
+    starts.sort()
+    return starts
+
+
 def offsets_from_sparse_words(
     idx: np.ndarray, vals: np.ndarray, layout: Layout
 ) -> np.ndarray:

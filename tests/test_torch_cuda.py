@@ -248,3 +248,82 @@ def test_set_job_on_card_byte_identical_to_cpu(card, tmp_path):
                         for p in res.output_files}
     assert outs["cuda"] == outs["cpu"]
     assert any(outs["cuda"].values())
+
+
+APPROX_MODELS = [("volcano", 1, False), ("volcano", 2, True),
+                 ("[Ss]chwarzen[ae]", 3, False), ("Volcano", 3, True)]
+
+
+@pytest.mark.parametrize("chunk,lanes", [(512, 4096), (1024, 65536), (160, 64)])
+def test_approx_kernel_matches_plain_on_card(card, chunk, lanes):
+    from distributed_grep_tpu_torch.models import approx as port_ax
+    from distributed_grep_tpu_torch.ops import approx_scan
+
+    text = _text(17, chunk * lanes)
+    lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
+    arr = layout.to_device_array(text.tobytes(), lay)
+    arr[0:7, ::5] = np.frombuffer(b"volcxno", np.uint8)[:, None]
+    arr[27:37, 3] = np.frombuffer(b"Schwarzeen", np.uint8)
+    dev = torch.from_numpy(arr).to(card)
+    for pattern, k, ic in APPROX_MODELS:
+        model = port_ax.try_compile_approx(pattern, k, ignore_case=ic)
+        before = approx_scan.launches
+        got = approx_scan.approx_scan_words(dev, model)
+        torch.cuda.synchronize()
+        assert approx_scan.launches == before + 1
+        want = approx_scan.approx_scan_words_plain(dev, model)
+        assert torch.equal(got, want), (pattern, k, ic)
+
+
+@pytest.mark.parametrize("chunk,lanes", [(512, 16384), (1024, 65536), (160, 128)])
+def test_swar_kernel_matches_plain_on_card(card, chunk, lanes):
+    from distributed_grep_tpu_torch.ops import swar_scan
+
+    text = _text(19, chunk * lanes)
+    lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
+    arr = layout.to_device_array(text.tobytes(), lay)
+    arr[29:36, 1::7] = np.frombuffer(b"volcano", np.uint8)[:, None]
+    dev = torch.from_numpy(arr).to(card)
+    full = port_sa.try_compile_shift_and("volcano")
+    for model in (full, port_sa.filtered_for_device(full),
+                  port_sa.try_compile_shift_and("Volcano", True),
+                  port_sa.try_compile_shift_and("h[ae]llo")):
+        before = swar_scan.launches
+        got = swar_scan.swar_scan_words(dev, model)
+        torch.cuda.synchronize()
+        assert swar_scan.launches == before + 1
+        assert torch.equal(got, swar_scan.swar_scan_words_plain(dev, model))
+
+
+@pytest.mark.parametrize("pattern,k,ic", [("volcano", 1, False),
+                                          ("hallo", 2, True)])
+def test_approx_engine_on_card_equals_cpu(card, pattern, k, ic):
+    from distributed_grep_tpu_torch.ops import approx_scan
+
+    data = _text(23, 3 << 20).tobytes()
+    opts = dict(target_lanes=4096, min_chunk=32, segment_bytes=1 << 20)
+    before = approx_scan.launches
+    eng = GrepEngine(pattern, max_errors=k, ignore_case=ic, device="cuda",
+                     **opts)
+    got = eng.scan(data)
+    assert approx_scan.launches - before == 3
+    want = GrepEngine(pattern, max_errors=k, ignore_case=ic, device="cpu",
+                      **opts).scan(data)
+    assert got.matched_lines.tolist() == want.matched_lines.tolist()
+    assert got.matched_lines.size
+
+
+@pytest.mark.parametrize("pattern,ic", [("volcano", False), ("Volcano", True)])
+def test_swar_engine_on_card_equals_cpu(card, monkeypatch, pattern, ic):
+    from distributed_grep_tpu_torch.ops import swar_scan
+
+    monkeypatch.setenv("DGREP_SWAR", "1")
+    data = _text(29, 3 << 20).tobytes()
+    opts = dict(target_lanes=4096, min_chunk=32, segment_bytes=1 << 20)
+    before = swar_scan.launches
+    eng = GrepEngine(pattern, ignore_case=ic, device="cuda", **opts)
+    got = eng.scan(data)
+    assert eng.stats["swar"] and swar_scan.launches - before == 3
+    want = GrepEngine(pattern, ignore_case=ic, device="cpu", **opts).scan(data)
+    assert got.matched_lines.tolist() == want.matched_lines.tolist()
+    assert got.matched_lines.size

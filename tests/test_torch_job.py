@@ -174,7 +174,7 @@ def test_entry_points_raise_without_cuda(tmp_path, corpus, monkeypatch):
 
 
 @pytest.mark.parametrize("opt", [
-    {"presence_only": True}, {"max_errors": 1}, {"invert": True},
+    {"presence_only": True}, {"line_regexp": True}, {"invert": True},
     {"word_regexp": True}, {"count_only": True},
 ])
 def test_unported_app_options_raise(opt):
@@ -202,7 +202,8 @@ def test_shuffle_wire_round_trip():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
-    """Every port module, plus a tiny job, in a fresh interpreter."""
+    """Every port module, plus tiny exact, approx and SWAR scans, in a
+    fresh interpreter."""
     src = tmp_path / "in.txt"
     src.write_bytes(b"a volcano\nnothing\n")
     code = f"""
@@ -217,6 +218,17 @@ res = run_job(JobConfig(input_files=[{str(src)!r}],
                         work_dir={str(tmp_path / "w")!r}),
               n_workers=1, device="cpu")
 assert sum(1 for _ in res.iter_results()) == 1
+import os
+os.environ["DGREP_SWAR"] = "1"
+res = run_job(JobConfig(input_files=[{str(src)!r}],
+                        app_options={{"pattern": "volcxno", "max_errors": 1}},
+                        work_dir={str(tmp_path / "w2")!r}),
+              n_workers=1, device="cpu")
+assert sum(1 for _ in res.iter_results()) == 1
+from distributed_grep_tpu_torch.ops.engine import GrepEngine
+eng = GrepEngine("volcano", device="cpu")
+assert eng.scan(b"a volcano").matched_lines.tolist() == [1]
+assert eng.stats["swar"] is True
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "distributed_grep_tpu"
        or m.startswith("distributed_grep_tpu.")]
