@@ -16,7 +16,9 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          and the pairset kernel (both orientations, a -i set), and both
          ORing into an existing word plane (out=); the Wu-Manber approx
          kernel (k = 1, 2, 3 and -i) and the SWAR packed Shift-And kernel
-         ('volcano', its filter, '-i Volcano', 'being it').
+         ('volcano', its filter, '-i Volcano', 'being it'); the narrow-width
+         probe kernel at i32, i16 and i8, and the one-hot tensor-core
+         product (1 and 16 lane blocks, the default and odd split counts).
 Phase 3  the main path at real size, each query through runtime.job.run_job
          on "cuda" and checked line for line against ``LC_ALL=C grep -na``
          with the query's -F, -E, -i or -f.  Corpora made from --seed: 8
@@ -52,6 +54,15 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          zeroed just before the queries and read just after.  Then the
          kernels, their plain versions, the sparse fetch and the confirm
          set are timed at the main path's segment shape.
+Phase 4  the measuring path, in this process with the launch counts zeroed
+         just before it and read just after: the port's headline bench
+         (its JSON line parsed, its count band held), kernel_compare's
+         pallas, nfa, nfa_alt8, pairset and mxu_dot engines at 64 MiB,
+         probe_narrow's i32 / i16 slope, and the BASELINE config suite
+         (configs 1-5 at 64 MB) end to end with --check (any MISMATCH
+         fails) and with slope timing.  Then the two probe kernels, their
+         plain versions and torch._int_mm (the one-hot product as a cuBLAS
+         int8 GEMM, over a 1 MiB window, scaled to 64 MiB) are timed.
 
 The last two lines of standard output are one JSON object with every
 kernel's numbers and one JSON object with the device.  Any failure raises
@@ -114,6 +125,14 @@ APPROX_OPS_PER_ROW = 9
 # extracts, four table lookups, three ors, the shift, the or-and of the step
 # and the accumulate -- 14, so 3.5 per input byte; one lookup per byte.
 SWAR_OPS_PER_BYTE = 3.5
+# csrc/probe_narrow.cu per input byte: the load, six compares and six
+# selects of the class chain, the shift-or, the and and the accumulate.
+NARROW_OPS_PER_BYTE = 16
+# csrc/mxu_dot.cu: 128 columns x 256 byte values of multiply-adds per input
+# byte, each two operations, at the H100 SXM's 1,979 TOP/s of dense int8
+# (NVIDIA's data sheet, 700 W).
+MXU_MACS_PER_BYTE = 128 * 256
+H100_INT8_OPS_PER_S = 1979e12
 
 CONFIG2_WORDS = ["volcano", "anarchism", "philosophy", "needle", "wikipedia",
                  "quantum", "zeppelin", "obsidian"]
@@ -880,27 +899,214 @@ def phase_swar_kernels(torch, np, swar_scan, sa_mod) -> int:
         [(slice(29, 36), slice(1, None, 7), b"volcano")])
 
 
-def sass_counts(build, name: str) -> dict[str, int]:
-    """SASS instructions of each kernel function in the build of
+def sass_opcodes(build, name: str) -> dict[str, list[str]]:
+    """The SASS opcodes of each kernel function in the build of
     csrc/<name>.cu (``cuobjdump -sass`` beside nvcc), or {} without
-    cuobjdump.  A kernel's 32 steps per word are unrolled, so a count over
-    32 is close to its instructions per input byte (per packed uint32 for
-    the SWAR kernel, whose loop holds two words)."""
+    cuobjdump."""
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     if not tool.is_file():
         return {}
     out = subprocess.run([str(tool), "-sass", str(build._target(name))],
                          capture_output=True, text=True, timeout=120)
-    counts: dict[str, int] = {}
+    ops: dict[str, list[str]] = {}
     func = None
     for line in out.stdout.splitlines():
         text = line.strip()
         if text.startswith("Function : "):
             func = text[len("Function : "):]
-            counts[func] = 0
+            ops[func] = []
         elif func is not None and text.startswith("/*") and ";" in text:
-            counts[func] += 1
-    return counts
+            words = text.split("*/", 1)[-1].replace("{", " ").split()
+            if words and words[0].startswith("@"):  # a predicated instruction
+                words = words[1:]
+            ops[func].append(words[0].rstrip(";") if words else "?")
+    return ops
+
+
+def sass_counts(build, name: str) -> dict[str, int]:
+    """SASS instructions of each kernel function in the build of
+    csrc/<name>.cu, or {} without cuobjdump.  A kernel's 32 steps per word
+    are unrolled, so a count over 32 is close to its instructions per input
+    byte (per packed uint32 for the SWAR kernel, whose loop holds two
+    words)."""
+    return {f: len(o) for f, o in sass_opcodes(build, name).items()}
+
+
+# the narrow probe kernel's template argument in its mangled name
+NARROW_WIDTHS = {"IjE": "i32", "ItE": "i16", "IhE": "i8"}
+
+
+def narrow_label(func: str) -> str:
+    return next((w for k, w in NARROW_WIDTHS.items() if k in func), func)
+
+
+def phase_narrow_kernels(torch, np, narrow_probe) -> int:
+    """Narrow probe words vs the plain version's at every width, at the
+    main path's segment shape and a small one: 'volcano's in words text and
+    across a word edge of every 11th stripe."""
+    widths = {w: w for w in narrow_probe.WIDTHS}
+    return compare_words(
+        torch, np, "narrow_probe", narrow_probe.narrow_probe_words,
+        narrow_probe.narrow_probe_words_plain, widths,
+        [(1024, 65536), (160, 64)], 32, 9753,
+        lambda rng, n: [b"volcano", b"volca", b"olcano"],
+        [(slice(29, 36), slice(3, None, 11), b"volcano")])
+
+
+def phase_mxu_kernels(torch, np, mxu_probe) -> int:
+    """The one-hot product kernel vs its plain version (byte counts @
+    member) on the card: one and 16 lane blocks, the default split count,
+    one split and an odd one; words text with a random-byte tail (every
+    byte value).  Returns the largest absolute difference seen."""
+    rng = np.random.default_rng(8765)
+    member = torch.from_numpy(mxu_probe.probe_member()).cuda()
+    worst = 0
+    for chunk, lanes, splits in [(1024, 65536, None), (1024, 65536, 7),
+                                 (512, 4096, None), (512, 4096, 1)]:
+        text = words_block(rng, chunk * lanes)
+        text[-text.size // 8:] = rng.integers(0, 256, size=text.size // 8,
+                                              dtype=np.uint8)
+        dev = torch.from_numpy(text.reshape(chunk, lanes)).cuda()
+        got = mxu_probe.mxu_dot(dev, member, splits=splits)
+        torch.cuda.synchronize()
+        want = mxu_probe.mxu_dot_plain(dev, member)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        if not torch.equal(got, want) or err:
+            raise AssertionError(
+                f"mxu_dot kernel != plain: chunk={chunk} lanes={lanes} "
+                f"splits={splits} max_abs_err={err}")
+        used = splits or mxu_probe.default_splits(chunk, lanes, dev.device)
+        log(f"  ok mxu_dot chunk={chunk:5d} lanes={lanes:6d} splits={used:3d} "
+            f"sum={int(want.to(torch.int64).sum())}")
+    return worst
+
+
+def run_main(main, argv: list[str]) -> list[dict]:
+    """Run a script's ``main(argv)`` in this process and return its JSON
+    stdout lines (each also logged); a non-zero exit raises."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.strip()]
+    for ln in lines:
+        log("  " + json.dumps(ln))
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv}: exit status {rc}")
+    return lines
+
+
+CONFIG_BYTES = 64 * 10**6  # the config suite's --size-mb 64
+
+
+def measuring_corpus(which: int):
+    """One corpus of the measuring path, built in a worker process: 0 the
+    bench's, 1-5 the config suite's specs."""
+    sys.path.insert(0, str(ROOT))
+    from distributed_grep_tpu_torch import bench
+    from distributed_grep_tpu_torch.benchmarks import baseline_configs
+
+    if which == 0:
+        return bench.make_corpus(bench.CORPUS_BYTES)
+    return baseline_configs.CONFIGS[which](CONFIG_BYTES)
+
+
+def phase_measuring(counters: dict) -> dict:
+    """Phase 4: the port's measuring path, each script's main() in this
+    process, every launch count zeroed just before and read just after.
+    The scripts' corpora (the reference's per-line Python recipes, tens of
+    seconds each) are built first, in parallel worker processes, and each
+    script gets its own recipe's bytes.  Returns the launch counts and the
+    scripts' JSON lines."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from distributed_grep_tpu_torch import bench
+    from distributed_grep_tpu_torch.benchmarks import (
+        baseline_configs,
+        kernel_compare,
+        probe_narrow,
+    )
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            6, mp_context=multiprocessing.get_context("spawn")) as pool:
+        built = dict(zip(range(6), pool.map(measuring_corpus, range(6))))
+    log(f"measuring corpora (6 worker processes): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def prebuilt(which: int, size: int, **kw):
+        if (size != (bench.CORPUS_BYTES if which == 0 else CONFIG_BYTES)
+                or kw not in ({}, {"n_patterns": 10_000})):
+            raise AssertionError(f"corpus {which} asked at {size} bytes, {kw}")
+        return built[which]
+
+    recipes = bench.make_corpus, baseline_configs.CONFIGS
+    bench.make_corpus = lambda n: prebuilt(0, n)
+    baseline_configs.CONFIGS = {
+        k: (lambda size, k=k, **kw: prebuilt(k, size, **kw))
+        for k in recipes[1]}
+    try:
+        return drive_measuring(counters, bench, kernel_compare, probe_narrow,
+                               baseline_configs)
+    finally:
+        bench.make_corpus, baseline_configs.CONFIGS = recipes
+
+
+def drive_measuring(counters: dict, bench, kernel_compare, probe_narrow,
+                    baseline_configs) -> dict:
+    """Phase 4's run proper (see phase_measuring): each script's main(), its
+    lines checked, between zeroing the launch counts and reading them."""
+    for m in counters.values():
+        m.reset_launches()
+    t0 = time.perf_counter()
+    (head,) = run_main(bench.main, [])
+    if (set(head) != {"metric", "value", "unit", "vs_baseline"}
+            or head["metric"] != "regex_scan_throughput_per_chip_literal"
+            or not head["value"] > 0):
+        raise AssertionError(f"bench line malformed: {head}")
+    log(f"bench: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    engines = ["pallas", "nfa", "nfa_alt8", "pairset", "mxu_dot"]
+    kc = run_main(kernel_compare.main, ["--size-mb", "64", "--engines",
+                                        ",".join(engines)])
+    if [ln["engine"] for ln in kc] != engines or any(
+            not ln.get("value", 0) > 0 for ln in kc):
+        raise AssertionError(f"kernel_compare lines: {kc}")
+    log(f"kernel_compare: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    narrow = run_main(probe_narrow.main, ["slope"])
+    if ([ln["probe"] for ln in narrow] != ["slope_i32", "slope_i16"]
+            or narrow[0]["count"] != narrow[1]["count"]
+            or not all(ln["gbs"] > 0 for ln in narrow)):
+        raise AssertionError(f"probe_narrow slope lines: {narrow}")
+    log(f"probe_narrow slope: {time.perf_counter() - t0:.1f} s")
+
+    # the config suite end to end with --check, then with slope timing
+    t0 = time.perf_counter()
+    e2e = run_main(baseline_configs.main, ["--check", "--size-mb", "64"])
+    slope = run_main(baseline_configs.main, ["--timing", "slope",
+                                             "--size-mb", "64"])
+    for ln in e2e + slope:
+        if "error" in ln or not ln["value"] > 0:
+            raise AssertionError(f"config suite line: {ln}")
+    bad = [ln for ln in e2e if ln["check"] != "ok"]
+    if [ln["config"] for ln in e2e] != [1, 2, 3, 4, 5] or bad:
+        raise AssertionError(f"config suite --check: {bad or e2e}")
+    log(f"baseline_configs e2e --check and slope: "
+        f"{time.perf_counter() - t0:.1f} s")
+    launched = {k: m.launches for k, m in counters.items()}
+    log(f"measuring path launches: {launched}")
+    for k in ("shift_and", "nfa", "fdr", "pairset", "narrow_probe", "mxu_dot"):
+        if not launched[k]:
+            raise AssertionError(f"measuring path: no {k} launch")
+    return {"launches": launched, "bench": head, "kernel_compare": kc,
+            "narrow": narrow, "e2e": e2e, "slope": slope}
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -946,6 +1152,8 @@ def main() -> int:
             approx_scan,
             cuda_scan,
             fdr_scan,
+            mxu_probe,
+            narrow_probe,
             nfa_scan,
             pairset_scan,
             swar_scan,
@@ -969,7 +1177,8 @@ def main() -> int:
 
     counters = {"shift_and": cuda_scan, "nfa": nfa_scan, "fdr": fdr_scan,
                 "pairset": pairset_scan, "approx": approx_scan,
-                "shift_and_swar": swar_scan}
+                "shift_and_swar": swar_scan, "narrow_probe": narrow_probe,
+                "mxu_dot": mxu_probe}
     t_all = time.perf_counter()
     # ---------------------------------------------------------- phase 1
     card = card_line()
@@ -990,6 +1199,21 @@ def main() -> int:
         for func, n in sass_counts(_build, name).items():
             log(f"  sass {name}: {func}: {n} instructions ({n / 32:.1f} "
                 f"per step of 32)")
+    # the narrow probe: one word of 32 unrolled steps per loop trip, so
+    # the count over 32 is close to its instructions per step at each width
+    for func, ops in sass_opcodes(_build, "probe_narrow").items():
+        top = sorted({o: ops.count(o) for o in ops}.items(),
+                     key=lambda kv: -kv[1])[:8]
+        log(f"  sass probe_narrow {narrow_label(func)}: {func}: {len(ops)} "
+            f"instructions ({len(ops) / 32:.1f} per step of 32); most used: "
+            + ", ".join(f"{o} {n}" for o, n in top))
+    for func, ops in sass_opcodes(_build, "mxu_dot").items():
+        mma = [o for o in ops if o.startswith(("IMMA", "HMMA"))]
+        if not mma:
+            raise AssertionError(f"mxu_dot: no tensor-core MMA in {func}")
+        log(f"  sass mxu_dot: {func}: {len(ops)} instructions, {len(mma)} "
+            f"tensor-core MMA ({', '.join(sorted(set(mma)))}), "
+            f"{sum(o.startswith('LDS') for o in ops)} shared-memory loads")
 
     # ---------------------------------------------------------- phase 2
     log("== phase 2: kernels vs plain versions (tolerance 0: integer words)")
@@ -1009,6 +1233,12 @@ def main() -> int:
     t0 = time.perf_counter()
     swar_err = phase_swar_kernels(torch, np, swar_scan, sa_mod)
     log(f"swar checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    narrow_err = phase_narrow_kernels(torch, np, narrow_probe)
+    log(f"narrow probe checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mxu_err = phase_mxu_kernels(torch, np, mxu_probe)
+    log(f"mxu_dot checks: {time.perf_counter() - t0:.1f} s")
     log("phase 2 launches (comparisons, not counted): "
         + ", ".join(f"{k} {m.launches}" for k, m in counters.items()))
     if args.kernels_only:
@@ -1391,6 +1621,75 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
+    # ---------------------------------------------------------- phase 4
+    log(f"== phase 4: the measuring path, card: {card}")
+    t0 = time.perf_counter()
+    measured = phase_measuring(counters)
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------- the probe kernels' timings (not counted)
+    from distributed_grep_tpu_torch.benchmarks import kernel_compare as kc_mod
+    from distributed_grep_tpu_torch.benchmarks import probe_narrow as pn_mod
+    from distributed_grep_tpu_torch.utils.slope import device_setup
+
+    probe_layout = dict(lane_multiple=4096, chunk_multiple=512, min_chunk=512)
+    dev_kc, lay_kc, _ = device_setup(kc_mod.make_corpus(64 << 20), "cuda",
+                                     **probe_layout)
+    x = dev_kc[: lay_kc.chunk]
+    n_x = x.numel()
+    member = torch.from_numpy(mxu_probe.probe_member()).cuda()
+    mxu_ms = cuda_ms(torch, lambda: mxu_probe.mxu_dot(x, member), 10)
+    mxu_plain_ms = cuda_ms(torch, lambda: mxu_probe.mxu_dot_plain(x, member), 2)
+    mxu_ops_ms = 2 * MXU_MACS_PER_BYTE * n_x / H100_INT8_OPS_PER_S * 1e3
+    mxu_bytes_ms = (n_x + x.shape[1] // 4096 * 128 * 128 * 4) / H100_BYTES_PER_S * 1e3
+    # the library yardstick: one cuBLAS int8 GEMM of the same one-hot
+    # product, over a 1 MiB window's materialized one-hot, scaled to n_x
+    win = x.reshape(-1)[: 1 << 20].to(torch.int64)
+    onehot = torch.zeros((win.numel(), 256), dtype=torch.int8,
+                         device=x.device).scatter_(1, win[:, None], 1)
+    lib_1mib_ms = cuda_ms(torch, lambda: torch._int_mm(onehot, member), 10)
+    lib_sum = torch._int_mm(onehot, member).sum(0, dtype=torch.int64)
+    want_sum = (torch.bincount(win, minlength=256).to(torch.float64)
+                @ member.to(torch.float64)).to(torch.int64)
+    if not torch.equal(lib_sum, want_sum):
+        raise AssertionError("torch._int_mm one-hot product != byte counts @ member")
+    mxu_lib_ms = lib_1mib_ms * n_x / win.numel()
+    del onehot, dev_kc, x
+    log(f"kernel mxu_dot, chunk={lay_kc.chunk} lanes={lay_kc.lanes} ({n_x} bytes, "
+        f"{lay_kc.lanes // 4096} lane blocks, "
+        f"{mxu_probe.default_splits(lay_kc.chunk, lay_kc.lanes, member.device)}"
+        f" splits): {mxu_ms:.4f} ms = {n_x / (mxu_ms / 1e3) / 1e9:.2f} GB/s = "
+        f"{MXU_MACS_PER_BYTE * n_x / (mxu_ms / 1e3) / 1e12:.1f} TMAC/s; plain "
+        f"version on the card {mxu_plain_ms:.2f} ms; bound {mxu_ops_ms:.4f} ms "
+        f"(int8 operations; bytes {mxu_bytes_ms:.4f}); torch._int_mm over a "
+        f"1 MiB one-hot {lib_1mib_ms:.4f} ms, scaled to {n_x} bytes {mxu_lib_ms:.3f}"
+        f" ms [{card}]")
+
+    dev_pn, lay_pn, _ = device_setup(pn_mod._corpus(64 << 20), "cuda",
+                                     **probe_layout)
+    y = dev_pn[: lay_pn.chunk]
+    n_y = y.numel()
+    # the three widths in turns: i32 i16 i8 i8 i16 i32
+    order = ["i32", "i16", "i8"]
+    turns: dict[str, list[float]] = {w: [] for w in order}
+    for w in order + order[::-1]:
+        turns[w].append(cuda_ms(
+            torch, lambda w=w: narrow_probe.narrow_probe_words(y, w), 20))
+    narrow_ms = {w: sum(t) / len(t) for w, t in turns.items()}
+    narrow_plain_ms = cuda_ms(
+        torch, lambda: narrow_probe.narrow_probe_words_plain(y, "i32"), 2)
+    nb_ms = (n_y + n_y // 8) / H100_BYTES_PER_S * 1e3  # 1 byte in, 1/8 out
+    nops_ms = NARROW_OPS_PER_BYTE * n_y / H100_ALU_OPS_PER_S * 1e3
+    narrow_bound_ms = max(nb_ms, nops_ms)
+    del dev_pn, y
+    log(f"kernel narrow_probe, chunk={lay_pn.chunk} lanes={lay_pn.lanes} "
+        f"({n_y} bytes): " + ", ".join(
+            f"{w} {narrow_ms[w]:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns[w])})" for w in order)
+        + f"; plain version (i32) on the card {narrow_plain_ms:.2f} ms; bound "
+        f"{narrow_bound_ms:.4f} ms (bytes {nb_ms:.4f}, ops {nops_ms:.4f} at "
+        f"{NARROW_OPS_PER_BYTE} per byte) [{card}]")
+
     log(f"total {time.perf_counter() - t_all:.1f} s")
     nfa_ms, nfa_plain_ms, nfa_bound_ms, nfa_ops_ms = nfa_rows[
         "config2 alternation"]
@@ -1469,6 +1768,30 @@ def main() -> int:
         "bound_ms": ps_bound_ms,
         "bound_by": ps_by,
         "library_ms": None,
+    }, {
+        "name": "narrow_probe",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/probe_narrow.cu",
+        "replaces": "benchmarks/probe_narrow.py:39",
+        "launches": measured["launches"]["narrow_probe"],
+        "max_abs_err": narrow_err,
+        "ms": narrow_ms["i32"],
+        "plain_ms": narrow_plain_ms,
+        "bound_ms": narrow_bound_ms,
+        "bound_by": "bytes" if narrow_bound_ms == nb_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": "mxu_dot",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/mxu_dot.cu",
+        "replaces": "benchmarks/kernel_compare.py:193",
+        "launches": measured["launches"]["mxu_dot"],
+        "max_abs_err": mxu_err,
+        "ms": mxu_ms,
+        "plain_ms": mxu_plain_ms,
+        "bound_ms": max(mxu_ops_ms, mxu_bytes_ms),
+        "bound_by": "operations" if mxu_ops_ms >= mxu_bytes_ms else "bytes",
+        "library_ms": mxu_lib_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

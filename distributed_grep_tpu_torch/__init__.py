@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of distributed_grep_tpu for NVIDIA Hopper (H100).
 
-A MapReduce grep whose scan runs as hand-written CUDA kernels.  The slice
-ported so far: a literal or byte-class sequence of at most 32 symbols
-(optionally -i), through ``runtime.job.run_job`` and the ``grep`` CLI.
+A MapReduce grep whose scan runs as hand-written CUDA kernels: single
+patterns (Shift-And, the Glushkov NFA), literal sets (FDR, pairset) and
+approximate matches (Wu-Manber), optionally -i, through
+``runtime.job.run_job`` and the ``grep`` CLI; and the measuring path
+(``bench``, ``benchmarks/``, ``utils/slope``) with its two probe kernels.
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where the kernels' plain PyTorch versions run instead.
 

@@ -28,7 +28,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-SOURCES = ("shift_and", "nfa", "fdr", "pairset", "approx", "shift_and_swar")
+SOURCES = ("shift_and", "nfa", "fdr", "pairset", "approx", "shift_and_swar",
+           "probe_narrow", "mxu_dot")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -327,3 +327,50 @@ def test_swar_engine_on_card_equals_cpu(card, monkeypatch, pattern, ic):
     want = GrepEngine(pattern, ignore_case=ic, device="cpu", **opts).scan(data)
     assert got.matched_lines.tolist() == want.matched_lines.tolist()
     assert got.matched_lines.size
+
+
+@pytest.mark.parametrize("chunk,lanes", [(512, 4096), (1024, 65536), (160, 64)])
+def test_narrow_probe_kernel_matches_plain_on_card(card, chunk, lanes):
+    from distributed_grep_tpu_torch.ops import narrow_probe
+
+    text = _text(31, chunk * lanes)
+    lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
+    arr = layout.to_device_array(text.tobytes(), lay)
+    arr[29:36, ::13] = np.frombuffer(b"volcano", np.uint8)[:, None]
+    arr[100:103, :] = 0xF6  # bytes above 127
+    dev = torch.from_numpy(arr).to(card)
+    words = {}
+    for width in ("i32", "i16", "i8"):
+        before = narrow_probe.launches
+        got = narrow_probe.narrow_probe_words(dev, width)
+        torch.cuda.synchronize()
+        assert narrow_probe.launches == before + 1
+        want = narrow_probe.narrow_probe_words_plain(dev, width)
+        assert torch.equal(got, want), width
+        words[width] = got
+    assert torch.count_nonzero(words["i32"].view(torch.int32))
+    assert torch.equal(words["i32"], words["i16"])
+    assert torch.equal(words["i32"], words["i8"])
+
+
+@pytest.mark.parametrize("chunk,lanes,splits", [
+    (512, 4096, None),  # 1 lane block, the default split count
+    (512, 4096, 1),
+    (1024, 65536, None),  # 16 lane blocks: the 64 MiB segment
+    (1024, 65536, 7),  # an odd split count: uneven (t, s) ranges
+    (1536, 8192, 33),
+])
+def test_mxu_dot_kernel_matches_plain_on_card(card, chunk, lanes, splits):
+    from distributed_grep_tpu_torch.ops import mxu_probe
+
+    text = np.random.default_rng(chunk + lanes).integers(
+        0, 256, size=chunk * lanes, dtype=np.uint8)
+    dev = torch.from_numpy(text.reshape(chunk, lanes)).to(card)
+    member = torch.from_numpy(mxu_probe.probe_member()).to(card)
+    before = mxu_probe.launches
+    got = mxu_probe.mxu_dot(dev, member, splits=splits)
+    torch.cuda.synchronize()
+    assert mxu_probe.launches == before + 1
+    want = mxu_probe.mxu_dot_plain(dev, member)
+    assert got.shape == (lanes // 4096, 128, 128)
+    assert torch.equal(got, want)

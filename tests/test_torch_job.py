@@ -202,7 +202,8 @@ def test_shuffle_wire_round_trip():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
-    """Every port module, plus tiny exact, approx and SWAR scans, in a
+    """Every port module (the bench and benchmarks/ included), plus tiny
+    exact, approx and SWAR scans and a tiny run of each probe kernel, in a
     fresh interpreter."""
     src = tmp_path / "in.txt"
     src.write_bytes(b"a volcano\nnothing\n")
@@ -229,6 +230,13 @@ from distributed_grep_tpu_torch.ops.engine import GrepEngine
 eng = GrepEngine("volcano", device="cpu")
 assert eng.scan(b"a volcano").matched_lines.tolist() == [1]
 assert eng.stats["swar"] is True
+import torch
+from distributed_grep_tpu_torch.ops import mxu_probe, narrow_probe
+x = torch.zeros((512, 4096), dtype=torch.uint8)
+x[0:7, 3] = torch.tensor(list(b"volcano"), dtype=torch.uint8)
+assert int(narrow_probe.narrow_probe_words(x, "i16")[0, 3]) == 64
+m = torch.from_numpy(mxu_probe.probe_member())
+assert int(mxu_probe.mxu_dot(x, m).sum()) == int(m.sum(1).to(torch.int64)[x.long().flatten()].sum())
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "distributed_grep_tpu"
        or m.startswith("distributed_grep_tpu.")]
