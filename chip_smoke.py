@@ -5,7 +5,8 @@
 
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
-         source, all started together, timed).
+         source, all started together, timed), ptxas's registers and
+         spills per kernel instance, SASS counts.
 Phase 2  every kernel against its plain PyTorch version on the same inputs
          (bit-identical words: tolerance 0), at the main path's shapes and
          at small ones: the Shift-And kernel (both scan modes, five
@@ -19,6 +20,14 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          ('volcano', its filter, '-i Volcano', 'being it'); the narrow-width
          probe kernel at i32, i16 and i8, and the one-hot tensor-core
          product (1 and 16 lane blocks, the default and odd split counts).
+         Then a differential sweep of the two table-driven kernels: 26
+         seeded random regexes of 1-4 state words with 0-128 specials on
+         the NFA kernel, and 48 random FDR banks (m = 1-6, 1-16 checks,
+         both hash families, with and without folding, half ORed into a
+         nonzero plane) with members ending at rows 0..m of the stripe
+         heads, at chunk 32 and 64 over 32 lanes and at the 64 MB segment
+         (10 of the banks, five of the regexes), each held to its plain
+         version bit for bit; the count of draws is logged.
 Phase 3  the main path at real size, each query through runtime.job.run_job
          on "cuda" and checked line for line against ``LC_ALL=C grep -na``
          with the query's -F, -E, -i or -f.  Corpora made from --seed: 8
@@ -184,6 +193,31 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def ptxas_usage(log: str) -> list[tuple[str, str]]:
+    """(kernel function, its ptxas -v lines joined) for every entry
+    function of one nvcc run's output, in its order."""
+    out: list[tuple[str, list[str]]] = []
+    for line in log.splitlines():
+        text = line.strip()
+        if "Function properties for " in text:
+            out.append((text.split("Function properties for ", 1)[1], []))
+        elif out and ("registers" in text or "spill" in text):
+            out[-1][1].append(text.replace("ptxas info    : ", ""))
+    return [(f, "; ".join(lines)) for f, lines in out]
+
+
+def template_label(func: str) -> str:
+    """The integer and bool template arguments of a mangled kernel name:
+    'nfa_kernel<2, 1>' for _Z..10nfa_kernelILi2ELb1EEv..."""
+    import re
+
+    m = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", func)
+    if not m:
+        return func
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 # ------------------------------------------------------------- corpus
@@ -696,6 +730,255 @@ def phase_nfa_kernels(torch, np, nfa_scan, nfa_mod) -> int:
     return worst
 
 
+# The card-side differential sweep of the two table-driven kernels
+# (csrc/nfa.cu, csrc/fdr.cu): seeded random models, each held to its plain
+# version bit for bit at chunk 32 and 64 over 32 lanes, and a subset at
+# the main path's 64 MB segment (the plain NFA version's cost grows with
+# the specials: about 1400 small launches a step at 128).
+SWEEP_SMALL = [(32, 32), (64, 32)]
+SWEEP_SEGMENT = (1024, 65536)
+SWEEP_ALPHABET = "abcxyz"
+# 'Z' then 127 starred letters: 128 positions over 4 words, all specials
+ALL_SPECIALS = "Z" + "".join(f"{chr(97 + i % 26)}*" for i in range(127))
+
+
+def rand_regex(rng, depth: int = 0):
+    """(pattern, sample): a random regex over SWEEP_ALPHABET and a function
+    of an rng that draws one string the regex matches."""
+    kind = int(rng.integers(0, 8 if depth < 3 else 2))
+    if kind == 0:
+        c = str(rng.choice(list(SWEEP_ALPHABET)))
+        return c, lambda r: c
+    if kind == 1:
+        chars = sorted(set(rng.choice(list(SWEEP_ALPHABET), size=3).tolist()))
+        return "[" + "".join(chars) + "]", lambda r: str(r.choice(chars))
+    if kind in (2, 3):
+        parts = [rand_regex(rng, depth + 1)
+                 for _ in range(int(rng.integers(2, 6)))]
+        return ("".join(p for p, _ in parts),
+                lambda r: "".join(f(r) for _, f in parts))
+    inner, f = rand_regex(rng, depth + 1)
+    if kind == 4:
+        alts = [(inner, f)] + [rand_regex(rng, depth + 1)
+                               for _ in range(int(rng.integers(1, 3)))]
+        return ("(" + "|".join(p for p, _ in alts) + ")",
+                lambda r: alts[int(r.integers(0, len(alts)))][1](r))
+    if kind == 5:
+        return f"({inner})?", lambda r: f(r) if r.integers(0, 2) else ""
+    if kind == 6:
+        lo = int(rng.integers(0, 2))
+        return (f"({inner}){'*+'[lo]}",
+                lambda r: "".join(f(r) for _ in range(lo + int(r.integers(0, 3)))))
+    lo = int(rng.integers(0, 4))
+    hi = lo + int(rng.integers(0, 40))
+    return (f"({inner}){{{lo},{hi}}}",
+            lambda r: "".join(f(r) for _ in range(int(r.integers(lo, hi + 1)))))
+
+
+def sweep_regexes(nfa_mod, seed: int, per_words: int) -> list:
+    """``per_words`` seeded random models of each width 1-4 state words
+    (top-level concatenations of random pieces, the specials whatever the
+    draw gives), then 'a[bc]{0,126}d' (126 specials) and ALL_SPECIALS
+    (128): [(pattern, -i, model, sample)]."""
+    import numpy as np
+
+    from distributed_grep_tpu_torch.models.dfa import RegexError
+
+    rng = np.random.default_rng(seed)
+    got: dict[int, list] = {w: [] for w in range(1, 5)}
+    tries = 0
+    while min(len(v) for v in got.values()) < per_words:
+        tries += 1
+        if tries > 20000:
+            raise AssertionError(f"sweep: too few models drawn {got}")
+        parts = [rand_regex(rng) for _ in range(int(rng.integers(1, 24)))]
+        pattern = "".join(p for p, _ in parts)
+        ic = bool(rng.integers(0, 4) == 0)
+        try:
+            model = nfa_mod.try_compile_glushkov(pattern, ic)
+        except RegexError:  # the parser refused the draw
+            continue
+        if model is None or len(got[model.n_words]) >= per_words:
+            continue
+        got[model.n_words].append(
+            (pattern, ic, model,
+             lambda r, parts=parts: "".join(f(r) for _, f in parts)))
+    out = [d for w in range(1, 5) for d in got[w]]
+    for pattern, sample in (("a[bc]{0,126}d", lambda r: "a" + "bc" * int(
+            r.integers(0, 63)) + "d"), (ALL_SPECIALS, lambda r: "Zabc")):
+        out.append((pattern, False, nfa_mod.try_compile_glushkov(pattern),
+                    sample))
+    return out
+
+
+def sweep_text(rng, chunk: int, lanes: int, samples, fold: bool):
+    """(chunk, lanes) stripes of random SWEEP_ALPHABET text (upper case
+    too when ``fold``) with newlines, the samples planted at random
+    offsets, at stripe heads (rows 0..len-1 of every 3rd lane) and across
+    32-row word edges."""
+    import numpy as np
+
+    from distributed_grep_tpu_torch.ops.layout import Layout, to_device_array
+
+    alpha = SWEEP_ALPHABET + (SWEEP_ALPHABET.upper() if fold else "") + "\n"
+    text = rng.choice(np.frombuffer(alpha.encode(), np.uint8),
+                      size=chunk * lanes)
+    nd = [s.encode() for s in samples if s]
+    n = max(8, text.size // 200)
+    put(text, rng.integers(0, text.size - 140, size=n), nd)
+    arr = to_device_array(text.tobytes(), Layout(lanes=lanes, chunk=chunk,
+                                                 n_real=text.size))
+    for k, lane in enumerate(range(0, lanes, 3)):
+        s = nd[k % len(nd)][:chunk]
+        arr[: len(s), lane] = np.frombuffer(s, np.uint8)
+    for k, lane in enumerate(range(1, lanes, 5)):
+        s = nd[k % len(nd)][: chunk // 2]
+        r0 = max(0, min(32 - len(s) // 2, chunk - len(s)))
+        arr[r0 : r0 + len(s), lane] = np.frombuffer(s, np.uint8)
+    return arr
+
+
+def phase_nfa_sweep(torch, np, nfa_scan, nfa_mod, seed: int) -> tuple[int, int]:
+    """The NFA kernel against its plain version on seeded random models of
+    1-4 words with 0-128 specials: every draw at SWEEP_SMALL, one draw per
+    width and the 128-specials model at SWEEP_SEGMENT.  Returns (draws
+    compared, the largest absolute difference)."""
+    rng = np.random.default_rng(seed)
+    draws = sweep_regexes(nfa_mod, seed, per_words=6)
+    on_segment = {id(d) for d in draws[:24:6]} | {id(draws[-1])}
+    n = worst = 0
+    for d in draws:
+        pattern, ic, model, sample = d
+        samples = [sample(rng) for _ in range(12)]
+        shapes = SWEEP_SMALL + ([SWEEP_SEGMENT] if id(d) in on_segment else [])
+        nonzero = 0
+        for chunk, lanes in shapes:
+            dev = torch.from_numpy(sweep_text(rng, chunk, lanes, samples,
+                                              ic)).cuda()
+            got = nfa_scan.nfa_scan_words(dev, model)
+            torch.cuda.synchronize()
+            want = nfa_scan.nfa_scan_words_plain(dev, model)
+            err = words_err(torch, got, want)
+            worst = max(worst, err)
+            n += 1
+            if not torch.equal(got, want) or err:
+                raise AssertionError(
+                    f"nfa sweep: kernel != plain for {pattern!r} (-i {ic}, "
+                    f"{model.n_words} words, {model.n_specials} specials) "
+                    f"chunk={chunk} lanes={lanes} max_abs_err={err}")
+            nonzero += int(torch.count_nonzero(want.view(torch.int32)))
+        if not nonzero:
+            raise AssertionError(f"nfa sweep: no match of {pattern!r} in "
+                                 f"its text")
+        if id(d) in on_segment or model.n_specials >= 100:
+            log(f"  ok nfa sweep {model.n_words} words {model.n_specials:3d} "
+                f"specials, shapes {shapes}: {pattern[:60]!r}")
+    by_words = {w: sum(d[2].n_words == w for d in draws) for w in range(1, 5)}
+    log(f"  nfa sweep: {len(draws)} models (by words {by_words}; specials "
+        f"{min(d[2].n_specials for d in draws)}-"
+        f"{max(d[2].n_specials for d in draws)}), {n} draws compared, all "
+        f"bit-identical")
+    return n, worst
+
+
+def sweep_banks(fdr_mod, seed: int, n: int) -> list:
+    """``n`` seeded random FDR banks: m = 1..6 in turn, 1-16 checks at
+    random slots, families and domains (tables at most 8192 entries), the
+    tables built from a random group of members of m+1..m+6 letters."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    banks = []
+    for i in range(n):
+        m = 1 + i % fdr_mod.MAX_DEPTHS
+        n_checks = 1 + int(rng.integers(0, 16)) if i % 4 else 16
+        checks = []
+        total = 0
+        for _ in range(n_checks):
+            dom = int(rng.choice(fdr_mod.DOMAINS))
+            while total + dom > 8192 - 128 * (n_checks - len(checks) - 1):
+                dom //= 2
+            dom = max(dom, 128)
+            total += dom
+            checks.append((int(rng.integers(0, m)), int(rng.integers(0, 2)),
+                           dom))
+        group = [p.encode() for p in rand_literals(
+            int(rng.integers(5, 400)), m + 1, m + 6, seed=seed + i)]
+        tables = fdr_mod._build_tables(group, fdr_mod._bucket_of(group), m,
+                                       tuple(checks))
+        banks.append(fdr_mod.fdr_bank_from_arrays(
+            m, checks, tables, group, fdr_mod._fp_of_tables(tables)))
+    return banks
+
+
+def phase_fdr_sweep(torch, np, fdr_scan, fdr_mod, seed: int) -> tuple[int, int]:
+    """The FDR kernel against its plain version on seeded random banks, at
+    SWEEP_SMALL (all) and SWEEP_SEGMENT (every 5th: each m, 16 checks),
+    with and without case folding, members
+    planted across the text, at stripe heads (ending at rows 0..m) and
+    across word edges; half the launches OR into a nonzero plane (out=).
+    Returns (draws compared, the largest absolute difference)."""
+    from distributed_grep_tpu_torch.ops.layout import Layout, to_device_array
+
+    rng = np.random.default_rng(seed)
+    banks = sweep_banks(fdr_mod, seed, 48)
+    n = worst = 0
+    alpha = np.frombuffer(b"abcdefghijklmnopqrstuvwxyzABCXYZ \n", np.uint8)
+    for chunk, lanes in SWEEP_SMALL + [SWEEP_SEGMENT]:
+        size = chunk * lanes
+        base_text = rng.choice(alpha, size=size)
+        # every bank at the small shapes, every 5th (each m, 16 checks
+        # included) at the segment, inside the smoke's time limit
+        step = 5 if (chunk, lanes) == SWEEP_SEGMENT else 1
+        for b_i, bank in list(enumerate(banks))[::step]:
+            text = base_text.copy()
+            members = bank.patterns
+            n_put = max(8, min(size // 60, 20000))
+            put(text, rng.integers(0, size - 16, size=n_put),
+                [p.upper() if k % 3 == 0 else p
+                 for k, p in enumerate(members)])
+            arr = to_device_array(text.tobytes(), Layout(
+                lanes=lanes, chunk=chunk, n_real=size))
+            for r in range(bank.m + 1):  # a member ending at row r
+                p = members[r % len(members)]
+                tail = p[max(0, len(p) - r - 1):]
+                arr[: len(tail), r::bank.m + 1] = np.frombuffer(
+                    tail, np.uint8)[:, None]
+            p = members[0]
+            r0 = min(30, chunk - len(p))  # across a word edge where it fits
+            arr[r0 : r0 + len(p), 2::7] = np.frombuffer(p, np.uint8)[:, None]
+            dev = torch.from_numpy(arr).cuda()
+            for fold in (False, True):
+                acc = (b_i + fold) % 2 == 1
+                if acc:
+                    base = torch.from_numpy(rng.integers(
+                        0, 2**32, size=(chunk // 32, lanes),
+                        dtype=np.uint32) & np.uint32(0x11111111)).cuda()
+                    got = base.clone()
+                    fdr_scan.fdr_scan_words(dev, bank, fold, out=got)
+                else:
+                    got = fdr_scan.fdr_scan_words(dev, bank, fold)
+                torch.cuda.synchronize()
+                want = fdr_scan.fdr_scan_words_plain(dev, bank, fold)
+                if acc:
+                    want = (want.view(torch.int32)
+                            | base.view(torch.int32)).view(torch.uint32)
+                err = words_err(torch, got, want)
+                worst = max(worst, err)
+                n += 1
+                if not torch.equal(got, want) or err:
+                    raise AssertionError(
+                        f"fdr sweep: kernel != plain for bank {b_i} (m="
+                        f"{bank.m}, checks={bank.checks}) fold={fold} out="
+                        f"{acc} chunk={chunk} lanes={lanes} max_abs_err={err}")
+    log(f"  fdr sweep: {len(banks)} banks (m 1-{fdr_mod.MAX_DEPTHS}, checks "
+        f"{min(b.n_checks for b in banks)}-{max(b.n_checks for b in banks)}"
+        f", families {sorted({f for b in banks for f in b.families})}), "
+        f"{n} draws compared at {SWEEP_SMALL} and (every 5th bank) "
+        f"{SWEEP_SEGMENT}, all bit-identical")
+    return n, worst
+
+
 def set_models(fdr_mod, ps_mod) -> tuple[dict, dict]:
     """The set kernels' phase-2 models: the FDR banks of BASELINE configs
     2, 3 and 5 and a two-family bank with 1024-entry tables; pairset
@@ -1192,13 +1475,12 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(_build.SOURCES)}, one nvcc each, in parallel)")
     for name, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
-    for name in ("shift_and", "approx", "shift_and_swar"):
+        for func, usage in ptxas_usage(text):
+            log(f"  ptxas {name} {template_label(func)}: {usage}")
+    for name in ("shift_and", "approx", "shift_and_swar", "nfa", "fdr"):
         for func, n in sass_counts(_build, name).items():
-            log(f"  sass {name}: {func}: {n} instructions ({n / 32:.1f} "
-                f"per step of 32)")
+            log(f"  sass {name} {template_label(func)}: {n} instructions "
+                f"({n / 32:.1f} per step of 32)")
     # the narrow probe: one word of 32 unrolled steps per loop trip, so
     # the count over 32 is close to its instructions per step at each width
     for func, ops in sass_opcodes(_build, "probe_narrow").items():
@@ -1224,9 +1506,17 @@ def main() -> int:
     nfa_err = phase_nfa_kernels(torch, np, nfa_scan, nfa_mod)
     log(f"nfa checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    _n, sweep_err = phase_nfa_sweep(torch, np, nfa_scan, nfa_mod, 4242)
+    nfa_err = max(nfa_err, sweep_err)
+    log(f"nfa sweep: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     fdr_err, ps_err = phase_set_kernels(torch, np, fdr_scan, pairset_scan,
                                         fdr_mod, ps_mod)
     log(f"fdr and pairset checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _n, sweep_err = phase_fdr_sweep(torch, np, fdr_scan, fdr_mod, 4343)
+    fdr_err = max(fdr_err, sweep_err)
+    log(f"fdr sweep: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     approx_err = phase_approx_kernels(torch, np, approx_scan, ax_mod)
     log(f"approx checks: {time.perf_counter() - t0:.1f} s")

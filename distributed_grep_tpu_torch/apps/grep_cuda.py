@@ -10,8 +10,11 @@ Glushkov NFA kernel for other regexes, the Wu-Manber kernel for
 ``max_errors=k`` approximate matching) and slices only the matched lines
 out of the buffer.
 
-Options outside this package's slices (-v/-w/-x, counts) raise
-NotImplementedError naming the ROADMAP.md item that will port them.
+Options outside this package's slices (-v/-w/-x, counts, the device mesh,
+the shard index) raise NotImplementedError naming the ROADMAP.md item that
+will port them; the port drives one card, so ``devices`` raises too.  A
+falsy value of such an option (``index_dir=None``) is accepted and
+dropped.
 """
 
 from __future__ import annotations
@@ -40,6 +43,11 @@ _UNPORTED = {
     "line_regexp": "item 7 (the grep app's remaining options)",
     "count_only": "item 7 (the grep app's remaining options)",
     "presence_only": "item 7 (the grep app's remaining options)",
+    "devices": "item 9 (multi-GPU)",
+    "mesh_shape": "item 9 (multi-GPU)",
+    "mesh_axes": "item 9 (multi-GPU)",
+    "pattern_axis": "item 9 (multi-GPU)",
+    "index_dir": "item 8 (the service runtime)",
 }
 
 

@@ -10,10 +10,12 @@ tile (chunk // 32, lanes // 128, 128) to the port's (chunk // 32, lanes).
 With ``out`` the words are OR'd into that plane in place (the later
 banks of a set, then its pairset sidecar) and ``out`` is returned.
 
-A CUDA tensor launches the hand-written kernel (csrc/fdr.cu) with the
-bank packed into a small device buffer (``pack_bank``, uploaded once per
-bank and card); a CPU tensor runs ``fdr_scan_words_plain``.  Anything
-else raises.
+A CUDA tensor launches the hand-written kernel (csrc/fdr.cu), one thread
+per output word, with the bank packed into one buffer (``pack_bank``: the
+check descriptors, which the launcher passes as a kernel parameter, then
+the tables, which each block copies to shared memory; packed and uploaded
+once per bank and card); a CPU tensor runs ``fdr_scan_words_plain``.
+Anything else raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from distributed_grep_tpu_torch.ops import _build
 from distributed_grep_tpu_torch.ops.cuda_scan import _check
 
 # The plan buffer's layout in uint32 words; csrc/fdr.cu reads the same.
-_M, _N_CHECKS, _SLOT_START, _CHECKS, _TABLES = 0, 1, 2, 10, 64
+_M, _N_CHECKS, _N_TABLE, _SLOT_START = 0, 1, 2, 8
+_MUL_PREV, _MUL_BYTE, _DMASK, _OFF = 16, 32, 48, 64
+_TABLES = 128
 MAX_CHECKS = 16
 MAX_TABLE = 64 * 128
 
@@ -53,9 +57,10 @@ def _count_launch() -> None:
 
 
 def pack_bank(bank: FdrBank) -> np.ndarray:
-    """The kernel's plan as one uint32 array (layout in csrc/fdr.cu): the
-    checks sorted by slot, each with its family, domain mask and the
-    offset of its table, then the tables in that order."""
+    """The kernel's plan as one uint32 array (layout in csrc/fdr.cu): a
+    header with the checks sorted by slot, each check's hash multipliers
+    (its family's), domain mask and table offset, then the tables in that
+    order, padded to a multiple of 4 words."""
     if not 1 <= bank.m <= MAX_DEPTHS or bank.n_checks > MAX_CHECKS:
         raise ValueError(f"bank has m={bank.m} and {bank.n_checks} checks; "
                          f"the kernel takes 1..{MAX_DEPTHS} slots and <= "
@@ -65,16 +70,19 @@ def pack_bank(bank: FdrBank) -> np.ndarray:
     if total > MAX_TABLE:
         raise ValueError(f"bank tables hold {total} entries; the kernel "
                          f"takes <= {MAX_TABLE}")
-    plan = np.zeros(_TABLES + total, dtype=np.uint32)
-    plan[_M], plan[_N_CHECKS] = bank.m, bank.n_checks
+    n_table = -(-total // 4) * 4
+    plan = np.zeros(_TABLES + n_table, dtype=np.uint32)
+    plan[_M], plan[_N_CHECKS], plan[_N_TABLE] = bank.m, bank.n_checks, n_table
     counts = np.bincount([bank.checks[i][0] for i in order],
                          minlength=bank.m)
     plan[_SLOT_START : _SLOT_START + bank.m + 1] = np.concatenate(
         ([0], np.cumsum(counts)))
+    plan[_SLOT_START + bank.m + 1 : _MUL_PREV] = bank.n_checks
     off = 0
     for j, i in enumerate(order):
         _slot, fam, dom = bank.checks[i]
-        plan[_CHECKS + 3 * j : _CHECKS + 3 * j + 3] = (fam, dom - 1, off)
+        plan[_MUL_PREV + j], plan[_MUL_BYTE + j] = HASHES[fam]
+        plan[_DMASK + j], plan[_OFF + j] = dom - 1, off
         plan[_TABLES + off : _TABLES + off + dom] = bank.tables[i]
         off += dom
     return plan
@@ -148,23 +156,26 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _device_plan(bank: FdrBank, device: torch.device) -> torch.Tensor:
-    """The bank's packed plan on ``device``, uploaded once and kept on
-    the bank."""
+def _plans(bank: FdrBank, device: torch.device):
+    """The bank's packed plan on the host and on ``device``, packed and
+    uploaded once and kept on the bank."""
     with _plan_lock:
         cache = bank.__dict__.setdefault("_device_plans", {})
+        host = cache.get("host")
+        if host is None:
+            host = cache["host"] = pack_bank(bank)
         plan = cache.get(device)
         if plan is None:
-            plan = torch.from_numpy(pack_bank(bank).view(np.int32)).to(device)
+            plan = torch.from_numpy(host.view(np.int32)).to(device)
             cache[device] = plan
-        return plan
+        return host, plan
 
 
 def fdr_scan_words(
@@ -183,15 +194,15 @@ def fdr_scan_words(
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
     fn = _lib()
-    plan = _device_plan(bank, data.device)
+    host, plan = _plans(bank, data.device)
     if out is None:
         res = torch.empty(shape, dtype=torch.uint32, device=data.device)
     else:
         res = out
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = fn(data.data_ptr(), res.data_ptr(), plan.data_ptr(), chunk,
-                 lanes, bank.m, plan.numel(), int(bool(fold_case)),
+        err = fn(data.data_ptr(), res.data_ptr(), host.ctypes.data,
+                 plan.data_ptr(), chunk, lanes, int(bool(fold_case)),
                  int(out is not None), stream)
     if err != 0:
         raise RuntimeError(

@@ -10,8 +10,11 @@ Each stripe starts from the empty state at a line start, so a stripe's
 head line is re-checked on the host (ops/device_scan.py).
 
 A CUDA tensor launches the hand-written kernel (csrc/nfa.cu) with the
-model's plan packed into a small device buffer (``pack_plan``, uploaded
-once per model and card); a CPU tensor runs ``nfa_scan_words_plain``.
+model's plan packed into one buffer (``pack_plan``: a header the launcher
+passes as a kernel parameter, then B interleaved by byte and the
+specials' exception tables, which the kernel keeps in shared memory;
+uploaded once per model and card); a CPU tensor runs
+``nfa_scan_words_plain``.
 Anything else raises.
 """
 
@@ -29,13 +32,10 @@ from distributed_grep_tpu_torch.ops.cuda_scan import _check
 
 NL = 0x0A
 MAX_WORDS = 4
-MAX_SPECIALS = 128  # a 128-position model has at most 128 special bits
 # The plan buffer's layout in uint32 words; csrc/nfa.cu reads the same.
 _CHAIN, _INIT_FLOAT, _INIT_ANCHOR, _FINAL = 0, 4, 8, 12
-_SPEC_START, _SPEC_MASK = 16, 21
-_B = 32
-_SPECIALS = _B + MAX_WORDS * 256
-_SPEC_STRIDE = 5
+_N_TABLES, _N_SHARED, _TAB_WORD, _TAB_SLICE = 16, 17, 32, 48
+_HEADER = 64  # the shared part (B, then the exception tables) starts here
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -67,31 +67,53 @@ def b_table(model: GlushkovModel) -> np.ndarray:
     return full
 
 
+def entry_words(n_words: int) -> int:
+    """Words per B or table entry: n_words padded to a 32-, 64- or 128-bit
+    shared-memory load."""
+    return 1 if n_words == 1 else 2 if n_words == 2 else 4
+
+
+def exception_tables(model: GlushkovModel) -> dict[tuple[int, int], np.ndarray]:
+    """{(w, s): (256, n_words) uint32} for every byte slice s of a state
+    word w that holds special source bits: entry v is the OR of ``follow``
+    over the specials (w, j, follow) with 8s <= j < 8s + 8 and bit j - 8s
+    set in v.  Slices in (w, s) order."""
+    nw = model.n_words
+    values = np.arange(256)
+    tables: dict[tuple[int, int], np.ndarray] = {}
+    for wp, jp, flist in model.specials:
+        key = (wp, jp // 8)
+        tab = tables.setdefault(key, np.zeros((256, nw), dtype=np.uint32))
+        follow = np.zeros(nw, dtype=np.uint32)
+        for wj, m in flist:
+            follow[wj] = m
+        tab[(values >> (jp % 8)) & 1 == 1] |= follow
+    return dict(sorted(tables.items()))
+
+
 def pack_plan(model: GlushkovModel) -> np.ndarray:
-    """The kernel's plan as one uint32 array (layout in csrc/nfa.cu).
-    ``model.specials`` come in position order, so they are grouped by the
-    word of their source bit already."""
-    nw, specials = model.n_words, model.specials
-    if not 1 <= nw <= MAX_WORDS or len(specials) > MAX_SPECIALS:
-        raise ValueError(f"model has {nw} state words and {len(specials)} "
-                         f"specials; the kernel takes 1..{MAX_WORDS} and "
-                         f"<= {MAX_SPECIALS}")
-    plan = np.zeros(_SPECIALS + _SPEC_STRIDE * len(specials), dtype=np.uint32)
+    """The kernel's plan as one uint32 array (layout in csrc/nfa.cu): the
+    header (masks, the tables' words and slices), then B[byte] interleaved
+    by byte and the exception tables in (word, slice) order, each entry
+    ``entry_words`` words."""
+    nw = model.n_words
+    if not 1 <= nw <= MAX_WORDS:
+        raise ValueError(f"model has {nw} state words; the kernel takes "
+                         f"1..{MAX_WORDS}")
+    s = entry_words(nw)
+    tables = exception_tables(model)
+    n_shared = (1 + len(tables)) * 256 * s
+    plan = np.zeros(_HEADER + n_shared, dtype=np.uint32)
     plan[_CHAIN : _CHAIN + nw] = model.chain_src
     plan[_INIT_FLOAT : _INIT_FLOAT + nw] = model.init_float_words
     plan[_INIT_ANCHOR : _INIT_ANCHOR + nw] = model.init_anchor_words
     plan[_FINAL : _FINAL + nw] = model.final_words
-    plan[_B : _B + 256 * nw] = b_table(model).reshape(-1)
-    counts = np.zeros(MAX_WORDS, dtype=np.int64)
-    for i, (wp, jp, flist) in enumerate(specials):
-        counts[wp] += 1
-        plan[_SPEC_MASK + wp] |= np.uint32(1 << jp)
-        rec = _SPECIALS + _SPEC_STRIDE * i
-        plan[rec] = jp
-        for wj, m in flist:
-            plan[rec + 1 + wj] = m
-    plan[_SPEC_START : _SPEC_START + MAX_WORDS + 1] = np.concatenate(
-        ([0], np.cumsum(counts)))
+    plan[_N_TABLES], plan[_N_SHARED] = len(tables), n_shared
+    shared = plan[_HEADER:].reshape(1 + len(tables), 256, s)
+    shared[0, :, :nw] = b_table(model).T
+    for i, ((w, sl), tab) in enumerate(tables.items()):
+        plan[_TAB_WORD + i], plan[_TAB_SLICE + i] = w, sl
+        shared[1 + i, :, :nw] = tab
     return plan
 
 
@@ -105,8 +127,8 @@ def nfa_scan_words_plain(
 
     ``live`` (a list of n_words ints, optional) receives, per state word,
     the number of (byte, lane) steps at which some special source bit of
-    that word was set: the steps where the kernel runs that word's
-    specials loop (the data-dependent part of its work)."""
+    that word was set (chip_smoke.py prices these steps in its NFA
+    bound)."""
     chunk, lanes = _check(data)
     dev = data.device
     nw = model.n_words
@@ -158,24 +180,26 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _device_plan(model: GlushkovModel, device: torch.device) -> torch.Tensor:
-    """The model's packed plan on ``device``, uploaded once and kept on
-    the model."""
+def _plans(model: GlushkovModel, device: torch.device):
+    """The model's packed plan on the host and on ``device``, packed and
+    uploaded once and kept on the model."""
     with _plan_lock:
         cache = model.__dict__.setdefault("_device_plans", {})
+        host = cache.get("host")
+        if host is None:
+            host = cache["host"] = pack_plan(model)
         plan = cache.get(device)
         if plan is None:
-            host = torch.from_numpy(pack_plan(model).view(np.int32))
-            plan = host.to(device)
+            plan = torch.from_numpy(host.view(np.int32)).to(device)
             cache[device] = plan
-        return plan
+        return host, plan
 
 
 def nfa_scan_words(data: torch.Tensor, model: GlushkovModel) -> torch.Tensor:
@@ -189,13 +213,13 @@ def nfa_scan_words(data: torch.Tensor, model: GlushkovModel) -> torch.Tensor:
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
     fn = _lib()
-    plan = _device_plan(model, data.device)
+    host, plan = _plans(model, data.device)
     out = torch.empty((chunk // 32, lanes), dtype=torch.uint32,
                       device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = fn(data.data_ptr(), out.data_ptr(), plan.data_ptr(), chunk,
-                 lanes, model.n_words, model.n_specials, stream)
+        err = fn(data.data_ptr(), out.data_ptr(), host.ctypes.data,
+                 plan.data_ptr(), chunk, lanes, model.n_words, stream)
     if err != 0:
         raise RuntimeError(
             f"nfa CUDA kernel launch failed: cudaError {err} (chunk={chunk}, "

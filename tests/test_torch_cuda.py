@@ -109,6 +109,10 @@ NFA_MODELS = [
      + ")", False),  # 4 words
     ("^volc", False),  # init_anchor
     ("a[bc]{40,90}d", False),  # 3 words, 51 specials
+    ("v[a-z ]{0,100}o", False),  # 4 words, 100 specials, edges across words
+    # 'v' then 127 starred letters: 4 words, exactly 128 specials (16
+    # exception tables, 68 KB of shared memory: the opt-in above 48 KB)
+    ("v" + "".join(f"{chr(97 + i % 26)}*" for i in range(127)), False),
 ]
 
 
@@ -122,6 +126,8 @@ def test_nfa_kernel_matches_plain_on_card(card, chunk, lanes):
     dev = torch.from_numpy(arr).to(card)
     for pattern, ic in NFA_MODELS:
         model = port_nfa.try_compile_glushkov(pattern, ignore_case=ic)
+        assert pattern[0] != "v" or (model.n_words, model.n_specials) in (
+            (4, 100), (4, 128))
         before = nfa_scan.launches
         got = nfa_scan.nfa_scan_words(dev, model)
         torch.cuda.synchronize()
@@ -162,6 +168,15 @@ def _set_models():
     for pats in (["volcano", "hallo", "anarchism", "needle"],
                  _literals(1000, 6, 12, 3), _literals(3000, 4, 6, 5)):
         banks += port_fdr.compile_fdr(pats).banks
+    # m = 6, both families, domains up to 1024 (the tuner of compile_fdr
+    # picks shallower banks for these sets)
+    group = [p.encode() for p in _literals(300, 7, 12, 11)]
+    checks = ((5, 0, 128), (4, 0, 1024), (3, 0, 256), (1, 0, 512),
+              (0, 0, 1024), (5, 1, 512), (2, 1, 1024))
+    tables = port_fdr._build_tables(group, port_fdr._bucket_of(group), 6,
+                                    checks)
+    banks.append(port_fdr.fdr_bank_from_arrays(
+        6, checks, tables, group, port_fdr._fp_of_tables(tables)))
     pairsets = [
         port_ps.compile_pairset(["ab", "zq", "x", "Vo"]),
         port_ps.compile_pairset([bytes([100 + i, b"uvwxyz"[j]])
@@ -172,18 +187,21 @@ def _set_models():
     return banks, pairsets
 
 
-@pytest.mark.parametrize("chunk,lanes", [(512, 4096), (1024, 65536), (160, 64)])
+@pytest.mark.parametrize("chunk,lanes", [(512, 4096), (1024, 65536), (160, 64),
+                                         (32, 4096)])
 def test_fdr_and_pairset_kernels_match_plain_on_card(card, chunk, lanes):
     from distributed_grep_tpu_torch.ops import fdr_scan, pairset_scan
 
     banks, pairsets = _set_models()
-    assert {b.m for b in banks} >= {2, 5} and any(
+    assert {b.m for b in banks} >= {2, 5, 6} and any(
         b.families == (0, 1) for b in banks)
     assert any(p.transposed for p in pairsets)
     text = _text(13, chunk * lanes)
     arr = layout.to_device_array(
         text.tobytes(), layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size))
     arr[0:5, ::5] = np.frombuffer(b"hallo", np.uint8)[:, None]
+    for r, p in enumerate(banks[-1].patterns[:7]):  # m = 6: ends at rows 0..6
+        arr[: r + 1, 1 + r :: 9] = np.frombuffer(p[-r - 1 :], np.uint8)[:, None]
     dev = torch.from_numpy(arr).to(card)
     for bank in banks:
         for fold in (False, True):
@@ -206,6 +224,16 @@ def test_fdr_and_pairset_kernels_match_plain_on_card(card, chunk, lanes):
             | fdr_scan.fdr_scan_words_plain(dev, banks[1]).view(torch.int32)
             | pairset_scan.pairset_scan_words_plain(dev, pairsets[0]).view(
                 torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want)
+    # the m = 6 bank ORed into a nonzero plane
+    rng = np.random.default_rng(chunk)
+    base = torch.from_numpy(rng.integers(0, 2**32, size=(chunk // 32, lanes),
+                                         dtype=np.uint32)).to(card)
+    out = base.clone()
+    assert fdr_scan.fdr_scan_words(dev, banks[-1], out=out) is out
+    want = (fdr_scan.fdr_scan_words_plain(dev, banks[-1]).view(torch.int32)
+            | base.view(torch.int32))
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), want)
 

@@ -133,26 +133,75 @@ def test_out_ors_into_the_word_plane_and_cpu_is_not_counted():
         fdr_scan.fdr_scan_words(arr.to(torch.int32), a)
 
 
+def _walk_packed_bank(plan: np.ndarray, arr: np.ndarray,
+                      fold: bool) -> np.ndarray:
+    """csrc/fdr.cu's window in numpy, reading only the packed plan: for
+    each output row t and each check i of slot k, the table lookup at row
+    t - (m-1-k), all ones before the stripe head, prev = 0 at row 0."""
+    chunk, lanes = arr.shape
+    m, n = int(plan[fdr_scan._M]), int(plan[fdr_scan._N_CHECKS])
+    starts = plan[fdr_scan._SLOT_START : fdr_scan._SLOT_START + 8]
+    tabs = plan[fdr_scan._TABLES :].astype(np.int64)
+    b = arr.astype(np.int64)
+    if fold:
+        b = np.where((b >= 65) & (b <= 90), b + 32, b)
+    prev = np.vstack([np.zeros((1, lanes), np.int64), b[:-1]])
+    v = np.full((chunk, lanes), 0xFFFFFFFF, dtype=np.int64)
+    for k in range(m):
+        lag = m - 1 - k
+        for i in range(int(starts[k]), int(starts[k + 1])):
+            a, c = int(plan[fdr_scan._MUL_PREV + i]), int(plan[fdr_scan._MUL_BYTE + i])
+            dm, off = int(plan[fdr_scan._DMASK + i]), int(plan[fdr_scan._OFF + i])
+            x = tabs[off + (((prev * a) ^ (b * c)) & dm)]
+            v[lag:] &= x[: chunk - lag]
+    assert starts[m:].tolist() == [n] * (8 - m)
+    bits = (v != 0).reshape(chunk // 32, 32, lanes).astype(np.uint64)
+    return (bits << np.arange(32, dtype=np.uint64)[None, :, None]).sum(
+        axis=1).astype(np.uint32)
+
+
 def test_pack_bank_layout():
-    bank = port_bank(ref_bank(6))
+    """The header: the checks sorted by slot, each with its family's hash
+    multipliers, domain mask and table offset; the tables padded to 4
+    words."""
+    m = 6
+    bank = port_bank(ref_bank(m))
     plan = fdr_scan.pack_bank(bank)
     assert plan.dtype == np.uint32
-    assert plan[fdr_scan._M] == 6 and plan[fdr_scan._N_CHECKS] == 7
-    starts = plan[fdr_scan._SLOT_START : fdr_scan._SLOT_START + 7].tolist()
-    assert starts[0] == 0 and starts[-1] == 7 and starts == sorted(starts)
+    n = bank.n_checks
+    assert plan[fdr_scan._M] == m and plan[fdr_scan._N_CHECKS] == n
+    starts = plan[fdr_scan._SLOT_START : fdr_scan._SLOT_START + m + 1].tolist()
+    assert starts[0] == 0 and starts[-1] == n and starts == sorted(starts)
     seen = set()
-    for k in range(6):  # each slot's records point at its checks' tables
+    for k in range(m):  # each slot's records point at its checks' tables
         for j in range(starts[k], starts[k + 1]):
-            fam, dmask, off = plan[fdr_scan._CHECKS + 3 * j :
-                                   fdr_scan._CHECKS + 3 * j + 3].tolist()
+            mul = (int(plan[fdr_scan._MUL_PREV + j]),
+                   int(plan[fdr_scan._MUL_BYTE + j]))
+            fam = port_fdr.HASHES.index(mul)
+            dmask, off = plan[[fdr_scan._DMASK + j, fdr_scan._OFF + j]].tolist()
             i = next(i for i, c in enumerate(bank.checks)
                      if c == (k, fam, dmask + 1) and i not in seen)
             seen.add(i)
             np.testing.assert_array_equal(
                 plan[fdr_scan._TABLES + off : fdr_scan._TABLES + off + dmask + 1],
                 bank.tables[i])
-    assert seen == set(range(bank.n_checks))
-    assert plan.size == fdr_scan._TABLES + sum(d for _, _, d in bank.checks)
+    assert seen == set(range(n))
+    total = sum(d for _, _, d in bank.checks)
+    assert plan[fdr_scan._N_TABLE] == -(-total // 4) * 4
+    assert plan.size == fdr_scan._TABLES + plan[fdr_scan._N_TABLE]
+
+
+@pytest.mark.parametrize("m", sorted(PLANS))
+def test_packed_bank_walk_equals_plain(m):
+    """A walk of the packed plan (the kernel's window in numpy) gives the
+    plain version's words, with and without case folding."""
+    bank = port_bank(ref_bank(m))
+    plan = fdr_scan.pack_bank(bank)
+    arr = stripes(bank.patterns, m, 96, 64)
+    for fold in (False, True):
+        want = fdr_scan.fdr_scan_words_plain(torch.from_numpy(arr), bank, fold)
+        np.testing.assert_array_equal(_walk_packed_bank(plan, arr, fold),
+                                      want.numpy())
 
 
 def _confirm_data(seed: int, members: list[bytes]) -> bytes:

@@ -182,6 +182,22 @@ def test_unported_app_options_raise(opt):
         grep_cuda.configure(pattern="volcano", device="cpu", **opt)
 
 
+@pytest.mark.parametrize("opt,item", [
+    ({"devices": [0]}, "item 9"), ({"devices": "all"}, "item 9"),
+    ({"mesh_shape": [2]}, "item 9"), ({"mesh_axes": ("data",)}, "item 9"),
+    ({"pattern_axis": "model"}, "item 9"), ({"index_dir": "x"}, "item 8"),
+])
+def test_mesh_and_index_options_raise_naming_their_item(opt, item):
+    """The reference accepts these options; the port names the ROADMAP
+    item that ports them instead of passing them on to GrepEngine (which
+    raised TypeError).  A falsy value is accepted and not passed on."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        grep_cuda.configure("volcano", device="cpu", **opt)
+    name = next(iter(opt))
+    grep_cuda.configure("volcano", device="cpu", **{name: None})
+    assert grep_cuda._engine is not None
+
+
 def test_partition_bit_compatible_with_reference():
     rng = np.random.default_rng(0)
     keys = [f"/d/f{rng.integers(0, 9)}.txt (line number #{rng.integers(1, 10**7)})"

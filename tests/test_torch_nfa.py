@@ -173,20 +173,137 @@ def test_plain_words_bit_identical_to_reference_kernel(pattern, ic, n_words):
     assert want.any(), "the text must contain matches"
 
 
+# 'Z' then 127 starred classes: 128 positions over 4 words, every one a
+# special (each follows itself and every later position)
+ALL_SPECIALS = "Z" + "".join(f"{chr(97 + i % 26)}*" for i in range(127))
+
+
+def _walk_packed_plan(plan: np.ndarray, n_words: int,
+                      arr: np.ndarray) -> np.ndarray:
+    """csrc/nfa.cu's recurrence in numpy, reading only the packed plan:
+    the header masks, B[byte] at the interleaved entries and one lookup
+    in each exception table, at the byte of its word and slice."""
+    chunk, lanes = arr.shape
+    s = nfa_scan.entry_words(n_words)
+    head = plan[: nfa_scan._HEADER].astype(np.int64)
+    shared = plan[nfa_scan._HEADER :].astype(np.int64)
+    assert shared.size == head[nfa_scan._N_SHARED]
+
+    def hdr(base, w):
+        return int(head[base + w])
+
+    d = np.zeros((n_words, lanes), dtype=np.int64)
+    prev_nl = np.ones(lanes, dtype=bool)
+    hits = np.zeros((chunk, lanes), dtype=bool)
+    for t in range(chunk):
+        b = arr[t].astype(np.int64)
+        r = np.stack([hdr(nfa_scan._INIT_FLOAT, w)
+                      | np.where(prev_nl, hdr(nfa_scan._INIT_ANCHOR, w), 0)
+                      | ((d[w] & hdr(nfa_scan._CHAIN, w)) << 1) & 0xFFFFFFFF
+                      for w in range(n_words)])
+        for i in range(int(head[nfa_scan._N_TABLES])):
+            w = hdr(nfa_scan._TAB_WORD, i)
+            v = (d[w] >> (8 * hdr(nfa_scan._TAB_SLICE, i))) & 0xFF
+            off = (1 + i) * 256 * s
+            for x in range(n_words):
+                r[x] |= shared[off + v * s + x]
+        d = np.stack([r[w] & shared[b * s + w] for w in range(n_words)])
+        hits[t] = np.any(d & head[nfa_scan._FINAL : nfa_scan._FINAL + n_words,
+                                  None], axis=0)
+        prev_nl = b == 0x0A
+    bits = hits.reshape(chunk // 32, 32, lanes).astype(np.uint64)
+    return (bits << np.arange(32, dtype=np.uint64)[None, :, None]).sum(
+        axis=1).astype(np.uint32)
+
+
 def test_pack_plan_layout():
+    """The header, B interleaved by byte and padded to the entry width,
+    and the table mask and offsets of a model with 51 specials."""
     m = port_nfa.try_compile_glushkov("a[bc]{40,90}d")
+    assert m.n_specials == 51
     plan = nfa_scan.pack_plan(m)
-    assert plan.dtype == np.uint32
-    assert plan.size == nfa_scan._SPECIALS + 5 * m.n_specials
-    starts = plan[nfa_scan._SPEC_START : nfa_scan._SPEC_START + 5].tolist()
-    assert starts[0] == 0 and starts[-1] == m.n_specials == 51
-    b = plan[nfa_scan._B : nfa_scan._B + 256 * m.n_words].reshape(m.n_words, 256)
-    np.testing.assert_array_equal(b, nfa_scan.b_table(m))
-    for w in range(m.n_words):  # each word's records carry its own bits
-        mask = 0
-        for i in range(starts[w], starts[w + 1]):
-            mask |= 1 << int(plan[nfa_scan._SPECIALS + 5 * i])
-        assert mask == plan[nfa_scan._SPEC_MASK + w]
+    nw, s = m.n_words, nfa_scan.entry_words(m.n_words)
+    assert plan.dtype == np.uint32 and s in (1, 2, 4) and s >= nw
+    tables = nfa_scan.exception_tables(m)
+    assert plan.size == nfa_scan._HEADER + (1 + len(tables)) * 256 * s
+    for base, want in ((nfa_scan._CHAIN, m.chain_src),
+                       (nfa_scan._INIT_FLOAT, m.init_float_words),
+                       (nfa_scan._INIT_ANCHOR, m.init_anchor_words),
+                       (nfa_scan._FINAL, m.final_words)):
+        assert plan[base : base + 4].tolist() == list(want) + [0] * (4 - nw)
+    b = plan[nfa_scan._HEADER : nfa_scan._HEADER + 256 * s].reshape(256, s)
+    np.testing.assert_array_equal(b[:, :nw].T, nfa_scan.b_table(m))
+    assert not b[:, nw:].any()
+    n = int(plan[nfa_scan._N_TABLES])
+    slices = [(int(plan[nfa_scan._TAB_WORD + i]),
+               int(plan[nfa_scan._TAB_SLICE + i])) for i in range(n)]
+    assert slices == list(tables) == sorted(slices) and n == len(tables) == 8
+    assert not plan[nfa_scan._TAB_WORD + n : nfa_scan._TAB_SLICE].any()
+    assert not plan[nfa_scan._TAB_SLICE + n : nfa_scan._HEADER].any()
+    assert plan[nfa_scan._N_SHARED] == plan.size - nfa_scan._HEADER
+
+
+@pytest.mark.parametrize("pattern", [
+    "a[bc]{40,90}d", CONFIG2, "^anchor", ALL_SPECIALS])
+def test_packed_plan_walk_equals_plain(pattern):
+    """A walk of the packed plan (the kernel's step in numpy) gives the
+    plain version's words: 51 specials over 3 words, 2 words without
+    specials, '^', and 128 specials over 4 words."""
+    m = port_nfa.try_compile_glushkov(pattern)
+    plan = nfa_scan.pack_plan(m)
+    nw, tables = m.n_words, nfa_scan.exception_tables(m)
+    arr = _stripes(3, 64, 64)
+    arr[5:57, 1::9] = np.frombuffer(b"a" + b"bc" * 25 + b"d", np.uint8)[:, None]
+    arr[30:36, 2::11] = np.frombuffer(b"Zabbcz", np.uint8)[:, None]
+    arr[40:47, 5::13] = np.frombuffer(b"volcano", np.uint8)[:, None]
+    want = nfa_scan.nfa_scan_words_plain(torch.from_numpy(arr), m).numpy()
+    np.testing.assert_array_equal(_walk_packed_plan(plan, nw, arr), want)
+    assert want.any()
+    if pattern == ALL_SPECIALS:
+        assert (m.n_pos, nw, m.n_specials, len(tables)) == (128, 4, 128, 16)
+    if pattern in (CONFIG2, "^anchor"):
+        assert m.n_specials == 0 and plan[nfa_scan._N_TABLES] == 0
+
+
+@pytest.mark.parametrize("pattern,ic", MODEL_CASES + [
+    ("a[bc]{0,126}d", False), (ALL_SPECIALS, False)])
+def test_exception_tables_are_the_or_of_follow(pattern, ic):
+    """Every exception table of the packed plan, every slice and all 256
+    values: the entry is the OR of ``follow`` over the specials whose
+    source bit lies in the slice and is set in the value; a slice without
+    special source bits has no table.  Exact (integer words).  A pattern
+    too wide for a Glushkov model is checked on its filter model, the one
+    the kernel runs."""
+    m = port_nfa.try_compile_glushkov(pattern, ignore_case=ic)
+    if m is None:  # too wide: the kernel runs the pattern's filter model
+        m = port_nfa.compile_scan_model(pattern, ic)[0]
+    plan = nfa_scan.pack_plan(m)
+    nw, s = m.n_words, nfa_scan.entry_words(m.n_words)
+    slices = [(int(plan[nfa_scan._TAB_WORD + i]),
+               int(plan[nfa_scan._TAB_SLICE + i]))
+              for i in range(int(plan[nfa_scan._N_TABLES]))]
+    n_tables = 0
+    for w in range(nw):
+        for sl in range(4):
+            mine = [(jp % 8, flist) for wp, jp, flist in m.specials
+                    if wp == w and jp // 8 == sl]
+            assert ((w, sl) in slices) == bool(mine)
+            if not mine:
+                continue
+            i = slices.index((w, sl))
+            assert i == n_tables  # tables in (word, slice) order
+            n_tables += 1
+            off = nfa_scan._HEADER + (1 + i) * 256 * s
+            tab = plan[off : off + 256 * s].reshape(256, s)
+            for v in range(256):
+                want = [0] * s
+                for bit, flist in mine:
+                    if v >> bit & 1:
+                        for wj, fm in flist:
+                            want[wj] |= fm
+                assert tab[v].tolist() == want, (w, sl, v)
+    assert n_tables == len(slices)
+    assert plan.size == nfa_scan._HEADER + (1 + n_tables) * 256 * s
 
 
 def test_wrapper_on_cpu_is_plain_and_not_counted():
