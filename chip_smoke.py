@@ -20,14 +20,25 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          ('volcano', its filter, '-i Volcano', 'being it'); the narrow-width
          probe kernel at i32, i16 and i8, and the one-hot tensor-core
          product (1 and 16 lane blocks, the default and odd split counts).
-         Then a differential sweep of the two table-driven kernels: 26
-         seeded random regexes of 1-4 state words with 0-128 specials on
-         the NFA kernel, and 48 random FDR banks (m = 1-6, 1-16 checks,
-         both hash families, with and without folding, half ORed into a
-         nonzero plane) with members ending at rows 0..m of the stripe
-         heads, at chunk 32 and 64 over 32 lanes and at the 64 MB segment
-         (10 of the banks, five of the regexes), each held to its plain
-         version bit for bit; the count of draws is logged.
+         The Shift-And and approx kernels read the (lanes, chunk)
+         stripes as the document lies; the others the (chunk, lanes)
+         columns.  Then a differential sweep of the two table-driven
+         kernels: 26 seeded random regexes of 1-4 state words with 0-128
+         specials on the NFA kernel, and 48 random FDR banks (m = 1-6,
+         1-16 checks, both hash families, with and without folding, half
+         ORed into a nonzero plane) with members ending at rows 0..m of
+         the stripe heads, at chunk 32 and 64 over 32 lanes and at the 64
+         MB segment (10 of the banks, five of the regexes); and of the two
+         sub-stripe kernels: seeded random Shift-And models of every
+         length 1-32 (letters, classes, '.', -i, their rare-class
+         filters; both modes) and approx models (k = 1-3, m up to 32, so
+         up to two warm-up words), with samples planted to end 0..W + 2
+         bytes after every word boundary c0 (where these kernels may
+         start a sub-stripe) and '\\n' at c0 - W - 1, c0 - W and c0 - 1,
+         at chunks 32, 64, 96, 288 and 1024 over 32-96 lanes (every word
+         a sub-stripe start), at 1024 x 8192 (a few), on contiguous and
+         pitched windows, and at the 64 MB segment.  Each draw is held to
+         its plain version bit for bit; the count of draws is logged.
 Phase 3  the main path at real size, each query through runtime.job.run_job
          on "cuda" and checked line for line against ``LC_ALL=C grep -na``
          with the query's -F, -E, -i or -f.  Corpora made from --seed: 8
@@ -60,9 +71,13 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          the pattern's k+1 pieces; 'volcano', '-i Volcano' and 'being it'
          again with DGREP_SWAR=1 on the SWAR kernel -- plus the CLI on one
          file.  The launch counts of all kernels are
-         zeroed just before the queries and read just after.  Then the
-         kernels, their plain versions, the sparse fetch and the confirm
-         set are timed at the main path's segment shape.
+         zeroed just before the queries and read just after; each query
+         also logs its on-card layout transposes (ops/device_scan.py
+         ``transposes``): 0 on the Shift-And and approx routes, which
+         read the uploaded stripes, one per segment on the others.  Then
+         the kernels, their plain versions, the transpose, the sparse
+         fetch and the confirm set are timed at the main path's segment
+         shape.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -642,7 +657,7 @@ def phase_kernels(torch, np, cuda_scan, sa_mod) -> int:
         if chunk == 160:
             # a match ending across a word edge: bytes 29..35 of stripe 3
             arr[29:36, 3] = np.frombuffer(b"volcano", np.uint8)
-        cpu = torch.from_numpy(arr)
+        cpu = torch.from_numpy(np.ascontiguousarray(arr.T))  # the stripes
         dev = cpu.cuda()
         for name, model in models.items():
             for coarse in (True, False):
@@ -979,6 +994,225 @@ def phase_fdr_sweep(torch, np, fdr_scan, fdr_mod, seed: int) -> tuple[int, int]:
     return n, worst
 
 
+# The card-side sweep of the two sub-stripe kernels (csrc/shift_and.cu,
+# csrc/approx.cu): seeded random models held to their plain versions bit
+# for bit, with samples planted across every word boundary.  The kernels
+# take as many sub-stripes as the card's size asks for: on these narrow
+# tensors every word starts one (288 bytes, 9 words: an odd count), at
+# SUB_MID a few words do, at the 64 MB segment none.
+SUB_CHUNKS = (32, 64, 96, 288, 1024)
+SUB_LANES = (32, 64, 96)
+SUB_MID = (1024, 8192)
+
+
+def rand_symbols(rng, m: int) -> str:
+    """m symbols over SWEEP_ALPHABET: letters, two-letter classes and '.'."""
+    out = []
+    for _ in range(m):
+        r = int(rng.integers(0, 6))
+        if r == 0:
+            out.append("[" + "".join(sorted(set(rng.choice(
+                list(SWEEP_ALPHABET), size=2).tolist()))) + "]")
+        elif r == 1:
+            out.append(".")
+        else:
+            out.append(str(rng.choice(list(SWEEP_ALPHABET))))
+    return "".join(out)
+
+
+def sample_of(rng, sym_ranges) -> bytes:
+    """A string the symbols match: a random byte of a random range each."""
+    out = bytearray()
+    for ranges in sym_ranges:
+        lo, hi = ranges[int(rng.integers(0, len(ranges)))]
+        out.append(int(rng.integers(lo, hi + 1)))
+    return bytes(out)
+
+
+def edited(rng, s: bytes, k: int) -> bytes:
+    """``s`` after 0..k random substitutions, insertions or deletions of
+    SWEEP_ALPHABET letters."""
+    b = bytearray(s)
+    for _ in range(int(rng.integers(0, k + 1))):
+        op, p = int(rng.integers(0, 3)), int(rng.integers(0, len(b)))
+        ch = ord(str(rng.choice(list(SWEEP_ALPHABET))))
+        if op == 0:
+            b[p] = ch
+        elif op == 1:
+            b.insert(p, ch)
+        elif len(b) > 1:
+            del b[p]
+    return bytes(b)
+
+
+def substripe_text(np, rng, lanes: int, chunk: int, samples, warm: int):
+    """(lanes, chunk) stripes of SWEEP_ALPHABET text, upper case too, with
+    a '\\n' per ~37 bytes and the samples at random places; then at every
+    word boundary c0 (the kernels may start a sub-stripe at any) a sample
+    ending d = 0..warm + 2 bytes after c0 (lanes j + d, j + d + warm + 6,
+    ... for the j-th boundary: across c0 where d is below its length) and
+    '\\n' at c0 - warm - 1, c0 - warm and c0 - 1 on other lanes."""
+    alpha = np.frombuffer((SWEEP_ALPHABET * 3 + SWEEP_ALPHABET.upper() * 3
+                           + "\n").encode(), np.uint8)
+    arr = alpha[rng.integers(0, alpha.size, size=(lanes, chunk),
+                             dtype=np.uint8)]
+    flat = arr.reshape(-1)
+    n = max(4, min(flat.size // 300, 20000))
+    put(flat, rng.integers(0, flat.size - 40, size=n), samples)
+    period = warm + 6
+    for j, c0 in enumerate(range(32, chunk, 32)):
+        for d in range(min(warm + 3, chunk - c0)):
+            nd = samples[d % len(samples)]
+            end = c0 + d
+            nd = nd[max(0, len(nd) - end - 1):]
+            arr[(j + d) % period::period, end + 1 - len(nd) : end + 1] = \
+                np.frombuffer(nd, np.uint8)
+        for i, at in enumerate((c0 - warm - 1, c0 - warm, c0 - 1)):
+            if at >= 0:
+                arr[(j + warm + 3 + i) % period::period, at] = 0x0A
+    return arr
+
+
+def substripe_draws(torch, np, rng, shapes, samples, warm: int):
+    """One stripe tensor per (chunk, lanes, pitched) of ``shapes``: a
+    pitched one is the window [:, off : off + chunk] of a tensor 64 bytes
+    wider (off = 0, 32 or 64), its pitch chunk + 64."""
+    for chunk, lanes, pitched in shapes:
+        arr = substripe_text(np, rng, lanes, chunk, samples, warm)
+        if not pitched:
+            yield chunk, lanes, torch.from_numpy(arr).cuda()
+            continue
+        off = 32 * int(rng.integers(0, 3))
+        wide = np.full((lanes, chunk + 64), ord("#"), np.uint8)
+        wide[:, off : off + chunk] = arr
+        dev = torch.from_numpy(wide).cuda()[:, off : off + chunk]
+        assert dev.stride() == (chunk + 64, 1)
+        yield chunk, lanes, dev
+
+
+def substripe_shapes(i: int, segment: bool) -> list:
+    """Draw i's (chunk, lanes, pitched): every SUB_CHUNKS chunk over
+    SUB_LANES in turn, odd ones pitched; SUB_MID for every fourth draw;
+    the 64 MB segment where asked."""
+    shapes = [(chunk, SUB_LANES[(i + j) % 3], (i + j) % 2 == 1)
+              for j, chunk in enumerate(SUB_CHUNKS)]
+    if i % 4 == 0:
+        shapes.append(SUB_MID + ((i // 4) % 2 == 1,))
+    return shapes + ([SWEEP_SEGMENT + (False,)] if segment else [])
+
+
+def phase_shift_and_sweep(torch, np, cuda_scan, sa_mod,
+                          seed: int) -> tuple[int, int]:
+    """The Shift-And kernel against its plain version on seeded random
+    models of every length 1-32 (a third with -i) and the rare-class
+    filters among them, in both modes, at ``substripe_shapes`` (the 64 MB
+    segment for lengths 32 and 7 and one filter).  Returns (draws
+    compared, the largest absolute difference)."""
+    rng = np.random.default_rng(seed)
+    models = []
+    for m in range(1, 33):
+        full = sa_mod.try_compile_shift_and(rand_symbols(rng, m),
+                                            bool(rng.integers(0, 3) == 0))
+        assert full is not None and full.length == m
+        models.append((full, full))
+        filt = sa_mod.filtered_for_device(full)
+        if filt is not None:
+            models.append((filt, full))
+    first_filter = next(i for i, (a, b) in enumerate(models) if a is not b)
+    on_segment = {6, len(models) - 1, first_filter}
+    n = worst = 0
+    for i, (model, full) in enumerate(models):
+        warm = 32 * cuda_scan.warmup_words(model)
+        samples = [sample_of(rng, full.sym_ranges) for _ in range(6)]
+        nonzero = 0
+        shapes = substripe_shapes(i, i in on_segment)
+        for chunk, lanes, dev in substripe_draws(torch, np, rng, shapes,
+                                                 samples, warm):
+            for coarse in (True, False):
+                got = cuda_scan.shift_and_scan_words(dev, model, coarse)
+                torch.cuda.synchronize()
+                want = cuda_scan.shift_and_scan_words_plain(dev, model, coarse)
+                err = words_err(torch, got, want)
+                worst = max(worst, err)
+                n += 1
+                if not torch.equal(got, want) or err:
+                    raise AssertionError(
+                        f"shift_and sweep: kernel != plain for "
+                        f"{model.pattern!r} (m={model.length}, filter="
+                        f"{model is not full}) coarse={coarse} chunk={chunk} "
+                        f"lanes={lanes} pitch={dev.stride(0)} "
+                        f"max_abs_err={err}")
+                nonzero += int(torch.count_nonzero(want.view(torch.int32)))
+        if not nonzero:
+            raise AssertionError(f"shift_and sweep: no match of "
+                                 f"{model.pattern!r} in its text")
+        if i in on_segment:
+            log(f"  ok shift_and sweep m={model.length} filter="
+                f"{model is not full} warm-up {warm} bytes, shapes {shapes}: "
+                f"{model.pattern!r}")
+    log(f"  shift_and sweep: {len(models)} models (m 1-32, "
+        f"{sum(a is not b for a, b in models)} filters), {n} draws compared "
+        f"(both modes) at chunks {SUB_CHUNKS} over {SUB_LANES} lanes, "
+        f"contiguous and pitched, {SUB_MID} for every fourth, and "
+        f"{SWEEP_SEGMENT} for {len(on_segment)}, all bit-identical")
+    return n, worst
+
+
+def phase_approx_sweep(torch, np, approx_scan, ax_mod,
+                       seed: int) -> tuple[int, int]:
+    """The approx kernel against its plain version on seeded random models
+    (k = 1-3 with m from k + 1 to 32, so m + k - 1 up to 34: two warm-up
+    words; a third with -i), samples within k edits, at
+    ``substripe_shapes`` (the 64 MB segment for three of them, one per k,
+    k = 3 at m = 32).  Returns (draws compared, the largest absolute
+    difference)."""
+    rng = np.random.default_rng(seed)
+    specs = [(k, m) for k in (1, 2, 3) for m in (k + 1, 9, 20, 31, 32)]
+    specs += [(int(rng.integers(1, 4)), int(rng.integers(5, 33)))
+              for _ in range(3)]
+    models = []
+    for k, m in specs:
+        model = ax_mod.try_compile_approx(rand_symbols(rng, m), k,
+                                          bool(rng.integers(0, 3) == 0))
+        assert model is not None and model.length == m
+        models.append(model)
+    on_segment = {3, 9, 14}  # (1, 31), (2, 32), (3, 32)
+    n = worst = 0
+    for i, model in enumerate(models):
+        warm = 32 * approx_scan.warmup_words(model)
+        samples = [edited(rng, sample_of(rng, model.base.sym_ranges), model.k)
+                   for _ in range(6)]
+        nonzero = 0
+        shapes = substripe_shapes(i, i in on_segment)
+        for chunk, lanes, dev in substripe_draws(torch, np, rng, shapes,
+                                                 samples, warm):
+            got = approx_scan.approx_scan_words(dev, model)
+            torch.cuda.synchronize()
+            want = approx_scan.approx_scan_words_plain(dev, model)
+            err = words_err(torch, got, want)
+            worst = max(worst, err)
+            n += 1
+            if not torch.equal(got, want) or err:
+                raise AssertionError(
+                    f"approx sweep: kernel != plain for "
+                    f"{model.base.pattern!r} (m={model.length}, k={model.k}) "
+                    f"chunk={chunk} lanes={lanes} pitch={dev.stride(0)} "
+                    f"max_abs_err={err}")
+            nonzero += int(torch.count_nonzero(want.view(torch.int32)))
+        if not nonzero:
+            raise AssertionError(f"approx sweep: no match of "
+                                 f"{model.base.pattern!r} in its text")
+        if i in on_segment:
+            log(f"  ok approx sweep k={model.k} m={model.length} warm-up "
+                f"{warm} bytes, shapes {shapes}: {model.base.pattern!r}")
+    log(f"  approx sweep: {len(models)} models (k 1-3, m 2-32, warm-up "
+        f"words {sorted({approx_scan.warmup_words(x) for x in models})}), "
+        f"{n} draws compared at chunks {SUB_CHUNKS} over {SUB_LANES} lanes, "
+        f"contiguous and pitched, {SUB_MID} for every fourth, and "
+        f"{SWEEP_SEGMENT} for {len(on_segment)}, all bit-identical")
+    return n, worst
+
+
 def set_models(fdr_mod, ps_mod) -> tuple[dict, dict]:
     """The set kernels' phase-2 models: the FDR banks of BASELINE configs
     2, 3 and 5 and a two-family bank with 1024-entry tables; pairset
@@ -1117,12 +1351,14 @@ def swar_models(sa_mod) -> dict:
 
 def compare_words(torch, np, label: str, kernel, plain, models: dict,
                   shapes, lane_multiple: int, seed: int, needles,
-                  edits) -> int:
+                  edits, stripes: bool = False) -> int:
     """``kernel`` against ``plain`` (both run on the card) for every model,
     bit for bit, at each (chunk, lanes) of ``shapes``: words text with
     ``needles(rng, n)`` put at random places (one per 2000 bytes), then
     each (rows, lanes, bytes) of ``edits`` written down those lanes of the
-    layout.  Returns the largest absolute difference seen."""
+    column layout, handed over as columns or, with ``stripes``, as the
+    (lanes, chunk) stripes of the same bytes.  Returns the largest
+    absolute difference seen."""
     from distributed_grep_tpu_torch.ops.layout import choose_layout, to_device_array
 
     rng = np.random.default_rng(seed)
@@ -1138,7 +1374,8 @@ def compare_words(torch, np, label: str, kernel, plain, models: dict,
         arr = to_device_array(text.tobytes(), lay)
         for rows, cols, needle in edits:
             arr[rows, cols] = np.frombuffer(needle, np.uint8)[:, None]
-        dev = torch.from_numpy(arr).cuda()
+        dev = torch.from_numpy(np.ascontiguousarray(arr.T) if stripes
+                               else arr).cuda()
         for name, model in models.items():
             got = kernel(dev, model)
             torch.cuda.synchronize()
@@ -1158,8 +1395,8 @@ def compare_words(torch, np, label: str, kernel, plain, models: dict,
 
 def phase_approx_kernels(torch, np, approx_scan, ax_mod) -> int:
     """Approx kernel words vs the plain version's at the main path's
-    segment shape and a small one: errorful needles in the text, one at
-    every 5th stripe head and one across a word edge."""
+    segment shape and a small one, on stripes: errorful needles in the
+    text, one at every 5th stripe head and one across a word edge."""
     return compare_words(
         torch, np, "approx", approx_scan.approx_scan_words,
         approx_scan.approx_scan_words_plain, approx_models(ax_mod),
@@ -1167,7 +1404,7 @@ def phase_approx_kernels(torch, np, approx_scan, ax_mod) -> int:
         lambda rng, n: [errorful(rng, APPROX_BASES[k]) for k in
                         rng.integers(0, len(APPROX_BASES), size=n).tolist()],
         [(slice(0, 7), slice(None, None, 5), b"volcxno"),
-         (slice(27, 37), slice(3, 4), b"Schwarzeen")])
+         (slice(27, 37), slice(3, 4), b"Schwarzeen")], stripes=True)
 
 
 def phase_swar_kernels(torch, np, swar_scan, sa_mod) -> int:
@@ -1208,10 +1445,10 @@ def sass_opcodes(build, name: str) -> dict[str, list[str]]:
 
 def sass_counts(build, name: str) -> dict[str, int]:
     """SASS instructions of each kernel function in the build of
-    csrc/<name>.cu, or {} without cuobjdump.  A kernel's 32 steps per word
-    are unrolled, so a count over 32 is close to its instructions per input
-    byte (per packed uint32 for the SWAR kernel, whose loop holds two
-    words)."""
+    csrc/<name>.cu, or {} without cuobjdump.  A kernel's steps per word
+    (per 128-byte box for csrc/shift_and.cu) are unrolled, so a count over
+    them is close to its instructions per input byte, setup included (per
+    packed uint32 for the SWAR kernel, whose loop holds two words)."""
     return {f: len(o) for f, o in sass_opcodes(build, name).items()}
 
 
@@ -1434,6 +1671,7 @@ def main() -> int:
             _build,
             approx_scan,
             cuda_scan,
+            device_scan,
             fdr_scan,
             mxu_probe,
             narrow_probe,
@@ -1444,6 +1682,7 @@ def main() -> int:
         from distributed_grep_tpu_torch.ops.confirm_set import ConfirmSet
         from distributed_grep_tpu_torch.ops.layout import (
             choose_layout,
+            padded_stripes,
             to_device_array,
         )
         from distributed_grep_tpu_torch.ops.scan_torch import sparse_nonzero
@@ -1477,10 +1716,13 @@ def main() -> int:
     for name, text in _build.build_log.items():
         for func, usage in ptxas_usage(text):
             log(f"  ptxas {name} {template_label(func)}: {usage}")
+    # steps unrolled in a kernel's loop body: csrc/shift_and.cu steps a
+    # whole 128-byte box, the others one 32-byte word
     for name in ("shift_and", "approx", "shift_and_swar", "nfa", "fdr"):
+        steps = 128 if name == "shift_and" else 32
         for func, n in sass_counts(_build, name).items():
             log(f"  sass {name} {template_label(func)}: {n} instructions "
-                f"({n / 32:.1f} per step of 32)")
+                f"({n / steps:.1f} per step of {steps})")
     # the narrow probe: one word of 32 unrolled steps per loop trip, so
     # the count over 32 is close to its instructions per step at each width
     for func, ops in sass_opcodes(_build, "probe_narrow").items():
@@ -1518,8 +1760,16 @@ def main() -> int:
     fdr_err = max(fdr_err, sweep_err)
     log(f"fdr sweep: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    _n, sweep_err = phase_shift_and_sweep(torch, np, cuda_scan, sa_mod, 4444)
+    max_err = max(max_err, sweep_err)
+    log(f"shift_and sweep: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     approx_err = phase_approx_kernels(torch, np, approx_scan, ax_mod)
     log(f"approx checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _n, sweep_err = phase_approx_sweep(torch, np, approx_scan, ax_mod, 4545)
+    approx_err = max(approx_err, sweep_err)
+    log(f"approx sweep: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     swar_err = phase_swar_kernels(torch, np, swar_scan, sa_mod)
     log(f"swar checks: {time.perf_counter() - t0:.1f} s")
@@ -1620,8 +1870,10 @@ def main() -> int:
         per_query = []
         for m in counters.values():
             m.reset_launches()
+        device_scan.reset_transposes()
         for label, opts, files, _oracle, _k in queries:
             before = {k: m.launches for k, m in counters.items()}
+            trans_before = device_scan.transposes
             os.environ.pop("DGREP_SWAR", None)
             if label.startswith("SWAR "):
                 os.environ["DGREP_SWAR"] = "1"
@@ -1641,12 +1893,15 @@ def main() -> int:
             launched = {k: m.launches - before[k]
                         for k, m in counters.items()}
             per_query.append((res, wall, launched, totals,
-                              grep_cuda._engine.route))
+                              grep_cuda._engine.route,
+                              device_scan.transposes - trans_before))
         main_launches = {k: m.launches for k, m in counters.items()}
-        log(f"main path launches: {main_launches}")
+        log(f"main path launches: {main_launches}; on-card layout "
+            f"transposes {device_scan.transposes}")
 
         for (label, opts, files, oracle, kernels), (
-                res, wall, launched, totals, route) in zip(queries, per_query):
+                res, wall, launched, totals, route, transposed) in zip(
+                    queries, per_query):
             t0 = time.perf_counter()
             got = job_lines(res)
             n_rec = 0
@@ -1696,12 +1951,20 @@ def main() -> int:
                 raise AssertionError(
                     f"query {label}: route {route}, launches {launched}, "
                     f"engine totals {totals}")
+            # the Shift-And and approx kernels read the uploaded stripes;
+            # the NFA, FDR, pairset and SWAR kernels a transpose of them
+            stripe_route = set(kernels) <= {"shift_and", "approx"}
+            if transposed != (0 if stripe_route else totals["segments"]):
+                raise AssertionError(
+                    f"query {label}: {transposed} layout transposes for "
+                    f"{totals['segments']} segments on route {route}")
             total_bytes = sum(p.stat().st_size for p in files)
             log(f"query {label!r} ({route}): {n_rec} lines identical to the "
                 f"oracle (checked in {time.perf_counter() - t0:.1f} s); job "
                 f"wall {wall:.3f} s = {total_bytes / wall / 1e9:.3f} GB/s end "
-                f"to end over {total_bytes} bytes; launches {launched} "
-                f"[{card}]")
+                f"to end over {total_bytes} bytes; launches {launched}; "
+                f"on-card layout transposes {transposed} for "
+                f"{totals['segments']} segments [{card}]")
             log("  engine totals (seconds summed over worker threads): "
                 + json.dumps(totals, sort_keys=True))
             shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
@@ -1728,6 +1991,10 @@ def main() -> int:
             return data, lay, torch.from_numpy(to_device_array(data, lay)).cuda()
 
         seg, lay, dev = segment(words[0])
+        # the same segment as uploaded: the stripes the Shift-And and
+        # approx kernels read, and the source of every other route's
+        # transpose
+        dev_st = torch.from_numpy(padded_stripes(seg, lay)).cuda()
         _log_seg, lay_log, dev_log = segment(logs[0])
         pc_seg, lay_pc, dev_pc = segment(pcap[0])
         assert {(x.chunk, x.lanes) for x in (lay, lay_log, lay_pc)} == {
@@ -1739,17 +2006,16 @@ def main() -> int:
         full = sa_mod.try_compile_shift_and("volcano")
         filt = sa_mod.filtered_for_device(full)
         ms = cuda_ms(torch, lambda: cuda_scan.shift_and_scan_words(
-            dev, filt, True), 20)
+            dev_st, filt, True), 20)
         ms_full = cuda_ms(torch, lambda: cuda_scan.shift_and_scan_words(
-            dev, full, True), 20)
+            dev_st, full, True), 20)
         ms_exact = cuda_ms(torch, lambda: cuda_scan.shift_and_scan_words(
-            dev, full, False), 20)
+            dev_st, full, False), 20)
         plain_ms = cuda_ms(torch, lambda: cuda_scan.shift_and_scan_words_plain(
-            dev, filt, True), 2)
-        rowmajor = dev.t().contiguous()  # the segment as the document lies
-        transpose_ms = cuda_ms(torch, lambda: rowmajor.t().contiguous(), 20)
-        del rowmajor
-        sa_words = cuda_scan.shift_and_scan_words(dev, filt, True)
+            dev_st, filt, True), 2)
+        # the layout transpose the NFA, FDR, pairset and SWAR routes run
+        transpose_ms = cuda_ms(torch, lambda: dev_st.t().contiguous(), 20)
+        sa_words = cuda_scan.shift_and_scan_words(dev_st, filt, True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(10):
@@ -1758,11 +2024,12 @@ def main() -> int:
         ops_ms = SHIFT_AND_OPS_PER_BYTE * n_in / H100_ALU_OPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         gbs = len(seg) / (ms / 1e3) / 1e9
-        log(f"kernel shift_and coarse, volcano filter, chunk={lay.chunk} "
-            f"lanes={lay.lanes} (one 64 MB segment): {ms:.4f} ms = "
+        log(f"kernel shift_and coarse, volcano filter, stripes lanes="
+            f"{lay.lanes} chunk={lay.chunk} (one 64 MB segment): {ms:.4f} ms = "
             f"{gbs:.1f} GB/s; full model {ms_full:.4f} ms; exact mode "
             f"{ms_exact:.4f} ms; plain version on the card {plain_ms:.2f} ms; "
-            f"layout transpose on the card {transpose_ms:.4f} ms; "
+            f"layout transpose on the card (NFA, FDR, pairset and SWAR "
+            f"routes) {transpose_ms:.4f} ms; "
             f"bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}, ops "
             f"{ops_ms:.4f}); sparse fetch of {idx.size} words "
             f"{fetch_ms:.3f} ms [{card}]")
@@ -1850,24 +2117,26 @@ def main() -> int:
             if name.startswith("Volcano"):
                 continue  # phase 2's extra -i model: the queries' three
             k_ms = cuda_ms(torch, lambda: approx_scan.approx_scan_words(
-                dev, model), 20)
+                dev_st, model), 20)
             p_ms = cuda_ms(torch, lambda: approx_scan.approx_scan_words_plain(
-                dev, model), 1)
+                dev_st, model), 1)
             per_byte = APPROX_OPS_PER_BYTE + APPROX_OPS_PER_ROW * model.k
             o_ms = per_byte * n_in / H100_ALU_OPS_PER_S * 1e3
             b_ms = max(bytes_ms, o_ms, n_smem_ms)
             approx_rows[model.k] = (k_ms, p_ms, b_ms,
                                     "bytes" if b_ms == bytes_ms
                                     else "operations")
-            log(f"kernel approx {name}: chunk={lay.chunk} lanes={lay.lanes}: "
+            log(f"kernel approx {name}: stripes lanes={lay.lanes} "
+                f"chunk={lay.chunk}: "
                 f"{k_ms:.4f} ms = {n_in / (k_ms / 1e3) / 1e9:.1f} GB/s; plain "
                 f"version on the card {p_ms:.1f} ms; bound {b_ms:.4f} ms "
                 f"(bytes {bytes_ms:.4f}, ops {o_ms:.4f} at {per_byte} per "
                 f"byte, shared-memory lookups {n_smem_ms:.4f}) [{card}]")
 
-        # the SWAR kernel beside the Shift-And kernel on the same tensor and
+        # the SWAR kernel beside the Shift-And kernel on the same bytes and
         # model (the volcano filter), in turns: unpacked, packed, packed,
-        # unpacked
+        # unpacked -- the unpacked kernel on the stripes, the packed one on
+        # their column transpose (which its route pays besides)
         sw_out = n_in // 32  # (chunk / 32) x (lanes / 4) uint32
         sw_bytes_ms = (n_in + sw_out) / H100_BYTES_PER_S * 1e3
         sw_ops_ms = SWAR_OPS_PER_BYTE * n_in / H100_ALU_OPS_PER_S * 1e3
@@ -1876,7 +2145,8 @@ def main() -> int:
         for packed in (False, True, True, False):
             turns.append(cuda_ms(torch, (
                 lambda: swar_scan.swar_scan_words(dev, filt)) if packed else (
-                lambda: cuda_scan.shift_and_scan_words(dev, filt, True)), 20))
+                lambda: cuda_scan.shift_and_scan_words(dev_st, filt, True)),
+                20))
         sw_ms = (turns[1] + turns[2]) / 2
         sa_turn_ms = (turns[0] + turns[3]) / 2
         sw_full_ms = cuda_ms(torch, lambda: swar_scan.swar_scan_words(
@@ -1886,7 +2156,8 @@ def main() -> int:
         log(f"kernel shift_and_swar, volcano filter, chunk={lay.chunk} "
             f"lanes={lay.lanes}: {sw_ms:.4f} ms = "
             f"{n_in / (sw_ms / 1e3) / 1e9:.1f} GB/s (turns "
-            f"{turns[1]:.4f}, {turns[2]:.4f}) vs csrc/shift_and.cu "
+            f"{turns[1]:.4f}, {turns[2]:.4f}) on the columns vs "
+            f"csrc/shift_and.cu on the stripes of the same bytes "
             f"{sa_turn_ms:.4f} ms (turns {turns[0]:.4f}, {turns[3]:.4f}): "
             f"SWAR {sa_turn_ms / sw_ms:.3f}x; full model {sw_full_ms:.4f} ms; "
             f"plain version on the card {sw_plain_ms:.2f} ms; bound "

@@ -1,11 +1,13 @@
-// Shift-And byte scan over (chunk, lanes) stripes, bit-packed output.
+// Shift-And byte scan over (lanes, chunk) stripes, bit-packed output.
 //
 // Replaces the TPU kernel distributed_grep_tpu/ops/pallas_scan.py:_kernel
 // (launched through _shift_and_pallas / shift_and_scan_words) and computes
-// the same words at the same layout:
+// its words, reshaped to (chunk / 32, lanes):
 //
-//   data  (chunk, lanes) uint8, column-major stripes: data[c * lanes + l]
-//         is byte c of stripe l.
+//   data  (lanes, chunk) uint8 stripes, as the document lies: byte c of
+//         stripe l is data[l * pitch + c] (pitch >= chunk and the base
+//         address multiples of 16, so a window stripes[:, a:b] needs no
+//         copy).
 //   out   (chunk / 32, lanes) uint32.  Per lane the state steps as
 //         s = ((s << 1) | 1) & B[byte], starting from 0 at the stripe head.
 //         coarse: word w = (OR of s over bytes 32w .. 32w+31) & match_bit,
@@ -13,31 +15,54 @@
 //         exact:  bit t of word w set iff (s & match_bit) after byte 32w+t.
 //
 // Design.  The TPU grid carries each lane's state across sequential chunk
-// blocks in VMEM scratch, and rebuilds B[byte] from byte-range compares
-// because Pallas on the TPU has no vector gather.  Hopper blocks run in no
-// order, and it has gathers, so here one thread owns one lane and walks
-// the whole chunk with its state in a register, and B[byte] is a lookup
-// in a 256-entry table copied to shared memory at block start (the
-// caller passes the table by value as a kernel parameter).  At each step a
-// warp's 32 threads read 32 neighbouring bytes of one row, and each word
-// store is coalesced across lanes.  A thread first loads the 32 bytes of
-// a word (32 independent loads in flight), then runs the 32 dependent
-// state steps on them.
+// blocks in VMEM scratch and rebuilds B[byte] from byte-range compares,
+// because Pallas on the TPU has no vector gather.  Hopper has gathers:
+// B[byte] is a lookup in a 256-entry table in shared memory, and a
+// thread owns a lane with its state in a register.
 //
-// Bound.  Per input byte the kernel does about five integer operations
-// (load, table lookup, shift-or, and, accumulate) and moves 1 byte in and
-// 1/8 byte out.  On an H100 SXM the byte traffic bounds it: for a 64 MB
-// segment, 72 MiB at 3.35 TB/s is 0.0225 ms, against 0.0101 ms for the
-// operations at 128 per SM per clock (4 schedulers x 32 lanes; integer
-// code can use the FP32 pipe as well as the 64 INT32 lanes).  chip_smoke.py
-// measures
-// 0.080 ms on an H100 80GB HBM3 at 700 W, 3.5x the bound: this first
-// version loads one byte per thread per step and keeps the shared-memory
-// table unreplicated (lookups of different bytes that share a bank
-// conflict); wider loads and several lanes per thread are left for later
-// work.
+// Reads: a TMA ring.  A block of kRows = 256 threads owns 256 lanes; one
+// thread of it keeps kStages = 2 boxes of (256 lanes x 128 bytes) in
+// flight (cp.async.bulk.tensor, CU_TENSOR_MAP_SWIZZLE_128B, completing on
+// an mbarrier each), and every thread reads its 128 bytes of a box as 8
+// 16-byte shared loads, chunk c of row r at (c ^ (r & 7)) * 16, which no
+// two threads of a quarter-warp share a bank on.  66 KB of shared memory
+// a block: 3 blocks (24 warps) an SM at most; 32 registers a thread (48
+// for G = 1), no spills.  A design run on an H100 80GB HBM3 at 700 W
+// (PERF.md section 6, run D) chose this over 16-byte global loads with the
+// next 16 bytes in flight and the same arithmetic: those took 0.0413 ms at
+// one thread a lane and 0.0555 ms with 8-word sub-stripes (64 warps an
+// SM), against 0.0379 ms here; torch's int64 sum of the same 64 MiB took
+// 0.0316 ms.
+//
+// Sub-stripes with a warm-up.  blockIdx.y cuts each stripe into n_sub
+// sub-stripes; one starting at byte c0 > 0 first steps `warm` words from
+// c0 - 32 * warm from state 0, storing nothing.  Exact because bits up to
+// the match bit m - 1 depend on the last m bytes alone (the shift moves
+// bits up only), and 32 * warm >= m - 1 (ops/cuda_scan.warmup_words).
+// The launcher adds sub-stripes only until every SM has a block:
+// n_sub = SMs / lane blocks, at least 1.  benchmarks/substripe_sweep.py
+// (run W, PERF.md section 6; device times) found one a lane fastest at
+// 65536 lanes (0.0345 ms; 8-word sub-stripes 0.0380) and at 32768 lanes
+// x 256 bytes, and two fastest at 16384 x 256 (1.17x one a lane): the
+// ring caps a block's warps, so more blocks than SMs add warm-up only.
+//
+// The match bit's history.  Every B entry gets the bits above the match
+// bit set (sticky), so a match at byte t moves up one bit a byte: bit
+// m - 1 + j holds "a match at byte t - j".  Read every G bytes (G the
+// largest power of two <= 33 - m, a template argument) with one bit
+// reversal, that gives the word's bits without a per-byte accumulate:
+// about 5 instructions a byte (byte extract, table address, lookup,
+// shift-or, and).
+//
+// Bound.  1 byte in and 1/8 byte out per byte: for a 64 MiB segment 72 MiB
+// at 3.35 TB/s is 0.0225 ms on an H100 SXM, above the operations (5 a byte
+// at 132 x 128 per clock, 0.0100 ms).  chip_smoke.py measured 0.0383 ms
+// (coarse, the volcano filter) and 0.0382 ms (exact) on an H100 80GB HBM3
+// at 700 W, against 0.0779 and 0.0923 ms for the column-layout kernel
+// before it (PERF.md section 6).
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -46,69 +71,243 @@ struct BTable {
   uint32_t b[256];
 };
 
-constexpr int kThreads = 256;
+constexpr int kRows = 256;   // lanes (threads) per block, rows per box
+constexpr int kBox = 128;    // stripe bytes per box row: the swizzle span
+constexpr int kStages = 2;   // boxes in the ring
+constexpr int kStageBytes = kRows * kBox;
+// 1024-byte alignment for the swizzle, the ring, its barriers, the table
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kStages * 8 + 1024;
+constexpr int kMaxDevices = 64;
 
-template <bool kCoarse>
-__global__ void __launch_bounds__(kThreads)
-shift_and_kernel(const uint8_t* __restrict__ data, uint32_t* __restrict__ out,
-                 const BTable table, int chunk, int lanes, uint32_t match_bit) {
-  __shared__ uint32_t sb[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) sb[i] = table.b[i];
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Wait for the barrier's phase `parity` to complete.  No poll limit: every
+// box a thread waits for was issued (n_box counts only boxes in range), and a
+// trap after a limit would leave the process's CUDA context unusable.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Load the box of stripe bytes x .. x + kBox of lanes y .. y + kRows into
+// `dst`; the barrier completes when its bytes have landed (out-of-range
+// parts are zero-filled and counted).
+__device__ __forceinline__ void load_box(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int x, int y) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(kStageBytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+template <bool kCoarse, int G>
+__global__ void __launch_bounds__(kRows)
+shift_and_kernel(const __grid_constant__ CUtensorMap map,
+                 uint32_t* __restrict__ out, const BTable table, int n_words,
+                 int lanes, uint32_t match_bit, int sub_words, int warm) {
+  extern __shared__ uint8_t raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint32_t* sb = reinterpret_cast<uint32_t*>(full + kStages);
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * kRows;
+  const int own = blockIdx.y * sub_words;
+  const int end = min(own + sub_words, n_words);
+  const int w0 = max(0, own - warm);
+  const int n_box = ((end - w0) * 32 + kBox - 1) / kBox;
+
+  const uint32_t sticky = ~((match_bit << 1) - 1u);
+  for (int i = tid; i < 256; i += kRows) sb[i] = table.b[i] | sticky;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kStages && s < n_box; ++s) {
+      load_box(ring + s * kStageBytes, &map, &full[s], w0 * 32 + s * kBox,
+               lane0);
+    }
+  }
   __syncthreads();
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const size_t stride = static_cast<size_t>(lanes);
-  const uint8_t* p = data + lane;
-  uint32_t* o = out + lane;
-  const int n_words = chunk / 32;
+  const int mpos = 31 - __clz(match_bit);
+  const int lane = lane0 + tid;
+  const int sw = tid & 7;
   uint32_t s = 0;
-  for (int w = 0; w < n_words; ++w) {
-    const uint8_t* row = p + static_cast<size_t>(w) * 32 * stride;
-    uint32_t bytes[32];
+  int w = w0;
+  for (int b = 0; b < n_box; ++b, w += kBox / 32) {
+    const int stage = b % kStages;
+    mbar_wait(&full[stage], (b / kStages) & 1);
+    const uint8_t* row = ring + stage * kStageBytes + tid * kBox;
 #pragma unroll
-    for (int t = 0; t < 32; ++t) bytes[t] = __ldg(row + t * stride);
-    uint32_t word = 0;
+    for (int q = 0; q < kBox / 32; ++q) {
+      if (w + q < end) {
+        const uint4 lo =
+            *reinterpret_cast<const uint4*>(row + (((2 * q) ^ sw) << 4));
+        const uint4 hi =
+            *reinterpret_cast<const uint4*>(row + (((2 * q + 1) ^ sw) << 4));
+        const uint32_t v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        uint32_t word = 0;
 #pragma unroll
-    for (int t = 0; t < 32; ++t) {
-      s = ((s << 1) | 1u) & sb[bytes[t]];
-      if (kCoarse) {
-        word |= s;
-      } else {
-        word |= ((s & match_bit) != 0u ? 1u : 0u) << t;
+        for (int t = 0; t < 32; ++t) {
+          s = (s * 2u + 1u) & sb[__byte_perm(v[t >> 2], 0u, 0x4440u + (t & 3))];
+          if ((t + 1) % G == 0) word |= __brev(s >> mpos) >> (31 - t);
+        }
+        if (w + q >= own && lane < lanes) {
+          out[static_cast<size_t>(w + q) * lanes + lane] =
+              kCoarse ? (word != 0u ? match_bit : 0u) : word;
+        }
       }
     }
-    o[static_cast<size_t>(w) * stride] = kCoarse ? (word & match_bit) : word;
+    __syncthreads();  // every thread is done with this stage
+    if (tid == 0 && b + kStages < n_box) {
+      load_box(ring + stage * kStageBytes, &map, &full[stage],
+               w0 * 32 + (b + kStages) * kBox, lane0);
+    }
   }
+}
+
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Launch one instance, with sub-stripes until every SM has a block.  The
+// shared-memory opt-in and the SM count are asked once per device, at the
+// first launch (which precedes any graph capture: utils/slope.py warms
+// every chain up first).
+template <bool C, int G>
+int launch(const CUtensorMap& map, uint32_t* o, const BTable& table,
+           int n_words, int lanes, unsigned match_bit, int warm,
+           cudaStream_t st) {
+  auto kernel = shift_and_kernel<C, G>;
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (sms[dev] == 0) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    int count = 0;
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sms[dev] = count;
+  }
+  const int lane_blocks = (lanes + kRows - 1) / kRows;
+  const int n_want = max(1, min(n_words, sms[dev] / lane_blocks));
+  const int sub_words = (n_words + n_want - 1) / n_want;
+  const dim3 grid(lane_blocks, (n_words + sub_words - 1) / sub_words);
+  kernel<<<grid, kRows, kSmemBytes, st>>>(map, o, table, n_words, lanes,
+                                          match_bit, sub_words, warm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for G: the largest power of two <= 33 - m, the bytes of
+// history that fit above the match bit m - 1.
+template <bool C>
+int launch_g(const CUtensorMap& map, uint32_t* o, const BTable& table,
+             int n_words, int lanes, unsigned match_bit, int warm,
+             cudaStream_t st) {
+  using Launch = int (*)(const CUtensorMap&, uint32_t*, const BTable&, int,
+                         int, unsigned, int, cudaStream_t);
+  constexpr Launch kByLog2G[] = {&launch<C, 1>, &launch<C, 2>,
+                                 &launch<C, 4>, &launch<C, 8>,
+                                 &launch<C, 16>, &launch<C, 32>};
+  const int room = 33 - (32 - __builtin_clz(match_bit));
+  int log2g = 0;
+  while (log2g < 5 && (2 << log2g) <= room) ++log2g;
+  return kByLog2G[log2g](map, o, table, n_words, lanes, match_bit, warm, st);
 }
 
 }  // namespace
 
 // Launch on `stream` (a cudaStream_t, or null for the legacy default
 // stream).  `table_host` points to 256 uint32 B-masks in HOST memory; they
-// travel as a kernel parameter.  Returns cudaGetLastError() after the
-// launch: 0 on success.
+// travel as a kernel parameter, as does the tensor map of `data`.  `pitch`
+// is the byte distance between stripes; `warm` the warm-up in 32-byte
+// words.  Returns a cudaError_t: cudaGetLastError() after the launch, 0 on
+// success.
 extern "C" int dgrep_shift_and_scan(const void* data, void* out,
                                     const void* table_host, int chunk,
-                                    int lanes, unsigned int match_bit,
-                                    int coarse, void* stream) {
-  if (chunk <= 0 || lanes <= 0 || chunk % 32 != 0 || lanes % 32 != 0) {
+                                    int lanes, long long pitch,
+                                    unsigned int match_bit, int coarse,
+                                    int warm, void* stream) {
+  if (chunk <= 0 || lanes <= 0 || chunk % 32 != 0 || lanes % 32 != 0 ||
+      pitch < chunk || pitch % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(data) % 16 != 0 || match_bit == 0 ||
+      warm < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(chunk),
+                              static_cast<cuuint64_t>(lanes)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {kBox, kRows};
+  const cuuint32_t unit[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(data),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BTable table;
   const uint32_t* t = static_cast<const uint32_t*>(table_host);
   for (int i = 0; i < 256; ++i) table.b[i] = t[i];
-  const dim3 grid((lanes + kThreads - 1) / kThreads);
-  const dim3 block(kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* d = static_cast<const uint8_t*>(data);
   uint32_t* o = static_cast<uint32_t*>(out);
-  if (coarse) {
-    shift_and_kernel<true><<<grid, block, 0, st>>>(d, o, table, chunk, lanes,
-                                                   match_bit);
-  } else {
-    shift_and_kernel<false><<<grid, block, 0, st>>>(d, o, table, chunk, lanes,
-                                                    match_bit);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return coarse ? launch_g<true>(map, o, table, chunk / 32, lanes, match_bit,
+                                 warm, st)
+                : launch_g<false>(map, o, table, chunk / 32, lanes, match_bit,
+                                  warm, st);
 }

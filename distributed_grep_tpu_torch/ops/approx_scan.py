@@ -1,8 +1,9 @@
 """Approximate-match words: the CUDA kernel's wrapper and its plain version.
 
-``approx_scan_words(data, model)`` takes the (chunk, lanes) uint8 stripe
-layout (ops/layout.py) and returns (chunk // 32, lanes) uint32 EXACT
-words: bit t of word w of lane l is set iff a match of ``model`` with at
+``approx_scan_words(data, model)`` takes the document's stripes as they
+lie, a (lanes, chunk) uint8 tensor with a pitch (``check_stripes``,
+ops/cuda_scan.py), and returns (chunk // 32, lanes) uint32 EXACT words:
+bit t of word w of lane l is set iff a match of ``model`` with at
 most ``model.k`` edit errors ends at byte 32w + t of stripe l, the rows
 seeded at the stripe head as at a line start (models/approx.py).  These
 are the words of the reference TPU kernel
@@ -10,8 +11,9 @@ are the words of the reference TPU kernel
 tile (chunk // 32, lanes // 128, 128) to the port's (chunk // 32, lanes).
 
 A CUDA tensor launches the hand-written kernel (csrc/approx.cu, k = 1..3,
-the B table passed by value); a CPU tensor runs
-``approx_scan_words_plain``.  Anything else raises.
+the B table passed by value; sub-stripes after the first start
+``warmup_words(model)`` words early from the seeds); a CPU tensor
+runs ``approx_scan_words_plain``.  Anything else raises.
 
 Routing difference from the reference, which changes no output line: the
 TPU kernel builds B[c] from range compares and refuses models past
@@ -30,10 +32,13 @@ import torch
 
 from distributed_grep_tpu_torch.models.approx import MAX_ERRORS, NL, ApproxModel
 from distributed_grep_tpu_torch.ops import _build
-from distributed_grep_tpu_torch.ops.cuda_scan import _check
+from distributed_grep_tpu_torch.ops.cuda_scan import check_stripes
 from distributed_grep_tpu_torch.ops.fdr_scan import pack_bits
+from distributed_grep_tpu_torch.ops.layout import STRIPES
 
 _U32 = 0xFFFFFFFF
+
+LAYOUT = STRIPES  # the layout the kernel reads (ops/layout.py)
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -61,12 +66,20 @@ def _check_model(model: ApproxModel) -> None:
         )
 
 
+def warmup_words(model: ApproxModel) -> int:
+    """Words a sub-stripe steps before its own start: a match of at most k
+    edits ending at byte c starts at or after c - (m + k - 1), so m + k - 1
+    bytes of warm-up suffice, rounded up to whole words (1, or 2 when
+    m + k - 1 > 32)."""
+    return -(-(model.length + model.k - 1) // 32)
+
+
 def approx_scan_words_plain(data: torch.Tensor,
                             model: ApproxModel) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on ``data``'s device: a loop
     over the chunk, vectorized over lanes.  The rows are int64 masked to 32
     bits (PyTorch on the CPU has no ``<<`` for uint32)."""
-    chunk, lanes = _check(data)
+    lanes, chunk, _pitch = check_stripes(data)
     _check_model(model)
     dev = data.device
     table = torch.from_numpy(model.base.b_table.astype(np.int64)).to(dev)
@@ -75,7 +88,7 @@ def approx_scan_words_plain(data: torch.Tensor,
             for s in seeds]
     hit = torch.empty((chunk, lanes), dtype=torch.bool, device=dev)
     for c in range(chunk):
-        byte = data[c].long()
+        byte = data[:, c].long()
         b = table[byte]
         nl = byte == NL
         new = [((rows[0] << 1) | 1) & b]
@@ -94,8 +107,8 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -105,7 +118,7 @@ def approx_scan_words(data: torch.Tensor, model: ApproxModel) -> torch.Tensor:
     """Match-end words for ``data`` (see the module docstring).  CUDA
     tensors launch the kernel on the current stream (no synchronization;
     the output is allocated here); CPU tensors take the plain version."""
-    chunk, lanes = _check(data)
+    lanes, chunk, pitch = check_stripes(data)
     _check_model(model)
     if data.device.type == "cpu":
         return approx_scan_words_plain(data, model)
@@ -118,11 +131,12 @@ def approx_scan_words(data: torch.Tensor, model: ApproxModel) -> torch.Tensor:
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(data.data_ptr(), out.data_ptr(), table.ctypes.data,
-                 chunk, lanes, int(model.match_bit), int(model.k), stream)
+                 chunk, lanes, pitch, int(model.match_bit), int(model.k),
+                 warmup_words(model), stream)
     if err != 0:
         raise RuntimeError(
             f"approx CUDA kernel launch failed: cudaError {err} "
-            f"(chunk={chunk}, lanes={lanes}, k={model.k})"
+            f"(lanes={lanes}, chunk={chunk}, pitch={pitch}, k={model.k})"
         )
     _count_launch()
     return out

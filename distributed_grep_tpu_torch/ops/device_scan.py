@@ -3,11 +3,16 @@
 The document is cut into segments of ``engine.segment_bytes``.  For each:
 
 1. prepare (one-slot feed thread): copy the segment into pinned host
-   memory padded with '\\n', start its host-to-device copy on a side
-   stream, and transpose it there into the (chunk, lanes) stripe layout
-   -- so segment i+1 is uploading and laid out while segment i scans.
-   The transpose runs on the card: on the host, a strided copy of the
-   segment costs more than the rest of this pipeline (PERF.md);
+   memory padded with '\\n' as (lanes, chunk) stripes (the document as
+   it lies) and start its host-to-device copy on a side stream -- so
+   segment i+1 is uploading while segment i scans.  The Shift-And and
+   approx kernels read those stripes as they are.  The NFA, FDR, pairset
+   and SWAR kernels read the (chunk, lanes) column layout, so for their
+   routes the side stream also transposes the upload into it (on the
+   card: on the host, a strided copy of the segment costs more than the
+   rest of this pipeline, PERF.md); ``transposes`` counts those.  The
+   SWAR route keeps the uploaded stripes beside its columns for the
+   exact Shift-And kernel of its dense confirm;
 2. dispatch (scanning thread): wait for the copy, launch the kernel of
    the engine's mode -- the coarse Shift-And kernel with the rare-class
    filter model (or the full model), or the Glushkov NFA kernel with the
@@ -42,7 +47,7 @@ The document is cut into segments of ``engine.segment_bytes``.  For each:
    the packed kernel (four stripes per uint32, csrc/shift_and_swar.cu) in
    place of the coarse one, its words decoded to the same span starts;
    the lane multiple becomes 128, and the dense confirm keeps the exact
-   unpacked kernel on the same tensor.
+   unpacked kernel, on the segment's stripes.
 
    Approx (``max_errors=k``): the kernel's words are exact match ends, so
    collect decodes them to lines with no confirm.  The kernel seeds every
@@ -97,9 +102,10 @@ from distributed_grep_tpu_torch.ops import (
 from distributed_grep_tpu_torch.ops import engine as engine_mod
 from distributed_grep_tpu_torch.ops import lines as lines_mod
 from distributed_grep_tpu_torch.ops.layout import (
+    COLUMNS,
+    STRIPES,
     choose_layout,
     padded_stripes,
-    to_device_array,
 )
 from distributed_grep_tpu_torch.ops.scan_torch import sparse_nonzero
 from distributed_grep_tpu_torch.ops.sparse import (
@@ -109,6 +115,26 @@ from distributed_grep_tpu_torch.ops.sparse import (
 )
 
 MAX_INFLIGHT = 2  # segments dispatched but not yet collected
+
+# Segments transposed into the column layout (on the card, or on the host
+# for a CPU engine): incremented once per transpose, nowhere else.
+# chip_smoke.py reads it around each query: 0 on the Shift-And and approx
+# routes, one per segment on the others.
+_count_lock = threading.Lock()
+transposes = 0
+
+
+def reset_transposes() -> None:
+    global transposes
+    with _count_lock:
+        transposes = 0
+
+
+def _count_transpose() -> None:
+    global transposes
+    with _count_lock:
+        transposes += 1
+
 # The SWAR route's lane multiple: 4 stripes per packed uint32 element and
 # 32 elements per warp.
 SWAR_LANE_MULTIPLE = 128
@@ -138,6 +164,20 @@ def scan_device(eng, data: bytes, progress=None):
     lit_set = eng.mode in ("fdr", "pairset")
     approx = eng.mode == "approx"
     swar = use_swar(eng)
+    # the kernel modules this route launches, its dense confirm included;
+    # each segment is prepared in the layouts they read (their LAYOUT)
+    if eng.mode == "fdr":
+        kernels = [fdr_scan] + ([pairset_scan] if eng.fdr_pairset is not None
+                                else [])
+    elif eng.mode == "pairset":
+        kernels = [pairset_scan]
+    elif nfa:
+        kernels = [nfa_scan]
+    elif approx:
+        kernels = [approx_scan]
+    else:
+        kernels = [cuda_scan] + ([swar_scan] if swar else [])
+    layouts = {k.LAYOUT for k in kernels}
     st = {"candidates": 0, "segments": 0,
           "feed_wait_seconds": 0.0, "prepare_seconds": 0.0,
           "collect_seconds": 0.0, "confirm_seconds": 0.0,
@@ -190,17 +230,25 @@ def scan_device(eng, data: bytes, progress=None):
         seg_view = view[seg_start : seg_start + seg]
         lay = choose_layout(len(seg_view), **lay_kwargs)
         if not on_cuda:
-            return seg_start, len(seg_view), lay, torch.from_numpy(
-                to_device_array(seg_view, lay)), None
+            stripes = torch.from_numpy(padded_stripes(seg_view, lay))
+            return seg_start, len(seg_view), lay, segment_views(stripes), None
         host = torch.empty((lay.lanes, lay.chunk), dtype=torch.uint8,
                            pin_memory=True)
         padded_stripes(seg_view, lay, out=host.numpy())
         side = eng.copy_stream()
         with torch.cuda.stream(side):
-            arr = host.to(device, non_blocking=True).t().contiguous()
+            views = segment_views(host.to(device, non_blocking=True))
             ready = torch.cuda.Event()
             ready.record(side)
-        return seg_start, len(seg_view), lay, arr, ready
+        return seg_start, len(seg_view), lay, views, ready
+
+    def segment_views(stripes: torch.Tensor) -> dict:
+        """Layout -> the segment in it, for the layouts of ``kernels``."""
+        views = {STRIPES: stripes} if STRIPES in layouts else {}
+        if COLUMNS in layouts:
+            views[COLUMNS] = stripes.t().contiguous()
+            _count_transpose()
+        return views
 
     def confirm(cand: np.ndarray) -> np.ndarray:
         starts, ends = lines_mod.line_spans(cand, nl, n)
@@ -236,7 +284,8 @@ def scan_device(eng, data: bytes, progress=None):
             bounds = np.concatenate(([seg_start], bounds))
         return bounds
 
-    def _collect(kind, seg_start: int, seg_len: int, lay, arr, words) -> None:
+    def _collect(kind, seg_start: int, seg_len: int, lay, views,
+                 words) -> None:
         idx, vals = sparse_nonzero(words)
         spans = (span_starts_from_packed_words(idx, vals, lay)
                  if kind == "span_words_packed"
@@ -256,7 +305,8 @@ def scan_device(eng, data: bytes, progress=None):
             if n_cand > engine_mod.SPAN_CONFIRM_LINE_LIMIT:
                 # dense confirm: exact end bits of the FULL model, on device
                 dense = True
-                exact = cuda_scan.shift_and_scan_words(arr, full, coarse=False)
+                exact = cuda_scan.shift_and_scan_words(
+                    views[cuda_scan.LAYOUT], full, coarse=False)
                 e_idx, e_vals = sparse_nonzero(exact)
                 offs = offsets_from_sparse_words(e_idx, e_vals, lay)
                 true_lines = lines_mod.unique_match_lines(offs + seg_start, nl)
@@ -283,7 +333,7 @@ def scan_device(eng, data: bytes, progress=None):
                     scan_state["filtered"] = None
                     st["filter_defeated"] = True
 
-    def _collect_approx(seg_start: int, seg_len: int, lay, arr,
+    def _collect_approx(seg_start: int, seg_len: int, lay, views,
                         words) -> None:
         idx, vals = sparse_nonzero(words)
         lines = lines_mod.unique_match_lines(
@@ -298,7 +348,7 @@ def scan_device(eng, data: bytes, progress=None):
             st["stitch_seconds"] += t2 - t1
             st["stitch_windows"] += int(bounds.size)
 
-    def _collect_set(kind, seg_start: int, seg_len: int, lay, arr,
+    def _collect_set(kind, seg_start: int, seg_len: int, lay, views,
                      words) -> None:
         idx, vals = sparse_nonzero(words)
         offs = offsets_from_sparse_words(idx, vals, lay) + seg_start
@@ -324,7 +374,7 @@ def scan_device(eng, data: bytes, progress=None):
             st["stitch_seconds"] += t2 - t1
             st["stitch_offsets"] += int(ends.size)
 
-    def _collect_nfa(kind, seg_start: int, seg_len: int, lay, arr,
+    def _collect_nfa(kind, seg_start: int, seg_len: int, lay, views,
                      words) -> None:
         idx, vals = sparse_nonzero(words)
         offs = offsets_from_sparse_words(idx, vals, lay) + seg_start
@@ -340,7 +390,8 @@ def scan_device(eng, data: bytes, progress=None):
             if n_cand > engine_mod.SPAN_CONFIRM_LINE_LIMIT and exact is not None:
                 # dense confirm: exact end bits of the exact model, on device
                 dense = True
-                e_idx, e_vals = sparse_nonzero(nfa_scan.nfa_scan_words(arr, exact))
+                e_idx, e_vals = sparse_nonzero(nfa_scan.nfa_scan_words(
+                    views[nfa_scan.LAYOUT], exact))
                 lines = lines_mod.unique_match_lines(
                     offsets_from_sparse_words(e_idx, e_vals, lay) + seg_start,
                     nl)
@@ -375,14 +426,15 @@ def scan_device(eng, data: bytes, progress=None):
         pending: deque = deque()
         for i in range(len(seg_starts)):
             t0 = time.perf_counter()
-            seg_start, seg_len, lay, arr, ready = nxt.result()
+            seg_start, seg_len, lay, views, ready = nxt.result()
             st["feed_wait_seconds"] += time.perf_counter() - t0
             if i + 1 < len(seg_starts):
                 nxt = feed.submit(prepare, i + 1)
             if ready is not None:
                 cur = torch.cuda.current_stream(device)
                 cur.wait_event(ready)
-                arr.record_stream(cur)
+                for t in views.values():
+                    t.record_stream(cur)
             with lock:  # the model and its kind together
                 model, is_filter = scan_state["nfa"]
                 sa_model = scan_state["filtered"] or full
@@ -390,30 +442,33 @@ def scan_device(eng, data: bytes, progress=None):
                 words = None
                 for bank in eng.fdr.banks:
                     words = fdr_scan.fdr_scan_words(
-                        arr, bank, fold_case=eng.ignore_case, out=words)
+                        views[fdr_scan.LAYOUT], bank, fold_case=eng.ignore_case, out=words)
                 if eng.fdr_pairset is not None:
                     words = pairset_scan.pairset_scan_words(
-                        arr, eng.fdr_pairset, out=words)
+                        views[pairset_scan.LAYOUT], eng.fdr_pairset, out=words)
                 kind = "cand_words"
             elif eng.mode == "pairset":
-                words = pairset_scan.pairset_scan_words(arr, eng.pairset)
+                words = pairset_scan.pairset_scan_words(
+                    views[pairset_scan.LAYOUT], eng.pairset)
                 kind = "words"
             elif nfa:
-                words = nfa_scan.nfa_scan_words(arr, model)
+                words = nfa_scan.nfa_scan_words(views[nfa_scan.LAYOUT], model)
                 kind = "cand_words" if is_filter else "words"
             elif approx:
-                words = approx_scan.approx_scan_words(arr, eng.approx)
+                words = approx_scan.approx_scan_words(
+                    views[approx_scan.LAYOUT], eng.approx)
                 kind = "words"
             elif swar:
-                words = swar_scan.swar_scan_words(arr, sa_model)
+                words = swar_scan.swar_scan_words(views[swar_scan.LAYOUT],
+                                                  sa_model)
                 kind = "span_words_packed"
             else:
-                words = cuda_scan.shift_and_scan_words(arr, sa_model,
-                                                       coarse=True)
+                words = cuda_scan.shift_and_scan_words(
+                    views[cuda_scan.LAYOUT], sa_model, coarse=True)
                 kind = "span_words"
             st["segments"] += 1
             pending.append(pool.submit(collect, kind, seg_start, seg_len, lay,
-                                       arr, words))
+                                       views, words))
             while len(pending) > MAX_INFLIGHT:
                 pending.popleft().result()
             if progress is not None:

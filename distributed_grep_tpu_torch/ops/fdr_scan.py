@@ -29,6 +29,7 @@ import torch
 from distributed_grep_tpu_torch.models.fdr import HASHES, MAX_DEPTHS, FdrBank
 from distributed_grep_tpu_torch.ops import _build
 from distributed_grep_tpu_torch.ops.cuda_scan import _check
+from distributed_grep_tpu_torch.ops.layout import COLUMNS
 
 # The plan buffer's layout in uint32 words; csrc/fdr.cu reads the same.
 _M, _N_CHECKS, _N_TABLE, _SLOT_START = 0, 1, 2, 8
@@ -36,6 +37,8 @@ _MUL_PREV, _MUL_BYTE, _DMASK, _OFF = 16, 32, 48, 64
 _TABLES = 128
 MAX_CHECKS = 16
 MAX_TABLE = 64 * 128
+
+LAYOUT = COLUMNS  # the layout the kernel reads (ops/layout.py)
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.

@@ -1,4 +1,4 @@
-"""Stripe layout: document bytes -> (chunk, lanes) array for the scan.
+"""Stripe layout: document bytes -> the (lanes, chunk) stripes of the scan.
 
 The scan is lane-parallel: the document is cut into ``lanes`` contiguous
 stripes, and each lane scans its stripe sequentially.  Because a pattern
@@ -10,8 +10,15 @@ Padding uses '\\n' bytes: the pattern can never consume '\\n', so padding
 can't create matches inside real lines, and decoded offsets past the real
 data's length are dropped.
 
-Layout is column-major: array[c, l] = byte c of stripe l, so one scan step
-reads one row, with neighbouring lanes on neighbouring addresses.
+Two layouts of the same bytes.  ``padded_stripes``: (lanes, chunk)
+row-major, stripes[l, c] = byte c of stripe l, the document as it lies;
+the Shift-And and approx kernels read it (16 bytes of a stripe a load).
+``to_device_array``: its column-major transpose, array[c, l] = byte c of
+stripe l, so one scan step reads one row with neighbouring lanes on
+neighbouring addresses; the NFA, FDR, pairset, SWAR and probe kernels read
+that.  Each engine kernel's module names the one it reads in ``LAYOUT``
+(``STRIPES`` or ``COLUMNS``), and the segment pipeline
+(ops/device_scan.py) prepares each segment in the layouts of its route.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 
 NL = 0x0A
+STRIPES = "stripes"  # (lanes, chunk), padded_stripes
+COLUMNS = "columns"  # (chunk, lanes), to_device_array
 
 
 @dataclass(frozen=True)
@@ -66,9 +75,10 @@ def to_device_array(data: bytes, layout: Layout) -> np.ndarray:
 
 def padded_stripes(data: bytes, layout: Layout,
                    out: np.ndarray | None = None) -> np.ndarray:
-    """The '\\n'-padded document as a (lanes, chunk) row-major view -- the
-    transpose of the scan layout, before the column-major copy.  Written
-    into ``out`` (``layout.padded`` contiguous uint8) when given."""
+    """The '\\n'-padded document as (lanes, chunk) row-major stripes --
+    the Shift-And and approx kernels' layout, and the source of the
+    column-major copy.  Written into ``out`` (``layout.padded`` contiguous
+    uint8) when given."""
     buf = (np.empty(layout.padded, dtype=np.uint8) if out is None
            else out.reshape(-1))
     buf[: len(data)] = np.frombuffer(data, dtype=np.uint8)

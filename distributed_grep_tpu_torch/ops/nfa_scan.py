@@ -29,6 +29,7 @@ import torch
 from distributed_grep_tpu_torch.models.nfa import GlushkovModel
 from distributed_grep_tpu_torch.ops import _build
 from distributed_grep_tpu_torch.ops.cuda_scan import _check
+from distributed_grep_tpu_torch.ops.layout import COLUMNS
 
 NL = 0x0A
 MAX_WORDS = 4
@@ -36,6 +37,8 @@ MAX_WORDS = 4
 _CHAIN, _INIT_FLOAT, _INIT_ANCHOR, _FINAL = 0, 4, 8, 12
 _N_TABLES, _N_SHARED, _TAB_WORD, _TAB_SLICE = 16, 17, 32, 48
 _HEADER = 64  # the shared part (B, then the exception tables) starts here
+
+LAYOUT = COLUMNS  # the layout the kernel reads (ops/layout.py)
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.

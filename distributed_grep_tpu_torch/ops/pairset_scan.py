@@ -27,6 +27,9 @@ from distributed_grep_tpu_torch.models.pairset import NL, PairsetModel
 from distributed_grep_tpu_torch.ops import _build
 from distributed_grep_tpu_torch.ops.cuda_scan import _check
 from distributed_grep_tpu_torch.ops.fdr_scan import _check_out, or_into, pack_bits
+from distributed_grep_tpu_torch.ops.layout import COLUMNS
+
+LAYOUT = COLUMNS  # the layout the kernel reads (ops/layout.py)
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.

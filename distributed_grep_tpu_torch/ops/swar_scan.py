@@ -38,9 +38,12 @@ from distributed_grep_tpu_torch.models.shift_and import (
 )
 from distributed_grep_tpu_torch.ops import _build
 from distributed_grep_tpu_torch.ops.cuda_scan import _check
+from distributed_grep_tpu_torch.ops.layout import COLUMNS
 
 _U32 = 0xFFFFFFFF
 _ONES = 0x01010101
+
+LAYOUT = COLUMNS  # the layout the kernel reads (ops/layout.py)
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.

@@ -30,6 +30,15 @@ would scan half the data; the pad here is 32 rows (one word row), so an
 odd window drops about 3% of each stripe.  Each window is ``chunk`` rows
 of '\\n'-padded stripes, so a pass scans ``chunk * lanes`` bytes
 (``pass_bytes``): callers divide those bytes by the per-pass time.
+
+Layouts.  The harness windows ``dev`` by rows, ``dev[off : off + chunk]``.
+For the kernels that read the column layout ``dev`` is the contiguous
+(chunk + pad, lanes) tensor of ``device_setup``.  The Shift-And kernel
+reads the stripes as they lie: ``stripe_setup`` gives the contiguous
+(lanes, chunk + pad) stripes, 32 pad columns of '\\n', and
+``shift_and_setup`` hands the harness their (row, lane) view, so each
+window, seen as stripes again, is a (lanes, chunk) stripe window whose
+pitch is chunk + pad, with no copy.
 """
 
 from __future__ import annotations
@@ -40,7 +49,12 @@ import numpy as np
 import torch
 
 from distributed_grep_tpu_torch.ops.engine import DEFAULT_TARGET_LANES
-from distributed_grep_tpu_torch.ops.layout import NL, choose_layout, to_device_array
+from distributed_grep_tpu_torch.ops.layout import (
+    NL,
+    choose_layout,
+    padded_stripes,
+    to_device_array,
+)
 from distributed_grep_tpu_torch.utils.device import resolve_device
 
 PAD_ROWS = 32
@@ -197,31 +211,48 @@ def device_setup(
     chunk_multiple: int = 32,
     min_chunk: int = 256,
 ):
-    """The (chunk, lanes) stripe layout of ``data`` (the engine's layout
+    """The (chunk, lanes) column layout of ``data`` (the engine's layout
     rule: 65536 lanes, 1024 bytes each for 64 MiB) with PAD_ROWS rows of
     '\\n' appended, on ``device``.  Returns (dev, layout, PAD_ROWS)."""
     device = resolve_device(device)
-    lay = choose_layout(len(data), target_lanes=DEFAULT_TARGET_LANES,
-                        min_chunk=min_chunk, lane_multiple=lane_multiple,
-                        chunk_multiple=chunk_multiple)
+    lay = _layout(data, lane_multiple, chunk_multiple, min_chunk)
     arr = to_device_array(data, lay)
     pad = np.full((PAD_ROWS, lay.lanes), NL, dtype=np.uint8)
     dev = torch.from_numpy(np.concatenate([arr, pad], axis=0)).to(device)
     return dev, lay, PAD_ROWS
 
 
+def stripe_setup(data: bytes, device: str | torch.device = "cuda"):
+    """The (lanes, chunk) stripes of ``data`` (the engine's layout rule)
+    with PAD_ROWS columns of '\\n' appended, contiguous on ``device``.
+    Returns (stripes, layout, PAD_ROWS)."""
+    device = resolve_device(device)
+    lay = _layout(data, 32, 32, 256)
+    pad = np.full((lay.lanes, PAD_ROWS), NL, dtype=np.uint8)
+    host = np.concatenate([padded_stripes(data, lay), pad], axis=1)
+    return torch.from_numpy(host).to(device), lay, PAD_ROWS
+
+
+def _layout(data: bytes, lane_multiple: int, chunk_multiple: int,
+            min_chunk: int):
+    return choose_layout(len(data), target_lanes=DEFAULT_TARGET_LANES,
+                         min_chunk=min_chunk, lane_multiple=lane_multiple,
+                         chunk_multiple=chunk_multiple)
+
+
 def shift_and_setup(data: bytes, model, *, device="cuda"):
     """Device tensor + scan closure for slope-timing the Shift-And kernel
-    (csrc/shift_and.cu) in coarse mode, the engine's first pass.  Returns
+    (csrc/shift_and.cu) in coarse mode, the engine's first pass, on stripe
+    windows (module docstring).  Returns
     (dev, chunk, pad_rows, scan) for slope_per_pass."""
     from distributed_grep_tpu_torch.ops import cuda_scan
 
-    dev, lay, pad_rows = device_setup(data, device)
+    stripes, lay, pad_rows = stripe_setup(data, device)
 
-    def scan(win):
-        return cuda_scan.shift_and_scan_words(win, model, True)
+    def scan(win):  # a row window of stripes.t(): a pitched stripe window
+        return cuda_scan.shift_and_scan_words(win.t(), model, True)
 
-    return dev, lay.chunk, pad_rows, scan
+    return stripes.t(), lay.chunk, pad_rows, scan
 
 
 def nfa_setup(data: bytes, model, *, device="cuda"):

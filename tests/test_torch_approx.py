@@ -6,7 +6,10 @@ same answers on fuzzed text.  Kernel: the plain PyTorch version of the
 Wu-Manber kernel, fed the REFERENCE's model through ``approx_from_arrays``,
 gives words bit-identical (tolerance 0: integer words) to the reference
 Pallas kernel in interpret mode, reshaped from its tile (chunk//32,
-lanes//128, 128) to (chunk//32, lanes), at chunk 512 and lanes 4096.  The
+lanes//128, 128) to (chunk//32, lanes), at chunk 512 and lanes 4096; the
+reference reads the (chunk, lanes) columns, the port the (lanes, chunk)
+stripes of the same bytes (the sub-stripe warm-up is held in
+tests/test_torch_substripe.py).  The
 host window check equals ``line_matches``.  Engine, job and CLI: the port
 on ``device="cpu"`` with small segments (so stripe and segment starts are
 everywhere) gives the reference engine's lines, which Sellers' DP
@@ -133,7 +136,8 @@ def test_plain_words_equal_pallas_interpret(pattern, k, ic):
         arr, ref, interpret=True)).reshape(chunk // 32, lanes)
     model = port_ax.approx_from_arrays(ref.base.b_table, ref.base.sym_ranges,
                                        k)
-    got = approx_scan.approx_scan_words(torch.from_numpy(arr), model)
+    got = approx_scan.approx_scan_words(
+        torch.from_numpy(np.ascontiguousarray(arr.T)), model)
     assert got.dtype == torch.uint32 and got.shape == (chunk // 32, lanes)
     np.testing.assert_array_equal(got.numpy(), want)
     assert np.count_nonzero(want) > 100

@@ -53,7 +53,7 @@ def test_cuda_kernel_matches_plain_on_card(card, chunk, lanes):
     lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
     arr = layout.to_device_array(text.tobytes(), lay)
     arr[29:36, ::97] = np.frombuffer(b"volcano", np.uint8)[:, None]
-    cpu = torch.from_numpy(arr)
+    cpu = torch.from_numpy(np.ascontiguousarray(arr.T))  # (lanes, chunk)
     dev = cpu.to(card)
     for pattern, ic, filtered in MODELS:
         model = port_sa.try_compile_shift_and(pattern, ignore_case=ic)
@@ -292,7 +292,7 @@ def test_approx_kernel_matches_plain_on_card(card, chunk, lanes):
     arr = layout.to_device_array(text.tobytes(), lay)
     arr[0:7, ::5] = np.frombuffer(b"volcxno", np.uint8)[:, None]
     arr[27:37, 3] = np.frombuffer(b"Schwarzeen", np.uint8)
-    dev = torch.from_numpy(arr).to(card)
+    dev = torch.from_numpy(np.ascontiguousarray(arr.T)).to(card)
     for pattern, k, ic in APPROX_MODELS:
         model = port_ax.try_compile_approx(pattern, k, ignore_case=ic)
         before = approx_scan.launches
@@ -301,6 +301,80 @@ def test_approx_kernel_matches_plain_on_card(card, chunk, lanes):
         assert approx_scan.launches == before + 1
         want = approx_scan.approx_scan_words_plain(dev, model)
         assert torch.equal(got, want), (pattern, k, ic)
+
+
+def _rand_pattern(rng, m: int) -> str:
+    """m symbols: letters of 'abcxyz', two-letter classes and '.'."""
+    out = []
+    for _ in range(m):
+        r = int(rng.integers(0, 6))
+        pick = rng.choice(list("abcxyz"), size=2).tolist()
+        out.append("[" + "".join(sorted(set(pick))) + "]" if r == 0
+                   else "." if r == 1 else pick[0])
+    return "".join(out)
+
+
+def _sample(rng, sym_ranges) -> bytes:
+    """One string the symbols match: a random byte of a random range each."""
+    return bytes(int(rng.integers(lo, hi + 1)) for lo, hi in (
+        r[int(rng.integers(0, len(r)))] for r in sym_ranges))
+
+
+def _errorful(rng, s: bytes, k: int) -> bytes:
+    """``s`` after 0..k random substitutions, insertions or deletions."""
+    b = bytearray(s)
+    for _ in range(int(rng.integers(0, k + 1))):
+        op, p = int(rng.integers(0, 3)), int(rng.integers(0, len(b)))
+        if op == 0:
+            b[p] = ord("x")
+        elif op == 1:
+            b.insert(p, ord("y"))
+        elif len(b) > 1:
+            del b[p]
+    return bytes(b)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_substripe_warmup_sweep_on_card(card, seed):
+    """Both stripe kernels against their plain versions on seeded random
+    models (Shift-And m = 1-32 in both modes; approx k = 1-3 up to m + k -
+    1 = 34), at chunks of 1 to 32 words (288: a short last sub-stripe) and
+    on a pitched window, samples planted across every word boundary (the
+    kernels start sub-stripes at word boundaries, more of them on narrow
+    tensors)."""
+    from distributed_grep_tpu_torch.models import approx as port_ax
+    from distributed_grep_tpu_torch.ops import approx_scan
+
+    rng = np.random.default_rng(seed)
+    for chunk, lanes in [(32, 32), (64, 64), (96, 96), (288, 32), (1024, 64)]:
+        m = int(rng.integers(1, 33))
+        sa = port_sa.try_compile_shift_and(_rand_pattern(rng, m),
+                                           bool(seed % 2))
+        k = int(rng.integers(1, 4))
+        ax = port_ax.try_compile_approx(_rand_pattern(rng, max(m, k + 1)), k)
+        for model, sample in ((sa, _sample(rng, sa.sym_ranges)),
+                              (ax, _errorful(rng, _sample(
+                                  rng, ax.base.sym_ranges), k))):
+            text = rng.choice(np.frombuffer(b"abcxyzABC\n", np.uint8),
+                              size=(lanes, chunk + 64))
+            for c0 in range(32, chunk, 32):
+                for d in range(0, 40, 3):
+                    end = min(chunk - 1, c0 + d)
+                    s = sample[max(0, len(sample) - end - 1):]
+                    text[d % lanes, end + 1 - len(s) : end + 1] = \
+                        np.frombuffer(s, np.uint8)
+            wide = torch.from_numpy(text).to(card)
+            for dev in (wide[:, :chunk].contiguous(), wide[:, 32 : 32 + chunk]):
+                if model is sa:
+                    for coarse in (True, False):
+                        got = cuda_scan.shift_and_scan_words(dev, sa, coarse)
+                        want = cuda_scan.shift_and_scan_words_plain(dev, sa,
+                                                                    coarse)
+                        assert torch.equal(got, want), (sa.pattern, chunk)
+                else:
+                    got = approx_scan.approx_scan_words(dev, ax)
+                    want = approx_scan.approx_scan_words_plain(dev, ax)
+                    assert torch.equal(got, want), (ax.base.pattern, k, chunk)
 
 
 @pytest.mark.parametrize("chunk,lanes", [(512, 16384), (1024, 65536), (160, 128)])

@@ -3,8 +3,11 @@
 The plain PyTorch version of the Shift-And kernel must give words
 bit-identical (tolerance 0: integer words) to the reference Pallas kernel
 run in interpret mode, reshaped from its TPU tile (chunk//32, lanes//128,
-128) to the port's (chunk//32, lanes).  The CUDA kernel itself is held
-against the plain version on the card in tests/test_torch_cuda.py.
+128) to the port's (chunk//32, lanes).  The reference reads the (chunk,
+lanes) column layout; the port reads the (lanes, chunk) stripes of the
+same bytes.  The CUDA kernel itself is held against the plain version on
+the card in tests/test_torch_cuda.py; its sub-stripe warm-up is held here
+in tests/test_torch_substripe.py.
 """
 
 import numpy as np
@@ -35,6 +38,12 @@ def _corpus(seed: int, chunk: int, lanes: int) -> np.ndarray:
     return arr
 
 
+def _stripes(arr: np.ndarray) -> torch.Tensor:
+    """The (lanes, chunk) stripes the port's kernel reads, of the same
+    bytes as the (chunk, lanes) column array the reference reads."""
+    return torch.from_numpy(np.ascontiguousarray(arr.T))
+
+
 MODELS = [("volcano", False, False), ("volcano", False, True),
           ("Volcano", True, False), ("h[ae]llo", False, False)]
 
@@ -56,8 +65,8 @@ def test_plain_words_bit_identical_to_reference_kernel(chunk, lanes, models,
         ref_words = np.asarray(pallas_scan.shift_and_scan_words(
             arr, ref_model, interpret=True, coarse=coarse
         )).reshape(chunk // 32, lanes)
-        got = cuda_scan.shift_and_scan_words(torch.from_numpy(arr),
-                                             port_model, coarse)
+        got = cuda_scan.shift_and_scan_words(_stripes(arr), port_model,
+                                             coarse)
         assert got.dtype == torch.uint32 and got.shape == ref_words.shape
         np.testing.assert_array_equal(got.numpy(), ref_words)
         assert ref_words.any(), "corpus must contain matches"
@@ -73,8 +82,8 @@ def test_fetch_and_decode_match_reference():
         ref_dev = pallas_scan.shift_and_scan_words(arr, model, interpret=True,
                                                    coarse=coarse)
         r_idx, r_vals = scan_jnp.sparse_nonzero(ref_dev)
-        words = cuda_scan.shift_and_scan_words(torch.from_numpy(arr),
-                                               port_model, coarse)
+        words = cuda_scan.shift_and_scan_words(_stripes(arr), port_model,
+                                               coarse)
         p_idx, p_vals = scan_torch.sparse_nonzero(words)
         np.testing.assert_array_equal(p_idx, r_idx)
         np.testing.assert_array_equal(p_vals, np.asarray(r_vals, np.uint32))
@@ -98,9 +107,12 @@ def test_sparse_nonzero_empty_plane():
 @pytest.mark.parametrize("bad", [
     lambda: torch.zeros((64, 64), dtype=torch.int32),  # dtype
     lambda: torch.zeros(64 * 64, dtype=torch.uint8),  # rank
-    lambda: torch.zeros((48, 64), dtype=torch.uint8),  # chunk % 32
-    lambda: torch.zeros((64, 40), dtype=torch.uint8),  # lanes % 32
+    lambda: torch.zeros((48, 64), dtype=torch.uint8),  # lanes % 32
+    lambda: torch.zeros((64, 40), dtype=torch.uint8),  # chunk % 32
     lambda: torch.zeros((64, 64), dtype=torch.uint8).t(),  # non-contiguous
+    lambda: torch.zeros((64, 96), dtype=torch.uint8).t(),  # columns as stripes
+    lambda: torch.zeros((64, 72), dtype=torch.uint8)[:, :64],  # pitch % 16
+    lambda: torch.zeros((64, 80), dtype=torch.uint8)[:, 8:40],  # address % 16
 ])
 def test_wrapper_rejects_bad_inputs(bad):
     model = port_sa.try_compile_shift_and("ab")
@@ -109,7 +121,7 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 def test_wrapper_on_cpu_tensor_is_plain_and_not_counted():
-    arr = torch.from_numpy(_corpus(3, 64, 64))
+    arr = _stripes(_corpus(3, 64, 64))
     model = port_sa.try_compile_shift_and("volcano")
     before = cuda_scan.launches
     a = cuda_scan.shift_and_scan_words(arr, model, True)

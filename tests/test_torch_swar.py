@@ -88,16 +88,19 @@ def test_plain_words_and_decode_equal_pallas_interpret(pattern, ic, filtered):
 
 def test_packed_words_equal_unpacked_coarse_words():
     """Byte k of packed element j is stripe 4j+k's coarse word (the
-    Shift-And kernel's), at a small layout the engine uses."""
+    Shift-And kernel's, which reads the stripes of the same bytes), at a
+    small layout the engine uses."""
     text = np.frombuffer(CASES["edges"][: 160 * 256], np.uint8)
     lay = layout.Layout(lanes=256, chunk=160, n_real=text.size)
-    arr = torch.from_numpy(layout.to_device_array(text.tobytes(), lay))
+    stripes = layout.padded_stripes(text.tobytes(), lay)
+    arr = torch.from_numpy(np.ascontiguousarray(stripes.T))
     from distributed_grep_tpu_torch.ops import cuda_scan
 
     for pattern, ic, filtered in MODELS:
         _ref, port = _models(pattern, ic, filtered)
         packed = swar_scan.swar_scan_words(arr, port).numpy()
-        unpacked = cuda_scan.shift_and_scan_words(arr, port, True).numpy()
+        unpacked = cuda_scan.shift_and_scan_words(
+            torch.from_numpy(stripes), port, True).numpy()
         as_bytes = packed.view(np.uint8).reshape(160 // 32, 256)
         np.testing.assert_array_equal(as_bytes != 0, unpacked != 0)
 
@@ -131,7 +134,8 @@ def test_engine_lines_equal_with_and_without_swar(monkeypatch, case,
 def test_swar_keeps_the_dense_confirm_and_the_defeat_guard(monkeypatch):
     """'volcano' filters on v, l, c; a corpus of 'vxlc' words makes its
     candidates dense and mostly false: the dense confirm runs the exact
-    unpacked kernel on the same tensor and the guard drops the filter."""
+    unpacked kernel on the segment's stripes and the guard drops the
+    filter."""
     rng = np.random.default_rng(6)
     data = b"\n".join(b"vxlc %d" % i if rng.random() < 0.97 else b"a volcano"
                       for i in range(30_000)) + b"\n"
