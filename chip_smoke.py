@@ -20,9 +20,9 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          ('volcano', its filter, '-i Volcano', 'being it'); the narrow-width
          probe kernel at i32, i16 and i8, and the one-hot tensor-core
          product (1 and 16 lane blocks, the default and odd split counts).
-         The Shift-And and approx kernels read the (lanes, chunk)
-         stripes as the document lies; the others the (chunk, lanes)
-         columns.  Then a differential sweep of the two table-driven
+         The Shift-And, approx, pairset and SWAR kernels read the (lanes,
+         chunk) stripes as the document lies; the others the (chunk,
+         lanes) columns.  Then a differential sweep of the two table-driven
          kernels: 26 seeded random regexes of 1-4 state words with 0-128
          specials on the NFA kernel, and 48 random FDR banks (m = 1-6,
          1-16 checks, both hash families, with and without folding, half
@@ -37,7 +37,12 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          start a sub-stripe) and '\\n' at c0 - W - 1, c0 - W and c0 - 1,
          at chunks 32, 64, 96, 288 and 1024 over 32-96 lanes (every word
          a sub-stripe start), at 1024 x 8192 (a few), on contiguous and
-         pitched windows, and at the 64 MB segment.  Each draw is held to
+         pitched windows, and at the 64 MB segment; and of the two
+         stripe kernels of literal sets and packed Shift-And: 24 seeded
+         random 1-2-byte sets (both orientations, -i; half the draws ORed
+         into a nonzero plane) with members ending 0..2 bytes after every
+         word boundary, and SWAR models of every length 1-8 (three each,
+         and their filters), at the same shapes.  Each draw is held to
          its plain version bit for bit; the count of draws is logged.
 Phase 3  the main path at real size, each query through runtime.job.run_job
          on "cuda" and checked line for line against ``LC_ALL=C grep -na``
@@ -73,11 +78,13 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          file.  The launch counts of all kernels are
          zeroed just before the queries and read just after; each query
          also logs its on-card layout transposes (ops/device_scan.py
-         ``transposes``): 0 on the Shift-And and approx routes, which
-         read the uploaded stripes, one per segment on the others.  Then
+         ``transposes``): 0 on the Shift-And, approx, pairset and SWAR
+         routes, which read the uploaded stripes, one per segment on the
+         NFA and FDR routes (config 3 + '#' too).  Then
          the kernels, their plain versions, the transpose, the sparse
          fetch and the confirm set are timed at the main path's segment
-         shape.
+         shape (pairset and SWAR also on the card's clock, in CUDA
+         graphs).
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -132,8 +139,10 @@ FDR_OPS_PER_BYTE = 3
 FDR_OPS_PER_FAMILY = 3
 FDR_OPS_PER_CHECK = 3
 FDR_OPS_PER_SLOT = 1
-# csrc/pairset.cu per input byte: load, fold, two lookups, shift, and,
-# output bit, carry.
+# The pairset yardstick per input byte since PR 3 (the column kernel: load,
+# fold, two lookups, shift, and, output bit, carry).  The stripe kernel
+# does about 5 (no fold: the tables are folded; one 8-byte load of both
+# tables' entries); either way the bytes bound it.
 PAIRSET_OPS_PER_BYTE = 8
 # Shared-memory lookups at random addresses: 32 four-byte banks per SM, one
 # access each per clock, 132 SMs at 1.98 GHz.
@@ -145,9 +154,11 @@ H100_SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 # terms and the seed, the select of the newline reset).
 APPROX_OPS_PER_BYTE = 10
 APPROX_OPS_PER_ROW = 9
-# csrc/shift_and_swar.cu per packed uint32 (four input bytes): three byte
-# extracts, four table lookups, three ors, the shift, the or-and of the step
-# and the accumulate -- 14, so 3.5 per input byte; one lookup per byte.
+# The SWAR yardstick per input byte since PR 4: per packed uint32 (four
+# input bytes) three byte extracts, four table lookups, three ors, the
+# shift, the or-and of the step and the accumulate -- 14, so 3.5; one lookup
+# per byte.  The stripe kernel does about 4.5 (a fourth byte extract and
+# three permutes in place of the ors); either way the bytes bound it.
 SWAR_OPS_PER_BYTE = 3.5
 # csrc/probe_narrow.cu per input byte: the load, six compares and six
 # selects of the class chain, the shift-or, the and and the accumulate.
@@ -229,8 +240,9 @@ def template_label(func: str) -> str:
     import re
 
     m = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", func)
-    if not m:
-        return func
+    if not m:  # not a template: its name alone
+        plain = re.search(r"\d([a-z][a-z_]*_kernel)E", func)
+        return plain.group(1) if plain else func
     args = re.findall(r"L[ib](\d+)E", m.group(2))
     return f"{m.group(1)}<{', '.join(args)}>"
 
@@ -1213,6 +1225,141 @@ def phase_approx_sweep(torch, np, approx_scan, ax_mod,
     return n, worst
 
 
+def sweep_pairsets(rng, ps_mod, n: int) -> list:
+    """n seeded random 1-2-byte sets over SWEEP_ALPHABET (1-6 members, -i
+    for a third), and the 40-row set whose factorization is transposed,
+    with and without -i."""
+    letters = list(SWEEP_ALPHABET.encode())
+    out = []
+    for _ in range(n):
+        members = sorted({bytes(rng.choice(letters, size=int(
+            rng.integers(1, 3))).tolist()) for _ in range(int(
+                rng.integers(1, 7)))})
+        out.append(ps_mod.compile_pairset(
+            members, ignore_case=bool(rng.integers(0, 3) == 0)))
+    wide = [bytes([100 + i, b"uvwxyz"[j]]) for i in range(40)
+            for j in range(6) if (i + 1) >> j & 1]
+    out += [ps_mod.compile_pairset(wide, ignore_case=ic)
+            for ic in (False, True)]
+    assert out[-1].transposed and out[-2].transposed
+    return out
+
+
+def phase_pairset_sweep(torch, np, pairset_scan, ps_mod,
+                        seed: int) -> tuple[int, int]:
+    """The pairset kernel against its plain version on seeded random sets
+    of both orientations (a third with -i), members planted to end 0..2
+    bytes after every word boundary (where the kernel may start a
+    sub-stripe, seeding its previous byte with the byte before), at
+    ``substripe_shapes`` (the 64 MB segment for three sets), every other
+    draw ORed into a nonzero plane (out=).  Returns (draws compared, the
+    largest absolute difference)."""
+    rng = np.random.default_rng(seed)
+    models = sweep_pairsets(rng, ps_mod, 22)
+    on_segment = {0, len(models) - 2, len(models) - 1}
+    n = worst = 0
+    for i, model in enumerate(models):
+        samples = [m.upper() if j % 3 == 0 else m
+                   for j, m in enumerate(model.patterns[:40])]
+        nonzero = 0
+        shapes = substripe_shapes(i, i in on_segment)
+        for chunk, lanes, dev in substripe_draws(torch, np, rng, shapes,
+                                                 samples, 0):
+            plain = pairset_scan.pairset_scan_words_plain(dev, model)
+            use_out = n % 2 == 1
+            if use_out:
+                base = torch.from_numpy(rng.integers(
+                    0, 2**32, size=(chunk // 32, lanes),
+                    dtype=np.uint32)).cuda()
+                got = pairset_scan.pairset_scan_words(dev, model,
+                                                      out=base.clone())
+                want = (plain.view(torch.int32)
+                        | base.view(torch.int32)).view(torch.uint32)
+            else:
+                got = pairset_scan.pairset_scan_words(dev, model)
+                want = plain
+            torch.cuda.synchronize()
+            err = words_err(torch, got, want)
+            worst = max(worst, err)
+            n += 1
+            if not torch.equal(got, want) or err:
+                raise AssertionError(
+                    f"pairset sweep: kernel != plain for {model.patterns!r} "
+                    f"(transposed={model.transposed}, -i={model.ignore_case})"
+                    f" out={use_out} chunk={chunk} lanes={lanes} "
+                    f"pitch={dev.stride(0)} max_abs_err={err}")
+            nonzero += int(torch.count_nonzero(plain.view(torch.int32)))
+        if not nonzero:
+            raise AssertionError(f"pairset sweep: no match of "
+                                 f"{model.patterns!r} in its text")
+        if i in on_segment:
+            log(f"  ok pairset sweep transposed={model.transposed} "
+                f"-i={model.ignore_case} shapes {shapes}: "
+                f"{len(model.patterns)} members")
+    log(f"  pairset sweep: {len(models)} sets "
+        f"({sum(m.transposed for m in models)} transposed, "
+        f"{sum(m.ignore_case for m in models)} -i), {n} draws compared (half "
+        f"with out=) at chunks {SUB_CHUNKS} over {SUB_LANES} lanes, "
+        f"contiguous and pitched, {SUB_MID} for every fourth, and "
+        f"{SWEEP_SEGMENT} for {len(on_segment)}, all bit-identical")
+    return n, worst
+
+
+def phase_swar_sweep(torch, np, swar_scan, sa_mod,
+                     seed: int) -> tuple[int, int]:
+    """The SWAR kernel against its plain version on seeded random models
+    of every length 1-8 (letters, classes, '.', a third with -i) and the
+    rare-class filters among them, at ``substripe_shapes`` (the 64 MB
+    segment for lengths 8 and 3 and one filter).  Returns (draws compared,
+    the largest absolute difference)."""
+    rng = np.random.default_rng(seed)
+    models = []
+    for m in list(range(1, 9)) * 3:
+        full = sa_mod.try_compile_shift_and(rand_symbols(rng, m),
+                                            bool(rng.integers(0, 3) == 0))
+        assert full is not None and full.length == m
+        models.append((full, full))
+        filt = sa_mod.filtered_for_device(full)
+        if filt is not None:
+            models.append((filt, full))
+    first_filter = next(i for i, (a, b) in enumerate(models) if a is not b)
+    on_segment = {2, 7, first_filter}
+    n = worst = 0
+    for i, (model, full) in enumerate(models):
+        warm = 32 * swar_scan.warmup_words(model)
+        samples = [sample_of(rng, full.sym_ranges) for _ in range(6)]
+        nonzero = 0
+        shapes = substripe_shapes(i, i in on_segment)
+        for chunk, lanes, dev in substripe_draws(torch, np, rng, shapes,
+                                                 samples, warm):
+            got = swar_scan.swar_scan_words(dev, model)
+            torch.cuda.synchronize()
+            want = swar_scan.swar_scan_words_plain(dev, model)
+            err = words_err(torch, got, want)
+            worst = max(worst, err)
+            n += 1
+            if not torch.equal(got, want) or err:
+                raise AssertionError(
+                    f"swar sweep: kernel != plain for {model.pattern!r} "
+                    f"(m={model.length}, filter={model is not full}) "
+                    f"chunk={chunk} lanes={lanes} pitch={dev.stride(0)} "
+                    f"max_abs_err={err}")
+            nonzero += int(torch.count_nonzero(want.view(torch.int32)))
+        if not nonzero:
+            raise AssertionError(f"swar sweep: no match of "
+                                 f"{model.pattern!r} in its text")
+        if i in on_segment:
+            log(f"  ok swar sweep m={model.length} filter="
+                f"{model is not full} warm-up {warm} bytes, shapes {shapes}: "
+                f"{model.pattern!r}")
+    log(f"  swar sweep: {len(models)} models (m 1-8, "
+        f"{sum(a is not b for a, b in models)} filters), {n} draws compared "
+        f"at chunks {SUB_CHUNKS} over {SUB_LANES} lanes, contiguous and "
+        f"pitched, {SUB_MID} for every fourth, and {SWEEP_SEGMENT} for "
+        f"{len(on_segment)}, all bit-identical")
+    return n, worst
+
+
 def set_models(fdr_mod, ps_mod) -> tuple[dict, dict]:
     """The set kernels' phase-2 models: the FDR banks of BASELINE configs
     2, 3 and 5 and a two-family bank with 1024-entry tables; pairset
@@ -1255,8 +1402,10 @@ def words_err(torch, got, want) -> int:
 def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
                       ps_mod) -> tuple[int, int]:
     """FDR and pairset kernel words vs their plain versions (run on the
-    card), bit for bit, with and without out=.  Returns the largest
-    absolute difference seen for each kernel."""
+    card), bit for bit, with and without out=: FDR on the (chunk, lanes)
+    columns, pairset on the (lanes, chunk) stripes of the same bytes, and
+    the out= plane ORed from both, as the engine's mixed sets do.  Returns
+    the largest absolute difference seen for each kernel."""
     from distributed_grep_tpu_torch.ops.layout import choose_layout, to_device_array
 
     rng = np.random.default_rng(2468)
@@ -1281,6 +1430,7 @@ def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
             arr[0:5, ::7] = np.frombuffer(b"eedle", np.uint8)[:, None]
             arr[30:33, 3::5] = np.frombuffer(b"Q#q", np.uint8)[:, None]
             dev = torch.from_numpy(arr).cuda()
+            dev_st = torch.from_numpy(np.ascontiguousarray(arr.T)).cuda()
             runs = [("fdr", name, bank, fold)
                     for name, bank in banks.items() for fold in (False, True)]
             runs += [("pairset", name, m, m.ignore_case)
@@ -1291,9 +1441,10 @@ def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
                     torch.cuda.synchronize()
                     want = fdr_scan.fdr_scan_words_plain(dev, model, fold)
                 else:
-                    got = pairset_scan.pairset_scan_words(dev, model)
+                    got = pairset_scan.pairset_scan_words(dev_st, model)
                     torch.cuda.synchronize()
-                    want = pairset_scan.pairset_scan_words_plain(dev, model)
+                    want = pairset_scan.pairset_scan_words_plain(dev_st,
+                                                                 model)
                 err = words_err(torch, got, want)
                 worst[kernel] = max(worst[kernel], err)
                 if not torch.equal(got, want) or err:
@@ -1307,7 +1458,7 @@ def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
             # out=: later banks and the sidecar OR into one word plane
             out = fdr_scan.fdr_scan_words(dev, banks["config2"])
             fdr_scan.fdr_scan_words(dev, banks["config3"], out=out)
-            pairset_scan.pairset_scan_words(dev, pairsets["2-byte set"],
+            pairset_scan.pairset_scan_words(dev_st, pairsets["2-byte set"],
                                             out=out)
             torch.cuda.synchronize()
             want = (fdr_scan.fdr_scan_words_plain(dev, banks["config2"])
@@ -1315,12 +1466,12 @@ def phase_set_kernels(torch, np, fdr_scan, pairset_scan, fdr_mod,
                     | fdr_scan.fdr_scan_words_plain(dev, banks["config3"])
                     .view(torch.int32)
                     | pairset_scan.pairset_scan_words_plain(
-                        dev, pairsets["2-byte set"]).view(torch.int32))
+                        dev_st, pairsets["2-byte set"]).view(torch.int32))
             if not torch.equal(out.view(torch.int32), want):
                 raise AssertionError(f"out= OR differs from the plain "
                                      f"versions' OR ({corpus}, chunk={chunk})")
-            log(f"  ok out= OR of config2 + config3 banks + 2-byte set "
-                f"{corpus:5s} chunk={chunk:5d} lanes={lanes:6d}")
+            log(f"  ok out= OR of config2 + config3 banks (columns) + 2-byte "
+                f"set (stripes) {corpus:5s} chunk={chunk:5d} lanes={lanes:6d}")
     return worst["fdr"], worst["pairset"]
 
 
@@ -1409,14 +1560,14 @@ def phase_approx_kernels(torch, np, approx_scan, ax_mod) -> int:
 
 def phase_swar_kernels(torch, np, swar_scan, sa_mod) -> int:
     """SWAR kernel words vs the plain version's at the main path's segment
-    shape and a small one: the queries' needles in the text and 'volcano'
-    across a word edge of every 7th stripe."""
+    shape and a small one, on stripes: the queries' needles in the text
+    and 'volcano' across a word edge of every 7th stripe."""
     return compare_words(
         torch, np, "swar", swar_scan.swar_scan_words,
         swar_scan.swar_scan_words_plain, swar_models(sa_mod),
         [(1024, 65536), (160, 128)], 128, 8642,
         lambda rng, n: [b"volcano", b"VOLCANO", b"being it"],
-        [(slice(29, 36), slice(1, None, 7), b"volcano")])
+        [(slice(29, 36), slice(1, None, 7), b"volcano")], stripes=True)
 
 
 def sass_opcodes(build, name: str) -> dict[str, list[str]]:
@@ -1662,6 +1813,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from distributed_grep_tpu_torch.apps import grep_cuda
+        from distributed_grep_tpu_torch.benchmarks.substripe_sweep import (
+            graph_ms,
+        )
         from distributed_grep_tpu_torch.models import approx as ax_mod
         from distributed_grep_tpu_torch.models import fdr as fdr_mod
         from distributed_grep_tpu_torch.models import nfa as nfa_mod
@@ -1716,13 +1870,22 @@ def main() -> int:
     for name, text in _build.build_log.items():
         for func, usage in ptxas_usage(text):
             log(f"  ptxas {name} {template_label(func)}: {usage}")
-    # steps unrolled in a kernel's loop body: csrc/shift_and.cu steps a
-    # whole 128-byte box, the others one 32-byte word
-    for name in ("shift_and", "approx", "shift_and_swar", "nfa", "fdr"):
-        steps = 128 if name == "shift_and" else 32
+    # steps unrolled in a kernel's loop body: the ring kernels step a whole
+    # box (128 bytes; SWAR kBoxBytes packed steps of four bytes), the
+    # others one 32-byte word
+    import re
+
+    swar_box = int(re.search(r"constexpr int kBoxBytes = (\d+);", (
+        _build.CSRC / "shift_and_swar.cu").read_text()).group(1))
+    body = {"shift_and": (128, 1), "pairset": (128, 1),
+            "shift_and_swar": (swar_box, 4)}
+    for name in ("shift_and", "pairset", "approx", "shift_and_swar", "nfa",
+                 "fdr"):
+        steps, per = body.get(name, (32, 1))
         for func, n in sass_counts(_build, name).items():
             log(f"  sass {name} {template_label(func)}: {n} instructions "
-                f"({n / steps:.1f} per step of {steps})")
+                f"({n / steps:.1f} per step of {steps}, "
+                f"{n / steps / per:.1f} a byte)")
     # the narrow probe: one word of 32 unrolled steps per loop trip, so
     # the count over 32 is close to its instructions per step at each width
     for func, ops in sass_opcodes(_build, "probe_narrow").items():
@@ -1771,8 +1934,16 @@ def main() -> int:
     approx_err = max(approx_err, sweep_err)
     log(f"approx sweep: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    _n, sweep_err = phase_pairset_sweep(torch, np, pairset_scan, ps_mod, 4646)
+    ps_err = max(ps_err, sweep_err)
+    log(f"pairset sweep: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     swar_err = phase_swar_kernels(torch, np, swar_scan, sa_mod)
     log(f"swar checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _n, sweep_err = phase_swar_sweep(torch, np, swar_scan, sa_mod, 4747)
+    swar_err = max(swar_err, sweep_err)
+    log(f"swar sweep: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     narrow_err = phase_narrow_kernels(torch, np, narrow_probe)
     log(f"narrow probe checks: {time.perf_counter() - t0:.1f} s")
@@ -1951,9 +2122,11 @@ def main() -> int:
                 raise AssertionError(
                     f"query {label}: route {route}, launches {launched}, "
                     f"engine totals {totals}")
-            # the Shift-And and approx kernels read the uploaded stripes;
-            # the NFA, FDR, pairset and SWAR kernels a transpose of them
-            stripe_route = set(kernels) <= {"shift_and", "approx"}
+            # the Shift-And, approx, pairset and SWAR kernels read the
+            # uploaded stripes; the NFA and FDR kernels a transpose of them
+            # (a mixed set's FDR banks too, beside its pairset sidecar)
+            stripe_route = set(kernels) <= {"shift_and", "approx", "pairset",
+                                            "shift_and_swar"}
             if transposed != (0 if stripe_route else totals["segments"]):
                 raise AssertionError(
                     f"query {label}: {transposed} layout transposes for "
@@ -1991,12 +2164,13 @@ def main() -> int:
             return data, lay, torch.from_numpy(to_device_array(data, lay)).cuda()
 
         seg, lay, dev = segment(words[0])
-        # the same segment as uploaded: the stripes the Shift-And and
-        # approx kernels read, and the source of every other route's
-        # transpose
+        # the same segment as uploaded: the stripes the Shift-And, approx,
+        # pairset and SWAR kernels read, and the source of the NFA and FDR
+        # routes' transpose
         dev_st = torch.from_numpy(padded_stripes(seg, lay)).cuda()
         _log_seg, lay_log, dev_log = segment(logs[0])
         pc_seg, lay_pc, dev_pc = segment(pcap[0])
+        dev_pc_st = torch.from_numpy(padded_stripes(pc_seg, lay_pc)).cuda()
         assert {(x.chunk, x.lanes) for x in (lay, lay_log, lay_pc)} == {
             (lay.chunk, lay.lanes)}
         n_in = lay.chunk * lay.lanes
@@ -2013,7 +2187,7 @@ def main() -> int:
             dev_st, full, False), 20)
         plain_ms = cuda_ms(torch, lambda: cuda_scan.shift_and_scan_words_plain(
             dev_st, filt, True), 2)
-        # the layout transpose the NFA, FDR, pairset and SWAR routes run
+        # the layout transpose the NFA and FDR routes run
         transpose_ms = cuda_ms(torch, lambda: dev_st.t().contiguous(), 20)
         sa_words = cuda_scan.shift_and_scan_words(dev_st, filt, True)
         torch.cuda.synchronize()
@@ -2028,8 +2202,8 @@ def main() -> int:
             f"{lay.lanes} chunk={lay.chunk} (one 64 MB segment): {ms:.4f} ms = "
             f"{gbs:.1f} GB/s; full model {ms_full:.4f} ms; exact mode "
             f"{ms_exact:.4f} ms; plain version on the card {plain_ms:.2f} ms; "
-            f"layout transpose on the card (NFA, FDR, pairset and SWAR "
-            f"routes) {transpose_ms:.4f} ms; "
+            f"layout transpose on the card (NFA and FDR routes) "
+            f"{transpose_ms:.4f} ms; "
             f"bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}, ops "
             f"{ops_ms:.4f}); sparse fetch of {idx.size} words "
             f"{fetch_ms:.3f} ms [{card}]")
@@ -2071,13 +2245,14 @@ def main() -> int:
         del dev_bc, dev_log
 
         # the set kernels on their queries' corpora: the FDR banks of
-        # configs 2 and 3 on words, config 5's on the pcap records
+        # configs 2 and 3 on words, config 5's on the pcap records (FDR on
+        # the columns), the 2-byte set on the pcap stripes
         banks, pairsets = set_models(fdr_mod, ps_mod)
         set_rows = {}
         runs = [("fdr", "config2", banks["config2"], dev),
                 ("fdr", "config3", banks["config3"], dev),
                 ("fdr", "config5", banks["config5"], dev_pc),
-                ("pairset", "2-byte set", pairsets["2-byte set"], dev_pc)]
+                ("pairset", "2-byte set", pairsets["2-byte set"], dev_pc_st)]
         for kernel, name, model, arr in runs:
             if kernel == "fdr":
                 k_ms = cuda_ms(torch, lambda: fdr_scan.fdr_scan_words(
@@ -2092,6 +2267,8 @@ def main() -> int:
             else:
                 k_ms = cuda_ms(torch, lambda: pairset_scan.pairset_scan_words(
                     arr, model), 20)
+                ps_graph_ms = graph_ms(lambda: pairset_scan.pairset_scan_words(
+                    arr, model))
                 p_ms = cuda_ms(torch, lambda: (
                     pairset_scan.pairset_scan_words_plain(arr, model)), 2)
                 per_byte, lookups = PAIRSET_OPS_PER_BYTE, 2
@@ -2103,8 +2280,12 @@ def main() -> int:
             log(f"kernel {kernel} {name}: "
                 + (f"m={model.m} checks={model.checks} "
                    if kernel == "fdr" else "")
+                + ("stripes " if kernel == "pairset" else "")
                 + f"chunk={lay.chunk} lanes={lay.lanes}: {k_ms:.4f} ms = "
-                f"{n_in / (k_ms / 1e3) / 1e9:.1f} GB/s; plain version on the "
+                f"{n_in / (k_ms / 1e3) / 1e9:.1f} GB/s"
+                + (f" ({ps_graph_ms:.4f} ms on the card's clock, in a CUDA "
+                   f"graph)" if kernel == "pairset" else "")
+                + f"; plain version on the "
                 f"card {p_ms:.1f} ms; bound {b_ms:.4f} ms (bytes "
                 f"{bytes_ms:.4f}, ops {o_ms:.4f} at {per_byte} per byte, "
                 f"shared-memory lookups {s_ms:.4f} at {lookups} per byte) "
@@ -2133,37 +2314,43 @@ def main() -> int:
                 f"(bytes {bytes_ms:.4f}, ops {o_ms:.4f} at {per_byte} per "
                 f"byte, shared-memory lookups {n_smem_ms:.4f}) [{card}]")
 
-        # the SWAR kernel beside the Shift-And kernel on the same bytes and
-        # model (the volcano filter), in turns: unpacked, packed, packed,
-        # unpacked -- the unpacked kernel on the stripes, the packed one on
-        # their column transpose (which its route pays besides)
+        # the SWAR kernel beside the Shift-And kernel on the same stripes
+        # and model (the volcano filter), in turns: unpacked, packed,
+        # packed, unpacked -- eagerly (the yardstick since run P) and on
+        # the card's clock (CUDA graphs)
         sw_out = n_in // 32  # (chunk / 32) x (lanes / 4) uint32
         sw_bytes_ms = (n_in + sw_out) / H100_BYTES_PER_S * 1e3
         sw_ops_ms = SWAR_OPS_PER_BYTE * n_in / H100_ALU_OPS_PER_S * 1e3
         sw_bound_ms = max(sw_bytes_ms, sw_ops_ms, n_smem_ms)
-        turns = []
+        turns, g_turns = [], []
         for packed in (False, True, True, False):
-            turns.append(cuda_ms(torch, (
-                lambda: swar_scan.swar_scan_words(dev, filt)) if packed else (
-                lambda: cuda_scan.shift_and_scan_words(dev_st, filt, True)),
-                20))
+            def fn(packed=packed):
+                if packed:
+                    return swar_scan.swar_scan_words(dev_st, filt)
+                return cuda_scan.shift_and_scan_words(dev_st, filt, True)
+            turns.append(cuda_ms(torch, fn, 20))
+            g_turns.append(graph_ms(fn))
         sw_ms = (turns[1] + turns[2]) / 2
         sa_turn_ms = (turns[0] + turns[3]) / 2
+        sw_g_ms = (g_turns[1] + g_turns[2]) / 2
+        sa_g_ms = (g_turns[0] + g_turns[3]) / 2
         sw_full_ms = cuda_ms(torch, lambda: swar_scan.swar_scan_words(
-            dev, full), 20)
+            dev_st, full), 20)
         sw_plain_ms = cuda_ms(torch, lambda: swar_scan.swar_scan_words_plain(
-            dev, filt), 2)
-        log(f"kernel shift_and_swar, volcano filter, chunk={lay.chunk} "
-            f"lanes={lay.lanes}: {sw_ms:.4f} ms = "
+            dev_st, filt), 2)
+        log(f"kernel shift_and_swar, volcano filter, stripes chunk="
+            f"{lay.chunk} lanes={lay.lanes}: {sw_ms:.4f} ms = "
             f"{n_in / (sw_ms / 1e3) / 1e9:.1f} GB/s (turns "
-            f"{turns[1]:.4f}, {turns[2]:.4f}) on the columns vs "
-            f"csrc/shift_and.cu on the stripes of the same bytes "
-            f"{sa_turn_ms:.4f} ms (turns {turns[0]:.4f}, {turns[3]:.4f}): "
-            f"SWAR {sa_turn_ms / sw_ms:.3f}x; full model {sw_full_ms:.4f} ms; "
-            f"plain version on the card {sw_plain_ms:.2f} ms; bound "
-            f"{sw_bound_ms:.4f} ms (bytes {sw_bytes_ms:.4f}, ops "
-            f"{sw_ops_ms:.4f}, shared-memory lookups {n_smem_ms:.4f}) "
-            f"[{card}]")
+            f"{turns[1]:.4f}, {turns[2]:.4f}) vs csrc/shift_and.cu on the "
+            f"same stripes {sa_turn_ms:.4f} ms (turns {turns[0]:.4f}, "
+            f"{turns[3]:.4f}): SWAR {sa_turn_ms / sw_ms:.3f}x; on the card's "
+            f"clock (CUDA graphs) {sw_g_ms:.4f} ms vs {sa_g_ms:.4f} ms (turns "
+            + ", ".join(f"{t:.4f}" for t in g_turns)
+            + f"): SWAR {sa_g_ms / sw_g_ms:.3f}x; full model "
+            f"{sw_full_ms:.4f} ms; plain version on the card "
+            f"{sw_plain_ms:.2f} ms; bound {sw_bound_ms:.4f} ms (bytes "
+            f"{sw_bytes_ms:.4f}, ops {sw_ops_ms:.4f}, shared-memory lookups "
+            f"{n_smem_ms:.4f}) [{card}]")
 
         # the confirm set on config 5's real candidates of one segment
         words5 = fdr_scan.fdr_scan_words(dev_pc, banks["config5"])

@@ -10,10 +10,12 @@ engine on the same synthetic corpus and prints one JSON line per engine,
 
 The engines keep the reference's names, so their lines can be matched:
 
-* ``pallas``   -- the Shift-And kernel (csrc/shift_and.cu) on 'needle';
+* ``pallas``   -- the Shift-And kernel (csrc/shift_and.cu) on 'needle',
+  on stripe windows;
 * ``nfa``      -- the Glushkov NFA kernel (csrc/nfa.cu) on 'nee(dle|t)';
 * ``nfa_alt8`` -- the NFA kernel on an 8-word alternation;
-* ``pairset``  -- the exact 1-2-byte set kernel (csrc/pairset.cu);
+* ``pairset``  -- the exact 1-2-byte set kernel (csrc/pairset.cu), on
+  stripe windows (``utils/slope.pairset_setup``);
 * ``mxu_dot``  -- the one-hot membership product on the tensor cores
   (csrc/mxu_dot.cu): 32768 MACs per byte, the cost of any one-hot-dot
   membership engine; its scan semantics are elided, as in the reference.
@@ -80,7 +82,7 @@ def bench_nfa(data: bytes, device, pattern: str = "nee(dle|t)") -> float:
 
 def bench_pairset(data: bytes, device) -> float:
     """Exact 1-2-byte set kernel: the device engine for the sets FDR
-    cannot host."""
+    cannot host, on the stripes as the engine uploads them."""
     from distributed_grep_tpu_torch.models.pairset import compile_pairset
     from distributed_grep_tpu_torch.utils.slope import pairset_setup
 

@@ -20,14 +20,15 @@
 // B[byte] is a lookup in a 256-entry table in shared memory, and a
 // thread owns a lane with its state in a register.
 //
-// Reads: a TMA ring.  A block of kRows = 256 threads owns 256 lanes; one
-// thread of it keeps kStages = 2 boxes of (256 lanes x 128 bytes) in
-// flight (cp.async.bulk.tensor, CU_TENSOR_MAP_SWIZZLE_128B, completing on
-// an mbarrier each), and every thread reads its 128 bytes of a box as 8
-// 16-byte shared loads, chunk c of row r at (c ^ (r & 7)) * 16, which no
-// two threads of a quarter-warp share a bank on.  66 KB of shared memory
-// a block: 3 blocks (24 warps) an SM at most; 32 registers a thread (48
-// for G = 1), no spills.  A design run on an H100 80GB HBM3 at 700 W
+// Reads: a TMA ring (csrc/stripe_ring.cuh, shared with csrc/pairset.cu
+// and csrc/shift_and_swar.cu).  A block of kRows = 256 threads owns 256
+// lanes; one thread of it keeps kStages = 2 boxes of (256 lanes x 128
+// bytes) in flight (cp.async.bulk.tensor, CU_TENSOR_MAP_SWIZZLE_128B,
+// completing on an mbarrier each), and every thread reads its 128 bytes
+// of a box as 8 16-byte shared loads, chunk c of row r at (c ^ (r & 7)) *
+// 16, which no two threads of a quarter-warp share a bank on.  66 KB of
+// shared memory a block: 3 blocks (24 warps) an SM at most; 32 registers
+// a thread (48 for G = 1), no spills.  A design run on an H100 80GB HBM3 at 700 W
 // (PERF.md section 6, run D) chose this over 16-byte global loads with the
 // next 16 bytes in flight and the same arithmetic: those took 0.0413 ms at
 // one thread a lane and 0.0555 ms with 8-word sub-stripes (64 warps an
@@ -65,62 +66,16 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "stripe_ring.cuh"
+
 namespace {
+
+using stripe_ring::kBox;
+using stripe_ring::kRows;
 
 struct BTable {
   uint32_t b[256];
 };
-
-constexpr int kRows = 256;   // lanes (threads) per block, rows per box
-constexpr int kBox = 128;    // stripe bytes per box row: the swizzle span
-constexpr int kStages = 2;   // boxes in the ring
-constexpr int kStageBytes = kRows * kBox;
-// 1024-byte alignment for the swizzle, the ring, its barriers, the table
-constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kStages * 8 + 1024;
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Wait for the barrier's phase `parity` to complete.  No poll limit: every
-// box a thread waits for was issued (n_box counts only boxes in range), and a
-// trap after a limit would leave the process's CUDA context unusable.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// Load the box of stripe bytes x .. x + kBox of lanes y .. y + kRows into
-// `dst`; the barrier completes when its bytes have landed (out-of-range
-// parts are zero-filled and counted).
-__device__ __forceinline__ void load_box(uint8_t* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int x, int y) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(kStageBytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y)
-      : "memory");
-}
 
 template <bool kCoarse, int G>
 __global__ void __launch_bounds__(kRows)
@@ -128,10 +83,8 @@ shift_and_kernel(const __grid_constant__ CUtensorMap map,
                  uint32_t* __restrict__ out, const BTable table, int n_words,
                  int lanes, uint32_t match_bit, int sub_words, int warm) {
   extern __shared__ uint8_t raw[];
-  uint8_t* ring = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
-  uint32_t* sb = reinterpret_cast<uint32_t*>(full + kStages);
+  __shared__ uint32_t sb[256];
+  stripe_ring::Ring<> ring(raw);
   const int tid = threadIdx.x;
   const int lane0 = blockIdx.x * kRows;
   const int own = blockIdx.y * sub_words;
@@ -141,32 +94,20 @@ shift_and_kernel(const __grid_constant__ CUtensorMap map,
 
   const uint32_t sticky = ~((match_bit << 1) - 1u);
   for (int i = tid; i < 256; i += kRows) sb[i] = table.b[i] | sticky;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int s = 0; s < kStages && s < n_box; ++s) {
-      load_box(ring + s * kStageBytes, &map, &full[s], w0 * 32 + s * kBox,
-               lane0);
-    }
-  }
+  if (tid == 0) ring.start(&map, w0 * 32, lane0, n_box);
   __syncthreads();
 
   const int mpos = 31 - __clz(match_bit);
   const int lane = lane0 + tid;
-  const int sw = tid & 7;
   uint32_t s = 0;
   int w = w0;
   for (int b = 0; b < n_box; ++b, w += kBox / 32) {
-    const int stage = b % kStages;
-    mbar_wait(&full[stage], (b / kStages) & 1);
-    const uint8_t* row = ring + stage * kStageBytes + tid * kBox;
+    const uint8_t* box = ring.wait(b);
 #pragma unroll
     for (int q = 0; q < kBox / 32; ++q) {
       if (w + q < end) {
-        const uint4 lo =
-            *reinterpret_cast<const uint4*>(row + (((2 * q) ^ sw) << 4));
-        const uint4 hi =
-            *reinterpret_cast<const uint4*>(row + (((2 * q + 1) ^ sw) << 4));
+        const uint4 lo = stripe_ring::chunk16<>(box, tid, 2 * q);
+        const uint4 hi = stripe_ring::chunk16<>(box, tid, 2 * q + 1);
         const uint32_t v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
         uint32_t word = 0;
 #pragma unroll
@@ -180,39 +121,8 @@ shift_and_kernel(const __grid_constant__ CUtensorMap map,
         }
       }
     }
-    __syncthreads();  // every thread is done with this stage
-    if (tid == 0 && b + kStages < n_box) {
-      load_box(ring + stage * kStageBytes, &map, &full[stage],
-               w0 * 32 + (b + kStages) * kBox, lane0);
-    }
+    ring.release(&map, b, w0 * 32, lane0, n_box);
   }
-}
-
-// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPoint so the
-// library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // Launch one instance, with sub-stripes until every SM has a block.  The
@@ -224,30 +134,17 @@ int launch(const CUtensorMap& map, uint32_t* o, const BTable& table,
            int n_words, int lanes, unsigned match_bit, int warm,
            cudaStream_t st) {
   auto kernel = shift_and_kernel<C, G>;
-  static int sms[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= kMaxDevices) {
-    return static_cast<int>(cudaErrorInvalidDevice);
-  }
-  if (sms[dev] == 0) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    int count = 0;
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sms[dev] = count;
-  }
+  static int cache[stripe_ring::kMaxDevices] = {};
+  int sms = 0;
+  const int err = stripe_ring::prepare(kernel, stripe_ring::kSmemBytes,
+                                       cache, &sms);
+  if (err != 0) return err;
   const int lane_blocks = (lanes + kRows - 1) / kRows;
-  const int n_want = max(1, min(n_words, sms[dev] / lane_blocks));
+  const int n_want = max(1, min(n_words, sms / lane_blocks));
   const int sub_words = (n_words + n_want - 1) / n_want;
   const dim3 grid(lane_blocks, (n_words + sub_words - 1) / sub_words);
-  kernel<<<grid, kRows, kSmemBytes, st>>>(map, o, table, n_words, lanes,
-                                          match_bit, sub_words, warm);
+  kernel<<<grid, kRows, stripe_ring::kSmemBytes, st>>>(
+      map, o, table, n_words, lanes, match_bit, sub_words, warm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -281,26 +178,12 @@ extern "C" int dgrep_shift_and_scan(const void* data, void* out,
                                     int lanes, long long pitch,
                                     unsigned int match_bit, int coarse,
                                     int warm, void* stream) {
-  if (chunk <= 0 || lanes <= 0 || chunk % 32 != 0 || lanes % 32 != 0 ||
-      pitch < chunk || pitch % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(data) % 16 != 0 || match_bit == 0 ||
-      warm < 0) {
+  if (match_bit == 0 || warm < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(chunk),
-                              static_cast<cuuint64_t>(lanes)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
-  const cuuint32_t box[2] = {kBox, kRows};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(data),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int err = stripe_ring::encode_stripes(&map, data, chunk, lanes, pitch);
+  if (err != 0) return err;
   BTable table;
   const uint32_t* t = static_cast<const uint32_t*>(table_host);
   for (int i = 0; i < 256; ++i) table.b[i] = t[i];

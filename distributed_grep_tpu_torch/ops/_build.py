@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``distributed_grep_tpu_torch/_build/lib<name>-<hash>.so`` (the directory is
-git-ignored), where the hash covers the source text and the compiler
-flags, so an edited source rebuilds and an unchanged one loads at once.
+git-ignored), where the hash covers the source text, every header of
+``csrc/`` (``*.cuh``, which the sources include) and the compiler flags,
+so an edited source or header rebuilds and an unchanged one loads at
+once.
 The sources expose a plain C interface: no PyTorch headers, so a build
 takes seconds.  ``build_all`` starts one nvcc per source, all at once.
 
@@ -55,10 +57,25 @@ def nvcc_path() -> str:
     )
 
 
+def source_hash(src: bytes) -> str:
+    """The build hash of a source text: it, the headers of csrc/ and the
+    compiler flags."""
+    h = hashlib.sha256(src)
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
+def nvcc_command(src: Path, out: Path) -> list[str]:
+    """nvcc's command line for a source (csrc/ on the include path)."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
+            str(src)]
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    return BUILD_DIR / f"lib{name}-{source_hash(src)}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
@@ -67,9 +84,9 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", tmp),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
     return out, tmp, proc
 
 

@@ -5,14 +5,14 @@ The document is cut into segments of ``engine.segment_bytes``.  For each:
 1. prepare (one-slot feed thread): copy the segment into pinned host
    memory padded with '\\n' as (lanes, chunk) stripes (the document as
    it lies) and start its host-to-device copy on a side stream -- so
-   segment i+1 is uploading while segment i scans.  The Shift-And and
-   approx kernels read those stripes as they are.  The NFA, FDR, pairset
-   and SWAR kernels read the (chunk, lanes) column layout, so for their
-   routes the side stream also transposes the upload into it (on the
-   card: on the host, a strided copy of the segment costs more than the
-   rest of this pipeline, PERF.md); ``transposes`` counts those.  The
-   SWAR route keeps the uploaded stripes beside its columns for the
-   exact Shift-And kernel of its dense confirm;
+   segment i+1 is uploading while segment i scans.  The Shift-And,
+   approx, pairset and SWAR kernels read those stripes as they are.  The
+   NFA and FDR kernels read the (chunk, lanes) column layout, so for
+   their routes the side stream also transposes the upload into it (on
+   the card: on the host, a strided copy of the segment costs more than
+   the rest of this pipeline, PERF.md); ``transposes`` counts those.  A
+   mixed set keeps both: FDR reads the columns, its pairset sidecar the
+   stripes;
 2. dispatch (scanning thread): wait for the copy, launch the kernel of
    the engine's mode -- the coarse Shift-And kernel with the rare-class
    filter model (or the full model), or the Glushkov NFA kernel with the
@@ -47,7 +47,7 @@ The document is cut into segments of ``engine.segment_bytes``.  For each:
    the packed kernel (four stripes per uint32, csrc/shift_and_swar.cu) in
    place of the coarse one, its words decoded to the same span starts;
    the lane multiple becomes 128, and the dense confirm keeps the exact
-   unpacked kernel, on the segment's stripes.
+   unpacked kernel; both read the segment's stripes.
 
    Approx (``max_errors=k``): the kernel's words are exact match ends, so
    collect decodes them to lines with no confirm.  The kernel seeds every
@@ -118,8 +118,8 @@ MAX_INFLIGHT = 2  # segments dispatched but not yet collected
 
 # Segments transposed into the column layout (on the card, or on the host
 # for a CPU engine): incremented once per transpose, nowhere else.
-# chip_smoke.py reads it around each query: 0 on the Shift-And and approx
-# routes, one per segment on the others.
+# chip_smoke.py reads it around each query: 0 on the Shift-And, approx,
+# pairset and SWAR routes, one per segment on the NFA and FDR routes.
 _count_lock = threading.Lock()
 transposes = 0
 
@@ -136,7 +136,8 @@ def _count_transpose() -> None:
         transposes += 1
 
 # The SWAR route's lane multiple: 4 stripes per packed uint32 element and
-# 32 elements per warp.
+# 32 elements per warp (the kernel's blocks own 256 lanes and take a
+# ragged last block; 65536 lanes fill every block).
 SWAR_LANE_MULTIPLE = 128
 
 

@@ -12,11 +12,11 @@ data's length are dropped.
 
 Two layouts of the same bytes.  ``padded_stripes``: (lanes, chunk)
 row-major, stripes[l, c] = byte c of stripe l, the document as it lies;
-the Shift-And and approx kernels read it (16 bytes of a stripe a load).
+the Shift-And, approx, pairset and SWAR kernels read it (16 bytes of a
+stripe a load, or a TMA box of 256 stripes x 128 bytes).
 ``to_device_array``: its column-major transpose, array[c, l] = byte c of
 stripe l, so one scan step reads one row with neighbouring lanes on
-neighbouring addresses; the NFA, FDR, pairset, SWAR and probe kernels read
-that.  Each engine kernel's module names the one it reads in ``LAYOUT``
+neighbouring addresses; the NFA, FDR and probe kernels read that.  Each engine kernel's module names the one it reads in ``LAYOUT``
 (``STRIPES`` or ``COLUMNS``), and the segment pipeline
 (ops/device_scan.py) prepares each segment in the layouts of its route.
 """
@@ -76,9 +76,9 @@ def to_device_array(data: bytes, layout: Layout) -> np.ndarray:
 def padded_stripes(data: bytes, layout: Layout,
                    out: np.ndarray | None = None) -> np.ndarray:
     """The '\\n'-padded document as (lanes, chunk) row-major stripes --
-    the Shift-And and approx kernels' layout, and the source of the
-    column-major copy.  Written into ``out`` (``layout.padded`` contiguous
-    uint8) when given."""
+    the Shift-And, approx, pairset and SWAR kernels' layout, and the
+    source of the column-major copy.  Written into ``out``
+    (``layout.padded`` contiguous uint8) when given."""
     buf = (np.empty(layout.padded, dtype=np.uint8) if out is None
            else out.reshape(-1))
     buf[: len(data)] = np.frombuffer(data, dtype=np.uint8)

@@ -1,12 +1,14 @@
 """SWAR Shift-And words: the CUDA kernel's wrapper and its plain version.
 
-``swar_scan_words(data, model)`` takes the (chunk, lanes) uint8 stripe
-layout (ops/layout.py), reads it as (chunk, lanes // 4) uint32 -- byte k
-of element j is stripe 4j + k, the reference's ``swar_pack_tiles``, with
-no copy -- and returns (chunk // 32, lanes // 4) uint32 COARSE words: byte
-k of word w of element j is nonzero iff a candidate match of ``model``
-ends in bytes 32w .. 32w+31 of stripe 4j + k (it equals that stripe's
-unpacked coarse word, ops/cuda_scan.py).  These are the words of the
+``swar_scan_words(data, model)`` takes the document's stripes as they
+lie, a (lanes, chunk) uint8 tensor (``padded_stripes``, ops/layout.py)
+whose rows may be further apart than ``chunk`` (the pitch, checked by
+``cuda_scan.check_stripes``), packs stripes 4j .. 4j + 3 into element j
+-- byte k is stripe 4j + k, the reference's ``swar_pack_tiles`` -- and
+returns (chunk // 32, lanes // 4) uint32 COARSE words: byte k of word w of
+element j is nonzero iff a candidate match of ``model`` ends in bytes
+32w .. 32w+31 of stripe 4j + k (it equals that stripe's unpacked coarse
+word, ops/cuda_scan.py).  These are the words of the
 reference TPU kernel (``distributed_grep_tpu/ops/pallas_scan.py:
 _swar_kernel``) reshaped from its tile (chunk // 32, lanes // 512, 128) to
 (chunk // 32, lanes // 4).  ``ops/sparse.span_starts_from_packed_words``
@@ -18,7 +20,11 @@ and match bit fit one byte.  The engine routes here only models that pass
 looks every class up in a table and takes any model of at most 8 symbols.
 
 A CUDA tensor launches the hand-written kernel (csrc/shift_and_swar.cu); a
-CPU tensor runs ``swar_scan_words_plain``.  Anything else raises.
+CPU tensor runs ``swar_scan_words_plain``.  Anything else raises, and so
+does a tensor in another layout.  The kernel cuts each stripe into
+sub-stripes until every SM has two blocks; one after the first starts
+``warmup_words(model)`` words early from state 0, as the Shift-And
+kernel's do (ops/cuda_scan.py).
 ``swar_enabled()`` reads ``DGREP_SWAR`` (default off, as in the
 reference).
 """
@@ -37,13 +43,18 @@ from distributed_grep_tpu_torch.models.shift_and import (
     ShiftAndModel,
 )
 from distributed_grep_tpu_torch.ops import _build
-from distributed_grep_tpu_torch.ops.cuda_scan import _check
-from distributed_grep_tpu_torch.ops.layout import COLUMNS
+# a packed stripe's state byte depends on its last m <= 8 bytes alone, as
+# the unpacked state does: the Shift-And kernel's warm-up
+from distributed_grep_tpu_torch.ops.cuda_scan import (
+    check_stripes,
+    warmup_words,
+)
+from distributed_grep_tpu_torch.ops.layout import STRIPES
 
 _U32 = 0xFFFFFFFF
 _ONES = 0x01010101
 
-LAYOUT = COLUMNS  # the layout the kernel reads (ops/layout.py)
+LAYOUT = STRIPES  # the layout the kernel reads (ops/layout.py)
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -85,13 +96,15 @@ def _masks(model: ShiftAndModel) -> np.ndarray:
 def swar_scan_words_plain(data: torch.Tensor,
                           model: ShiftAndModel) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on ``data``'s device: the
-    same packed step on the uint32 view, a loop over the chunk vectorized
-    over packed elements.  int64 arithmetic masked to 32 bits (PyTorch on
-    the CPU has no ``<<`` for uint32)."""
-    chunk, lanes = _check(data)
+    same packed step on the column copy of the stripes read as uint32 (byte
+    k of element j is stripe 4j + k), a loop over the chunk vectorized over
+    packed elements.  int64 arithmetic masked to 32 bits (PyTorch on the
+    CPU has no ``<<`` for uint32)."""
+    lanes, chunk, _pitch = check_stripes(data)
     _check_model(model)
     dev = data.device
-    x = data.view(torch.int32).to(torch.int64) & _U32  # (chunk, lanes // 4)
+    packed = data.t().contiguous().view(torch.int32)  # (chunk, lanes // 4)
+    x = packed.to(torch.int64) & _U32
     t8 = torch.from_numpy(_masks(model).astype(np.int64)).to(dev)
     match_rep = int(model.match_bit) * _ONES
     s = torch.zeros(lanes // 4, dtype=torch.int64, device=dev)
@@ -115,7 +128,8 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return fn
@@ -125,14 +139,12 @@ def swar_scan_words(data: torch.Tensor, model: ShiftAndModel) -> torch.Tensor:
     """Packed coarse words for ``data`` (see the module docstring).  CUDA
     tensors launch the kernel on the current stream (no synchronization;
     the output is allocated here); CPU tensors take the plain version."""
-    chunk, lanes = _check(data)
+    lanes, chunk, pitch = check_stripes(data)
     _check_model(model)
     if data.device.type == "cpu":
         return swar_scan_words_plain(data, model)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
-    if data.data_ptr() % 4:
-        raise ValueError("data must be 4-byte aligned (read as uint32)")
     fn = _lib()
     out = torch.empty((chunk // 32, lanes // 4), dtype=torch.uint32,
                       device=data.device)
@@ -140,11 +152,12 @@ def swar_scan_words(data: torch.Tensor, model: ShiftAndModel) -> torch.Tensor:
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(data.data_ptr(), out.data_ptr(), masks.ctypes.data, chunk,
-                 lanes, int(model.match_bit), stream)
+                 lanes, pitch, int(model.match_bit), warmup_words(model),
+                 stream)
     if err != 0:
         raise RuntimeError(
             f"shift_and_swar CUDA kernel launch failed: cudaError {err} "
-            f"(chunk={chunk}, lanes={lanes})"
+            f"(lanes={lanes}, chunk={chunk}, pitch={pitch})"
         )
     _count_launch()
     return out

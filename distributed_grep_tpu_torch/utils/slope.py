@@ -33,12 +33,12 @@ of '\\n'-padded stripes, so a pass scans ``chunk * lanes`` bytes
 
 Layouts.  The harness windows ``dev`` by rows, ``dev[off : off + chunk]``.
 For the kernels that read the column layout ``dev`` is the contiguous
-(chunk + pad, lanes) tensor of ``device_setup``.  The Shift-And kernel
-reads the stripes as they lie: ``stripe_setup`` gives the contiguous
-(lanes, chunk + pad) stripes, 32 pad columns of '\\n', and
-``shift_and_setup`` hands the harness their (row, lane) view, so each
-window, seen as stripes again, is a (lanes, chunk) stripe window whose
-pitch is chunk + pad, with no copy.
+(chunk + pad, lanes) tensor of ``device_setup``.  The Shift-And and
+pairset kernels read the stripes as they lie: ``stripe_setup`` gives the
+contiguous (lanes, chunk + pad) stripes, 32 pad columns of '\\n', and
+``shift_and_setup`` and ``pairset_setup`` hand the harness their (row,
+lane) view, so each window, seen as stripes again, is a (lanes, chunk)
+stripe window whose pitch is chunk + pad, with no copy.
 """
 
 from __future__ import annotations
@@ -287,12 +287,12 @@ def fdr_setup(data: bytes, model, *, device="cuda", fold_case: bool = False):
 
 def pairset_setup(data: bytes, model, *, device="cuda"):
     """Device tensor + scan closure for slope-timing the exact 1-2-byte set
-    kernel (csrc/pairset.cu)."""
+    kernel (csrc/pairset.cu) on stripe windows, as ``shift_and_setup``."""
     from distributed_grep_tpu_torch.ops import pairset_scan
 
-    dev, lay, pad_rows = device_setup(data, device)
+    stripes, lay, pad_rows = stripe_setup(data, device)
 
-    def scan(win):
-        return pairset_scan.pairset_scan_words(win, model)
+    def scan(win):  # a row window of stripes.t(): a pitched stripe window
+        return pairset_scan.pairset_scan_words(win.t(), model)
 
-    return dev, lay.chunk, pad_rows, scan
+    return stripes.t(), lay.chunk, pad_rows, scan

@@ -202,7 +202,8 @@ def test_fdr_and_pairset_kernels_match_plain_on_card(card, chunk, lanes):
     arr[0:5, ::5] = np.frombuffer(b"hallo", np.uint8)[:, None]
     for r, p in enumerate(banks[-1].patterns[:7]):  # m = 6: ends at rows 0..6
         arr[: r + 1, 1 + r :: 9] = np.frombuffer(p[-r - 1 :], np.uint8)[:, None]
-    dev = torch.from_numpy(arr).to(card)
+    dev = torch.from_numpy(arr).to(card)  # FDR: the columns
+    dev_st = torch.from_numpy(np.ascontiguousarray(arr.T)).to(card)  # pairset
     for bank in banks:
         for fold in (False, True):
             before = fdr_scan.launches
@@ -212,17 +213,19 @@ def test_fdr_and_pairset_kernels_match_plain_on_card(card, chunk, lanes):
             want = fdr_scan.fdr_scan_words_plain(dev, bank, fold)
             assert torch.equal(got, want), (bank.m, bank.checks, fold)
     for model in pairsets:
-        got = pairset_scan.pairset_scan_words(dev, model)
+        before = pairset_scan.launches
+        got = pairset_scan.pairset_scan_words(dev_st, model)
         torch.cuda.synchronize()
-        assert torch.equal(got, pairset_scan.pairset_scan_words_plain(dev,
+        assert pairset_scan.launches == before + 1
+        assert torch.equal(got, pairset_scan.pairset_scan_words_plain(dev_st,
                                                                      model))
     # out=: the later banks and the sidecar OR into one plane
     out = fdr_scan.fdr_scan_words(dev, banks[0])
     fdr_scan.fdr_scan_words(dev, banks[1], out=out)
-    pairset_scan.pairset_scan_words(dev, pairsets[0], out=out)
+    pairset_scan.pairset_scan_words(dev_st, pairsets[0], out=out)
     want = (fdr_scan.fdr_scan_words_plain(dev, banks[0]).view(torch.int32)
             | fdr_scan.fdr_scan_words_plain(dev, banks[1]).view(torch.int32)
-            | pairset_scan.pairset_scan_words_plain(dev, pairsets[0]).view(
+            | pairset_scan.pairset_scan_words_plain(dev_st, pairsets[0]).view(
                 torch.int32))
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), want)
@@ -336,14 +339,20 @@ def _errorful(rng, s: bytes, k: int) -> bytes:
 
 @pytest.mark.parametrize("seed", range(3))
 def test_substripe_warmup_sweep_on_card(card, seed):
-    """Both stripe kernels against their plain versions on seeded random
-    models (Shift-And m = 1-32 in both modes; approx k = 1-3 up to m + k -
-    1 = 34), at chunks of 1 to 32 words (288: a short last sub-stripe) and
-    on a pitched window, samples planted across every word boundary (the
-    kernels start sub-stripes at word boundaries, more of them on narrow
-    tensors)."""
+    """The four stripe kernels against their plain versions on seeded
+    random models (Shift-And m = 1-32 in both modes; approx k = 1-3 up to
+    m + k - 1 = 34; SWAR m = 1-8; a 1-2-byte set, also ORed into a
+    nonzero plane), at chunks of 1 to 32 words (288: a short last
+    sub-stripe) and on a pitched window, samples planted across every word
+    boundary (the kernels start sub-stripes at word boundaries, more of
+    them on narrow tensors)."""
     from distributed_grep_tpu_torch.models import approx as port_ax
-    from distributed_grep_tpu_torch.ops import approx_scan
+    from distributed_grep_tpu_torch.models import pairset as port_ps
+    from distributed_grep_tpu_torch.ops import (
+        approx_scan,
+        pairset_scan,
+        swar_scan,
+    )
 
     rng = np.random.default_rng(seed)
     for chunk, lanes in [(32, 32), (64, 64), (96, 96), (288, 32), (1024, 64)]:
@@ -352,9 +361,31 @@ def test_substripe_warmup_sweep_on_card(card, seed):
                                            bool(seed % 2))
         k = int(rng.integers(1, 4))
         ax = port_ax.try_compile_approx(_rand_pattern(rng, max(m, k + 1)), k)
-        for model, sample in ((sa, _sample(rng, sa.sym_ranges)),
-                              (ax, _errorful(rng, _sample(
-                                  rng, ax.base.sym_ranges), k))):
+        sw = port_sa.try_compile_shift_and(
+            _rand_pattern(rng, int(rng.integers(1, 9))), bool(seed % 2))
+        pair = bytes(rng.choice(list(b"abcxyz"), size=2).tolist())
+        ps = port_ps.compile_pairset([pair, pair[:1].upper() + b"q"],
+                                     ignore_case=bool(seed % 2))
+        scans = {
+            "shift_and": [lambda d, c=c: cuda_scan.shift_and_scan_words(
+                d, sa, c) for c in (True, False)],
+            "approx": [lambda d: approx_scan.approx_scan_words(d, ax)],
+            "swar": [lambda d: swar_scan.swar_scan_words(d, sw)],
+            "pairset": [lambda d: pairset_scan.pairset_scan_words(d, ps)],
+        }
+        plains = {
+            "shift_and": [lambda d, c=c: cuda_scan.shift_and_scan_words_plain(
+                d, sa, c) for c in (True, False)],
+            "approx": [lambda d: approx_scan.approx_scan_words_plain(d, ax)],
+            "swar": [lambda d: swar_scan.swar_scan_words_plain(d, sw)],
+            "pairset": [lambda d: pairset_scan.pairset_scan_words_plain(d,
+                                                                        ps)],
+        }
+        samples = {"shift_and": _sample(rng, sa.sym_ranges),
+                   "approx": _errorful(rng, _sample(rng, ax.base.sym_ranges),
+                                       k),
+                   "swar": _sample(rng, sw.sym_ranges), "pairset": pair}
+        for kind, sample in samples.items():
             text = rng.choice(np.frombuffer(b"abcxyzABC\n", np.uint8),
                               size=(lanes, chunk + 64))
             for c0 in range(32, chunk, 32):
@@ -365,16 +396,18 @@ def test_substripe_warmup_sweep_on_card(card, seed):
                         np.frombuffer(s, np.uint8)
             wide = torch.from_numpy(text).to(card)
             for dev in (wide[:, :chunk].contiguous(), wide[:, 32 : 32 + chunk]):
-                if model is sa:
-                    for coarse in (True, False):
-                        got = cuda_scan.shift_and_scan_words(dev, sa, coarse)
-                        want = cuda_scan.shift_and_scan_words_plain(dev, sa,
-                                                                    coarse)
-                        assert torch.equal(got, want), (sa.pattern, chunk)
-                else:
-                    got = approx_scan.approx_scan_words(dev, ax)
-                    want = approx_scan.approx_scan_words_plain(dev, ax)
-                    assert torch.equal(got, want), (ax.base.pattern, k, chunk)
+                for scan, plain in zip(scans[kind], plains[kind]):
+                    got, want = scan(dev), plain(dev)
+                    assert torch.equal(got, want), (kind, sample, chunk)
+                if kind == "pairset":  # out=: ORed into a nonzero plane
+                    base = torch.from_numpy(rng.integers(
+                        0, 2**32, size=(chunk // 32, lanes),
+                        dtype=np.uint32)).to(card)
+                    out = pairset_scan.pairset_scan_words(dev, ps,
+                                                          out=base.clone())
+                    want = (plains[kind][0](dev).view(torch.int32)
+                            | base.view(torch.int32))
+                    assert torch.equal(out.view(torch.int32), want)
 
 
 @pytest.mark.parametrize("chunk,lanes", [(512, 16384), (1024, 65536), (160, 128)])
@@ -385,7 +418,7 @@ def test_swar_kernel_matches_plain_on_card(card, chunk, lanes):
     lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
     arr = layout.to_device_array(text.tobytes(), lay)
     arr[29:36, 1::7] = np.frombuffer(b"volcano", np.uint8)[:, None]
-    dev = torch.from_numpy(arr).to(card)
+    dev = torch.from_numpy(np.ascontiguousarray(arr.T)).to(card)  # stripes
     full = port_sa.try_compile_shift_and("volcano")
     for model in (full, port_sa.filtered_for_device(full),
                   port_sa.try_compile_shift_and("Volcano", True),

@@ -5,7 +5,8 @@ REFERENCE's models through ``pairset_from_arrays``, must give words
 bit-identical (tolerance 0: integer words) to the reference Pallas kernel
 in interpret mode, reshaped from its tile (chunk//32, lanes//128, 128) to
 (chunk//32, lanes), at chunk 512 and lanes 4096, in both orientations and
-under -i.  At other shapes the words are held to the numpy oracle
+under -i.  The reference reads the (chunk, lanes) columns, the port the
+(lanes, chunk) stripes of the same bytes.  At other shapes the words are held to the numpy oracle
 ``reference_ends`` stripe by stripe.  The CUDA kernel itself is held
 against the plain version on the card in tests/test_torch_cuda.py.
 """
@@ -57,6 +58,11 @@ def stripes(members, seed: int, chunk: int, lanes: int) -> np.ndarray:
     return arr
 
 
+def as_stripes(arr: np.ndarray) -> torch.Tensor:
+    """The (lanes, chunk) stripes of a (chunk, lanes) column array."""
+    return torch.from_numpy(np.ascontiguousarray(arr.T))
+
+
 @pytest.mark.parametrize("name", sorted(SETS))
 def test_plain_words_bit_identical_to_reference_kernel(name):
     chunk, lanes = 512, 4096
@@ -65,7 +71,7 @@ def test_plain_words_bit_identical_to_reference_kernel(name):
     arr = stripes(ref.patterns, 1, chunk, lanes)
     want = np.asarray(pallas_pairset.pairset_scan_words(
         arr, ref, interpret=True)).reshape(chunk // 32, lanes)
-    got = pairset_scan.pairset_scan_words(torch.from_numpy(arr), port)
+    got = pairset_scan.pairset_scan_words(as_stripes(arr), port)
     assert got.dtype == torch.uint32 and got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.any()
@@ -80,7 +86,7 @@ def test_plain_words_equal_reference_ends(name, chunk, lanes):
     for lane in range(lanes):
         ends = ref_ps.reference_ends(ref, bytes(arr[:, lane]))
         want[ends - 1, lane] = True
-    got = pairset_scan.pairset_scan_words(torch.from_numpy(arr), port)
+    got = pairset_scan.pairset_scan_words(as_stripes(arr), port)
     np.testing.assert_array_equal(got.numpy(), fdr_scan.pack_bits(
         torch.from_numpy(want)).numpy())
     np.testing.assert_array_equal(
@@ -90,7 +96,7 @@ def test_plain_words_equal_reference_ends(name, chunk, lanes):
 
 def test_out_ors_into_the_word_plane_and_cpu_is_not_counted():
     ref, port = models("rows")
-    arr = torch.from_numpy(stripes(ref.patterns, 2, 96, 64))
+    arr = as_stripes(stripes(ref.patterns, 2, 96, 64))
     base = torch.zeros((3, 64), dtype=torch.uint32)
     base[1, 5] = 1 << 31
     before = pairset_scan.launches

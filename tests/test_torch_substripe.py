@@ -1,13 +1,15 @@
-"""The sub-stripe warm-up of the Shift-And and approx kernels, on the CPU.
+"""The sub-stripe warm-up of the four stripe kernels, on the CPU.
 
-csrc/shift_and.cu and csrc/approx.cu cut each (lanes, chunk) stripe into
-sub-stripes, as many as the card's size asks for, so any word boundary
-may start one; a sub-stripe starting at byte c0 > 0 starts
-``warmup_words(model)`` words early from the stripe-head state and stores
-only its own words.  That is exact iff a scan started there gives the
-full scan's words from c0 on.  Here, for seeded random models (Shift-And
-m = 1-32 with classes, '.', -i and the rare-class filter; approx k = 1-3
-with m up to 32 and -i) and every word boundary c0:
+csrc/shift_and.cu, csrc/approx.cu, csrc/pairset.cu and
+csrc/shift_and_swar.cu cut each (lanes, chunk) stripe into sub-stripes,
+as many as the card's size asks for, so any word boundary may start one;
+a sub-stripe starting at byte c0 > 0 starts ``warmup_words(model)`` words
+early from the stripe-head state (pairset: seeds its previous byte with
+byte c0 - 1) and stores only its own words.  That is exact iff a scan
+started there gives the full scan's words from c0 on.  Here, for seeded
+random models (Shift-And m = 1-32 with classes, '.', -i and the
+rare-class filter; approx k = 1-3 with m up to 32 and -i; SWAR m = 1-8;
+pairset sets of both orientations, with -i) and every word boundary c0:
 
 * the plain version on the pitched window ``stripes[:, c0 - 32W:]`` gives
   the full scan's words from c0 on (the kernel's thread, word for word;
@@ -17,13 +19,14 @@ with m up to 32 and -i) and every word boundary c0:
   gives the full scan's match bits from c0 on, and its words equal the
   plain version's;
 * b one byte short loses a match planted to start exactly there: the
-  invariant test can fail.
+  invariant test can fail (pairset: a '\\n' seed in place of byte c0 - 1
+  loses a pair planted across c0).
 
 Tolerance 0 everywhere: integer words.  Also the engine's routing (the
-Shift-And and approx routes hand their wrappers stripes and transpose
-nothing; NFA, FDR, pairset and SWAR get columns, one transpose per
-segment), the wrappers' layout checks and the slope harness's stripe
-windows.  The kernels themselves meet the same cases on the card
+Shift-And, approx, pairset and SWAR routes hand their wrappers stripes and
+transpose nothing; NFA and FDR get columns, one transpose per segment),
+the wrappers' layout checks and the slope harness's stripe windows.  The
+kernels themselves meet the same cases on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 2).
 """
 
@@ -32,6 +35,7 @@ import pytest
 import torch
 
 from distributed_grep_tpu_torch.models import approx as port_ax
+from distributed_grep_tpu_torch.models import pairset as port_ps
 from distributed_grep_tpu_torch.models import shift_and as port_sa
 from distributed_grep_tpu_torch.ops import (
     approx_scan,
@@ -298,14 +302,164 @@ def test_approx_warmup_is_tight(pattern, k, text):
     assert not _np_approx(arr, model, c0 - (m + k - 1) + 1)[5, c0]
 
 
+def _np_pairset(arr: np.ndarray, model, start: int,
+                prev: np.ndarray) -> np.ndarray:
+    """Match bits (lanes, chunk) of the pairset scan from byte ``start``,
+    its previous byte seeded with ``prev`` (one per lane; False before
+    ``start``)."""
+    b = arr.astype(np.int64)
+    p = np.asarray(prev, np.int64)
+    if model.ignore_case:
+        b = np.where((b >= 65) & (b <= 90), b + 32, b)
+        p = np.where((p >= 65) & (p <= 90), p + 32, p)
+    cur = b[:, start:]
+    before = np.concatenate([p[:, None], cur[:, :-1]], axis=1)
+    cls, wi = (cur, before) if model.transposed else (before, cur)
+    hit = np.zeros(arr.shape, bool)
+    hit[:, start:] = (model.words.astype(np.int64)[wi]
+                      >> model.rowcls.astype(np.int64)[cls]) & 1 != 0
+    return hit
+
+
+def _ps_models(seed: int) -> list:
+    """Seeded random pairset sets over ALPHA (1-2-byte members, -i for
+    some) and the 40-row set the factorization must transpose."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(4):
+        n = int(rng.integers(1, 7))
+        members = {bytes(rng.choice(list(ALPHA.encode()),
+                                    size=int(rng.integers(1, 3))).tolist())
+                   for _ in range(n)}
+        ic = bool(rng.integers(0, 2))
+        out.append(port_ps.compile_pairset(sorted(members), ignore_case=ic))
+    out.append(port_ps.compile_pairset(
+        [bytes([100 + i, b"uvwxyz"[j]]) for i in range(40) for j in range(6)
+         if (i + 1) >> j & 1], ignore_case=bool(seed % 2)))
+    assert out[-1].transposed
+    return out
+
+
+def _packed(words: np.ndarray) -> np.ndarray:
+    """(chunk // 32, lanes) coarse words of single bytes -> the SWAR
+    plane (chunk // 32, lanes // 4): byte k of element j is stripe 4j+k."""
+    n, lanes = words.shape
+    as_bytes = np.ascontiguousarray(words.astype(np.uint8))
+    return as_bytes.view(np.uint32).reshape(n, lanes // 4)
+
+
+def _swar_models(seed: int) -> list:
+    """Seeded random SWAR models: m = 1-8 with classes, '.', -i, and the
+    rare-class filters among them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for m in (1, 2, 5, 8, int(rng.integers(3, 9))):
+        full = port_sa.try_compile_shift_and(_rand_pattern(rng, m),
+                                             bool(rng.integers(0, 3) == 0))
+        assert full is not None and full.length == m
+        out.append((full, full))
+        filt = port_sa.filtered_for_device(full)
+        if filt is not None:
+            out.append((filt, full))
+    return out
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_pairset_warmup_invariant(seed):
+    rng = np.random.default_rng(300 + seed)
+    for model in _ps_models(seed):
+        samples = [m.upper() if i % 3 == 0 else m
+                   for i, m in enumerate(model.patterns)]
+        arr = _stripes(rng, samples, 0)
+        data = torch.from_numpy(arr)
+        hit = _np_pairset(arr, model, 0, np.full(LANES, NL))
+        assert hit.any(), model.patterns
+        whole = pairset_scan.pairset_scan_words_plain(data, model)
+        np.testing.assert_array_equal(whole.numpy(), _words(hit, None))
+        for c0 in STARTS:
+            # the kernel's sub-stripe: prev seeded with byte c0 - 1
+            late = _np_pairset(arr, model, c0, arr[:, c0 - 1])
+            np.testing.assert_array_equal(late[:, c0:], hit[:, c0:])
+        for c0 in STARTS[1::4]:  # a pitched window one word early
+            got = pairset_scan.pairset_scan_words_plain(data[:, c0 - 32:],
+                                                        model)
+            np.testing.assert_array_equal(got[1:].numpy(),
+                                          whole[c0 // 32:].numpy())
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_swar_warmup_invariant(seed):
+    rng = np.random.default_rng(400 + seed)
+    for model, full in _swar_models(seed):
+        need = model.length - 1
+        w = swar_scan.warmup_words(model)
+        assert w == (0 if model.length == 1 else 1)
+        arr = _stripes(rng, [_sample(rng, full.sym_ranges) for _ in range(8)],
+                       w * 32)
+        data = torch.from_numpy(arr)
+        hit = _np_shift_and(arr, model, 0)
+        assert hit.any(), model.pattern
+        whole = swar_scan.swar_scan_words_plain(data, model)
+        np.testing.assert_array_equal(
+            whole.numpy(), _packed(_words(hit, int(model.match_bit))))
+        for c0 in STARTS[w::4]:
+            got = swar_scan.swar_scan_words_plain(data[:, c0 - 32 * w:], model)
+            np.testing.assert_array_equal(got[w:].numpy(),
+                                          whole[c0 // 32:].numpy())
+        for c0 in STARTS:
+            late = _np_shift_and(arr, model, c0 - need)
+            np.testing.assert_array_equal(late[:, c0:], hit[:, c0:])
+
+
+@pytest.mark.parametrize("members,ic,pair", [
+    ([b"zq", b"9!", b"Q#", b"~~"], False, b"9!"),
+    ([b"LA", b"he", b"q"], True, b"lA"),
+    ([bytes([100 + i, b"uvwxyz"[j]]) for i in range(40) for j in range(6)
+      if (i + 1) >> j & 1], False, b"ev")])
+def test_pairset_warmup_is_tight(members, ic, pair):
+    """A pair whose first byte is c0 - 1 and second c0 is found with prev
+    seeded from byte c0 - 1 and lost with the stripe head's '\\n'."""
+    model = port_ps.compile_pairset(members, ignore_case=ic)
+    c0 = STARTS[7]
+    arr = np.full((LANES, CHUNK), ord("."), np.uint8)
+    arr[6, c0 - 1 : c0 + 1] = np.frombuffer(pair, np.uint8)
+    assert _np_pairset(arr, model, 0, np.full(LANES, NL))[6, c0]
+    assert _np_pairset(arr, model, c0, arr[:, c0 - 1])[6, c0]
+    assert not _np_pairset(arr, model, c0, np.full(LANES, NL))[6, c0]
+
+
+@pytest.mark.parametrize("pattern,ic", [("volcano", False), ("ab", True),
+                                        ("x[ab].y" * 2, False)])
+def test_swar_warmup_is_tight(pattern, ic):
+    """A match of m bytes ending at c0 (so starting m - 1 bytes before
+    it): the plain version finds it on the window one warm-up word early
+    and loses it on the window that starts at c0."""
+    rng = np.random.default_rng(8)
+    model = port_sa.try_compile_shift_and(pattern, ic)
+    m, c0 = model.length, STARTS[7]
+    assert swar_scan.warmup_words(model) == 1 < m <= 8
+    arr = np.full((LANES, CHUNK), ord("q"), np.uint8)
+    arr[9, c0 - m + 1 : c0 + 1] = np.frombuffer(_sample(rng, model.sym_ranges),
+                                                np.uint8)
+    data = torch.from_numpy(arr)
+    byte = (c0 // 32, 9 // 4, 9 % 4)  # (word, element, byte) of the match
+    early = swar_scan.swar_scan_words_plain(data[:, c0 - 32:], model)
+    assert early[1:].numpy().view(np.uint8).reshape(
+        -1, LANES // 4, 4)[0, byte[1], byte[2]]
+    late = swar_scan.swar_scan_words_plain(data[:, c0:], model)
+    assert not late.numpy().view(np.uint8).reshape(
+        -1, LANES // 4, 4)[0, byte[1], byte[2]]
+    assert not _np_shift_and(arr, model, c0 - (m - 1) + 1)[9, c0]
+
+
 # ------------------------------------------------------------- layouts
 ROUTES = [
     ("shift_and", dict(pattern="volcano"), "stripes"),
     ("approx", dict(pattern="volcano", max_errors=1), "stripes"),
     ("nfa", dict(pattern="vol(cano|can)s?"), "columns"),
     ("fdr", dict(patterns=["volcano", "lava", "hello"]), "columns"),
-    ("pairset", dict(patterns=["vo", "zq"]), "columns"),
-    ("swar", dict(pattern="volcano"), "columns"),
+    ("pairset", dict(patterns=["vo", "zq"]), "stripes"),
+    ("swar", dict(pattern="volcano"), "stripes"),
 ]
 WRAPPERS = {"shift_and": (cuda_scan, "shift_and_scan_words"),
             "approx": (approx_scan, "approx_scan_words"),
@@ -368,6 +522,10 @@ def test_engine_routes_hand_their_kernels_their_layout(monkeypatch, route,
         d, port_sa.try_compile_shift_and("ab"), True),
     lambda d: approx_scan.approx_scan_words(
         d, port_ax.try_compile_approx("abc", 1)),
+    lambda d: pairset_scan.pairset_scan_words(
+        d, port_ps.compile_pairset([b"ab", b"c"])),
+    lambda d: swar_scan.swar_scan_words(
+        d, port_sa.try_compile_shift_and("ab")),
 ])
 @pytest.mark.parametrize("bad", [
     lambda: torch.zeros((64, 96), dtype=torch.uint8).t(),  # columns as stripes
@@ -380,6 +538,19 @@ def test_stripe_wrappers_refuse_other_layouts(wrapper, bad):
         wrapper(bad())
 
 
+PITCHED = {
+    "shift_and": [lambda d, c=c: cuda_scan.shift_and_scan_words(
+        d, port_sa.try_compile_shift_and("volcano"), c) for c in (True, False)],
+    "approx": [lambda d: approx_scan.approx_scan_words(
+        d, port_ax.try_compile_approx("volcano", 1))],
+    "pairset": [lambda d, ic=ic: pairset_scan.pairset_scan_words(
+        d, port_ps.compile_pairset([b"lc", b"NO", b"v"], ignore_case=ic))
+        for ic in (False, True)],
+    "swar": [lambda d: swar_scan.swar_scan_words(
+        d, port_sa.try_compile_shift_and("volcano"))],
+}
+
+
 def test_stripe_wrappers_take_pitched_windows():
     rng = np.random.default_rng(3)
     arr = rng.choice(np.frombuffer(b"volcan \n", np.uint8), size=(64, 160))
@@ -387,14 +558,11 @@ def test_stripe_wrappers_take_pitched_windows():
     wide = torch.from_numpy(arr)
     win = wide[:, 32:128]  # pitch 160, base 32 bytes in
     copy = win.contiguous()
-    sa = port_sa.try_compile_shift_and("volcano")
-    ax = port_ax.try_compile_approx("volcano", 1)
-    for coarse in (True, False):
-        got = cuda_scan.shift_and_scan_words(win, sa, coarse)
-        assert torch.equal(got, cuda_scan.shift_and_scan_words(copy, sa, coarse))
-        assert bool(got.view(torch.int32).any())
-    assert torch.equal(approx_scan.approx_scan_words(win, ax),
-                       approx_scan.approx_scan_words(copy, ax))
+    for kernel, scans in PITCHED.items():
+        for scan in scans:
+            got = scan(win)
+            assert torch.equal(got, scan(copy)), kernel
+            assert bool(got.view(torch.int32).any()), kernel
 
 
 def test_slope_stripe_setup_windows_are_pitched_stripes():
@@ -432,7 +600,8 @@ def test_substripe_sweep_needs_a_card(capsys):
     assert b"volcano" in text and text.count(b"\n") > 100
 
 
-@pytest.mark.parametrize("kernel", ["shift_and", "approx"])
+@pytest.mark.parametrize("kernel", ["shift_and", "approx", "pairset",
+                                    "shift_and_swar"])
 def test_substripe_sweep_forces_the_launchers_count(kernel):
     from distributed_grep_tpu_torch.benchmarks import substripe_sweep
     from distributed_grep_tpu_torch.ops import _build

@@ -4,7 +4,9 @@
 packed kernel gives words bit-identical (tolerance 0: integer words) to
 the reference Pallas kernel in interpret mode, reshaped from its tile
 (chunk//32, lanes//512, 128) to (chunk//32, lanes//4), at the reference's
-smallest packed layout (16384 lanes x 512), and the port's packed decode
+smallest packed layout (16384 lanes x 512) -- the reference reading the
+(chunk, lanes) columns, the port the (lanes, chunk) stripes of the same
+bytes -- and the port's packed decode
 gives the reference's span starts for those words.  The engine gives the
 same lines with DGREP_SWAR=1 as without it, through the filter, the full
 model and the defeat guard.  The CUDA kernel itself is held against the
@@ -71,7 +73,8 @@ def test_plain_words_and_decode_equal_pallas_interpret(pattern, ic, filtered):
     assert port_sa.swar_values(port) is not None
     want = np.asarray(pallas_scan.swar_shift_and_scan_words(
         arr, ref, interpret=True)).reshape(chunk // 32, lanes // 4)
-    got = swar_scan.swar_scan_words(torch.from_numpy(arr), port)
+    got = swar_scan.swar_scan_words(
+        torch.from_numpy(np.ascontiguousarray(arr.T)), port)
     assert got.dtype == torch.uint32 and got.shape == (chunk // 32, lanes // 4)
     np.testing.assert_array_equal(got.numpy(), want)
     assert np.count_nonzero(want) > 100
@@ -88,17 +91,17 @@ def test_plain_words_and_decode_equal_pallas_interpret(pattern, ic, filtered):
 
 def test_packed_words_equal_unpacked_coarse_words():
     """Byte k of packed element j is stripe 4j+k's coarse word (the
-    Shift-And kernel's, which reads the stripes of the same bytes), at a
-    small layout the engine uses."""
+    Shift-And kernel's, on the same stripes), at a small layout the engine
+    uses."""
     text = np.frombuffer(CASES["edges"][: 160 * 256], np.uint8)
     lay = layout.Layout(lanes=256, chunk=160, n_real=text.size)
     stripes = layout.padded_stripes(text.tobytes(), lay)
-    arr = torch.from_numpy(np.ascontiguousarray(stripes.T))
     from distributed_grep_tpu_torch.ops import cuda_scan
 
     for pattern, ic, filtered in MODELS:
         _ref, port = _models(pattern, ic, filtered)
-        packed = swar_scan.swar_scan_words(arr, port).numpy()
+        packed = swar_scan.swar_scan_words(torch.from_numpy(stripes),
+                                           port).numpy()
         unpacked = cuda_scan.shift_and_scan_words(
             torch.from_numpy(stripes), port, True).numpy()
         as_bytes = packed.view(np.uint8).reshape(160 // 32, 256)
