@@ -6,7 +6,10 @@
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
          source, all started together, timed), ptxas's registers and
-         spills per kernel instance, SASS counts.
+         spills per kernel instance, SASS counts (the narrow probe's per
+         lane and byte at each width); the one-hot product must hold
+         warpgroup MMAs (IGMMA), no IMMA, and no ptxas warning that its
+         wgmma were serialized.
 Phase 2  every kernel against its plain PyTorch version on the same inputs
          (bit-identical words: tolerance 0), at the main path's shapes and
          at small ones: the Shift-And kernel (both scan modes, five
@@ -18,8 +21,13 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          ORing into an existing word plane (out=); the Wu-Manber approx
          kernel (k = 1, 2, 3 and -i) and the SWAR packed Shift-And kernel
          ('volcano', its filter, '-i Volcano', 'being it'); the narrow-width
-         probe kernel at i32, i16 and i8, and the one-hot tensor-core
-         product (1 and 16 lane blocks, the default and odd split counts).
+         probe kernel at i32, i16 and i8 (text with every byte value,
+         'volcano' ending 0..6 bytes into every word at every lane
+         position of a thread's group, 'volcann' beside an 'o' in one
+         register, 544 lanes), and the one-hot wgmma product (1, 2 and 16
+         lane blocks, the probe's member and a full-range int8 one, one
+         block per SM, one block, more blocks than rows and ranges that
+         straddle lane blocks).
          The Shift-And, approx, pairset and SWAR kernels read the (lanes,
          chunk) stripes as the document lies; the others the (chunk,
          lanes) columns.  Then a differential sweep of the two table-driven
@@ -91,9 +99,11 @@ Phase 4  the measuring path, in this process with the launch counts zeroed
          pallas, nfa, nfa_alt8, pairset and mxu_dot engines at 64 MiB,
          probe_narrow's i32 / i16 slope, and the BASELINE config suite
          (configs 1-5 at 64 MB) end to end with --check (any MISMATCH
-         fails) and with slope timing.  Then the two probe kernels, their
-         plain versions and torch._int_mm (the one-hot product as a cuBLAS
-         int8 GEMM, over a 1 MiB window, scaled to 64 MiB) are timed.
+         fails) and with slope timing.  Then the two probe kernels
+         (eagerly and on the card's clock, in CUDA graphs; the narrow
+         probe's widths in turns), their plain versions and torch._int_mm
+         (the one-hot product as a cuBLAS int8 GEMM, over a 1 MiB window,
+         scaled to 64 MiB) are timed.
 
 The last two lines of standard output are one JSON object with every
 kernel's numbers and one JSON object with the device.  Any failure raises
@@ -165,9 +175,12 @@ SWAR_OPS_PER_BYTE = 3.5
 NARROW_OPS_PER_BYTE = 16
 # csrc/mxu_dot.cu: 128 columns x 256 byte values of multiply-adds per input
 # byte, each two operations, at the H100 SXM's 1,979 TOP/s of dense int8
-# (NVIDIA's data sheet, 700 W).
+# (NVIDIA's data sheet, 700 W): 132 SMs x 4096 int8 MACs a clock x 2 at a
+# 1.83 GHz clock.  The timing block also reads the SM clock under load and
+# gives the bound at that clock.
 MXU_MACS_PER_BYTE = 128 * 256
 H100_INT8_OPS_PER_S = 1979e12
+H100_INT8_MACS_PER_SM_CLOCK = 4096
 
 CONFIG2_WORDS = ["volcano", "anarchism", "philosophy", "needle", "wikipedia",
                  "quantum", "zeppelin", "obsidian"]
@@ -219,6 +232,30 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def sm_clock_under(torch, fn, reps: int = 20, replays: int = 50):
+    """(SM clock, its maximum, both MHz; whether the card was still busy
+    when nvidia-smi returned), read while the card replays a CUDA graph of
+    `reps` calls of fn `replays` times."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    for _ in range(replays):
+        graph.replay()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    sm, top = (int(v) for v in out.stdout.splitlines()[0].split(","))
+    return sm, top, busy
 
 
 def ptxas_usage(log: str) -> list[tuple[str, str]]:
@@ -1603,42 +1640,89 @@ def sass_counts(build, name: str) -> dict[str, int]:
     return {f: len(o) for f, o in sass_opcodes(build, name).items()}
 
 
-# the narrow probe kernel's template argument in its mangled name
-NARROW_WIDTHS = {"IjE": "i32", "ItE": "i16", "IhE": "i8"}
+# the narrow probe kernel's template argument (width bits) in its mangled name
+NARROW_WIDTHS = {"ILi32E": "i32", "ILi16E": "i16", "ILi8E": "i8"}
 
 
 def narrow_label(func: str) -> str:
     return next((w for k, w in NARROW_WIDTHS.items() if k in func), func)
 
 
+def narrow_text(np, rng, chunk: int, lanes: int, group: int):
+    """(chunk, lanes) bytes for the narrow probe: words text whose last
+    quarter of rows is random bytes (every value, beside class bytes in
+    one register), 'volcano' down lanes ending 0..6 bytes into every word
+    (every lane position of a thread's group of ``group`` lanes), and
+    'volcann' beside an 'o' in the lane below its last 'n' in one register
+    (where a borrowing zero-byte test would see a seventh 'o')."""
+    arr = words_block(rng, chunk * lanes).reshape(chunk, lanes)
+    tail = chunk - chunk // 4
+    arr[tail:] = rng.integers(0, 256, size=(chunk - tail, lanes),
+                              dtype=np.uint8)
+    word = np.frombuffer(b"volcano", np.uint8)[:, None]
+    for edge in range(32, chunk, 32):
+        for k in range(1, 8):
+            arr[edge - k : edge - k + 7,
+                (k + edge // 32) % group :: 3 * group + 1] = word
+    for c0 in range(3, chunk - 7, 37):
+        cols = np.arange(1 + c0 % (group - 1), lanes, group * 5)
+        arr[c0 : c0 + 7, cols] = np.frombuffer(b"volcann", np.uint8)[:, None]
+        arr[c0 + 6, cols - 1] = ord("o")
+    return arr
+
+
 def phase_narrow_kernels(torch, np, narrow_probe) -> int:
-    """Narrow probe words vs the plain version's at every width, at the
-    main path's segment shape and a small one: 'volcano's in words text and
-    across a word edge of every 11th stripe."""
-    widths = {w: w for w in narrow_probe.WIDTHS}
-    return compare_words(
-        torch, np, "narrow_probe", narrow_probe.narrow_probe_words,
-        narrow_probe.narrow_probe_words_plain, widths,
-        [(1024, 65536), (160, 64)], 32, 9753,
-        lambda rng, n: [b"volcano", b"volca", b"olcano"],
-        [(slice(29, 36), slice(3, None, 11), b"volcano")])
+    """Narrow probe words vs the plain version's at every width (narrow_text),
+    at the main path's segment shape, a small one and lanes that are a
+    multiple of 32 but not of a block's lanes.  Returns the largest absolute
+    difference seen."""
+    rng = np.random.default_rng(9753)
+    worst = 0
+    for chunk, lanes in [(1024, 65536), (160, 64), (96, 544)]:
+        arr = narrow_text(np, rng, chunk, lanes, narrow_probe.LANES_PER_THREAD)
+        dev = torch.from_numpy(arr).cuda()
+        for width in narrow_probe.WIDTHS:
+            got = narrow_probe.narrow_probe_words(dev, width)
+            torch.cuda.synchronize()
+            want = narrow_probe.narrow_probe_words_plain(dev, width)
+            err = words_err(torch, got, want)
+            worst = max(worst, err)
+            nz = int(torch.count_nonzero(want.view(torch.int32)))
+            if not torch.equal(got, want) or err or not nz:
+                raise AssertionError(
+                    f"narrow_probe kernel != plain (or no match): {width} "
+                    f"chunk={chunk} lanes={lanes} max_abs_err={err} "
+                    f"nonzero={nz}")
+            log(f"  ok narrow_probe {width:3s} chunk={chunk:5d} "
+                f"lanes={lanes:6d} nonzero words={nz}")
+    return worst
 
 
 def phase_mxu_kernels(torch, np, mxu_probe) -> int:
     """The one-hot product kernel vs its plain version (byte counts @
-    member) on the card: one and 16 lane blocks, the default split count,
-    one split and an odd one; words text with a random-byte tail (every
-    byte value).  Returns the largest absolute difference seen."""
+    member) on the card, every lane block's 128 x 128 sums: 1, 2 and 16
+    lane blocks; the probe's member and a full-range int8 one (-128 ..
+    127); one block per SM, one block, more blocks than rows, and counts
+    whose ranges start, end and straddle inside lane blocks; words text
+    with a random-byte tail (every byte value).  Returns the largest
+    absolute difference seen."""
     rng = np.random.default_rng(8765)
-    member = torch.from_numpy(mxu_probe.probe_member()).cuda()
+    members = {
+        "probe": torch.from_numpy(mxu_probe.probe_member()).cuda(),
+        "full-range": torch.from_numpy(rng.integers(
+            -128, 128, size=(256, 128), dtype=np.int8)).cuda()}
     worst = 0
-    for chunk, lanes, splits in [(1024, 65536, None), (1024, 65536, 7),
-                                 (512, 4096, None), (512, 4096, 1)]:
+    for chunk, lanes, blocks, which in [
+            (1024, 65536, None, "probe"), (1024, 65536, None, "full-range"),
+            (1024, 65536, 7, "full-range"), (512, 4096, None, "probe"),
+            (512, 4096, 1, "full-range"), (512, 4096, 600, "probe"),
+            (512, 8192, 3, "full-range")]:
         text = words_block(rng, chunk * lanes)
         text[-text.size // 8:] = rng.integers(0, 256, size=text.size // 8,
                                               dtype=np.uint8)
         dev = torch.from_numpy(text.reshape(chunk, lanes)).cuda()
-        got = mxu_probe.mxu_dot(dev, member, splits=splits)
+        member = members[which]
+        got = mxu_probe.mxu_dot(dev, member, blocks=blocks)
         torch.cuda.synchronize()
         want = mxu_probe.mxu_dot_plain(dev, member)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
@@ -1646,10 +1730,10 @@ def phase_mxu_kernels(torch, np, mxu_probe) -> int:
         if not torch.equal(got, want) or err:
             raise AssertionError(
                 f"mxu_dot kernel != plain: chunk={chunk} lanes={lanes} "
-                f"splits={splits} max_abs_err={err}")
-        used = splits or mxu_probe.default_splits(chunk, lanes, dev.device)
-        log(f"  ok mxu_dot chunk={chunk:5d} lanes={lanes:6d} splits={used:3d} "
-            f"sum={int(want.to(torch.int64).sum())}")
+                f"blocks={blocks} member={which} max_abs_err={err}")
+        used = blocks or mxu_probe.default_blocks(dev.device)
+        log(f"  ok mxu_dot chunk={chunk:5d} lanes={lanes:6d} blocks={used:3d} "
+            f"member={which:10s} sum={int(want.to(torch.int64).sum())}")
     return worst
 
 
@@ -1867,8 +1951,8 @@ def main() -> int:
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(_build.SOURCES)}, one nvcc each, in parallel)")
-    for name, text in _build.build_log.items():
-        for func, usage in ptxas_usage(text):
+    for name in _build.SOURCES:
+        for func, usage in ptxas_usage(_build.saved_log(name)):
             log(f"  ptxas {name} {template_label(func)}: {usage}")
     # steps unrolled in a kernel's loop body: the ring kernels step a whole
     # box (128 bytes; SWAR kBoxBytes packed steps of four bytes), the
@@ -1886,21 +1970,36 @@ def main() -> int:
             log(f"  sass {name} {template_label(func)}: {n} instructions "
                 f"({n / steps:.1f} per step of {steps}, "
                 f"{n / steps / per:.1f} a byte)")
-    # the narrow probe: one word of 32 unrolled steps per loop trip, so
-    # the count over 32 is close to its instructions per step at each width
+    # the narrow probe: one word of 32 steps and a warm-up of WARM steps
+    # unrolled, each over LANES_PER_THREAD lanes
+    n_lanes, n_warm = narrow_probe.LANES_PER_THREAD, narrow_probe.WARM
+    per_width = {}
     for func, ops in sass_opcodes(_build, "probe_narrow").items():
         top = sorted({o: ops.count(o) for o in ops}.items(),
                      key=lambda kv: -kv[1])[:8]
-        log(f"  sass probe_narrow {narrow_label(func)}: {func}: {len(ops)} "
-            f"instructions ({len(ops) / 32:.1f} per step of 32); most used: "
+        per_width[narrow_label(func)] = len(ops) / ((32 + n_warm) * n_lanes)
+        log(f"  sass probe_narrow {narrow_label(func)}: {len(ops)} "
+            f"instructions, {per_width[narrow_label(func)]:.1f} a lane and "
+            f"byte ({32 + n_warm} steps of {n_lanes} lanes); most used: "
             + ", ".join(f"{o} {n}" for o, n in top))
-    for func, ops in sass_opcodes(_build, "mxu_dot").items():
-        mma = [o for o in ops if o.startswith(("IMMA", "HMMA"))]
-        if not mma:
-            raise AssertionError(f"mxu_dot: no tensor-core MMA in {func}")
-        log(f"  sass mxu_dot: {func}: {len(ops)} instructions, {len(mma)} "
-            f"tensor-core MMA ({', '.join(sorted(set(mma)))}), "
-            f"{sum(o.startswith('LDS') for o in ops)} shared-memory loads")
+    # the one-hot product runs on wgmma (IGMMA), not mma.sync (IMMA), and
+    # ptxas did not serialize its wgmma: read from nvcc's output kept beside
+    # the library, whichever run built it
+    if "serialized" in _build.saved_log("mxu_dot"):
+        raise AssertionError("mxu_dot: ptxas serialized its wgmma:\n"
+                             + _build.saved_log("mxu_dot"))
+    mxu_sass = sass_opcodes(_build, "mxu_dot")
+    if not mxu_sass:
+        raise AssertionError("mxu_dot: no SASS read (cuobjdump beside nvcc "
+                             "is missing or found no kernel)")
+    for func, ops in mxu_sass.items():
+        igmma = [o for o in ops if o.startswith("IGMMA")]
+        imma = [o for o in ops if o.startswith(("IMMA", "HMMA"))]
+        if not igmma or imma:
+            raise AssertionError(f"mxu_dot: {len(igmma)} IGMMA and "
+                                 f"{len(imma)} IMMA/HMMA in {func}")
+        log(f"  sass mxu_dot: {func}: {len(ops)} instructions, {len(igmma)} "
+            f"warpgroup MMA ({', '.join(sorted(set(igmma)))}), no IMMA")
 
     # ---------------------------------------------------------- phase 2
     log("== phase 2: kernels vs plain versions (tolerance 0: integer words)")
@@ -2387,6 +2486,12 @@ def main() -> int:
     n_x = x.numel()
     member = torch.from_numpy(mxu_probe.probe_member()).cuda()
     mxu_ms = cuda_ms(torch, lambda: mxu_probe.mxu_dot(x, member), 10)
+    mxu_graph_ms = graph_ms(lambda: mxu_probe.mxu_dot(x, member), 10, 3)
+    mxu_mhz, mxu_max_mhz, mxu_busy = sm_clock_under(
+        torch, lambda: mxu_probe.mxu_dot(x, member))
+    mxu_clock_ms = (MXU_MACS_PER_BYTE * n_x / (
+        torch.cuda.get_device_properties(0).multi_processor_count
+        * H100_INT8_MACS_PER_SM_CLOCK * mxu_mhz * 1e6) * 1e3)
     mxu_plain_ms = cuda_ms(torch, lambda: mxu_probe.mxu_dot_plain(x, member), 2)
     mxu_ops_ms = 2 * MXU_MACS_PER_BYTE * n_x / H100_INT8_OPS_PER_S * 1e3
     mxu_bytes_ms = (n_x + x.shape[1] // 4096 * 128 * 128 * 4) / H100_BYTES_PER_S * 1e3
@@ -2405,9 +2510,14 @@ def main() -> int:
     del onehot, dev_kc, x
     log(f"kernel mxu_dot, chunk={lay_kc.chunk} lanes={lay_kc.lanes} ({n_x} bytes, "
         f"{lay_kc.lanes // 4096} lane blocks, "
-        f"{mxu_probe.default_splits(lay_kc.chunk, lay_kc.lanes, member.device)}"
-        f" splits): {mxu_ms:.4f} ms = {n_x / (mxu_ms / 1e3) / 1e9:.2f} GB/s = "
-        f"{MXU_MACS_PER_BYTE * n_x / (mxu_ms / 1e3) / 1e12:.1f} TMAC/s; plain "
+        f"{mxu_probe.default_blocks(member.device)} blocks): {mxu_ms:.4f} ms = "
+        f"{n_x / (mxu_ms / 1e3) / 1e9:.2f} GB/s = "
+        f"{MXU_MACS_PER_BYTE * n_x / (mxu_ms / 1e3) / 1e12:.1f} TMAC/s "
+        f"({mxu_graph_ms:.4f} ms on the card's clock, in a CUDA graph: "
+        f"{mxu_ops_ms / mxu_graph_ms:.3f} of the int8 bound); SM clock "
+        f"{mxu_mhz} MHz (max {mxu_max_mhz}; read "
+        f"{'under' if mxu_busy else 'after'} load): int8 bound at that clock "
+        f"{mxu_clock_ms:.4f} ms, {mxu_clock_ms / mxu_graph_ms:.3f} of it; plain "
         f"version on the card {mxu_plain_ms:.2f} ms; bound {mxu_ops_ms:.4f} ms "
         f"(int8 operations; bytes {mxu_bytes_ms:.4f}); torch._int_mm over a "
         f"1 MiB one-hot {lib_1mib_ms:.4f} ms, scaled to {n_x} bytes {mxu_lib_ms:.3f}"
@@ -2417,13 +2527,18 @@ def main() -> int:
                                      **probe_layout)
     y = dev_pn[: lay_pn.chunk]
     n_y = y.numel()
-    # the three widths in turns: i32 i16 i8 i8 i16 i32
+    # the three widths in turns: i32 i16 i8 i8 i16 i32, eagerly (the
+    # yardstick since run P) and on the card's clock (CUDA graphs)
     order = ["i32", "i16", "i8"]
     turns: dict[str, list[float]] = {w: [] for w in order}
+    g_turns: dict[str, list[float]] = {w: [] for w in order}
     for w in order + order[::-1]:
-        turns[w].append(cuda_ms(
-            torch, lambda w=w: narrow_probe.narrow_probe_words(y, w), 20))
+        def fn(w=w):
+            return narrow_probe.narrow_probe_words(y, w)
+        turns[w].append(cuda_ms(torch, fn, 20))
+        g_turns[w].append(graph_ms(fn))
     narrow_ms = {w: sum(t) / len(t) for w, t in turns.items()}
+    narrow_g_ms = {w: sum(t) / len(t) for w, t in g_turns.items()}
     narrow_plain_ms = cuda_ms(
         torch, lambda: narrow_probe.narrow_probe_words_plain(y, "i32"), 2)
     nb_ms = (n_y + n_y // 8) / H100_BYTES_PER_S * 1e3  # 1 byte in, 1/8 out
@@ -2433,7 +2548,13 @@ def main() -> int:
     log(f"kernel narrow_probe, chunk={lay_pn.chunk} lanes={lay_pn.lanes} "
         f"({n_y} bytes): " + ", ".join(
             f"{w} {narrow_ms[w]:.4f} ms (turns "
-            f"{', '.join(f'{t:.4f}' for t in turns[w])})" for w in order)
+            f"{', '.join(f'{t:.4f}' for t in turns[w])}; "
+            f"{narrow_ms['i32'] / narrow_ms[w]:.3f}x the speed of i32)"
+            for w in order)
+        + "; on the card's clock (CUDA graphs) " + ", ".join(
+            f"{w} {narrow_g_ms[w]:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in g_turns[w])}; "
+            f"{narrow_g_ms['i32'] / narrow_g_ms[w]:.3f}x)" for w in order)
         + f"; plain version (i32) on the card {narrow_plain_ms:.2f} ms; bound "
         f"{narrow_bound_ms:.4f} ms (bytes {nb_ms:.4f}, ops {nops_ms:.4f} at "
         f"{NARROW_OPS_PER_BYTE} per byte) [{card}]")

@@ -68,20 +68,22 @@ def words_text(n: int, seed: int = 0) -> bytes:
     return b"".join(tokens[i] for i in idx.tolist())[:n]
 
 
-def variant_source(kernel: str, n_sub: int) -> str:
+def variant_source(kernel: str, n_sub: int, launch_line=None) -> str:
     """csrc/<kernel>.cu with the launcher's sub-stripe count forced to
-    n_sub.  Raises if the launcher's line is not there exactly once."""
+    n_sub: ``launch_line`` (line, forced line), by default
+    ``LAUNCH_LINE[kernel]``.  Raises if the line is not there exactly
+    once."""
     from distributed_grep_tpu_torch.ops import _build
 
     text = (_build.CSRC / f"{kernel}.cu").read_text()
-    line, forced = LAUNCH_LINE[kernel]
+    line, forced = launch_line or LAUNCH_LINE[kernel]
     if text.count(line) != 1:
         raise ValueError(f"csrc/{kernel}.cu: the sub-stripe line "
                          f"{line!r} is not there exactly once")
     return text.replace(line, forced.format(n=n_sub))
 
 
-def build_variants(kernel: str, counts) -> dict:
+def build_variants(kernel: str, counts, launch_line=None) -> dict:
     """One library per forced count, keyed "n_sub=N", nvcc processes
     started together, built under the package's git-ignored _build
     directory."""
@@ -91,7 +93,7 @@ def build_variants(kernel: str, counts) -> dict:
     jobs = {}
     for n in counts:
         name = f"n_sub={n}"
-        src = variant_source(kernel, n)
+        src = variant_source(kernel, n, launch_line)
         h = _build.source_hash(src.encode())
         cu = _build.BUILD_DIR / f"{kernel}_nsub{n}-{h}.cu"
         so = cu.with_suffix(".so")

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` compiles on first use into
 git-ignored), where the hash covers the source text, every header of
 ``csrc/`` (``*.cuh``, which the sources include) and the compiler flags,
 so an edited source or header rebuilds and an unchanged one loads at
-once.
+once.  nvcc's output (ptxas's register use and warnings) is kept beside
+each library as ``lib<name>-<hash>.log`` (``saved_log``); a library
+without its log is built again.
 The sources expose a plain C interface: no PyTorch headers, so a build
 takes seconds.  ``build_all`` starts one nvcc per source, all at once.
 
@@ -35,7 +37,6 @@ SOURCES = ("shift_and", "nfa", "fdr", "pairset", "approx", "shift_and_swar",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-build_log: dict[str, str] = {}  # name -> nvcc's output (ptxas register use)
 
 
 def nvcc_path() -> str:
@@ -78,9 +79,15 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{source_hash(src)}.so"
 
 
+def saved_log(name: str) -> str:
+    """nvcc's output for the current build of ``csrc/<name>.cu``.  Raises
+    FileNotFoundError if that build has not been made."""
+    return _target(name).with_suffix(".log").read_text()
+
+
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
     out = _target(name)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
@@ -93,10 +100,12 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
 def _finish(name: str, job) -> None:
     out, tmp, proc = job
     log, _ = proc.communicate()
-    build_log[name] = log
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    tmp_log = tmp.with_suffix(".log")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, out.with_suffix(".log"))
     os.replace(tmp, out)
 
 

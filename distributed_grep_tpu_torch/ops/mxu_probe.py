@@ -14,7 +14,8 @@ step.  The reference keeps only the last lane block's sum (its output block
 is re-zeroed at the start of each lane block), which is ``out[-1]`` here.
 
 A CUDA tensor launches the hand-written tensor-core kernel
-(csrc/mxu_dot.cu); a CPU tensor runs ``mxu_dot_plain``, which counts each
+(csrc/mxu_dot.cu: wgmma on a persistent grid, each block summing a range
+of rows that ``row_bounds`` computes here); a CPU tensor runs ``mxu_dot_plain``, which counts each
 lane's byte values and multiplies the counts by ``member``: the same
 numbers, by a histogram, not a one-hot product.  Anything else raises.
 """
@@ -33,7 +34,7 @@ LANE_BLOCK = 4096  # 32 sublanes x 128 lanes, the reference's tile
 COLS = 128
 VALUES = 256
 CHUNK_MULTIPLE = 512  # the reference's 16 words x 32 steps per grid step
-STAGE_STEPS = 32  # csrc/mxu_dot.cu stages 32 (t, s) steps per round
+MAX_BLOCKS = 1000  # csrc/mxu_dot.cu kMaxBlocks: its range table's size
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before a path and reads it after.
@@ -107,12 +108,20 @@ def mxu_dot_plain(data: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
     return (counts @ member.to(torch.float64)).to(torch.int32)
 
 
-def default_splits(chunk: int, lanes: int, device: torch.device) -> int:
-    """Blocks per lane block: about four blocks per SM over the grid, and
-    at least one staged round of steps per block."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    nb = lanes // LANE_BLOCK
-    return max(1, min(chunk * 32 // STAGE_STEPS, -(-4 * n_sm // nb)))
+def default_blocks(device: torch.device) -> int:
+    """The persistent grid: one block per SM."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def row_bounds(lane_blocks: int, chunk: int, blocks: int) -> list[int]:
+    """Each block's range of rows, as ``blocks + 1`` rising bounds: block b
+    sums rows ``bounds[b] .. bounds[b + 1]``, row ``li * chunk + t`` being
+    the 32 steps (t, s) of lane block li at t.  The ranges split the rows
+    as evenly as whole rows allow (some are empty when ``blocks`` exceeds
+    the rows); the kernel adds its sums to the output where a range leaves
+    a lane block and at its end."""
+    rows = lane_blocks * chunk
+    return [rows * b // blocks for b in range(blocks + 1)]
 
 
 def _lib():
@@ -120,40 +129,43 @@ def _lib():
     fn = lib.dgrep_mxu_dot
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def mxu_dot(data: torch.Tensor, member: torch.Tensor,
-            splits: int | None = None) -> torch.Tensor:
+            blocks: int | None = None) -> torch.Tensor:
     """The one-hot product for ``data`` (see the module docstring).  CUDA
     tensors launch the kernel on the current stream (no synchronization;
-    the zeroed output is allocated here), ``splits`` blocks per lane block
-    (default ``default_splits``); CPU tensors take the plain version."""
+    the zeroed output is allocated here) on ``blocks`` blocks (default
+    ``default_blocks``: one per SM), each summing its ``row_bounds``
+    range; CPU tensors take the plain version."""
     chunk, lanes = _check(data, member)
+    if blocks is not None and not 1 <= blocks <= MAX_BLOCKS:
+        raise ValueError(f"blocks must be in 1..{MAX_BLOCKS}, got {blocks}")
     if data.device.type == "cpu":
         return mxu_dot_plain(data, member)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
-    if splits is None:
-        splits = default_splits(chunk, lanes, data.device)
-    if not 1 <= splits <= chunk * 32:
-        raise ValueError(f"splits must be in 1..{chunk * 32}, got {splits}")
+    if blocks is None:
+        blocks = default_blocks(data.device)
     if data.data_ptr() % 16:
         raise ValueError("data must be 16-byte aligned")
     fn = _lib()
+    bounds = row_bounds(lanes // LANE_BLOCK, chunk, blocks)
     out = torch.zeros((lanes // LANE_BLOCK, COLS, COLS), dtype=torch.int32,
                       device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(data.data_ptr(), member.data_ptr(), out.data_ptr(), chunk,
-                 lanes, splits, stream)
+                 lanes, (ctypes.c_int * len(bounds))(*bounds), blocks, stream)
     if err != 0:
         raise RuntimeError(
             f"mxu_dot CUDA kernel launch failed: cudaError {err} "
-            f"(chunk={chunk}, lanes={lanes}, splits={splits})"
+            f"(chunk={chunk}, lanes={lanes}, blocks={blocks})"
         )
     _count_launch()
     return out

@@ -11,8 +11,10 @@ starting from 0 in every lane; its (chunk // 32, lanes // 128, 128) output
 is the same memory.  All three widths give the same words: the state
 never holds a bit above the match bit (1 << 6).
 
-A CUDA tensor launches the hand-written kernel (csrc/probe_narrow.cu); a
-CPU tensor runs ``narrow_probe_words_plain``.  Anything else raises.
+A CUDA tensor launches the hand-written kernel (csrc/probe_narrow.cu: a
+thread owns LANES_PER_THREAD adjacent lanes, read with one load a row, and
+packs 2 lanes a 32-bit register at i16 and 4 at i8); a CPU tensor runs
+``narrow_probe_words_plain``.  Anything else raises.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ CLASSES = ((ord("v"), 0b0000001), (ord("o"), 0b1000010),
 MATCH_BIT = 1 << 6
 WILDCARD = 0
 WIDTHS = {"i32": 32, "i16": 16, "i8": 8}
+LANES_PER_THREAD = 4  # csrc/probe_narrow.cu kLanesPerThread: data alignment
+WARM = 8  # csrc/probe_narrow.cu kWarm: warm-up bytes of a sub-stripe
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before a path and reads it after.
@@ -103,6 +107,8 @@ def narrow_probe_words(data: torch.Tensor, width: str) -> torch.Tensor:
         return narrow_probe_words_plain(data, width)
     if data.device.type != "cuda":
         raise ValueError(f"unsupported device {data.device}")
+    if data.data_ptr() % LANES_PER_THREAD:
+        raise ValueError(f"data must be {LANES_PER_THREAD}-byte aligned")
     fn = _lib()
     out = torch.empty((chunk // 32, lanes), dtype=torch.uint32,
                       device=data.device)

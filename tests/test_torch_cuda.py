@@ -464,15 +464,22 @@ def test_swar_engine_on_card_equals_cpu(card, monkeypatch, pattern, ic):
     assert got.matched_lines.size
 
 
-@pytest.mark.parametrize("chunk,lanes", [(512, 4096), (1024, 65536), (160, 64)])
+@pytest.mark.parametrize("chunk,lanes", [(512, 4096), (1024, 65536), (160, 64),
+                                         (96, 544)])
 def test_narrow_probe_kernel_matches_plain_on_card(card, chunk, lanes):
+    """Every width; 'volcano' across a word edge at every lane position of
+    a thread's group of lanes; every byte value; lanes a multiple of 32 but
+    not of a block's lanes (544)."""
     from distributed_grep_tpu_torch.ops import narrow_probe
 
     text = _text(31, chunk * lanes)
     lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
     arr = layout.to_device_array(text.tobytes(), lay)
     arr[29:36, ::13] = np.frombuffer(b"volcano", np.uint8)[:, None]
-    arr[100:103, :] = 0xF6  # bytes above 127
+    arr[61:68, 1::6] = np.frombuffer(b"volcano", np.uint8)[:, None]
+    arr[100 % chunk:(100 % chunk) + 3, :] = 0xF6  # bytes above 127
+    arr[-2, :256 if lanes >= 256 else lanes] = np.arange(
+        min(lanes, 256), dtype=np.uint8)
     dev = torch.from_numpy(arr).to(card)
     words = {}
     for width in ("i32", "i16", "i8"):
@@ -488,22 +495,27 @@ def test_narrow_probe_kernel_matches_plain_on_card(card, chunk, lanes):
     assert torch.equal(words["i32"], words["i8"])
 
 
-@pytest.mark.parametrize("chunk,lanes,splits", [
-    (512, 4096, None),  # 1 lane block, the default split count
-    (512, 4096, 1),
-    (1024, 65536, None),  # 16 lane blocks: the 64 MiB segment
-    (1024, 65536, 7),  # an odd split count: uneven (t, s) ranges
-    (1536, 8192, 33),
+@pytest.mark.parametrize("chunk,lanes,blocks,full_range", [
+    (512, 4096, None, False),  # 1 lane block, one block per SM
+    (512, 4096, 1, True),
+    (512, 4096, 600, False),  # more blocks than rows: empty ranges
+    (1024, 65536, None, True),  # 16 lane blocks: the 64 MiB segment
+    (1024, 65536, 7, False),  # ranges straddling lane blocks
+    (1536, 8192, 33, True),
+    (512, 8192, 3, False),  # ranges that start and end mid-block
 ])
-def test_mxu_dot_kernel_matches_plain_on_card(card, chunk, lanes, splits):
+def test_mxu_dot_kernel_matches_plain_on_card(card, chunk, lanes, blocks,
+                                              full_range):
     from distributed_grep_tpu_torch.ops import mxu_probe
 
-    text = np.random.default_rng(chunk + lanes).integers(
-        0, 256, size=chunk * lanes, dtype=np.uint8)
+    rng = np.random.default_rng(chunk + lanes)
+    text = rng.integers(0, 256, size=chunk * lanes, dtype=np.uint8)
     dev = torch.from_numpy(text.reshape(chunk, lanes)).to(card)
-    member = torch.from_numpy(mxu_probe.probe_member()).to(card)
+    member = (rng.integers(-128, 128, size=(256, 128), dtype=np.int8)
+              if full_range else mxu_probe.probe_member())
+    member = torch.from_numpy(member).to(card)
     before = mxu_probe.launches
-    got = mxu_probe.mxu_dot(dev, member, splits=splits)
+    got = mxu_probe.mxu_dot(dev, member, blocks=blocks)
     torch.cuda.synchronize()
     assert mxu_probe.launches == before + 1
     want = mxu_probe.mxu_dot_plain(dev, member)

@@ -29,6 +29,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from distributed_grep_tpu_torch.benchmarks import kernel_compare as port_kc
+from distributed_grep_tpu_torch.benchmarks import probe_design
 from distributed_grep_tpu_torch.benchmarks import probe_narrow as port_pn
 from distributed_grep_tpu_torch.ops import layout, mxu_probe, narrow_probe
 
@@ -175,7 +176,8 @@ def test_probe_narrow_compile_probes_on_cpu(capsys):
         assert rec["nonzero_words"] > 900  # 1000 planted 'volcano's
 
 
-@pytest.mark.parametrize("main", [port_kc.main, port_pn.main])
+@pytest.mark.parametrize("main", [port_kc.main, port_pn.main,
+                                  probe_design.main])
 def test_probes_exit_2_without_a_card(main, capsys):
     assert not torch.cuda.is_available()
     assert main([]) == 2
