@@ -62,8 +62,8 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          one 128 MB file of lines that defeat a relaxed regex filter.
          Queries:
          'volcano' (sparse, rare-class filter), '-i Volcano', 'the'
-         (dense: the on-device dense confirm; 4 of the 8 files, as config
-         4, to bound the records they build), 'being it' (its rare-class
+         (dense: the on-device dense confirm, 9M columnar records),
+         'being it' (its rare-class
          filter is defeated: dense confirm, then the defeat guard drops
          it); BASELINE config 2's 8-word alternation (literal
          decomposition onto the FDR kernel) and config 4's
@@ -81,9 +81,20 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          class sequence on the approx kernel, over errorful needles (some
          across stripe starts: the window stitch), each checked against
          Sellers' edit-distance DP on the lines ``grep`` finds for any of
-         the pattern's k+1 pieces; 'volcano', '-i Volcano' and 'being it'
-         again with DGREP_SWAR=1 on the SWAR kernel -- plus the CLI on one
-         file.  The launch counts of all kernels are
+         the pattern's k+1 pieces; the selection and count options: '-w
+         volcano', '-w -F -f' config 3 (the host confirm of -w over the
+         kernels' candidate lines), '-c the' (a count per file, against
+         ``grep -c``), '-v volcano' on one file (the complement), a '-x -E'
+         whole log line on the logs (the NFA kernel, about 1 line in 183)
+         and '-c --max-errors 2 -i volcano' (against the DP's count);
+         'volcano', '-i Volcano' and 'being it' again with DGREP_SWAR=1 on
+         the SWAR kernel.  Each query logs its records, batches, reduce
+         spills and the streaming reader's wait; its files' oracles run
+         side by side.  Then the CLI: on one file, and with -l, -L, -q, -c
+         and -m 5 over two word files and the defeat file against GNU
+         grep's output and exit codes; and the match-dense receipt
+         (benchmarks/dense_receipt.py --check, 64 MiB, in its own
+         process).  The launch counts of all kernels are
          zeroed just before the queries and read just after; each query
          also logs its on-card layout transposes (ops/device_scan.py
          ``transposes``): 0 on the Shift-And, approx, pairset and SWAR
@@ -120,6 +131,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -190,6 +202,9 @@ PAIR_SET = [b"zq", b"9!", b"Q#", b"~~"]
 # segment and a small multi-word layout
 SET_SHAPES = [(1024, 65536), (160, 64)]
 CONFIG4 = r"get /[a-z0-9/.-]{4,24}\.gif"
+# a whole log line (-x): one path of six, a 40x status, about 1 line in 183
+LOG_LINE_X = (r'host[0-9]+\.example\.com - - \[[0-9A-Za-z/: -]+\] '
+              r'"GET /icons/menu\.gif HTTP/1\.0" 40[0-9] [0-9]+')
 WIDE_WORDS = ["volcano", "anarchism", "philosophy", "wikipedia", "quantum",
               "zeppelin", "obsidian", "telescope", "metabolic", "hurricane",
               "labyrinth", "xylophone"]
@@ -567,6 +582,54 @@ def grep_oracle_lines(path: Path, grep_args: list[str]) -> list[tuple[int, str]]
         num, _, text = ln.partition(b":")
         pairs.append((int(num), text.decode("utf-8", "replace")))
     return pairs
+
+
+def grep_oracle_count(path: Path, grep_args: list[str]) -> int:
+    """``LC_ALL=C grep -c -a ARGS FILE``: the selected line count."""
+    out = subprocess.run(["grep", "-c", "-a", *grep_args, str(path)],
+                         capture_output=True, timeout=900,
+                         env={**os.environ, "LC_ALL": "C"})
+    if out.returncode > 1:
+        raise RuntimeError(f"grep oracle failed: {out.stderr[:300]!r}")
+    return int(out.stdout)
+
+
+def cli_runs(files: list[Path], work: Path) -> list[str]:
+    """The port CLI's -l, -L, -q, -c and -m 5 over ``files`` against GNU
+    grep's (``LC_ALL=C``) file sets, counts, (file, line) sets and exit
+    codes; raises on a difference.  Returns a log line a run."""
+    lines = []
+    for flags in (["-l"], ["-L"], ["-q"], ["-c"], ["-m", "5"]):
+        t0 = time.perf_counter()
+        port = subprocess.run(
+            [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
+             *flags, "volcano", *map(str, files), "--work-dir", str(work)],
+            cwd=ROOT, capture_output=True, timeout=900)
+        wall = time.perf_counter() - t0
+        gnu = subprocess.run(
+            ["grep", "-a", *flags, *(["-n"] if "-m" in flags else []),
+             "-F", "-e", "volcano", *map(str, files)],
+            capture_output=True, timeout=900,
+            env={**os.environ, "LC_ALL": "C"})
+        want = gnu.stdout
+        if "-m" in flags:  # (path, line number) of each selected line
+            got = {(ln.split(b" (line number #")[0],
+                    int(ln.split(b" (line number #")[1].split(b")")[0]))
+                   for ln in port.stdout.splitlines()}
+            want = {(ln.split(b":")[0], int(ln.split(b":")[1]))
+                    for ln in gnu.stdout.splitlines()}
+        else:
+            got = port.stdout
+        if got != want or port.returncode != gnu.returncode:
+            raise AssertionError(
+                f"CLI {' '.join(flags)}: exit {port.returncode} vs GNU grep "
+                f"{gnu.returncode}; stdout {port.stdout[:300]!r} vs "
+                f"{gnu.stdout[:300]!r}; stderr {port.stderr[-300:]!r}")
+        lines.append(f"CLI grep {' '.join(flags)} volcano over "
+                     f"{len(files)} files: exit {port.returncode}, "
+                     f"{len(port.stdout.splitlines())} output lines, equal to "
+                     f"GNU grep's ({wall:.1f} s)")
+    return lines
 
 
 def symbol_masks(pattern: str, ic: bool):
@@ -2087,23 +2150,21 @@ def main() -> int:
         def members(name: str) -> list[str]:
             return ["-F", "-f", str(pats[name])]
 
-        # 'the' and config 4 build millions of records (ROADMAP item 7):
-        # half the files keep the smoke inside its time limit
-        half = max(1, args.n_files // 2)
-        # (label, app options, files, grep arguments of the oracle,
-        # kernels the query must launch)
+        # (label, app options, files, oracle, kernels the query must
+        # launch); the oracle is grep's arguments, {"count": grep's
+        # arguments} (a count per file), {"approx": ...} (Sellers' DP over
+        # grep's prefilter) or {"approx_count": ...}
         queries = [
             ("volcano", single("volcano"), words, fixed("volcano"),
              ["shift_and"]),
             ("-i Volcano", single("Volcano", True), words,
              fixed("Volcano", True), ["shift_and"]),
-            ("the", single("the"), words[:half], fixed("the"),
-             ["shift_and"]),
+            ("the", single("the"), words, fixed("the"), ["shift_and"]),
             ("being it", single("being it"), words, fixed("being it"),
              ["shift_and"]),
             ("config2", single(CONFIG2), words, ere(CONFIG2), ["fdr"]),
-            ("config4 -i", single(CONFIG4, True), logs[:half],
-             ere(CONFIG4, True), ["nfa"]),
+            ("config4 -i", single(CONFIG4, True), logs, ere(CONFIG4, True),
+             ["nfa"]),
             ("^the (old|new) ", single("^the (old|new) "), words,
              ere("^the (old|new) "), ["nfa"]),
             ("volcano$", single("volcano$"), words, ere("volcano$"), ["nfa"]),
@@ -2124,6 +2185,22 @@ def main() -> int:
                {**single(p, ic), "max_errors": k}, words,
                {"approx": (p, k, ic, pieces)}, ["approx"])
               for p, k, ic, pieces in APPROX_QUERIES],
+            # the selection and count options: -w and -x confirm the
+            # kernel's candidate lines on the host, -v takes the complement,
+            # -c counts per file
+            ("-w volcano", {**single("volcano"), "word_regexp": True}, words,
+             ["-w", *fixed("volcano")], ["shift_and"]),
+            ("-w -F -f config3", {"patterns": set3, "word_regexp": True},
+             words, ["-w", *members("config3")], ["fdr"]),
+            ("-c the", {**single("the"), "count_only": True}, words,
+             {"count": fixed("the")}, ["shift_and"]),
+            ("-v volcano", {**single("volcano"), "invert": True}, words[:1],
+             ["-v", *fixed("volcano")], ["shift_and"]),
+            ("-x -E logs", {**single(LOG_LINE_X), "line_regexp": True}, logs,
+             ["-x", *ere(LOG_LINE_X)], ["nfa"]),
+            ("-c --max-errors 2 -i volcano",
+             {**single("volcano", True), "max_errors": 2, "count_only": True},
+             words, {"approx_count": APPROX_QUERIES[1]}, ["approx"]),
             # SWAR (DGREP_SWAR=1 for these three only): the Shift-And
             # queries again, on the packed kernel
             ("SWAR volcano", single("volcano"), words, fixed("volcano"),
@@ -2169,22 +2246,43 @@ def main() -> int:
         log(f"main path launches: {main_launches}; on-card layout "
             f"transposes {device_scan.transposes}")
 
+        approx_seen: dict = {}  # the DP's lines, shared by -c and print
         for (label, opts, files, oracle, kernels), (
                 res, wall, launched, totals, route, transposed) in zip(
                     queries, per_query):
             t0 = time.perf_counter()
-            got = job_lines(res)
+            kind = next(iter(oracle)) if isinstance(oracle, dict) else "lines"
+            if kind in ("count", "approx_count"):
+                got = {k: int(v) for k, v in res.iter_results()}
+            else:
+                got = job_lines(res)
             n_rec = 0
-            for p in files:
-                want = (approx_oracle_lines(p, *oracle["approx"])
-                        if isinstance(oracle, dict)
-                        else grep_oracle_lines(p, oracle))
-                if got.get(str(p), []) != want:
+
+            def want_of(p: Path):
+                if kind == "count":
+                    return grep_oracle_count(p, oracle["count"])
+                if kind in ("approx", "approx_count"):
+                    key = (str(p), *oracle[kind][:3])
+                    if key not in approx_seen:
+                        approx_seen[key] = approx_oracle_lines(p,
+                                                               *oracle[kind])
+                    lines = approx_seen[key]
+                    return len(lines) if kind == "approx_count" else lines
+                return grep_oracle_lines(p, oracle)
+
+            # the oracles of a query's files run side by side (grep is a
+            # subprocess each)
+            with ThreadPoolExecutor(len(files)) as pool:
+                wants = list(pool.map(want_of, files))
+            for p, want in zip(files, wants):
+                counted = isinstance(want, int)
+                have = got.get(str(p), 0 if counted else [])
+                if have != want:
                     raise AssertionError(
                         f"query {label}: job output for {p.name} differs "
-                        f"from the oracle ({len(got.get(str(p), []))} vs "
-                        f"{len(want)} lines)")
-                n_rec += len(want)
+                        f"from the oracle ({have if counted else len(have)} "
+                        f"vs {want if counted else len(want)})")
+                n_rec += want if counted else len(want)
             segs = n_segments(files)
             for k in kernels:
                 if launched[k] < segs:
@@ -2214,7 +2312,7 @@ def main() -> int:
                 and totals.get("dense_confirms", 0)
                 and totals.get("filter_defeated", 0),
             }
-            if isinstance(oracle, dict):  # approx: the window stitch added
+            if kind == "approx":  # the window stitch added lines
                 checks[label] = (route == "approx"
                                  and totals.get("stitch_added", 0) > 0)
             if not checks.get(label, True):
@@ -2230,6 +2328,12 @@ def main() -> int:
                 raise AssertionError(
                     f"query {label}: {transposed} layout transposes for "
                     f"{totals['segments']} segments on route {route}")
+            # no segment of a few bytes at a chunk edge: a file of k
+            # chunks scans as at most k segments
+            if totals.get("segments", 0) > segs:
+                raise AssertionError(
+                    f"query {label}: {totals['segments']} segments where "
+                    f"its files hold {segs} chunks")
             total_bytes = sum(p.stat().st_size for p in files)
             log(f"query {label!r} ({route}): {n_rec} lines identical to the "
                 f"oracle (checked in {time.perf_counter() - t0:.1f} s); job "
@@ -2237,6 +2341,11 @@ def main() -> int:
                 f"to end over {total_bytes} bytes; launches {launched}; "
                 f"on-card layout transposes {transposed} for "
                 f"{totals['segments']} segments [{card}]")
+            job_counts = res.metrics["counters"]
+            log(f"  records {job_counts.get('map_records', 0)} in "
+                f"{job_counts.get('map_batches', 0)} batches, reduce spills "
+                f"{job_counts.get('reduce_spills', 0)}, read wait "
+                f"{totals.get('read_wait_seconds', 0.0):.3f} s")
             log("  engine totals (seconds summed over worker threads): "
                 + json.dumps(totals, sort_keys=True))
             shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
@@ -2255,8 +2364,22 @@ def main() -> int:
             raise AssertionError("CLI output differs from the oracle")
         log(f"CLI grep volcano {words[0].name}: {len(want_lines)} lines "
             f"identical to the oracle ({time.perf_counter() - t0:.1f} s)")
+        for line in cli_runs([*words[:2], defeat[0]], WORK / "cli"):
+            log(line)
 
         # ------------------------------------------- timings (not counted)
+        # the match-dense receipt: 64 MiB, the CLI's wall and the host
+        # stages of the same job in its own process, its output held to
+        # the reference-format oracle
+        receipt = subprocess.run(
+            [sys.executable, "-m",
+             "distributed_grep_tpu_torch.benchmarks.dense_receipt", "--check"],
+            cwd=ROOT, capture_output=True, check=True, timeout=900)
+        receipt_line = receipt.stdout.decode().strip().splitlines()[-1]
+        if json.loads(receipt_line).get("check") != "ok":
+            raise AssertionError(f"dense receipt: {receipt_line}")
+        log(f"dense receipt [{card}]: {receipt_line}")
+
         def segment(path: Path):
             data = path.read_bytes()[: 64 << 20]
             lay = choose_layout(len(data), **grep_cuda._engine.layout_kwargs())

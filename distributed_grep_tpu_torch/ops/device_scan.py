@@ -1,6 +1,7 @@
 """The per-segment device pipeline of GrepEngine.scan.
 
-The document is cut into segments of ``engine.segment_bytes``.  For each:
+The document is cut into segments of ``engine.segment_bytes`` (a tail of
+at most an eighth of that joins the last full segment).  For each:
 
 1. prepare (one-slot feed thread): copy the segment into pinned host
    memory padded with '\\n' as (lanes, chunk) stripes (the document as
@@ -208,6 +209,12 @@ def scan_device(eng, data: bytes, progress=None):
              else full.length - 1 if full is not None else 0)
     seg = eng.segment_bytes
     seg_starts = list(range(0, n, seg))
+    # a short tail joins the segment before it: a segment of a few bytes
+    # still pays a whole prepare, launch and collect (a file's last
+    # scan_file chunk is a full block after the tail line carried into it)
+    if len(seg_starts) > 1 and n - seg_starts[-1] <= seg // 8:
+        seg_starts.pop()
+    seg_ends = seg_starts[1:] + [n]
     lock = threading.Lock()
     # scan-local models, swapped by the defeat guards: the Shift-And
     # filter is dropped, the NFA filter gives way to the exact model
@@ -228,7 +235,7 @@ def scan_device(eng, data: bytes, progress=None):
 
     def _prepare(i: int):
         seg_start = seg_starts[i]
-        seg_view = view[seg_start : seg_start + seg]
+        seg_view = view[seg_start : seg_ends[i]]
         lay = choose_layout(len(seg_view), **lay_kwargs)
         if not on_cuda:
             stripes = torch.from_numpy(padded_stripes(seg_view, lay))

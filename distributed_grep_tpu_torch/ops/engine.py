@@ -69,8 +69,14 @@ their ROADMAP.md item; there is no host scanner to fall back to.
 
 from __future__ import annotations
 
+import os
+import queue
 import re
+import stat
 import threading
+import time
+import weakref
+from concurrent.futures import Future
 from dataclasses import dataclass
 
 import numpy as np
@@ -112,7 +118,11 @@ from distributed_grep_tpu_torch.models.shift_and import (
 )
 from distributed_grep_tpu_torch.ops import host_match
 from distributed_grep_tpu_torch.ops.confirm_set import ConfirmSet
-from distributed_grep_tpu_torch.ops.lines import count_lines
+from distributed_grep_tpu_torch.ops.lines import (
+    count_lines,
+    line_spans,
+    newline_index,
+)
 from distributed_grep_tpu_torch.utils.device import resolve_device
 
 # Span path: above this many candidate lines per segment, the per-line host
@@ -124,6 +134,10 @@ SPAN_CONFIRM_LINE_LIMIT = 4096
 # 256 blocks of 256 threads, about two blocks per SM of an H100.
 DEFAULT_TARGET_LANES = 65536
 DEFAULT_SEGMENT_BYTES = 64 * 1024 * 1024
+
+# scan_file's chunk target when the caller names none: the larger of this
+# and the engine's segment size.
+FILE_CHUNK_BYTES = 1 << 26
 
 REGEX_SLICE = (
     "ROADMAP.md 'Slices still to port', item 11 (the reference's host "
@@ -359,6 +373,49 @@ def check_approx(pattern: str, k: int, ignore_case: bool = False) -> PatternPlan
     return PatternPlan("approx", "approx", approx=ApproxModel(base=base, k=k))
 
 
+class _Reader:
+    """A one-slot read-ahead thread: ``submit(fn, *args)`` runs fn on a
+    daemon thread and returns a Future.  One per scanning thread, kept for
+    the thread's life (``_thread_reader``), so a worker streaming many
+    files pays no thread start per file.  The scanning thread's local
+    holds the only reference: when that thread ends, this object goes and
+    its finalizer ends the read thread."""
+
+    def __init__(self):
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        threading.Thread(target=_serve_reads, args=(self._q,), daemon=True,
+                         name="dgrep-read").start()
+        weakref.finalize(self, self._q.put, None)
+
+    def submit(self, fn, *args) -> Future:
+        fut: Future = Future()
+        self._q.put((fut, fn, args))
+        return fut
+
+
+def _serve_reads(q: queue.SimpleQueue) -> None:
+    """The read thread's loop, until the None its _Reader's finalizer
+    sends."""
+    while (item := q.get()) is not None:
+        fut, fn, args = item
+        if not fut.set_running_or_notify_cancel():
+            continue
+        try:
+            fut.set_result(fn(*args))
+        except BaseException as e:  # noqa: BLE001 -- the future holds it
+            fut.set_exception(e)
+
+
+_readers = threading.local()
+
+
+def _thread_reader() -> _Reader:
+    r = getattr(_readers, "r", None)
+    if r is None:
+        r = _readers.r = _Reader()
+    return r
+
+
 def lines_match(
     model: ShiftAndModel, data, starts: np.ndarray, ends: np.ndarray
 ) -> np.ndarray:
@@ -530,10 +587,120 @@ class GrepEngine:
             return ScanResult(np.arange(1, n_lines + 1, dtype=np.int64),
                               n_lines, len(data))
         res = scan_device(self, data, progress=progress)
-        with self._copy_lock:
-            for k, v in self.stats.items():
-                self.totals[k] = self.totals.get(k, 0) + v
+        self._add_totals(self.stats)
         return res
+
+    def _add_totals(self, stats: dict) -> None:
+        with self._copy_lock:
+            for k, v in stats.items():
+                self.totals[k] = self.totals.get(k, 0) + v
+
+    def scan_file(self, path, chunk_bytes: int | None = None, emit=None,
+                  progress=None, stop_after_match: bool = False, stop=None,
+                  emit_chunk=None) -> ScanResult:
+        """Stream a file of any size through ``scan``: chunks of about
+        ``chunk_bytes`` (default the larger of the segment size and
+        FILE_CHUNK_BYTES) are cut after their last newline and the partial
+        tail line carries into the next chunk, so no line spans two scans
+        and host memory stays bounded by two chunks.  A line longer than a
+        chunk is accumulated whole.  Line numbers in the result are
+        file-global.  A regular file is read to the size it had when
+        opened; its last chunk is scanned whole, tail line included.
+
+        A one-slot reader thread reads chunk i+1 while chunk i scans; the
+        stall left is ``stats["read_wait_seconds"]`` (also summed into
+        ``totals``).
+
+        ``emit(line_no, line_bytes)`` is called per matched line while its
+        chunk is in memory.  ``emit_chunk(lines_before, buf,
+        matched_lines, nl_index)`` is the columnar alternative, once per
+        chunk with matches: chunk-local 1-based line numbers and the
+        chunk's newline index (the scan's own, ``ScanResult.nl_index``,
+        where it has one).
+
+        ``stop_after_match`` ends the stream after the first chunk with a
+        matched line (grep -q/-l: presence, not a count; the result then
+        holds only the lines seen).  ``stop()``, checked after each
+        chunk's emits, ends it when it returns True (callers whose emit
+        filters further decide presence themselves)."""
+        chunk_target = chunk_bytes or max(self.segment_bytes,
+                                          FILE_CHUNK_BYTES)
+        matched: list[np.ndarray] = []
+        n_matches = total = lines_before = 0
+        read_wait = 0.0
+        totals: dict = {}
+
+        def scan_piece(buf: bytes) -> None:
+            nonlocal n_matches, total, lines_before
+            res = self.scan(buf, progress=progress)
+            for k, v in self.stats.items():
+                totals[k] = totals.get(k, 0) + v
+            total += len(buf)
+            n_matches += res.n_matches
+            nl = res.nl_index
+            if res.matched_lines.size:
+                if (emit is not None or emit_chunk is not None) and nl is None:
+                    nl = newline_index(buf)
+                if emit is not None:
+                    starts, ends = line_spans(res.matched_lines, nl, len(buf))
+                    for ln, s_, e_ in zip(res.matched_lines.tolist(),
+                                          starts.tolist(), ends.tolist()):
+                        emit(lines_before + ln, buf[s_:e_])
+                elif emit_chunk is not None:
+                    emit_chunk(lines_before, buf, res.matched_lines, nl)
+                matched.append(res.matched_lines + lines_before)
+            lines_before += (count_lines(buf) if nl is None else
+                             nl.size + (0 if buf.endswith(b"\n") else 1))
+            if progress is not None:
+                progress()
+
+        pending: Future | None = None
+        carry = b""
+        with open(path, "rb") as f:
+            st = os.fstat(f.fileno())
+            size = st.st_size if stat.S_ISREG(st.st_mode) else None
+            pos = 0
+            try:
+                t0 = time.perf_counter()
+                block = f.read(chunk_target)
+                read_wait += time.perf_counter() - t0
+                while True:
+                    # a regular file ends at its size at open: its last
+                    # block takes the carried line and its own tail whole
+                    pos += len(block)
+                    more = len(block) == chunk_target and (
+                        size is None or pos < size)
+                    if more:
+                        pending = _thread_reader().submit(f.read,
+                                                          chunk_target)
+                    buf = carry + block
+                    if more:
+                        cut = buf.rfind(b"\n")  # -1: the line grows on
+                        carry, buf = buf[cut + 1:], buf[: cut + 1]
+                    if buf:
+                        scan_piece(buf)
+                        if (stop_after_match and n_matches) or (
+                                stop is not None and stop()):
+                            break
+                    if not more:
+                        break
+                    t0 = time.perf_counter()
+                    block = pending.result() if pending is not None else b""
+                    pending = None
+                    read_wait += time.perf_counter() - t0
+            finally:
+                # the read in flight must not outlive the file handle
+                if pending is not None and not pending.cancel():
+                    try:
+                        pending.result()
+                    except Exception:  # noqa: BLE001 -- the handle closes next
+                        pass
+        totals["read_wait_seconds"] = read_wait
+        self._add_totals({"read_wait_seconds": read_wait})
+        self.stats = totals
+        ml = (np.concatenate(matched) if matched
+              else np.zeros(0, dtype=np.int64))
+        return ScanResult(ml, n_matches, total)
 
 
 __all__ = [
@@ -547,5 +714,6 @@ __all__ = [
     "check_approx",
     "check_pattern",
     "check_patterns",
+    "FILE_CHUNK_BYTES",
     "lines_match",
 ]

@@ -20,12 +20,11 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 from distributed_grep_tpu_torch.runtime.scheduler import Scheduler
-from distributed_grep_tpu_torch.runtime.worker import (
+from distributed_grep_tpu_torch.runtime.columnar import (
     GREP_KEY_RE,
-    WorkerKilled,
-    WorkerLoop,
     grep_key_sort,
 )
+from distributed_grep_tpu_torch.runtime.worker import WorkerKilled, WorkerLoop
 from distributed_grep_tpu_torch.utils.config import JobConfig
 from distributed_grep_tpu_torch.utils.device import resolve_device
 from distributed_grep_tpu_torch.utils.io import WorkDir

@@ -116,6 +116,10 @@ class Scheduler:
         with self._cv:
             self.seconds[stage] += seconds
 
+    def add_count(self, name: str, n: int) -> None:
+        with self._cv:
+            self.counters[name] += n
+
     def map_finished(self, task_id: int, parts: list[int]) -> bool:
         """Register a committed map attempt; False if the task was already
         completed by another attempt (first commit wins)."""

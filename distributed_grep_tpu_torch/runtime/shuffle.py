@@ -4,7 +4,8 @@ Partitioning is FNV-32a(key) & 0x7FFFFFFF % n_reduce, bit-compatible with
 the reference's ihash, so a record lands in the same reduce partition as
 it does in the reference package.  Intermediate files are JSON lines of
 [key, value] records, encoded utf-8 with surrogateescape (keys embed
-filenames, which on POSIX may hold non-UTF-8 bytes).
+filenames, which on POSIX may hold non-UTF-8 bytes), with the grep app's
+columnar batches as binary blocks between them.
 """
 
 from __future__ import annotations
@@ -41,26 +42,77 @@ def partition_many(keys: list[str], n_reduce: int) -> np.ndarray:
     return ((h & np.uint64(0x7FFFFFFF)) % np.uint64(n_reduce)).astype(np.int64)
 
 
-def bucketize(records: list[KeyValue], n_reduce: int) -> dict[int, list]:
-    """Single-pass partition of map output into reduce buckets, records
-    kept in emit order within each bucket."""
-    parts = partition_many([r.key for r in records], n_reduce)
+def bucketize(records: list, n_reduce: int) -> dict[int, list]:
+    """Single-pass partition of map output into reduce buckets, records kept
+    in emit order within each bucket.  A record is a KeyValue or a columnar
+    ``LineBatch`` (runtime/columnar.py), which is split into one sub-batch
+    per partition with the same record-to-partition mapping as its
+    KeyValues would get."""
+    from distributed_grep_tpu_torch.runtime.columnar import LineBatch
+
+    kvs = [rec for rec in records if not isinstance(rec, LineBatch)]
+    parts = iter(partition_many([r.key for r in kvs], n_reduce).tolist())
     buckets: dict[int, list] = {}
-    for r, rec in zip(parts.tolist(), records):
-        buckets.setdefault(r, []).append(rec)
+    for rec in records:
+        if isinstance(rec, LineBatch):
+            for r, sub in rec.split_by_partition(n_reduce).items():
+                buckets.setdefault(r, []).append(sub)
+        else:
+            buckets.setdefault(next(parts), []).append(rec)
     return buckets
 
 
-def encode_records(records: list[KeyValue]) -> bytes:
-    return "".join(
-        json.dumps([rec.key, rec.value], ensure_ascii=False) + "\n"
-        for rec in records
-    ).encode("utf-8", "surrogateescape")
+def encode_records(records: list) -> bytes:
+    """JSON lines of [key, value], with each LineBatch as a binary block
+    between them (runtime/columnar.encode_batch).  A list without batches
+    encodes as plain JSON lines."""
+    from distributed_grep_tpu_torch.runtime import columnar
+
+    parts: list[bytes] = []
+    jsonl: list[str] = []
+
+    def flush_jsonl() -> None:
+        if jsonl:
+            parts.append("".join(jsonl).encode("utf-8", "surrogateescape"))
+            jsonl.clear()
+
+    for rec in records:
+        if isinstance(rec, columnar.LineBatch):
+            flush_jsonl()
+            parts.append(columnar.encode_batch(rec))
+        else:
+            jsonl.append(json.dumps([rec.key, rec.value], ensure_ascii=False)
+                         + "\n")
+    flush_jsonl()
+    return b"".join(parts)
 
 
-def decode_records(data: bytes) -> list[KeyValue]:
-    """Inverse of encode_records.  Splits on '\\n' only: JSON escapes '\\n'
-    inside strings, while other line separators stay literal."""
+def decode_records(data: bytes) -> list:
+    """Inverse of encode_records: a KeyValue per JSON line, a LineBatch per
+    block (kept columnar).  A marker starts a block only at a line start: a
+    matched line may itself hold the marker text, which JSON embeds as is,
+    but never a raw newline."""
+    from distributed_grep_tpu_torch.runtime import columnar
+
+    if columnar.MARKER not in data:
+        return _decode_jsonl(data)
+    out: list = []
+    pos, n = 0, len(data)
+    while pos < n:
+        if data.startswith(columnar.MARKER, pos):
+            batch, pos = columnar.decode_batch_at(data, pos)
+            out.append(batch)
+            continue
+        nxt = data.find(b"\n" + columnar.MARKER, pos)
+        end = n if nxt < 0 else nxt + 1
+        out.extend(_decode_jsonl(data[pos:end]))
+        pos = end
+    return out
+
+
+def _decode_jsonl(data: bytes) -> list[KeyValue]:
+    """Splits on '\\n' only: JSON escapes '\\n' inside strings, while
+    other line separators stay literal."""
     out: list[KeyValue] = []
     for line in data.decode("utf-8", "surrogateescape").split("\n"):
         if line:

@@ -1,10 +1,17 @@
 """Worker loop: ask for a task, run it, commit it, report it.
 
-Map: run the application's map over one input file, bucketize the records
-by FNV-32a partition, commit one intermediate file per partition (atomic
-rename), report the partitions.  Reduce: read the partition's files,
-group by key (identity-reduce apps skip grouping and sort records by
-(file, line)), commit ``mr-out-<r>`` atomically as ``key<TAB>value`` lines.
+Map: run the application over one input file -- ``map_path_fn(filename,
+path)`` when the app defines it (it reads the file itself, in chunks: the
+grep app streams it through ``GrepEngine.scan_file``), else
+``map_fn(filename, contents)`` -- bucketize the records by FNV-32a
+partition (columnar batches split by partition, runtime/columnar.py),
+commit one intermediate file per partition (atomic rename), report the
+partitions.  Reduce: read the partition's files into a bounded-memory
+sink that spills sorted runs into the work dir's ``spill/``: identity-
+reduce apps collate in (file, line) order (``IdentityCollator``, batches
+stay columnar), every other app groups by key (``ExternalReducer``,
+``reduce_stream_fn`` preferred to ``reduce_fn``); commit ``mr-out-<r>``
+atomically as ``key<TAB>value`` lines.
 
 ``fault_hooks`` maps a point name (so far only "before_map_commit") to a
 callable; raising WorkerKilled from it simulates a crash at that point.
@@ -12,27 +19,18 @@ callable; raising WorkerKilled from it simulates a crash at that point.
 
 from __future__ import annotations
 
-import itertools
-import re
 import time
-from pathlib import Path
 from typing import Callable
 
 from distributed_grep_tpu_torch.runtime import shuffle
+from distributed_grep_tpu_torch.runtime.columnar import IdentityCollator, LineBatch
+from distributed_grep_tpu_torch.runtime.extsort import ExternalReducer
 from distributed_grep_tpu_torch.runtime.scheduler import Assignment, Scheduler
 from distributed_grep_tpu_torch.runtime.types import TaskType
 from distributed_grep_tpu_torch.utils.io import WorkDir
 
-# The grep applications' key shape, end-anchored so values containing
-# " (line number #" can't confuse parsing.
-GREP_KEY_RE = re.compile(r"^(.*) \(line number #(\d+)\)$")
-
-
-def grep_key_sort(item: tuple[str, str]):
-    """Sort key for (key, value) items: grep-style keys order by (file,
-    line number); anything else lexicographically."""
-    m = GREP_KEY_RE.match(item[0])
-    return (m.group(1), int(m.group(2))) if m else (item[0], 0)
+# Each reduce sink holds this much before it spills a sorted run.
+REDUCE_MEMORY_BYTES = 128 << 20
 
 
 class WorkerKilled(Exception):
@@ -46,6 +44,11 @@ class WorkerLoop:
         self.workdir = workdir
         self.app = app
         self.fault_hooks = fault_hooks or {}
+
+    def _configure(self, a: Assignment) -> None:
+        configure = getattr(self.app, "configure", None)
+        if configure is not None:
+            configure(**a.app_options)
 
     def _fault(self, point: str) -> None:
         hook = self.fault_hooks.get(point)
@@ -70,47 +73,62 @@ class WorkerLoop:
         return progress
 
     def _map(self, a: Assignment) -> None:
-        self.app.configure(**a.app_options)
+        self._configure(a)
         set_progress = getattr(self.app, "set_progress", None)
         if set_progress is not None:
             set_progress(self._progress(TaskType.MAP, a.task_id))
+        map_path_fn = getattr(self.app, "map_path_fn", None)
         t0 = time.perf_counter()
         try:
-            contents = Path(a.filename).read_bytes()
-            t1 = time.perf_counter()
-            records = self.app.map_fn(a.filename, contents)
+            if map_path_fn is not None:
+                t1 = t0  # the app reads the file itself, inside map_fn
+                records = map_path_fn(a.filename, a.filename)
+            else:
+                with open(a.filename, "rb") as f:
+                    contents = f.read()
+                t1 = time.perf_counter()
+                records = self.app.map_fn(a.filename, contents)
         finally:
             if set_progress is not None:
                 set_progress(None)
         t2 = time.perf_counter()
         buckets = shuffle.bucketize(records, a.n_reduce)
         self._fault("before_map_commit")
-        for r, kvs in sorted(buckets.items()):
+        for r, recs in sorted(buckets.items()):
             self.workdir.write_intermediate(f"mr-{a.task_id}-{r}",
-                                            shuffle.encode_records(kvs))
+                                            shuffle.encode_records(recs))
         self.scheduler.add_seconds("map_read", t1 - t0)
         self.scheduler.add_seconds("map_fn", t2 - t1)
         self.scheduler.add_seconds("map_shuffle", time.perf_counter() - t2)
-        self.scheduler.map_finished(a.task_id, sorted(buckets))
+        if self.scheduler.map_finished(a.task_id, sorted(buckets)):
+            batches = [rec for rec in records if isinstance(rec, LineBatch)]
+            self.scheduler.add_count("map_batches", len(batches))
+            self.scheduler.add_count("map_records", len(records) - len(batches)
+                                     + sum(len(b) for b in batches))
 
     def _reduce(self, a: Assignment) -> None:
-        self.app.configure(**a.app_options)
+        self._configure(a)
         t0 = time.perf_counter()
-        records = []
-        for name in a.files:
-            records.extend(shuffle.decode_records(
-                self.workdir.read_intermediate(name)))
-            self.scheduler.heartbeat(TaskType.REDUCE, a.task_id)
+        spill_dir = str(self.workdir.spill_dir())
         if getattr(self.app, "reduce_is_identity", False):
-            records.sort(key=grep_key_sort)
-            out = [f"{k}\t{v}\n" for k, v in records]
+            sink = IdentityCollator(REDUCE_MEMORY_BYTES, spill_dir)
+            blocks = sink.iter_output_blocks
         else:
-            records.sort(key=lambda kv: kv.key)
-            out = [
-                f"{k}\t{self.app.reduce_fn(k, [kv.value for kv in group])}\n"
-                for k, group in itertools.groupby(records, key=lambda kv: kv.key)
-            ]
-        data = "".join(out).encode("utf-8", "surrogateescape")
-        self.workdir.write_output(a.task_id, data)
+            sink = ExternalReducer(REDUCE_MEMORY_BYTES, spill_dir)
+            stream_fn = getattr(self.app, "reduce_stream_fn", None)
+
+            def blocks():
+                for k, v in sink.reduce(self.app.reduce_fn, stream_fn):
+                    yield f"{k}\t{v}\n"
+        try:
+            for name in a.files:
+                sink.add_many(shuffle.decode_records(
+                    self.workdir.read_intermediate(name)))
+                self.scheduler.heartbeat(TaskType.REDUCE, a.task_id)
+            self.workdir.write_output_blocks(a.task_id, blocks())
+            spills = sink.spill_count
+        finally:
+            sink.close()
         self.scheduler.add_seconds("reduce", time.perf_counter() - t0)
-        self.scheduler.reduce_finished(a.task_id)
+        if self.scheduler.reduce_finished(a.task_id):
+            self.scheduler.add_count("reduce_spills", spills)

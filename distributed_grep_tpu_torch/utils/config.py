@@ -16,7 +16,7 @@ class JobConfig:
     n_reduce: int = 10
     # An IN_PROGRESS task silent for longer than this is re-issued.
     task_timeout_s: float = 10.0
-    # Job state root (intermediate/ and out/); "" = a fresh temp dir.
+    # Job state root (intermediate/, out/, spill/); "" = a fresh temp dir.
     work_dir: str = ""
 
     def __post_init__(self) -> None:

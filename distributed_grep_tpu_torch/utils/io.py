@@ -2,6 +2,7 @@
 
     intermediate/   mr-<map_task>-<r> shuffle files
     out/            mr-out-<r> final outputs
+    spill/          the reduce sinks' sorted runs (removed as each ends)
 
 A re-executed task overwrites its files idempotently: every write lands
 in a temp file in the same directory and is renamed over the target, so
@@ -28,11 +29,16 @@ class WorkDir:
         return self.root / "out" / f"mr-out-{reduce_task}"
 
     @staticmethod
-    def _atomic_write(path: Path, data: bytes) -> None:
+    def _atomic_write(path: Path, blocks) -> None:
+        """Write the pieces ``blocks`` (bytes as they are, str encoded
+        utf-8/surrogateescape) to a temp file, then rename it over
+        ``path``."""
         fd, tmp = tempfile.mkstemp(prefix=f".{path.name}.", dir=path.parent)
         try:
             with os.fdopen(fd, "wb") as f:
-                f.write(data)
+                for b in blocks:
+                    f.write(b if isinstance(b, bytes)
+                            else b.encode("utf-8", "surrogateescape"))
             os.replace(tmp, path)
         except BaseException:
             if os.path.exists(tmp):
@@ -40,13 +46,19 @@ class WorkDir:
             raise
 
     def write_intermediate(self, name: str, data: bytes) -> None:
-        self._atomic_write(self.intermediate_path(name), data)
+        self._atomic_write(self.intermediate_path(name), [data])
 
     def read_intermediate(self, name: str) -> bytes:
         return self.intermediate_path(name).read_bytes()
 
-    def write_output(self, reduce_task: int, data: bytes) -> None:
-        self._atomic_write(self.output_path(reduce_task), data)
+    def write_output_blocks(self, reduce_task: int, blocks) -> None:
+        """Commit ``mr-out-<reduce_task>`` streamed from its pieces."""
+        self._atomic_write(self.output_path(reduce_task), blocks)
+
+    def spill_dir(self) -> Path:
+        d = self.root / "spill"
+        d.mkdir(exist_ok=True)
+        return d
 
     def clear(self) -> None:
         """Remove all job state (fresh-job reset of a reused work dir)."""

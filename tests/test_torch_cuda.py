@@ -100,6 +100,35 @@ def test_job_on_card_byte_identical_to_cpu(card, tmp_path):
     assert any(outs["cuda"].values())
 
 
+@pytest.mark.parametrize("options", [{"word_regexp": True},
+                                     {"count_only": True, "invert": True}],
+                         ids=["-w", "-c -v"])
+def test_option_job_on_card_byte_identical_to_cpu(card, tmp_path, monkeypatch,
+                                                  options):
+    """grep -w and -c -v on the card: files streamed in several chunks
+    (scan_file), the -w confirm on the host, the -v complement."""
+    from distributed_grep_tpu_torch.ops import engine as engine_mod
+
+    monkeypatch.setattr(engine_mod, "FILE_CHUNK_BYTES", 1 << 19)
+    files = []
+    for i in range(3):
+        p = tmp_path / f"f{i}.txt"
+        p.write_bytes(_text(40 + i, 1 << 20).tobytes())
+        files.append(str(p))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        res = run_job(JobConfig(
+            input_files=files,
+            app_options={"pattern": "volcano", **options,
+                         "target_lanes": 4096, "min_chunk": 32,
+                         "segment_bytes": 1 << 18},
+            work_dir=str(tmp_path / device)), n_workers=2, device=device)
+        outs[device] = {Path(p).name: Path(p).read_bytes()
+                        for p in res.output_files}
+    assert outs["cuda"] == outs["cpu"]
+    assert any(outs["cuda"].values())
+
+
 NFA_MODELS = [
     ("(volcano|hallo)", False),  # 1 word
     (r"get /[a-z0-9/.-]{4,24}\.gif", True),  # 2 words, 21 specials

@@ -173,15 +173,6 @@ def test_entry_points_raise_without_cuda(tmp_path, corpus, monkeypatch):
     grep_cuda.configure(pattern="volcano", device="cpu")
 
 
-@pytest.mark.parametrize("opt", [
-    {"presence_only": True}, {"line_regexp": True}, {"invert": True},
-    {"word_regexp": True}, {"count_only": True},
-])
-def test_unported_app_options_raise(opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        grep_cuda.configure(pattern="volcano", device="cpu", **opt)
-
-
 @pytest.mark.parametrize("opt,item", [
     ({"devices": [0]}, "item 9"), ({"devices": "all"}, "item 9"),
     ({"mesh_shape": [2]}, "item 9"), ({"mesh_axes": ("data",)}, "item 9"),
