@@ -9,7 +9,11 @@ Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          spills per kernel instance, SASS counts (the narrow probe's per
          lane and byte at each width); the one-hot product must hold
          warpgroup MMAs (IGMMA), no IMMA, and no ptxas warning that its
-         wgmma were serialized.
+         wgmma were serialized.  Beside the build, on an emptied
+         ``_build/``, one CLI run (``-c 'volcano$' --metrics``) builds the
+         NFA kernel inside its map task: its count must equal GNU grep's,
+         its task must declare the build's grace and none may be
+         re-issued (``map_retries`` 0).
 Phase 2  every kernel against its plain PyTorch version on the same inputs
          (bit-identical words: tolerance 0), at the main path's shapes and
          at small ones: the Shift-And kernel (both scan modes, five
@@ -92,9 +96,19 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          spills and the streaming reader's wait; its files' oracles run
          side by side.  Then the CLI: on one file, and with -l, -L, -q, -c
          and -m 5 over two word files and the defeat file against GNU
-         grep's output and exit codes; and the match-dense receipt
-         (benchmarks/dense_receipt.py --check, 64 MiB, in its own
-         process).  The launch counts of all kernels are
+         grep's output and exit codes; then the display options, the
+         walk and standard input, each a CLI run with --metrics against
+         ``LC_ALL=C grep -a`` with the matching flags, parsed into tuples,
+         its route's kernel launched in its process: -o -i volcano, -C 2
+         volcano ('--' separators included) and -b -w volcano over two
+         word files; -r --include '*.txt' -F -f config 3 over a tree of
+         2,000 files of 4-64 KiB cut from a word file (one in ten .log);
+         ``cat FILE | grep -c volcano -`` and ``... volcano -`` over a word
+         file (the stdin stream), the same count on the file, and -q over
+         a live pipe that must return with the pipe open; and the
+         match-dense receipt (benchmarks/dense_receipt.py --check, 64 MiB,
+         in its own process: its CLI wall, and in the CLI its job's and
+         its print's seconds).  The launch counts of all kernels are
          zeroed just before the queries and read just after; each query
          also logs its on-card layout transposes (ops/device_scan.py
          ``transposes``): 0 on the Shift-And, approx, pairset and SWAR
@@ -127,6 +141,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -289,8 +304,6 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
 def template_label(func: str) -> str:
     """The integer and bool template arguments of a mangled kernel name:
     'nfa_kernel<2, 1>' for _Z..10nfa_kernelILi2ELb1EEv..."""
-    import re
-
     m = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", func)
     if not m:  # not a template: its name alone
         plain = re.search(r"\d([a-z][a-z_]*_kernel)E", func)
@@ -630,6 +643,256 @@ def cli_runs(files: list[Path], work: Path) -> list[str]:
                      f"{len(port.stdout.splitlines())} output lines, equal to "
                      f"GNU grep's ({wall:.1f} s)")
     return lines
+
+
+# ------------------------------------------------- the CLI's display runs
+def cli_metrics(label: str, rc: int, stderr: bytes) -> dict:
+    """The JSON object a CLI run with --metrics wrote to stderr; raises
+    when the run failed (exit status above 1) or wrote none."""
+    err = stderr.decode(errors="replace")
+    if rc > 1 or "{" not in err:
+        raise AssertionError(f"CLI {label}: exit {rc}, stderr {err[-600:]!r}")
+    return json.JSONDecoder().raw_decode(err[err.index("{"):])[0]
+
+
+def port_cli(args: list, stdin=None, timeout: int = 900):
+    """One port CLI run with --metrics: (completed process, wall seconds,
+    its metrics: the job's, or the stdin stream's)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
+         *map(str, args), "--metrics"],
+        cwd=ROOT, capture_output=True, stdin=stdin, timeout=timeout)
+    wall = time.perf_counter() - t0
+    return r, wall, cli_metrics(" ".join(map(str, args)), r.returncode,
+                                r.stderr)
+
+
+def gnu(args: list, stdin=None) -> subprocess.CompletedProcess:
+    """``LC_ALL=C grep -a ARGS``, the oracle of every CLI run."""
+    r = subprocess.run(["grep", "-a", *map(str, args)], capture_output=True,
+                       stdin=stdin, timeout=900,
+                       env={**os.environ, "LC_ALL": "C"})
+    if r.returncode > 1:
+        raise RuntimeError(f"grep oracle failed: {r.stderr[:300]!r}")
+    return r
+
+
+PORT_LINE = re.compile(rb"^(.*) \(line number #(\d+)\)(-?)"
+                       rb"(?: \(byte #(\d+)\)-?)? (.*)$")
+
+
+def port_tuples(out: bytes) -> list:
+    """(path, line, context?, byte offset or None, text) of each display
+    line of the port CLI; '--' separators as themselves."""
+    rows = []
+    for ln in out.splitlines():
+        if ln == b"--":
+            rows.append(b"--")
+            continue
+        m = PORT_LINE.match(ln)
+        if m is None:
+            raise AssertionError(f"unparseable CLI line {ln[:200]!r}")
+        rows.append((m.group(1), int(m.group(2)), m.group(3) == b"-",
+                     None if m.group(4) is None else int(m.group(4)),
+                     m.group(5)))
+    return rows
+
+
+def gnu_tuples(out: bytes, paths: list, boff: bool = False,
+               label: bytes | None = None) -> list:
+    """GNU grep's -n [-b] lines, ``path:N:[K:]text`` (``-`` in place of
+    ``:`` on context lines), as ``port_tuples`` gives them; a single
+    input without a path prefix is shown as ``label``."""
+    heads = [str(p).encode() for p in paths]
+    rows = []
+    for ln in out.splitlines():
+        if ln == b"--":
+            rows.append(b"--")
+            continue
+        path = label
+        if label is None:
+            path = next(h for h in heads if ln.startswith(h))
+            ln = ln[len(path) + 1:]
+        m = re.match(rb"^(\d+)([:-])(?:(\d+)[:-])?(.*)$" if boff
+                     else rb"^(\d+)([:-])()(.*)$", ln, re.S)
+        rows.append((path, int(m.group(1)), m.group(2) == b"-",
+                     int(m.group(3)) if boff else None, m.group(4)))
+    return rows
+
+
+def make_small_tree(source: Path, root: Path, n_files: int = 2000,
+                    seed: int = 0) -> int:
+    """``n_files`` files of 4-64 KiB cut at newlines from ``source``, in
+    20 directories of 2 levels; one in ten is ``.log`` (left out by
+    --include '*.txt').  Returns the bytes written."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    data = source.read_bytes()[: 160 << 20]
+    pos = total = 0
+    for i in range(n_files):
+        size = int(rng.integers(4 << 10, 64 << 10))
+        end = data.find(b"\n", pos + size) + 1
+        if end <= 0 or end > len(data):
+            pos, end = 0, data.find(b"\n", size) + 1
+        d = root / f"d{i % 20:02d}" / f"s{i % 3}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"f{i:04d}.{'log' if i % 10 == 9 else 'txt'}").write_bytes(
+            data[pos:end])
+        total += end - pos
+        pos = end
+    return total
+
+
+def cold_build_cli(path: Path):
+    """Start a CLI run over ``path`` on the card whose route (the NFA
+    kernel) has no build yet: the task builds it with its grace declared.
+    Returns the process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "distributed_grep_tpu_torch", "grep", "-c",
+         "volcano$", str(path), "--metrics"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def check_cold_build(proc, path: Path) -> str:
+    """The cold-build run's result: its count equals GNU grep's and no
+    map task was re-issued while nvcc ran."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    metrics = cli_metrics("on an empty _build/", proc.returncode, err)
+    counters = metrics["counters"]
+    want = gnu(["-c", "-E", "volcano$", path]).stdout
+    if (out != want or counters.get("map_retries", 0) != 0
+            or counters.get("grace_declared", 0) < 1
+            or metrics["launches"]["nfa"] < 1):
+        raise AssertionError(f"cold-build CLI: stdout {out!r} vs {want!r}, "
+                             f"counters {counters}, launches "
+                             f"{metrics['launches']}")
+    return (f"CLI on an empty _build/ (-c 'volcano$', the NFA kernel built "
+            f"inside the map task): map_retries 0, grace_declared "
+            f"{counters['grace_declared']}, map_fn "
+            f"{metrics['seconds']['map_fn']:.2f} s, count equal to GNU "
+            f"grep's")
+
+
+def cli_display_runs(words: list[Path], stdin_file: Path, tree: Path,
+                     pats3: Path) -> list[str]:
+    """The CLI's display options, the walk and standard input on the card,
+    each against LC_ALL=C grep -a with the matching flags, parsed into
+    tuples; each run's kernel launches (from its --metrics, a process of
+    its own: the counts start at 0) must include its route's kernel.
+    Returns a log line a run."""
+    log_lines = []
+    mib = [p.stat().st_size >> 20 for p in words[:2]]
+    both = f"{mib[0]} + {mib[1]} MiB"
+
+    def checked(label, r, wall, metrics, kernel, got, want, gnu_rc):
+        if got != want or r.returncode != gnu_rc:
+            raise AssertionError(
+                f"CLI {label}: exit {r.returncode} vs GNU {gnu_rc}; "
+                f"{len(got)} vs {len(want)} rows; first difference "
+                f"{next((g, w) for g, w in zip(got + [None], want + [None]) if g != w)!r}")
+        if metrics["launches"][kernel] < 1:
+            raise AssertionError(f"CLI {label}: no {kernel} launch "
+                                 f"({metrics['launches']})")
+        c = metrics["counters"]
+        secs = metrics.get("seconds", {})
+        log_lines.append(
+            f"CLI {label}: exit {r.returncode}, {len(got)} rows equal to "
+            f"GNU grep's, wall {wall:.3f} s"
+            + (f" (job {secs['cli_job']:.3f} s, print "
+               f"{secs['cli_print']:.3f} s)" if "cli_job" in secs else "")
+            + f", launches {kernel} {metrics['launches'][kernel]}, "
+            + ", ".join(f"{k} {v}" for k, v in sorted(c.items())
+                        if k in ("map_completed", "map_retries", "scans",
+                                 "bytes", "selected_lines"))
+            + (f", segments {metrics['engine']['segments']}"
+               if "engine" in metrics else ""))
+
+    two = words[:2]
+    r, wall, m = port_cli(["-o", "-i", "volcano", *two])
+    g = gnu(["-o", "-n", "-i", "volcano", *two])
+    checked(f"-o -i volcano ({both})", r, wall, m, "shift_and",
+            [(p, n, t) for p, n, _c, _b, t in port_tuples(r.stdout)],
+            [(p, n, t) for p, n, _c, _b, t in gnu_tuples(g.stdout, two)],
+            g.returncode)
+    r, wall, m = port_cli(["-C", "2", "volcano", *two])
+    g = gnu(["-n", "-C", "2", "volcano", *two])
+    checked(f"-C 2 volcano ({both}, '--' separators)", r, wall, m,
+            "shift_and", port_tuples(r.stdout), gnu_tuples(g.stdout, two),
+            g.returncode)
+    r, wall, m = port_cli(["-b", "-w", "volcano", *two])
+    g = gnu(["-b", "-n", "-w", "volcano", *two])
+    checked(f"-b -w volcano ({both})", r, wall, m, "shift_and",
+            port_tuples(r.stdout), gnu_tuples(g.stdout, two, boff=True),
+            g.returncode)
+    n_files = sum(1 for p in tree.rglob("*") if p.is_file())
+    r, wall, m = port_cli(["-r", "--include", "*.txt", "-F", "-f", pats3,
+                           tree])
+    g = gnu(["-r", "-n", "--include", "*.txt", "-F", "-f", pats3, tree])
+    checked(f"-r --include '*.txt' -F -f config3 ({n_files} files)", r,
+            wall, m, "fdr",
+            sorted((p, n) for p, n, *_ in port_tuples(r.stdout)),
+            sorted((p, n) for p, n, *_ in gnu_tuples(
+                g.stdout, sorted({ln.split(b":")[0].decode()
+                                  for ln in g.stdout.splitlines()}))),
+            g.returncode)
+    # standard input: the stream, through a pipe from cat
+    for args, label in ((["-c", "volcano", "-"], "cat FILE | -c volcano -"),
+                        (["volcano", "-"], "cat FILE | volcano -")):
+        cat = subprocess.Popen(["cat", str(stdin_file)],
+                               stdout=subprocess.PIPE)
+        try:
+            r, wall, m = port_cli(args, stdin=cat.stdout)
+        finally:
+            cat.stdout.close()
+            cat.wait()
+        with open(stdin_file, "rb") as f:
+            g = gnu(["-n", *args], stdin=f)
+        if "-c" in args:
+            got, want = [r.stdout], [g.stdout]
+        else:
+            got = port_tuples(r.stdout)
+            want = gnu_tuples(g.stdout, [], label=b"(standard input)")
+        checked(f"{label} ({stdin_file.stat().st_size >> 20} MiB, the "
+                f"stream)", r, wall, m, "shift_and",
+                got, want, g.returncode)
+    # the same count on the file, for its wall beside the stream's
+    r, wall, m = port_cli(["-c", "volcano", stdin_file])
+    g = gnu(["-c", "volcano", stdin_file])
+    checked("-c volcano FILE (the same file as a file)", r, wall, m,
+            "shift_and", [r.stdout], [g.stdout], g.returncode)
+    # -q over a live pipe: exits at the first selected line, the pipe
+    # left open
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_grep_tpu_torch", "grep", "-q",
+         "volcano", "--metrics"], cwd=ROOT, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        t0 = time.perf_counter()
+        proc.stdin.write(b"ash\nthe volcano erupts\n")
+        proc.stdin.flush()
+        rc = proc.wait(timeout=120)
+        wall = time.perf_counter() - t0
+        out, err = proc.stdout.read(), proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.stdin.close()
+        proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+    checked("-q volcano on a live pipe, left open (from the write, "
+            "interpreter start included)",
+            subprocess.CompletedProcess(proc.args, rc, out, err), wall,
+            cli_metrics("-q on a live pipe", rc, err), "shift_and", [out],
+            [b""], 0)
+    return log_lines
 
 
 def symbol_masks(pattern: str, ic: bool):
@@ -2011,17 +2274,33 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    # a CLI run on an empty _build/ builds its route's library (the NFA
+    # kernel's, the longest build) inside its map task, beside the build
+    # of the others
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    cold = WORK / "cold" / "words.txt"
+    cold.parent.mkdir(parents=True, exist_ok=True)
+    cold.write_bytes(b"".join(b"line %d of the volcano\nash %d\n" % (i, i)
+                              for i in range(20000)))
+    cold_cli = cold_build_cli(cold)
+    try:
+        _build.build_all(tuple(n for n in _build.SOURCES if n != "nfa"))
+        cold_line = check_cold_build(cold_cli, cold)
+    finally:
+        if cold_cli.poll() is None:
+            cold_cli.kill()
+            cold_cli.wait()
+        shutil.rmtree(cold.parent, ignore_errors=True)
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(_build.SOURCES)}, one nvcc each, in parallel)")
+    log(cold_line)
     for name in _build.SOURCES:
         for func, usage in ptxas_usage(_build.saved_log(name)):
             log(f"  ptxas {name} {template_label(func)}: {usage}")
     # steps unrolled in a kernel's loop body: the ring kernels step a whole
     # box (128 bytes; SWAR kBoxBytes packed steps of four bytes), the
     # others one 32-byte word
-    import re
-
     swar_box = int(re.search(r"constexpr int kBoxBytes = (\d+);", (
         _build.CSRC / "shift_and_swar.cu").read_text()).group(1))
     body = {"shift_and": (128, 1), "pairset": (128, 1),
@@ -2366,6 +2645,13 @@ def main() -> int:
             f"identical to the oracle ({time.perf_counter() - t0:.1f} s)")
         for line in cli_runs([*words[:2], defeat[0]], WORK / "cli"):
             log(line)
+        t0 = time.perf_counter()
+        tree_bytes = make_small_tree(words[1], WORK / "tree")
+        log(f"small-file tree: 2000 files, {tree_bytes} bytes "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for line in cli_display_runs(words, words[0], WORK / "tree",
+                                     pats["config3"]):
+            log(f"{line} [{card}]")
 
         # ------------------------------------------- timings (not counted)
         # the match-dense receipt: 64 MiB, the CLI's wall and the host
@@ -2379,6 +2665,12 @@ def main() -> int:
         if json.loads(receipt_line).get("check") != "ok":
             raise AssertionError(f"dense receipt: {receipt_line}")
         log(f"dense receipt [{card}]: {receipt_line}")
+        rl = json.loads(receipt_line)
+        log(f"dense receipt: CLI wall - job wall "
+            f"{rl['cli_wall_s'] - rl['job_s']:.3f} s; in the CLI, its job "
+            f"{rl['cli_job_s']:.3f} s and its print {rl['cli_print_s']:.3f} "
+            f"s; the same CLI over an empty file {rl['cli_floor_s']:.3f} s "
+            f"[{card}]")
 
         def segment(path: Path):
             data = path.read_bytes()[: 64 << 20]

@@ -1,8 +1,10 @@
 """Command line: distributed grep on the card.
 
-    python -m distributed_grep_tpu_torch grep [PATTERN] FILE... [-i]
+    python -m distributed_grep_tpu_torch grep [PATTERN] [FILE...] [-i]
         [-e PATTERN]... [-f FILE] [-F] [-E] [--max-errors K]
         [-v] [-w] [-x] [-c] [-l] [-L] [-q] [-m NUM] [-h] [-s] [-n] [-H] [-a]
+        [-o] [-A N] [-B N] [-C N] [-b] [-r] [-R] [--include GLOB]...
+        [--exclude GLOB]... [--exclude-dir GLOB]... [--metrics]
         [--workers N] [--n-reduce R] [--device cuda|cpu] [--work-dir DIR]
 
 Prints ``<abs path> (line number #N) <line>`` for every selected line, in
@@ -33,7 +35,8 @@ CLI (and GNU grep):
               agrep: lines holding a match of PATTERN within K edit
               errors (K = 1..3), on the Wu-Manber kernel; PATTERN must be
               one literal or class sequence of at most 32 symbols (exit 2
-              otherwise, with -f or a set of -F patterns, and with -w/-x).
+              otherwise, with -f or a set of -F patterns, with -w/-x, and
+              with -o).
 
 The selection and output options, as the reference CLI's:
 
@@ -51,13 +54,39 @@ The selection and output options, as the reference CLI's:
   -h          print lines without the path;
   -s          no messages about missing or unreadable files (the exit
               status is still 2);
+  -o          each nonempty match of a selected line on its own line,
+              ``<path> (line number #N) <match>`` (nothing with -v), from
+              one bytes regex: -i folds ASCII only, as GNU grep's C
+              locale does;
+  -A/-B/-C N  N lines of context after / before / around each selected
+              line: context lines print ``)-`` in place of ``)``, and
+              ``--`` separates groups, across files too;
+  -b          the byte offset of each printed line, ``(line number #N)
+              (byte #K) <line>`` (``(byte #K)-`` on context lines); with
+              -o the offset of each match;
+  -r, -R      search the files under each directory argument (the
+              current directory with no FILE), sorted under each root;
+              -r skips the symlinks it meets, -R follows them (each real
+              directory and file once; a dangling symlink is an error);
+  --include GLOB, --exclude GLOB
+              one ordered list: the last glob that matches a file's
+              basename decides, for named files too;
+  --exclude-dir GLOB
+              skip the directories whose basename matches GLOB;
+  --metrics   print the job's counters, stage seconds and kernel
+              launches as JSON to stderr;
   -n, -H, -a  accepted for GNU grep compatibility: line numbers and paths
               always print, input is always read as binary-safe text (-H
               does put the path before -c's count for one file).
 
-Still to port, each exiting 2 with the ROADMAP.md item named: -o, -A/-B/-C,
--b, -r/-R, --include/--exclude/--exclude-dir and standard input (FILE ``-``
-or no FILE) -- item 7's remainder; --follow -- item 5.
+Standard input is read when FILE is ``-`` or absent (without -r) and
+prints as ``(standard input)``.  Alone, and without -o, -b or context, it
+streams: each newline-aligned block that arrives (gathered up to a
+segment when the pipe is ahead) is scanned on the card and its lines
+print at once; -q, -l and -L return at the first selected line without
+draining the pipe, -m stops reading at its cap.  Otherwise it is spooled
+to a temporary file and searched as one.  Still to port: --follow
+(ROADMAP.md item 5).
 
 A positional PATTERN displaced by -e or -f is the first input file.
 Literal sets run on the FDR filter kernel, with an exact host confirm, or,
@@ -67,13 +96,17 @@ when every member is 1-2 bytes, on the exact pairset kernel.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import re
+import shutil
 import sys
 import tempfile
+import time
 from pathlib import Path
 
-ITEM_7B = "ROADMAP.md 'Slices still to port', item 7's remainder"
+from distributed_grep_tpu_torch.cli_inputs import GlobFilterAction
+
 ITEM_5 = "ROADMAP.md 'Slices still to port', item 5 (warm tiers)"
 
 
@@ -133,24 +166,37 @@ def _parser() -> argparse.ArgumentParser:
     g.add_argument("-a", "--text", action="store_true",
                    help="accepted for GNU compatibility (input is always "
                         "binary-safe text)")
-    # parsed so that they exit 2 naming their ROADMAP.md item
     g.add_argument("-o", "--only-matching", action="store_true",
-                   help=f"not ported yet ({ITEM_7B})")
-    for flag, long_ in (("-A", "--after-context"), ("-B", "--before-context"),
-                        ("-C", "--context")):
-        g.add_argument(flag, long_, type=int, default=None, metavar="N",
-                       help=f"not ported yet ({ITEM_7B})")
+                   help="print each matched part of a line on its own line")
+    g.add_argument("-A", "--after-context", type=int, default=0,
+                   metavar="N", help="print N lines of trailing context")
+    g.add_argument("-B", "--before-context", type=int, default=0,
+                   metavar="N", help="print N lines of leading context")
+    g.add_argument("-C", "--context", type=int, default=None, metavar="N",
+                   help="print N lines of context before and after")
     g.add_argument("-b", "--byte-offset", action="store_true",
-                   help=f"not ported yet ({ITEM_7B})")
+                   help="print the byte offset of each line (of each match "
+                        "with -o)")
     g.add_argument("-r", "--recursive", action="store_true",
-                   help=f"not ported yet ({ITEM_7B})")
+                   help="search the files under directory arguments")
     g.add_argument("-R", "--dereference-recursive", action="store_true",
-                   help=f"not ported yet ({ITEM_7B})")
-    for long_ in ("--include", "--exclude", "--exclude-dir"):
-        g.add_argument(long_, action="append", default=None, metavar="GLOB",
-                       help=f"not ported yet ({ITEM_7B})")
+                   help="like -r, following every symlink")
+    g.add_argument("--include", action=GlobFilterAction, dest="glob_filters",
+                   default=None, metavar="GLOB",
+                   help="search only files whose basename matches GLOB "
+                        "(ordered with --exclude: the last matching glob "
+                        "wins)")
+    g.add_argument("--exclude", action=GlobFilterAction, dest="glob_filters",
+                   default=None, metavar="GLOB",
+                   help="skip files whose basename matches GLOB (ordered "
+                        "with --include)")
+    g.add_argument("--exclude-dir", action="append", default=None,
+                   metavar="GLOB",
+                   help="skip directories whose basename matches GLOB")
     g.add_argument("--follow", action="store_true",
                    help=f"not ported yet ({ITEM_5})")
+    g.add_argument("--metrics", action="store_true",
+                   help="print job metrics as JSON to stderr")
     g.add_argument("--workers", type=int, default=2,
                    help="in-process worker threads")
     g.add_argument("--n-reduce", type=int, default=10)
@@ -294,64 +340,40 @@ def _check_max_errors(args: argparse.Namespace, patterns) -> int:
     return 0
 
 
-def _deferred_flag(args: argparse.Namespace) -> str | None:
-    """The first option given that this package has not ported, with the
-    ROADMAP.md item that will, or None."""
-    for flag, on in (
-            ("-o", args.only_matching),
-            ("-A", args.after_context is not None),
-            ("-B", args.before_context is not None),
-            ("-C", args.context is not None),
-            ("-b", args.byte_offset),
-            ("-r", args.recursive),
-            ("-R", args.dereference_recursive),
-            ("--include", args.include),
-            ("--exclude", args.exclude),
-            ("--exclude-dir", args.exclude_dir)):
-        if on:
-            return f"option {flag} is not ported yet: {ITEM_7B}"
-    if args.follow:
-        return f"option --follow is not ported yet: {ITEM_5}"
-    return None
-
-
-def _select_files(args: argparse.Namespace) -> tuple[int, bool]:
-    """Drop the unreadable FILE arguments, with a message unless -s.
-    Returns (0, had_file_errors), or (2, True) when nothing is left or a
-    FILE is a directory."""
-    def readable(f: str) -> bool:
-        p = Path(f)
-        return p.exists() and (p.is_dir() or os.access(f, os.R_OK))
-
-    bad = [f for f in args.files if not readable(f)]
-    if bad:
-        if not args.no_messages:
-            print(f"error: cannot read: {', '.join(bad)}", file=sys.stderr)
-        args.files = [f for f in args.files if f not in bad]
-        if not args.files:
-            return 2, True
-    dirs = [f for f in args.files if Path(f).is_dir()]
-    if dirs:
-        if not args.no_messages:
-            print(f"error: {', '.join(dirs)}: is a directory (use -r)",
-                  file=sys.stderr)
-        return 2, True
-    return 0, bool(bad)
-
-
 def _write(out, text: str) -> None:
     out.write(text.encode("utf-8", "surrogateescape"))
 
 
+def _print_metrics(res, job_s: float, print_s: float) -> None:
+    """The job's metrics as JSON on stderr, with the CLI's own seconds
+    (the job, then the print), the grep engine's summed scan counters
+    and the kernels' launches."""
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.ops.device_scan import kernel_launches
+
+    metrics = dict(res.metrics)
+    metrics["seconds"] = {**metrics["seconds"], "cli_job": job_s,
+                          "cli_print": print_s}
+    if grep_cuda._engine is not None:
+        metrics["engine"] = dict(grep_cuda._engine.totals)
+    metrics["launches"] = kernel_launches()
+    print(json.dumps(metrics, indent=2, sort_keys=True), file=sys.stderr)
+
+
 def cmd_grep(args: argparse.Namespace) -> int:
+    from distributed_grep_tpu_torch.cli_inputs import (
+        STDIN_LABEL,
+        expand_files,
+        grep_stdin_stream,
+        spool_stdin,
+    )
     from distributed_grep_tpu_torch.models.dfa import RegexError
     from distributed_grep_tpu_torch.ops.engine import check_pattern
-    from distributed_grep_tpu_torch.runtime.job import GREP_KEY_RE, run_job
-    from distributed_grep_tpu_torch.utils.config import JobConfig
 
-    deferred = _deferred_flag(args)
-    if deferred:
-        return _error(deferred)[0]
+    if args.follow:
+        return _error(f"option --follow is not ported yet: {ITEM_5}")[0]
+    if args.dereference_recursive:
+        args.recursive = True  # -R implies -r everywhere
     if args.fixed_strings and args.extended_regexp:
         return _error("-E and -F are conflicting matchers")[0]
     if args.word_regexp and args.line_regexp:
@@ -365,23 +387,79 @@ def cmd_grep(args: argparse.Namespace) -> int:
     if rc:
         return rc
     if args.max_errors:
+        # before standard input is read: an exit-2 call must not drain it
         rc = _check_max_errors(args, patterns)
         if rc:
             return rc
-    if not args.files or "-" in args.files:
-        return _error(f"standard input is not ported yet: {ITEM_7B}")[0]
+        if args.only_matching:
+            return _error("-o is not supported with --max-errors "
+                          "(approximate matches have no unique matched "
+                          "substring)")[0]
     if patterns is None and not args.max_errors:
         try:
             check_pattern(args.pattern, args.ignore_case)
         except RegexError as e:
             return _error(f"invalid pattern {args.pattern!r}: {e}")[0]
-    rc, had_file_errors = _select_files(args)
-    if rc:
-        return rc
-    # -c/-l/-L/-q: one count record per file instead of a record per line;
-    # -q/-l/-L need only whether it is nonzero
-    count_only = (args.count or args.quiet or args.files_with_matches
-                  or args.files_without_match)
+    out = sys.stdout.buffer
+    rereads = (args.only_matching or args.byte_offset
+               or args.context is not None or args.before_context
+               or args.after_context)
+    if (((not args.files and not args.recursive) or args.files == ["-"])
+            and not rereads):
+        return grep_stdin_stream(args, patterns, out)
+    spool = None
+    work_dir = args.work_dir
+    try:
+        if (not args.files and not args.recursive) or "-" in args.files:
+            # standard input mixed with files, or re-read by -o/-b/context:
+            # one spool, searched as a file and shown under GNU's label;
+            # a repeated '-' reads it once
+            spool = spool_stdin()
+            files = [spool if f == "-" else f for f in args.files or ["-"]]
+            args.files = [f for i, f in enumerate(files)
+                          if f != spool or spool not in files[:i]]
+        if args.recursive and not args.files:
+            args.files = ["."]  # GNU grep -r with no FILE searches the cwd
+        rc, had_file_errors = expand_files(args, spool)
+        if rc:
+            return rc
+        if work_dir is None:
+            work_dir = tempfile.mkdtemp(prefix="dgrep-")
+        return _run_and_print(args, patterns, out, had_file_errors,
+                              work_dir, STDIN_LABEL,
+                              str(Path(spool).resolve()) if spool else None)
+    finally:
+        if spool is not None:
+            os.unlink(spool)
+        if args.work_dir is None and work_dir is not None:
+            shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def _run_and_print(args: argparse.Namespace, patterns, out,
+                   had_file_errors: bool, work_dir: str, label: str,
+                   stdin_path: str | None) -> int:
+    """Run the grep job over ``args.files`` and print its result in the
+    mode the options ask for; returns the exit status."""
+    from distributed_grep_tpu_torch.cli_display import (
+        line_offsets,
+        print_only_matching,
+        print_with_context,
+    )
+    from distributed_grep_tpu_torch.runtime.job import GREP_KEY_RE, run_job
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    ctx_before = (args.context if args.context is not None
+                  else args.before_context)
+    ctx_after = (args.context if args.context is not None
+                 else args.after_context)
+    # -c/-l/-L/-q: one count record per file instead of a record per
+    # line (-q/-l/-L need only whether it is nonzero), unless -b, -o or
+    # context need the line sets and the records' values
+    count_only = ((args.count or args.quiet or args.files_with_matches
+                   or args.files_without_match)
+                  and not (ctx_before or ctx_after or args.byte_offset
+                           or args.only_matching
+                           or args.context is not None))
     query = ({"patterns": patterns} if patterns is not None
              else {"pattern": args.pattern, "max_errors": args.max_errors})
     cfg = JobConfig(
@@ -397,39 +475,54 @@ def cmd_grep(args: argparse.Namespace) -> int:
                if count_only and not args.count else {}),
         },
         n_reduce=args.n_reduce,
-        work_dir=args.work_dir or tempfile.mkdtemp(prefix="dgrep-"),
+        work_dir=work_dir,
     )
+    if args.device == "cuda":
+        # the scan's heartbeats and its build grace keep a task alive;
+        # the window needs only headroom over their cadence
+        cfg.task_timeout_s = max(cfg.task_timeout_s, 30.0)
+    t0 = time.perf_counter()
     res = run_job(cfg, n_workers=args.workers, device=args.device)
+    t_job = time.perf_counter()
     files = cfg.input_files
-    out = sys.stdout.buffer
-    if not count_only:
-        # default print, in (file, line) order; -m caps each file as the
-        # lines stream past, and a capped line does not count for the exit
-        # status
-        emitted = dict.fromkeys(files, 0)
-        parse = args.max_count is not None or args.no_filename
-        saw_any = False
-        for key, value in res.iter_results_sorted():
-            m = GREP_KEY_RE.match(key) if parse else None
-            if args.max_count is not None and m and m.group(1) in emitted:
-                if emitted[m.group(1)] >= args.max_count:
-                    continue
-                emitted[m.group(1)] += 1
-            saw_any = True
-            if m and args.no_filename:
-                _write(out, f"(line number #{m.group(2)}) {value}\n")
-            else:
-                _write(out, f"{key} {value}\n")
-        out.flush()
-        return 2 if had_file_errors else (0 if saw_any else 1)
+
+    def disp(path: str) -> str:
+        return label if path == stdin_path else path
+
+    # the modes that re-read the inputs (-b, context, -o -m) need each
+    # file's selected line set, built from the keys alone
+    need_sets = bool(ctx_before or ctx_after or args.byte_offset
+                     or (args.only_matching and args.max_count is not None))
+    default_print = not (args.quiet or args.files_without_match
+                         or args.files_with_matches or args.count
+                         or args.only_matching or ctx_before or ctx_after)
+    # the default print decides the exit status from the records it
+    # streams: no counting pass before it
+    stream_counts = default_print and not need_sets and not count_only
+    matched: dict[str, set[int]] | None = None
     counts = dict.fromkeys(files, 0)
-    for key, value in res.iter_results():  # key: the file; value: its count
-        if key in counts:
-            counts[key] += int(value)
-            if args.quiet and counts[key]:
-                break  # -q: one selected line settles it
-    if args.max_count is not None:
-        counts = {f: min(c, args.max_count) for f, c in counts.items()}
+    if need_sets:
+        matched = {f: set() for f in files}
+        for path, ln in res.iter_grep_keys():
+            s = matched.get(path)
+            if s is not None:
+                s.add(ln)
+        if args.max_count is not None:
+            matched = {f: set(sorted(lns)[: args.max_count])
+                       for f, lns in matched.items()}
+        counts = {f: len(matched[f]) for f in files}
+    elif not stream_counts:
+        # count records (key: the file, value: N), or else (-o, -C 0) the
+        # grep keys, parsed as bytes: one a selected line
+        pairs = (((k, int(v)) for k, v in res.iter_results()) if count_only
+                 else ((path, 1) for path, _ln in res.iter_grep_keys()))
+        for f, add in pairs:
+            if f in counts:
+                counts[f] += add
+                if args.quiet and counts[f]:
+                    break  # -q: one selected line settles it
+        if args.max_count is not None:
+            counts = {f: min(c, args.max_count) for f, c in counts.items()}
     any_selected = any(counts.values())
     rc_final = 2 if had_file_errors else (0 if any_selected else 1)
     if args.quiet:
@@ -439,17 +532,64 @@ def cmd_grep(args: argparse.Namespace) -> int:
         # whether a name was listed (GNU grep 3.8)
         for f in files:
             if not counts[f]:
-                _write(out, f"{f}\n")
+                _write(out, f"{disp(f)}\n")
     elif args.files_with_matches:
         for f in files:
             if counts[f]:
-                _write(out, f"{f}\n")
-    else:
+                _write(out, f"{disp(f)}\n")
+    elif args.count:
         prefix = ((len(files) > 1 or args.with_filename)
                   and not args.no_filename)
         for f in files:
-            _write(out, f"{f}:{counts[f]}\n" if prefix else f"{counts[f]}\n")
+            _write(out, f"{disp(f)}:{counts[f]}\n" if prefix
+                   else f"{counts[f]}\n")
+    elif args.only_matching:
+        if not args.invert:  # -v -o: no matched parts to print
+            print_only_matching(
+                out, res, args, patterns, matched,
+                line_offsets(matched) if args.byte_offset else None, disp)
+    elif ctx_before or ctx_after:
+        printed_any = False  # the '--' separator is global across files
+        for f in files:
+            printed_any = print_with_context(
+                out, f, matched[f], ctx_before, ctx_after, printed_any,
+                no_filename=args.no_filename, byte_offset=args.byte_offset,
+                display=disp(f))
+    else:
+        offsets = line_offsets(matched) if args.byte_offset else None
+        # the key's parts are needed only by -m, -h, -b and the stdin label
+        parse = (args.max_count is not None or args.no_filename
+                 or offsets is not None or stdin_path is not None)
+        saw_any = False
+        if not parse and res.fileline_sorted:
+            # display lines stream as bytes from the sorted output files
+            for block in res.display_blocks_sorted():
+                if block:
+                    out.write(block)
+                    saw_any = True
+        else:
+            emitted = dict.fromkeys(files, 0)
+            for key, value in res.iter_results_sorted():
+                m = GREP_KEY_RE.match(key) if parse else None
+                if args.max_count is not None and m and m.group(1) in emitted:
+                    if emitted[m.group(1)] >= args.max_count:
+                        continue  # past the -m cap: not counted either
+                    emitted[m.group(1)] += 1
+                saw_any = True
+                if m and (args.no_filename or offsets is not None
+                          or stdin_path is not None):
+                    path, ln = m.group(1), int(m.group(2))
+                    head = "" if args.no_filename else f"{disp(path)} "
+                    boff = (f"(byte #{offsets[path].get(ln, '?')}) "
+                            if offsets is not None else "")
+                    _write(out, f"{head}(line number #{ln}) {boff}{value}\n")
+                else:
+                    _write(out, f"{key} {value}\n")
+        if stream_counts:
+            rc_final = 2 if had_file_errors else (0 if saw_any else 1)
     out.flush()
+    if args.metrics:
+        _print_metrics(res, t_job - t0, time.perf_counter() - t_job)
     return rc_final
 
 

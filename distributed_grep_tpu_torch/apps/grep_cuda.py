@@ -78,7 +78,8 @@ _UNPORTED = {
 
 def set_progress(fn) -> bool:
     """Worker hook: install (fn) or clear (None) this task's progress
-    callback -- fn() stamps liveness."""
+    callback -- fn() stamps liveness, fn(grace_s=N) declares a silent
+    phase of N seconds (the engine's kernel build)."""
     _progress.fn = fn
     return True
 

@@ -13,8 +13,11 @@ no ``--ab``: it switched the reference's native record code, which this
 package does not have).
 
 * the CLI leg runs ``python -m distributed_grep_tpu_torch grep PATTERN
-  CORPUS`` as a subprocess with stdout to a file (interpreter start
-  included);
+  CORPUS --metrics`` as a subprocess with stdout to a file: its wall
+  (interpreter start included), and from its metrics the job's seconds
+  (``cli_job_s``) and the print's (``cli_print_s``); then the same
+  command over an empty file (``cli_floor_s``: the process's start, the
+  card's set-up, an empty job and the exit);
 * the stage leg runs the same job in this process with the pipeline's own
   entry points wrapped in wall clocks (``GrepEngine.scan``, the app's
   ``map_path_fn``, ``bucketize``, the batches' ``split_by_partition``,
@@ -138,19 +141,23 @@ def stage_run(corpus: Path, pattern: str, work: Path, device: str) -> dict:
     }
 
 
-def cli_run(corpus: Path, pattern: str, device: str, out: Path) -> float:
+def cli_run(corpus: Path, pattern: str, device: str, out: Path
+            ) -> tuple[float, dict]:
+    """The CLI's wall and its --metrics seconds (its job, its print)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     with open(out, "wb") as f:
         t0 = time.perf_counter()
         r = subprocess.run(
             [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
-             pattern, str(corpus), "--device", device],
+             pattern, str(corpus), "--device", device, "--metrics"],
             stdout=f, stderr=subprocess.PIPE, env=env, timeout=1200)
         wall = time.perf_counter() - t0
     if r.returncode not in (0, 1):
         raise RuntimeError(f"CLI failed rc={r.returncode}: "
                            f"{r.stderr[-500:].decode(errors='replace')}")
-    return wall
+    err = r.stderr.decode(errors="replace")
+    metrics, _ = json.JSONDecoder().raw_decode(err[err.index("{"):])
+    return wall, metrics["seconds"]
 
 
 def oracle(corpus: Path, pattern: str) -> bytes:
@@ -192,7 +199,14 @@ def main(argv: list[str] | None = None) -> int:
         make_corpus(corpus, int(args.mb * (1 << 20)))
         result["gen_s"] = time.perf_counter() - t0
         out = tmp / "cli.out"
-        result["cli_wall_s"] = cli_run(corpus, args.pattern, args.device, out)
+        wall, seconds = cli_run(corpus, args.pattern, args.device, out)
+        result["cli_wall_s"] = wall
+        result["cli_job_s"] = seconds["cli_job"]
+        result["cli_print_s"] = seconds["cli_print"]
+        empty = tmp / "empty.txt"
+        empty.write_bytes(b"")
+        result["cli_floor_s"] = cli_run(empty, args.pattern, args.device,
+                                        tmp / "empty.out")[0]
         got = out.read_bytes()
         result["matched_lines"] = got.count(b"\n")
         if args.check:

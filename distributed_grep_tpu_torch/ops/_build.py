@@ -125,6 +125,16 @@ def build_all(names: tuple[str, ...] = SOURCES) -> None:
                     job[2].wait()
 
 
+def unbuilt(names, device) -> list[str]:
+    """The named sources that a launch on ``device`` would first have to
+    compile: none on the CPU (the plain versions need no build), and on
+    the card those with no current build on disk."""
+    if device.type != "cuda":
+        return []
+    return [n for n in names if n not in _libs and not (
+        _target(n).exists() and _target(n).with_suffix(".log").exists())]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)

@@ -39,6 +39,8 @@ from distributed_grep_tpu_torch.ops.layout import STRIPES
 _U32 = 0xFFFFFFFF
 
 LAYOUT = STRIPES  # the layout the kernel reads (ops/layout.py)
+# the csrc/ source this module builds and launches
+LIBRARY = "approx"
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -102,7 +104,7 @@ def approx_scan_words_plain(data: torch.Tensor,
 
 
 def _lib():
-    lib = _build.load("approx")
+    lib = _build.load(LIBRARY)
     fn = lib.dgrep_approx_scan
     if fn.argtypes is None:
         fn.argtypes = [

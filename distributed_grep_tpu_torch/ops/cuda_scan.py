@@ -40,6 +40,8 @@ from distributed_grep_tpu_torch.ops.layout import STRIPES
 _U32 = 0xFFFFFFFF
 
 LAYOUT = STRIPES  # the layout the kernel reads (ops/layout.py)
+# the csrc/ source this module builds and launches
+LIBRARY = "shift_and"
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -144,7 +146,7 @@ def shift_and_scan_words_plain(
 
 
 def _lib():
-    lib = _build.load("shift_and")
+    lib = _build.load(LIBRARY)
     fn = lib.dgrep_shift_and_scan
     if fn.argtypes is None:
         fn.argtypes = [

@@ -78,7 +78,11 @@ at most an eighth of that joins the last full segment).  For each:
    neither kernel can give a false line, so nothing is removed.
 
 Segments can be collected in any order.  A build, launch or CUDA failure
-raises: nothing falls back to another route.
+raises: nothing falls back to another route.  Before its first segment a
+scan on the card builds the route's libraries that have no build yet
+(ops/_build.py), and first declares that silent time to the progress
+callback as a grace of BUILD_GRACE_S, so a task's failure detector does
+not re-issue a task that is compiling.
 """
 
 from __future__ import annotations
@@ -93,6 +97,7 @@ import torch
 
 from distributed_grep_tpu_torch.models.shift_and import swar_values
 from distributed_grep_tpu_torch.ops import (
+    _build,
     approx_scan,
     cuda_scan,
     fdr_scan,
@@ -117,6 +122,10 @@ from distributed_grep_tpu_torch.ops.sparse import (
 
 MAX_INFLIGHT = 2  # segments dispatched but not yet collected
 
+# The silent time a scan declares before it builds its route's libraries
+# (nvcc takes about a minute for csrc/nfa.cu, seconds for the others).
+BUILD_GRACE_S = 180.0
+
 # Segments transposed into the column layout (on the card, or on the host
 # for a CPU engine): incremented once per transpose, nowhere else.
 # chip_smoke.py reads it around each query: 0 on the Shift-And, approx,
@@ -135,6 +144,12 @@ def _count_transpose() -> None:
     global transposes
     with _count_lock:
         transposes += 1
+
+
+def kernel_launches() -> dict[str, int]:
+    """Each scan kernel's launch count in this process, by library."""
+    return {m.LIBRARY: m.launches for m in (
+        cuda_scan, nfa_scan, fdr_scan, pairset_scan, approx_scan, swar_scan)}
 
 # The SWAR route's lane multiple: 4 stripes per packed uint32 element and
 # 32 elements per warp (the kernel's blocks own 256 lanes and take a
@@ -199,6 +214,11 @@ def scan_device(eng, data: bytes, progress=None):
     nl = lines_mod.newline_index(data)
     device = eng.device
     on_cuda = device.type == "cuda"
+    todo = _build.unbuilt([k.LIBRARY for k in kernels], device)
+    if todo:
+        if progress is not None:
+            progress(grace_s=BUILD_GRACE_S)
+        _build.build_all(tuple(todo))
     full = eng.shift_and
     lay_kwargs = eng.layout_kwargs()
     if swar:

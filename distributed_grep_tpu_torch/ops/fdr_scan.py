@@ -39,6 +39,8 @@ MAX_CHECKS = 16
 MAX_TABLE = 64 * 128
 
 LAYOUT = COLUMNS  # the layout the kernel reads (ops/layout.py)
+# the csrc/ source this module builds and launches
+LIBRARY = "fdr"
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -154,7 +156,7 @@ def fdr_scan_words_plain(
 
 
 def _lib():
-    lib = _build.load("fdr")
+    lib = _build.load(LIBRARY)
     fn = lib.dgrep_fdr_scan
     if fn.argtypes is None:
         fn.argtypes = [

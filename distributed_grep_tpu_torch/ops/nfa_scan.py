@@ -39,6 +39,8 @@ _N_TABLES, _N_SHARED, _TAB_WORD, _TAB_SLICE = 16, 17, 32, 48
 _HEADER = 64  # the shared part (B, then the exception tables) starts here
 
 LAYOUT = COLUMNS  # the layout the kernel reads (ops/layout.py)
+# the csrc/ source this module builds and launches
+LIBRARY = "nfa"
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -178,7 +180,7 @@ def nfa_scan_words_plain(
 
 
 def _lib():
-    lib = _build.load("nfa")
+    lib = _build.load(LIBRARY)
     fn = lib.dgrep_nfa_scan
     if fn.argtypes is None:
         fn.argtypes = [

@@ -37,6 +37,8 @@ from distributed_grep_tpu_torch.ops.fdr_scan import _check_out, or_into, pack_bi
 from distributed_grep_tpu_torch.ops.layout import STRIPES
 
 LAYOUT = STRIPES  # the layout the kernel reads (ops/layout.py)
+# the csrc/ source this module builds and launches
+LIBRARY = "pairset"
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -75,7 +77,7 @@ def pairset_scan_words_plain(
 
 
 def _lib():
-    lib = _build.load("pairset")
+    lib = _build.load(LIBRARY)
     fn = lib.dgrep_pairset_scan
     if fn.argtypes is None:
         fn.argtypes = [

@@ -55,6 +55,8 @@ _U32 = 0xFFFFFFFF
 _ONES = 0x01010101
 
 LAYOUT = STRIPES  # the layout the kernel reads (ops/layout.py)
+# the csrc/ source this module builds and launches
+LIBRARY = "shift_and_swar"
 
 # Launch count of the CUDA kernel: incremented once per launch, nowhere
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
@@ -123,7 +125,7 @@ def swar_scan_words_plain(data: torch.Tensor,
 
 
 def _lib():
-    lib = _build.load("shift_and_swar")
+    lib = _build.load(LIBRARY)
     fn = lib.dgrep_swar_scan
     if fn.argtypes is None:
         fn.argtypes = [

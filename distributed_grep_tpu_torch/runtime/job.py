@@ -7,6 +7,15 @@ files.  The device defaults to "cuda" and raises when CUDA is absent,
 unless the caller asks for "cpu".  A worker that raises anything but
 WorkerKilled fails the job with that exception: a build, launch or CUDA
 error is never retried on another route.
+
+``JobResult`` reads the outputs back as streams: ``(key, value)`` records
+as str (``iter_results``, ``iter_results_sorted``), or, for the grep
+apps' outputs (``fileline_sorted``: every file already in (file, line)
+order), as bytes that are never decoded per record -- the grep keys
+(``iter_grep_keys``), the record values (``iter_grep_records_bytes``)
+and the display lines (``iter_display_bytes_sorted``,
+``display_blocks_sorted``), the counterpart of the reference's bytes-mode
+streams (its native display merge is ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -19,11 +28,17 @@ import threading
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from distributed_grep_tpu_torch.runtime.scheduler import Scheduler
+import numpy as np
+
+from distributed_grep_tpu_torch.apps.base import KeyValue
+from distributed_grep_tpu_torch.ops.lines import newline_index
 from distributed_grep_tpu_torch.runtime.columnar import (
     GREP_KEY_RE,
+    gather_ranges,
     grep_key_sort,
 )
+from distributed_grep_tpu_torch.runtime.extsort import ExternalReducer
+from distributed_grep_tpu_torch.runtime.scheduler import Scheduler
 from distributed_grep_tpu_torch.runtime.worker import WorkerKilled, WorkerLoop
 from distributed_grep_tpu_torch.utils.config import JobConfig
 from distributed_grep_tpu_torch.utils.device import resolve_device
@@ -31,7 +46,37 @@ from distributed_grep_tpu_torch.utils.io import WorkDir
 
 log = logging.getLogger("distributed_grep_tpu_torch.job")
 
-__all__ = ["GREP_KEY_RE", "JobResult", "grep_key_sort", "run_job"]
+__all__ = ["GREP_KEY_RE", "JobResult", "grep_key_sort",
+           "parse_grep_key_bytes", "run_job"]
+
+_GREP_KEY_MARKER = b" (line number #"
+
+# The external sort of outputs that are not fileline_sorted holds this
+# much before it spills a sorted run.
+SORT_MEMORY_BYTES = 64 << 20
+
+
+def parse_grep_key_bytes(key: bytes) -> tuple[bytes, int] | None:
+    """(path bytes, line number) of a grep-shaped key, or None: the bytes
+    twin of GREP_KEY_RE, accepting exactly what it accepts (the digits
+    are ASCII digits only)."""
+    i = key.rfind(_GREP_KEY_MARKER)
+    if i < 0 or not key.endswith(b")"):
+        return None
+    digits = key[i + len(_GREP_KEY_MARKER) : -1]
+    if not digits.isdigit():
+        return None
+    return key[:i], int(digits)
+
+
+def _split_record(raw: bytes) -> tuple[bytes, bytes, int] | None:
+    """(line without its newline, key, index of the tab or -1) of one
+    mr-out line; None for an empty line."""
+    line = raw.rstrip(b"\n")
+    if not line:
+        return None
+    tab = line.find(b"\t")
+    return line, (line[:tab] if tab >= 0 else line), tab
 
 
 @dataclass
@@ -59,15 +104,179 @@ class JobResult:
 
     def iter_results_sorted(self):
         """(key, value) records in grep_key_sort order: a k-way merge of
-        the per-file streams when each is already in that order, else one
-        in-memory sort."""
+        the per-file streams when each is already in that order
+        (``fileline_sorted``), else an external sort that spills sorted
+        runs past SORT_MEMORY_BYTES (runtime/extsort.py).  The sort key is
+        grep_key_sort's tuple encoded in the same order: the path, a NUL
+        (below every path character, so a path sorts before its
+        extensions) and the line number zero-padded to 20 digits."""
         if self.fileline_sorted:
             yield from heapq.merge(
                 *(self._iter_file(p) for p in self.output_files),
                 key=grep_key_sort,
             )
-        else:
-            yield from sorted(self.iter_results(), key=grep_key_sort)
+            return
+
+        def encode(k: str) -> str:
+            path, line = grep_key_sort((k, ""))
+            return f"{path}\x00{line:020d}"
+
+        with ExternalReducer(memory_limit_bytes=SORT_MEMORY_BYTES) as sorter:
+            # keys hold no tab (the first tab of a line ends its key)
+            sorter.add_many(KeyValue(encode(k), f"{k}\t{v}")
+                            for k, v in self.iter_results())
+            for _, payload in sorter.merged():
+                k, _, v = payload.partition("\t")
+                yield k, v
+
+    def iter_grep_keys(self):
+        """(path, line number) of every grep-shaped record, output file by
+        output file: the keys parsed as bytes, the values never decoded,
+        the path decoded once per run of records of one file."""
+        last_raw: bytes | None = None
+        last_path = ""
+        for out in self.output_files:
+            with open(out, "rb") as f:
+                for raw in f:
+                    rec = _split_record(raw)
+                    parsed = rec and parse_grep_key_bytes(rec[1])
+                    if not parsed:
+                        continue
+                    pb, ln = parsed
+                    if pb != last_raw:
+                        last_raw = pb
+                        last_path = pb.decode("utf-8", "surrogateescape")
+                    yield last_path, ln
+
+    def _iter_records_bytes_sorted(self):
+        """((path, line number), line bytes, tab index) in display order:
+        the bytes record merge every bytes stream builds on.  The merge
+        key holds the DECODED path (decoded once per run of records of a
+        file): the collator sorted each file under grep_key_sort's str
+        order, and where surrogateescape code points order differently
+        from UTF-8 bytes a merge on raw bytes would misorder names.  A
+        key that is not grep-shaped sorts as (key, 0).  Needs
+        ``fileline_sorted``."""
+        if not self.fileline_sorted:
+            raise RuntimeError(
+                "bytes-mode record streams need fileline_sorted outputs")
+
+        def keyed(path):
+            last_pb = None
+            last_p = ""
+            with open(path, "rb") as f:
+                for raw in f:
+                    rec = _split_record(raw)
+                    if rec is None:
+                        continue
+                    line, key, tab = rec
+                    parsed = parse_grep_key_bytes(key)
+                    if parsed is None:
+                        k = (key.decode("utf-8", "surrogateescape"), 0)
+                    else:
+                        pb, ln = parsed
+                        if pb != last_pb:
+                            last_pb = pb
+                            last_p = pb.decode("utf-8", "surrogateescape")
+                        k = (last_p, ln)
+                    yield k, line, tab
+
+        return heapq.merge(*(keyed(p) for p in self.output_files),
+                           key=lambda t: t[0])
+
+    def iter_grep_records_bytes(self):
+        """((path, line number), value bytes) in display order; the line
+        number is 0 for a key that is not grep-shaped (grep -o matches
+        the raw value bytes)."""
+        for k, line, tab in self._iter_records_bytes_sorted():
+            yield k, (line[tab + 1 :] if tab >= 0 else b"")
+
+    def iter_display_bytes_sorted(self):
+        """The display lines, ``b"<key> <value>\\n"``, in (file, line)
+        order: bytes in, bytes out (a file name that is not UTF-8 passes
+        through as its bytes, as GNU grep prints it)."""
+        for _k, line, _tab in self._iter_records_bytes_sorted():
+            yield line.replace(b"\t", b" ", 1) + b"\n"
+
+    # Outputs up to this size may take the vectorized display pass, whose
+    # transient memory is a few times the output (the joined buffer, the
+    # prefix and digit windows, the int64 gather index); larger outputs
+    # keep the record merge, one record resident per file.
+    DISPLAY_VECTOR_CAP = 128 << 20
+
+    def display_blocks_sorted(self):
+        """The display output as bytes blocks in (file, line) order: the
+        same bytes as ``iter_display_bytes_sorted`` joined.  Up to
+        DISPLAY_VECTOR_CAP, an output whose records all carry one path
+        takes the vectorized pass (one block); anything else, several
+        paths included, takes the record merge (the reference's native
+        multi-path merge is ROADMAP item 12)."""
+        total = sum(p.stat().st_size for p in self.output_files)
+        if 0 < total <= self.DISPLAY_VECTOR_CAP:
+            block = self._single_path_display_block()
+            if block is not None:
+                yield block
+                return
+        yield from self.iter_display_bytes_sorted()
+
+    def _single_path_display_block(self) -> bytes | None:
+        """The vectorized display pass over an output of one path, or
+        None when the output is not that (the caller falls back): every
+        file must end in a newline (or a record would fuse across files),
+        and every line must be ``<path> (line number #<1-18 digits>)\\t``
+        then its value, with the same path."""
+        parts = [p.read_bytes() for p in self.output_files]
+        if any(part and not part.endswith(b"\n") for part in parts):
+            return None
+        buf = b"".join(parts)
+        del parts
+        if not buf:
+            return None
+        arr = np.frombuffer(buf, dtype=np.uint8)
+        nl = newline_index(buf)
+        starts = np.concatenate(([0], nl[:-1] + 1)).astype(np.int64)
+        keep = nl > starts  # drop empty lines
+        starts, ends = starts[keep], nl[keep]
+        if not starts.size:
+            return None
+        first = buf[int(starts[0]) : int(ends[0])]
+        tab = first.find(b"\t")
+        parsed = parse_grep_key_bytes(first[:tab] if tab >= 0 else first)
+        if parsed is None:
+            return None
+        prefix = parsed[0] + _GREP_KEY_MARKER
+        plen = len(prefix)
+        if np.any(ends - starts < plen + 2):
+            return None  # a line too short for the prefix, a digit and ')'
+        win = arr[starts[:, None] + np.arange(plen)]
+        same_prefix = bool((win == np.frombuffer(prefix, np.uint8)).all())
+        del win
+        if not same_prefix:
+            return None
+        # up to 19 bytes after the prefix: 1-18 digits, then a non-digit
+        max_d = 19
+        dwin = arr[np.minimum(starts[:, None] + plen + np.arange(max_d),
+                              arr.size - 1)]
+        isdig = (dwin >= 0x30) & (dwin <= 0x39)
+        ndig = np.where(isdig.all(axis=1), max_d,
+                        np.argmin(isdig, axis=1)).astype(np.int64)
+        if np.any(ndig == 0) or np.any(ndig >= max_d):
+            return None
+        after = starts + plen + ndig  # must hold ')' then the tab
+        if not ((arr[np.minimum(after, arr.size - 1)] == 0x29).all()
+                and (arr[np.minimum(after + 1, arr.size - 1)] == 0x09).all()):
+            return None
+        linenos = np.zeros(starts.size, dtype=np.int64)
+        for k in range(int(ndig.max())):
+            active = ndig > k
+            linenos[active] = (linenos[active] * 10
+                               + dwin[active, k].astype(np.int64) - 0x30)
+        del dwin, isdig
+        order = np.argsort(linenos, kind="stable")
+        slab, offsets = gather_ranges(arr, starts[order], ends[order] + 1)
+        out = np.frombuffer(slab, dtype=np.uint8).copy()
+        out[offsets[:-1] + plen + ndig[order] + 1] = 0x20  # the tab
+        return out.tobytes()
 
 
 def run_job(

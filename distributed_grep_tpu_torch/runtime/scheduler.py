@@ -6,7 +6,9 @@ journal, peer shuffle or spans:
 * tasks, not workers, are tracked: a worker joins by asking for work;
 * an IN_PROGRESS task whose last heartbeat is older than
   ``task_timeout_s`` is re-issued;
-* the app's progress callback stamps heartbeats mid-task;
+* the app's progress callback stamps heartbeats mid-task, and may declare
+  a silent phase (``grace_s``, the engine's kernel build) during which
+  the task is re-issued only after max(task_timeout_s, grace_s);
 * the first committed attempt wins: a later finish of the same task is
   ignored (its files were renamed over identical content).
 
@@ -68,7 +70,8 @@ class Scheduler:
         now = time.monotonic()
         for t in tasks:
             if (t.state is TaskState.IN_PROGRESS
-                    and now - t.timestamp > self.task_timeout_s):
+                    and now - t.timestamp > max(self.task_timeout_s,
+                                                t.grace_s)):
                 t.state = TaskState.UNASSIGNED
                 self.counters[f"{kind.value}_retries"] += 1
 
@@ -106,11 +109,17 @@ class Scheduler:
         return Assignment(kind, t.task_id, n_reduce=self.n_reduce,
                           app_options=dict(self.app_options), **fields)
 
-    def heartbeat(self, kind: TaskType, task_id: int) -> None:
+    def heartbeat(self, kind: TaskType, task_id: int,
+                  grace_s: float = 0.0) -> None:
+        """Stamp an IN_PROGRESS task's liveness.  A nonzero ``grace_s``
+        declares a silent phase of that many seconds; the next stamp
+        without one ends it."""
         with self._cv:
             t = (self.maps if kind is TaskType.MAP else self.reduces)[task_id]
             if t.state is TaskState.IN_PROGRESS:
-                t.heartbeat()
+                t.heartbeat(grace_s=max(0.0, float(grace_s)))
+                if grace_s > 0:
+                    self.counters["grace_declared"] += 1
 
     def add_seconds(self, stage: str, seconds: float) -> None:
         with self._cv:

@@ -3,7 +3,8 @@
 Tasks, not workers, are the tracked entities: workers join by asking for
 work.  Each task carries a state and a heartbeat timestamp; an
 IN_PROGRESS task whose heartbeat is older than the job's task timeout is
-re-issued.
+re-issued, or, while a declared grace (``grace_s``, a silent phase such
+as a kernel build) is longer than that timeout, older than the grace.
 """
 
 from __future__ import annotations
@@ -30,9 +31,12 @@ class MapTask:
     file: str  # the input path: one map task per input file
     state: TaskState = TaskState.UNASSIGNED
     timestamp: float = 0.0  # heartbeat; stamped at assignment + mid-task
+    grace_s: float = 0.0  # the silent phase the last stamp declared
 
-    def heartbeat(self) -> None:
+    def heartbeat(self, grace_s: float = 0.0) -> None:
+        """Stamp liveness; a later stamp without a grace clears it."""
         self.timestamp = time.monotonic()
+        self.grace_s = grace_s
 
 
 @dataclass
@@ -42,6 +46,8 @@ class ReduceTask:
     timestamp: float = 0.0
     # Intermediate files registered as map tasks commit, read in order.
     task_files: list[str] = field(default_factory=list)
+    grace_s: float = 0.0
 
-    def heartbeat(self) -> None:
+    def heartbeat(self, grace_s: float = 0.0) -> None:
         self.timestamp = time.monotonic()
+        self.grace_s = grace_s

@@ -68,8 +68,8 @@ class WorkerLoop:
                 self._reduce(a)
 
     def _progress(self, kind: TaskType, task_id: int):
-        def progress() -> None:
-            self.scheduler.heartbeat(kind, task_id)
+        def progress(grace_s: float = 0.0) -> None:
+            self.scheduler.heartbeat(kind, task_id, grace_s=grace_s)
         return progress
 
     def _map(self, a: Assignment) -> None:

@@ -1,0 +1,74 @@
+"""The kernel build's grace: a scan that must first build its libraries
+declares the silent time to the task's failure detector, so a build
+longer than the task timeout does not get the task re-issued."""
+
+import time
+
+import pytest
+
+from distributed_grep_tpu_torch.ops import _build, device_scan
+from distributed_grep_tpu_torch.runtime.job import run_job
+from distributed_grep_tpu_torch.runtime.scheduler import Scheduler
+from distributed_grep_tpu_torch.runtime.types import TaskType
+from distributed_grep_tpu_torch.utils.config import JobConfig
+from tests.test_torch_job import ENGINE_OPTS, corpus  # noqa: F401
+
+TIMEOUT_S = 2.0
+BUILD_S = 5.0
+
+
+@pytest.mark.parametrize("grace", [True, False], ids=["grace", "no grace"])
+def test_slow_first_build_is_not_retried(tmp_path, corpus, monkeypatch,
+                                         grace):
+    """The first scan's build sleeps past the task timeout.  With the
+    grace the job ends with no retry; with the declaration taken out
+    (a grace of 0 s) the other worker's sweep re-issues the task."""
+    builds = []
+
+    def unbuilt(names, device):
+        return [] if builds else list(names)  # one build, then built
+
+    def build_all(names):
+        builds.append(names)
+        time.sleep(BUILD_S)
+
+    monkeypatch.setattr(_build, "unbuilt", unbuilt)
+    monkeypatch.setattr(_build, "build_all", build_all)
+    if not grace:
+        monkeypatch.setattr(device_scan, "BUILD_GRACE_S", 0.0)
+    res = run_job(JobConfig(
+        input_files=corpus[:1],
+        app_options={"pattern": "volcano", **ENGINE_OPTS},
+        task_timeout_s=TIMEOUT_S, n_reduce=2,
+        work_dir=str(tmp_path / "job")), n_workers=2, device="cpu")
+    counters = res.metrics["counters"]
+    assert builds == [("shift_and",)]
+    if grace:
+        assert counters.get("map_retries", 0) == 0
+        assert counters["grace_declared"] == 1
+    else:
+        assert counters["map_retries"] >= 1
+        assert "grace_declared" not in counters
+    assert sum(1 for _ in res.iter_results()) > 0
+
+
+def test_grace_lasts_until_the_next_stamp(monkeypatch):
+    sched = Scheduler(files=["f"], n_reduce=1, task_timeout_s=1.0)
+    clock = [100.0]
+    monkeypatch.setattr(time, "monotonic", lambda: clock[0])
+    a = sched.request_task(wait_s=0)
+    assert a.kind is TaskType.MAP
+    sched.heartbeat(TaskType.MAP, 0, grace_s=30.0)
+    clock[0] += 20.0  # inside the grace, past the timeout
+    assert sched.request_task(wait_s=0) is None
+    assert sched.counters.get("map_retries", 0) == 0
+    sched.heartbeat(TaskType.MAP, 0)  # a plain stamp ends the grace
+    clock[0] += 2.0
+    assert sched.request_task(wait_s=0).kind is TaskType.MAP
+    assert sched.counters["map_retries"] == 1
+
+
+def test_unbuilt_names_nothing_on_the_cpu():
+    import torch
+
+    assert _build.unbuilt(_build.SOURCES, torch.device("cpu")) == []

@@ -550,3 +550,34 @@ def test_mxu_dot_kernel_matches_plain_on_card(card, chunk, lanes, blocks,
     want = mxu_probe.mxu_dot_plain(dev, member)
     assert got.shape == (lanes // 4096, 128, 128)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("flags", [["-o", "volcano"], ["-C", "1", "volcano"],
+                                   ["-b", "volcano"], ["-o", "-b", "-i", "HALLO"],
+                                   ["-c", "volcano", "-"], ["volcano"]],
+                         ids=" ".join)
+def test_cli_display_and_stdin_on_card_equal_cpu(card, tmp_path, capsysbinary,
+                                                 monkeypatch, flags):
+    """-o, -C 1, -b and standard input (the stream) on the card: the same
+    stdout and exit code as --device cpu."""
+    import io
+    import sys
+
+    from distributed_grep_tpu_torch.__main__ import main
+
+    files = []
+    for i in range(2):
+        p = tmp_path / f"f{i}.txt"
+        p.write_bytes(_text(60 + i, 1 << 20).tobytes())
+        files.append(str(p))
+    stdin = "-" in flags or flags == ["volcano"]
+    got = {}
+    for device in ("cuda", "cpu"):
+        if stdin:
+            monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(
+                io.BufferedReader(io.BytesIO(Path(files[0]).read_bytes()))))
+        rc = main(["grep", *flags, *([] if stdin else files),
+                   "--device", device])
+        got[device] = (rc, capsysbinary.readouterr().out)
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][0] == 0 and got["cuda"][1]
