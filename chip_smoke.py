@@ -13,7 +13,13 @@ Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          ``_build/``, one CLI run (``-c 'volcano$' --metrics``) builds the
          NFA kernel inside its map task: its count must equal GNU grep's,
          its task must declare the build's grace and none may be
-         re-issued (``map_retries`` 0).
+         re-issued (``map_retries`` 0).  Then the host library
+         (csrc/dgrep.cpp, built by g++ -march=native for this CPU): each
+         of its 16 entry points against its plain numpy or Python leg on
+         the same inputs, bit for bit, at 16 MiB of word lines with NUL,
+         0xFF, CR and broken UTF-8 planted (``phase_native``); printed as
+         a ``{"native": ...}`` line (g++'s version, the -march target,
+         each check and its two times) before the kernels line.
 Phase 2  every kernel against its plain PyTorch version on the same inputs
          (bit-identical words: tolerance 0), at the main path's shapes and
          at small ones: the Shift-And kernel (both scan modes, five
@@ -130,8 +136,9 @@ Phase 4  the measuring path, in this process with the launch counts zeroed
          (the one-hot product as a cuBLAS int8 GEMM, over a 1 MiB window,
          scaled to 64 MiB) are timed.
 
-The last two lines of standard output are one JSON object with every
-kernel's numbers and one JSON object with the device.  Any failure raises
+The last three lines of standard output are one JSON object with the host
+library's checks, one with every kernel's numbers and one with the
+device.  Any failure raises
 (exit status 1); without CUDA, or without the package beside this file,
 the script prints no result and exits 2.
 """
@@ -2190,6 +2197,183 @@ def drive_measuring(counters: dict, bench, kernel_compare, probe_narrow,
             "narrow": narrow, "e2e": e2e, "slope": slope}
 
 
+# Inputs of the native phase: the strict-UTF-8 edge cases of utf8_valid
+NATIVE_UTF8 = [b"", b"plain", "café €😀".encode(), b"\xc3", b"\xc0\xaf",
+               b"\xe0\x80\xaf", b"\xed\xa0\x80", b"\xf4\x90\x80\x80",
+               b"\xf5\x80\x80\x80", b"\x80", b"\xff", b"a\x00b"]
+
+
+def phase_native(np) -> dict:
+    """Every entry point of the host library (csrc/dgrep.cpp, built by
+    g++ -march=native for this machine's CPU) against its plain version on
+    the same inputs, bit for bit, at sizes where the threaded and AVX2
+    paths run: 16 MiB of word lines with NUL, 0xFF, CR and broken UTF-8
+    planted.  Raises on any difference; returns the ``native`` line."""
+    import tempfile
+
+    from distributed_grep_tpu_torch.models.dfa import compile_dfa
+    from distributed_grep_tpu_torch.ops import _build, host_match
+    from distributed_grep_tpu_torch.ops import lines as lines_mod
+    from distributed_grep_tpu_torch.ops.confirm_set import (
+        ConfirmSet,
+        ConfirmSetNumpy,
+    )
+    from distributed_grep_tpu_torch.runtime import columnar
+    from distributed_grep_tpu_torch.runtime.job import JobResult
+    from distributed_grep_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.lib()  # the build (or the load of a current one), untimed below
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4848)
+    clean = words_block(rng, 16 << 20).tobytes()
+    dirty = bytearray(clean)
+    for pos, b in zip(rng.integers(0, len(clean), 4000).tolist(),
+                      rng.choice([0x00, 0xFF, 0x0D, 0xC3], 4000).tolist()):
+        dirty[pos] = b
+    dirty = bytes(dirty)
+    checks: dict = {}
+
+    def check(name: str, run, plain, n: int, same=None) -> None:
+        t0 = time.perf_counter()
+        got = run()
+        t1 = time.perf_counter()
+        want = plain()
+        t2 = time.perf_counter()
+        ok = same(got, want) if same else got == want
+        checks[name] = {"ok": bool(ok), "n": int(n),
+                        "ms": round((t1 - t0) * 1e3, 3),
+                        "plain_ms": round((t2 - t1) * 1e3, 3)}
+        if not ok:
+            raise AssertionError(f"native {name}: differs from its plain "
+                                 f"version")
+
+    arrays = lambda a, b: np.array_equal(np.asarray(a), np.asarray(b))  # noqa: E731
+    keys = [f"/data/p\udcff{i} (line number #{j})"
+            for i, j in zip(range(20000), rng.integers(1, 10**9, 20000))]
+    check("fnv32a", lambda: [native.fnv32a(k) for k in keys],
+          lambda: [native.fnv32a_py(k) for k in keys], len(keys))
+    nl = lines_mod.newline_index(dirty)
+    check("newline_index", lambda: native.newline_index(dirty),
+          lambda: lines_mod.newline_index_numpy(dirty), len(dirty), arrays)
+    piece = dirty[: 4 << 20]
+    check("literal_scan", lambda: native.literal_scan(piece, b"the"),
+          lambda: native.literal_scan_py(piece, b"the"), len(piece), arrays)
+    table = compile_dfa("(old|new) th[a-z]+$")
+    full = table.full_table()
+    small = dirty[: 256 << 10]
+    for accept, tag in ((table.accept, ""), (table.accept_eol, " eol")):
+        check("dfa_scan" + tag,
+              lambda: native.dfa_scan(small, full, accept, table.start),
+              lambda: native.dfa_scan_py(small, full, accept, table.start),
+              len(small), lambda a, b: arrays(a[0], b[0]) and a[1] == b[1])
+    mid = dirty[: 1 << 20]
+    check("dfa_scan_mt", lambda: native.dfa_scan_mt(mid, full, table.accept,
+                                                    table.start),
+          lambda: native.dfa_scan_py(mid, full, table.accept,
+                                     table.start)[0], len(mid), arrays)
+    n_lines = int(nl.size)
+    starts, ends = columnar.line_spans(np.arange(1, n_lines + 1), nl,
+                                       len(dirty))
+    check("dfa_lines_match (gather_ranges, dfa_scan_mt, unique_lines)",
+          lambda: host_match.dfa_lines_match(table, dirty, starts, ends),
+          lambda: host_match.dfa_lines_match_numpy(table, dirty, starts,
+                                                   ends), n_lines, arrays)
+    members = []
+    for length, at in zip(rng.integers(1, 21, 3000).tolist(),
+                          rng.integers(0, len(clean) - 32, 3000).tolist()):
+        members.append(clean[at : at + length].replace(b"\n", b" "))
+    cand = np.sort(rng.integers(0, len(dirty) + 2, 2_000_000))
+    freed = []
+    for ic in (False, True):
+        cs = ConfirmSet(members, ignore_case=ic)
+        check(f"confirm_build, confirm_scan{' -i' if ic else ''}",
+              lambda: cs.confirm(dirty, cand),
+              lambda: ConfirmSetNumpy(members, ignore_case=ic).confirm(
+                  dirty, cand), cand.size, arrays)
+        real_free = cs._free
+        cs._free = lambda h, real_free=real_free: (freed.append(h),
+                                                   real_free(h))
+        del cs
+    checks["confirm_free"] = {"ok": len(freed) == 2, "n": len(freed)}
+    if len(freed) != 2:
+        raise AssertionError("native confirm_free: a handle was not freed")
+    src = np.frombuffer(dirty, np.uint8)
+    g0 = rng.integers(0, len(dirty), 500_000)
+    g1 = np.minimum(g0 + rng.integers(0, 80, g0.size), len(dirty))
+    check("gather_ranges", lambda: columnar.gather_ranges(src, g0, g1)[0],
+          lambda: columnar.gather_ranges_numpy(src, g0, g1)[0], g0.size)
+    lines = [dirty[a:b] for a, b in zip(starts[:100_000].tolist(),
+                                        ends[:100_000].tolist())]
+    check("utf8_valid", lambda: [native.utf8_valid(x)
+                                 for x in lines + NATIVE_UTF8],
+          lambda: [native.utf8_valid_py(x) for x in lines + NATIVE_UTF8],
+          len(lines) + len(NATIVE_UTF8))
+    clean_nl = lines_mod.newline_index(clean)
+    sel = np.arange(1, clean_nl.size + 1)[::3]
+    clean_src = np.frombuffer(clean, np.uint8)
+    batch = columnar.make_batch_from_lines("/data/w\udcff.txt", sel,
+                                           clean_src, clean_nl, len(clean))
+    prefix = "/data/w\udcff.txt (line number #".encode("utf-8",
+                                                      "surrogateescape")
+    check("format_batch", lambda: native.format_batch(
+        prefix, batch.linenos, batch.offsets, batch.slab),
+          batch.format_lines_bytes_numpy, len(batch))
+    check("unique_lines", lambda: lines_mod.unique_match_lines(cand[1:], nl),
+          lambda: lines_mod.unique_match_lines_numpy(cand[1:], nl),
+          cand.size - 1, arrays)
+    check("line_spans", lambda: columnar.line_spans(sel, nl, len(dirty)),
+          lambda: columnar.line_spans_numpy(sel, nl, len(dirty)), sel.size,
+          lambda a, b: arrays(a[0], b[0]) and arrays(a[1], b[1]))
+
+    def parts(split):
+        return {p: (b.linenos.tolist(), b.offsets.tolist(), b.slab)
+                for p, b in split.items()}
+
+    deferred = lambda: columnar.DeferredBatch(  # noqa: E731
+        "/data/w\udcff.txt", sel, src, nl, len(dirty), 7)
+    check("build_records", lambda: parts(deferred().split_by_partition(10)),
+          lambda: parts(deferred().split_by_partition_numpy(10)), sel.size)
+    bufs = []
+    for i in range(10):
+        pick = np.sort(rng.choice(sel, 20000, replace=False))
+        bufs.append(b"".join(
+            columnar.make_batch_from_lines(
+                f"/data/{name}", pick, src, nl, len(dirty)
+            ).format_lines_bytes()
+            # "\udcc3" (a raw 0xC3) sorts after "é" (0xC3 0xA9) as str
+            for name in sorted(["é", "\udcc3", "a", f"f{i}"])))
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i, b in enumerate(bufs):
+            files.append(Path(tmp) / f"mr-out-{i}")
+            files[-1].write_bytes(b)
+        res = JobResult(output_files=files, fileline_sorted=True)
+        check("merge_display", lambda: native.merge_display(bufs),
+              lambda: b"".join(res.iter_display_bytes_sorted()),
+              sum(len(b) for b in bufs))
+
+    def trigram(fn):
+        bloom = np.zeros(1 << 16, np.uint8)
+        fn(dirty[: 4 << 20], bloom)
+        return bloom.tobytes()
+
+    check("trigram_summary", lambda: trigram(native.trigram_summary_into),
+          lambda: trigram(native.trigram_summary_numpy), 4 << 20)
+    covered = {n for name in checks for n in re.findall(r"[a-z0-9_]+", name)}
+    missing = set(native.ENTRY_POINTS) - covered
+    if missing:
+        raise AssertionError(f"native entry points not checked: {missing}")
+    version, target = _build.gxx()[1].split("\n", 1)
+    march = re.search(r"-march=\s+(\S+)", target)
+    return {"native": {"gxx": version.strip(),
+                       "march": march.group(1) if march else None,
+                       "threads": native.THREADS,
+                       "library": Path(native.lib()._name).name,
+                       "build_s": round(build_s, 3),
+                       "checks": checks}}
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -2243,7 +2427,10 @@ def main() -> int:
             pairset_scan,
             swar_scan,
         )
-        from distributed_grep_tpu_torch.ops.confirm_set import ConfirmSet
+        from distributed_grep_tpu_torch.ops.confirm_set import (
+            ConfirmSet,
+            ConfirmSetNumpy,
+        )
         from distributed_grep_tpu_torch.ops.layout import (
             choose_layout,
             padded_stripes,
@@ -2254,6 +2441,7 @@ def main() -> int:
             offsets_from_sparse_words,
         )
         from distributed_grep_tpu_torch.runtime.job import run_job
+        from distributed_grep_tpu_torch.utils import native
         from distributed_grep_tpu_torch.utils.config import JobConfig
     except ImportError as e:
         print(f"error: distributed_grep_tpu_torch is not importable beside "
@@ -2295,6 +2483,11 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(_build.SOURCES)}, one nvcc each, in parallel)")
     log(cold_line)
+    # the host library, built by g++ for this CPU, against its plain legs
+    t0 = time.perf_counter()
+    native_line = phase_native(np)
+    log(f"native: {json.dumps(native_line)} "
+        f"({time.perf_counter() - t0:.1f} s)")
     for name in _build.SOURCES:
         for func, usage in ptxas_usage(_build.saved_log(name)):
             log(f"  ptxas {name} {template_label(func)}: {usage}")
@@ -2874,12 +3067,20 @@ def main() -> int:
         t0 = time.perf_counter()
         keep = confirm.confirm(pc_seg, cands)
         c_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        keep_np = ConfirmSetNumpy(set5).confirm(pc_seg, cands)
+        c_np_s = time.perf_counter() - t0
+        if not np.array_equal(keep, keep_np):
+            raise AssertionError("confirm set: the library and numpy differ "
+                                 "on config 5's candidates")
         log(f"confirm set, config 5 (10,000 members) on one 64 MB pcap "
             f"segment: {cands.size} candidates ({cands.size / len(pc_seg):.4f}"
             f" per byte, analytic {banks['config5'].fp_per_byte:.4f}), "
             f"{int(keep.sum())} confirmed, {c_s:.3f} s = "
-            f"{c_s / max(cands.size, 1) * 1e9:.1f} ns per candidate (host, "
-            f"one thread)")
+            f"{c_s / max(cands.size, 1) * 1e9:.1f} ns per candidate (host "
+            f"library, {native.THREADS} threads); numpy plain version "
+            f"{c_np_s:.3f} s = {c_np_s / max(cands.size, 1) * 1e9:.1f} ns "
+            f"(one thread)")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2979,6 +3180,7 @@ def main() -> int:
         "config2 alternation"]
     fdr_ms, fdr_plain_ms, fdr_bound_ms, fdr_by = set_rows["config5"]
     ps_ms, ps_plain_ms, ps_bound_ms, ps_by = set_rows["2-byte set"]
+    print(json.dumps(native_line))
     print(json.dumps({"kernels": [{
         "name": "shift_and",
         "route": "cuda",

@@ -24,9 +24,10 @@ boundary-wrapped regex, apps/grep.build_confirm), ``count_only`` (grep -c:
 one record per file, key the filename, value the selected line count) and
 ``presence_only`` (with count_only, grep -q/-l/-L: only whether a file's
 count is nonzero is meaningful; the stream may stop at the first chunk
-with a selected line).  The reference's literal -w/-x fast path needs its
-native library (ROADMAP item 12); the regex confirm here gives the same
-lines.
+with a selected line).  As in the reference, -w/-x with one case-sensitive
+literal (a Shift-And pattern of single bytes) selects its lines with
+``apps/grep.literal_mode_lines`` (one scan of the host library for the
+literal, then byte masks) in place of the regex over each candidate line.
 
 The device mesh and the shard index raise NotImplementedError naming the
 ROADMAP.md item that will port them; the port drives one card, so
@@ -42,7 +43,10 @@ import threading
 import numpy as np
 
 from distributed_grep_tpu_torch.apps.base import KeyValue
-from distributed_grep_tpu_torch.apps.grep import build_confirm
+from distributed_grep_tpu_torch.apps.grep import (
+    build_confirm,
+    literal_mode_lines,
+)
 from distributed_grep_tpu_torch.ops.engine import GrepEngine
 from distributed_grep_tpu_torch.ops.lines import count_lines, newline_index
 from distributed_grep_tpu_torch.runtime.columnar import (
@@ -60,6 +64,8 @@ _configured_with: tuple | None = None
 _lock = threading.Lock()
 _invert = False  # grep -v
 _confirm = None  # -w/-x: the boundary-wrapped host regex over candidates
+_confirm_lit: bytes | None = None  # -w/-x on one case-sensitive literal
+_confirm_mode = "search"
 _count_only = False  # one count record per file
 _presence = False  # -q/-l/-L: per-file truthiness only
 
@@ -108,7 +114,7 @@ def configure(
     segment_bytes, min_chunk) pass through ``options``; the grep options
     are the module docstring's."""
     global _engine, _configured_with, _invert, _confirm, _count_only, \
-        _presence
+        _presence, _confirm_lit, _confirm_mode
     for name, value in options.items():
         if name in _UNPORTED and value:
             raise NotImplementedError(
@@ -134,6 +140,9 @@ def configure(
                              **engine_opts)  # type: ignore[arg-type]
         _confirm = build_confirm(pattern=pattern, patterns=patterns,
                                  ignore_case=ignore_case, mode=mode)
+        _confirm_mode = mode
+        _confirm_lit = (_engine.literal() if _confirm is not None
+                        and patterns is None and not ignore_case else None)
         _configured_with = key
 
 
@@ -169,7 +178,12 @@ def _records_for(filename: str, contents: bytes, result) -> list:
     if _confirm is not None and emit.size:
         if nl is None:
             nl = newline_index(contents)
-        emit = _confirmed(emit, line_spans(emit, nl, len(contents)), contents)
+        if _confirm_lit is not None:
+            emit = np.intersect1d(emit, literal_mode_lines(
+                contents, _confirm_lit, _confirm_mode, nl))
+        else:
+            emit = _confirmed(emit, line_spans(emit, nl, len(contents)),
+                              contents)
     if _invert:
         emit = np.setdiff1d(np.arange(1, count_lines(contents) + 1,
                                       dtype=np.int64), emit)
@@ -215,7 +229,12 @@ def map_path_fn(filename: str, path: str) -> list:
 
         def count_chunk(lines_before: int, buf: bytes, lines, nl) -> None:
             nonlocal n
-            n += _confirmed(lines, line_spans(lines, nl, len(buf)), buf).size
+            if _confirm_lit is not None:
+                n += literal_mode_lines(buf, _confirm_lit, _confirm_mode,
+                                        nl).size
+            else:
+                n += _confirmed(lines, line_spans(lines, nl, len(buf)),
+                                buf).size
 
         engine.scan_file(path, emit_chunk=count_chunk, progress=progress,
                          stop=(lambda: n > 0) if _presence else None)
@@ -225,12 +244,18 @@ def map_path_fn(filename: str, path: str) -> list:
 
     def emit_chunk(lines_before: int, buf: bytes, lines, nl) -> None:
         arr = np.frombuffer(buf, dtype=np.uint8)
-        if lines_before == 0 and len(buf) == file_size and _confirm is None:
+        if _confirm_lit is not None:
+            lines = lines[np.isin(lines, literal_mode_lines(
+                buf, _confirm_lit, _confirm_mode, nl))]
+            if not lines.size:
+                return
+        if (lines_before == 0 and len(buf) == file_size
+                and (_confirm is None or _confirm_lit is not None)):
             # the whole file is this one chunk: the buffer lives as long as
             # a whole-bytes map's, so the slab gather waits for the shuffle
             batches.append(DeferredBatch(filename, lines, arr, nl, len(buf)))
             return
-        if _confirm is not None:
+        if _confirm is not None and _confirm_lit is None:
             lines = _confirmed(lines, line_spans(lines, nl, len(buf)), buf)
             if not lines.size:
                 return

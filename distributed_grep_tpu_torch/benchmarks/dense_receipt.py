@@ -9,8 +9,8 @@ kernels' output and ``mr-out-*``: the record build, the partition split,
 the shuffle's encode and decode, the reduce's collation and format, the
 CLI's print.  The counterpart of the reference's
 ``benchmarks/dense_receipt.py`` (same corpus recipe, same stage method;
-no ``--ab``: it switched the reference's native record code, which this
-package does not have).
+no ``--ab``: it switched the reference's native record code off, and the
+port's host library has no such switch).
 
 * the CLI leg runs ``python -m distributed_grep_tpu_torch grep PATTERN
   CORPUS --metrics`` as a subprocess with stdout to a file: its wall

@@ -28,8 +28,9 @@ for the same set and pricing.  Its tuner constants are the reference's
 (priced for the reference's TPU kernel and its native confirm), kept so
 that plans stay equal; pricing them for the H100 is later work (ROADMAP
 section A).  Two parts of the reference stay out: the native-scanner
-crossover (the port has no host scanner, so ``compile_fdr`` never cedes a
-set to one) and the confirm probe used by its self-calibration.
+crossover (the port routes no scan to a host scanner, so ``compile_fdr``
+never cedes a set to one) and the confirm probe used by its
+self-calibration.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's sources and load them with ctypes: the CUDA
+kernels with nvcc, the host library ``csrc/dgrep.cpp`` with g++.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``distributed_grep_tpu_torch/_build/lib<name>-<hash>.so`` (the directory is
@@ -11,7 +12,13 @@ without its log is built again.
 The sources expose a plain C interface: no PyTorch headers, so a build
 takes seconds.  ``build_all`` starts one nvcc per source, all at once.
 
-A missing nvcc or a failed build raises; nothing falls back.
+The host library (``HOST_SOURCES``) builds the same way with g++
+(``build_host``, ``load_host``; the flags ``GXX_FLAGS``): its hash also
+covers the compiler's version and the target that ``-march=native``
+resolves to, so a checkout moved to another CPU or compiler rebuilds.
+The CPU path uses it too, so ``unbuilt`` names it on either device.
+
+A missing compiler or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -34,9 +41,13 @@ NVCC_FLAGS = (
 )
 SOURCES = ("shift_and", "nfa", "fdr", "pairset", "approx", "shift_and_swar",
            "probe_narrow", "mxu_dot")
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-Wall", "-Wextra", "-Werror",
+             "-std=c++17", "-shared")
+HOST_SOURCES = ("dgrep",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_gxx: tuple[str, str] | None = None  # (path, version and resolved target)
 
 
 def nvcc_path() -> str:
@@ -58,6 +69,26 @@ def nvcc_path() -> str:
     )
 
 
+def gxx() -> tuple[str, str]:
+    """(g++ on PATH, its version and the target -march=native resolves
+    to), asked once a process.  Raises when PATH holds no g++."""
+    global _gxx
+    if _gxx is None:
+        path = shutil.which("g++")
+        if path is None:
+            raise RuntimeError(
+                "g++ not found on PATH: the host library of "
+                "distributed_grep_tpu_torch (csrc/dgrep.cpp) builds from "
+                "source on first use")
+        version = subprocess.run([path, "--version"], capture_output=True,
+                                 text=True, check=True).stdout
+        target = subprocess.run(
+            [path, "-march=native", "-Q", "--help=target"],
+            capture_output=True, text=True, check=True).stdout
+        _gxx = (path, version + target)
+    return _gxx
+
+
 def source_hash(src: bytes) -> str:
     """The build hash of a source text: it, the headers of csrc/ and the
     compiler flags."""
@@ -68,20 +99,40 @@ def source_hash(src: bytes) -> str:
     return h.hexdigest()[:12]
 
 
+def host_source_hash(src: bytes) -> str:
+    """The build hash of a host source: it, the g++ flags, and g++'s
+    version and resolved target."""
+    h = hashlib.sha256(src)
+    h.update(" ".join(GXX_FLAGS).encode())
+    h.update(gxx()[1].encode())
+    return h.hexdigest()[:12]
+
+
 def nvcc_command(src: Path, out: Path) -> list[str]:
     """nvcc's command line for a source (csrc/ on the include path)."""
     return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
             str(src)]
 
 
+def gxx_command(src: Path, out: Path) -> list[str]:
+    """g++'s command line for a host source."""
+    return [gxx()[0], *GXX_FLAGS, "-o", str(out), str(src), "-lpthread"]
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    return BUILD_DIR / f"lib{name}-{source_hash(src)}.so"
+    src = _source(name).read_bytes()
+    digest = (host_source_hash(src) if name in HOST_SOURCES
+              else source_hash(src))
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def saved_log(name: str) -> str:
-    """nvcc's output for the current build of ``csrc/<name>.cu``.  Raises
-    FileNotFoundError if that build has not been made."""
+    """The compiler's output for the current build of source ``name``.
+    Raises FileNotFoundError if that build has not been made."""
     return _target(name).with_suffix(".log").read_text()
 
 
@@ -91,7 +142,8 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.Popen(nvcc_command(CSRC / f"{name}.cu", tmp),
+    command = gxx_command if name in HOST_SOURCES else nvcc_command
+    proc = subprocess.Popen(command(_source(name), tmp),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return out, tmp, proc
@@ -102,7 +154,8 @@ def _finish(name: str, job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(
+            f"{proc.args[0]} failed for csrc/{_source(name).name}:\n{log}")
     tmp_log = tmp.with_suffix(".log")
     tmp_log.write_text(log)
     os.replace(tmp_log, out.with_suffix(".log"))
@@ -112,6 +165,15 @@ def _finish(name: str, job) -> None:
 def build_all(names: tuple[str, ...] = SOURCES) -> None:
     """Compile every named source that has no current build, one nvcc
     process per source, all started together."""
+    _compile(names)
+
+
+def build_host(names: tuple[str, ...] = HOST_SOURCES) -> None:
+    """``build_all`` for the host sources: one g++ process each."""
+    _compile(names)
+
+
+def _compile(names: tuple[str, ...]) -> None:
     with _lock:
         jobs = {n: _start(n) for n in names}
         try:
@@ -126,13 +188,14 @@ def build_all(names: tuple[str, ...] = SOURCES) -> None:
 
 
 def unbuilt(names, device) -> list[str]:
-    """The named sources that a launch on ``device`` would first have to
-    compile: none on the CPU (the plain versions need no build), and on
-    the card those with no current build on disk."""
-    if device.type != "cuda":
-        return []
-    return [n for n in names if n not in _libs and not (
-        _target(n).exists() and _target(n).with_suffix(".log").exists())]
+    """The named sources that a call on ``device`` would first have to
+    compile, those with no current build on disk: the host sources on
+    either device, the CUDA sources only on the card (on the CPU their
+    plain versions need no build)."""
+    return [n for n in names
+            if (n in HOST_SOURCES or device.type == "cuda")
+            and n not in _libs and not (
+                _target(n).exists() and _target(n).with_suffix(".log").exists())]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -141,6 +204,19 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build_all((name,))
+    return _open(name)
+
+
+def load_host(name: str = "dgrep") -> ctypes.CDLL:
+    """``load`` for a host source: built with ``build_host`` if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_host((name,))
+    return _open(name)
+
+
+def _open(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:

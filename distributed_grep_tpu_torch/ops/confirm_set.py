@@ -1,14 +1,17 @@
-"""Exact host confirm of literal-set candidates, vectorized with numpy.
+"""Exact host confirm of literal-set candidates.
 
 ``ConfirmSet(patterns, ignore_case).confirm(data, ends)`` is True at end
 offset ``e`` iff some member ``p`` has ``hay[e - len(p):e] == p``, where
 ``hay`` is ``data`` with ASCII A-Z folded to a-z under -i (members are
 folded the same way).  It is the host oracle of the FDR filter's
 candidates and of the set path's boundary stitch (ops/device_scan.py),
-with the contract of the reference's ConfirmSet (its Python fallback in
-``distributed_grep_tpu/utils/native.py``).
+with the contract of the reference's ConfirmSet.
 
-One pass over the candidates, never a loop over them:
+``ConfirmSet`` runs in the host library (utils/native.py,
+``dgrep_confirm_*``): a table keyed on each member's last 4 bytes behind
+an L1-sized bloom bitmap, probed per candidate, the candidates split over
+``native.THREADS`` threads.  ``ConfirmSetNumpy`` is its plain version, one
+vectorized pass over the candidates, never a loop over them:
 
 1. one unaligned 8-byte load per candidate gives the word ``w`` of the
    last 8 bytes before ``e`` (the byte at e-1 in its top byte; the few
@@ -25,6 +28,8 @@ One pass over the candidates, never a loop over them:
 from __future__ import annotations
 
 import numpy as np
+
+from distributed_grep_tpu_torch.utils import native
 
 _HASH_MUL = np.uint64(0x9E3779B97F4A7C15)
 _BITS = 20  # bitmap of 2**20 flags per group
@@ -60,19 +65,65 @@ class _Group:
         return maybe[hit], pos[hit]
 
 
-class ConfirmSet:
-    """Batch-confirm candidate end offsets against a literal set."""
+def _members(patterns, ignore_case: bool) -> list[bytes]:
+    """The set's members as bytes (str encoded utf-8/surrogateescape),
+    folded under -i, duplicates dropped."""
+    members = []
+    for p in patterns:
+        b = (p.encode("utf-8", "surrogateescape") if isinstance(p, str)
+             else bytes(p))
+        if not b:
+            raise ValueError("empty literal in pattern set")
+        members.append(b.lower() if ignore_case else b)
+    return list(dict.fromkeys(members))
+
+
+class _LinesMatch:
+    def lines_match(self, data, starts, ends) -> np.ndarray:
+        """True where the line span [starts[i], ends[i]) holds a member:
+        every end offset inside each span confirmed at once (members hold
+        no '\\n', so a hit ending inside a line lies inside it)."""
+        starts = np.asarray(starts, dtype=np.int64)
+        lens = np.asarray(ends, dtype=np.int64) - starts
+        out = np.zeros(starts.size, dtype=bool)
+        if not starts.size or int(lens.sum()) == 0:
+            return out
+        owner = np.repeat(np.arange(starts.size), lens)
+        first = np.concatenate(([0], np.cumsum(lens)[:-1]))
+        offs = starts[owner] + 1 + (np.arange(owner.size) - first[owner])
+        out[np.unique(owner[self.confirm(data, offs)])] = True
+        return out
+
+
+class ConfirmSet(_LinesMatch):
+    """Batch-confirm candidate end offsets against a literal set, in the
+    host library."""
 
     def __init__(self, patterns, ignore_case: bool = False):
         self.ignore_case = bool(ignore_case)
-        members = []
-        for p in patterns:
-            b = (p.encode("utf-8", "surrogateescape") if isinstance(p, str)
-                 else bytes(p))
-            if not b:
-                raise ValueError("empty literal in pattern set")
-            members.append(b.lower() if self.ignore_case else b)
-        self.patterns = list(dict.fromkeys(members))
+        self.patterns = _members(patterns, self.ignore_case)
+        # bound now: the handle is freed even while the interpreter exits
+        self._free = native.lib().dgrep_confirm_free
+        self._handle = native.confirm_build(self.patterns, self.ignore_case)
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle:
+            self._handle = None
+            self._free(handle)
+
+    def confirm(self, data, ends) -> np.ndarray:
+        """Boolean mask over ``ends``: does some member end there?"""
+        ends = np.asarray(ends, dtype=np.int64).reshape(-1)
+        return native.confirm_scan(self._handle, data, ends)
+
+
+class ConfirmSetNumpy(_LinesMatch):
+    """``ConfirmSet``'s plain version (numpy)."""
+
+    def __init__(self, patterns, ignore_case: bool = False):
+        self.ignore_case = bool(ignore_case)
+        self.patterns = _members(patterns, self.ignore_case)
         self.min_len = min((len(p) for p in self.patterns), default=0)
         by_len: dict[int, set[int]] = {}
         longs = []
@@ -152,19 +203,4 @@ class ConfirmSet:
                     got = _FOLD[got]
                 same = np.all((got == heads[idx]) | ~used, axis=1)
                 out[ok[c[same]]] = True
-        return out
-
-    def lines_match(self, data, starts, ends) -> np.ndarray:
-        """True where the line span [starts[i], ends[i]) holds a member:
-        every end offset inside each span confirmed at once (members hold
-        no '\\n', so a hit ending inside a line lies inside it)."""
-        starts = np.asarray(starts, dtype=np.int64)
-        lens = np.asarray(ends, dtype=np.int64) - starts
-        out = np.zeros(starts.size, dtype=bool)
-        if not starts.size or int(lens.sum()) == 0:
-            return out
-        owner = np.repeat(np.arange(starts.size), lens)
-        first = np.concatenate(([0], np.cumsum(lens)[:-1]))
-        offs = starts[owner] + 1 + (np.arange(owner.size) - first[owner])
-        out[np.unique(owner[self.confirm(data, offs)])] = True
         return out

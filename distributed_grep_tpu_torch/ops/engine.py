@@ -54,7 +54,9 @@ Differences from the reference, none of which changes an output line:
   from memory);
 * no native crossover: the reference's ``compile_fdr`` cedes a set to its
   host scanner when the plan's modelled rate falls below the scanner's;
-  the port has no host scanner and keeps the set on the card;
+  the port routes no scan to a host scanner (the host library's DFA
+  scanner is bound, utils/native.py; the route is ROADMAP item 11) and
+  keeps the set on the card;
 * no self-calibration or retune of FDR plans: the port's plans are the
   default-pricing plans (the reference's constants; re-pricing for the
   H100 is later work);
@@ -64,7 +66,7 @@ Differences from the reference, none of which changes an output line:
   its DFA banks; the port raises.
 
 Patterns and sets outside these routes raise NotImplementedError naming
-their ROADMAP.md item; there is no host scanner to fall back to.
+their ROADMAP.md item; no host scan route falls in for them.
 """
 
 from __future__ import annotations
@@ -556,6 +558,18 @@ class GrepEngine:
         if self.mode == "pairset":
             return self.pairset.window
         return self.fdr.window
+
+    def literal(self) -> bytes | None:
+        """The pattern as one byte string, when it is one: a Shift-And
+        pattern whose every symbol is a single byte."""
+        if self.shift_and is None:
+            return None
+        out = []
+        for ranges in self.shift_and.sym_ranges:
+            if len(ranges) != 1 or ranges[0][0] != ranges[0][1]:
+                return None
+            out.append(ranges[0][0])
+        return bytes(out)
 
     def host_line_matcher(self, data, starts, ends) -> np.ndarray:
         """Exact host verdicts for the [starts, ends) line spans of

@@ -1,15 +1,25 @@
 """Host line oracle of the regex path: one exact verdict per line, for many
 lines at once.
 
-``dfa_lines_match(table, data, starts, ends)`` walks the pattern's DFA
+``dfa_lines_match(table, data, starts, ends)`` runs the pattern's DFA
 (models/dfa.compile_dfa) over every line [starts[i], ends[i]) of ``data``
-together: all lines step one byte at a time from the line-start state, as
-numpy gathers over the ``full_table()``.  A line matches iff it reaches an
-``accept`` state at any byte, or an ``accept_eol`` state after its last
-byte (the '$' plane).  The lines are sorted longest first, so the lines
-still walking at step t are a prefix of the order and no mask is needed;
-when few long lines remain, a plain Python loop per line finishes them
-(one numpy step per byte would cost more than the loop).
+in the host library: the lines are gathered into one slab, each followed
+by a '\\n' (``native.gather_ranges``), and the slab is walked once with
+the ``accept`` plane and, for a '$' pattern, once with the ``accept_eol``
+plane, kept where the next byte is a line's '\\n' (``native.dfa_scan_mt``,
+the slab cut at newlines across threads).  Every state goes to the start
+state on '\\n' (the newline reset of ``DfaTable``), so each line of the
+slab is walked from the line start, as in place.  The accepting offsets
+map back to their lines by a linear merge (``native.unique_lines``).  A
+line matches iff it reaches an ``accept`` state at any byte, or an
+``accept_eol`` state after its last byte (an empty line: the start state).
+
+``dfa_lines_match_numpy`` is its plain version: all lines step one byte
+at a time from the line-start state, as numpy gathers over the
+``full_table()``.  The lines are sorted longest first, so the lines still
+walking at step t are a prefix of the order and no mask is needed; when
+few long lines remain, a plain Python loop per line finishes them (one
+numpy step per byte would cost more than the loop).
 
 ``re_lines_match(rx, data, starts, ends)`` is the oracle of the patterns no
 DFA expresses (word boundaries, repeats past the expansion cap): Python
@@ -21,12 +31,6 @@ spans at once.  The reference re-checks every boundary line with a
 Python-int loop (about 1 MB/s); at 65536 boundaries per 64 MB segment that
 would cost tens of seconds per GiB, while the spans here are the stitch's
 short windows, stepped together one numpy column at a time.
-
-The reference's oracle is a native C DFA scanner (its ``utils/native``);
-this package keeps numpy only.  A per-line Python DFA walk would take
-seconds per 64 MB segment on the ~65536 boundary lines the stitch checks
-(ops/device_scan.py); the batched walk takes one numpy step per byte of
-the longest line.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 
 from distributed_grep_tpu_torch.models.approx import NL, ApproxModel
 from distributed_grep_tpu_torch.models.dfa import DfaTable
+from distributed_grep_tpu_torch.utils import native
 
 # Below this many lines still walking, the remaining bytes go through the
 # per-line Python loop instead of numpy steps.
@@ -67,6 +72,48 @@ def dfa_lines_match(
 ) -> np.ndarray:
     """Exact verdicts (bool per line) of ``table`` on the lines [starts[i],
     ends[i]) of ``data``; a line holds no '\\n'."""
+    starts = np.asarray(starts, dtype=np.int64)
+    ends = np.asarray(ends, dtype=np.int64)
+    n = starts.size
+    hit = np.zeros(n, dtype=bool)
+    if n == 0:
+        return hit
+    lens = ends - starts
+    src = np.frombuffer(data, dtype=np.uint8)
+    nl_at = (data.find(b"\n") if isinstance(data, bytes)
+             else int(np.argmax(src == NL)) if (src == NL).any() else -1)
+    if nl_at < 0:  # no '\n' to gather after each line: add one
+        src = np.concatenate((src, np.array([NL], dtype=np.uint8)))
+        nl_at = src.size - 1
+    # ranges: line 0, a '\n', line 1, a '\n', ...
+    r_starts = np.empty(2 * n, dtype=np.int64)
+    r_ends = np.empty(2 * n, dtype=np.int64)
+    r_starts[0::2], r_ends[0::2] = starts, ends
+    r_starts[1::2], r_ends[1::2] = nl_at, nl_at + 1
+    total = int(lens.sum()) + n
+    slab = native.gather_ranges(src, r_starts, r_ends, total)
+    seps = np.cumsum(lens + 1) - 1  # each line's '\n' in the slab
+    sl = np.frombuffer(slab, dtype=np.uint8)
+    full = table.full_table()
+    acc = native.dfa_scan_mt(slab, full, table.accept, table.start)
+    acc = acc[sl[acc - 1] != NL]  # a state after a line's byte, not a '\n'
+    if acc.size:
+        hit[native.unique_lines(seps, acc) - 1] = True
+    if table.accept_eol.any():
+        eol = native.dfa_scan_mt(slab, full, table.accept_eol, table.start)
+        eol = eol[eol < total]
+        eol = eol[sl[eol] == NL]  # the state after a line's last byte
+        if eol.size:
+            hit[native.unique_lines(seps, eol) - 1] = True
+        if table.accept_eol[table.start]:
+            hit[lens == 0] = True
+    return hit
+
+
+def dfa_lines_match_numpy(
+    table: DfaTable, data, starts: np.ndarray, ends: np.ndarray
+) -> np.ndarray:
+    """``dfa_lines_match``'s plain version: the batched numpy walk."""
     starts = np.asarray(starts, dtype=np.int64)
     lens = np.asarray(ends, dtype=np.int64) - starts
     n = starts.size

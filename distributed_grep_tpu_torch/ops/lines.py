@@ -11,13 +11,17 @@ checks only the bytes around each boundary and adds what it finds
 (ops/device_scan.py); the regex path replaces the device verdict of every
 such line with the host verdict (``boundary_lines`` + ``stitch_lines``).
 
-numpy only: the reference's native newline index and line merge are not
-part of this package.
+``newline_index`` and ``unique_match_lines`` run in the host library
+(utils/native.py: an AVX2 newline scan, a linear merge of the sorted
+offsets against the newline index); ``newline_index_numpy`` and
+``unique_match_lines_numpy`` are their plain versions.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from distributed_grep_tpu_torch.utils import native
 
 NL = 0x0A
 
@@ -29,7 +33,19 @@ def line_of_offsets(offsets: np.ndarray, nl_index: np.ndarray) -> np.ndarray:
 
 
 def unique_match_lines(offsets: np.ndarray, nl_index: np.ndarray) -> np.ndarray:
-    """Sorted unique 1-based line numbers of match end offsets."""
+    """Sorted unique 1-based line numbers of match end offsets (sorted
+    first if they are not ascending)."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    if offsets.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    if offsets.size > 1 and bool(np.any(offsets[1:] < offsets[:-1])):
+        offsets = np.sort(offsets)
+    return native.unique_lines(nl_index, offsets)
+
+
+def unique_match_lines_numpy(offsets: np.ndarray,
+                             nl_index: np.ndarray) -> np.ndarray:
+    """``unique_match_lines``'s plain version."""
     if offsets.size == 0:
         return np.zeros(0, dtype=np.int64)
     return np.unique(line_of_offsets(offsets, nl_index)).astype(np.int64)
@@ -71,6 +87,11 @@ def stitch_lines(
 
 def newline_index(data: bytes) -> np.ndarray:
     """Byte offsets of every '\\n', as int64."""
+    return native.newline_index(data)
+
+
+def newline_index_numpy(data: bytes) -> np.ndarray:
+    """``newline_index``'s plain version."""
     return np.flatnonzero(np.frombuffer(data, dtype=np.uint8) == NL).astype(
         np.int64
     )

@@ -19,10 +19,16 @@ stages with vectorized equivalents:
   ``IdentityCollator``, spilling sorted runs past a memory limit, and the
   ``mr-out-*`` files come out in the CLI's display order.
 
-The counterpart of the reference's ``runtime/columnar.py``, numpy only
-(the reference's native one-pass record code is ROADMAP item 12; its numpy
-legs, kept here, are byte-identical to them by its own tests).  A map
-output of ``KeyValue``s alone takes the per-record path everywhere.
+The counterpart of the reference's ``runtime/columnar.py``.  The hot
+loops run in the host library (utils/native.py): a batch's split by
+partition is one pass from the source bytes (``build_records``: the line
+spans, the FNV-32a of each key, the grouping and the slab copies), the
+slab gathers and line spans are single loops, and the reduce's text form
+is ``format_batch``, which declines a batch holding a line that is not
+strict UTF-8 (that batch's text then decodes utf-8/replace in Python).
+The numpy and Python legs stay, named ``*_numpy``, as the plain versions
+the tests hold the library to.  A map output of ``KeyValue``s alone takes
+the per-record path everywhere.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from pathlib import Path
 import numpy as np
 
 from distributed_grep_tpu_torch.apps.base import KeyValue
+from distributed_grep_tpu_torch.utils import native
 
 # Batch block marker inside intermediate files.  JSONL records always start
 # with '[' (json.dumps of a [key, value] list), so a line starting with '#'
@@ -131,9 +138,20 @@ class LineBatch:
         return LineBatch(self.filename, self.linenos[idx], offsets, slab)
 
     def split_by_partition(self, n_reduce: int) -> dict[int, "LineBatch"]:
-        """Per-reduce sub-batches, one select per partition present."""
-        parts = self.partitions(n_reduce)
-        return {int(r): self.select(parts == r) for r in np.unique(parts)}
+        """Per-reduce sub-batches: one pass of the library over the slab
+        (``build_records``)."""
+        return _native_split(self.filename,
+                             np.frombuffer(self.slab, dtype=np.uint8),
+                             self.offsets[:-1], self.offsets[1:],
+                             self.linenos, n_reduce)
+
+    def split_by_partition_numpy(self, n_reduce: int) -> dict[int, "LineBatch"]:
+        """``split_by_partition``'s plain version: the vectorized hash, one
+        gather a partition present."""
+        return _numpy_split(self.filename,
+                            np.frombuffer(self.slab, dtype=np.uint8),
+                            self.offsets[:-1], self.offsets[1:],
+                            self.linenos, self.partitions(n_reduce))
 
     def texts(self) -> list[str]:
         """Per-line decoded text (utf-8/replace): an ASCII slab is decoded
@@ -147,7 +165,15 @@ class LineBatch:
 
     def format_lines_bytes(self, sep: str = "\t") -> bytes:
         """The mr-out bytes: ``"<file> (line number #N)<sep><text>\\n"``
-        per record, encoded utf-8/surrogateescape."""
+        per record, encoded utf-8/surrogateescape.  The library copies a
+        batch whose lines are all strict UTF-8 (their decode is then the
+        identity); any other batch takes ``format_lines_bytes_numpy``."""
+        out = native.format_batch(_key_prefix(self.filename), self.linenos,
+                                  self.offsets, self.slab, sep.encode())
+        return self.format_lines_bytes_numpy(sep) if out is None else out
+
+    def format_lines_bytes_numpy(self, sep: str = "\t") -> bytes:
+        """``format_lines_bytes``'s plain version (Python)."""
         head = f"{self.filename} (line number #"
         return "".join(
             f"{head}{n}){sep}{t}\n"
@@ -155,14 +181,58 @@ class LineBatch:
         ).encode("utf-8", "surrogateescape")
 
 
-def gather_ranges(arr: np.ndarray, starts: np.ndarray,
-                  ends: np.ndarray) -> tuple[bytes, np.ndarray]:
-    """Concatenate ``arr[starts[i]:ends[i]]`` for all i.  Returns (slab,
-    int64 offsets[n+1])."""
+def _key_prefix(filename: str) -> bytes:
+    return (filename + " (line number #").encode("utf-8", "surrogateescape")
+
+
+def _native_split(filename: str, data: np.ndarray, starts: np.ndarray,
+                  ends: np.ndarray, linenos: np.ndarray,
+                  n_reduce: int) -> dict[int, LineBatch]:
+    """The library's one-pass record build as per-partition LineBatches:
+    the one place both split paths (a built batch, a deferred one) encode
+    the key prefix."""
+    parts = native.build_records(data, starts, ends, linenos,
+                                 _key_prefix(filename), n_reduce)
+    return {p: LineBatch(filename, ln, off, slab)
+            for p, (ln, off, slab) in parts.items()}
+
+
+def _numpy_split(filename: str, data: np.ndarray, starts: np.ndarray,
+                 ends: np.ndarray, linenos: np.ndarray,
+                 parts: np.ndarray) -> dict[int, LineBatch]:
+    """``_native_split``'s plain version, given each record's partition:
+    one gather a partition present."""
+    out = {}
+    for r in np.unique(parts).tolist():
+        sel = np.flatnonzero(parts == r)
+        slab, offsets = gather_ranges_numpy(data, starts[sel], ends[sel])
+        out[r] = LineBatch(filename, linenos[sel], offsets, slab)
+    return out
+
+
+def _range_offsets(starts: np.ndarray, ends: np.ndarray):
     starts = np.asarray(starts, dtype=np.int64)
     lens = np.asarray(ends, dtype=np.int64) - starts
     offsets = np.zeros(starts.size + 1, dtype=np.int64)
     np.cumsum(lens, out=offsets[1:])
+    return starts, lens, offsets
+
+
+def gather_ranges(arr: np.ndarray, starts: np.ndarray,
+                  ends: np.ndarray) -> tuple[bytes, np.ndarray]:
+    """Concatenate ``arr[starts[i]:ends[i]]`` for all i (a memcpy a range,
+    in the library).  Returns (slab, int64 offsets[n+1])."""
+    starts, _lens, offsets = _range_offsets(starts, ends)
+    total = int(offsets[-1])
+    if total == 0:
+        return b"", offsets
+    return native.gather_ranges(arr, starts, ends, total), offsets
+
+
+def gather_ranges_numpy(arr: np.ndarray, starts: np.ndarray,
+                        ends: np.ndarray) -> tuple[bytes, np.ndarray]:
+    """``gather_ranges``'s plain version: one vectorized gather."""
+    starts, lens, offsets = _range_offsets(starts, ends)
     total = int(offsets[-1])
     if total == 0:
         return b"", offsets
@@ -182,7 +252,19 @@ def gather_ranges(arr: np.ndarray, starts: np.ndarray,
 def line_spans(linenos: np.ndarray, nl_index: np.ndarray,
                n_bytes: int) -> tuple[np.ndarray, np.ndarray]:
     """[start, end) byte span of each 1-based line (the end excludes the
-    '\\n'; the last line ends at ``n_bytes`` when no '\\n' closes it)."""
+    '\\n'; the last line ends at ``n_bytes`` when no '\\n' closes it):
+    one loop of the library."""
+    ln = np.asarray(linenos, dtype=np.int64)
+    if ln.size == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z.copy()
+    return native.line_spans(nl_index, ln, n_bytes)
+
+
+def line_spans_numpy(linenos: np.ndarray, nl_index: np.ndarray,
+                     n_bytes: int) -> tuple[np.ndarray, np.ndarray]:
+    """``line_spans``'s plain version (the same clipping of line numbers
+    out of range)."""
     ln = np.asarray(linenos, dtype=np.int64)
     if ln.size == 0:
         z = np.zeros(0, dtype=np.int64)
@@ -218,7 +300,7 @@ class DeferredBatch(LineBatch):
     """A LineBatch whose offsets and slab are built on demand from the
     source buffer and its newline index.  The grep app emits these from
     whole-buffer scans: the shuffle then splits them by partition straight
-    from the source bytes (one gather per partition), so the whole-batch
+    from the source bytes (the library's one pass), so the whole-batch
     slab is never built on that path.  Any other access (``offsets``,
     ``slab``, ``select``, the wire encoder) materializes the ordinary batch
     once.
@@ -258,14 +340,17 @@ class DeferredBatch(LineBatch):
         if self._built is not None:
             return self._built.split_by_partition(n_reduce)
         starts, ends = line_spans(self._local, self._nl, self._n_bytes)
-        parts = self.partitions(n_reduce)
-        out = {}
-        for r in np.unique(parts).tolist():
-            sel = np.flatnonzero(parts == r)
-            slab, offsets = gather_ranges(self._data, starts[sel], ends[sel])
-            out[r] = LineBatch(self.filename, self.linenos[sel], offsets,
-                               slab)
-        return out
+        return _native_split(self.filename, self._data, starts, ends,
+                             self.linenos, n_reduce)
+
+    def split_by_partition_numpy(self, n_reduce: int) -> dict[int, LineBatch]:
+        """``split_by_partition``'s plain version: the vectorized hash,
+        one gather a partition."""
+        if self._built is not None:
+            return self._built.split_by_partition_numpy(n_reduce)
+        starts, ends = line_spans_numpy(self._local, self._nl, self._n_bytes)
+        return _numpy_split(self.filename, self._data, starts, ends,
+                            self.linenos, self.partitions(n_reduce))
 
 
 # ------------------------------------------------------------- wire format

@@ -14,8 +14,9 @@ apps' outputs (``fileline_sorted``: every file already in (file, line)
 order), as bytes that are never decoded per record -- the grep keys
 (``iter_grep_keys``), the record values (``iter_grep_records_bytes``)
 and the display lines (``iter_display_bytes_sorted``,
-``display_blocks_sorted``), the counterpart of the reference's bytes-mode
-streams (its native display merge is ROADMAP item 12).
+``display_blocks_sorted``: the host library's k-way display merge up to
+DISPLAY_VECTOR_CAP), the counterpart of the reference's bytes-mode
+streams.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from distributed_grep_tpu_torch.runtime.columnar import (
 from distributed_grep_tpu_torch.runtime.extsort import ExternalReducer
 from distributed_grep_tpu_torch.runtime.scheduler import Scheduler
 from distributed_grep_tpu_torch.runtime.worker import WorkerKilled, WorkerLoop
+from distributed_grep_tpu_torch.utils import native
 from distributed_grep_tpu_torch.utils.config import JobConfig
 from distributed_grep_tpu_torch.utils.device import resolve_device
 from distributed_grep_tpu_torch.utils.io import WorkDir
@@ -198,21 +200,30 @@ class JobResult:
         for _k, line, _tab in self._iter_records_bytes_sorted():
             yield line.replace(b"\t", b" ", 1) + b"\n"
 
-    # Outputs up to this size may take the vectorized display pass, whose
-    # transient memory is a few times the output (the joined buffer, the
-    # prefix and digit windows, the int64 gather index); larger outputs
-    # keep the record merge, one record resident per file.
+    # Outputs up to this size may take the library's merge or the
+    # vectorized display pass, which hold a few times the output (the
+    # joined buffer and the result; for the vectorized pass the prefix and
+    # digit windows and the int64 gather index); larger outputs keep the
+    # record merge, one record resident per file.
     DISPLAY_VECTOR_CAP = 128 << 20
 
     def display_blocks_sorted(self):
         """The display output as bytes blocks in (file, line) order: the
         same bytes as ``iter_display_bytes_sorted`` joined.  Up to
-        DISPLAY_VECTOR_CAP, an output whose records all carry one path
-        takes the vectorized pass (one block); anything else, several
-        paths included, takes the record merge (the reference's native
-        multi-path merge is ROADMAP item 12)."""
+        DISPLAY_VECTOR_CAP, the library merges the files in one block
+        (``native.merge_display``, several paths too); where it declines
+        (a line that is not grep-key-shaped), an output of one path takes
+        the vectorized pass; anything else, and larger outputs, the record
+        merge."""
         total = sum(p.stat().st_size for p in self.output_files)
         if 0 < total <= self.DISPLAY_VECTOR_CAP:
+            if self.fileline_sorted:
+                block = native.merge_display(
+                    [p.read_bytes() for p in self.output_files])
+                if block is not None:
+                    if block:
+                        yield block
+                    return
             block = self._single_path_display_block()
             if block is not None:
                 yield block
@@ -291,6 +302,9 @@ def run_job(
     opts["device"] = str(device if device is not None
                          else opts.get("device", "cuda"))
     resolve_device(opts["device"])  # fail before any worker starts
+    # the host library builds before the scheduler hands out a task, so no
+    # task's failure detector waits on g++
+    native.lib()
     app = importlib.import_module(config.application)
     work_dir = config.work_dir or tempfile.mkdtemp(prefix="dgrep-")
     workdir = WorkDir(work_dir)

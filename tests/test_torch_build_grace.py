@@ -52,6 +52,43 @@ def test_slow_first_build_is_not_retried(tmp_path, corpus, monkeypatch,
     assert sum(1 for _ in res.iter_results()) > 0
 
 
+def test_slow_host_build_is_done_before_the_first_task(tmp_path, corpus,
+                                                      monkeypatch):
+    """The host library (csrc/dgrep.cpp, g++) is not yet loaded and its
+    build sleeps past the task timeout: the job builds it before the
+    scheduler hands out a task, so no task is re-issued."""
+    real = _build.build_host
+    builds = []
+
+    def build_host(names=_build.HOST_SOURCES):
+        builds.append(tuple(names))
+        time.sleep(BUILD_S)
+        real(names)
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_host", build_host)
+    res = run_job(JobConfig(
+        input_files=corpus[:1],
+        app_options={"pattern": "volcano", **ENGINE_OPTS},
+        task_timeout_s=TIMEOUT_S, n_reduce=2,
+        work_dir=str(tmp_path / "job")), n_workers=2, device="cpu")
+    assert builds == [("dgrep",)]
+    assert res.metrics["counters"].get("map_retries", 0) == 0
+    assert sum(1 for _ in res.iter_results()) > 0
+
+
+def test_unbuilt_names_the_host_library_on_either_device(tmp_path,
+                                                         monkeypatch):
+    import torch
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    for device in ("cpu", "cuda"):
+        assert _build.unbuilt(("dgrep",), torch.device(device)) == ["dgrep"]
+    _build.build_host()
+    assert _build.unbuilt(("dgrep",), torch.device("cpu")) == []
+
+
 def test_grace_lasts_until_the_next_stamp(monkeypatch):
     sched = Scheduler(files=["f"], n_reduce=1, task_timeout_s=1.0)
     clock = [100.0]

@@ -248,6 +248,10 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "distributed_grep_tpu"
        or m.startswith("distributed_grep_tpu.")]
 assert not bad, bad
+# the host library is the port's own build, nothing under the repo's native/
+maps = open("/proc/self/maps").read()
+assert "/_build/libdgrep-" in maps
+assert {str(REPO / "native")!r} + "/" not in maps
 print("clean", len([m for m in sys.modules if m.startswith(pkg.__name__)]))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
