@@ -37,7 +37,14 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          register, 544 lanes), and the one-hot wgmma product (1, 2 and 16
          lane blocks, the probe's member and a full-range int8 one, one
          block per SM, one block, more blocks than rows and ranges that
-         straddle lane blocks).
+         straddle lane blocks), and the table-DFA kernel (csrc/dfa.cu, on
+         no engine route) at the 64 MB segment shape for 'nee(dle|t)',
+         three '$' patterns, '^$' and two Aho-Corasick banks too large for
+         shared memory, then over 24 seeded random regex tables ('$'
+         accepts, '^', nullable bodies) and small Aho-Corasick banks at
+         small shapes and, every 8th table, the segment shape; every
+         third stripe's last byte is not '\\n' (the stripe-tail rule) and
+         half the draws read pitched stripes (``phase_dfa_kernels``).
          The Shift-And, approx, pairset and SWAR kernels read the (lanes,
          chunk) stripes as the document lies; the others the (chunk,
          lanes) columns.  Then a differential sweep of the two table-driven
@@ -114,7 +121,16 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          a live pipe that must return with the pipe open; and the
          match-dense receipt (benchmarks/dense_receipt.py --check, 64 MiB,
          in its own process: its CLI wall, and in the CLI its job's and
-         its print's seconds).  The launch counts of all kernels are
+         its print's seconds).  Then the host routes: nine CLI queries in
+         this process with --metrics on one file of 32 MB (HOST_FILE_MB) of word
+         lines with empty and space-only lines and no final '\\n'
+         (``host_block``), each against ``LC_ALL=C grep -a`` with the same
+         flags (rows or count, and exit status), its route in --metrics
+         held ("native": '^$', -c '^ *$', -c '(ab)*$', '^(ab)*$', -F -e ' '
+         -e xy, -v -c '^$'; "re": -E '(the) \\1' and -w of it; and one
+         --backend cpu query), no kernel launched, each logged with its
+         host_scan_seconds and wall (``host_query_runs``).  The launch
+         counts of all kernels are
          zeroed just before the queries and read just after; each query
          also logs its on-card layout transposes (ops/device_scan.py
          ``transposes``): 0 on the Shift-And, approx, pairset and SWAR
@@ -122,12 +138,15 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          NFA and FDR routes (config 3 + '#' too).  Then
          the kernels, their plain versions, the transpose, the sparse
          fetch and the confirm set are timed at the main path's segment
-         shape (pairset and SWAR also on the card's clock, in CUDA
-         graphs).
+         shape (pairset, SWAR and the table DFA also on the card's clock,
+         in CUDA graphs; the table DFA on 'nee(dle|t)', config 3's bank
+         and config 5's 57 MB bank, with the bytes or table-read bound
+         that binds each).
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
-         pallas, nfa, nfa_alt8, pairset and mxu_dot engines at 64 MiB,
+         pallas, nfa, nfa_alt8, pairset, mxu_dot, dfa, aho256 and
+         native_mt engines at 64 MiB,
          probe_narrow's i32 / i16 slope, and the BASELINE config suite
          (configs 1-5 at 64 MB) end to end with --check (any MISMATCH
          fails) and with slope timing.  Then the two probe kernels
@@ -137,8 +156,9 @@ Phase 4  the measuring path, in this process with the launch counts zeroed
          scaled to 64 MiB) are timed.
 
 The last three lines of standard output are one JSON object with the host
-library's checks, one with every kernel's numbers and one with the
-device.  Any failure raises
+library's checks, one with every kernel's numbers (nine kernels; the
+table DFA's launches are the measuring path's, 0 on the main path) and
+one with the device.  Any failure raises
 (exit status 1); without CUDA, or without the package beside this file,
 the script prints no result and exits 2.
 """
@@ -215,6 +235,21 @@ NARROW_OPS_PER_BYTE = 16
 MXU_MACS_PER_BYTE = 128 * 256
 H100_INT8_OPS_PER_S = 1979e12
 H100_INT8_MACS_PER_SM_CLOCK = 4096
+# csrc/dfa.cu per input byte: two table reads at random addresses (the
+# byte's class in shared memory, then the (state, class) entry), each at
+# best a lookup at H100_SMEM_LOOKUPS_PER_S: in shared memory, or for a
+# table past the shared-memory budget a hit in the L1, which is the same
+# memory.  The bytes count the table once.  Beside that bound the timing
+# block logs what the reads would cost if each went to the L2 (one
+# 32-byte sector each at an assumed 5.5 TB/s, not a data-sheet figure):
+# not a bound, since the L1 serves a table's hot rows (run 13A: config
+# 3's 0.8 MB bank ran 0.1007 ms against that 0.3905).
+DFA_LOOKUPS_PER_BYTE = 2
+H100_L2_SECTORS_PER_S = 5.5e12 / 32
+# The host-route queries' file (MB): the smoke's 900 s aim.  At 128 MB
+# (run 13A) the nine queries took 58.6 s, 9.9 of them the record merge
+# of the -F query's 267 MB output, past the CLI's vectorized display cap.
+HOST_FILE_MB = 32
 
 CONFIG2_WORDS = ["volcano", "anarchism", "philosophy", "needle", "wikipedia",
                  "quantum", "zeppelin", "obsidian"]
@@ -1137,6 +1172,244 @@ SWEEP_SEGMENT = (1024, 65536)
 SWEEP_ALPHABET = "abcxyz"
 # 'Z' then 127 starred letters: 128 positions over 4 words, all specials
 ALL_SPECIALS = "Z" + "".join(f"{chr(97 + i % 26)}*" for i in range(127))
+
+
+def dfa_regexes(dfa_mod, seed: int, n: int) -> list:
+    """``n`` seeded random tables: ``rand_regex`` draws over
+    SWEEP_ALPHABET, half of them ending in '$', some with a leading '^' or
+    a nullable body (the '^$'-style accepts at a line's end), compiled
+    with ``compile_dfa``: [(pattern, table, sample)]."""
+    import numpy as np
+
+    from distributed_grep_tpu_torch.models.dfa import RegexError
+
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        parts = [rand_regex(rng) for _ in range(int(rng.integers(1, 5)))]
+        pattern = "".join(p for p, _ in parts)
+        if rng.random() < 0.5:
+            pattern += "$"
+        if rng.random() < 0.2:
+            pattern = "^" + pattern
+        if rng.random() < 0.1:
+            pattern = f"({pattern})?$"
+        try:
+            table = dfa_mod.compile_dfa(pattern)
+        except RegexError:  # past the state budget, or refused
+            continue
+        out.append((pattern, table,
+                    lambda r, parts=parts: "".join(f(r) for _, f in parts)))
+    return out
+
+
+def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
+                      seed: int) -> tuple[int, int]:
+    """The table-DFA kernel (csrc/dfa.cu) against its plain version, bit
+    for bit: at the main path's 64 MB segment shape (65536 x 1024
+    stripes, words text with 'needle', 'net' and config 3's members
+    planted) for 'nee(dle|t)', three '$' patterns, '^$' and two
+    Aho-Corasick banks past the shared-memory budget (config 3's 1,000
+    members; 256 kernel_compare members); then a seeded sweep of random
+    regex tables ('$' accepts, '^', nullable bodies) and small
+    Aho-Corasick banks at 32 x 32 and 64 x 32 and, every 8th table, at the
+    segment shape; every third stripe's last byte is not '\\n' (the
+    stripe-tail rule), and half the draws read pitched stripes; both table
+    branches must run.  Returns (draws, the largest absolute
+    difference)."""
+    from distributed_grep_tpu_torch.benchmarks.kernel_compare import (
+        aho_members,
+    )
+    from distributed_grep_tpu_torch.ops.layout import Layout, to_device_array
+
+    rng = np.random.default_rng(seed)
+    branches = {"shared": 0, "global": 0}
+    worst = draws = 0
+
+    def check(label: str, table, arr, pitched: bool) -> int:
+        nonlocal worst, draws
+        chunk, lanes = arr.shape
+        arr = arr.copy()
+        arr[-1, ::3] = ord("e")  # stripes whose last byte is not '\n'
+        st = torch.from_numpy(np.ascontiguousarray(arr.T)).cuda()
+        if pitched:
+            wide = torch.full((lanes, chunk + 32), 0x0A, dtype=torch.uint8,
+                              device=st.device)
+            wide[:, :chunk] = st
+            st = wide[:, :chunk]
+        got = dfa_scan.dfa_scan_words(st, table)
+        torch.cuda.synchronize()
+        want = dfa_scan.dfa_scan_words_plain(st, table)
+        err = words_err(torch, got, want)
+        worst = max(worst, err)
+        draws += 1
+        branches["shared" if dfa_scan.uses_shared_memory(table)
+                 else "global"] += 1
+        if not torch.equal(got, want) or err:
+            raise AssertionError(
+                f"dfa kernel != plain: {label} chunk={chunk} lanes={lanes} "
+                f"pitched={pitched} max_abs_err={err}")
+        return int(torch.count_nonzero(want.view(torch.int32)))
+
+    chunk, lanes = SWEEP_SEGMENT
+    text = words_block(rng, chunk * lanes)
+    set3 = config3_set()
+    needles = [b"needle", b"net", b"the end", *set3[:200]]
+    put(text, rng.choice(text.size - 24, size=text.size // 2000,
+                         replace=False), needles)
+    seg = to_device_array(text.tobytes(), Layout(lanes=lanes, chunk=chunk,
+                                                 n_real=text.size))
+    fixed = {
+        "nee(dle|t)": dfa_mod.compile_dfa("nee(dle|t)"),
+        "the$": dfa_mod.compile_dfa("the$"),
+        "^(of|the) [a-z]+$": dfa_mod.compile_dfa("^(of|the) [a-z]+$"),
+        "o?$": dfa_mod.compile_dfa("o?$"),
+        "^$": dfa_mod.compile_dfa("^$"),
+        "config 3 bank": aho_mod.compile_aho_corasick(set3),
+        "aho256 bank": aho_mod.compile_aho_corasick(aho_members(256)),
+    }
+    for i, (name, table) in enumerate(fixed.items()):
+        nz = check(name, table, seg, pitched=bool(i % 2))
+        log(f"  ok dfa {name:20s} chunk={chunk} lanes={lanes} states="
+            f"{table.n_states} classes={table.n_classes} table "
+            f"{'shared' if dfa_scan.uses_shared_memory(table) else 'global'}"
+            f" nonzero words={nz}")
+    if not (branches["shared"] and branches["global"]):
+        raise AssertionError(f"dfa: a table branch not exercised {branches}")
+    tables = dfa_regexes(dfa_mod, seed, 24)
+    for k in range(8):  # small Aho-Corasick banks over the same alphabet
+        members = rand_literals(
+            int(rng.integers(1, 40)), 1, 6, seed=seed + k,
+            alphabet=np.frombuffer(SWEEP_ALPHABET.encode(), np.uint8))
+        banks = aho_mod.compile_aho_corasick_banks(
+            members, max_states_per_bank=int(rng.integers(8, 200)))
+        for b in banks:
+            tables.append((f"aho bank of {len(members)}", b,
+                           lambda r, m=members: m[int(r.integers(0, len(m)))]))
+    for i, (name, table, sample) in enumerate(tables):
+        samples = [sample(rng)[:100] for _ in range(8)] + ["a"]
+        shapes = SWEEP_SMALL + ([SWEEP_SEGMENT] if i % 8 == 0 else [])
+        for ch, ln in shapes:
+            check(name, table, sweep_text(rng, ch, ln, samples, False),
+                  pitched=bool(i % 2))
+    log(f"  dfa sweep: {len(tables)} random tables, {draws} draws in all "
+        f"(table in shared memory {branches['shared']}, read through the "
+        f"L2 {branches['global']})")
+    return draws, worst
+
+
+def host_block(rng, n_bytes: int):
+    """Word lines of 0..23 words (``words_block``'s recipe, with 'ab',
+    'abab', 'xy', 'o' and a one-space word added), so about 1 line in 24
+    is empty and some hold only spaces; exactly n_bytes bytes, the last
+    line without its '\\n'."""
+    import numpy as np
+
+    words = [w.encode() for w in _WORDS] + [b"ab", b"abab", b"xy", b"o",
+                                            b" "]
+    vocab = words + [b"", b" ", b"\n"]
+    n_lines = n_bytes // 36 + 16
+    per_line = rng.integers(0, 24, size=n_lines)
+    empty = per_line == 0
+    per_line[empty] = 1
+    idx = rng.integers(0, len(words), size=int(per_line.sum()))
+    ends = np.cumsum(per_line) - 1
+    idx[ends[empty]] = len(words)  # the empty word: a line of nothing
+    sep = np.full(idx.size, len(words) + 1, dtype=np.int64)
+    sep[ends] = len(words) + 2
+    out = gather_tokens(vocab, np.stack([idx, sep], axis=1).reshape(-1))
+    if out.size < n_bytes:
+        raise RuntimeError("host block estimate too small")
+    return out[:n_bytes]
+
+
+# The host-route queries of phase 3: (label, the port CLI's arguments,
+# GNU grep's, the route the engine must take).  '^$'-style patterns run on
+# the host DFA scanner, backreferences on the host re loop, a set too
+# dense for both set kernels on the scanner over its Aho-Corasick banks.
+HOST_QUERIES = [
+    ("^$", ["^$"], ["-n", "-e", "^$"], "native"),
+    ("-c '^ *$'", ["-c", "^ *$"], ["-c", "-e", "^ *$"], "native"),
+    ("-c '(ab)*$'", ["-c", "(ab)*$"], ["-c", "-E", "-e", "(ab)*$"], "native"),
+    ("^(ab)*$", ["^(ab)*$"], ["-n", "-E", "-e", "^(ab)*$"], "native"),
+    (r"-E '(the) \1'", ["-E", r"(the) \1"], ["-n", "-E", "-e", r"(the) \1"],
+     "re"),
+    ("-F -e ' ' -e xy", ["-F", "-e", " ", "-e", "xy"],
+     ["-n", "-F", "-e", " ", "-e", "xy"], "native"),
+    (r"-w -E '(the) \1'", ["-w", "-E", r"(the) \1"],
+     ["-n", "-w", "-E", "-e", r"(the) \1"], "re"),
+    ("-v -c '^$'", ["-v", "-c", "^$"], ["-v", "-c", "-e", "^$"], "native"),
+    ("--backend cpu -E 'abab (of|the)$'",
+     ["--backend", "cpu", "-E", "abab (of|the)$"],
+     ["-n", "-E", "-e", "abab (of|the)$"], "native"),
+]
+
+
+def port_cli_in_process(argv: list[str]) -> tuple[int, bytes, bytes, float]:
+    """The port CLI's main(argv) in this process, standard output and
+    error captured: (exit status, stdout, stderr, wall seconds)."""
+    import io
+
+    from distributed_grep_tpu_torch.__main__ import main as port_main
+
+    out, err = io.BytesIO(), io.BytesIO()
+    saved = sys.stdout, sys.stderr
+    wrappers = (io.TextIOWrapper(out, write_through=True),
+                io.TextIOWrapper(err, write_through=True))
+    sys.stdout, sys.stderr = wrappers
+    t0 = time.perf_counter()
+    try:
+        rc = port_main(argv)
+    finally:
+        wall = time.perf_counter() - t0
+        sys.stdout, sys.stderr = saved
+        for w in wrappers:
+            w.flush()
+            w.detach()  # the buffers stay open
+    return rc, out.getvalue(), err.getvalue(), wall
+
+
+def host_query_runs(path: Path, work: Path, counters: dict) -> list[str]:
+    """Each HOST_QUERIES query through the port CLI (in this process, with
+    --metrics) on ``path`` against ``LC_ALL=C grep -a`` with the matching
+    flags: the same exit status and the same (line number, line) rows, or
+    the same count; the route in --metrics must be the query's, and no
+    kernel may launch.  GNU grep's runs go side by side first.  Returns a
+    log line a query: route, host_scan_seconds, wall."""
+    with ThreadPoolExecutor(len(HOST_QUERIES)) as pool:
+        oracles = list(pool.map(lambda q: gnu([*q[2], path]), HOST_QUERIES))
+    lines = []
+    for (label, args, gargs, route), want in zip(HOST_QUERIES, oracles):
+        before = {k: m.launches for k, m in counters.items()}
+        rc, out, err, wall = port_cli_in_process(
+            ["grep", *args, str(path), "--metrics", "--work-dir",
+             str(work / "host-query")])
+        metrics = cli_metrics(label, rc, err)
+        launched = {k: m.launches - before[k] for k, m in counters.items()}
+        if "-c" in gargs:
+            got_rows, want_rows = out, want.stdout
+        else:
+            got_rows = [(n, text) for _p, n, _c, _b, text in port_tuples(out)]
+            want_rows = [(n, text) for _p, n, _c, _b, text in gnu_tuples(
+                want.stdout, [path], label=str(path).encode())]
+        if (rc != want.returncode or got_rows != want_rows
+                or metrics.get("route") != route or any(launched.values())):
+            raise AssertionError(
+                f"host query {label}: exit {rc} vs GNU grep "
+                f"{want.returncode}, rows equal {got_rows == want_rows}, "
+                f"route {metrics.get('route')} (want {route}), launches "
+                f"{launched}; stderr {err[-400:]!r}")
+        eng = metrics.get("engine", {})
+        n = (int(out) if "-c" in gargs else len(got_rows))
+        lines.append(
+            f"host query {label} ({path.stat().st_size} bytes): exit {rc}, "
+            f"{n} {'count' if '-c' in gargs else 'rows'} equal to GNU "
+            f"grep's; route {metrics['route']}, host_scan_seconds "
+            f"{eng.get('host_scan_seconds', 0.0):.3f}, end_offsets "
+            f"{eng.get('end_offsets', 0)}, wall {wall:.3f} s (job "
+            f"{metrics['seconds']['cli_job']:.3f} s, print "
+            f"{metrics['seconds']['cli_print']:.3f} s), no kernel launched")
+    return lines
 
 
 def rand_regex(rng, depth: int = 0):
@@ -2159,12 +2432,17 @@ def drive_measuring(counters: dict, bench, kernel_compare, probe_narrow,
     log(f"bench: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    engines = ["pallas", "nfa", "nfa_alt8", "pairset", "mxu_dot"]
+    engines = ["pallas", "nfa", "nfa_alt8", "pairset", "mxu_dot", "dfa",
+               "aho256", "native_mt"]
     kc = run_main(kernel_compare.main, ["--size-mb", "64", "--engines",
                                         ",".join(engines)])
     if [ln["engine"] for ln in kc] != engines or any(
             not ln.get("value", 0) > 0 for ln in kc):
         raise AssertionError(f"kernel_compare lines: {kc}")
+    log("kernel_compare table DFA: " + ", ".join(
+        f"{ln['engine']} {ln['value']:.2f} GB/s"
+        + (f" ({ln['banks']} bank)" if "banks" in ln else "")
+        for ln in kc[5:]))
     log(f"kernel_compare: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2190,7 +2468,8 @@ def drive_measuring(counters: dict, bench, kernel_compare, probe_narrow,
         f"{time.perf_counter() - t0:.1f} s")
     launched = {k: m.launches for k, m in counters.items()}
     log(f"measuring path launches: {launched}")
-    for k in ("shift_and", "nfa", "fdr", "pairset", "narrow_probe", "mxu_dot"):
+    for k in ("shift_and", "nfa", "fdr", "pairset", "narrow_probe", "mxu_dot",
+              "dfa"):
         if not launched[k]:
             raise AssertionError(f"measuring path: no {k} launch")
     return {"launches": launched, "bench": head, "kernel_compare": kc,
@@ -2410,7 +2689,9 @@ def main() -> int:
         from distributed_grep_tpu_torch.benchmarks.substripe_sweep import (
             graph_ms,
         )
+        from distributed_grep_tpu_torch.models import aho as aho_mod
         from distributed_grep_tpu_torch.models import approx as ax_mod
+        from distributed_grep_tpu_torch.models import dfa as dfa_mod
         from distributed_grep_tpu_torch.models import fdr as fdr_mod
         from distributed_grep_tpu_torch.models import nfa as nfa_mod
         from distributed_grep_tpu_torch.models import pairset as ps_mod
@@ -2420,6 +2701,7 @@ def main() -> int:
             approx_scan,
             cuda_scan,
             device_scan,
+            dfa_scan,
             fdr_scan,
             mxu_probe,
             narrow_probe,
@@ -2452,7 +2734,7 @@ def main() -> int:
     counters = {"shift_and": cuda_scan, "nfa": nfa_scan, "fdr": fdr_scan,
                 "pairset": pairset_scan, "approx": approx_scan,
                 "shift_and_swar": swar_scan, "narrow_probe": narrow_probe,
-                "mxu_dot": mxu_probe}
+                "mxu_dot": mxu_probe, "dfa": dfa_scan}
     t_all = time.perf_counter()
     # ---------------------------------------------------------- phase 1
     card = card_line()
@@ -2499,7 +2781,7 @@ def main() -> int:
     body = {"shift_and": (128, 1), "pairset": (128, 1),
             "shift_and_swar": (swar_box, 4)}
     for name in ("shift_and", "pairset", "approx", "shift_and_swar", "nfa",
-                 "fdr"):
+                 "fdr", "dfa"):
         steps, per = body.get(name, (32, 1))
         for func, n in sass_counts(_build, name).items():
             log(f"  sass {name} {template_label(func)}: {n} instructions "
@@ -2584,6 +2866,10 @@ def main() -> int:
     t0 = time.perf_counter()
     mxu_err = phase_mxu_kernels(torch, np, mxu_probe)
     log(f"mxu_dot checks: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _n, dfa_err = phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
+                                    4848)
+    log(f"dfa checks and sweep: {time.perf_counter() - t0:.1f} s")
     log("phase 2 launches (comparisons, not counted): "
         + ", ".join(f"{k} {m.launches}" for k, m in counters.items()))
     if args.kernels_only:
@@ -2717,6 +3003,9 @@ def main() -> int:
         main_launches = {k: m.launches for k, m in counters.items()}
         log(f"main path launches: {main_launches}; on-card layout "
             f"transposes {device_scan.transposes}")
+        if main_launches["dfa"]:  # no engine route runs the table DFA
+            raise AssertionError(f"dfa launched on the main path: "
+                                 f"{main_launches['dfa']}")
 
         approx_seen: dict = {}  # the DP's lines, shared by -c and print
         for (label, opts, files, oracle, kernels), (
@@ -2845,6 +3134,17 @@ def main() -> int:
         for line in cli_display_runs(words, words[0], WORK / "tree",
                                      pats["config3"]):
             log(f"{line} [{card}]")
+        # the host routes through the CLI, in this process: one file of
+        # word lines with empty and space-only lines, no final '\n'
+        t0 = time.perf_counter()
+        host_file = WORK / "host" / "lines.txt"
+        host_file.parent.mkdir(parents=True, exist_ok=True)
+        host_file.write_bytes(host_block(
+            np.random.default_rng(args.seed + 13),
+            min(args.file_mb, HOST_FILE_MB) << 20).tobytes())
+        for line in host_query_runs(host_file, WORK / "host", counters):
+            log(f"{line} [{card}]")
+        log(f"host queries: {time.perf_counter() - t0:.1f} s")
 
         # ------------------------------------------- timings (not counted)
         # the match-dense receipt: 64 MiB, the CLI's wall and the host
@@ -3058,6 +3358,41 @@ def main() -> int:
             f"{sw_plain_ms:.2f} ms; bound {sw_bound_ms:.4f} ms (bytes "
             f"{sw_bytes_ms:.4f}, ops {sw_ops_ms:.4f}, shared-memory lookups "
             f"{n_smem_ms:.4f}) [{card}]")
+
+        # the table-DFA kernel, on no engine route (kernel_compare's dfa and
+        # aho engines run it): 'nee(dle|t)' (its table in shared memory)
+        # and config 3's Aho-Corasick bank (0.8 MB, through the L2) on the
+        # words stripes, config 5's first bank (57 MB, past the L2) on the
+        # pcap stripes; eagerly and on the card's clock (CUDA graphs)
+        dfa_rows = {}
+        for name, table, arr in (
+                ("nee(dle|t)", dfa_mod.compile_dfa("nee(dle|t)"), dev_st),
+                ("config 3 bank", aho_mod.compile_aho_corasick(set3), dev_st),
+                ("config 5 bank 0", aho_mod.compile_aho_corasick_banks(
+                    set5)[0], dev_pc_st)):
+            k_ms = cuda_ms(torch, lambda: dfa_scan.dfa_scan_words(arr, table),
+                           20)
+            g_ms = graph_ms(lambda: dfa_scan.dfa_scan_words(arr, table))
+            p_ms = cuda_ms(torch, lambda: dfa_scan.dfa_scan_words_plain(
+                arr, table), 1)
+            shared = dfa_scan.uses_shared_memory(table)
+            table_bytes = 4 * table.n_states * table.n_classes + 256
+            b_ms = (n_in + n_out + table_bytes) / H100_BYTES_PER_S * 1e3
+            l_ms = DFA_LOOKUPS_PER_BYTE * n_in / H100_SMEM_LOOKUPS_PER_S * 1e3
+            l2_ms = n_in / H100_L2_SECTORS_PER_S * 1e3
+            dfa_rows[name] = (k_ms, p_ms, max(b_ms, l_ms),
+                              "bytes" if b_ms >= l_ms else "operations")
+            log(f"kernel dfa {name}: states={table.n_states} classes="
+                f"{table.n_classes} table {table_bytes} bytes in "
+                f"{'shared memory' if shared else 'global memory'}, stripes "
+                f"chunk={lay.chunk} lanes={lay.lanes}: {k_ms:.4f} ms = "
+                f"{n_in / (k_ms / 1e3) / 1e9:.1f} GB/s ({g_ms:.4f} ms on the "
+                f"card's clock, in a CUDA graph); plain version on the card "
+                f"{p_ms:.1f} ms; bound {max(b_ms, l_ms):.4f} ms (bytes "
+                f"{b_ms:.4f} with the table, table reads {l_ms:.4f} at the "
+                f"shared-memory / L1 lookup rate), bound by "
+                f"{dfa_rows[name][3]}; every entry read from the L2 would "
+                f"take {l2_ms:.4f} [{card}]")
 
         # the confirm set on config 5's real candidates of one segment
         words5 = fdr_scan.fdr_scan_words(dev_pc, banks["config5"])
@@ -3278,6 +3613,18 @@ def main() -> int:
         "bound_ms": max(mxu_ops_ms, mxu_bytes_ms),
         "bound_by": "operations" if mxu_ops_ms >= mxu_bytes_ms else "bytes",
         "library_ms": mxu_lib_ms,
+    }, {
+        "name": "dfa",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/dfa.cu",
+        "replaces": "distributed_grep_tpu/ops/scan_jnp.py:81",
+        "launches": measured["launches"]["dfa"],
+        "max_abs_err": dfa_err,
+        "ms": dfa_rows["nee(dle|t)"][0],
+        "plain_ms": dfa_rows["nee(dle|t)"][1],
+        "bound_ms": dfa_rows["nee(dle|t)"][2],
+        "bound_by": dfa_rows["nee(dle|t)"][3],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,7 +5,8 @@
         [-v] [-w] [-x] [-c] [-l] [-L] [-q] [-m NUM] [-h] [-s] [-n] [-H] [-a]
         [-o] [-A N] [-B N] [-C N] [-b] [-r] [-R] [--include GLOB]...
         [--exclude GLOB]... [--exclude-dir GLOB]... [--metrics]
-        [--workers N] [--n-reduce R] [--device cuda|cpu] [--work-dir DIR]
+        [--workers N] [--n-reduce R] [--device cuda|cpu]
+        [--backend device|cpu] [--work-dir DIR]
 
 Prints ``<abs path> (line number #N) <line>`` for every selected line, in
 (path, line) order -- the reference CLI's default print mode, byte for
@@ -16,11 +17,13 @@ after a file error.
 
 PATTERN is a grep -E regex: a literal or byte-class sequence runs on the
 Shift-And kernel, a regex that denotes a finite literal set on the literal
-set kernels, any other regex on the Glushkov NFA kernel; the few patterns
-outside them (backreferences and other syntax only Python re knows,
-'^$'-style patterns that match the empty string at a line's end) exit 2
-naming their ROADMAP.md item.  The pattern options follow the reference
-CLI (and GNU grep):
+set kernels, any other regex on the Glushkov NFA kernel; as in the
+reference, '^$'-style patterns that match the empty string at a line's end
+run on the host DFA scanner, and backreferences and other syntax only
+Python re knows on the host re loop.  ``--backend cpu`` (the reference
+CLI's default) runs every pattern on the host scanners and never asks for
+the card; ``--device`` says where the kernels run.  The pattern options
+follow the reference CLI (and GNU grep):
 
   -e PATTERN  repeatable; several -e without -F join into one
               ``(?:...)`` alternation;
@@ -90,7 +93,9 @@ to a temporary file and searched as one.  Still to port: --follow
 
 A positional PATTERN displaced by -e or -f is the first input file.
 Literal sets run on the FDR filter kernel, with an exact host confirm, or,
-when every member is 1-2 bytes, on the exact pairset kernel.
+when every member is 1-2 bytes, on the exact pairset kernel; a set too
+dense for both (a member ' ') on the host scanner over its Aho-Corasick
+banks.
 """
 
 from __future__ import annotations
@@ -203,6 +208,10 @@ def _parser() -> argparse.ArgumentParser:
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the scan runs (default: cuda; cpu runs the "
                         "kernels' plain PyTorch versions)")
+    g.add_argument("--backend", default="device", choices=["device", "cpu"],
+                   help="device (default): the kernels, and the host "
+                        "scanners where the engine routes a pattern there; "
+                        "cpu: the host scanners for every pattern")
     g.add_argument("--work-dir", default=None)
     return p
 
@@ -346,8 +355,8 @@ def _write(out, text: str) -> None:
 
 def _print_metrics(res, job_s: float, print_s: float) -> None:
     """The job's metrics as JSON on stderr, with the CLI's own seconds
-    (the job, then the print), the grep engine's summed scan counters
-    and the kernels' launches."""
+    (the job, then the print), the grep engine's route and summed scan
+    counters and the kernels' launches."""
     from distributed_grep_tpu_torch.apps import grep_cuda
     from distributed_grep_tpu_torch.ops.device_scan import kernel_launches
 
@@ -356,6 +365,7 @@ def _print_metrics(res, job_s: float, print_s: float) -> None:
                           "cli_print": print_s}
     if grep_cuda._engine is not None:
         metrics["engine"] = dict(grep_cuda._engine.totals)
+        metrics["route"] = grep_cuda._engine.route
     metrics["launches"] = kernel_launches()
     print(json.dumps(metrics, indent=2, sort_keys=True), file=sys.stderr)
 
@@ -397,7 +407,8 @@ def cmd_grep(args: argparse.Namespace) -> int:
                           "substring)")[0]
     if patterns is None and not args.max_errors:
         try:
-            check_pattern(args.pattern, args.ignore_case)
+            check_pattern(args.pattern, args.ignore_case,
+                          backend=args.backend)
         except RegexError as e:
             return _error(f"invalid pattern {args.pattern!r}: {e}")[0]
     out = sys.stdout.buffer
@@ -468,6 +479,7 @@ def _run_and_print(args: argparse.Namespace, patterns, out,
             **query,
             "ignore_case": args.ignore_case,
             "invert": args.invert,
+            **({"backend": "cpu"} if args.backend == "cpu" else {}),
             **({"word_regexp": True} if args.word_regexp else {}),
             **({"line_regexp": True} if args.line_regexp else {}),
             **({"count_only": True} if count_only else {}),
@@ -477,7 +489,7 @@ def _run_and_print(args: argparse.Namespace, patterns, out,
         n_reduce=args.n_reduce,
         work_dir=work_dir,
     )
-    if args.device == "cuda":
+    if args.device == "cuda" and args.backend == "device":
         # the scan's heartbeats and its build grace keep a task alive;
         # the window needs only headroom over their cadence
         cfg.task_timeout_s = max(cfg.task_timeout_s, 30.0)

@@ -7,7 +7,8 @@ The scan is GrepEngine's (the CUDA Shift-And kernel for literals and
 byte-class sequences, the FDR filter and pairset kernels for literal sets
 -- ``patterns`` -- and for regexes that denote one, the Glushkov NFA kernel
 for other regexes, the Wu-Manber kernel for ``max_errors=k`` approximate
-matching).  Map emits a file's matched lines as columnar batches
+matching; the host scanners where the engine routes a pattern there, and
+for every pattern with ``backend="cpu"``).  Map emits a file's matched lines as columnar batches
 (runtime/columnar.py), never one record per line:
 
 * ``map_path_fn`` (what the worker calls) streams the file through
@@ -99,6 +100,7 @@ def configure(
     ignore_case: bool = False,
     device: str = "cuda",
     patterns: list[str | bytes] | None = None,
+    backend: str = "device",
     invert: bool = False,
     word_regexp: bool = False,
     line_regexp: bool = False,
@@ -109,7 +111,9 @@ def configure(
     """Compile the pattern, or the literal set ``patterns`` when given
     (members str, decoded utf-8/surrogateescape, or bytes; ``pattern`` is
     then ignored), for ``device`` (default "cuda"; raises when CUDA is
-    absent unless "cpu" is asked for).  ``max_errors=k`` (1..3) matches
+    absent unless "cpu" is asked for).  ``backend="cpu"`` scans every
+    plan with the host scanners (ops/engine.py) and never asks for the
+    device.  ``max_errors=k`` (1..3) matches
     the single pattern within k edit errors.  Engine knobs (target_lanes,
     segment_bytes, min_chunk) pass through ``options``; the grep options
     are the module docstring's."""
@@ -128,7 +132,7 @@ def configure(
         pattern, patterns = None, list(patterns)
     mode = "line" if line_regexp else ("word" if word_regexp else "search")
     key = (pattern, tuple(patterns or ()), bool(ignore_case), str(device),
-           bool(invert), mode, tuple(sorted(engine_opts.items())))
+           backend, bool(invert), mode, tuple(sorted(engine_opts.items())))
     with _lock:
         _invert = bool(invert)
         _count_only = bool(count_only)
@@ -137,7 +141,7 @@ def configure(
             return
         _engine = GrepEngine(pattern, patterns=patterns,
                              ignore_case=ignore_case, device=device,
-                             **engine_opts)  # type: ignore[arg-type]
+                             backend=backend, **engine_opts)  # type: ignore[arg-type]
         _confirm = build_confirm(pattern=pattern, patterns=patterns,
                                  ignore_case=ignore_case, mode=mode)
         _confirm_mode = mode

@@ -240,8 +240,8 @@ def stdin_blocks(f, gather_bytes: int):
 
 def grep_stdin_stream(args: argparse.Namespace, patterns, out) -> int:
     """grep over standard input as it streams, with GNU grep's semantics:
-    each newline-aligned block is scanned on ``args.device`` (one
-    ``GrepEngine.scan``), -w/-x candidates are confirmed on the host, -v
+    each newline-aligned block is scanned on ``args.device``, or on the
+    host with ``--backend cpu`` (one ``GrepEngine.scan``), -w/-x candidates are confirmed on the host, -v
     takes the complement, and the selected lines print as their block
     arrives.  -q/-l/-L return at the first selected line without draining
     the pipe; -m stops reading at the cap."""
@@ -253,7 +253,8 @@ def grep_stdin_stream(args: argparse.Namespace, patterns, out) -> int:
 
     eng = GrepEngine(args.pattern if patterns is None else None,
                      patterns=patterns, ignore_case=args.ignore_case,
-                     max_errors=args.max_errors or 0, device=args.device)
+                     max_errors=args.max_errors or 0, device=args.device,
+                     backend=args.backend)
     confirm = build_confirm(
         pattern=args.pattern, patterns=patterns,
         ignore_case=args.ignore_case,

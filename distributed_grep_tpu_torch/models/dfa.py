@@ -1040,3 +1040,49 @@ def compile_dfa(
         start=0,
         pattern=pattern if isinstance(pattern, str) else repr(pattern),
     )
+
+
+def reference_scan(table: DfaTable, data) -> np.ndarray:
+    """Host scan of ``data``: the int64 end offsets (index + 1) of every
+    match, sorted and unique.  The accept plane runs in the host library
+    (utils/native.py: ``dfa_scan``, or ``dfa_scan_mt`` from
+    MT_THRESHOLD_BYTES on).  A '$' pattern takes a second pass of the same
+    state sequence with ``accept_eol`` as the accept plane, kept where the
+    next byte is '\\n' or the input ends.  Two edges of that pass:
+
+    * a trailing '\\n' leaves the scan in the start state at offset n; a
+      zero-width accept there would be a line that does not exist, so it
+      is dropped (a consuming match cannot end at n: it would hold the
+      '\\n');
+    * the scan reports accepts only after a byte, so a zero-width accept
+      at offset 0 (an empty first line, '^$') never surfaces: offset 0 is
+      added when the data starts with '\\n', which line attribution maps
+      to line 1.  Empty data has no line, and no match."""
+    from distributed_grep_tpu_torch.utils import native
+
+    full = table.full_table()
+    n = len(data)
+
+    def run(accept: np.ndarray) -> np.ndarray:
+        acc = accept.astype(np.uint8)
+        if n >= native.MT_THRESHOLD_BYTES:
+            offs = native.dfa_scan_mt(data, full, acc, table.start)
+        else:
+            offs, _ = native.dfa_scan(data, full, acc, table.start)
+        return offs.astype(np.int64)
+
+    offsets = run(table.accept)
+    if not table.accept_eol.any():
+        return offsets
+    eol_offs = run(table.accept_eol)
+    if eol_offs.size:
+        arr = np.frombuffer(data, dtype=np.uint8)
+        keep = (eol_offs == n) | (arr[np.minimum(eol_offs, n - 1)] == NL)
+        if n and arr[n - 1] == NL and table.accept_eol[table.start]:
+            keep &= eol_offs != n
+        eol_offs = eol_offs[keep]
+    if table.accept_eol[table.start] and n > 0 and data[0] == NL:
+        eol_offs = np.concatenate([np.zeros(1, np.int64), eol_offs])
+    if not eol_offs.size:
+        return offsets
+    return np.unique(np.concatenate([offsets, eol_offs]))

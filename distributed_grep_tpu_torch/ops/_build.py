@@ -40,7 +40,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 SOURCES = ("shift_and", "nfa", "fdr", "pairset", "approx", "shift_and_swar",
-           "probe_narrow", "mxu_dot")
+           "probe_narrow", "mxu_dot", "dfa")
 GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-Wall", "-Wextra", "-Werror",
              "-std=c++17", "-shared")
 HOST_SOURCES = ("dgrep",)

@@ -100,6 +100,7 @@ from distributed_grep_tpu_torch.ops import (
     _build,
     approx_scan,
     cuda_scan,
+    dfa_scan,
     fdr_scan,
     nfa_scan,
     pairset_scan,
@@ -147,9 +148,11 @@ def _count_transpose() -> None:
 
 
 def kernel_launches() -> dict[str, int]:
-    """Each scan kernel's launch count in this process, by library."""
+    """Each scan kernel's launch count in this process, by library (the
+    table-DFA kernel runs on no engine route: its count stays 0 here)."""
     return {m.LIBRARY: m.launches for m in (
-        cuda_scan, nfa_scan, fdr_scan, pairset_scan, approx_scan, swar_scan)}
+        cuda_scan, nfa_scan, fdr_scan, pairset_scan, approx_scan, swar_scan,
+        dfa_scan)}
 
 # The SWAR route's lane multiple: 4 stripes per packed uint32 element and
 # 32 elements per warp (the kernel's blocks own 256 lanes and take a

@@ -1,8 +1,9 @@
-"""GrepEngine: one compiled pattern or literal set, scanned on a device.
+"""GrepEngine: one compiled pattern or literal set, scanned on a device
+or, where the reference routes it there, on the host.
 
 A single pattern is routed by ``check_pattern`` as the reference engine
-routes it (``distributed_grep_tpu/ops/engine.py`` GrepEngine.__init__ and
-_scan_impl), in order:
+routes it with its native library present (``distributed_grep_tpu/ops/
+engine.py`` GrepEngine.__init__ and _scan_impl), in order:
 
 1. a literal or byte-class sequence of at most 32 symbols (optionally
    case-folded): a Shift-And model, scanned by csrc/shift_and.cu;
@@ -20,10 +21,23 @@ _scan_impl), in order:
    positions, mid-pattern anchors): the filter of
    ``compile_device_filter`` on the NFA kernel, every candidate line
    confirmed with the DFA (its ``accept_eol`` plane carries the '$');
+   where no filter compiles (a pattern nullable at '$': '^$', '^ *$',
+   'x?$'), the host scanner (mode and route "native": the DFA table in the
+   host library, ``models/dfa.reference_scan``);
 5. no DFA table (``\\b``/``\\B``, a repeat past the expansion cap, too many
    DFA states): the Glushkov filter of ``compile_scan_model`` or
-   ``compile_device_filter``, confirmed with Python ``re``;
+   ``compile_device_filter``, confirmed with Python ``re``; where no filter
+   compiles, and for syntax only ``re`` knows (a backreference, a
+   possessive repeat, a lookaround, a '\\n' in the pattern), the host
+   ``re`` loop (mode and route "re": ``re.search`` on every line);
 6. a pattern that matches the empty string: every line, with no scan.
+
+A pattern that matches the empty string at a line's end ('^$', 'x?$') is
+fixed up after any scan, as in the reference: the scanners attribute the
+empty match to the '\\n' before a line, so the empty lines are added
+(``ops/lines.empty_line_numbers``) and a line past the last one dropped.
+Each demotion to a host scanner is logged at WARNING, naming the pattern
+and why.
 
 A literal set (``GrepEngine(patterns=...)``, ``grep -F``/``-f``) is routed
 by ``check_patterns`` (the reference's engine.py:644-796):
@@ -36,7 +50,9 @@ by ``check_patterns`` (the reference's engine.py:644-796):
   ride the pairset kernel as a sidecar whose exact words are OR'd into
   the candidate words; every candidate end offset is confirmed exactly on
   the host (ops/confirm_set.py) against all members;
-* an empty member matches every line; a set neither kernel hosts raises.
+* an empty member matches every line; a set neither kernel hosts (a
+  dense 1-byte member, a dense short set, a set FDR refuses) runs on the
+  host scanner over its Aho-Corasick banks (models/aho.py, mode "native").
 
 A single pattern with ``max_errors=k`` (agrep, k = 1..3) is routed by
 ``check_approx``: a literal or class sequence of at most 32 symbols on the
@@ -47,6 +63,18 @@ filter models both pass ``swar_values`` runs the packed kernel
 (csrc/shift_and_swar.cu) in place of csrc/shift_and.cu
 (ops/device_scan.py).
 
+``backend="cpu"`` is the reference's host backend (its CLI's default):
+every plan scans on the host, mode "native" (a set over its Aho-Corasick
+banks, a regex that denotes a literal set over that set's banks, a plain
+literal with the library's memmem, any other pattern over its DFA table,
+an approx pattern with ``models/approx.scan_reference``), and a pattern
+with no DFA table in mode "re".  Nothing on that backend touches CUDA.
+
+A host scan (both backends) runs in pieces of HOST_CHUNK bytes when the
+caller passes ``progress``, calling it once a piece, so a worker's
+liveness window holds over a long file; ``stats`` carry its
+``host_scan_seconds`` and, in mode "native", its ``end_offsets``.
+
 Differences from the reference, none of which changes an output line:
 
 * no kernel cost budget (the reference's ``pallas_nfa.MAX_COST`` exists
@@ -54,23 +82,21 @@ Differences from the reference, none of which changes an output line:
   from memory);
 * no native crossover: the reference's ``compile_fdr`` cedes a set to its
   host scanner when the plan's modelled rate falls below the scanner's;
-  the port routes no scan to a host scanner (the host library's DFA
-  scanner is bound, utils/native.py; the route is ROADMAP item 11) and
-  keeps the set on the card;
+  the port keeps every set FDR accepts on the card;
 * no self-calibration or retune of FDR plans: the port's plans are the
   default-pricing plans (the reference's constants; re-pricing for the
   H100 is later work);
-* no Aho-Corasick banks: the reference's CPU engine, XLA fallback and
-  stitch oracle; here the confirm set is the oracle;
 * no kernel-failure fallback: the reference flips a failed FDR kernel to
-  its DFA banks; the port raises.
-
-Patterns and sets outside these routes raise NotImplementedError naming
-their ROADMAP.md item; no host scan route falls in for them.
+  its DFA banks; the port raises;
+* no XLA DFA device path: the reference runs its table DFA on the device
+  only without its native library, on mesh engines and in its
+  kernel_compare; the port's library always builds, so its table-DFA
+  kernel (csrc/dfa.cu, ops/dfa_scan.py) runs on no engine route.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import queue
 import re
@@ -84,15 +110,20 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from distributed_grep_tpu_torch.models import approx as approx_mod
+from distributed_grep_tpu_torch.models.aho import (
+    MAX_STATES_PER_BANK,
+    compile_aho_corasick_banks,
+)
 from distributed_grep_tpu_torch.models.approx import MAX_ERRORS, ApproxModel
 from distributed_grep_tpu_torch.models.dfa import (
     NL,
     DfaTable,
     RegexError,
-    UnsupportedSyntax,
     compile_dfa,
     enumerate_literal_set,
     expand_posix_classes,
+    reference_scan,
 )
 from distributed_grep_tpu_torch.models.fdr import (
     FP_CEILING_PER_BYTE,
@@ -122,10 +153,15 @@ from distributed_grep_tpu_torch.ops import host_match
 from distributed_grep_tpu_torch.ops.confirm_set import ConfirmSet
 from distributed_grep_tpu_torch.ops.lines import (
     count_lines,
+    empty_line_numbers,
     line_spans,
     newline_index,
+    unique_match_lines,
 )
+from distributed_grep_tpu_torch.utils import native
 from distributed_grep_tpu_torch.utils.device import resolve_device
+
+log = logging.getLogger("distributed_grep_tpu_torch.engine")
 
 # Span path: above this many candidate lines per segment, the per-line host
 # confirm would crawl -- one exact-mode kernel pass over the segment on the
@@ -141,11 +177,11 @@ DEFAULT_SEGMENT_BYTES = 64 * 1024 * 1024
 # and the engine's segment size.
 FILE_CHUNK_BYTES = 1 << 26
 
-REGEX_SLICE = (
-    "ROADMAP.md 'Slices still to port', item 11 (the reference's host "
-    "routes: its re loop, its native DFA scanner and its XLA DFA device "
-    "path)"
-)
+# A host scan given a progress callback runs in newline-cut pieces of
+# about this many bytes, one callback a piece (the reference's _HOST_CHUNK).
+HOST_CHUNK = 1 << 26
+
+BACKENDS = ("device", "cpu")
 
 
 @dataclass
@@ -161,21 +197,24 @@ class PatternPlan:
     """How one pattern or set is scanned: the outcome of ``check_pattern``
     or ``check_patterns``.
 
-    mode            "shift_and", "nfa", "fdr", "pairset", "approx" or
-                    "all_lines"
+    mode            "shift_and", "nfa", "fdr", "pairset", "approx",
+                    "all_lines", or on the host "native" or "re"
     route           the routing step that chose it (module docstring):
                     "shift_and", "fdr_literal_set", "nfa", "dfa_filter",
-                    "re_filter", "all_lines"; for a set "fdr", "pairset"
-                    or "all_lines"; with max_errors "approx" or
-                    "all_lines"
-    table           the exact DFA (routes 3 and 4): host oracle of the
-                    confirm and the stitch
+                    "re_filter", "native", "re", "all_lines"; for a set
+                    "fdr", "pairset", "native" or "all_lines"; with
+                    max_errors "approx", "native" or "all_lines"
+    table           the exact DFA (routes 3 and 4, and a native pattern):
+                    host oracle of the confirm and the stitch
+    tables          every DFA table the plan scans or confirms with: the
+                    pattern's one table, or a native set's Aho-Corasick
+                    banks
     glushkov        the model the NFA kernel runs first
     glushkov_exact  the exact model (the dense confirm, and the defeat
                     guard's swap), or None where none fits
     nfa_filter      True when ``glushkov`` is a candidate superset
-    re_fallback     route 5's oracle: ``re`` over the POSIX-expanded
-                    pattern
+    re_fallback     route 5's oracle and mode "re"'s matcher: ``re`` over
+                    the POSIX-expanded pattern
     fdr             the FDR filter banks (mode "fdr")
     pairset         the exact short-set model (mode "pairset")
     fdr_pairset     mode "fdr": the sidecar model of the 1-byte members
@@ -189,6 +228,7 @@ class PatternPlan:
     shift_and: ShiftAndModel | None = None
     sa_filtered: ShiftAndModel | None = None
     table: DfaTable | None = None
+    tables: list[DfaTable] | None = None
     glushkov: GlushkovModel | None = None
     glushkov_exact: GlushkovModel | None = None
     nfa_filter: bool = False
@@ -200,29 +240,32 @@ class PatternPlan:
     approx: ApproxModel | None = None
 
 
-def _unported(pattern: str, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"pattern {pattern!r} {why}; it belongs to {REGEX_SLICE}"
-    )
-
-
 def _member_bytes(p: str | bytes) -> bytes:
     return p.encode("utf-8", "surrogateescape") if isinstance(p, str) else bytes(p)
 
 
-def _unported_set(n: int, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"pattern set of {n} members {why}; it belongs to {REGEX_SLICE}"
-    )
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def _native_set(members: list[bytes], ignore_case: bool) -> PatternPlan:
+    """Mode "native" over the set's Aho-Corasick banks, at the reference's
+    bank budget."""
+    tables = compile_aho_corasick_banks(
+        members, ignore_case=ignore_case,
+        max_states_per_bank=MAX_STATES_PER_BANK)
+    return PatternPlan("native", "native", table=tables[0], tables=tables)
 
 
 def check_patterns(patterns, ignore_case: bool = False,
-                   fdr: FdrModel | None = None) -> PatternPlan:
+                   fdr: FdrModel | None = None,
+                   backend: str = "device") -> PatternPlan:
     """Route a literal set (members str, decoded utf-8/surrogateescape, or
     bytes; see the module docstring).  ``fdr`` is the set's FDR model when
-    the caller compiled it already.  An empty set raises ValueError; a set
-    neither kernel hosts raises NotImplementedError naming its ROADMAP.md
-    item."""
+    the caller compiled it already.  An empty set, or a member holding
+    '\\n', raises ValueError."""
+    _check_backend(backend)
     members = [_member_bytes(p) for p in patterns]
     if not members:
         raise ValueError("empty pattern set")
@@ -231,6 +274,8 @@ def check_patterns(patterns, ignore_case: bool = False,
         return PatternPlan("all_lines", "all_lines")
     if any(NL in m for m in members):
         raise ValueError("a literal of the set contains '\\n'")
+    if backend == "cpu":
+        return _native_set(members, ignore_case)
     n = len(members)
     if max(len(m) for m in members) <= 2:
         dens = expected_match_density(members, ignore_case=ignore_case)
@@ -246,8 +291,10 @@ def check_patterns(patterns, ignore_case: bool = False,
     long_pats = [m for m in members if len(m) >= 2]
     short_pats = [m for m in members if len(m) < 2]
     if not long_pats:
-        raise _unported_set(n, "expects more matches per byte than the "
-                               "device ceiling (dense 1-byte members)")
+        log.warning("pattern set of %d members expects more matches per "
+                    "byte than the device ceiling (dense 1-byte members) -> "
+                    "native host scanner", n)
+        return _native_set(members, ignore_case)
     try:
         if short_pats:
             short_dens = expected_match_density(short_pats,
@@ -259,7 +306,9 @@ def check_patterns(patterns, ignore_case: bool = False,
         if fdr is None:
             fdr = compile_fdr(long_pats, ignore_case=ignore_case)
     except FdrError as e:
-        raise _unported_set(n, f"is outside the FDR filter ({e})") from e
+        log.warning("pattern set of %d members is outside the FDR filter "
+                    "(%s) -> native host scanner", n, e)
+        return _native_set(members, ignore_case)
     sidecar = (compile_pairset(short_pats, ignore_case=ignore_case)
                if short_pats else None)
     confirm = [p for b in fdr.banks for p in b.patterns]
@@ -281,11 +330,15 @@ def _host_re(pattern: str, ignore_case: bool) -> re.Pattern:
         raise RegexError(str(e)) from e
 
 
-def _re_rescue(pattern: str, ignore_case: bool, err: RegexError) -> PatternPlan:
-    """Route 4: no DFA table.  A Glushkov filter on the card, every
+def _re_rescue(pattern: str, ignore_case: bool, err: RegexError,
+               backend: str) -> PatternPlan:
+    """Route 5: no DFA table.  A Glushkov filter on the card, every
     candidate line confirmed with Python re (the reference's engine.py
-    re-fallback branch and its device rescue)."""
+    re-fallback branch and its device rescue); where no filter compiles,
+    or on the host backend, the host re loop."""
     rx = _host_re(pattern, ignore_case)
+    if backend == "cpu":
+        return PatternPlan("re", "re", re_fallback=rx)
     try:
         filt, _ = compile_scan_model(pattern, ignore_case=ignore_case)
     except RegexError:
@@ -293,31 +346,54 @@ def _re_rescue(pattern: str, ignore_case: bool, err: RegexError) -> PatternPlan:
     if filt is None:
         filt = compile_device_filter(pattern, ignore_case=ignore_case)
     if filt is None:
-        raise _unported(pattern, f"has no DFA table ({err}) and no device "
-                                 f"filter")
+        log.warning("pattern %r has no DFA table (%s) and no device filter "
+                    "-> host re loop", pattern, err)
+        return PatternPlan("re", "re", re_fallback=rx)
     # always confirm: with no DFA, even an exact Glushkov model's lines
     # are re-checked with re
     return PatternPlan("nfa", "re_filter", glushkov=filt, nfa_filter=True,
                        re_fallback=rx)
 
 
-def check_pattern(pattern: str, ignore_case: bool = False) -> PatternPlan:
-    """Route ``pattern`` (see the module docstring).  A malformed pattern
-    raises RegexError; a valid one outside the ported routes raises
-    NotImplementedError naming its ROADMAP.md item."""
+def _check_pattern_cpu(pattern: str, ignore_case: bool,
+                       sa: ShiftAndModel | None) -> PatternPlan:
+    """The host backend's routes (the reference's backend="cpu"): a regex
+    that denotes a literal set scans that set's banks, any other pattern
+    its DFA table, and one with no table the re loop."""
+    if sa is None:
+        lits = enumerate_literal_set(pattern, ignore_case=ignore_case)
+        if lits is not None and len(lits) >= 2:
+            return _native_set([_member_bytes(x) for x in lits], ignore_case)
+    try:
+        table = compile_dfa(pattern, ignore_case=ignore_case)
+    except RegexError as e:
+        return _re_rescue(pattern, ignore_case, e, "cpu")
+    if table.accept[table.start]:
+        return PatternPlan("all_lines", "all_lines", table=table)
+    return PatternPlan("native", "native", shift_and=sa, table=table,
+                       tables=[table])
+
+
+def check_pattern(pattern: str, ignore_case: bool = False,
+                  backend: str = "device") -> PatternPlan:
+    """Route ``pattern`` (see the module docstring) for ``backend``
+    ("device", or "cpu": the host scanners alone).  A pattern that neither
+    the parser nor Python re accepts raises RegexError."""
+    _check_backend(backend)
     try:
         parse_pattern(pattern, ignore_case)
-    except UnsupportedSyntax as e:
-        raise _unported(pattern, f"({e}) has no automaton form") from e
     except RegexError as e:
-        # outside the automaton syntax but valid for re (a possessive
-        # repeat, a lookaround): the reference runs its host re loop
+        # outside the automaton syntax but valid for re (a backreference,
+        # a possessive repeat, a lookaround, a '\n'): the reference's re
+        # fallback, with its device rescue where a filter compiles
         try:
             _host_re(pattern, ignore_case)
         except RegexError:
             raise e from None
-        raise _unported(pattern, f"({e}) runs only on a host re loop") from e
+        return _re_rescue(pattern, ignore_case, e, backend)
     sa = try_compile_shift_and(pattern, ignore_case=ignore_case)
+    if backend == "cpu":
+        return _check_pattern_cpu(pattern, ignore_case, sa)
     if sa is not None:
         return PatternPlan("shift_and", "shift_and", shift_and=sa,
                            sa_filtered=filtered_for_device(sa))
@@ -336,32 +412,37 @@ def check_pattern(pattern: str, ignore_case: bool = False) -> PatternPlan:
         glushkov, is_filter = compile_scan_model(pattern,
                                                  ignore_case=ignore_case)
     except RegexError as e:
-        return _re_rescue(pattern, ignore_case, e)
+        return _re_rescue(pattern, ignore_case, e, backend)
     if table.accept[table.start]:
         # the empty string matches: every line does (grep semantics)
         return PatternPlan("all_lines", "all_lines", table=table)
-    if table.accept_eol[table.start]:
-        raise _unported(pattern, "matches the empty string at a line's end "
-                                 "(nullable at '$')")
     if glushkov is not None:
         exact = (try_compile_glushkov(pattern, ignore_case=ignore_case)
                  if is_filter else glushkov)
-        return PatternPlan("nfa", "nfa", table=table, glushkov=glushkov,
-                           glushkov_exact=exact, nfa_filter=is_filter)
+        return PatternPlan("nfa", "nfa", table=table, tables=[table],
+                           glushkov=glushkov, glushkov_exact=exact,
+                           nfa_filter=is_filter)
     filt = compile_device_filter(pattern, ignore_case=ignore_case)
     if filt is None:
-        raise _unported(pattern, "has no Glushkov model and no device filter")
-    return PatternPlan("nfa", "dfa_filter", table=table, glushkov=filt,
-                       nfa_filter=True)
+        why = ("matches the empty string at a line's end (nullable at '$')"
+               if table.accept_eol[table.start] else
+               "has no Glushkov model and no device filter")
+        log.warning("pattern %r %s -> native host scanner", pattern, why)
+        return PatternPlan("native", "native", table=table, tables=[table])
+    return PatternPlan("nfa", "dfa_filter", table=table, tables=[table],
+                       glushkov=filt, nfa_filter=True)
 
 
-def check_approx(pattern: str, k: int, ignore_case: bool = False) -> PatternPlan:
+def check_approx(pattern: str, k: int, ignore_case: bool = False,
+                 backend: str = "device") -> PatternPlan:
     """Route ``pattern`` with at most ``k`` edit errors (the reference's
     engine.py:621-643): a literal / class sequence of at most 32 symbols on
-    the approx kernel (csrc/approx.cu), or every line when the pattern is
-    no longer than k (deleting it all costs at most k edits).  No literal
+    the approx kernel (csrc/approx.cu), or on the host backend its host
+    recurrence (mode "native"), or every line when the pattern is no longer
+    than k (deleting it all costs at most k edits).  No literal
     decomposition: approximate matching keeps the pattern's own form.
     Raises ValueError for k outside 1..MAX_ERRORS or another pattern."""
+    _check_backend(backend)
     if not 1 <= k <= MAX_ERRORS:
         raise ValueError(f"max_errors must be 1..{MAX_ERRORS}")
     base = try_compile_shift_and(pattern, ignore_case=ignore_case)
@@ -372,7 +453,8 @@ def check_approx(pattern: str, k: int, ignore_case: bool = False) -> PatternPlan
         )
     if base.length <= k:
         return PatternPlan("all_lines", "all_lines")
-    return PatternPlan("approx", "approx", approx=ApproxModel(base=base, k=k))
+    mode = "native" if backend == "cpu" else "approx"
+    return PatternPlan(mode, mode, approx=ApproxModel(base=base, k=k))
 
 
 class _Reader:
@@ -458,7 +540,8 @@ def lines_match(
 
 class GrepEngine:
     """Scan documents for one compiled pattern, or one literal set, on one
-    device.  Exactly one of ``pattern`` and ``patterns`` is given."""
+    device, or on the host where its plan says so (``backend="cpu"``: every
+    plan).  Exactly one of ``pattern`` and ``patterns`` is given."""
 
     def __init__(
         self,
@@ -468,6 +551,7 @@ class GrepEngine:
         ignore_case: bool = False,
         max_errors: int = 0,
         device: str | torch.device = "cuda",
+        backend: str = "device",
         target_lanes: int = DEFAULT_TARGET_LANES,
         segment_bytes: int = DEFAULT_SEGMENT_BYTES,
         min_chunk: int = 256,
@@ -476,7 +560,11 @@ class GrepEngine:
             raise ValueError("exactly one of pattern / patterns is required")
         if max_errors and patterns is not None:
             raise ValueError("max_errors applies to a single pattern, not a set")
-        self.device = resolve_device(device)
+        _check_backend(backend)
+        self.backend = backend
+        # the host backend runs no kernel: its device is never asked for
+        self.device = (torch.device("cpu") if backend == "cpu"
+                       else resolve_device(device))
         if isinstance(pattern, bytes):
             pattern = pattern.decode("utf-8", "surrogateescape")
         if segment_bytes <= 0 or target_lanes < 32 or target_lanes % 32:
@@ -490,13 +578,14 @@ class GrepEngine:
         self.min_chunk = min_chunk
         if patterns is not None:
             self.pattern = f"<set of {len(patterns)}>"
-            plan = check_patterns(patterns, ignore_case)
+            plan = check_patterns(patterns, ignore_case, backend=backend)
         elif max_errors:
             self.pattern = pattern
-            plan = check_approx(pattern, int(max_errors), ignore_case)
+            plan = check_approx(pattern, int(max_errors), ignore_case,
+                                backend=backend)
         else:
             self.pattern = pattern
-            plan = check_pattern(pattern, ignore_case)
+            plan = check_pattern(pattern, ignore_case, backend=backend)
         self.mode = plan.mode
         self.route = plan.route
         self.shift_and = plan.shift_and
@@ -505,6 +594,10 @@ class GrepEngine:
         # the scan drops the filter if a corpus defeats the byte prior.
         self._sa_filtered = plan.sa_filtered
         self.table = plan.table
+        self.tables = plan.tables or []
+        # '^$', 'x?$': the scan's result gets the empty lines (scan())
+        self._nullable_eol = any(bool(t.accept_eol[t.start])
+                                 for t in self.tables)
         self.glushkov = plan.glushkov
         self.glushkov_exact = plan.glushkov_exact
         self._nfa_filter = plan.nfa_filter
@@ -573,18 +666,30 @@ class GrepEngine:
 
     def host_line_matcher(self, data, starts, ends) -> np.ndarray:
         """Exact host verdicts for the [starts, ends) line spans of
-        ``data``: the vectorized Shift-And, the approx recurrence (short
-        spans only: the stitch's windows), the confirm set, the DFA walk,
-        or Python re."""
+        ``data``: the vectorized Shift-And, the approx recurrence (the
+        stitch's short windows on the card's route, whole lines in mode
+        "native"), the confirm set, the DFA walk over every table (a
+        native set's banks OR'd), or Python re."""
         if self.mode == "shift_and":
             return lines_match(self.shift_and, data, starts, ends)
         if self.approx is not None:
+            if self.mode == "native":
+                view = memoryview(data)
+                return np.fromiter(
+                    (approx_mod.line_matches(self.approx, bytes(view[a:b]))
+                     for a, b in zip(np.asarray(starts).tolist(),
+                                     np.asarray(ends).tolist())),
+                    dtype=bool, count=len(starts))
             return host_match.approx_windows_match(self.approx, data, starts,
                                                    ends)
         if self.confirm is not None:
             return self.confirm.lines_match(data, starts, ends)
-        if self.table is not None:
-            return host_match.dfa_lines_match(self.table, data, starts, ends)
+        if self.tables:
+            out = host_match.dfa_lines_match(self.tables[0], data, starts,
+                                             ends)
+            for t in self.tables[1:]:
+                out |= host_match.dfa_lines_match(t, data, starts, ends)
+            return out
         return host_match.re_lines_match(self._re_fallback, data, starts, ends)
 
     def scan(self, data: bytes, progress=None) -> ScanResult:
@@ -600,9 +705,96 @@ class GrepEngine:
             n_lines = count_lines(data)
             return ScanResult(np.arange(1, n_lines + 1, dtype=np.int64),
                               n_lines, len(data))
-        res = scan_device(self, data, progress=progress)
+        if self.mode in ("native", "re"):
+            res = self._host_scan(data, progress)
+        else:
+            res = scan_device(self, data, progress=progress)
+        if self._nullable_eol:
+            res = self._with_empty_lines(data, res)
         self._add_totals(self.stats)
         return res
+
+    def _with_empty_lines(self, data: bytes, res: ScanResult) -> ScanResult:
+        """The fix-up of a pattern nullable at '$' (the reference's
+        engine.py scan()): its empty match holds at every line's end,
+        empty lines included, which have no byte for a scanner to report,
+        and a trailing '\\n' can make a scanner report a line past the
+        last one.  So: drop lines past the last, add the empty lines."""
+        nl = res.nl_index if res.nl_index is not None else newline_index(data)
+        n_lines = nl.size + (0 if data.endswith(b"\n") else 1)
+        ml = res.matched_lines[res.matched_lines <= n_lines]
+        ml = np.union1d(ml, empty_line_numbers(data, nl)).astype(np.int64)
+        return ScanResult(ml, int(ml.size), res.bytes_scanned, nl)
+
+    def _host_scan(self, data: bytes, progress=None) -> ScanResult:
+        """Mode "native" or "re" over ``data``: whole, or with ``progress``
+        in newline-cut pieces of about HOST_CHUNK bytes, one callback a
+        piece (a line longer than a piece stays whole)."""
+        scanner = self._scan_native if self.mode == "native" else self._scan_re
+        t0 = time.perf_counter()
+        if progress is None or len(data) <= int(1.5 * HOST_CHUNK):
+            res, n_offsets = scanner(data)
+            if progress is not None:
+                progress()
+        else:
+            matched, nls = [], []
+            n_matches = n_offsets = lines_before = pos = 0
+            while pos < len(data):
+                end = min(pos + HOST_CHUNK, len(data))
+                if end < len(data):
+                    cut = data.rfind(b"\n", pos, end)
+                    if cut >= pos:
+                        end = cut + 1
+                    else:  # one line longer than the piece: to its end
+                        nxt = data.find(b"\n", end)
+                        end = len(data) if nxt < 0 else nxt + 1
+                piece = data[pos:end]
+                pres, n = scanner(piece)
+                matched.append(pres.matched_lines + lines_before)
+                n_matches += pres.n_matches
+                n_offsets += n
+                nl = (pres.nl_index if pres.nl_index is not None
+                      else newline_index(piece))
+                nls.append(nl + pos)
+                lines_before += nl.size + (0 if piece.endswith(b"\n") else 1)
+                pos = end
+                progress()
+            res = ScanResult(np.concatenate(matched), n_matches, len(data),
+                             np.concatenate(nls))
+        st = {"host_scan_seconds": time.perf_counter() - t0}
+        if self.mode == "native":
+            st["end_offsets"] = n_offsets
+        self.stats = st
+        return res
+
+    def _scan_re(self, data: bytes) -> tuple[ScanResult, int]:
+        """The host re loop: ``re.search`` on every line (a trailing '\\n'
+        closes the last line rather than opening one)."""
+        lines = data.split(b"\n")
+        if lines and lines[-1] == b"":
+            lines.pop()
+        search = self._re_fallback.search
+        matched = [i for i, line in enumerate(lines, start=1) if search(line)]
+        return ScanResult(np.asarray(matched, dtype=np.int64), len(matched),
+                          len(data)), 0
+
+    def _scan_native(self, data: bytes) -> tuple[ScanResult, int]:
+        """The host scanner: the approx recurrence, the library's memmem
+        for a plain literal, or ``reference_scan`` over every table; the
+        sorted end offsets map to lines by one linear merge."""
+        lit = self.literal()
+        if self.approx is not None:
+            offsets = approx_mod.scan_reference(self.approx, data)
+        elif lit is not None:
+            offsets = native.literal_scan(data, lit)
+        elif len(self.tables) == 1:
+            offsets = reference_scan(self.tables[0], data)
+        else:
+            offsets = np.unique(np.concatenate(
+                [reference_scan(t, data) for t in self.tables]))
+        nl = newline_index(data)
+        lns = unique_match_lines(offsets, nl)
+        return ScanResult(lns, int(lns.size), len(data), nl), int(offsets.size)
 
     def _add_totals(self, stats: dict) -> None:
         with self._copy_lock:
@@ -729,5 +921,6 @@ __all__ = [
     "check_pattern",
     "check_patterns",
     "FILE_CHUNK_BYTES",
+    "HOST_CHUNK",
     "lines_match",
 ]

@@ -97,6 +97,23 @@ def newline_index_numpy(data: bytes) -> np.ndarray:
     )
 
 
+def empty_line_numbers(data: bytes,
+                       nl_index: np.ndarray | None = None) -> np.ndarray:
+    """Sorted 1-based numbers of the zero-length lines of ``data``: a line
+    is empty iff its '\\n' sits at the line's start, offset 0 for line 1
+    or right after the previous '\\n'.  The bytes after the last '\\n'
+    are a line only when there are some (``count_lines``), so they are
+    never reported.  ``nl_index`` is ``newline_index(data)`` when the
+    caller has it."""
+    nl = newline_index(data) if nl_index is None else nl_index
+    if nl.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    out = (np.flatnonzero(np.diff(nl) == 1) + 2).astype(np.int64)
+    if nl[0] == 0:
+        out = np.concatenate([np.ones(1, np.int64), out])
+    return out
+
+
 def count_lines(data: bytes) -> int:
     """Line count with grep -n semantics: a trailing '\\n' closes the last
     line rather than opening an empty one; empty input has zero lines."""

@@ -297,11 +297,14 @@ def run_job(
     fault_hooks_per_worker: list[dict] | None = None,
 ) -> JobResult:
     """Run the job to completion.  ``device`` overrides the app option of
-    the same name; with neither, the job runs on "cuda"."""
+    the same name; with neither, the job runs on "cuda".  With the app
+    option ``backend="cpu"`` (the host scanners) the device is never
+    asked for."""
     opts = dict(config.app_options)
     opts["device"] = str(device if device is not None
                          else opts.get("device", "cuda"))
-    resolve_device(opts["device"])  # fail before any worker starts
+    if opts.get("backend", "device") != "cpu":  # the host backend: no card
+        resolve_device(opts["device"])  # fail before any worker starts
     # the host library builds before the scheduler hands out a task, so no
     # task's failure detector waits on g++
     native.lib()

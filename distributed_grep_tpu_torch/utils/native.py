@@ -39,6 +39,9 @@ from distributed_grep_tpu_torch.ops import _build
 
 # Threads of the multithreaded entry points (dfa_scan_mt, confirm_scan).
 THREADS = min(8, os.cpu_count() or 1)
+# Inputs of at least this many bytes take dfa_scan_mt in
+# models/dfa.reference_scan (the reference's threshold, 4 MiB).
+MT_THRESHOLD_BYTES = 1 << 22
 
 _bind_lock = threading.Lock()
 _bound: ctypes.CDLL | None = None

@@ -285,6 +285,20 @@ def fdr_setup(data: bytes, model, *, device="cuda", fold_case: bool = False):
     return dev, lay.chunk, pad_rows, scan
 
 
+def dfa_setup(data: bytes, tables, *, device="cuda"):
+    """Device tensor + scan closure for slope-timing the table-DFA kernel
+    (csrc/dfa.cu) on stripe windows, as ``shift_and_setup``: one launch a
+    table of ``tables``, ORed (ops/dfa_scan.dfa_scan_bank_words)."""
+    from distributed_grep_tpu_torch.ops import dfa_scan
+
+    stripes, lay, pad_rows = stripe_setup(data, device)
+
+    def scan(win):  # a row window of stripes.t(): a pitched stripe window
+        return dfa_scan.dfa_scan_bank_words(win.t(), tables)
+
+    return stripes.t(), lay.chunk, pad_rows, scan
+
+
 def pairset_setup(data: bytes, model, *, device="cuda"):
     """Device tensor + scan closure for slope-timing the exact 1-2-byte set
     kernel (csrc/pairset.cu) on stripe windows, as ``shift_and_setup``."""

@@ -581,3 +581,61 @@ def test_cli_display_and_stdin_on_card_equal_cpu(card, tmp_path, capsysbinary,
         got[device] = (rc, capsysbinary.readouterr().out)
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][0] == 0 and got["cuda"][1]
+
+
+@pytest.mark.parametrize("chunk,lanes", [(1024, 65536), (160, 64), (96, 4128)])
+def test_dfa_kernel_matches_plain_on_card(card, chunk, lanes):
+    """csrc/dfa.cu against its plain version, bit for bit: DFAs with '$'
+    accepts (the table in shared memory) and an Aho-Corasick bank too
+    large for it (read through the L2), on contiguous and pitched
+    stripes, stripes whose last byte is not '\\n' among them."""
+    from distributed_grep_tpu_torch.models import aho as port_aho
+    from distributed_grep_tpu_torch.models import dfa as port_dfa
+    from distributed_grep_tpu_torch.ops import dfa_scan
+
+    text = _text(61, chunk * lanes)
+    lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
+    stripes = np.ascontiguousarray(layout.to_device_array(text.tobytes(),
+                                                          lay).T)
+    stripes[::3, -1] = ord("e")
+    cpu = torch.from_numpy(stripes)
+    wide = torch.zeros((lanes, chunk + 32), dtype=torch.uint8, device=card)
+    wide[:, :chunk] = cpu.to(card)
+    rng = np.random.default_rng(5)
+    bank = port_aho.compile_aho_corasick(
+        ["volcano", "hallo"] + [bytes(rng.integers(97, 123, size=8))
+                                for _ in range(400)])
+    tables = [port_dfa.compile_dfa(p) for p in ("vol(cano)?$", "^$", "e$",
+                                                "h[ae]llo", "x?o$")] + [bank]
+    assert not dfa_scan.uses_shared_memory(bank)
+    for t in tables:
+        # the plain version on the card: the CPU would take minutes at the
+        # 64 MiB shape
+        want = dfa_scan.dfa_scan_words_plain(cpu.to(card), t).cpu()
+        for dev in (cpu.to(card), wide[:, :chunk]):
+            before = dfa_scan.launches
+            got = dfa_scan.dfa_scan_words(dev, t)
+            torch.cuda.synchronize()
+            assert dfa_scan.launches == before + 1
+            assert torch.equal(got.cpu(), want), t.pattern
+
+
+def test_nullable_eol_job_on_card_byte_identical_to_cpu(card, tmp_path):
+    """A '^$' job on device="cuda" (the engine routes it to the host DFA
+    scanner, as the reference does) equals the job on the CPU."""
+    files = []
+    for i in range(3):
+        text = _text(80 + i, 1 << 20)
+        text[::97] = ord("\n")
+        p = tmp_path / f"f{i}.txt"
+        p.write_bytes(b"\n" + text.tobytes())
+        files.append(str(p))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        res = run_job(JobConfig(
+            input_files=files, app_options={"pattern": "^$"},
+            work_dir=str(tmp_path / device)), n_workers=2, device=device)
+        outs[device] = {Path(p).name: Path(p).read_bytes()
+                        for p in res.output_files}
+    assert outs["cuda"] == outs["cpu"]
+    assert any(outs["cuda"].values())

@@ -4,9 +4,10 @@ The port runs on ``device="cpu"`` (the kernels' plain versions) with small
 segments and few lanes, so stripe and segment edges are everywhere; the
 reference runs its Pallas kernels in interpret mode and its host engines
 (``backend="cpu"``).  Also the port's guards: entry points raise without
-CUDA unless the CPU is asked for, and patterns outside the ported slice
-raise NotImplementedError (the regex routes are in
-tests/test_torch_regex_engine.py).
+CUDA unless the CPU is asked for, and the patterns the reference routes to
+its host scanners take the same routes (the regex routes are in
+tests/test_torch_regex_engine.py, the host routes in
+tests/test_torch_host_routes.py).
 """
 
 import re
@@ -135,8 +136,25 @@ def test_engine_raises_without_cuda_unless_cpu_asked(make, monkeypatch):
     r"(x|[^\x00-\xff])y", "x{0,600}",
 ])
 def test_out_of_slice_patterns_raise_not_implemented(pattern):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GrepEngine(pattern, device="cpu")
+    """Once outside the port (they raised NotImplementedError naming a
+    ROADMAP.md item), these patterns now take the reference's host routes,
+    "native" where a DFA table exists ('$'-nullable patterns) and "re"
+    where none does, with the reference's lines and mode on both
+    backends.  Two of them ('a\\z', '(a)?\\2') Python re refuses too: the
+    reference refuses them, and the port raises RegexError (the CLI's
+    "invalid pattern", exit 2)."""
+    for backend in ("device", "cpu"):
+        try:
+            ref = RefEngine(pattern, backend=backend)
+        except re.error:
+            with pytest.raises(port_engine.RegexError):
+                GrepEngine(pattern, backend=backend, **SMALL)
+            continue
+        eng = GrepEngine(pattern, backend=backend, **SMALL)
+        assert eng.mode == eng.route == ref.mode, backend
+        for name, data in CASES.items():
+            assert eng.scan(data).matched_lines.tolist() == ref.scan(
+                data).matched_lines.tolist(), (backend, name)
 
 
 def test_malformed_pattern_raises_regex_error():

@@ -152,7 +152,10 @@ def test_cli_exit_codes(corpus, capsys):
     assert main(["grep", "zzzq", corpus[0], "--device", "cpu"]) == 1
     assert main(["grep", "h[", corpus[0], "--device", "cpu"]) == 2
     assert "invalid pattern" in capsys.readouterr().err
-    assert main(["grep", "x?$", corpus[0], "--device", "cpu"]) == 2
+    # 'x?$' once exited 2 naming ROADMAP item 11; it now runs on the host
+    # DFA scanner and selects every line; --follow still exits 2
+    assert main(["grep", "-q", "x?$", corpus[0], "--device", "cpu"]) == 0
+    assert main(["grep", "--follow", "x", corpus[0], "--device", "cpu"]) == 2
     assert "ROADMAP.md" in capsys.readouterr().err
     assert main(["grep", "x", corpus[0] + ".missing", "--device", "cpu"]) == 2
     if not torch.cuda.is_available():

@@ -8,7 +8,9 @@ pattern, its Pallas kernels in interpret mode.  Every route of
 ``ops/engine.check_pattern`` is covered: exact and relaxed NFA models, '^'
 at stripe heads, the DFA-confirmed '$' and prefix filters, the
 re-confirmed filters, nullable patterns, the dense confirm on the exact
-kernel and the defeat guard; and what stays outside the slice raises.
+kernel and the defeat guard; and the host routes, "native" (patterns
+nullable at '$') and "re" (syntax only Python re knows), on both
+backends.
 """
 
 import os
@@ -215,8 +217,22 @@ def test_nullable_pattern_matches_every_line_without_a_scan():
 @pytest.mark.parametrize("pattern", ["^$", "x?$", "(ab)*$", r"(a)\1", "a\nb",
                                      "a{1,3}+", "(?=a)b"])
 def test_outside_the_slice_raises_naming_item_11(pattern):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GrepEngine(pattern, device="cpu")
+    """Once outside the port (they raised naming ROADMAP item 11), these
+    patterns now take the reference's host routes: "native" for the
+    patterns nullable at '$', "re" for the rest; their lines equal the
+    reference's on both backends, and the CPU oracle's where re reads the
+    pattern as grep does."""
+    route = "native" if pattern.endswith("$") else "re"
+    for backend in ("device", "cpu"):
+        eng = GrepEngine(pattern, backend=backend, **SMALL)
+        assert (eng.mode, eng.route) == (route, route), backend
+        for name, data in CASES.items():
+            got = eng.scan(data).matched_lines.tolist()
+            ref = RefEngine(pattern, backend=backend).scan(data)
+            assert got == ref.matched_lines.tolist(), (backend, name)
+            if pattern != "a\nb":  # re's '\n' never matches within a line
+                assert got == _oracle(pattern, False, data), (backend, name)
+    assert eng.stats["host_scan_seconds"] >= 0
 
 
 _ATOMS = ["a", "b", "ab", "[ab]", "[^a\n]", ".", "x", "(a|bx)", "(^a|b)",
@@ -228,8 +244,8 @@ _REPEATS = ["", "", "", "*", "+", "?", "{1,2}", "{0,3}", "{2,}"]
 
 @pytest.mark.parametrize("seed", range(4))
 def test_random_regexes_equal_reference(seed):
-    """Random patterns over every route, against the reference's host
-    engine; patterns outside the slice must raise NotImplementedError."""
+    """Random patterns over every route, the host routes included,
+    against the reference's host engine."""
     rng = np.random.default_rng(seed)
     alpha = np.frombuffer(b"aabbbx1 \n\nc", np.uint8)
     data = rng.choice(alpha, size=12_000).tobytes()
@@ -248,9 +264,6 @@ def test_random_regexes_equal_reference(seed):
         ic = bool(rng.random() < 0.3)
         try:
             eng = GrepEngine(pattern, ignore_case=ic, **SMALL)
-        except NotImplementedError:
-            routes.add("unported")
-            continue
         except port_engine.RegexError:  # malformed: the reference agrees
             with pytest.raises((ValueError, re.error)):
                 RefEngine(pattern, ignore_case=ic, backend="cpu")
@@ -314,8 +327,16 @@ def test_cli_stdout_identical_to_reference_cli(corpus, flags):
     assert port.stdout == ref.stdout and port.stdout
 
 
-def test_cli_exits_2_naming_item_11_outside_the_slice(corpus, capsys):
-    from distributed_grep_tpu_torch.__main__ import main
-
-    assert main(["grep", "^$", corpus[0], "--device", "cpu"]) == 2
-    assert "item 11" in capsys.readouterr().err
+def test_cli_exits_2_naming_item_11_outside_the_slice(corpus):
+    """'^$' once exited 2 naming ROADMAP item 11; it now runs on the host
+    DFA scanner and prints the reference CLI's bytes, on both backends."""
+    ref = _cli("distributed_grep_tpu", ["grep", "^$", *corpus,
+                                        "--backend", "cpu"])
+    assert ref.returncode == 0, ref.stderr
+    assert ref.stdout.count(b"\n") > 0
+    for backend in ("device", "cpu"):
+        port = _cli("distributed_grep_tpu_torch",
+                    ["grep", "^$", *corpus, "--device", "cpu",
+                     "--backend", backend])
+        assert port.returncode == 0, port.stderr
+        assert port.stdout == ref.stdout, backend

@@ -6,9 +6,9 @@ segments and few lanes, so stripe and segment edges are everywhere; the
 reference runs its host engines (``backend="cpu"``).  Covered: FDR sets,
 -i, a mixed set whose 1-byte members ride the pairset sidecar, a pure
 pairset set, BASELINE config 2 through literal decomposition, members
-planted across every stripe and segment start (the stitch), each route
-that raises NotImplementedError, ``run_job`` output, and the CLI's -e,
--f, -F and -E.
+planted across every stripe and segment start (the stitch), the sets
+too dense for both kernels on the host scanner (mode "native"),
+``run_job`` output, and the CLI's -e, -f, -F and -E.
 """
 
 import os
@@ -160,10 +160,20 @@ def test_empty_member_matches_every_line_and_bad_sets_raise():
     rand_literals(3000, 2, 2, seed=31, alphabet=np.arange(32, 127)),
 ])
 def test_sets_outside_both_kernels_raise_naming_item_11(pats):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        check_patterns(pats)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GrepEngine(patterns=pats, device="cpu")
+    """Once outside the port (they raised naming ROADMAP item 11), these
+    sets now run on the host scanner over their Aho-Corasick banks (mode
+    "native"), as the reference routes them: the reference's lines."""
+    plan = check_patterns(pats)
+    assert (plan.mode, plan.route) == ("native", "native")
+    eng = GrepEngine(patterns=pats, **SMALL)
+    assert eng.mode == "native" and len(eng.tables) >= 1
+    for name, data in CASES.items():
+        got = eng.scan(data).matched_lines.tolist()
+        assert got == _ref_lines(pats, False, data), name
+        assert got == RefEngine(patterns=pats, backend="device").scan(
+            data).matched_lines.tolist(), name
+        assert got == _oracle(pats, False, data), name
+    assert eng.stats["end_offsets"] >= 0
 
 
 # ------------------------------------------------------------- job and CLI
