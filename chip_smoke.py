@@ -2,6 +2,7 @@
 """Smoke run of distributed_grep_tpu_torch on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--file-mb 128] [--n-files 8]
+        [--workers 2] [--kernels-only | --warm-only]
 
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
@@ -114,11 +115,12 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          ``LC_ALL=C grep -a`` with the matching flags, parsed into tuples,
          its route's kernel launched in its process: -o -i volcano, -C 2
          volcano ('--' separators included) and -b -w volcano over two
-         word files; -r --include '*.txt' -F -f config 3 over a tree of
-         2,000 files of 4-64 KiB cut from a word file (one in ten .log);
-         ``cat FILE | grep -c volcano -`` and ``... volcano -`` over a word
-         file (the stdin stream), the same count on the file, and -q over
-         a live pipe that must return with the pipe open; and the
+         word files; ``cat FILE | grep -c volcano -`` and ``... volcano
+         -`` over a word file (the stdin stream), the same count on the
+         file, and -q over a live pipe that must return with the pipe
+         open (the stdin runs, and phase 1's cold build over 0.6 MB, with
+         DGREP_DEVICE_MIN_BYTES=0: below the 1 MiB bound an input scans
+         on the host, and these runs exist to launch a kernel); and the
          match-dense receipt (benchmarks/dense_receipt.py --check, 64 MiB,
          in its own process: its CLI wall, and in the CLI its job's and
          its print's seconds).  Then the host routes: nine CLI queries in
@@ -142,6 +144,25 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          in CUDA graphs; the table DFA on 'nee(dle|t)', config 3's bank
          and config 5's 57 MB bank, with the bytes or table-read bound
          that binds each).
+Phase 3b the warm tiers, the launch counts zeroed just before and read
+         just after: -r --include '*.txt' -F -f config 3 over a tree of
+         2,000 files of 4-64 KiB cut from a word file (one in ten .log),
+         batched by the CLI (a map task a split, packed windows of 32 MiB)
+         against GNU grep, with its wall, map tasks, batch_dispatches,
+         batch_fill_ratio and FDR/pairset launches; a 600 KB file through
+         the CLI with the default small-input bound (the host route,
+         stamped, no launch) and with the bound at 0 (the kernel), the
+         same bytes; two run_jobs in this process over the word files cut
+         in thirds (24 files of about 43 MiB), the second served by the
+         corpus cache (hits, no file read, no upload, the same mr-out
+         bytes), both walls and the resident bytes against the card's
+         memory; ``grep --follow --follow-idle-s 2 volcano`` in this
+         process over a 16 MiB file grown by eight appends of 1-2 MiB from
+         a thread (the bound at 0, so the suffix scans launch the kernel),
+         equal to a one-shot run over the final file and to GNU grep, with
+         the latency from each append to its print; and
+         benchmarks/many_small_files.py --check --files 500 (its JSON
+         line; 500 files of 32 KiB, a 16 MiB packed window).
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -172,6 +193,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -697,14 +719,21 @@ def cli_metrics(label: str, rc: int, stderr: bytes) -> dict:
     return json.JSONDecoder().raw_decode(err[err.index("{"):])[0]
 
 
-def port_cli(args: list, stdin=None, timeout: int = 900):
+# The environment of a CLI run that must launch its route's kernel on an
+# input below the small-input bound (1 MiB), which would take the host.
+KERNELS_AT_EVERY_SIZE = {"DGREP_DEVICE_MIN_BYTES": "0"}
+
+
+def port_cli(args: list, stdin=None, timeout: int = 900, env=None):
     """One port CLI run with --metrics: (completed process, wall seconds,
-    its metrics: the job's, or the stdin stream's)."""
+    its metrics: the job's, or the stdin stream's); ``env`` adds to the
+    environment."""
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
          *map(str, args), "--metrics"],
-        cwd=ROOT, capture_output=True, stdin=stdin, timeout=timeout)
+        cwd=ROOT, capture_output=True, stdin=stdin, timeout=timeout,
+        env={**os.environ, **(env or {})})
     wall = time.perf_counter() - t0
     return r, wall, cli_metrics(" ".join(map(str, args)), r.returncode,
                                 r.stderr)
@@ -790,11 +819,13 @@ def make_small_tree(source: Path, root: Path, n_files: int = 2000,
 def cold_build_cli(path: Path):
     """Start a CLI run over ``path`` on the card whose route (the NFA
     kernel) has no build yet: the task builds it with its grace declared.
-    Returns the process."""
+    ``path`` is under the small-input bound, so the run pins it to 0: the
+    kernel must run.  Returns the process."""
     return subprocess.Popen(
         [sys.executable, "-m", "distributed_grep_tpu_torch", "grep", "-c",
          "volcano$", str(path), "--metrics"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, **KERNELS_AT_EVERY_SIZE})
 
 
 def check_cold_build(proc, path: Path) -> str:
@@ -822,13 +853,13 @@ def check_cold_build(proc, path: Path) -> str:
             f"grep's")
 
 
-def cli_display_runs(words: list[Path], stdin_file: Path, tree: Path,
-                     pats3: Path) -> list[str]:
-    """The CLI's display options, the walk and standard input on the card,
-    each against LC_ALL=C grep -a with the matching flags, parsed into
-    tuples; each run's kernel launches (from its --metrics, a process of
-    its own: the counts start at 0) must include its route's kernel.
-    Returns a log line a run."""
+def cli_display_runs(words: list[Path], stdin_file: Path) -> list[str]:
+    """The CLI's display options and standard input on the card, each
+    against LC_ALL=C grep -a with the matching flags, parsed into tuples;
+    each run's kernel launches (from its --metrics, a process of its own:
+    the counts start at 0) must include its route's kernel.  The stdin
+    runs pin the small-input bound to 0: a block of the stream, or the
+    live pipe's one line, may be smaller.  Returns a log line a run."""
     log_lines = []
     mib = [p.stat().st_size >> 20 for p in words[:2]]
     both = f"{mib[0]} + {mib[1]} MiB"
@@ -873,24 +904,14 @@ def cli_display_runs(words: list[Path], stdin_file: Path, tree: Path,
     checked(f"-b -w volcano ({both})", r, wall, m, "shift_and",
             port_tuples(r.stdout), gnu_tuples(g.stdout, two, boff=True),
             g.returncode)
-    n_files = sum(1 for p in tree.rglob("*") if p.is_file())
-    r, wall, m = port_cli(["-r", "--include", "*.txt", "-F", "-f", pats3,
-                           tree])
-    g = gnu(["-r", "-n", "--include", "*.txt", "-F", "-f", pats3, tree])
-    checked(f"-r --include '*.txt' -F -f config3 ({n_files} files)", r,
-            wall, m, "fdr",
-            sorted((p, n) for p, n, *_ in port_tuples(r.stdout)),
-            sorted((p, n) for p, n, *_ in gnu_tuples(
-                g.stdout, sorted({ln.split(b":")[0].decode()
-                                  for ln in g.stdout.splitlines()}))),
-            g.returncode)
     # standard input: the stream, through a pipe from cat
     for args, label in ((["-c", "volcano", "-"], "cat FILE | -c volcano -"),
                         (["volcano", "-"], "cat FILE | volcano -")):
         cat = subprocess.Popen(["cat", str(stdin_file)],
                                stdout=subprocess.PIPE)
         try:
-            r, wall, m = port_cli(args, stdin=cat.stdout)
+            r, wall, m = port_cli(args, stdin=cat.stdout,
+                                  env=KERNELS_AT_EVERY_SIZE)
         finally:
             cat.stdout.close()
             cat.wait()
@@ -914,7 +935,8 @@ def cli_display_runs(words: list[Path], stdin_file: Path, tree: Path,
     proc = subprocess.Popen(
         [sys.executable, "-m", "distributed_grep_tpu_torch", "grep", "-q",
          "volcano", "--metrics"], cwd=ROOT, stdin=subprocess.PIPE,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, **KERNELS_AT_EVERY_SIZE})
     try:
         t0 = time.perf_counter()
         proc.stdin.write(b"ash\nthe volcano erupts\n")
@@ -935,6 +957,282 @@ def cli_display_runs(words: list[Path], stdin_file: Path, tree: Path,
             cli_metrics("-q on a live pipe", rc, err), "shift_and", [out],
             [b""], 0)
     return log_lines
+
+
+# ------------------------------------------------------- the warm tiers
+def recursive_batched_run(tree: Path, pats3: Path) -> str:
+    """-r --include '*.txt' -F -f config 3 over the small-file tree, the
+    CLI batching it (the small files share map tasks and packed windows):
+    the same (file, line) rows and exit status as GNU grep; the run must
+    have scanned packed windows, at least one of them on the card (past
+    the small-input bound), with an FDR launch.  Returns its log line."""
+    n_files = sum(1 for p in tree.rglob("*") if p.is_file())
+    r, wall, m = port_cli(["-r", "--include", "*.txt", "-F", "-f", pats3,
+                           tree])
+    g = gnu(["-r", "-n", "--include", "*.txt", "-F", "-f", pats3, tree])
+    got = sorted((p, n) for p, n, *_ in port_tuples(r.stdout))
+    want = sorted((p, n) for p, n, *_ in gnu_tuples(
+        g.stdout, sorted({ln.split(b":")[0].decode()
+                          for ln in g.stdout.splitlines()})))
+    eng, c, launches = m["engine"], m["counters"], m["launches"]
+    on_card = (eng.get("batch_dispatches", 0) + eng.get("solo_dispatches", 0)
+               - eng.get("small_host_scan", 0))
+    if got != want or r.returncode != g.returncode:
+        raise AssertionError(f"-r batched: exit {r.returncode} vs GNU "
+                             f"{g.returncode}, {len(got)} vs {len(want)} "
+                             f"rows")
+    if not eng.get("batch_dispatches") or launches["fdr"] < 1 or on_card < 1:
+        raise AssertionError(f"-r batched: no packed window on the card: "
+                             f"engine {eng}, launches {launches}")
+    secs = m["seconds"]
+    return (f"CLI -r --include '*.txt' -F -f config3 ({n_files} files, "
+            f"batched): exit {r.returncode}, {len(got)} rows equal to GNU "
+            f"grep's; wall {wall:.3f} s (job {secs['cli_job']:.3f} s, print "
+            f"{secs['cli_print']:.3f} s); map tasks {c['map_completed']}, "
+            f"batch_dispatches {eng['batch_dispatches']}, solo_dispatches "
+            f"{eng.get('solo_dispatches', 0)}, batched_files "
+            f"{eng['batched_files']}, batch_fill_ratio "
+            f"{eng['batch_fill_ratio']:.6f}, small_host_scan "
+            f"{eng.get('small_host_scan', 0)}, segments "
+            f"{eng.get('segments', 0)}; launches fdr {launches['fdr']}, "
+            f"pairset {launches['pairset']}")
+
+
+def small_input_runs(source: Path, work: Path) -> list[str]:
+    """A file of about 600 KB (below the small-input bound, 1 MiB) through
+    the CLI twice: with the default bound it scans on the host (stamped
+    ``small_host_scan``, no launch), with the bound at 0 on the Shift-And
+    kernel; both print the same bytes, GNU grep's rows."""
+    data = source.read_bytes()[: 600 << 10]
+    small = work / "small" / "small.txt"
+    small.parent.mkdir(parents=True, exist_ok=True)
+    small.write_bytes(data[: data.rfind(b"\n") + 1])
+    g = gnu(["-n", "-i", "volcano", small])
+    want = [(n, t) for _p, n, _c, _b, t in gnu_tuples(
+        g.stdout, [], label=str(small).encode())]
+    lines, outs = [], []
+    for label, env in (("default bound", None),
+                       ("bound 0", KERNELS_AT_EVERY_SIZE)):
+        r, wall, m = port_cli(["-i", "volcano", small], env=env)
+        got = [(n, t) for _p, n, _c, _b, t in port_tuples(r.stdout)]
+        eng, launches = m["engine"], m["launches"]
+        host = eng.get("small_host_scan", 0)
+        route_ok = ((host >= 1 and not any(launches.values())) if env is None
+                    else (not host and launches["shift_and"] >= 1))
+        if got != want or r.returncode != g.returncode or not want \
+                or not route_ok:
+            raise AssertionError(f"small input, {label}: {len(got)} vs "
+                                 f"{len(want)} rows, small_host_scan {host}, "
+                                 f"launches {launches}")
+        outs.append(r.stdout)
+        lines.append(f"CLI -i volcano on {small.stat().st_size} bytes, "
+                     f"{label}: {len(got)} rows equal to GNU grep's, "
+                     f"small_host_scan {host}, launches shift_and "
+                     f"{launches['shift_and']}, wall {wall:.3f} s (job "
+                     f"{m['seconds']['cli_job']:.3f} s)")
+    if outs[0] != outs[1]:
+        raise AssertionError("small input: the host route and the kernel "
+                             "printed different bytes")
+    return lines
+
+
+# many_small_files.py's file count in phase 3b.
+MANY_SMALL_FILES = 500
+
+# The corpus phase's budget: the word files cut in thirds (about 43 MiB,
+# each padded to 44 MiB of stripes) take 1.03 GiB, past the card's
+# default of 1 GiB.
+CORPUS_PHASE_BYTES = 2 << 30
+
+
+def corpus_cache_runs(words: list[Path], work: Path, workers: int,
+                      torch) -> list[str]:
+    """Two run_jobs in this process over the word files each cut in three
+    at newlines (files of at most 64 MiB: one scan_file chunk each, so
+    each is cached) under a budget of CORPUS_PHASE_BYTES: the second must
+    find every file's bytes and segments resident (hits, no file read, no
+    upload) and write the same mr-out bytes; its count of lines equals
+    GNU grep's."""
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.ops import layout as layout_mod
+    from distributed_grep_tpu_torch.runtime.job import run_job
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    pieces = []
+    split = work / "split"
+    split.mkdir(parents=True, exist_ok=True)
+    for w in words:
+        data = w.read_bytes()
+        cuts = [0, *(data.rfind(b"\n", 0, len(data) * k // 3) + 1
+                     for k in (1, 2)), len(data)]
+        for a, b in zip(cuts, cuts[1:]):
+            if b - a > 64 << 20:
+                raise AssertionError(f"corpus piece of {b - a} bytes")
+            pieces.append(split / f"{w.stem}-{len(pieces):02d}.txt")
+            pieces[-1].write_bytes(data[a:b])
+        del data
+    with ThreadPoolExecutor(len(pieces)) as pool:
+        want = sum(pool.map(lambda q: grep_oracle_count(q, ["-F", "volcano"]),
+                            pieces))
+    layout_mod.corpus_cache_clear()
+    grep_cuda._configured_with = None  # a fresh engine, kept for both jobs
+    saved = os.environ.get("DGREP_CORPUS_BYTES")
+    os.environ["DGREP_CORPUS_BYTES"] = str(CORPUS_PHASE_BYTES)
+    runs = []
+    for name in ("cold", "warm"):
+        before = layout_mod.corpus_cache_counters()
+        t0 = time.perf_counter()
+        res = run_job(JobConfig(
+            input_files=[str(q) for q in pieces],
+            app_options={"pattern": "volcano"}, n_reduce=10,
+            task_timeout_s=60.0, work_dir=str(work / f"corpus-{name}")),
+            n_workers=workers, device="cuda")
+        wall = time.perf_counter() - t0
+        totals = dict(grep_cuda._engine.totals)
+        after = layout_mod.corpus_cache_counters()
+        runs.append((res, wall, totals, grep_cuda._engine,
+                     {k: after.get(k, 0) - before.get(k, 0) for k in after}))
+    if saved is None:
+        os.environ.pop("DGREP_CORPUS_BYTES", None)
+    else:
+        os.environ["DGREP_CORPUS_BYTES"] = saved
+    (cold, cold_wall, ct, ceng, cc), (warm, warm_wall, wt, weng, wc) = runs
+    outs = [{Path(p).name: Path(p).read_bytes() for p in r.output_files}
+            for r in (cold, warm)]
+    n_out = sum(v.count(b"\n") for v in outs[0].values())
+
+    def delta(k):
+        return wt.get(k, 0) - ct.get(k, 0)
+
+    n = len(pieces)
+    resident = layout_mod.corpus_cache_counters()[
+        "corpus_cache_bytes_resident"]
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    if (ceng is not weng or outs[0] != outs[1] or n_out != want
+            or ct.get("file_reads") != n or ct.get("uploads", 0) < n
+            or cc.get("corpus_cache_misses") != n
+            or delta("file_reads") or delta("uploads")
+            or delta("resident_segments") != ct["uploads"]
+            or wc.get("corpus_cache_hits") != n
+            or wc.get("corpus_cache_host_hits") != n):
+        raise AssertionError(
+            f"corpus cache: outputs equal {outs[0] == outs[1]}, {n_out} vs "
+            f"GNU grep's {want} lines; cold totals {ct}; warm totals {wt}; "
+            f"cache cold {cc}, warm {wc}")
+    layout_mod.corpus_cache_clear()
+    shutil.rmtree(split, ignore_errors=True)
+    return [
+        f"corpus cache, 'volcano' over {n} files of at most 64 MiB: cold job "
+        f"{cold_wall:.3f} s ({ct['file_reads']} file reads, "
+        f"{ct['uploads']} segment uploads, {cc['corpus_cache_misses']} "
+        f"misses), warm job {warm_wall:.3f} s ({delta('file_reads')} file "
+        f"reads, {delta('uploads')} uploads, {delta('resident_segments')} "
+        f"resident segments, {wc['corpus_cache_hits']} hits, "
+        f"{wc['corpus_cache_host_hits']} host hits), warm/cold "
+        f"{warm_wall / cold_wall:.3f}; mr-out bytes equal, {n_out} lines = "
+        f"GNU grep's count; resident {resident} bytes of the card's "
+        f"{card_bytes} ({resident / card_bytes:.4f}; budget "
+        f"{CORPUS_PHASE_BYTES})"]
+
+
+class TimedBytes:
+    """A binary stdout that stamps each write with the clock (the
+    follow's print times)."""
+
+    def __init__(self):
+        import io
+
+        self.buf = io.BytesIO()
+        self.writes: list[tuple[float, bytes]] = []
+
+    def write(self, b) -> int:
+        self.writes.append((time.perf_counter(), bytes(b)))
+        return self.buf.write(b)
+
+    def __getattr__(self, name):
+        return getattr(self.buf, name)
+
+
+def follow_run(words: list[Path], work: Path, counters: dict) -> str:
+    """``grep --follow --follow-idle-s 2 volcano`` in this process over a
+    16 MiB word file while a thread appends eight slices of 1-2 MiB of
+    another word file (each ending in a marker line, the last without its
+    '\n'), the small-input bound at 0 so every suffix scan runs the
+    kernel: the printed bytes equal a one-shot CLI run over the final
+    file, its rows GNU grep's; logs each marker's latency from its
+    append to its print."""
+    import numpy as np
+
+    base = words[0].read_bytes()[: 16 << 20]
+    path = work / "follow" / "grow.log"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(base[: base.rfind(b"\n") + 1])
+    src = words[1].read_bytes()[: 24 << 20]
+    rng = np.random.default_rng(7)
+    appends, pos = [], 0
+    for k in range(8):
+        end = src.find(b"\n", pos + int(rng.integers(1 << 20, 2 << 20))) + 1
+        marker = b"volcano follow marker %d" % k
+        appends.append((marker, src[pos:end] + marker
+                        + (b"" if k == 7 else b"\n")))
+        pos = end
+    stamps: dict[bytes, float] = {}
+
+    def appender():
+        time.sleep(1.0)
+        for marker, chunk in appends:
+            with open(path, "ab") as f:
+                f.write(chunk)
+            stamps[marker] = time.perf_counter()
+            time.sleep(0.3)
+
+    before = {k: m.launches for k, m in counters.items()}
+    saved = os.environ.get("DGREP_DEVICE_MIN_BYTES")
+    os.environ.update(KERNELS_AT_EVERY_SIZE)
+    out = TimedBytes()
+    t = threading.Thread(target=appender)
+    t.start()
+    try:
+        rc, got, err, wall = port_cli_in_process(
+            ["grep", "--follow", "--follow-idle-s", "2", "volcano",
+             str(path)], out=out)
+    finally:
+        t.join()
+        if saved is None:
+            os.environ.pop("DGREP_DEVICE_MIN_BYTES", None)
+        else:
+            os.environ["DGREP_DEVICE_MIN_BYTES"] = saved
+    launched = {k: m.launches - before[k] for k, m in counters.items()}
+    rc1, once, _err, once_wall = port_cli_in_process(
+        ["grep", "volcano", str(path)])
+    g = gnu(["-n", "volcano", path])
+    want = [(n, t_) for _p, n, _c, _b, t_ in gnu_tuples(
+        g.stdout, [], label=str(path).encode())]
+    rows = [(n, t_) for _p, n, _c, _b, t_ in port_tuples(got)]
+    latency = []
+    for marker, _chunk in appends:
+        printed = next((ts for ts, b in out.writes if marker in b), None)
+        if printed is None:
+            raise AssertionError(f"follow: {marker!r} never printed")
+        latency.append(printed - stamps[marker])
+    # the last append's marker has no '\n': it is carried until the idle
+    # exit's final poll, so its latency is the idle wait, not the poll's
+    tail_latency = latency.pop()
+    if (rc != 0 or got != once or rows != want or launched["shift_and"] < 1
+            or rc1 != 0):
+        raise AssertionError(
+            f"follow: exit {rc}, {len(rows)} rows vs one-shot "
+            f"{len(port_tuples(once))} and GNU {len(want)}, launches "
+            f"{launched}; stderr {err[-400:]!r}")
+    return (f"--follow --follow-idle-s 2 volcano over {path.stat().st_size} "
+            f"bytes (16 MiB, then 8 appends of 1-2 MiB, the last without its "
+            f"newline): exit {rc}, {len(rows)} rows equal to the one-shot "
+            f"run's ({once_wall:.3f} s) and GNU grep's; wall {wall:.3f} s; "
+            f"launches shift_and {launched['shift_and']}; latency from "
+            f"append to print {min(latency):.3f}-{max(latency):.3f} s, mean "
+            f"{sum(latency) / len(latency):.3f} s over the 7 terminated "
+            f"appends (poll {os.environ.get('DGREP_FOLLOW_POLL_S', '0.5')} "
+            f"s); the unterminated tail {tail_latency:.3f} s (the idle exit)")
 
 
 def symbol_masks(pattern: str, ic: bool):
@@ -1345,14 +1643,16 @@ HOST_QUERIES = [
 ]
 
 
-def port_cli_in_process(argv: list[str]) -> tuple[int, bytes, bytes, float]:
+def port_cli_in_process(argv: list[str], out=None
+                        ) -> tuple[int, bytes, bytes, float]:
     """The port CLI's main(argv) in this process, standard output and
-    error captured: (exit status, stdout, stderr, wall seconds)."""
+    error captured (standard output into ``out``, a BytesIO, when given):
+    (exit status, stdout, stderr, wall seconds)."""
     import io
 
     from distributed_grep_tpu_torch.__main__ import main as port_main
 
-    out, err = io.BytesIO(), io.BytesIO()
+    out, err = out if out is not None else io.BytesIO(), io.BytesIO()
     saved = sys.stdout, sys.stderr
     wrappers = (io.TextIOWrapper(out, write_through=True),
                 io.TextIOWrapper(err, write_through=True))
@@ -2666,6 +2966,43 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def phase_warm_tiers(args, words: list[Path], pats3: Path, counters: dict,
+                     card: str, torch) -> None:
+    """Phase 3b (module docstring): its own main path, the launch counts
+    zeroed just before it and read just after (the CLI runs' launches are
+    their processes' own, from --metrics).  Needs the word corpus and the
+    small-file tree (WORK / "tree")."""
+    from distributed_grep_tpu_torch.benchmarks import many_small_files
+
+    log(f"== phase 3b: the warm tiers, card: {card}")
+    t_warm = time.perf_counter()
+    for m in counters.values():
+        m.reset_launches()
+    log(f"{recursive_batched_run(WORK / 'tree', pats3)} [{card}]")
+    for line in small_input_runs(words[0], WORK):
+        log(f"{line} [{card}]")
+    for line in corpus_cache_runs(words, WORK, args.workers, torch):
+        log(f"{line} [{card}]")
+    log(f"{follow_run(words, WORK, counters)} [{card}]")
+    # 500 files of 32 KiB (its default is 2,000): its corpus recipe draws
+    # each word in Python, so the file count sets most of its time
+    msf = run_main(many_small_files.main, ["--check", "--files",
+                                           str(MANY_SMALL_FILES)])[-1]
+    if msf.get("check") != "ok" or not msf["launches"].get("shift_and"):
+        raise AssertionError(f"many_small_files: {msf}")
+    warm_launches = {k: m.launches for k, m in counters.items()}
+    log(f"many_small_files --check: packed {msf['packed_gbps']:.3f} GB/s e2e "
+        f"against host {msf['host_gbps']:.3f} GB/s "
+        f"({msf['speedup_vs_host']:.3f}x), {msf['dispatches_packed']} "
+        f"dispatches for {msf['files']} files, fill "
+        f"{msf['batch_fill_ratio']:.6f} [{card}]")
+    if not warm_launches["shift_and"]:
+        raise AssertionError(f"warm tiers: no Shift-And launch in this "
+                             f"process ({warm_launches})")
+    log(f"phase 3b launches in this process: {warm_launches}; "
+        f"{time.perf_counter() - t_warm:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2675,6 +3012,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (build + kernel checks); "
                          "prints no result lines")
+    ap.add_argument("--warm-only", action="store_true",
+                    help="phase 1, then phase 3b over the word corpus alone "
+                         "(no phase 2, 3 or 4); prints no result lines")
     args = ap.parse_args()
 
     import torch
@@ -2817,6 +3157,20 @@ def main() -> int:
                                  f"{len(imma)} IMMA/HMMA in {func}")
         log(f"  sass mxu_dot: {func}: {len(ops)} instructions, {len(igmma)} "
             f"warpgroup MMA ({', '.join(sorted(set(igmma)))}), no IMMA")
+
+    if args.warm_only:
+        if WORK.exists():
+            shutil.rmtree(WORK)
+        try:
+            words = make_corpus(args.seed, args.n_files, args.file_mb << 20)
+            pats3 = WORK / "config3.pats"
+            pats3.write_bytes(b"\n".join(config3_set()) + b"\n")
+            make_small_tree(words[1], WORK / "tree")
+            phase_warm_tiers(args, words, pats3, counters, card, torch)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        return 0
 
     # ---------------------------------------------------------- phase 2
     log("== phase 2: kernels vs plain versions (tolerance 0: integer words)")
@@ -3131,8 +3485,7 @@ def main() -> int:
         tree_bytes = make_small_tree(words[1], WORK / "tree")
         log(f"small-file tree: 2000 files, {tree_bytes} bytes "
             f"({time.perf_counter() - t0:.1f} s)")
-        for line in cli_display_runs(words, words[0], WORK / "tree",
-                                     pats["config3"]):
+        for line in cli_display_runs(words, words[0]):
             log(f"{line} [{card}]")
         # the host routes through the CLI, in this process: one file of
         # word lines with empty and space-only lines, no final '\n'
@@ -3145,6 +3498,8 @@ def main() -> int:
         for line in host_query_runs(host_file, WORK / "host", counters):
             log(f"{line} [{card}]")
         log(f"host queries: {time.perf_counter() - t0:.1f} s")
+
+        phase_warm_tiers(args, words, pats["config3"], counters, card, torch)
 
         # ------------------------------------------- timings (not counted)
         # the match-dense receipt: 64 MiB, the CLI's wall and the host

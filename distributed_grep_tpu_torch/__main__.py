@@ -5,6 +5,7 @@
         [-v] [-w] [-x] [-c] [-l] [-L] [-q] [-m NUM] [-h] [-s] [-n] [-H] [-a]
         [-o] [-A N] [-B N] [-C N] [-b] [-r] [-R] [--include GLOB]...
         [--exclude GLOB]... [--exclude-dir GLOB]... [--metrics]
+        [--follow [--follow-idle-s S]]
         [--workers N] [--n-reduce R] [--device cuda|cpu]
         [--backend device|cpu] [--work-dir DIR]
 
@@ -78,6 +79,20 @@ The selection and output options, as the reference CLI's:
               skip the directories whose basename matches GLOB;
   --metrics   print the job's counters, stage seconds and kernel
               launches as JSON to stderr;
+  --follow    a standing query (tail -f | grep): print the selected lines
+              of the named files, then poll them every
+              DGREP_FOLLOW_POLL_S seconds (0.5) and print the selected
+              lines of what was appended, as they arrive; a truncated or
+              replaced file is searched again from its start (a notice on
+              stderr).  -c prints the counts at the end, -l each file at
+              its first selected line, -q exits at the first one.  Not
+              with -o, context, -b, -m, -w, -x, -L, --max-errors or
+              standard input (exit 2);
+  --follow-idle-s S
+              with --follow: end once no file has grown for S seconds
+              (0, the default: run until interrupted); the last poll
+              takes an unterminated last line too, so the output equals a
+              one-shot run over the final files;
   -n, -H, -a  accepted for GNU grep compatibility: line numbers and paths
               always print, input is always read as binary-safe text (-H
               does put the path before -c's count for one file).
@@ -88,8 +103,12 @@ streams: each newline-aligned block that arrives (gathered up to a
 segment when the pipe is ahead) is scanned on the card and its lines
 print at once; -q, -l and -L return at the first selected line without
 draining the pipe, -m stops reading at its cap.  Otherwise it is spooled
-to a temporary file and searched as one.  Still to port: --follow
-(ROADMAP.md item 5).
+to a temporary file and searched as one.
+
+With more than one input file (-r trees, and standard input spooled
+beside files included) the job batches: consecutive files below
+DGREP_DEVICE_MIN_BYTES (1 MiB) share a map task, and are scanned packed
+into windows of DGREP_BATCH_BYTES (32 MiB; 0 turns batching off).
 
 A positional PATTERN displaced by -e or -f is the first input file.
 Literal sets run on the FDR filter kernel, with an exact host confirm, or,
@@ -111,8 +130,6 @@ import time
 from pathlib import Path
 
 from distributed_grep_tpu_torch.cli_inputs import GlobFilterAction
-
-ITEM_5 = "ROADMAP.md 'Slices still to port', item 5 (warm tiers)"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -199,7 +216,11 @@ def _parser() -> argparse.ArgumentParser:
                    metavar="GLOB",
                    help="skip directories whose basename matches GLOB")
     g.add_argument("--follow", action="store_true",
-                   help=f"not ported yet ({ITEM_5})")
+                   help="standing query: poll the files for appended data "
+                        "and print the selected lines as they arrive")
+    g.add_argument("--follow-idle-s", type=float, default=0.0, metavar="S",
+                   help="with --follow: exit once no file has grown for S "
+                        "seconds (0 = run until interrupted)")
     g.add_argument("--metrics", action="store_true",
                    help="print job metrics as JSON to stderr")
     g.add_argument("--workers", type=int, default=2,
@@ -364,7 +385,10 @@ def _print_metrics(res, job_s: float, print_s: float) -> None:
     metrics["seconds"] = {**metrics["seconds"], "cli_job": job_s,
                           "cli_print": print_s}
     if grep_cuda._engine is not None:
-        metrics["engine"] = dict(grep_cuda._engine.totals)
+        eng = metrics["engine"] = dict(grep_cuda._engine.totals)
+        if eng.get("batch_dispatches"):  # the mean fill of the windows
+            eng["batch_fill_ratio"] = (eng["batch_fill_sum"]
+                                       / eng["batch_dispatches"])
         metrics["route"] = grep_cuda._engine.route
     metrics["launches"] = kernel_launches()
     print(json.dumps(metrics, indent=2, sort_keys=True), file=sys.stderr)
@@ -380,8 +404,6 @@ def cmd_grep(args: argparse.Namespace) -> int:
     from distributed_grep_tpu_torch.models.dfa import RegexError
     from distributed_grep_tpu_torch.ops.engine import check_pattern
 
-    if args.follow:
-        return _error(f"option --follow is not ported yet: {ITEM_5}")[0]
     if args.dereference_recursive:
         args.recursive = True  # -R implies -r everywhere
     if args.fixed_strings and args.extended_regexp:
@@ -396,6 +418,10 @@ def cmd_grep(args: argparse.Namespace) -> int:
     rc, patterns = _resolve_pattern_args(args)
     if rc:
         return rc
+    if args.follow:
+        rc = _check_follow(args)
+        if rc:
+            return rc
     if args.max_errors:
         # before standard input is read: an exit-2 call must not drain it
         rc = _check_max_errors(args, patterns)
@@ -434,6 +460,8 @@ def cmd_grep(args: argparse.Namespace) -> int:
         rc, had_file_errors = expand_files(args, spool)
         if rc:
             return rc
+        if args.follow:
+            return _grep_follow(args, patterns, had_file_errors, out)
         if work_dir is None:
             work_dir = tempfile.mkdtemp(prefix="dgrep-")
         return _run_and_print(args, patterns, out, had_file_errors,
@@ -489,6 +517,12 @@ def _run_and_print(args: argparse.Namespace, patterns, out,
         n_reduce=args.n_reduce,
         work_dir=work_dir,
     )
+    if len(cfg.input_files) > 1:
+        # cross-file batching, as the reference CLI: small files share map
+        # tasks and packed scans (runtime/job.plan_map_splits)
+        from distributed_grep_tpu_torch.ops.layout import DEFAULT_BATCH_BYTES
+
+        cfg.batch_bytes = DEFAULT_BATCH_BYTES
     if args.device == "cuda" and args.backend == "device":
         # the scan's heartbeats and its build grace keep a task alive;
         # the window needs only headroom over their cadence
@@ -603,6 +637,101 @@ def _run_and_print(args: argparse.Namespace, patterns, out,
     if args.metrics:
         _print_metrics(res, t_job - t0, time.perf_counter() - t_job)
     return rc_final
+
+
+def _check_follow(args: argparse.Namespace) -> int:
+    """The reference CLI's --follow refusals: 0, or 2 after printing the
+    diagnostic."""
+    conflicts = [flag for flag, on in (
+        ("-o", args.only_matching),
+        ("-A/-B/-C", args.context is not None or args.before_context
+         or args.after_context),
+        ("-b", args.byte_offset),
+        ("-m", args.max_count is not None),
+        ("-w", args.word_regexp),
+        ("-x", args.line_regexp),
+        ("-L", args.files_without_match),
+        ("--max-errors", bool(args.max_errors)),
+    ) if on]
+    if conflicts:
+        return _error(f"--follow does not support {', '.join(conflicts)}")[0]
+    if (not args.files and not args.recursive) or "-" in args.files:
+        return _error("--follow needs named FILE arguments (cannot follow "
+                      "standard input)")[0]
+    return 0
+
+
+def _grep_follow(args: argparse.Namespace, patterns, had_file_errors: bool,
+                 out) -> int:
+    """``grep --follow``: one engine (on ``args.device``, or the host with
+    ``--backend cpu``), the files polled every DGREP_FOLLOW_POLL_S seconds
+    and each poll's selected lines printed as the default print prints
+    them (runtime/follow.FollowScanner).  ``--follow-idle-s S`` ends the
+    loop once no file has grown for S seconds; the last polls take an
+    unterminated last line too, until nothing is left to read."""
+    from distributed_grep_tpu_torch.ops.engine import cached_engine
+    from distributed_grep_tpu_torch.runtime.follow import (
+        FollowScanner,
+        env_follow_poll_s,
+    )
+
+    files = [str(Path(f).resolve()) for f in args.files]
+    eng, _verdict = cached_engine(
+        args.pattern if patterns is None else None, patterns=patterns,
+        ignore_case=args.ignore_case, device=args.device,
+        backend=args.backend)
+    count_only = bool(args.count or args.quiet or args.files_with_matches)
+    scanner = FollowScanner(eng, files, invert=args.invert,
+                            count_only=count_only,
+                            presence_only=count_only and not args.count)
+    poll_s = env_follow_poll_s()
+    idle_s = max(0.0, float(args.follow_idle_s or 0.0))
+
+    def print_records(groups) -> None:
+        for _path, records, _cursor in groups:
+            for rec in records:
+                if rec.get("reset"):
+                    print(f"dgrep: {rec['file']}: file truncated or "
+                          f"replaced; following new data", file=sys.stderr)
+                elif "text" in rec:
+                    text = rec["text"].encode("utf-8", "surrogateescape")
+                    head = "" if args.no_filename else f"{rec['file']} "
+                    _write(out, f"{head}(line number #{rec['line']}) ")
+                    out.write(text.decode("utf-8", "replace").encode()
+                              + b"\n")
+                elif rec.get("match") and args.files_with_matches:
+                    _write(out, f"{rec['file']}\n")
+        out.flush()
+
+    last_news = time.monotonic()
+    try:
+        while True:
+            groups = scanner.poll_once()
+            print_records(groups)
+            if groups:
+                last_news = time.monotonic()
+            if args.quiet and scanner.any_selected():
+                return 0
+            if idle_s and time.monotonic() - last_news >= idle_s:
+                break
+            time.sleep(poll_s)
+    except KeyboardInterrupt:
+        pass
+    # the last polls: an unterminated last line too, until nothing is
+    # left (one poll reads at most a window a file)
+    while groups := scanner.poll_once(final=True):
+        print_records(groups)
+    if args.count:
+        prefix = ((len(files) > 1 or args.with_filename)
+                  and not args.no_filename)
+        for f in files:
+            n = scanner.cursors[f].emitted
+            _write(out, f"{f}:{n}\n" if prefix else f"{n}\n")
+        out.flush()
+    any_selected = scanner.any_selected()
+    if args.quiet:
+        return 0 if any_selected else (2 if had_file_errors else 1)
+    return 2 if had_file_errors else (0 if any_selected else 1)
 
 
 def main(argv: list[str] | None = None) -> int:

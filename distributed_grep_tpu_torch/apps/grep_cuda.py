@@ -15,7 +15,12 @@ for every pattern with ``backend="cpu"``).  Map emits a file's matched lines as 
   ``GrepEngine.scan_file`` in newline-aligned chunks: a file that fits one
   chunk gives one ``DeferredBatch`` over its bytes, a longer one a batch a
   chunk;
-* ``map_fn`` scans bytes in hand and gives one ``DeferredBatch``.
+* ``map_fn`` scans bytes in hand and gives one ``DeferredBatch``;
+* ``map_batch_fn`` (a batched split of small files, runtime/job
+  plan_map_splits) scans the members through ``GrepEngine.scan_batch``,
+  packed into shared windows, and builds each member's records as
+  ``map_fn`` would (``map_batch_paths``: the worker hands it paths, which
+  the engine reads or serves from the corpus cache).
 
 Options, as the reference's: ``invert`` (grep -v, the complement of the
 selected lines: ``map_path_fn`` reads the whole file for it),
@@ -210,6 +215,23 @@ def _check_configured() -> GrepEngine:
 def map_fn(filename: str, contents: bytes) -> list:
     result = _check_configured().scan(contents, progress=_progress_fn())
     return _records_for(filename, contents, result)
+
+
+# a batched split's items are (filename, path): scan_batch reads them, or
+# serves a warm window from the corpus cache with no read
+map_batch_paths = True
+
+
+def map_batch_fn(items) -> list:
+    """A batched split in one call: the engine packs the members into
+    shared windows (GrepEngine.scan_batch) and each member's records are
+    those ``map_fn`` gives for its bytes."""
+    records: list = []
+    _check_configured().scan_batch(
+        items, progress=_progress_fn(),
+        emit=lambda name, data, res: records.extend(
+            _records_for(name, data, res)))
+    return records
 
 
 def map_path_fn(filename: str, path: str) -> list:

@@ -19,7 +19,8 @@ port's host library has no such switch).
   command over an empty file (``cli_floor_s``: the process's start, the
   card's set-up, an empty job and the exit);
 * the stage leg runs the same job in this process with the pipeline's own
-  entry points wrapped in wall clocks (``GrepEngine.scan``, the app's
+  entry points wrapped in wall clocks (``GrepEngine._scan``, the scan of
+  each piece ``scan_file`` reads, as ``scan``; the app's
   ``map_path_fn``, ``bucketize``, the batches' ``split_by_partition``,
   ``encode_records``/``decode_records``, ``IdentityCollator.add_many``,
   ``LineBatch.format_lines_bytes``), summed over the worker threads.  The
@@ -120,7 +121,7 @@ def stage_run(corpus: Path, pattern: str, work: Path, device: str) -> dict:
     cfg = JobConfig(input_files=[str(corpus)], work_dir=str(work),
                     app_options={"pattern": pattern}, n_reduce=10)
     with StageClock() as clock:
-        clock.wrap(GrepEngine, "scan", "scan")
+        clock.wrap(GrepEngine, "_scan", "scan")
         clock.wrap(grep_cuda, "map_path_fn", "map_path_fn")
         clock.wrap(shuffle, "bucketize", "bucketize")
         clock.wrap(columnar.LineBatch, "split_by_partition", "record_build")

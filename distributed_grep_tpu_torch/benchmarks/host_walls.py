@@ -9,8 +9,10 @@ checkouts (a change and its parent) compare within one call.
 
 ``corpus`` writes chip_smoke.py's corpora under DIR once, from its recipes
 and seed: word lines with injected needles, access-log lines, PCAP-like
-records and the defeat file; and two dense files, the first 32 MiB (to a
-line end) of the first two word files.
+records and the defeat file; two dense files, the first 32 MiB (to a
+line end) of the first two word files; and chip_smoke.py's small-file
+tree (2,000 files of 4-64 KiB cut from the second word file, one in ten
+``.log``) with config 3's members as a pattern file.
 
 ``run`` imports ``distributed_grep_tpu_torch`` from ROOT (any checkout
 beside this one: run it as a file, not with -m, so that ROOT's package is
@@ -22,8 +24,10 @@ job's seconds and counters, the engine's totals, and the sha256 of its
 processes of their own with ROOT as the working directory: ROOT's dense
 receipt (``benchmarks/dense_receipt.py --check``), and the CLI on ``the``
 over the two dense files with ``--metrics`` (the display of a job of two
-files, about 580k lines, inside ``JobResult.DISPLAY_VECTOR_CAP``), each
-a JSON line.
+files, about 580k lines, inside ``JobResult.DISPLAY_VECTOR_CAP``), and
+the CLI on ``-r --include '*.txt' -F -f`` config 3 over the tree with
+``--metrics`` (``cli -r``: the wall, the job's seconds, its map tasks, the
+engine's batch counters and the FDR/pairset launches), each a JSON line.
 """
 
 from __future__ import annotations
@@ -64,6 +68,10 @@ def make_corpora(out: Path, seed: int, n_files: int, file_mb: int) -> None:
         head = src.read_bytes()[: 32 << 20]
         files["dense"].append(out / f"dense-{i}.txt")
         files["dense"][-1].write_bytes(head[: head.rindex(b"\n") + 1])
+    smoke.make_small_tree(files["words"][1], out / "tree")
+    pats3 = out / "config3.pats"
+    pats3.write_bytes(b"\n".join(smoke.config3_set()) + b"\n")
+    files["tree"], files["pats3"] = [out / "tree"], [pats3]
     (out / "files.json").write_text(json.dumps(
         {k: [str(p) for p in v] for k, v in files.items()}))
 
@@ -190,6 +198,31 @@ def run(corpus: Path, tree: Path, label: str, only: set | None,
                               out.read_bytes()).hexdigest()[:16]}),
               flush=True)
         out.unlink()
+    if (not only or "cli -r" in only) and "tree" in files:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "distributed_grep_tpu_torch", "grep", "-r",
+             "--include", "*.txt", "-F", "-f", str(files["pats3"][0]),
+             str(files["tree"][0]), "--metrics", "--device", device,
+             "--work-dir", str(corpus / f"cli-tree-{label}")],
+            cwd=tree, env=env, capture_output=True, timeout=900)
+        wall = time.perf_counter() - t0
+        metrics = smoke.cli_metrics("-r", r.returncode, r.stderr)
+        eng = metrics.get("engine", {})
+        print(json.dumps({
+            "tree": label, "query": "cli -r --include '*.txt' -F -f config3",
+            "wall_s": wall, "rc": r.returncode,
+            "cli_job_s": metrics["seconds"].get("cli_job"),
+            "cli_print_s": metrics["seconds"].get("cli_print"),
+            "map_tasks": metrics["counters"].get("map_completed"),
+            "segments": eng.get("segments"),
+            **{k: eng.get(k) for k in ("batch_dispatches", "solo_dispatches",
+                                       "batched_files", "batch_fill_ratio",
+                                       "small_host_scan")},
+            "launches": {k: metrics["launches"][k] for k in ("fdr",
+                                                             "pairset")},
+            "out_sha": hashlib.sha256(r.stdout).hexdigest()[:16]}),
+            flush=True)
 
 
 def main() -> int:

@@ -159,6 +159,44 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
+// cuCtxGetCurrent, looked up the same way.
+typedef CUresult (*CtxGetCurrent)(CUcontext*);
+
+inline CtxGetCurrent ctx_get_current_fn() {
+  static CtxGetCurrent fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuCtxGetCurrent", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuCtxGetCurrent", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<CtxGetCurrent>(p);
+  }
+  return fn;
+}
+
+// The tensor map's encode is a driver call: it needs a context current on
+// the calling thread.  A thread whose first CUDA call is a launch (a scan
+// whose segments are resident on the card, so it uploads nothing first)
+// has none yet, so the runtime's primary context of the current device is
+// made current, as a runtime call would.  A capturing thread has one.
+inline int bind_context() {
+  const CtxGetCurrent get = ctx_get_current_fn();
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr) {
+    return 0;
+  }
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  return static_cast<int>(err);
+}
+
 // The tensor map of (lanes, chunk) stripes at `data`, byte c of stripe l at
 // data[l * pitch + c], in boxes of kRows x box_bytes (128 or 64).  Checks
 // the layout the ring needs (chunk and lanes multiples of 32, pitch >=
@@ -174,6 +212,8 @@ inline int encode_stripes(CUtensorMap* map, const void* data, int chunk,
   }
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const int bound = bind_context();
+  if (bound != 0) return bound;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(chunk),
                               static_cast<cuuint64_t>(lanes)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};

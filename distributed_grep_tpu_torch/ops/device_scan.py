@@ -77,6 +77,15 @@ at most an eighth of that joins the last full segment).  For each:
    end offsets (``engine.stitch_window``) and their lines are added;
    neither kernel can give a false line, so nothing is removed.
 
+Corpus cache (ops/layout.CorpusCache): a scan given a content key
+(``corpus_key``) under a budget (``eng._corpus_budget()``) takes its
+segments' stripes from the cache when they are resident -- no pad, no
+pinned copy, no upload; the NFA and FDR routes still transpose them on
+the card -- and otherwise keeps the stripes it uploads and publishes them
+once the whole scan has succeeded.  An input whose padded segments exceed
+the budget is not cached at all.  ``uploads`` counts the segments a scan
+uploaded, ``resident_segments`` those it took from the cache.
+
 Segments can be collected in any order.  A build, launch or CUDA failure
 raises: nothing falls back to another route.  Before its first segment a
 scan on the card builds the route's libraries that have no build yet
@@ -107,12 +116,12 @@ from distributed_grep_tpu_torch.ops import (
     swar_scan,
 )
 from distributed_grep_tpu_torch.ops import engine as engine_mod
+from distributed_grep_tpu_torch.ops import layout as layout_mod
 from distributed_grep_tpu_torch.ops import lines as lines_mod
 from distributed_grep_tpu_torch.ops.layout import (
     COLUMNS,
     STRIPES,
     choose_layout,
-    padded_stripes,
 )
 from distributed_grep_tpu_torch.ops.scan_torch import sparse_nonzero
 from distributed_grep_tpu_torch.ops.sparse import (
@@ -178,7 +187,7 @@ def _expand_line_ranges(l0: np.ndarray, l1: np.ndarray) -> np.ndarray:
     return np.unique(base + np.arange(int(counts.sum()), dtype=np.int64))
 
 
-def scan_device(eng, data: bytes, progress=None):
+def scan_device(eng, data: bytes, progress=None, corpus_key=None):
     t_wall0 = time.perf_counter()
     nfa = eng.mode == "nfa"
     lit_set = eng.mode in ("fdr", "pairset")
@@ -198,8 +207,8 @@ def scan_device(eng, data: bytes, progress=None):
     else:
         kernels = [cuda_scan] + ([swar_scan] if swar else [])
     layouts = {k.LAYOUT for k in kernels}
-    st = {"candidates": 0, "segments": 0,
-          "feed_wait_seconds": 0.0, "prepare_seconds": 0.0,
+    st = {"candidates": 0, "segments": 0, "uploads": 0,
+          "resident_segments": 0, "feed_wait_seconds": 0.0, "prepare_seconds": 0.0,
           "collect_seconds": 0.0, "confirm_seconds": 0.0,
           "stitch_seconds": 0.0}
     if lit_set:
@@ -238,6 +247,23 @@ def scan_device(eng, data: bytes, progress=None):
     if len(seg_starts) > 1 and n - seg_starts[-1] <= seg // 8:
         seg_starts.pop()
     seg_ends = seg_starts[1:] + [n]
+    # the corpus cache: resident stripes in place of the upload, or the
+    # uploaded stripes kept and published after the scan (module docstring)
+    resident = None
+    corpus_put = None
+    built: list = []  # (seg_start, Layout, stripes tensor), a segment each
+    if corpus_key is not None and n > 0:
+        budget = eng._corpus_budget()
+        padded = sum(choose_layout(e - s_, **lay_kwargs).padded
+                     for s_, e in zip(seg_starts, seg_ends))
+        if 0 < budget and padded <= budget:
+            cache = layout_mod.corpus_cache()
+            sig = (seg, tuple(sorted(lay_kwargs.items())))
+            resident = cache.resident_segments(corpus_key, sig)
+            if resident is not None and [r[0] for r in resident] != seg_starts:
+                resident = None
+            if resident is None:
+                corpus_put = (cache, sig, budget)
     lock = threading.Lock()
     # scan-local models, swapped by the defeat guards: the Shift-And
     # filter is dropped, the NFA filter gives way to the exact model
@@ -258,20 +284,30 @@ def scan_device(eng, data: bytes, progress=None):
 
     def _prepare(i: int):
         seg_start = seg_starts[i]
+        seg_len = seg_ends[i] - seg_start
+        if resident is not None:  # warm: on the card already
+            _start, lay, stripes = resident[i]
+            return (seg_start, seg_len, lay, segment_views(stripes), None,
+                    stripes)
         seg_view = view[seg_start : seg_ends[i]]
-        lay = choose_layout(len(seg_view), **lay_kwargs)
+        lay = choose_layout(seg_len, **lay_kwargs)
+        with lock:
+            st["uploads"] += 1
         if not on_cuda:
-            stripes = torch.from_numpy(padded_stripes(seg_view, lay))
-            return seg_start, len(seg_view), lay, segment_views(stripes), None
+            stripes = torch.from_numpy(layout_mod.padded_stripes(seg_view,
+                                                                 lay))
+            return (seg_start, seg_len, lay, segment_views(stripes), None,
+                    stripes)
         host = torch.empty((lay.lanes, lay.chunk), dtype=torch.uint8,
                            pin_memory=True)
-        padded_stripes(seg_view, lay, out=host.numpy())
+        layout_mod.padded_stripes(seg_view, lay, out=host.numpy())
         side = eng.copy_stream()
         with torch.cuda.stream(side):
-            views = segment_views(host.to(device, non_blocking=True))
+            stripes = host.to(device, non_blocking=True)
+            views = segment_views(stripes)
             ready = torch.cuda.Event()
             ready.record(side)
-        return seg_start, len(seg_view), lay, views, ready
+        return seg_start, seg_len, lay, views, ready, stripes
 
     def segment_views(stripes: torch.Tensor) -> dict:
         """Layout -> the segment in it, for the layouts of ``kernels``."""
@@ -457,15 +493,20 @@ def scan_device(eng, data: bytes, progress=None):
         pending: deque = deque()
         for i in range(len(seg_starts)):
             t0 = time.perf_counter()
-            seg_start, seg_len, lay, views, ready = nxt.result()
+            seg_start, seg_len, lay, views, ready, stripes = nxt.result()
             st["feed_wait_seconds"] += time.perf_counter() - t0
             if i + 1 < len(seg_starts):
                 nxt = feed.submit(prepare, i + 1)
-            if ready is not None:
+            if on_cuda:
                 cur = torch.cuda.current_stream(device)
-                cur.wait_event(ready)
-                for t in views.values():
+                if ready is not None:
+                    cur.wait_event(ready)
+                for t in (stripes, *views.values()):
                     t.record_stream(cur)
+            if resident is not None:
+                st["resident_segments"] += 1
+            elif corpus_put is not None:
+                built.append((seg_start, lay, stripes))
             with lock:  # the model and its kind together
                 model, is_filter = scan_state["nfa"]
                 sa_model = scan_state["filtered"] or full
@@ -509,6 +550,9 @@ def scan_device(eng, data: bytes, progress=None):
             if progress is not None:
                 progress()
 
+    if corpus_put is not None:  # the whole scan succeeded: publish
+        cache, sig, budget = corpus_put
+        cache.put_segments(corpus_key, sig, data, built, budget)
     lines_arr = (np.unique(np.concatenate(found)).astype(np.int64)
                  if found else np.zeros(0, dtype=np.int64))
     if nfa and suspects:

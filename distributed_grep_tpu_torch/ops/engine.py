@@ -75,6 +75,26 @@ caller passes ``progress``, calling it once a piece, so a worker's
 liveness window holds over a long file; ``stats`` carry its
 ``host_scan_seconds`` and, in mode "native", its ``end_offsets``.
 
+The warm tiers (the reference's engine.py:332-497, 1217-1390 and
+1525-2300):
+
+* small inputs: on the card, an input below ``device_min_bytes``
+  (DGREP_DEVICE_MIN_BYTES, 1 MiB) scans on the host (every line through
+  ``host_line_matcher``, the exact oracle of the confirm and the stitch),
+  since a dispatch of its own costs more; ``stats["small_host_scan"]``
+  says so.  Never on ``device="cpu"``, and never for approx, whose host
+  recurrence is slow at any size;
+* ``scan_batch`` packs small inputs into windows of up to ``batch_bytes``
+  (DGREP_BATCH_BYTES, 32 MiB; ops/layout.BatchPacker) and scans each
+  window once;
+* the corpus cache (ops/layout.CorpusCache, budget ``corpus_bytes``,
+  DGREP_CORPUS_BYTES, 1 GiB on the card and 0 on the CPU): ``scan_file``
+  of a file of one chunk and ``scan_batch``'s files and windows keep their
+  uploaded segments on the card, and a repeat scan of unchanged files
+  reads and uploads nothing;
+* ``scan_file_suffix``, the live-append suffix scan of ``grep --follow``;
+* ``cached_engine``, engines shared by their construction arguments.
+
 Differences from the reference, none of which changes an output line:
 
 * no kernel cost budget (the reference's ``pallas_nfa.MAX_COST`` exists
@@ -101,9 +121,11 @@ import os
 import queue
 import re
 import stat
+import sys
 import threading
 import time
 import weakref
+from collections import OrderedDict
 from concurrent.futures import Future
 from dataclasses import dataclass
 
@@ -151,6 +173,18 @@ from distributed_grep_tpu_torch.models.shift_and import (
 )
 from distributed_grep_tpu_torch.ops import host_match
 from distributed_grep_tpu_torch.ops.confirm_set import ConfirmSet
+from distributed_grep_tpu_torch.ops.layout import (
+    DEFAULT_CORPUS_BYTES_ACCEL,
+    BatchPacker,
+    batch_content_key,
+    corpus_cache,
+    corpus_cache_counters,
+    env_batch_bytes,
+    env_corpus_bytes,
+    env_device_min_bytes,
+    file_content_key,
+    packed_size,
+)
 from distributed_grep_tpu_torch.ops.lines import (
     count_lines,
     empty_line_numbers,
@@ -182,6 +216,97 @@ FILE_CHUNK_BYTES = 1 << 26
 HOST_CHUNK = 1 << 26
 
 BACKENDS = ("device", "cpu")
+
+
+# ------------------------------------------------------------ model cache
+# Engines shared by their construction arguments (the reference's
+# engine.py:236-360): a repeated query reuses the compiled models and the
+# card's uploaded tables.  An engine is safe to share between threads
+# (thread-local stats, a read-ahead thread per scanning thread).
+DEFAULT_MODEL_CACHE_ENTRIES = 32
+
+_model_cache_lock = threading.Lock()
+_model_cache: OrderedDict = OrderedDict()
+_model_cache_stats = {"compile_cache_hits": 0, "compile_cache_misses": 0,
+                      "compile_cache_evictions": 0}
+
+
+def env_model_cache_entries(default: int = DEFAULT_MODEL_CACHE_ENTRIES) -> int:
+    """DGREP_MODEL_CACHE, the cache's entry cap (0 disables; malformed
+    keeps ``default``)."""
+    raw = os.environ.get("DGREP_MODEL_CACHE")
+    if not raw:
+        return default
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return default
+
+
+def model_cache_counters() -> dict:
+    """The cache's counters, or {} while they are all 0."""
+    with _model_cache_lock:
+        if not any(_model_cache_stats.values()):
+            return {}
+        return dict(_model_cache_stats)
+
+
+def model_cache_clear() -> None:
+    """Drop every cached engine and zero the counters."""
+    with _model_cache_lock:
+        _model_cache.clear()
+        for k in _model_cache_stats:
+            _model_cache_stats[k] = 0
+
+
+def _hashable(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(_hashable(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _hashable(x)) for k, x in v.items()))
+    if isinstance(v, torch.device):
+        return str(v)
+    return v
+
+
+def cached_engine(pattern=None, *, patterns=None, **kw):
+    """``(engine, verdict)``: the engine of these construction arguments,
+    shared with every earlier call that gave the same ones ("hit"), or
+    built and cached ("miss"), or built uncached ("off": DGREP_MODEL_CACHE
+    is 0 or the arguments do not hash).  The build runs under the cache's
+    lock, so two threads asking for one pattern build it once."""
+    cap = env_model_cache_entries()
+    key = (pattern, _hashable(patterns) if patterns is not None else None,
+           _hashable(kw))
+    try:
+        hash(key)
+    except TypeError:
+        key = None
+    if cap <= 0 or key is None:
+        return GrepEngine(pattern, patterns=patterns, **kw), "off"
+    with _model_cache_lock:
+        eng = _model_cache.get(key)
+        if eng is not None:
+            _model_cache.move_to_end(key)
+            _model_cache_stats["compile_cache_hits"] += 1
+            return eng, "hit"
+        eng = GrepEngine(pattern, patterns=patterns, **kw)
+        _model_cache[key] = eng
+        _model_cache_stats["compile_cache_misses"] += 1
+        while len(_model_cache) > cap:
+            _model_cache.popitem(last=False)
+            _model_cache_stats["compile_cache_evictions"] += 1
+        return eng, "miss"
+
+
+def _stamp_counters(stats: dict) -> None:
+    """The process-wide counters of the model cache, the corpus cache and
+    the follow tier, into ``stats``, each only once it is nonzero."""
+    stats.update(model_cache_counters())
+    stats.update(corpus_cache_counters())
+    follow = sys.modules.get("distributed_grep_tpu_torch.runtime.follow")
+    if follow is not None:
+        stats.update(follow.follow_counters())
 
 
 @dataclass
@@ -555,6 +680,9 @@ class GrepEngine:
         target_lanes: int = DEFAULT_TARGET_LANES,
         segment_bytes: int = DEFAULT_SEGMENT_BYTES,
         min_chunk: int = 256,
+        device_min_bytes: int | None = None,
+        batch_bytes: int | None = None,
+        corpus_bytes: int | None = None,
     ):
         if (pattern is None) == (patterns is None):
             raise ValueError("exactly one of pattern / patterns is required")
@@ -573,6 +701,14 @@ class GrepEngine:
                 "multiple of 32"
             )
         self.ignore_case = ignore_case
+        # the warm tiers' knobs (module docstring); None reads the
+        # environment, parsed as the map-split planner parses it
+        self.device_min_bytes = (env_device_min_bytes()
+                                 if device_min_bytes is None
+                                 else int(device_min_bytes))
+        self.batch_bytes = (env_batch_bytes() if batch_bytes is None
+                            else int(batch_bytes))
+        self.corpus_bytes = None if corpus_bytes is None else int(corpus_bytes)
         self.target_lanes = target_lanes
         self.segment_bytes = segment_bytes
         self.min_chunk = min_chunk
@@ -692,9 +828,21 @@ class GrepEngine:
             return out
         return host_match.re_lines_match(self._re_fallback, data, starts, ends)
 
-    def scan(self, data: bytes, progress=None) -> ScanResult:
+    def scan(self, data: bytes, progress=None,
+             corpus_key=None) -> ScanResult:
         """Scan one in-memory document.  ``progress`` (optional callable) is
-        called once per segment so a failure detector sees liveness."""
+        called once per segment so a failure detector sees liveness.
+        ``corpus_key`` (ops/layout.CorpusKey of ``data``) lets a scan on
+        the card take its segments from the corpus cache, or publish them
+        there.  The stats end with the process's cache counters."""
+        res = self._scan(data, progress, corpus_key)
+        _stamp_counters(self.stats)
+        return res
+
+    def _scan(self, data: bytes, progress=None,
+              corpus_key=None) -> ScanResult:
+        """``scan`` without the process counters: the scan of one piece of
+        scan_file, scan_batch and scan_file_suffix."""
         from distributed_grep_tpu_torch.ops.device_scan import scan_device
 
         if not data:
@@ -707,12 +855,52 @@ class GrepEngine:
                               n_lines, len(data))
         if self.mode in ("native", "re"):
             res = self._host_scan(data, progress)
+        elif self._small_for_device(len(data)):
+            res = self._host_scan(data, progress, self._scan_small)
+            self.stats["small_host_scan"] = True
         else:
-            res = scan_device(self, data, progress=progress)
+            res = scan_device(self, data, progress=progress,
+                              corpus_key=corpus_key)
         if self._nullable_eol:
             res = self._with_empty_lines(data, res)
         self._add_totals(self.stats)
         return res
+
+    def _small_for_device(self, n_bytes: int) -> bool:
+        """Whether a scan of ``n_bytes`` takes the host in place of a
+        dispatch of its own (the reference's _small_for_device and
+        _small_route_cached, engine.py:1239-1269): on the card only, below
+        ``device_min_bytes``, and never in mode "approx".  scan_batch packs
+        by the size alone, on every device."""
+        return (n_bytes < self.device_min_bytes
+                and self.backend == "device"
+                and self.device.type == "cuda"
+                and self.mode != "approx")
+
+    def _scan_small(self, data: bytes) -> tuple[ScanResult, int]:
+        """The small-input host scan: every line through
+        ``host_line_matcher``."""
+        nl = newline_index(data)
+        n_lines = nl.size + (0 if data.endswith(b"\n") else 1)
+        starts, ends = line_spans(np.arange(1, n_lines + 1, dtype=np.int64),
+                                  nl, len(data))
+        lns = np.flatnonzero(self.host_line_matcher(data, starts, ends))
+        lns = lns.astype(np.int64) + 1
+        return ScanResult(lns, int(lns.size), len(data), nl), 0
+
+    def _corpus_budget(self) -> int:
+        """The corpus cache's byte budget for this engine's scans (0: off):
+        ``corpus_bytes``, else DGREP_CORPUS_BYTES, else
+        DEFAULT_CORPUS_BYTES_ACCEL on the card and 0 on the CPU."""
+        if self.corpus_bytes is not None:
+            return max(0, self.corpus_bytes)
+        env = env_corpus_bytes()
+        if env is not None:
+            return env
+        return DEFAULT_CORPUS_BYTES_ACCEL if self.device.type == "cuda" else 0
+
+    def _corpus_opt_in(self) -> bool:
+        return self._corpus_budget() > 0
 
     def _with_empty_lines(self, data: bytes, res: ScanResult) -> ScanResult:
         """The fix-up of a pattern nullable at '$' (the reference's
@@ -726,11 +914,14 @@ class GrepEngine:
         ml = np.union1d(ml, empty_line_numbers(data, nl)).astype(np.int64)
         return ScanResult(ml, int(ml.size), res.bytes_scanned, nl)
 
-    def _host_scan(self, data: bytes, progress=None) -> ScanResult:
-        """Mode "native" or "re" over ``data``: whole, or with ``progress``
-        in newline-cut pieces of about HOST_CHUNK bytes, one callback a
-        piece (a line longer than a piece stays whole)."""
-        scanner = self._scan_native if self.mode == "native" else self._scan_re
+    def _host_scan(self, data: bytes, progress=None,
+                   scanner=None) -> ScanResult:
+        """Mode "native" or "re" (or ``scanner``) over ``data``: whole, or
+        with ``progress`` in newline-cut pieces of about HOST_CHUNK bytes,
+        one callback a piece (a line longer than a piece stays whole)."""
+        if scanner is None:
+            scanner = (self._scan_native if self.mode == "native"
+                       else self._scan_re)
         t0 = time.perf_counter()
         if progress is None or len(data) <= int(1.5 * HOST_CHUNK):
             res, n_offsets = scanner(data)
@@ -815,7 +1006,15 @@ class GrepEngine:
 
         A one-slot reader thread reads chunk i+1 while chunk i scans; the
         stall left is ``stats["read_wait_seconds"]`` (also summed into
-        ``totals``).
+        ``totals``), and ``stats["file_reads"]`` is 1 when the file was
+        opened.
+
+        With the corpus cache on (``_corpus_opt_in``), a file of one
+        chunk is keyed by a fresh stat: a warm file's bytes and segments
+        come from the cache and the file is not opened; a cold one is
+        scanned whole with its key, once a second stat after the read
+        agrees, so the scan publishes it.  Files of several chunks stream
+        uncached (their chunk cuts depend on the content).
 
         ``emit(line_no, line_bytes)`` is called per matched line while its
         chunk is in memory.  ``emit_chunk(lines_before, buf,
@@ -836,9 +1035,9 @@ class GrepEngine:
         read_wait = 0.0
         totals: dict = {}
 
-        def scan_piece(buf: bytes) -> None:
+        def scan_piece(buf: bytes, key=None) -> None:
             nonlocal n_matches, total, lines_before
-            res = self.scan(buf, progress=progress)
+            res = self._scan(buf, progress=progress, corpus_key=key)
             for k, v in self.stats.items():
                 totals[k] = totals.get(k, 0) + v
             total += len(buf)
@@ -860,6 +1059,30 @@ class GrepEngine:
             if progress is not None:
                 progress()
 
+        def finish(reads: int) -> ScanResult:
+            totals["read_wait_seconds"] = read_wait
+            totals["file_reads"] = reads
+            self._add_totals({"read_wait_seconds": read_wait,
+                              "file_reads": reads})
+            _stamp_counters(totals)
+            self.stats = totals
+            ml = (np.concatenate(matched) if matched
+                  else np.zeros(0, dtype=np.int64))
+            return ScanResult(ml, n_matches, total)
+
+        corpus_k = None
+        if self._corpus_opt_in():
+            k = file_content_key(path)
+            if (k is not None and 0 < k.n_bytes <= chunk_target
+                    and not self._small_for_device(k.n_bytes)):
+                corpus_k = k
+                ent = corpus_cache().lookup(k)
+                if ent is not None and len(ent.data) == k.n_bytes:
+                    # warm: the entry's bytes stand in for the read
+                    corpus_cache().count_host_hit()
+                    scan_piece(ent.data, k)
+                    return finish(0)
+
         pending: Future | None = None
         carry = b""
         with open(path, "rb") as f:
@@ -873,6 +1096,7 @@ class GrepEngine:
                 while True:
                     # a regular file ends at its size at open: its last
                     # block takes the carried line and its own tail whole
+                    first = pos == 0
                     pos += len(block)
                     more = len(block) == chunk_target and (
                         size is None or pos < size)
@@ -883,8 +1107,13 @@ class GrepEngine:
                     if more:
                         cut = buf.rfind(b"\n")  # -1: the line grows on
                         carry, buf = buf[cut + 1:], buf[: cut + 1]
+                    key = None
+                    if (corpus_k is not None and first and not more
+                            and len(buf) == corpus_k.n_bytes
+                            and file_content_key(path) == corpus_k):
+                        key = corpus_k  # the whole keyed file, unchanged
                     if buf:
-                        scan_piece(buf)
+                        scan_piece(buf, key)
                         if (stop_after_match and n_matches) or (
                                 stop is not None and stop()):
                             break
@@ -901,15 +1130,217 @@ class GrepEngine:
                         pending.result()
                     except Exception:  # noqa: BLE001 -- the handle closes next
                         pass
-        totals["read_wait_seconds"] = read_wait
-        self._add_totals({"read_wait_seconds": read_wait})
-        self.stats = totals
-        ml = (np.concatenate(matched) if matched
-              else np.zeros(0, dtype=np.int64))
-        return ScanResult(ml, n_matches, total)
+        return finish(1)
+
+    def scan_file_suffix(self, path, offset: int = 0, *, final: bool = False,
+                         max_bytes: int | None = None, progress=None):
+        """Scan the live-append suffix of ``path`` from ``offset`` (a line
+        start) to its last complete line (the reference's engine.py:1819).
+        Returns ``(result, consumed, data)``: the result over the suffix
+        (1-based lines local to it), the bytes consumed (the caller's
+        cursor advance) and the bytes scanned.
+
+        The partial tail past the last newline is not consumed: the next
+        call reads it again from the same offset, grown by what arrived, so
+        the lines match a one-shot scan of the final file.  ``final``
+        takes an unterminated tail too.  ``max_bytes`` (default the larger
+        of the segment size and FILE_CHUNK_BYTES) caps one call's read;
+        a capped read is cut at its last newline even when ``final``,
+        except that a read holding no newline grows until one (or the
+        file's end) arrives, so one line longer than the cap cannot stall
+        the cursor.  The suffix is never keyed into the corpus cache: a
+        growing file has no stable stat."""
+        cap = max_bytes or max(self.segment_bytes, FILE_CHUNK_BYTES)
+        with open(path, "rb") as f:
+            f.seek(offset)
+            data = f.read(cap)
+            # the read filled its request: the file may go on past it
+            window_full = len(data) == cap
+            if window_full and data.rfind(b"\n") < 0:
+                while True:
+                    more = f.read(cap)
+                    if not more:
+                        window_full = False
+                        break
+                    data += more
+                    window_full = len(more) == cap
+                    if not window_full or more.rfind(b"\n") >= 0:
+                        break
+        if not final or window_full:
+            cut = data.rfind(b"\n")
+            data = data[: cut + 1] if cut >= 0 else b""
+        if not data:
+            return ScanResult(np.zeros(0, dtype=np.int64), 0, 0), 0, b""
+        res = self._scan(data, progress=progress)
+        self.stats["suffix_bytes_scanned"] = len(data)
+        _stamp_counters(self.stats)
+        return res, len(data), data
+
+    def scan_batch(self, items, progress=None, emit=None):
+        """Scan many inputs, small ones packed together (the reference's
+        engine.py:1887, without its shard-index branches).
+
+        ``items`` are ``(name, data)`` pairs, ``data`` bytes or a path
+        (read whole: callers stream large files through scan_file).  An
+        input below ``device_min_bytes`` joins a BatchPacker; the packed
+        window is scanned once whenever the next input would take it past
+        ``batch_bytes``.  A larger input (or any, with ``batch_bytes`` 0)
+        first flushes the pending window, keeping the order, and scans
+        alone.  Returns ``[(name, ScanResult)]`` in input order, each with
+        the member's own 1-based lines and its original length as
+        ``bytes_scanned``; ``emit(name, data, result)`` is called per input
+        while its bytes are in hand.
+
+        With the corpus cache on, path items are keyed: solo files and
+        packed windows publish their segments, and a repeat call over
+        unchanged files takes bytes and segments from the cache.  A warm
+        window is recognized from its first member's path before any
+        member is read (fresh stats of every member must match).
+
+        ``stats`` then hold the scans' summed counters and
+        ``batched_files``, ``batch_dispatches``, ``solo_dispatches``,
+        ``dispatches_saved`` (batched_files - batch_dispatches),
+        ``batch_fill_ratio`` (the mean window fill against batch_bytes),
+        ``file_reads`` and ``read_wait_seconds``; ``totals`` get the
+        counts and ``batch_fill_sum``."""
+        cap = max(0, int(self.batch_bytes))
+        packer = BatchPacker(cap) if cap > 0 else None
+        cache = corpus_cache() if self._corpus_opt_in() else None
+        pk_keys: list = []  # member keys, parallel to the packer
+        out: list = []
+        scanned: dict = {}
+        bst = {"batched_files": 0, "batch_dispatches": 0,
+               "solo_dispatches": 0, "batch_fill_sum": 0.0,
+               "file_reads": 0, "read_wait_seconds": 0.0}
+
+        def run_scan(data: bytes, key) -> ScanResult:
+            res = self._scan(data, progress=progress, corpus_key=key)
+            for k, v in self.stats.items():
+                scanned[k] = scanned.get(k, 0) + v
+            return res
+
+        def handle(name, data, res) -> None:
+            if emit is not None:
+                emit(name, data, res)
+            out.append((name, res))
+
+        def scan_packed(batch, names, win_key) -> None:
+            """One packed window: scan, demux, a result a member."""
+            res = run_scan(batch.data, win_key)
+            if cache is not None and win_key is not None:
+                cache.attach_batch(win_key, batch)
+            bst["batched_files"] += len(batch)
+            bst["batch_dispatches"] += 1
+            bst["batch_fill_sum"] += len(batch.data) / cap
+            for name, blob, lines in zip(names, batch.member_blobs(),
+                                         batch.demux(res.matched_lines)):
+                handle(name, blob, ScanResult(lines.astype(np.int64),
+                                              int(lines.size), len(blob)))
+
+        def flush() -> None:
+            nonlocal pk_keys
+            if packer is None:
+                return
+            keys, pk_keys = pk_keys, []
+            batch = packer.pack()
+            if batch is None:
+                return
+            if len(batch) == 1:  # nothing to share: the blob alone
+                bst["solo_dispatches"] += 1
+                handle(batch.names[0], batch.blobs[0],
+                       run_scan(batch.blobs[0], keys[0]))
+            else:
+                scan_packed(batch, batch.names,
+                            batch_content_key(keys) if cache else None)
+
+        def match_window(i: int, stored) -> list | None:
+            """Fresh keys of items[i:...] when they are the paths of the
+            stored window's members, in order; else None."""
+            ids = stored.identity[1]
+            if i + len(ids) > len(items):
+                return None
+            keys = []
+            for (_name, d), ident in zip(items[i:i + len(ids)], ids):
+                if isinstance(d, (bytes, bytearray, memoryview)):
+                    return None
+                k = file_content_key(d)
+                if k is None or k.identity != ident:
+                    return None
+                keys.append(k)
+            return keys
+
+        items = list(items)  # the warm-window probe looks ahead
+        i = 0
+        while i < len(items):
+            name, data = items[i]
+            is_blob = isinstance(data, (bytes, bytearray, memoryview))
+            fk = (file_content_key(data)
+                  if cache is not None and not is_blob else None)
+            if fk is not None and packer is not None:
+                stored = cache.window_for(fk)
+                keys = match_window(i, stored) if stored is not None else None
+                if keys is not None:
+                    wk = batch_content_key(keys)
+                    ent = cache.lookup(wk)
+                    # a window packed under a larger cap is not served
+                    # once batch_bytes shrinks: it is packed anew
+                    if (ent is not None and ent.batch is not None
+                            and len(ent.batch.data) <= cap):
+                        flush()
+                        cache.count_host_hit()
+                        scan_packed(ent.batch,
+                                    [nm for nm, _ in items[i:i + len(keys)]],
+                                    wk)
+                        i += len(keys)
+                        continue
+            i += 1
+            if not is_blob:
+                ent = cache.lookup(fk) if fk is not None else None
+                if ent is not None and len(ent.data) == fk.n_bytes:
+                    data = ent.data  # warm bytes: no read
+                    cache.count_host_hit()
+                else:
+                    t0 = time.perf_counter()
+                    with open(os.fspath(data), "rb") as f:
+                        data = f.read()
+                    bst["read_wait_seconds"] += time.perf_counter() - t0
+                    bst["file_reads"] += 1
+                    if fk is not None and (
+                            len(data) != fk.n_bytes
+                            or file_content_key(items[i - 1][1]) != fk):
+                        fk = None  # changed between stat and read: uncached
+            data = bytes(data)
+            if (packer is None or len(data) >= self.device_min_bytes
+                    or packed_size(data) > cap):
+                flush()  # the pending window first: order kept
+                bst["solo_dispatches"] += 1
+                handle(name, data, run_scan(data, fk))
+                continue
+            if not packer.fits(data):
+                flush()
+            packer.add(name, data)
+            pk_keys.append(fk)
+        flush()
+        counts = {k: bst[k] for k in ("batched_files", "batch_dispatches",
+                                      "solo_dispatches")}
+        counts["dispatches_saved"] = (bst["batched_files"]
+                                      - bst["batch_dispatches"])
+        self._add_totals({**counts, "batch_fill_sum": bst["batch_fill_sum"],
+                          "file_reads": bst["file_reads"],
+                          "read_wait_seconds": bst["read_wait_seconds"]})
+        scanned.update(counts)
+        scanned["batch_fill_ratio"] = (
+            round(bst["batch_fill_sum"] / bst["batch_dispatches"], 6)
+            if bst["batch_dispatches"] else 0.0)
+        scanned["file_reads"] = bst["file_reads"]
+        scanned["read_wait_seconds"] = bst["read_wait_seconds"]
+        _stamp_counters(scanned)
+        self.stats = scanned
+        return out
 
 
 __all__ = [
+    "DEFAULT_MODEL_CACHE_ENTRIES",
     "DEFAULT_SEGMENT_BYTES",
     "DEFAULT_TARGET_LANES",
     "GrepEngine",
@@ -917,10 +1348,13 @@ __all__ = [
     "RegexError",
     "SPAN_CONFIRM_LINE_LIMIT",
     "ScanResult",
+    "cached_engine",
     "check_approx",
     "check_pattern",
     "check_patterns",
     "FILE_CHUNK_BYTES",
     "HOST_CHUNK",
     "lines_match",
+    "model_cache_clear",
+    "model_cache_counters",
 ]

@@ -3,8 +3,10 @@
 ``run_job(config, n_workers, device=...)`` runs every input file as its
 own map task through the application named by ``config.application``
 (default: the CUDA grep app) and returns the committed ``mr-out-*``
-files.  The device defaults to "cuda" and raises when CUDA is absent,
-unless the caller asks for "cpu".  A worker that raises anything but
+files; with batching on (``config.effective_batch_bytes()``) consecutive
+small files share a map task (``plan_map_splits``).  The device defaults
+to "cuda" and raises when CUDA is absent, unless the caller asks for
+"cpu".  A worker that raises anything but
 WorkerKilled fails the job with that exception: a build, launch or CUDA
 error is never retried on another route.
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 import heapq
 import importlib
 import logging
+import os
 import tempfile
 import threading
 from dataclasses import dataclass, field
@@ -32,6 +35,7 @@ from pathlib import Path
 import numpy as np
 
 from distributed_grep_tpu_torch.apps.base import KeyValue
+from distributed_grep_tpu_torch.ops.layout import env_device_min_bytes
 from distributed_grep_tpu_torch.ops.lines import newline_index
 from distributed_grep_tpu_torch.runtime.columnar import (
     GREP_KEY_RE,
@@ -49,7 +53,7 @@ from distributed_grep_tpu_torch.utils.io import WorkDir
 log = logging.getLogger("distributed_grep_tpu_torch.job")
 
 __all__ = ["GREP_KEY_RE", "JobResult", "grep_key_sort",
-           "parse_grep_key_bytes", "run_job"]
+           "parse_grep_key_bytes", "plan_map_splits", "run_job"]
 
 _GREP_KEY_MARKER = b" (line number #"
 
@@ -290,6 +294,48 @@ class JobResult:
         return out.tobytes()
 
 
+def plan_map_splits(input_files: list[str], batch_bytes: int,
+                    small_bytes: int | None = None) -> list:
+    """Group consecutive small input files into multi-file map splits
+    (the reference's runtime/job.plan_map_splits, without its shard-index
+    pruner): a file of at least ``small_bytes`` (default the engine's
+    device_min_bytes, DGREP_DEVICE_MIN_BYTES) keeps a task of its own, as
+    does one that cannot be statted (its map reports the error); runs of
+    smaller files become lists whose packed size (a file plus its
+    terminator) fits ``batch_bytes``.  Consecutive grouping keeps the
+    plan deterministic and the members in input order.  ``batch_bytes``
+    <= 0, or fewer than two files, gives the files as they are."""
+    if batch_bytes <= 0 or len(input_files) < 2:
+        return list(input_files)
+    if small_bytes is None:
+        small_bytes = env_device_min_bytes()
+    out: list = []
+    group: list[str] = []
+    group_bytes = 0
+
+    def close() -> None:
+        nonlocal group, group_bytes
+        if group:
+            out.append(group[0] if len(group) == 1 else group)
+            group, group_bytes = [], 0
+
+    for f in input_files:
+        try:
+            size = os.path.getsize(f)
+        except OSError:
+            size = None
+        if size is None or size >= small_bytes:
+            close()
+            out.append(f)
+            continue
+        if group and group_bytes + size + 1 > batch_bytes:
+            close()
+        group.append(f)
+        group_bytes += size + 1
+    close()
+    return out
+
+
 def run_job(
     config: JobConfig,
     n_workers: int = 2,
@@ -300,7 +346,7 @@ def run_job(
     the same name; with neither, the job runs on "cuda".  With the app
     option ``backend="cpu"`` (the host scanners) the device is never
     asked for."""
-    opts = dict(config.app_options)
+    opts = config.effective_app_options()
     opts["device"] = str(device if device is not None
                          else opts.get("device", "cuda"))
     if opts.get("backend", "device") != "cpu":  # the host backend: no card
@@ -313,7 +359,8 @@ def run_job(
     workdir = WorkDir(work_dir)
     workdir.clear()
     scheduler = Scheduler(
-        files=list(config.input_files),
+        files=plan_map_splits(list(config.input_files),
+                              config.effective_batch_bytes()),
         n_reduce=config.n_reduce,
         task_timeout_s=config.task_timeout_s,
         app_options=opts,

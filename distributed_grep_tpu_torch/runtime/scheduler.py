@@ -12,6 +12,10 @@ journal, peer shuffle or spans:
 * the first committed attempt wins: a later finish of the same task is
   ignored (its files were renamed over identical content).
 
+A map task covers one input file, or a batched split of several small
+ones (a list among ``files``, runtime/job.plan_map_splits): its
+assignment then names the members in ``filenames``.
+
 Reduce tasks are handed out once every map task has committed.
 """
 
@@ -35,15 +39,28 @@ class Assignment:
     kind: TaskType | None  # None = the job is over: the worker exits
     task_id: int = -1
     filename: str = ""
+    filenames: list[str] = field(default_factory=list)  # a split's members
     files: list[str] = field(default_factory=list)  # reduce inputs
     n_reduce: int = 0
     app_options: dict = field(default_factory=dict)
 
 
+def _split_label(members: tuple[str, ...]) -> str:
+    """A batched split's label (the reference's scheduler._split_label)."""
+    return f"{members[0]} (+{len(members) - 1} batched)"
+
+
 class Scheduler:
-    def __init__(self, files: list[str], n_reduce: int, task_timeout_s: float,
+    def __init__(self, files: list, n_reduce: int, task_timeout_s: float,
                  app_options: dict | None = None):
-        self.maps = [MapTask(i, f) for i, f in enumerate(files)]
+        self.maps = []
+        for i, f in enumerate(files):
+            if isinstance(f, (list, tuple)):
+                members = tuple(str(m) for m in f)
+                self.maps.append(MapTask(i, _split_label(members),
+                                         files=members))
+            else:
+                self.maps.append(MapTask(i, f))
         self.reduces = [ReduceTask(r) for r in range(n_reduce)]
         self.n_reduce = n_reduce
         self.task_timeout_s = task_timeout_s
@@ -91,7 +108,8 @@ class Scheduler:
                 for t in self.maps:
                     if t.state is TaskState.UNASSIGNED:
                         return self._assign(TaskType.MAP, t,
-                                            filename=t.file)
+                                            filename=t.file,
+                                            filenames=list(t.files))
                 if self._all(self.maps):
                     for t in self.reduces:
                         if t.state is TaskState.UNASSIGNED:

@@ -28,10 +28,13 @@ class TaskState(enum.Enum):
 @dataclass
 class MapTask:
     task_id: int
-    file: str  # the input path: one map task per input file
+    file: str  # the input path, or a batched split's label
     state: TaskState = TaskState.UNASSIGNED
     timestamp: float = 0.0  # heartbeat; stamped at assignment + mid-task
     grace_s: float = 0.0  # the silent phase the last stamp declared
+    # a batched split's member paths (runtime/job.plan_map_splits); () for
+    # a task of one file
+    files: tuple[str, ...] = ()
 
     def heartbeat(self, grace_s: float = 0.0) -> None:
         """Stamp liveness; a later stamp without a grace clears it."""

@@ -3,10 +3,13 @@
 Map: run the application over one input file -- ``map_path_fn(filename,
 path)`` when the app defines it (it reads the file itself, in chunks: the
 grep app streams it through ``GrepEngine.scan_file``), else
-``map_fn(filename, contents)`` -- bucketize the records by FNV-32a
-partition (columnar batches split by partition, runtime/columnar.py),
-commit one intermediate file per partition (atomic rename), report the
-partitions.  Reduce: read the partition's files into a bounded-memory
+``map_fn(filename, contents)`` -- or over a batched split's members:
+``map_batch_fn(items)`` once, with ``(name, path)`` items when the app
+sets ``map_batch_paths`` (it reads them, or serves them from the corpus
+cache, itself) and ``(name, bytes)`` otherwise, else ``map_fn`` a member;
+bucketize the records by FNV-32a partition (columnar batches split by
+partition, runtime/columnar.py), commit one intermediate file per
+partition (atomic rename), report the partitions.  Reduce: read the partition's files into a bounded-memory
 sink that spills sorted runs into the work dir's ``spill/``: identity-
 reduce apps collate in (file, line) order (``IdentityCollator``, batches
 stay columnar), every other app groups by key (``ExternalReducer``,
@@ -80,7 +83,9 @@ class WorkerLoop:
         map_path_fn = getattr(self.app, "map_path_fn", None)
         t0 = time.perf_counter()
         try:
-            if map_path_fn is not None:
+            if a.filenames:
+                records, t1 = self._map_split(a.filenames, t0)
+            elif map_path_fn is not None:
                 t1 = t0  # the app reads the file itself, inside map_fn
                 records = map_path_fn(a.filename, a.filename)
             else:
@@ -105,6 +110,21 @@ class WorkerLoop:
             self.scheduler.add_count("map_batches", len(batches))
             self.scheduler.add_count("map_records", len(records) - len(batches)
                                      + sum(len(b) for b in batches))
+
+    def _map_split(self, names: list[str], t0: float) -> tuple[list, float]:
+        """A batched split's records, and when its reads ended."""
+        batch_fn = getattr(self.app, "map_batch_fn", None)
+        if batch_fn is not None and getattr(self.app, "map_batch_paths",
+                                            False):
+            return batch_fn([(n, n) for n in names]), t0
+        items = []
+        for name in names:
+            with open(name, "rb") as f:
+                items.append((name, f.read()))
+        t1 = time.perf_counter()
+        if batch_fn is not None:
+            return batch_fn(items), t1
+        return [r for name, b in items for r in self.app.map_fn(name, b)], t1
 
     def _reduce(self, a: Assignment) -> None:
         self._configure(a)

@@ -131,6 +131,9 @@ def test_stdin_blocks_close_when_a_live_pipe_goes_quiet():
 
 def test_metrics_json_on_stderr_stdout_unchanged(corpus, capsysbinary,
                                                  monkeypatch):
+    from distributed_grep_tpu_torch.ops.layout import DEFAULT_BATCH_BYTES
+    from distributed_grep_tpu_torch.runtime.job import plan_map_splits
+
     assert port_main(["grep", "volcano", *corpus, "--device", "cpu"]) == 0
     plain = capsysbinary.readouterr().out
     for extra in ([], ["-c"], ["-o"], ["-L"]):
@@ -141,7 +144,9 @@ def test_metrics_json_on_stderr_stdout_unchanged(corpus, capsysbinary,
             assert cap.out == plain
         metrics = json.loads(cap.err)
         assert {"counters", "seconds", "launches"} <= set(metrics)
-        assert metrics["counters"]["map_completed"] == len(corpus)
+        # several files batch: a map task a planned split
+        assert metrics["counters"]["map_completed"] == len(plan_map_splits(
+            [str(Path(f).resolve()) for f in corpus], DEFAULT_BATCH_BYTES))
         assert metrics["counters"].get("map_retries", 0) == 0
     _stdin(monkeypatch, Path(corpus[0]).read_bytes())
     assert port_main(["grep", "-c", "volcano", "--device", "cpu",

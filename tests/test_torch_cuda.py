@@ -31,6 +31,14 @@ def card():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _kernels_at_every_size(monkeypatch):
+    """These tests exist to run the kernels: on the card an input below
+    DGREP_DEVICE_MIN_BYTES (1 MiB) would take the host, so the bound is
+    0 unless a test sets its own."""
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", "0")
+
+
 def _text(seed: int, n_bytes: int) -> np.ndarray:
     """Seeded lowercase text with newlines and injected matches."""
     rng = np.random.default_rng(seed)
@@ -639,3 +647,153 @@ def test_nullable_eol_job_on_card_byte_identical_to_cpu(card, tmp_path):
                         for p in res.output_files}
     assert outs["cuda"] == outs["cpu"]
     assert any(outs["cuda"].values())
+
+
+def _small_tree(tmp_path, n: int = 40) -> list[str]:
+    """``n`` files of 4-64 KiB, some without a final newline, one empty."""
+    rng = np.random.default_rng(90)
+    files = []
+    for i in range(n):
+        data = _text(90 + i, int(rng.integers(4 << 10, 64 << 10))).tobytes()
+        if i % 3 == 0:
+            data = data.rstrip(b"\n")
+        p = tmp_path / "tree" / f"f{i:02d}.txt"
+        p.parent.mkdir(exist_ok=True)
+        p.write_bytes(b"" if i == 7 else data)
+        files.append(str(p))
+    return files
+
+
+@pytest.mark.parametrize("pattern", ["volcano", "(volcano|hallo)x?"])
+def test_packed_job_on_card_byte_identical_to_cpu(card, tmp_path,
+                                                  monkeypatch, pattern):
+    """A batched job: the small files share map tasks and are scanned as
+    packed windows of 512 KiB on the card's kernels (every window is past
+    the small-input bound of 128 KiB, so none takes the host)."""
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.ops.device_scan import kernel_launches
+
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", str(128 << 10))
+    files = _small_tree(tmp_path)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        before = kernel_launches()
+        res = run_job(JobConfig(
+            input_files=files, batch_bytes=512 << 10,
+            app_options={"pattern": pattern, "target_lanes": 4096,
+                         "min_chunk": 32, "segment_bytes": 1 << 18},
+            work_dir=str(tmp_path / device)), n_workers=2, device=device)
+        outs[device] = {Path(p).name: Path(p).read_bytes()
+                        for p in res.output_files}
+        totals = grep_cuda._engine.totals
+        assert res.metrics["counters"]["map_completed"] < len(files)
+        assert totals["batch_dispatches"] >= 2
+        if device == "cuda":
+            launched = {k: v - before[k] for k, v in kernel_launches().items()}
+            assert launched["shift_and" if pattern == "volcano" else "nfa"] \
+                >= totals["segments"] > 0
+            assert not totals.get("small_host_scan")
+    assert outs["cuda"] == outs["cpu"]
+    assert any(outs["cuda"].values())
+
+
+def test_warm_corpus_job_on_card_byte_identical_to_cpu(card, tmp_path,
+                                                       monkeypatch):
+    """Two jobs on the card under the default budget (1 GiB on the card):
+    the second reads no file and uploads nothing, its segments resident
+    on the card; both equal the job on the CPU."""
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.ops import layout as layout_mod
+
+    monkeypatch.delenv("DGREP_CORPUS_BYTES", raising=False)
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", str(128 << 10))
+    layout_mod.corpus_cache_clear()
+    files = _small_tree(tmp_path, 12)
+    for i in range(2):
+        p = tmp_path / f"big{i}.txt"
+        p.write_bytes(_text(120 + i, 1 << 20).tobytes())
+        files.append(str(p))
+    opts = {"pattern": "volcano", "target_lanes": 4096, "min_chunk": 32,
+            "segment_bytes": 1 << 18}
+    outs, reads = {}, {}
+    monkeypatch.setattr(grep_cuda, "_configured_with", None)
+    for name, device in (("cold", "cuda"), ("warm", "cuda"), ("cpu", "cpu")):
+        res = run_job(JobConfig(input_files=files, batch_bytes=512 << 10,
+                                app_options=opts,
+                                work_dir=str(tmp_path / name)),
+                      n_workers=2, device=device)
+        outs[name] = {Path(p).name: Path(p).read_bytes()
+                      for p in res.output_files}
+        t = grep_cuda._engine.totals
+        reads[name] = (t.get("file_reads", 0), t.get("uploads", 0))
+    assert reads["cold"][0] == len(files) and reads["cold"][1] > 0
+    assert reads["warm"] == reads["cold"]  # nothing more read or uploaded
+    c = layout_mod.corpus_cache_counters()
+    assert c["corpus_cache_hits"] >= 3 and c["corpus_cache_bytes_resident"]
+    ent = layout_mod.corpus_cache().lookup(
+        layout_mod.file_content_key(files[-1]))
+    assert all(t.is_cuda for segs in ent.variants.values()
+               for *_, t in segs)
+    assert outs["cold"] == outs["warm"] == outs["cpu"]
+    assert any(outs["cpu"].values())
+    layout_mod.corpus_cache_clear()
+
+
+def test_small_input_takes_the_host_on_card(card, monkeypatch):
+    """Below device_min_bytes a scan on the card runs on the host: no
+    launch, stamped, equal to the kernels' lines; with the bound at 0
+    the kernel runs."""
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", str(1 << 20))
+    data = _text(7, 64 << 10).tobytes()
+    eng = GrepEngine("volcano", device="cuda")
+    before = cuda_scan.launches
+    small = eng.scan(data)
+    assert cuda_scan.launches == before
+    assert eng.stats["small_host_scan"] is True
+    kern = GrepEngine("volcano", device="cuda", device_min_bytes=0)
+    want = kern.scan(data)
+    assert cuda_scan.launches > before
+    assert "small_host_scan" not in kern.stats
+    assert small.matched_lines.tolist() == want.matched_lines.tolist()
+    assert want.n_matches > 0
+
+
+def test_stripe_kernels_launch_from_a_fresh_thread(card):
+    """The three stripe-ring kernels encode a tensor map (a driver call)
+    before their launch: from a thread whose first CUDA call that launch
+    is (a warm scan of resident segments uploads nothing first) they must
+    run and equal their plain versions."""
+    import threading
+
+    from distributed_grep_tpu_torch.models import pairset as port_ps
+    from distributed_grep_tpu_torch.ops import pairset_scan, swar_scan
+
+    cpu = torch.from_numpy(np.ascontiguousarray(
+        _text(33, 4096 * 256).reshape(4096, 256)))
+    dev = cpu.to(card)
+    sa = port_sa.try_compile_shift_and("volcano")
+    ps = port_ps.compile_pairset(["ab", "zq"])
+    runs = {
+        "shift_and": (lambda d: cuda_scan.shift_and_scan_words(d, sa, True),
+                      lambda: cuda_scan.shift_and_scan_words_plain(cpu, sa,
+                                                                   True)),
+        "pairset": (lambda d: pairset_scan.pairset_scan_words(d, ps),
+                    lambda: pairset_scan.pairset_scan_words_plain(cpu, ps)),
+        "swar": (lambda d: swar_scan.swar_scan_words(d, sa),
+                 lambda: swar_scan.swar_scan_words_plain(cpu, sa)),
+    }
+    got = {}
+
+    def launch(name, fn):
+        try:
+            got[name] = fn(dev).cpu()
+        except Exception as e:  # noqa: BLE001 -- asserted below
+            got[name] = e
+
+    for name, (fn, _plain) in runs.items():
+        t = threading.Thread(target=launch, args=(name, fn))
+        t.start()
+        t.join()
+    for name, (_fn, plain) in runs.items():
+        assert isinstance(got[name], torch.Tensor), got[name]
+        assert torch.equal(got[name], plain()), name

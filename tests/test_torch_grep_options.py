@@ -175,11 +175,20 @@ def test_cli_single_file_and_missing_file_identical(corpus, case):
 @pytest.mark.parametrize("flags,item", [
     (["--follow"], "item 5"),
 ])
-def test_deferred_flags_exit_2_naming_their_item(corpus, capsys, flags, item):
+def test_deferred_flags_exit_2_naming_their_item(corpus, capsys, monkeypatch,
+                                                  flags, item):
+    """The flags once deferred to their ROADMAP item now run: --follow
+    (item 5) prints what the one-shot run prints and exits as it does."""
     from distributed_grep_tpu_torch.__main__ import main
 
-    assert main(["grep", *flags, "volcano", corpus[0], "--device", "cpu"]) == 2
-    assert f"'Slices still to port', {item}" in capsys.readouterr().err
+    monkeypatch.setenv("DGREP_FOLLOW_POLL_S", "0.01")
+    assert main(["grep", "volcano", corpus[0], "--device", "cpu"]) == 0
+    once = capsys.readouterr().out
+    assert main(["grep", *flags, "--follow-idle-s", "0.05", "volcano",
+                 corpus[0], "--device", "cpu"]) == 0
+    got = capsys.readouterr()
+    assert got.out == once and once
+    assert f"'Slices still to port', {item}" not in got.err
 
 
 def test_cli_refusals(corpus, capsys):

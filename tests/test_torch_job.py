@@ -153,10 +153,12 @@ def test_cli_exit_codes(corpus, capsys):
     assert main(["grep", "h[", corpus[0], "--device", "cpu"]) == 2
     assert "invalid pattern" in capsys.readouterr().err
     # 'x?$' once exited 2 naming ROADMAP item 11; it now runs on the host
-    # DFA scanner and selects every line; --follow still exits 2
+    # DFA scanner and selects every line; --follow runs too (item 5), and
+    # exits 2 only on the modes it cannot stream
     assert main(["grep", "-q", "x?$", corpus[0], "--device", "cpu"]) == 0
-    assert main(["grep", "--follow", "x", corpus[0], "--device", "cpu"]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    assert main(["grep", "--follow", "-o", "x", corpus[0],
+                 "--device", "cpu"]) == 2
+    assert "--follow does not support -o" in capsys.readouterr().err
     assert main(["grep", "x", corpus[0] + ".missing", "--device", "cpu"]) == 2
     if not torch.cuda.is_available():
         assert main(["grep", "x", corpus[0]]) == 2
