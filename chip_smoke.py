@@ -2,7 +2,7 @@
 """Smoke run of distributed_grep_tpu_torch on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--file-mb 128] [--n-files 8]
-        [--workers 2] [--kernels-only | --warm-only]
+        [--workers 2] [--kernels-only | --warm-only | --control-only]
 
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
@@ -41,7 +41,7 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          straddle lane blocks), and the table-DFA kernel (csrc/dfa.cu, on
          no engine route) at the 64 MB segment shape for 'nee(dle|t)',
          three '$' patterns, '^$' and two Aho-Corasick banks too large for
-         shared memory, then over 24 seeded random regex tables ('$'
+         shared memory, then over 12 seeded random regex tables ('$'
          accepts, '^', nullable bodies) and small Aho-Corasick banks at
          small shapes and, every 8th table, the segment shape; every
          third stripe's last byte is not '\\n' (the stripe-tail rule) and
@@ -49,7 +49,7 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          The Shift-And, approx, pairset and SWAR kernels read the (lanes,
          chunk) stripes as the document lies; the others the (chunk,
          lanes) columns.  Then a differential sweep of the two table-driven
-         kernels: 26 seeded random regexes of 1-4 state words with 0-128
+         kernels: 14 seeded random regexes of 1-4 state words with 0-128
          specials on the NFA kernel, and 48 random FDR banks (m = 1-6,
          1-16 checks, both hash families, with and without folding, half
          ORed into a nonzero plane) with members ending at rows 0..m of
@@ -163,6 +163,27 @@ Phase 3b the warm tiers, the launch counts zeroed just before and read
          the latency from each append to its print; and
          benchmarks/many_small_files.py --check --files 500 (its JSON
          line; 500 files of 32 KiB, a 16 MiB packed window).
+Phase 3c the control plane, every job's kernels launched in worker
+         processes that ship their launch counts to the coordinator:
+         (a) 'volcano' and config 3's set over the word files through
+         ``coordinator --config`` and two ``worker --addr`` processes (one
+         of two slots) on the card, n_reduce 10, each job's mr-out bytes
+         (sha256 a file) equal to phase 3's in-process job of the same
+         options, Shift-And and FDR launches shipped; (b) 'volcano' with
+         its one worker SIGKILLed while /status shows it holding a map
+         task, a second worker then started: the same bytes, at least one
+         re-issue; beside it, (c) 'volcano' with the coordinator SIGKILLed
+         after two map commits (two workers of one slot), restarted with
+         --resume, the workers' retries reaching it: the same bytes, and
+         no more maps assigned after the resume than the journal lacked;
+         (d) ``run
+         --config`` of the word count over 32 MiB of word lines, in a
+         process of its own beside (a)-(c), its counts equal to a
+         collections.Counter.  Any worker that exits nonzero, but the one
+         killed, fails the run.  One line: each job's wall (and the
+         seconds to its first map, its last map commit, done, and its
+         workers' exits), data-plane bytes and seconds, RPCs, re-issues,
+         quarantines and shipped launches.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -191,6 +212,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -674,13 +696,17 @@ def grep_oracle_count(path: Path, grep_args: list[str]) -> int:
 def cli_runs(files: list[Path], work: Path) -> list[str]:
     """The port CLI's -l, -L, -q, -c and -m 5 over ``files`` against GNU
     grep's (``LC_ALL=C``) file sets, counts, (file, line) sets and exit
-    codes; raises on a difference.  Returns a log line a run."""
-    lines = []
-    for flags in (["-l"], ["-L"], ["-q"], ["-c"], ["-m", "5"]):
+    codes; raises on a difference.  Returns a log line a run.  The five
+    run side by side (so that phase 3c fits the smoke's time),
+    each in a work dir of its own, so a wall holds its neighbours'
+    contention."""
+
+    def one(i: int, flags: list[str]) -> str:
         t0 = time.perf_counter()
         port = subprocess.run(
             [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
-             *flags, "volcano", *map(str, files), "--work-dir", str(work)],
+             *flags, "volcano", *map(str, files), "--work-dir",
+             str(work / f"cli-{i}")],
             cwd=ROOT, capture_output=True, timeout=900)
         wall = time.perf_counter() - t0
         gnu = subprocess.run(
@@ -702,11 +728,14 @@ def cli_runs(files: list[Path], work: Path) -> list[str]:
                 f"CLI {' '.join(flags)}: exit {port.returncode} vs GNU grep "
                 f"{gnu.returncode}; stdout {port.stdout[:300]!r} vs "
                 f"{gnu.stdout[:300]!r}; stderr {port.stderr[-300:]!r}")
-        lines.append(f"CLI grep {' '.join(flags)} volcano over "
-                     f"{len(files)} files: exit {port.returncode}, "
-                     f"{len(port.stdout.splitlines())} output lines, equal to "
-                     f"GNU grep's ({wall:.1f} s)")
-    return lines
+        return (f"CLI grep {' '.join(flags)} volcano over {len(files)} "
+                f"files: exit {port.returncode}, "
+                f"{len(port.stdout.splitlines())} output lines, equal to "
+                f"GNU grep's ({wall:.1f} s, five side by side)")
+
+    runs = (["-l"], ["-L"], ["-q"], ["-c"], ["-m", "5"])
+    with ThreadPoolExecutor(len(runs)) as pool:
+        return list(pool.map(one, range(len(runs)), runs))
 
 
 # ------------------------------------------------- the CLI's display runs
@@ -1054,6 +1083,7 @@ def corpus_cache_runs(words: list[Path], work: Path, workers: int,
     upload) and write the same mr-out bytes; its count of lines equals
     GNU grep's."""
     from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.apps.loader import from_module
     from distributed_grep_tpu_torch.ops import layout as layout_mod
     from distributed_grep_tpu_torch.runtime.job import run_job
     from distributed_grep_tpu_torch.utils.config import JobConfig
@@ -1085,8 +1115,9 @@ def corpus_cache_runs(words: list[Path], work: Path, workers: int,
         res = run_job(JobConfig(
             input_files=[str(q) for q in pieces],
             app_options={"pattern": "volcano"}, n_reduce=10,
-            task_timeout_s=60.0, work_dir=str(work / f"corpus-{name}")),
-            n_workers=workers, device="cuda")
+            task_timeout_s=60.0, work_dir=str(work / f"corpus-{name}"),
+            journal=False, durable=False),
+            n_workers=workers, device="cuda", app=from_module(grep_cuda))
         wall = time.perf_counter() - t0
         totals = dict(grep_cuda._engine.totals)
         after = layout_mod.corpus_cache_counters()
@@ -1466,6 +1497,11 @@ def phase_nfa_kernels(torch, np, nfa_scan, nfa_mod) -> int:
 # the main path's 64 MB segment (the plain NFA version's cost grows with
 # the specials: about 1400 small launches a step at 128).
 SWEEP_SMALL = [(32, 32), (64, 32)]
+# the depth of two phase-2 sweeps: random NFA models a width (1-4 state
+# words) and random table-DFA regexes (halved from 6 and 24 so
+# that phase 3c fits the smoke's time)
+NFA_SWEEP_PER_WIDTH = 3
+DFA_SWEEP_TABLES = 12
 SWEEP_SEGMENT = (1024, 65536)
 SWEEP_ALPHABET = "abcxyz"
 # 'Z' then 127 starred letters: 128 positions over 4 words, all specials
@@ -1574,7 +1610,7 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
             f" nonzero words={nz}")
     if not (branches["shared"] and branches["global"]):
         raise AssertionError(f"dfa: a table branch not exercised {branches}")
-    tables = dfa_regexes(dfa_mod, seed, 24)
+    tables = dfa_regexes(dfa_mod, seed, DFA_SWEEP_TABLES)
     for k in range(8):  # small Aho-Corasick banks over the same alphabet
         members = rand_literals(
             int(rng.integers(1, 40)), 1, 6, seed=seed + k,
@@ -1814,8 +1850,10 @@ def phase_nfa_sweep(torch, np, nfa_scan, nfa_mod, seed: int) -> tuple[int, int]:
     width and the 128-specials model at SWEEP_SEGMENT.  Returns (draws
     compared, the largest absolute difference)."""
     rng = np.random.default_rng(seed)
-    draws = sweep_regexes(nfa_mod, seed, per_words=6)
-    on_segment = {id(d) for d in draws[:24:6]} | {id(draws[-1])}
+    draws = sweep_regexes(nfa_mod, seed, per_words=NFA_SWEEP_PER_WIDTH)
+    on_segment = ({id(d) for d in draws[:4 * NFA_SWEEP_PER_WIDTH
+                                        :NFA_SWEEP_PER_WIDTH]}
+                  | {id(draws[-1])})
     n = worst = 0
     for d in draws:
         pattern, ic, model, sample = d
@@ -3003,6 +3041,333 @@ def phase_warm_tiers(args, words: list[Path], pats3: Path, counters: dict,
         f"{time.perf_counter() - t_warm:.1f} s")
 
 
+# Phase 3c: the jobs phase 3 ran in process, again through a coordinator
+# process and worker processes over HTTP; their mr-out bytes must equal
+# phase 3's (sha256 a file)
+CONTROL_QUERIES = ("volcano", "config3 -f")
+CONTROL_TIMEOUT_S = 10.0  # the 3c jobs' task_timeout_s: a kill re-issues
+WORDCOUNT_MB = 32
+
+
+def mr_out_hashes(paths) -> dict[str, str]:
+    import hashlib
+
+    return {Path(p).name: hashlib.sha256(Path(p).read_bytes()).hexdigest()
+            for p in paths}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def port_proc(args: list[str], env: dict | None = None) -> subprocess.Popen:
+    """The port's CLI in a process of its own, stderr kept (drained by a
+    thread, so the pipe never fills)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_grep_tpu_torch", *args],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, "DGREP_RPC_RETRIES": "10", **(env or {})})
+    proc.err_lines = []
+
+    def drain():
+        for line in proc.stderr:
+            proc.err_lines.append(line.decode(errors="replace"))
+        proc.ended_at = time.perf_counter()  # its stderr closed: it exited
+
+    proc.drainer = threading.Thread(target=drain, daemon=True)
+    proc.drainer.start()
+    return proc
+
+
+def coordinator_status(port: int) -> dict | None:
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/status",
+                                    timeout=5) as resp:
+            return json.loads(resp.read())
+    except OSError:
+        return None
+
+
+class ControlJob:
+    """One job through ``coordinator --config`` and ``worker --addr``
+    processes; ``status`` is the last /status read (polled every 0.2 s,
+    the done one among them: the coordinator serves for 2 s after it),
+    ``marks`` the seconds from the coordinator's start until a map was
+    first assigned, every map had committed, and the job was done."""
+
+    def __init__(self, name: str, files: list[Path], app_options: dict,
+                 application: str | None = None):
+        self.port = free_port()
+        self.work = WORK / f"control-{name}"
+        self.work.mkdir(parents=True, exist_ok=True)
+        cfg = {"input_files": [str(p) for p in files],
+               "app_options": app_options, "n_reduce": 10,
+               "work_dir": str(self.work), "coordinator_port": self.port,
+               "task_timeout_s": CONTROL_TIMEOUT_S}
+        if application:
+            cfg["application"] = application
+        self.cfg = self.work / "job.json"
+        self.cfg.write_text(json.dumps(cfg))
+        self.procs: list[subprocess.Popen] = []
+        self.workers: list[subprocess.Popen] = []
+        self.killed: set[int] = set()
+        self.status: dict = {}
+        self.marks: dict[str, float] = {}
+        self.t0 = time.perf_counter()
+
+    def coordinator(self, resume: bool = False) -> subprocess.Popen:
+        self.coord = port_proc(["coordinator", "--config", str(self.cfg),
+                                *(["--resume"] if resume else [])],
+                               env={"DGREP_LOG": "INFO"})
+        self.procs.append(self.coord)
+        return self.coord
+
+    def worker(self, slots: int) -> subprocess.Popen:
+        w = port_proc(["worker", "--addr", f"127.0.0.1:{self.port}",
+                       "--slots", str(slots)], env={"DGREP_LOG": "INFO"})
+        self.workers.append(w)
+        self.procs.append(w)
+        return w
+
+    def poll_until(self, pred, timeout: float = 300.0) -> dict:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            st = coordinator_status(self.port)
+            if st is not None:
+                self.status = st
+                now = time.perf_counter() - self.t0
+                if st["counters"].get("map_assigned"):
+                    self.marks.setdefault("first_map_s", now)
+                if st["map"]["completed"] == st["map"]["total"]:
+                    self.marks.setdefault("maps_done_s", now)
+                if st.get("done"):
+                    self.marks.setdefault("done_s", now)
+                if pred(st):
+                    return st
+            if self.coord.poll() is not None:
+                raise AssertionError(
+                    f"coordinator exited ({self.coord.returncode}) waiting: "
+                    + "".join(self.coord.err_lines[-20:]))
+            time.sleep(0.2)
+        raise AssertionError(f"control job: timed out at {self.status}")
+
+    def kill(self, proc: subprocess.Popen) -> None:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait()
+        self.killed.add(id(proc))
+
+    def finish(self) -> dict:
+        """Wait for the job: the coordinator prints one JSON line naming
+        every output (its workers are checked by ``check_workers``)."""
+        self.poll_until(lambda st: st.get("done"))
+        out, _ = self.coord.communicate(timeout=120)
+        self.t_finish = time.perf_counter()
+        self.wall = self.t_finish - self.t0
+        lines = out.decode().strip().splitlines()
+        if self.coord.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"coordinator rc {self.coord.returncode}, "
+                                 f"stdout {lines}: "
+                                 + "".join(self.coord.err_lines[-20:]))
+        self.outputs = [Path(p) for p in json.loads(lines[0])["outputs"]]
+        return self.status
+
+    def check_workers(self) -> None:
+        """Every worker not killed on purpose exited 0; ``marks`` gains
+        the seconds from the coordinator's exit to the last worker's."""
+        for w in self.workers:
+            if id(w) in self.killed:
+                continue
+            if w.wait(timeout=120) != 0:
+                w.drainer.join(timeout=5)
+                raise AssertionError(f"worker exited {w.returncode}: "
+                                     + "".join(w.err_lines[-30:]))
+            w.drainer.join(timeout=5)
+            late = getattr(w, "ended_at", self.t_finish) - self.t_finish
+            self.marks["workers_exit_s"] = max(
+                self.marks.get("workers_exit_s", 0.0), late)
+            if late > 10.0:  # its log says what it waited for
+                log(f"  a worker exited {late:.1f} s after its coordinator; "
+                    f"its log's end:\n" + "".join(w.err_lines[-40:]))
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_control_plane(words: list[Path], set3: list[bytes],
+                        inproc: dict, card: str, device: str = "cuda") -> dict:
+    """Phase 3c (module docstring): (a) 'volcano' and config 3's set over
+    the word files through a coordinator process and two worker processes
+    (one of two slots) on the card, each job's mr-out bytes equal to phase
+    3's in-process job of the same options, Shift-And and FDR launches
+    shipped by the workers; (b) 'volcano' with a worker SIGKILLed while it
+    holds a map task; beside it, (c) 'volcano' with the coordinator
+    SIGKILLed after two map commits and restarted with --resume (the
+    journal's maps not assigned again); (d) ``run --config`` of the word count over 32 MiB
+    of word lines against a collections.Counter, in a process of its own
+    beside (a)-(c).  Returns the phase's one line as a dict."""
+    import collections
+
+    log(f"== phase 3c: the control plane, card: {card}")
+    t_phase = time.perf_counter()
+    queries = {
+        "volcano": {"pattern": "volcano", "ignore_case": False,
+                    "device": device},
+        "config3 -f": {"patterns": [m.decode() for m in set3],
+                       "device": device},
+    }
+    result: dict = {"phase": "3c", "card": card}
+    jobs: list[ControlJob] = []
+    lines: dict[str, ControlJob] = {}
+    # (d) starts first and runs beside the others (host work only), its
+    # oracle counted on a thread meanwhile
+    text = words[0].read_bytes()[: WORDCOUNT_MB << 20]
+    text = text[: text.rfind(b"\n") + 1]
+    wc_file = WORK / "wordcount.txt"
+    wc_file.write_bytes(text)
+    wc_cfg = WORK / "wordcount.json"
+    wc_cfg.write_text(json.dumps({
+        "input_files": [str(wc_file)],
+        "application": "distributed_grep_tpu_torch.apps.wordcount",
+        "app_options": {"device": device},
+        "n_reduce": 10, "work_dir": str(WORK / "control-wordcount")}))
+    wc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_grep_tpu_torch", "run",
+         "--config", str(wc_cfg), "--workers", "2"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    wc_done: dict = {}
+
+    def wait_wc(t0=time.perf_counter()):
+        wc_done["out"], wc_done["err"] = wc.communicate(timeout=600)
+        wc_done["wall_s"] = time.perf_counter() - t0
+        wc_done["want"] = collections.Counter(
+            w.lower().decode() for w in re.findall(rb"[A-Za-z]+", text))
+
+    wc_thread = threading.Thread(target=wait_wc, daemon=True)
+    wc_thread.start()
+
+    def job_line(job: ControlJob) -> dict:
+        st = job.status
+        return {"wall_s": job.wall, **job.marks,
+                "data_plane": st.get("data_plane", {}),
+                "seconds": st.get("seconds", {}),
+                "rpcs": sum(st.get("rpcs", {}).values()),
+                "map_retries": st["counters"].get("map_retries", 0),
+                "reduce_retries": st["counters"].get("reduce_retries", 0),
+                "quarantined": st["quarantine"]["quarantined_total"],
+                "launches": st.get("launches", {}), "mr_out": "identical"}
+
+    try:
+        # (a) both queries, two worker processes, one with two slots
+        for label, kernel in (("volcano", "shift_and"),
+                              ("config3 -f", "fdr")):
+            job = ControlJob(label.split()[0], words, queries[label])
+            jobs.append(job)
+            job.coordinator()
+            job.worker(1)
+            job.worker(2)
+            st = job.finish()
+            if mr_out_hashes(job.outputs) != inproc[label]:
+                raise AssertionError(f"3c (a) {label}: mr-out differs from "
+                                     f"the in-process job")
+            if device == "cuda" and not st["launches"].get(kernel):
+                raise AssertionError(f"3c (a) {label}: no {kernel} launch "
+                                     f"shipped: {st['launches']}")
+            lines[f"a {label}"] = job
+        # (b) and (c) side by side (each job its own coordinator and
+        # workers): the phase stays inside its time
+        def worker_killed() -> None:
+            # (b) a worker killed while it holds a map task
+            job = ControlJob("kill", words, queries["volcano"])
+            jobs.append(job)
+            job.coordinator()
+            first = job.worker(1)
+            job.poll_until(lambda st: any(r["type"] == "map"
+                                          for r in st["in_flight"]))
+            job.kill(first)  # the only worker: the task is its
+            job.worker(2)
+            st = job.finish()
+            if mr_out_hashes(job.outputs) != inproc["volcano"]:
+                raise AssertionError("3c (b): mr-out differs after the kill")
+            if st["counters"].get("map_retries", 0) < 1:
+                raise AssertionError(f"3c (b): no re-issue: {st['counters']}")
+            lines["b worker killed"] = job
+
+        def coordinator_killed() -> None:
+            # (c) the coordinator killed after two map commits, then
+            # resumed; two workers of one slot, both there from the start
+            # (one that starts late may join as the job ends: ROADMAP C9)
+            job = ControlJob("resume", words, queries["volcano"])
+            jobs.append(job)
+            job.coordinator()
+            job.worker(1)
+            job.worker(1)
+            job.poll_until(lambda st: st["map"]["completed"] >= 2)
+            job.kill(job.coord)
+            journal = (job.work / "journal" / "tasks.jsonl").read_text()
+            journaled = {json.loads(x)["task_id"]
+                         for x in journal.splitlines() if '"map_done"' in x}
+            if len(journaled) < 2 or len(journaled) == len(words):
+                raise AssertionError(f"3c (c): journal holds {journaled}")
+            job.coordinator(resume=True)
+            st = job.finish()
+            if mr_out_hashes(job.outputs) != inproc["volcano"]:
+                raise AssertionError("3c (c): mr-out differs after the "
+                                     "resume")
+            assigned = st["counters"].get("map_assigned", 0)
+            if assigned > len(words) - len(journaled):
+                raise AssertionError(f"3c (c): {assigned} maps assigned "
+                                     f"after the resume, {len(journaled)} of "
+                                     f"{len(words)} were journaled")
+            lines["c coordinator killed"] = job
+            job.marks.update(journaled_maps=len(journaled),
+                             maps_assigned_after_resume=assigned)
+
+        with ThreadPoolExecutor(2) as pool:
+            for f in [pool.submit(worker_killed),
+                      pool.submit(coordinator_killed)]:
+                f.result()
+        result["chain_s"] = time.perf_counter() - t_phase
+        for job in jobs:
+            job.check_workers()
+        result.update({k: job_line(job) for k, job in lines.items()})
+        # (d) the word count's result
+        wc_thread.join(timeout=600)
+        result["wordcount_joined_s"] = time.perf_counter() - t_phase
+        if wc.returncode != 0:
+            raise AssertionError(
+                f"3c (d): run exited {wc.returncode}: "
+                f"{wc_done.get('err', b'')[-2000:].decode(errors='replace')}")
+        got = {}
+        for line in wc_done["out"].decode().splitlines():
+            k, _, v = line.rpartition(" ")
+            got[k] = int(v)
+        if got != dict(wc_done["want"]):
+            raise AssertionError(f"3c (d): {len(got)} words counted, the "
+                                 f"Counter has {len(wc_done['want'])}")
+        result["d run wordcount"] = {
+            "wall_s": wc_done["wall_s"], "bytes": wc_file.stat().st_size,
+            "words": len(got), "occurrences": sum(got.values()),
+            "counts": "equal to collections.Counter"}
+    finally:
+        for job in jobs:
+            job.stop()
+        if wc.poll() is None:
+            wc.kill()
+            wc.wait()
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3c: {json.dumps(result, sort_keys=True)}")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3015,6 +3380,10 @@ def main() -> int:
     ap.add_argument("--warm-only", action="store_true",
                     help="phase 1, then phase 3b over the word corpus alone "
                          "(no phase 2, 3 or 4); prints no result lines")
+    ap.add_argument("--control-only", action="store_true",
+                    help="phase 1, then phase 3's two in-process jobs that "
+                         "phase 3c repeats, and phase 3c; prints no result "
+                         "lines")
     args = ap.parse_args()
 
     import torch
@@ -3026,6 +3395,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from distributed_grep_tpu_torch.apps import grep_cuda
+        from distributed_grep_tpu_torch.apps.loader import from_module
         from distributed_grep_tpu_torch.benchmarks.substripe_sweep import (
             graph_ms,
         )
@@ -3157,6 +3527,29 @@ def main() -> int:
                                  f"{len(imma)} IMMA/HMMA in {func}")
         log(f"  sass mxu_dot: {func}: {len(ops)} instructions, {len(igmma)} "
             f"warpgroup MMA ({', '.join(sorted(set(igmma)))}), no IMMA")
+
+    if args.control_only:
+        if WORK.exists():
+            shutil.rmtree(WORK)
+        try:
+            words = make_corpus(args.seed, args.n_files, args.file_mb << 20)
+            set3 = config3_set()
+            inproc = {}
+            for label, opts in (("volcano", {"pattern": "volcano",
+                                             "ignore_case": False}),
+                                ("config3 -f", {"patterns": set3})):
+                res = run_job(JobConfig(
+                    input_files=[str(p) for p in words],
+                    app_options=opts, n_reduce=10, task_timeout_s=60.0,
+                    work_dir=str(WORK / f"inproc-{label.split()[0]}"),
+                    journal=False, durable=False),
+                    n_workers=args.workers, device="cuda")
+                inproc[label] = mr_out_hashes(res.output_files)
+            phase_control_plane(words, set3, inproc, card)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        return 0
 
     if args.warm_only:
         if WORK.exists():
@@ -3336,14 +3729,18 @@ def main() -> int:
             os.environ.pop("DGREP_SWAR", None)
             if label.startswith("SWAR "):
                 os.environ["DGREP_SWAR"] = "1"
+            # a throwaway work dir, as the CLI's: no journal, no fsync
             cfg = JobConfig(
                 input_files=[str(p) for p in files],
                 app_options=dict(opts), n_reduce=10, task_timeout_s=60.0,
                 work_dir=str(WORK / f"job-{len(per_query)}"),
+                journal=False, durable=False,
             )
             t0 = time.perf_counter()
             try:
-                res = run_job(cfg, n_workers=args.workers, device="cuda")
+                # the app module itself: its engine is read below
+                res = run_job(cfg, n_workers=args.workers, device="cuda",
+                              app=from_module(grep_cuda))
             finally:
                 os.environ.pop("DGREP_SWAR", None)
             wall = time.perf_counter() - t0
@@ -3362,6 +3759,7 @@ def main() -> int:
                                  f"{main_launches['dfa']}")
 
         approx_seen: dict = {}  # the DP's lines, shared by -c and print
+        inproc: dict = {}  # mr-out hashes of the CONTROL_QUERIES
         for (label, opts, files, oracle, kernels), (
                 res, wall, launched, totals, route, transposed) in zip(
                     queries, per_query):
@@ -3463,6 +3861,8 @@ def main() -> int:
                 f"{totals.get('read_wait_seconds', 0.0):.3f} s")
             log("  engine totals (seconds summed over worker threads): "
                 + json.dumps(totals, sort_keys=True))
+            if label in CONTROL_QUERIES:  # phase 3c's reference bytes
+                inproc[label] = mr_out_hashes(res.output_files)
             shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
 
         # the CLI on one file, against the same oracle's display lines
@@ -3500,6 +3900,7 @@ def main() -> int:
         log(f"host queries: {time.perf_counter() - t0:.1f} s")
 
         phase_warm_tiers(args, words, pats["config3"], counters, card, torch)
+        phase_control_plane(words, set3, inproc, card)
 
         # ------------------------------------------- timings (not counted)
         # the match-dense receipt: 64 MiB, the CLI's wall and the host

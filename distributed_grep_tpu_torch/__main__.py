@@ -115,6 +115,24 @@ Literal sets run on the FDR filter kernel, with an exact host confirm, or,
 when every member is 1-2 bytes, on the exact pairset kernel; a set too
 dense for both (a member ' ') on the host scanner over its Aho-Corasick
 banks.
+
+Any application, from a JobConfig JSON file (utils/config.py):
+
+    python -m distributed_grep_tpu_torch run --config JOB.json [--resume]
+        [--workers N] [--n-reduce R] [--work-dir DIR] [--metrics]
+    python -m distributed_grep_tpu_torch coordinator --config JOB.json
+        [--resume]
+    python -m distributed_grep_tpu_torch worker --addr HOST:PORT
+        [--slots N]
+
+``run`` runs the job in process (``--resume`` replays the work dir's
+journal) and prints its records as ``<key> <value>`` lines, sorted.
+``coordinator`` serves the job over HTTP (runtime/http_coordinator.py)
+until it completes and prints one JSON line, ``{"outputs": [...]}``, the
+committed ``mr-out-*`` paths; ``worker`` processes (``--slots`` task loops
+each) join it, fetch the config and run its tasks.  Tasks run on the card
+unless the job's app_options say ``"device": "cpu"`` or ``"backend":
+"cpu"``; a worker asked for CUDA where there is none exits nonzero.
 """
 
 from __future__ import annotations
@@ -234,6 +252,30 @@ def _parser() -> argparse.ArgumentParser:
                         "scanners where the engine routes a pattern there; "
                         "cpu: the host scanners for every pattern")
     g.add_argument("--work-dir", default=None)
+
+    r = sub.add_parser("run", help="run any MapReduce application from a "
+                                   "job config, in process")
+    r.add_argument("--config", required=True)
+    r.add_argument("--resume", action="store_true",
+                   help="replay the journal: skip the committed tasks")
+    r.add_argument("--workers", type=int, default=2,
+                   help="in-process worker threads")
+    r.add_argument("--n-reduce", type=int, default=None)
+    r.add_argument("--work-dir", default=None)
+    r.add_argument("--metrics", action="store_true",
+                   help="print job metrics as JSON to stderr")
+
+    c = sub.add_parser("coordinator",
+                       help="serve a job's control and data planes over HTTP")
+    c.add_argument("--config", required=True)
+    c.add_argument("--resume", action="store_true")
+
+    w = sub.add_parser("worker", help="connect to a coordinator and run its "
+                                      "tasks")
+    w.add_argument("--addr", required=True,
+                   help="the coordinator's address, host:port")
+    w.add_argument("--slots", type=int, default=1,
+                   help="task loops in this process")
     return p
 
 
@@ -516,6 +558,10 @@ def _run_and_print(args: argparse.Namespace, patterns, out,
         },
         n_reduce=args.n_reduce,
         work_dir=work_dir,
+        # a temp work dir nobody resumes: no journal, no fsync before the
+        # commits' renames (they stay atomic)
+        journal=args.work_dir is not None,
+        durable=args.work_dir is not None,
     )
     if len(cfg.input_files) > 1:
         # cross-file batching, as the reference CLI: small files share map
@@ -528,7 +574,13 @@ def _run_and_print(args: argparse.Namespace, patterns, out,
         # the window needs only headroom over their cadence
         cfg.task_timeout_s = max(cfg.task_timeout_s, 30.0)
     t0 = time.perf_counter()
-    res = run_job(cfg, n_workers=args.workers, device=args.device)
+    # the app module itself, not a fresh instance: --metrics reads its
+    # engine
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.apps.loader import from_module
+
+    res = run_job(cfg, n_workers=args.workers, device=args.device,
+                  app=from_module(grep_cuda))
     t_job = time.perf_counter()
     files = cfg.input_files
 
@@ -734,10 +786,64 @@ def _grep_follow(args: argparse.Namespace, patterns, had_file_errors: bool,
     return 2 if had_file_errors else (0 if any_selected else 1)
 
 
+def cmd_run(args: argparse.Namespace) -> int:
+    from distributed_grep_tpu_torch.runtime.job import run_job
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    overrides = {}
+    if args.n_reduce:
+        overrides["n_reduce"] = args.n_reduce
+    if args.work_dir:
+        overrides["work_dir"] = args.work_dir
+    cfg = JobConfig.load(args.config, **overrides)
+    res = run_job(cfg, n_workers=args.workers, resume=args.resume)
+    out = sys.stdout.buffer
+    for k, v in res.iter_results_sorted():
+        _write(out, f"{k} {v}\n")
+    out.flush()
+    if args.metrics:
+        print(json.dumps(res.metrics, indent=2, sort_keys=True),
+              file=sys.stderr)
+    return 0
+
+
+def cmd_coordinator(args: argparse.Namespace) -> int:
+    from distributed_grep_tpu_torch.runtime.http_coordinator import (
+        serve_coordinator,
+    )
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    status = serve_coordinator(JobConfig.load(args.config),
+                               resume=args.resume)
+    # stdout: exactly one JSON line naming the committed outputs
+    print(json.dumps({"outputs": status["outputs"]}), flush=True)
+    return 0
+
+
+def cmd_worker(args: argparse.Namespace) -> int:
+    from distributed_grep_tpu_torch.runtime.http_transport import (
+        run_http_worker,
+    )
+
+    run_http_worker(addr=args.addr, n_parallel=args.slots)
+    return 0
+
+
+COMMANDS = {"grep": cmd_grep, "run": cmd_run, "coordinator": cmd_coordinator,
+            "worker": cmd_worker}
+
+
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
+    level = os.environ.get("DGREP_LOG")
+    if level and args.cmd != "grep":  # the runtime's log, on stderr
+        import logging
+
+        logging.basicConfig(
+            level=level.upper(), stream=sys.stderr,
+            format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     try:
-        return cmd_grep(args)
+        return COMMANDS[args.cmd](args)
     except (NotImplementedError, RuntimeError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -1,12 +1,23 @@
-"""grep -w / -x: the boundary-wrapped confirm regex, and its literal form.
+"""The host grep application (the reference's apps/grep.py), and the
+-w / -x confirm the CUDA app shares with it.
 
-The card scans the plain pattern; its matched lines are a superset of the
-word (-w) or whole-line (-x) matches, and the host confirms each candidate
-line against the pattern wrapped here.  One case-sensitive literal takes
-``literal_mode_lines`` instead: one scan of the library for the literal's
-occurrences and two byte masks.  The counterpart of ``wrap_mode``,
-``build_confirm`` and ``literal_mode_lines`` of the reference's
-``apps/grep.py`` (the host grep application itself is ROADMAP item 13).
+Map splits the input on newlines and emits, for each selected line, the
+record ``"<filename> (line number #N)"`` -> the line (1-based, as grep -n;
+a final newline opens no empty line), as one columnar ``LineBatch`` a
+split; Reduce is the identity on the first value.  ``configure`` takes a
+regex (``pattern``, run with Python ``re`` over each line, POSIX classes
+expanded) or a literal set (``patterns``: Aho-Corasick banks,
+models/aho.py, scanned by the host DFA scanner over the whole split),
+and ``ignore_case``, ``invert`` (grep -v), ``word_regexp`` /
+``line_regexp`` (grep -w / -x), ``count_only`` (one record a file: key the
+filename, value the selected line count) and ``presence_only`` (with
+count_only, the scan may stop at the first selected line).
+
+The -w / -x confirm: the card scans the plain pattern; its matched lines
+are a superset of the word (-w) or whole-line (-x) matches, and the host
+confirms each candidate line against the pattern wrapped here.  One
+case-sensitive literal takes ``literal_mode_lines`` instead: one scan of
+the library for the literal's occurrences and two byte masks.
 """
 
 from __future__ import annotations
@@ -80,3 +91,115 @@ def literal_mode_lines(contents: bytes, lit: bytes, mode: str,
         return ends
     return unique_match_lines(ends, newline_index(contents) if nl is None
                               else nl)
+
+
+# Reduce is values[0] and keys are unique per (file, line): the runtime
+# collates each partition in (file, line) order (runtime/columnar.py).
+reduce_is_identity = True
+
+# Job-configured state (configure()); the loader gives every job its own
+# module instance.
+_pattern: re.Pattern[bytes] | None = re.compile(b"")
+_ac_tables: list | None = None  # Aho-Corasick banks of a literal set
+_ac_confirm: re.Pattern[bytes] | None = None  # -w/-x confirm of a set
+_invert = False
+_line_mode = "search"  # "search" | "word" (-w) | "line" (-x)
+_count_only = False
+_presence = False
+_configured_with: tuple | None = None
+
+
+def configure(pattern: str | bytes = b"", ignore_case: bool = False,
+              patterns: list[str | bytes] | None = None,
+              invert: bool = False, word_regexp: bool = False,
+              line_regexp: bool = False, count_only: bool = False,
+              presence_only: bool = False, **_: object) -> None:
+    """Set the job's query (the module docstring's options; the CUDA
+    app's other options are accepted and ignored)."""
+    global _pattern, _ac_tables, _ac_confirm, _invert, _line_mode, \
+        _count_only, _presence, _configured_with
+    if isinstance(pattern, str):
+        pattern = pattern.encode("utf-8", "surrogateescape")
+    _invert = bool(invert)
+    _count_only = bool(count_only)
+    _presence = bool(presence_only)
+    _line_mode = "line" if line_regexp else ("word" if word_regexp
+                                             else "search")
+    key = (pattern, ignore_case, tuple(patterns) if patterns else None,
+           _invert, _line_mode)
+    if key == _configured_with:
+        return  # configure runs at every assignment: no recompile
+    if patterns:
+        from distributed_grep_tpu_torch.models.aho import (
+            compile_aho_corasick_banks,
+        )
+
+        members = [p.encode("utf-8", "surrogateescape") if isinstance(p, str)
+                   else bytes(p) for p in patterns]
+        _ac_tables = compile_aho_corasick_banks(members,
+                                                ignore_case=ignore_case)
+        _pattern = None
+        _ac_confirm = build_confirm(patterns=members, ignore_case=ignore_case,
+                                    mode=_line_mode)
+    else:
+        _ac_tables = None
+        _ac_confirm = None
+        _pattern = re.compile(
+            wrap_mode(expand_posix_classes(pattern), _line_mode),
+            re.IGNORECASE if ignore_case else 0)
+    _configured_with = key
+
+
+def map_fn(filename: str, contents: bytes) -> list:
+    from distributed_grep_tpu_torch.apps.base import KeyValue
+    from distributed_grep_tpu_torch.runtime.columnar import LineBatch
+
+    matched = _ac_matched_lines(contents) if _ac_tables is not None else None
+    lines = contents.split(b"\n")
+    if lines and lines[-1] == b"":
+        lines.pop()  # a final newline opens no line (grep -n)
+    sel_nos: list[int] = []
+    sel_lines: list[bytes] = []
+    n_selected = 0
+    for lineno, line in enumerate(lines, start=1):
+        if matched is not None:
+            hit = lineno in matched and (_ac_confirm is None
+                                         or _ac_confirm.search(line))
+        else:
+            hit = _pattern.search(line)
+        if bool(hit) != _invert:
+            if _count_only:
+                n_selected += 1
+                if _presence:
+                    break  # -q/-l: the first selected line settles it
+                continue
+            sel_nos.append(lineno)
+            sel_lines.append(line)
+    if _count_only:
+        return [KeyValue(key=filename, value=str(n_selected))]
+    if not sel_nos:
+        return []
+    lens = np.fromiter((len(x) for x in sel_lines), dtype=np.int64,
+                       count=len(sel_lines))
+    offsets = np.zeros(lens.size + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return [LineBatch(filename=filename,
+                      linenos=np.asarray(sel_nos, dtype=np.int64),
+                      offsets=offsets, slab=b"".join(sel_lines))]
+
+
+def _ac_matched_lines(contents: bytes) -> set[int]:
+    """One host DFA pass a bank over the whole split; offsets -> lines."""
+    from distributed_grep_tpu_torch.models.dfa import reference_scan
+    from distributed_grep_tpu_torch.ops.lines import line_of_offsets
+
+    offsets = np.unique(np.concatenate(
+        [reference_scan(t, contents) for t in _ac_tables]))
+    if offsets.size == 0:
+        return set()
+    return set(line_of_offsets(offsets.astype(np.int64),
+                               newline_index(contents)).tolist())
+
+
+def reduce_fn(key: str, values: list[str]) -> str:
+    return values[0]

@@ -118,8 +118,12 @@ def stage_run(corpus: Path, pattern: str, work: Path, device: str) -> dict:
     from distributed_grep_tpu_torch.runtime.job import run_job
     from distributed_grep_tpu_torch.utils.config import JobConfig
 
+    from distributed_grep_tpu_torch.apps.loader import from_module
+
+    # a throwaway work dir, as the CLI's: no journal, no fsync
     cfg = JobConfig(input_files=[str(corpus)], work_dir=str(work),
-                    app_options={"pattern": pattern}, n_reduce=10)
+                    app_options={"pattern": pattern}, n_reduce=10,
+                    journal=False, durable=False)
     with StageClock() as clock:
         clock.wrap(GrepEngine, "_scan", "scan")
         clock.wrap(grep_cuda, "map_path_fn", "map_path_fn")
@@ -132,7 +136,9 @@ def stage_run(corpus: Path, pattern: str, work: Path, device: str) -> dict:
         clock.wrap(columnar.IdentityCollator, "add_many", "collate_add")
         clock.wrap(columnar.LineBatch, "format_lines_bytes", "reduce_format")
         t0 = time.perf_counter()
-        res = run_job(cfg, n_workers=2, device=device)
+        # the module the clock wrapped, not a fresh instance
+        res = run_job(cfg, n_workers=2, device=device,
+                      app=from_module(grep_cuda))
         job_s = time.perf_counter() - t0
     return {
         "job_s": job_s,

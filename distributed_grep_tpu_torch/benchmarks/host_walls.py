@@ -35,6 +35,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -142,6 +143,16 @@ def run(corpus: Path, tree: Path, label: str, only: set | None,
     work = corpus / f"jobs-{label}"
     if device == "cuda":  # no query's wall holds a kernel build
         _build.build_all()
+    # a tree whose run_job loads a fresh app instance takes the module
+    # itself (its engine is read below), and runs as the CLI does: no
+    # journal, no fsync (a tree before them had neither)
+    job_kw, cfg_kw = {}, {}
+    if "app" in inspect.signature(run_job).parameters:
+        from distributed_grep_tpu_torch.apps.loader import from_module
+
+        job_kw["app"] = from_module(grep_cuda)
+    if "durable" in JobConfig.__dataclass_fields__:
+        cfg_kw = {"journal": False, "durable": False}
     for name, opts, which in queries(smoke):
         if only and name not in only:
             continue
@@ -153,9 +164,9 @@ def run(corpus: Path, tree: Path, label: str, only: set | None,
         grep_cuda._configured_with = None  # a new engine: its own totals
         cfg = JobConfig(input_files=[str(p) for p in inputs],
                         app_options=dict(opts), n_reduce=10,
-                        task_timeout_s=60.0, work_dir=str(work))
+                        task_timeout_s=60.0, work_dir=str(work), **cfg_kw)
         t0 = time.perf_counter()
-        res = run_job(cfg, n_workers=workers, device=device)
+        res = run_job(cfg, n_workers=workers, device=device, **job_kw)
         wall = time.perf_counter() - t0
         os.environ.pop("DGREP_SWAR", None)
         totals = {k: v for k, v in grep_cuda._engine.totals.items()

@@ -21,6 +21,7 @@ import json
 import shutil
 import tempfile
 from itertools import groupby
+from operator import itemgetter
 from pathlib import Path
 from typing import Iterable, Iterator
 
@@ -32,8 +33,12 @@ from distributed_grep_tpu_torch.runtime import shuffle
 _RECORD_OVERHEAD = 120
 
 
+_KEY = itemgetter(0)
+_VALUE = itemgetter(1)
+
+
 def _by_key(records: Iterable[KeyValue]) -> list[KeyValue]:
-    return sorted(records, key=lambda kv: kv.key)
+    return sorted(records, key=_KEY)
 
 
 class ExternalReducer:
@@ -105,8 +110,10 @@ class ExternalReducer:
     def reduce(self, reduce_fn, stream_fn=None) -> Iterator[tuple[str, str]]:
         """(key, reduced value) in sorted key order, streamed; ``stream_fn``
         (key, values iterator), when given, is used over ``reduce_fn``."""
-        for k, grp in groupby(self.merged(), key=lambda t: t[0]):
-            vals = (v for _, v in grp)
+        # nothing spilled: one stable sort of the records in memory
+        records = self.merged() if self._runs else _by_key(self._mem)
+        for k, grp in groupby(records, key=_KEY):
+            vals = map(_VALUE, grp)
             yield (k, stream_fn(k, vals)) if stream_fn is not None else (
                 k, reduce_fn(k, list(vals)))
 

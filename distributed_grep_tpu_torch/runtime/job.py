@@ -1,12 +1,14 @@
-"""In-process job runner: coordinator + N worker threads, one call.
+"""In-process job runner: a Scheduler and N worker threads over
+LocalTransports, one call (the reference's runtime/job.py).
 
 ``run_job(config, n_workers, device=...)`` runs every input file as its
 own map task through the application named by ``config.application``
-(default: the CUDA grep app) and returns the committed ``mr-out-*``
-files; with batching on (``config.effective_batch_bytes()``) consecutive
-small files share a map task (``plan_map_splits``).  The device defaults
-to "cuda" and raises when CUDA is absent, unless the caller asks for
-"cpu".  A worker that raises anything but
+(default: the CUDA grep app, loaded as a fresh module instance) and
+returns the committed ``mr-out-*`` files; with batching on
+(``config.effective_batch_bytes()``) consecutive small files share a map
+task (``plan_map_splits``).  ``resume=True`` replays the work dir's
+journal.  The device defaults to "cuda" and raises when CUDA is absent,
+unless the caller asks for "cpu".  A worker that raises anything but
 WorkerKilled fails the job with that exception: a build, launch or CUDA
 error is never retried on another route.
 
@@ -24,9 +26,9 @@ streams.
 from __future__ import annotations
 
 import heapq
-import importlib
 import logging
 import os
+import sys
 import tempfile
 import threading
 from dataclasses import dataclass, field
@@ -35,6 +37,10 @@ from pathlib import Path
 import numpy as np
 
 from distributed_grep_tpu_torch.apps.base import KeyValue
+from distributed_grep_tpu_torch.apps.loader import (
+    LoadedApplication,
+    load_application,
+)
 from distributed_grep_tpu_torch.ops.layout import env_device_min_bytes
 from distributed_grep_tpu_torch.ops.lines import newline_index
 from distributed_grep_tpu_torch.runtime.columnar import (
@@ -43,7 +49,9 @@ from distributed_grep_tpu_torch.runtime.columnar import (
     grep_key_sort,
 )
 from distributed_grep_tpu_torch.runtime.extsort import ExternalReducer
+from distributed_grep_tpu_torch.runtime.journal import TaskJournal
 from distributed_grep_tpu_torch.runtime.scheduler import Scheduler
+from distributed_grep_tpu_torch.runtime.transport import LocalTransport
 from distributed_grep_tpu_torch.runtime.worker import WorkerKilled, WorkerLoop
 from distributed_grep_tpu_torch.utils import native
 from distributed_grep_tpu_torch.utils.config import JobConfig
@@ -93,6 +101,26 @@ class JobResult:
     metrics: dict = field(default_factory=dict)
     # every output file is in (file, line) order (identity-reduce apps)
     fileline_sorted: bool = False
+
+    # ``results`` refuses to hold more output than this in memory
+    RESULTS_MATERIALIZE_LIMIT = 256 << 20
+
+    @property
+    def results(self) -> dict:
+        """Every record as one key -> value dict, held in memory: refused
+        past RESULTS_MATERIALIZE_LIMIT bytes of output (stream with
+        ``iter_results`` instead)."""
+        total = sum(p.stat().st_size for p in self.output_files)
+        if total > self.RESULTS_MATERIALIZE_LIMIT:
+            raise RuntimeError(
+                f"job output is {total >> 20} MB: .results would hold it all "
+                f"in memory; stream via iter_results()/iter_results_sorted() "
+                f"instead (or raise JobResult.RESULTS_MATERIALIZE_LIMIT)")
+        return dict(self.iter_results())
+
+    def sorted_lines(self) -> list[str]:
+        """``"<key> <value>"`` lines in grep_key_sort order."""
+        return [f"{k} {v}" for k, v in self.iter_results_sorted()]
 
     @staticmethod
     def _iter_file(path: Path):
@@ -339,13 +367,23 @@ def plan_map_splits(input_files: list[str], batch_bytes: int,
 def run_job(
     config: JobConfig,
     n_workers: int = 2,
+    app: LoadedApplication | None = None,
+    resume: bool = False,
     device: str | None = None,
     fault_hooks_per_worker: list[dict] | None = None,
+    store_faults_per_worker: list[dict] | None = None,
 ) -> JobResult:
-    """Run the job to completion.  ``device`` overrides the app option of
-    the same name; with neither, the job runs on "cuda".  With the app
-    option ``backend="cpu"`` (the host scanners) the device is never
-    asked for."""
+    """Run the job to completion: a Scheduler, ``n_workers`` worker threads
+    each on a LocalTransport, and the application named by the config (a
+    fresh module instance, apps/loader.py) unless ``app`` is given.
+    ``device`` overrides the app option of the same name; with neither,
+    the job runs on "cuda".  With the app option ``backend="cpu"`` (the
+    host scanners) the device is never asked for.  ``resume`` replays the
+    work dir's journal and skips the tasks it records; else the work dir
+    is cleared.  ``store_faults_per_worker`` wraps each worker's commits
+    in a FaultStore (runtime/store.py CrashPoint hooks)."""
+    from distributed_grep_tpu_torch.runtime.store import FaultStore, make_store
+
     opts = config.effective_app_options()
     opts["device"] = str(device if device is not None
                          else opts.get("device", "cuda"))
@@ -354,26 +392,50 @@ def run_job(
     # the host library builds before the scheduler hands out a task, so no
     # task's failure detector waits on g++
     native.lib()
-    app = importlib.import_module(config.application)
+    loaded = app is None
+    if loaded:
+        app = load_application(config.application)
     work_dir = config.work_dir or tempfile.mkdtemp(prefix="dgrep-")
-    workdir = WorkDir(work_dir)
-    workdir.clear()
+    workdir = WorkDir(work_dir, store=make_store(config.store,
+                                                 durable=config.durable))
+    resume_entries = None
+    if resume:
+        if config.journal:
+            resume_entries = TaskJournal.replay(workdir.journal_path())
+    else:
+        workdir.clear()  # a reused work dir leaks nothing into this job
+    journal = TaskJournal(workdir.journal_path()) if config.journal else None
     scheduler = Scheduler(
         files=plan_map_splits(list(config.input_files),
                               config.effective_batch_bytes()),
         n_reduce=config.n_reduce,
         task_timeout_s=config.task_timeout_s,
+        sweep_interval_s=config.sweep_interval_s,
         app_options=opts,
+        journal=journal,
+        resume_entries=resume_entries,
+        commit_resolver=workdir.resolve_task_commit,
     )
+    spill_dir = config.spill_dir or str(Path(work_dir) / "spill")
     errors: list[BaseException] = []
 
     def worker_main(idx: int) -> None:
         hooks = (fault_hooks_per_worker or [{}] * n_workers)[idx]
+        sfaults = (store_faults_per_worker or [{}] * n_workers)[idx]
+        store = FaultStore(workdir.store, sfaults) if sfaults else None
+        loop = WorkerLoop(
+            LocalTransport(scheduler, workdir,
+                           rpc_timeout_s=config.rpc_timeout_s, store=store),
+            app, fault_hooks=hooks,
+            reduce_memory_bytes=config.reduce_memory_bytes,
+            spill_dir=spill_dir)
         try:
-            WorkerLoop(scheduler, workdir, app, fault_hooks=hooks).run()
+            loop.run()
         except WorkerKilled:
             log.info("worker thread %d killed by fault injection", idx)
         except BaseException as e:  # noqa: BLE001 -- re-raised below
+            # a build, launch or CUDA error fails the job: it is never
+            # retried on another route
             errors.append(e)
             scheduler.stop()
 
@@ -382,24 +444,31 @@ def run_job(
                          daemon=True)
         for i in range(n_workers)
     ]
-    for t in threads:
-        t.start()
-    while not scheduler.wait_done(timeout=0.5):
-        if errors:
-            break
-        if all(not t.is_alive() for t in threads):
-            scheduler.stop()
-            raise RuntimeError(
-                "job aborted: all workers exited with tasks outstanding"
-            )
-    scheduler.stop()
-    for t in threads:
-        t.join()
+    try:
+        for t in threads:
+            t.start()
+        while not scheduler.wait_done(timeout=0.5):
+            if errors:
+                break
+            if all(not t.is_alive() for t in threads):
+                scheduler.stop()
+                raise RuntimeError(
+                    "job aborted: all workers exited with tasks outstanding"
+                )
+        scheduler.stop()
+        for t in threads:
+            t.join()
+    finally:
+        scheduler.stop()
+        scheduler.close_journal()
+        if loaded:  # the job's own module instance goes with the job
+            sys.modules.pop(app.module.__name__, None)
     if errors:
         raise errors[0]
     return JobResult(
         output_files=workdir.list_outputs(),
         metrics={"counters": dict(scheduler.counters),
                  "seconds": dict(scheduler.seconds), "work_dir": work_dir},
-        fileline_sorted=bool(getattr(app, "reduce_is_identity", False)),
+        fileline_sorted=bool(getattr(app.module, "reduce_is_identity",
+                                     False)),
     )

@@ -1,180 +1,686 @@
-"""In-process coordinator: hands out map then reduce tasks to workers.
+"""Coordinator task scheduler: the reference's runtime/scheduler.py without
+its span event log, typed histograms and service hooks.
 
-The fault-tolerance core of the reference scheduler, without its RPC,
-journal, peer shuffle or spans:
+* one map task per input file, or per batched split of small files (a
+  list among ``files``, runtime/job.plan_map_splits), and reduce
+  partitions 0..n_reduce-1, all seeded up front;
+* a long-polling ``assign_task``: blocks until a map task is available;
+  once every map task has committed, hands out reduce partitions; worker
+  ids are allocated at the first assignment;
+* a re-issued file keeps its task id (the queues hold task ids);
+* the streaming shuffle: ``reduce_next_file`` blocks until the reducer's
+  next intermediate file commits, or answers done once the map phase is
+  over and the cursor is exhausted, so a reducer's stream follows the
+  maps' commits; an attempt from an earlier scheduler incarnation (its
+  ``epoch``) is aborted; a reducer that cannot read a registered file
+  reports it (``lost_file``) and the producing map task runs again;
+* heartbeats stamped at assignment, mid-task and on every next-file
+  fetch; a ``grace_s`` declares a silent phase (a kernel build) during
+  which the task is re-issued only after max(task_timeout_s, grace_s),
+  and the next stamp ends it; a background sweeper re-enqueues every
+  IN_PROGRESS task silent for longer;
+* a worker charged with three timeouts in a row is quarantined
+  (``WorkerHealth``);
+* completion is idempotent: a duplicate MapFinished/ReduceFinished is
+  absorbed; a task's commit record (runtime/store.py), when one resolves,
+  is the unit of truth for the partitions it produced;
+* the journal (runtime/journal.py) appends every completion, fsync'd
+  outside the lock before the reply leaves; a restarted coordinator
+  replays it (``resume_entries``) and skips the committed work.
 
-* tasks, not workers, are tracked: a worker joins by asking for work;
-* an IN_PROGRESS task whose last heartbeat is older than
-  ``task_timeout_s`` is re-issued;
-* the app's progress callback stamps heartbeats mid-task, and may declare
-  a silent phase (``grace_s``, the engine's kernel build) during which
-  the task is re-issued only after max(task_timeout_s, grace_s);
-* the first committed attempt wins: a later finish of the same task is
-  ignored (its files were renamed over identical content).
-
-A map task covers one input file, or a batched split of several small
-ones (a list among ``files``, runtime/job.plan_map_splits): its
-assignment then names the members in ``filenames``.
-
-Reduce tasks are handed out once every map task has committed.
+The counters (assignments, completions, retries, heartbeats, grace
+declarations, and what workers ship with their finished RPCs) and the
+seconds per worker stage are plain dicts that ``JobResult.metrics``,
+``--metrics`` and ``GET /status`` read.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
-from collections import Counter
-from dataclasses import dataclass, field
+import uuid
+from collections import Counter, deque
+from typing import Any, Callable, Optional
 
+from distributed_grep_tpu_torch.runtime import rpc
+from distributed_grep_tpu_torch.runtime.journal import TaskJournal
 from distributed_grep_tpu_torch.runtime.types import (
     MapTask,
     ReduceTask,
     TaskState,
-    TaskType,
 )
 
+log = logging.getLogger("distributed_grep_tpu_torch.scheduler")
 
-@dataclass
-class Assignment:
-    kind: TaskType | None  # None = the job is over: the worker exits
-    task_id: int = -1
-    filename: str = ""
-    filenames: list[str] = field(default_factory=list)  # a split's members
-    files: list[str] = field(default_factory=list)  # reduce inputs
-    n_reduce: int = 0
-    app_options: dict = field(default_factory=dict)
+# Consecutive attributed timeouts before a worker is quarantined, and the
+# base window (doubling per episode up to _QUARANTINE_MAX_FACTOR times).
+QUARANTINE_AFTER_FAILURES = 3
+DEFAULT_QUARANTINE_S = 30.0
+_QUARANTINE_MAX_FACTOR = 8
+
+
+def env_worker_quarantine_s(default: float = DEFAULT_QUARANTINE_S) -> float:
+    """The base quarantine window, DGREP_WORKER_QUARANTINE_S (malformed or
+    <= 0 keeps the default)."""
+    raw = os.environ.get("DGREP_WORKER_QUARANTINE_S")
+    if raw is None or raw == "":
+        return default
+    try:
+        v = float(raw)
+    except ValueError:
+        return default
+    return v if v > 0 else default
+
+
+class WorkerHealth:
+    """Per-worker consecutive-failure tracker with exponential-backoff
+    quarantine.  A failure is an attributed task timeout (the sweeper
+    re-enqueued a task this worker held); a success is any committed task.
+    After QUARANTINE_AFTER_FAILURES failures in a row the worker gets no
+    assignment for base * 2^(episode-1) seconds (capped); its polls wait
+    and answer a retry with a ``retry_after_s`` hint.  Expiry is
+    probation: one more timeout quarantines again (for twice as long),
+    one success clears the record."""
+
+    def __init__(self, base_s: float | None = None):
+        self.base_s = (env_worker_quarantine_s() if base_s is None
+                       else float(base_s))
+        self._lock = threading.Lock()
+        self._fails: dict[int, int] = {}
+        self._episodes: dict[int, int] = {}
+        self._until: dict[int, float] = {}  # monotonic expiry
+        self._polls: dict[int, float] = {}  # last assign poll
+        self.quarantined_total = 0
+
+    def saw(self, worker_id: int) -> None:
+        """Record an assign poll: a worker loop is single-threaded, so a
+        poll after an assignment proves it no longer runs that task."""
+        if worker_id >= 0:
+            with self._lock:
+                self._polls[worker_id] = time.monotonic()
+
+    def polled_since(self, worker_id: int, t: float) -> bool:
+        with self._lock:
+            return self._polls.get(worker_id, float("-inf")) > t
+
+    def record_success(self, worker_id: int) -> None:
+        if worker_id < 0:
+            return
+        with self._lock:
+            for d in (self._fails, self._episodes, self._until,
+                      self._polls):
+                d.pop(worker_id, None)
+
+    def record_failure(self, worker_id: int) -> float:
+        """Register an attributed failure; the quarantine window entered,
+        in seconds, or 0.0 while the worker stays on probation."""
+        if worker_id < 0:
+            return 0.0
+        with self._lock:
+            now = time.monotonic()
+            if self._until.get(worker_id, 0.0) > now:
+                return 0.0  # already quarantined
+            n = self._fails.get(worker_id, 0) + 1
+            self._fails[worker_id] = n
+            if n < QUARANTINE_AFTER_FAILURES:
+                return 0.0
+            ep = self._episodes.get(worker_id, 0) + 1
+            self._episodes[worker_id] = ep
+            window = self.base_s * min(2 ** (ep - 1), _QUARANTINE_MAX_FACTOR)
+            self._until[worker_id] = now + window
+            self._fails[worker_id] = QUARANTINE_AFTER_FAILURES - 1
+            self.quarantined_total += 1
+        return window
+
+    def quarantine_remaining(self, worker_id: int) -> float:
+        with self._lock:
+            until = self._until.get(worker_id)
+            if until is None:
+                return 0.0
+            rem = until - time.monotonic()
+            if rem > 0:
+                return rem
+            del self._until[worker_id]  # expired: probation
+            return 0.0
+
+    def snapshot(self) -> dict:
+        now = time.monotonic()
+        with self._lock:
+            return {
+                "quarantined_total": self.quarantined_total,
+                "active": {str(w): round(u - now, 3)
+                           for w, u in self._until.items() if u > now},
+            }
 
 
 def _split_label(members: tuple[str, ...]) -> str:
-    """A batched split's label (the reference's scheduler._split_label)."""
+    """A batched split's label: the same for the same member list, so a
+    replayed journal recognizes its own entries."""
     return f"{members[0]} (+{len(members) - 1} batched)"
 
 
+def _producer_task_of(name: str) -> int | None:
+    """The map task id of an intermediate file name ``mr-<tid>-<r>``."""
+    parts = name.split("-")
+    if len(parts) == 3 and parts[0] == "mr" and parts[1].isdigit():
+        return int(parts[1])
+    return None
+
+
 class Scheduler:
-    def __init__(self, files: list, n_reduce: int, task_timeout_s: float,
-                 app_options: dict | None = None):
-        self.maps = []
+    """Transport-agnostic coordinator state machine (thread-safe).
+
+    ``files`` entries are an input path (a map task a file) or a list of
+    paths (a batched split)."""
+
+    def __init__(
+        self,
+        files: list,
+        n_reduce: int,
+        task_timeout_s: float = 10.0,
+        sweep_interval_s: float = 1.0,
+        app_options: Optional[dict[str, Any]] = None,
+        journal: Optional[TaskJournal] = None,
+        resume_entries: Optional[list[dict]] = None,
+        commit_resolver: Optional[Callable] = None,
+        worker_health: Optional[WorkerHealth] = None,
+    ):
+        self.n_reduce = n_reduce
+        self.task_timeout_s = task_timeout_s
+        self.sweep_interval_s = sweep_interval_s
+        self.app_options = dict(app_options or {})
+        self.journal = journal
+        # commit_resolver(kind, task_id) -> the winning task commit record
+        # or None (WorkDir.resolve_task_commit)
+        self.commit_resolver = commit_resolver
+        self.worker_health = worker_health or WorkerHealth()
+        self.counters: Counter = Counter()
+        self.seconds: Counter = Counter()  # wall time per worker stage
+        self.launches: Counter = Counter()  # kernel launches workers shipped
+        # completions staged under the lock and journaled (fsync) after it
+        self._pending_journal: list[tuple] = []
+        self._journal_flush_lock = threading.Lock()
+        self._journaled: set[tuple[str, int]] = set()
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+
+        self.map_tasks: list[MapTask] = []
         for i, f in enumerate(files):
             if isinstance(f, (list, tuple)):
                 members = tuple(str(m) for m in f)
-                self.maps.append(MapTask(i, _split_label(members),
-                                         files=members))
+                self.map_tasks.append(MapTask(i, _split_label(members),
+                                              files=members))
             else:
-                self.maps.append(MapTask(i, f))
-        self.reduces = [ReduceTask(r) for r in range(n_reduce)]
-        self.n_reduce = n_reduce
-        self.task_timeout_s = task_timeout_s
-        self.app_options = dict(app_options or {})
-        self.counters: Counter = Counter()
-        self.seconds: Counter = Counter()  # wall time per task stage, summed
-        self._cv = threading.Condition()
+                self.map_tasks.append(MapTask(i, f))
+        self.reduce_tasks = [ReduceTask(i) for i in range(n_reduce)]
+        self._map_queue: deque[int] = deque(range(len(self.map_tasks)))
+        self._reduce_queue: deque[int] = deque(range(n_reduce))
+        self._next_worker_id = 0
+        self.epoch = uuid.uuid4().hex[:12]
         self._stopped = False
+        # COMPLETED is terminal except for a lost-file re-run, so counting
+        # at the transitions replaces sweeps over the task tables
+        self._maps_completed = 0
+        self._reduces_completed = 0
+        if resume_entries:
+            self._replay(resume_entries)
+        self._sweeper = threading.Thread(target=self._sweep_loop,
+                                         name="failure-detector", daemon=True)
+        self._sweeper.start()
 
-    # ------------------------------------------------------------ state
-    def _all(self, tasks) -> bool:
-        return all(t.state is TaskState.COMPLETED for t in tasks)
+    # ------------------------------------------------------------ replay
+    def _resolve_commit(self, kind: str, task_id: int):
+        """The winning commit record, or None (no resolver, no record, or a
+        resolver that failed: the finished RPC's args then stand)."""
+        if self.commit_resolver is None:
+            return None
+        try:
+            return self.commit_resolver(kind, task_id)
+        except Exception:  # noqa: BLE001 -- the RPC args still work
+            log.exception("commit record resolution failed for %s %d", kind,
+                          task_id)
+            return None
 
-    def done(self) -> bool:
-        with self._cv:
-            return self._all(self.maps) and self._all(self.reduces)
+    def _replay(self, entries: list[dict]) -> None:
+        """Apply journal entries: a restarted coordinator skips the work
+        they record."""
+        for e in entries:
+            tid = e.get("task_id", -1)
+            if e.get("kind") == "map_done" and 0 <= tid < len(self.map_tasks):
+                t = self.map_tasks[tid]
+                files_e = e.get("files")
+                if t.file != e.get("file") or (
+                        files_e is not None and tuple(files_e) != t.files):
+                    # the input list changed since the journal was written:
+                    # this entry names another split, which must run again
+                    log.warning("journal entry for map task %d names %r, the "
+                                "task is %r; ignored", tid, e.get("file"),
+                                t.file)
+                    continue
+                parts = e.get("parts", [])
+                if e.get("has_record"):
+                    record = self._resolve_commit("map", tid)
+                    if record is None:
+                        log.warning("journal says map task %d committed with "
+                                    "a record, and none resolves; re-running",
+                                    tid)
+                        continue
+                    parts = record.get("parts", parts)
+                if t.state is not TaskState.COMPLETED:
+                    t.state = TaskState.COMPLETED
+                    self._journaled.add(("map", tid))
+                    self._register_map_outputs(tid, parts)
+            elif (e.get("kind") == "reduce_done"
+                  and 0 <= tid < len(self.reduce_tasks)):
+                if (e.get("has_record")
+                        and self._resolve_commit("reduce", tid) is None):
+                    log.warning("journal says reduce task %d committed with "
+                                "a record, and none resolves; re-running",
+                                tid)
+                    continue
+                self.reduce_tasks[tid].state = TaskState.COMPLETED
+                self._journaled.add(("reduce", tid))
+        self._map_queue = deque(t.task_id for t in self.map_tasks
+                                if t.state is not TaskState.COMPLETED)
+        self._reduce_queue = deque(t.task_id for t in self.reduce_tasks
+                                   if t.state is not TaskState.COMPLETED)
+        self._maps_completed = len(self.map_tasks) - len(self._map_queue)
+        self._reduces_completed = self.n_reduce - len(self._reduce_queue)
+        log.info("journal replay: %d map + %d reduce tasks already complete",
+                 self._maps_completed, self._reduces_completed)
 
-    def stop(self) -> None:
-        with self._cv:
-            self._stopped = True
-            self._cv.notify_all()
+    # ---------------------------------------------------------- journal
+    def _flush_journal(self) -> None:
+        """Write the staged completions outside the scheduler lock (the
+        journal fsyncs each).  Never raises: a full disk costs resume, not
+        the control plane."""
+        if self.journal is None:
+            return
+        with self._journal_flush_lock:
+            self._write_staged_journal()
 
-    def _sweep(self, kind: TaskType, tasks) -> None:
+    def close_journal(self) -> None:
+        """Flush the staged completions, then close the journal."""
+        if self.journal is None:
+            return
+        with self._journal_flush_lock:
+            self._write_staged_journal()
+            self.journal.close()
+
+    def _write_staged_journal(self) -> None:
+        with self._lock:
+            pending, self._pending_journal = self._pending_journal, []
+        for kind, task_id, file, parts, has_record, files in pending:
+            try:
+                if kind == "map":
+                    self.journal.map_completed(task_id, file, parts,
+                                               has_record=has_record,
+                                               files=files)
+                else:
+                    self.journal.reduce_completed(task_id,
+                                                  has_record=has_record)
+            except ValueError:
+                # closed by a teardown racing a late completion: the task
+                # is committed either way
+                log.warning("journal append after close dropped (%s task "
+                            "%d)", kind, task_id)
+            except OSError:
+                log.exception("journal append failed for %s task %d", kind,
+                              task_id)
+
+    # ----------------------------------------------------------- status
+    def status_counts(self) -> dict:
+        with self._lock:
+            return {
+                "map": {"total": len(self.map_tasks),
+                        "completed": self._maps_completed},
+                "reduce": {"total": self.n_reduce,
+                           "completed": self._reduces_completed},
+            }
+
+    def inflight_status(self) -> list[dict]:
+        """Every IN_PROGRESS task with its heartbeat age and grace."""
         now = time.monotonic()
-        for t in tasks:
-            if (t.state is TaskState.IN_PROGRESS
-                    and now - t.timestamp > max(self.task_timeout_s,
-                                                t.grace_s)):
-                t.state = TaskState.UNASSIGNED
-                self.counters[f"{kind.value}_retries"] += 1
+        out = []
+        with self._lock:
+            for kind, table in (("map", self.map_tasks),
+                                ("reduce", self.reduce_tasks)):
+                for t in table:
+                    if t.state is TaskState.IN_PROGRESS:
+                        row = {"type": kind, "task_id": t.task_id,
+                               "attempts": t.attempts, "worker": t.worker,
+                               "heartbeat_age_s": round(now - t.timestamp, 3)}
+                        if t.grace_s:
+                            row["grace_s"] = t.grace_s
+                        out.append(row)
+        return out
 
-    # ---------------------------------------------------------- workers
-    def request_task(self, wait_s: float = 0.5) -> Assignment | None:
-        """The next task; ``Assignment(None)`` once the job is over or
-        stopped; None when nothing is assignable within ``wait_s`` (the
-        worker polls again)."""
-        deadline = time.monotonic() + wait_s
-        with self._cv:
+    def metrics_snapshot(self) -> dict:
+        """Copies of the counters, the stage seconds and the shipped
+        kernel launches."""
+        with self._lock:
+            return {"counters": dict(self.counters),
+                    "seconds": dict(self.seconds),
+                    "launches": dict(self.launches)}
+
+    def _add_metrics_locked(self, metrics: dict | None,
+                            accepted: bool) -> None:
+        """Fold a worker's shipped counters in: seconds and launches
+        always, counters only for the attempt that won."""
+        if not metrics:
+            return
+        for k, v in (metrics.get("seconds") or {}).items():
+            self.seconds[k] += float(v)
+        for k, v in (metrics.get("launches") or {}).items():
+            self.launches[k] += int(v)
+        if accepted:
+            for k, v in (metrics.get("counters") or {}).items():
+                self.counters[k] += v
+
+    # ------------------------------------------------------------ assign
+    def assign_task(self, args: rpc.AssignTaskArgs,
+                    timeout: float = 30.0) -> rpc.AssignTaskReply:
+        """Long-poll for work: a task, JOB_DONE once the job is over or
+        stopped, or after ``timeout`` a retry reply (task_id -2)."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            worker_id = args.worker_id
+            if worker_id < 0:
+                worker_id = self._next_worker_id
+                self._next_worker_id += 1
+            # before any assignment stamp: a poll, then an assignment in
+            # one call reads as polled before held
+            self.worker_health.saw(worker_id)
             while True:
-                if self._stopped or (self._all(self.maps)
-                                     and self._all(self.reduces)):
-                    return Assignment(None)
-                self._sweep(TaskType.MAP, self.maps)
-                self._sweep(TaskType.REDUCE, self.reduces)
-                for t in self.maps:
-                    if t.state is TaskState.UNASSIGNED:
-                        return self._assign(TaskType.MAP, t,
-                                            filename=t.file,
-                                            filenames=list(t.files))
-                if self._all(self.maps):
-                    for t in self.reduces:
-                        if t.state is TaskState.UNASSIGNED:
-                            return self._assign(TaskType.REDUCE, t,
-                                                files=list(t.task_files))
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    return None
-                self._cv.wait(min(left, self.task_timeout_s))
+                if self._stopped or self._done_locked():
+                    return rpc.AssignTaskReply(
+                        assignment=rpc.Assignment.JOB_DONE,
+                        worker_id=worker_id)
+                quarantine_s = self.worker_health.quarantine_remaining(
+                    worker_id)
+                if quarantine_s > 0:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return rpc.AssignTaskReply(
+                            assignment="retry", task_id=-2,
+                            worker_id=worker_id,
+                            retry_after_s=round(quarantine_s, 3))
+                    self._cond.wait(min(remaining, quarantine_s,
+                                        self.sweep_interval_s))
+                    continue
+                while self._map_queue and (
+                        self.map_tasks[self._map_queue[0]].state
+                        is not TaskState.UNASSIGNED):
+                    # a stale entry: re-enqueued, then completed by its
+                    # first attempt (or already re-assigned)
+                    self._map_queue.popleft()
+                if self._map_queue:
+                    task = self.map_tasks[self._map_queue.popleft()]
+                    self._start_attempt(task, worker_id, "map")
+                    return rpc.AssignTaskReply(
+                        assignment=rpc.Assignment.MAP, filename=task.file,
+                        filenames=list(task.files), task_id=task.task_id,
+                        n_reduce=self.n_reduce, worker_id=worker_id,
+                        app_options=self.app_options,
+                        task_timeout_s=self.task_timeout_s, epoch=self.epoch)
+                while self._reduce_queue and (
+                        self.reduce_tasks[self._reduce_queue[0]].state
+                        is not TaskState.UNASSIGNED):
+                    self._reduce_queue.popleft()
+                if self._map_phase_done_locked() and self._reduce_queue:
+                    task = self.reduce_tasks[self._reduce_queue.popleft()]
+                    self._start_attempt(task, worker_id, "reduce")
+                    return rpc.AssignTaskReply(
+                        assignment=rpc.Assignment.REDUCE,
+                        task_id=task.task_id, n_reduce=self.n_reduce,
+                        worker_id=worker_id, app_options=self.app_options,
+                        task_timeout_s=self.task_timeout_s, epoch=self.epoch)
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return rpc.AssignTaskReply(assignment="retry", task_id=-2,
+                                               worker_id=worker_id)
+                self._cond.wait(min(remaining, self.sweep_interval_s))
 
-    def _assign(self, kind: TaskType, t, **fields) -> Assignment:
-        t.state = TaskState.IN_PROGRESS
-        t.heartbeat()
-        self.counters[f"{kind.value}_assigned"] += 1
-        return Assignment(kind, t.task_id, n_reduce=self.n_reduce,
-                          app_options=dict(self.app_options), **fields)
+    def _start_attempt(self, task, worker_id: int, kind: str) -> None:
+        task.state = TaskState.IN_PROGRESS
+        task.heartbeat()
+        task.attempts += 1
+        task.worker = worker_id
+        task.stamped = False  # no evidence from the worker yet
+        self.counters[f"{kind}_assigned"] += 1
+        log.debug("assign %s task %d -> worker %d", kind, task.task_id,
+                  worker_id)
 
-    def heartbeat(self, kind: TaskType, task_id: int,
-                  grace_s: float = 0.0) -> None:
+    # -------------------------------------------------------- completion
+    def map_finished(self, args: rpc.TaskFinishedArgs) -> rpc.TaskFinishedReply:
+        """Idempotent map commit."""
+        record = self._resolve_commit("map", args.task_id)
+        try:
+            with self._cond:
+                self.worker_health.record_success(args.worker_id)
+                task = self.map_tasks[args.task_id]
+                if task.state is TaskState.COMPLETED:
+                    self._add_metrics_locked(args.metrics, accepted=False)
+                    return rpc.TaskFinishedReply(ok=True)  # a duplicate
+                task.state = TaskState.COMPLETED
+                self._maps_completed += 1
+                # the commit record, when it resolves, says what was
+                # produced; the RPC's args otherwise
+                parts = args.produced_parts
+                if record is not None and "parts" in record:
+                    parts = record["parts"]
+                self._register_map_outputs(args.task_id, parts)
+                self.counters["map_completed"] += 1
+                self._add_metrics_locked(args.metrics, accepted=True)
+                if self.journal and ("map", args.task_id) not in self._journaled:
+                    self._journaled.add(("map", args.task_id))
+                    self._pending_journal.append((
+                        "map", args.task_id, task.file, parts,
+                        record is not None, list(task.files) or None))
+                log.info("map task %d done (%d/%d)", args.task_id,
+                         self._maps_completed, len(self.map_tasks))
+                self._cond.notify_all()
+                return rpc.TaskFinishedReply(ok=True)
+        finally:
+            self._flush_journal()  # fsync before the reply leaves
+
+    def _register_map_outputs(self, map_task_id: int,
+                              produced_parts: list[int]) -> None:
+        """Register a committed map task's files with their partitions
+        (only the partitions it produced records for)."""
+        for r in produced_parts:
+            if 0 <= r < self.n_reduce:
+                name = f"mr-{map_task_id}-{r}"
+                if name not in self.reduce_tasks[r].task_files:
+                    self.reduce_tasks[r].task_files.append(name)
+
+    def reduce_finished(self, args: rpc.TaskFinishedArgs
+                        ) -> rpc.TaskFinishedReply:
+        record = self._resolve_commit("reduce", args.task_id)
+        try:
+            with self._cond:
+                self.worker_health.record_success(args.worker_id)
+                task = self.reduce_tasks[args.task_id]
+                accepted = task.state is not TaskState.COMPLETED
+                if accepted:
+                    task.state = TaskState.COMPLETED
+                    self._reduces_completed += 1
+                    self.counters["reduce_completed"] += 1
+                    if self.journal and (("reduce", args.task_id)
+                                         not in self._journaled):
+                        self._journaled.add(("reduce", args.task_id))
+                        self._pending_journal.append((
+                            "reduce", args.task_id, None, None,
+                            record is not None, None))
+                    log.info("reduce task %d done (%d/%d)", args.task_id,
+                             self._reduces_completed, self.n_reduce)
+                self._add_metrics_locked(args.metrics, accepted=accepted)
+                self._cond.notify_all()
+                return rpc.TaskFinishedReply(ok=True)
+        finally:
+            self._flush_journal()
+
+    # ------------------------------------------------- streaming shuffle
+    def reduce_next_file(self, args: rpc.ReduceNextFileArgs,
+                         timeout: float = 30.0) -> rpc.ReduceNextFileReply:
+        """The streaming shuffle: block until the reducer's next
+        intermediate file exists, or answer done once the map phase is
+        over and the cursor is exhausted.  Doubles as a heartbeat.  A
+        ``lost_file`` report re-enqueues the producing map task and
+        aborts the reporter, whose reduce task is re-enqueued too."""
+        if args.epoch and args.epoch != self.epoch:
+            # an attempt of an earlier incarnation: its cursor indexes
+            # another task_files order
+            log.warning("aborting reduce attempt for task %d: stale epoch %s "
+                        "(current %s)", args.task_id, args.epoch, self.epoch)
+            return rpc.ReduceNextFileReply(abort=True)
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            if args.lost_file and self._report_lost_locked(args):
+                return rpc.ReduceNextFileReply(abort=True)
+            task = self.reduce_tasks[args.task_id]
+            while True:
+                task.heartbeat()
+                if args.worker_id < 0 or args.worker_id == task.worker:
+                    task.stamped = True
+                if args.files_processed < len(task.task_files):
+                    name = task.task_files[args.files_processed]
+                    producer = _producer_task_of(name)
+                    if (producer is None or self.map_tasks[producer].state
+                            is TaskState.COMPLETED):
+                        return rpc.ReduceNextFileReply(next_file=name)
+                    # its producer runs again (a lost file): wait as for a
+                    # file that has not arrived
+                elif self._map_phase_done_locked():
+                    return rpc.ReduceNextFileReply(done=True)
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return rpc.ReduceNextFileReply()  # the client re-polls
+                self._cond.wait(min(remaining, self.sweep_interval_s))
+
+    def _report_lost_locked(self, args: rpc.ReduceNextFileArgs) -> bool:
+        """A reducer could not read a registered intermediate file: the
+        producing map task is re-enqueued (first report wins), and the
+        reporter's reduce task too, so the pool can run the map.  True
+        when the map was re-enqueued."""
+        tid = _producer_task_of(args.lost_file)
+        if tid is None or not 0 <= tid < len(self.map_tasks):
+            log.warning("ignoring a lost-file report for %r: not an "
+                        "intermediate file name", args.lost_file)
+            return False
+        task = self.map_tasks[tid]
+        if task.state is not TaskState.COMPLETED:
+            return False  # already running again: the cursor waits
+        log.warning("map task %d's file %s was lost (reported by worker %d);"
+                    " re-running the task", tid, args.lost_file,
+                    args.worker_id)
+        task.state = TaskState.UNASSIGNED
+        task.worker = -1
+        task.stamped = False
+        self._maps_completed -= 1
+        self._map_queue.append(tid)
+        self.counters["maps_lost_output"] += 1
+        self.counters["map_retries"] += 1
+        rt = (self.reduce_tasks[args.task_id]
+              if 0 <= args.task_id < len(self.reduce_tasks) else None)
+        if rt is not None and rt.state is TaskState.IN_PROGRESS and (
+                args.worker_id < 0 or rt.worker in (-1, args.worker_id)):
+            rt.state = TaskState.UNASSIGNED
+            rt.worker = -1
+            rt.stamped = False
+            self._reduce_queue.append(args.task_id)
+            self.counters["reduce_retries"] += 1
+        self._cond.notify_all()
+        return True
+
+    # ---------------------------------------------------------- liveness
+    def heartbeat(self, task_type: str, task_id: int, grace_s: float = 0.0,
+                  worker_id: int = -1) -> None:
         """Stamp an IN_PROGRESS task's liveness.  A nonzero ``grace_s``
         declares a silent phase of that many seconds; the next stamp
-        without one ends it."""
-        with self._cv:
-            t = (self.maps if kind is TaskType.MAP else self.reduces)[task_id]
-            if t.state is TaskState.IN_PROGRESS:
-                t.heartbeat(grace_s=max(0.0, float(grace_s)))
-                if grace_s > 0:
-                    self.counters["grace_declared"] += 1
+        without one ends it.  A task the sweeper already re-enqueued takes
+        no stamp (a straggler must not resurrect it)."""
+        with self._cond:
+            table = self.map_tasks if task_type == "map" else self.reduce_tasks
+            if not 0 <= task_id < len(table):
+                return
+            task = table[task_id]
+            if task.state is not TaskState.IN_PROGRESS:
+                return
+            g = max(0.0, float(grace_s))
+            task.heartbeat(grace_s=g)
+            if worker_id < 0 or worker_id == task.worker:
+                task.stamped = True
+            self.counters["heartbeats"] += 1
+            if g > 0:
+                self.counters["grace_declared"] += 1
 
-    def add_seconds(self, stage: str, seconds: float) -> None:
-        with self._cv:
-            self.seconds[stage] += seconds
+    def sweep(self) -> bool:
+        """One pass of the failure detector: re-enqueue every IN_PROGRESS
+        task silent for longer than max(task_timeout_s, its grace), and
+        charge the worker that held it when there is evidence it held it
+        (a stamp) or is gone (no poll since).  True if any was."""
+        requeued = False
+        failed: set[int] = set()
+        with self._cond:
+            now = time.monotonic()
+            for kind, table, queue in (
+                    ("map", self.map_tasks, self._map_queue),
+                    ("reduce", self.reduce_tasks, self._reduce_queue)):
+                for task in table:
+                    if (task.state is TaskState.IN_PROGRESS
+                            and now - task.timestamp
+                            >= max(self.task_timeout_s, task.grace_s)):
+                        log.warning("%s task %d timed out; re-enqueueing",
+                                    kind, task.task_id)
+                        if task.stamped or not self.worker_health.polled_since(
+                                task.worker, task.timestamp):
+                            failed.add(task.worker)
+                        task.state = TaskState.UNASSIGNED
+                        task.worker = -1
+                        queue.append(task.task_id)
+                        requeued = True
+                        self.counters[f"{kind}_retries"] += 1
+                        self.counters["tasks_requeued"] += 1
+            for wid in sorted(failed):
+                window = self.worker_health.record_failure(wid)
+                if window > 0:
+                    log.warning("worker %d quarantined for %.1fs after %d "
+                                "consecutive task timeouts", wid, window,
+                                QUARANTINE_AFTER_FAILURES)
+                    self.counters["workers_quarantined"] += 1
+            if requeued:
+                self._cond.notify_all()
+        return requeued
 
-    def add_count(self, name: str, n: int) -> None:
-        with self._cv:
-            self.counters[name] += n
+    def _sweep_loop(self) -> None:
+        while True:
+            with self._cond:
+                if self._stopped or self._done_locked():
+                    return
+            self.sweep()
+            time.sleep(self.sweep_interval_s)
 
-    def map_finished(self, task_id: int, parts: list[int]) -> bool:
-        """Register a committed map attempt; False if the task was already
-        completed by another attempt (first commit wins)."""
-        with self._cv:
-            t = self.maps[task_id]
-            if t.state is TaskState.COMPLETED:
-                return False
-            t.state = TaskState.COMPLETED
-            for r in parts:
-                self.reduces[r].task_files.append(f"mr-{task_id}-{r}")
-            self.counters["map_completed"] += 1
-            self._cv.notify_all()
-            return True
+    # --------------------------------------------------------- predicates
+    def _map_phase_done_locked(self) -> bool:
+        return self._maps_completed == len(self.map_tasks)
 
-    def reduce_finished(self, task_id: int) -> bool:
-        with self._cv:
-            t = self.reduces[task_id]
-            if t.state is TaskState.COMPLETED:
-                return False
-            t.state = TaskState.COMPLETED
-            self.counters["reduce_completed"] += 1
-            self._cv.notify_all()
-            return True
+    def _done_locked(self) -> bool:
+        return (self._map_phase_done_locked()
+                and self._reduces_completed == self.n_reduce)
 
-    def wait_done(self, timeout: float) -> bool:
-        with self._cv:
-            return self._cv.wait_for(
-                lambda: self._stopped or (self._all(self.maps)
-                                          and self._all(self.reduces)),
-                timeout,
-            ) and not self._stopped
+    def done(self) -> bool:
+        """A pure predicate: no side effect."""
+        with self._lock:
+            return self._done_locked()
+
+    def wait_done(self, timeout: Optional[float] = None) -> bool:
+        with self._cond:
+            return self._cond.wait_for(self._done_locked, timeout=timeout)
+
+    def stop(self) -> None:
+        with self._cond:
+            self._stopped = True
+            self._cond.notify_all()

@@ -16,6 +16,9 @@ import numpy as np
 
 from distributed_grep_tpu_torch.apps.base import KeyValue
 
+# the JSON string encoder json.dumps(..., ensure_ascii=False) uses
+_quote = json.encoder.encode_basestring
+
 _FNV_OFFSET = 2166136261
 _FNV_PRIME = 16777619
 
@@ -81,8 +84,9 @@ def encode_records(records: list) -> bytes:
             flush_jsonl()
             parts.append(columnar.encode_batch(rec))
         else:
-            jsonl.append(json.dumps([rec.key, rec.value], ensure_ascii=False)
-                         + "\n")
+            # json.dumps([key, value], ensure_ascii=False), one C string
+            # encoder call a field
+            jsonl.append(f"[{_quote(rec.key)}, {_quote(rec.value)}]\n")
     flush_jsonl()
     return b"".join(parts)
 
@@ -113,9 +117,10 @@ def decode_records(data: bytes) -> list:
 def _decode_jsonl(data: bytes) -> list[KeyValue]:
     """Splits on '\\n' only: JSON escapes '\\n' inside strings, while
     other line separators stay literal."""
-    out: list[KeyValue] = []
-    for line in data.decode("utf-8", "surrogateescape").split("\n"):
-        if line:
-            k, v = json.loads(line)
-            out.append(KeyValue(k, v))
-    return out
+    text = data.decode("utf-8", "surrogateescape").strip("\n")
+    if not text:
+        return []
+    # the lines as one JSON array, parsed in one call (a record's JSON
+    # holds no raw newline, and empty lines hold none)
+    return list(map(KeyValue._make, json.loads(
+        "[" + ",".join(x for x in text.split("\n") if x) + "]")))

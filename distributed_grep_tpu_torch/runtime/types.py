@@ -31,10 +31,17 @@ class MapTask:
     file: str  # the input path, or a batched split's label
     state: TaskState = TaskState.UNASSIGNED
     timestamp: float = 0.0  # heartbeat; stamped at assignment + mid-task
+    attempts: int = 0
     grace_s: float = 0.0  # the silent phase the last stamp declared
     # a batched split's member paths (runtime/job.plan_map_splits); () for
     # a task of one file
     files: tuple[str, ...] = ()
+    # the worker holding the current attempt (-1: none), charged when the
+    # attempt times out (scheduler.WorkerHealth)
+    worker: int = -1
+    # True once that worker stamped the attempt (a heartbeat, a shuffle
+    # fetch): proof it received the assignment
+    stamped: bool = False
 
     def heartbeat(self, grace_s: float = 0.0) -> None:
         """Stamp liveness; a later stamp without a grace clears it."""
@@ -47,9 +54,13 @@ class ReduceTask:
     task_id: int
     state: TaskState = TaskState.UNASSIGNED
     timestamp: float = 0.0
-    # Intermediate files registered as map tasks commit, read in order.
+    attempts: int = 0
+    # Intermediate files registered as map tasks commit; reducers stream
+    # them in arrival order (the streaming shuffle).
     task_files: list[str] = field(default_factory=list)
     grace_s: float = 0.0
+    worker: int = -1  # see MapTask.worker
+    stamped: bool = False  # see MapTask.stamped
 
     def heartbeat(self, grace_s: float = 0.0) -> None:
         self.timestamp = time.monotonic()

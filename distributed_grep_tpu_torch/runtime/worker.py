@@ -1,154 +1,408 @@
-"""Worker loop: ask for a task, run it, commit it, report it.
+"""Worker loop over a Transport (the reference's runtime/worker.py without
+its fused map, peer fetch and spans): ask for work, run it, commit it,
+report it.
 
 Map: run the application over one input file -- ``map_path_fn(filename,
-path)`` when the app defines it (it reads the file itself, in chunks: the
-grep app streams it through ``GrepEngine.scan_file``), else
-``map_fn(filename, contents)`` -- or over a batched split's members:
-``map_batch_fn(items)`` once, with ``(name, path)`` items when the app
-sets ``map_batch_paths`` (it reads them, or serves them from the corpus
-cache, itself) and ``(name, bytes)`` otherwise, else ``map_fn`` a member;
-bucketize the records by FNV-32a partition (columnar batches split by
-partition, runtime/columnar.py), commit one intermediate file per
-partition (atomic rename), report the partitions.  Reduce: read the partition's files into a bounded-memory
-sink that spills sorted runs into the work dir's ``spill/``: identity-
-reduce apps collate in (file, line) order (``IdentityCollator``, batches
-stay columnar), every other app groups by key (``ExternalReducer``,
-``reduce_stream_fn`` preferred to ``reduce_fn``); commit ``mr-out-<r>``
-atomically as ``key<TAB>value`` lines.
+path)`` when the app defines it and the transport gives a local path (it
+reads the file itself, in chunks: the grep app streams it through
+``GrepEngine.scan_file``; over HTTP the split is spooled to a temp file
+first), else ``map_fn(filename, contents)`` -- or over a batched split's
+members: ``map_batch_fn(items)`` once, with ``(name, path)`` items when
+the app sets ``map_batch_paths`` and the data plane is local (it reads
+them, or serves them from the corpus cache, itself) and ``(name, bytes)``
+otherwise, else ``map_fn`` a member; bucketize the records by FNV-32a
+partition (columnar batches split by partition, runtime/columnar.py),
+commit one intermediate file per partition, publish the attempt's commit
+record, report the partitions.
 
-``fault_hooks`` maps a point name (so far only "before_map_commit") to a
+Reduce: ask for the partition's intermediate files one at a time
+(``reduce_next_file``, the streaming shuffle) and feed each into a
+bounded-memory sink that spills sorted runs: identity-reduce apps collate
+in (file, line) order (``IdentityCollator``, batches stay columnar), every
+other app groups by key (``ExternalReducer``, ``reduce_stream_fn``
+preferred to ``reduce_fn``); spool ``mr-out-<r>`` as ``key<TAB>value``
+lines and commit it, publish the commit record, report it.  A registered
+file that cannot be read is reported (``lost_file``) and its map task
+runs again.
+
+Liveness: the app's progress callback stamps heartbeats (plain stamps at
+most every third of the task timeout; a ``grace_s`` stamp, the engine's
+kernel build, always goes through); apps without one, remote downloads
+and large shuffles get a pump thread that stamps while they run.
+
+Each finished RPC ships the attempt's counters and stage seconds, and,
+from a worker process, the kernel launches made since its last report.
+
+``fault_hooks`` maps a point name ("after_map_read", "before_map_commit",
+"before_map_finished", "after_reduce_file", "before_reduce_commit") to a
 callable; raising WorkerKilled from it simulates a crash at that point.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
+import os
+import sys
+import tempfile
+import threading
 import time
-from typing import Callable
+from typing import Callable, Optional
 
-from distributed_grep_tpu_torch.runtime import shuffle
-from distributed_grep_tpu_torch.runtime.columnar import IdentityCollator, LineBatch
+from distributed_grep_tpu_torch.runtime import rpc, shuffle
+from distributed_grep_tpu_torch.runtime.columnar import (
+    IdentityCollator,
+    LineBatch,
+)
 from distributed_grep_tpu_torch.runtime.extsort import ExternalReducer
-from distributed_grep_tpu_torch.runtime.scheduler import Assignment, Scheduler
-from distributed_grep_tpu_torch.runtime.types import TaskType
-from distributed_grep_tpu_torch.utils.io import WorkDir
 
-# Each reduce sink holds this much before it spills a sorted run.
+log = logging.getLogger("distributed_grep_tpu_torch.worker")
+
+# Each reduce sink holds this much before it spills a sorted run, unless
+# the job says otherwise (JobConfig.reduce_memory_bytes).
 REDUCE_MEMORY_BYTES = 128 << 20
+
+# A local shuffle leg of fewer records than this runs without a pump.
+PUMP_RECORDS = 50_000
 
 
 class WorkerKilled(Exception):
     """Raised by fault-injection hooks to simulate a worker crash."""
 
 
-class WorkerLoop:
-    def __init__(self, scheduler: Scheduler, workdir: WorkDir, app,
-                 fault_hooks: dict[str, Callable[[], None]] | None = None):
-        self.scheduler = scheduler
-        self.workdir = workdir
-        self.app = app
-        self.fault_hooks = fault_hooks or {}
+class TaskAborted(Exception):
+    """The coordinator fenced this attempt off: abandon it with no commit
+    and no finished RPC."""
 
-    def _configure(self, a: Assignment) -> None:
-        configure = getattr(self.app, "configure", None)
-        if configure is not None:
-            configure(**a.app_options)
+
+_shipped_lock = threading.Lock()
+_shipped: dict[str, int] = {}
+
+
+def unshipped_launches() -> dict[str, int]:
+    """The kernel launches this process made since the last call, by
+    library (each launch reported once however many task loops share the
+    process); {} when no scan module was imported."""
+    ds = sys.modules.get("distributed_grep_tpu_torch.ops.device_scan")
+    if ds is None:
+        return {}
+    with _shipped_lock:
+        now = ds.kernel_launches()
+        delta = {}
+        for k, v in now.items():
+            before = _shipped.get(k, 0)
+            d = v - before if v >= before else v  # the counter was reset
+            if d:
+                delta[k] = d
+        _shipped.update(now)
+    return delta
+
+
+class WorkerLoop:
+    def __init__(self, transport, app,
+                 fault_hooks: Optional[dict[str, Callable[[], None]]] = None,
+                 reduce_memory_bytes: int | None = None,
+                 spill_dir: Optional[str] = None):
+        self.transport = transport
+        self.app = app  # a LoadedApplication (apps/loader.py)
+        self.fault_hooks = fault_hooks or {}
+        self.reduce_memory_bytes = reduce_memory_bytes
+        self.spill_dir = spill_dir
+        self.worker_id = -1
+        self.is_local = bool(getattr(transport, "is_local", False))
 
     def _fault(self, point: str) -> None:
         hook = self.fault_hooks.get(point)
         if hook:
             hook()
 
-    def run(self) -> None:
-        while True:
-            a = self.scheduler.request_task()
-            if a is None:
-                continue
-            if a.kind is None:
-                return
-            if a.kind is TaskType.MAP:
-                self._map(a)
-            else:
-                self._reduce(a)
+    # ---------------------------------------------------------- liveness
+    @staticmethod
+    def _hb_interval(window_s: float) -> float:
+        """A third of the detector window, within [50 ms, 5 s]: two chances
+        to land a stamp a window."""
+        return min(5.0, max(0.05, float(window_s) / 3.0))
 
-    def _progress(self, kind: TaskType, task_id: int):
+    def _heartbeat(self, task_type: str, task_id: int,
+                   grace_s: float = 0.0) -> None:
+        """An advisory stamp; never raises (the task's own RPCs surface a
+        transport failure)."""
+        hb = getattr(self.transport, "heartbeat", None)
+        if hb is None:
+            return
+        try:
+            hb(rpc.HeartbeatArgs(task_type=task_type, task_id=task_id,
+                                 worker_id=self.worker_id, grace_s=grace_s))
+        except Exception:  # noqa: BLE001 -- advisory by contract
+            pass
+
+    def _progress_fn(self, task_type: str, task_id: int,
+                     window_s: float) -> Callable:
+        last = [0.0]
+        min_interval = self._hb_interval(window_s)
+
         def progress(grace_s: float = 0.0) -> None:
-            self.scheduler.heartbeat(kind, task_id, grace_s=grace_s)
+            now = time.monotonic()
+            if not grace_s and now - last[0] < min_interval:
+                return
+            last[0] = now
+            self._heartbeat(task_type, task_id, grace_s=grace_s)
+
         return progress
 
-    def _map(self, a: Assignment) -> None:
-        self._configure(a)
-        set_progress = getattr(self.app, "set_progress", None)
-        if set_progress is not None:
-            set_progress(self._progress(TaskType.MAP, a.task_id))
-        map_path_fn = getattr(self.app, "map_path_fn", None)
+    def _pumping(self, task_type: str, task_id: int, interval_s: float):
+        """Stamp heartbeats from a side thread while the body runs."""
+
+        @contextlib.contextmanager
+        def ctx():
+            stop = threading.Event()
+
+            def pump() -> None:
+                while not stop.wait(interval_s):
+                    self._heartbeat(task_type, task_id)
+
+            t = threading.Thread(target=pump, name="hb-pump", daemon=True)
+            t.start()
+            try:
+                yield
+            finally:
+                stop.set()
+                t.join(timeout=interval_s + 1.0)
+
+        return ctx()
+
+    # -------------------------------------------------------------- loop
+    def run(self) -> None:
+        while True:
+            reply = self.transport.assign_task(
+                rpc.AssignTaskArgs(worker_id=self.worker_id))
+            self.worker_id = reply.worker_id
+            log.info("worker %d: %s %d", self.worker_id, reply.assignment,
+                     reply.task_id)
+            if reply.assignment == rpc.Assignment.JOB_DONE:
+                log.info("worker %d: job done, exiting", self.worker_id)
+                return
+            if reply.assignment == rpc.Assignment.MAP:
+                self._run_map(reply)
+            elif reply.assignment == rpc.Assignment.REDUCE:
+                self._run_reduce(reply)
+            elif reply.retry_after_s > 0:
+                # quarantined: sleep a bounded slice of the hinted window
+                time.sleep(min(reply.retry_after_s, 5.0))
+            # else a retry: the long-poll window expired
+
+    def _publish_commit(self, kind: str, task_id: int, attempt: str,
+                        payload: dict) -> None:
+        publish = getattr(self.transport, "publish_task_commit", None)
+        if publish is not None:
+            publish(kind, task_id, attempt, payload)
+
+    def _metrics(self, counters: dict, seconds: dict) -> dict:
+        out = {"counters": counters, "seconds": seconds}
+        if not self.is_local:
+            launches = unshipped_launches()
+            if launches:
+                out["launches"] = launches
+        return out
+
+    # --------------------------------------------------------------- map
+    def _read_members(self, names: list[str], want_paths: bool) -> list:
+        """A split's members as (name, bytes) items, or (name, local path)
+        on a local data plane when the app takes paths."""
+        if want_paths and self.is_local and hasattr(self.transport,
+                                                    "read_input_path"):
+            return [(n, str(self.transport.read_input_path(n)[0]))
+                    for n in names]
+        return [(n, self.transport.read_input(n)) for n in names]
+
+    def _run_map(self, a: rpc.AssignTaskReply) -> None:
+        from distributed_grep_tpu_torch.runtime.store import new_attempt_id
+
+        attempt = new_attempt_id()
+        produced, metrics = self._map_attempt(a, attempt)
+        self._fault("before_map_finished")
+        self.transport.map_finished(rpc.TaskFinishedArgs(
+            task_id=a.task_id, worker_id=self.worker_id,
+            produced_parts=produced, metrics=metrics))
+
+    def _map_attempt(self, a: rpc.AssignTaskReply,
+                     attempt: str) -> tuple[list[int], dict]:
+        self.app.configure(**a.app_options)
+        use_path = (self.app.map_path_fn is not None
+                    and hasattr(self.transport, "read_input_path"))
+        has_progress = self.app.set_progress(
+            self._progress_fn("map", a.task_id, a.task_timeout_s))
+        pump_s = min(2.0, self._hb_interval(a.task_timeout_s))
+
+        def compute_guard():
+            # an app without progress gets coarse liveness over its compute
+            return (contextlib.nullcontext() if has_progress
+                    else self._pumping("map", a.task_id, pump_s))
+
+        def download_guard():
+            return (contextlib.nullcontext() if self.is_local
+                    else self._pumping("map", a.task_id, pump_s))
+
         t0 = time.perf_counter()
         try:
             if a.filenames:
-                records, t1 = self._map_split(a.filenames, t0)
-            elif map_path_fn is not None:
-                t1 = t0  # the app reads the file itself, inside map_fn
-                records = map_path_fn(a.filename, a.filename)
-            else:
-                with open(a.filename, "rb") as f:
-                    contents = f.read()
+                batch_fn = self.app.map_batch_fn
+                with download_guard():
+                    items = self._read_members(
+                        a.filenames,
+                        want_paths=batch_fn is not None
+                        and self.app.map_batch_paths)
+                self._fault("after_map_read")
                 t1 = time.perf_counter()
-                records = self.app.map_fn(a.filename, contents)
+                with compute_guard():
+                    if batch_fn is not None:
+                        records = batch_fn(items)
+                    else:
+                        records = [r for name, b in items
+                                   for r in self.app.map_fn(name, b)]
+            elif use_path:
+                with download_guard():
+                    path, is_temp = self.transport.read_input_path(a.filename)
+                try:
+                    self._fault("after_map_read")
+                    t1 = time.perf_counter()
+                    with compute_guard():
+                        records = self.app.map_path_fn(a.filename, str(path))
+                finally:
+                    if is_temp:
+                        os.unlink(path)
+            else:
+                with download_guard():
+                    contents = self.transport.read_input(a.filename)
+                self._fault("after_map_read")
+                t1 = time.perf_counter()
+                with compute_guard():
+                    records = self.app.map_fn(a.filename, contents)
         finally:
-            if set_progress is not None:
-                set_progress(None)
+            if has_progress:
+                self.app.set_progress(None)
         t2 = time.perf_counter()
-        buckets = shuffle.bucketize(records, a.n_reduce)
-        self._fault("before_map_commit")
-        for r, recs in sorted(buckets.items()):
-            self.workdir.write_intermediate(f"mr-{a.task_id}-{r}",
-                                            shuffle.encode_records(recs))
-        self.scheduler.add_seconds("map_read", t1 - t0)
-        self.scheduler.add_seconds("map_fn", t2 - t1)
-        self.scheduler.add_seconds("map_shuffle", time.perf_counter() - t2)
-        if self.scheduler.map_finished(a.task_id, sorted(buckets)):
-            batches = [rec for rec in records if isinstance(rec, LineBatch)]
-            self.scheduler.add_count("map_batches", len(batches))
-            self.scheduler.add_count("map_records", len(records) - len(batches)
-                                     + sum(len(b) for b in batches))
 
-    def _map_split(self, names: list[str], t0: float) -> tuple[list, float]:
-        """A batched split's records, and when its reads ended."""
-        batch_fn = getattr(self.app, "map_batch_fn", None)
-        if batch_fn is not None and getattr(self.app, "map_batch_paths",
-                                            False):
-            return batch_fn([(n, n) for n in names]), t0
-        items = []
-        for name in names:
-            with open(name, "rb") as f:
-                items.append((name, f.read()))
-        t1 = time.perf_counter()
-        if batch_fn is not None:
-            return batch_fn(items), t1
-        return [r for name, b in items for r in self.app.map_fn(name, b)], t1
+        def shuffle_guard():
+            # a dense map's shuffle can outlast the window by itself; a
+            # remote push can stall at any size
+            if self.is_local and sum(
+                    len(r) if isinstance(r, LineBatch) else 1
+                    for r in records) < PUMP_RECORDS:
+                return contextlib.nullcontext()
+            return self._pumping("map", a.task_id, pump_s)
 
-    def _reduce(self, a: Assignment) -> None:
-        self._configure(a)
+        with shuffle_guard():
+            buckets = shuffle.bucketize(records, a.n_reduce)
+            self._fault("before_map_commit")
+            produced = []
+            for r, recs in sorted(buckets.items()):
+                self.transport.write_intermediate(
+                    f"mr-{a.task_id}-{r}", shuffle.encode_records(recs))
+                produced.append(r)
+            self._publish_commit("map", a.task_id, attempt,
+                                 {"parts": produced})
+        batches = [rec for rec in records if isinstance(rec, LineBatch)]
+        counters = {"map_batches": len(batches),
+                    "map_records": len(records) - len(batches)
+                    + sum(len(b) for b in batches)}
+        seconds = {"map_read": t1 - t0, "map_fn": t2 - t1,
+                   "map_shuffle": time.perf_counter() - t2}
+        return produced, self._metrics(counters, seconds)
+
+    # ------------------------------------------------------------ reduce
+    def _run_reduce(self, a: rpc.AssignTaskReply) -> None:
+        from distributed_grep_tpu_torch.runtime.store import new_attempt_id
+
+        attempt = new_attempt_id()
+        try:
+            metrics = self._reduce_attempt(a, attempt)
+        except TaskAborted:
+            log.warning("reduce task %d attempt abandoned: fenced off by "
+                        "the coordinator", a.task_id)
+            return
+        self.transport.reduce_finished(rpc.TaskFinishedArgs(
+            task_id=a.task_id, worker_id=self.worker_id, metrics=metrics))
+
+    def _reduce_attempt(self, a: rpc.AssignTaskReply, attempt: str) -> dict:
+        self.app.configure(**a.app_options)
         t0 = time.perf_counter()
-        spill_dir = str(self.workdir.spill_dir())
-        if getattr(self.app, "reduce_is_identity", False):
-            sink = IdentityCollator(REDUCE_MEMORY_BYTES, spill_dir)
-            blocks = sink.iter_output_blocks
+        if self.spill_dir:
+            os.makedirs(self.spill_dir, exist_ok=True)
+        memory = (self.reduce_memory_bytes if self.reduce_memory_bytes
+                  is not None else REDUCE_MEMORY_BYTES)
+        if getattr(self.app.module, "reduce_is_identity", False):
+            sink = IdentityCollator(memory, self.spill_dir)
+            chunks = sink.iter_output_blocks  # bytes a batch, str a record
+            progress_stride = 64
         else:
-            sink = ExternalReducer(REDUCE_MEMORY_BYTES, spill_dir)
-            stream_fn = getattr(self.app, "reduce_stream_fn", None)
+            sink = ExternalReducer(memory, self.spill_dir)
+            stream_fn = self.app.reduce_stream_fn
 
-            def blocks():
+            def chunks():
                 for k, v in sink.reduce(self.app.reduce_fn, stream_fn):
                     yield f"{k}\t{v}\n"
+
+            progress_stride = 4096
         try:
-            for name in a.files:
-                sink.add_many(shuffle.decode_records(
-                    self.workdir.read_intermediate(name)))
-                self.scheduler.heartbeat(TaskType.REDUCE, a.task_id)
-            self.workdir.write_output_blocks(a.task_id, blocks())
+            files_processed = 0
+            lost = ""
+            while True:
+                r = self.transport.reduce_next_file(rpc.ReduceNextFileArgs(
+                    task_id=a.task_id, files_processed=files_processed,
+                    epoch=a.epoch, worker_id=self.worker_id, lost_file=lost))
+                lost = ""
+                if r.abort:
+                    raise TaskAborted(a.task_id)
+                if r.done:
+                    break
+                if not r.next_file:
+                    continue  # the long-poll window expired: poll again
+                try:
+                    data = self.transport.read_intermediate(r.next_file)
+                except (OSError, RuntimeError) as e:
+                    # a registered file gone from the store: report it on
+                    # the next poll, the cursor unmoved
+                    log.warning("intermediate file %s unreadable (%s); "
+                                "reporting it lost", r.next_file, e)
+                    lost = r.next_file
+                    continue
+                sink.add_many(shuffle.decode_records(data))
+                files_processed += 1
+                self._fault("after_reduce_file")
+            self._write_reduce_output(a, chunks(), progress_stride)
             spills = sink.spill_count
         finally:
             sink.close()
-        self.scheduler.add_seconds("reduce", time.perf_counter() - t0)
-        if self.scheduler.reduce_finished(a.task_id):
-            self.scheduler.add_count("reduce_spills", spills)
+        self._publish_commit("reduce", a.task_id, attempt,
+                             {"output": f"mr-out-{a.task_id}"})
+        return self._metrics({"reduce_spills": spills},
+                             {"reduce": time.perf_counter() - t0})
+
+    def _write_reduce_output(self, a: rpc.AssignTaskReply, chunks,
+                             progress_stride: int) -> None:
+        """Spool the output locally, then commit it: its size never
+        bounds on memory.  Stamps keep a long merge alive."""
+        fd, spool = tempfile.mkstemp(prefix="dgrep-redout-",
+                                     dir=self.spill_dir or None)
+        try:
+            progress = self._progress_fn("reduce", a.task_id,
+                                         a.task_timeout_s)
+            with os.fdopen(fd, "wb") as out:
+                for i, chunk in enumerate(chunks):
+                    out.write(chunk if isinstance(chunk, bytes)
+                              else chunk.encode("utf-8", "surrogateescape"))
+                    if i % progress_stride == 0:
+                        progress()
+            self._fault("before_reduce_commit")
+            wof = getattr(self.transport, "write_output_from_file", None)
+            if wof is not None:
+                wof(f"mr-out-{a.task_id}", spool)
+            else:
+                with open(spool, "rb") as f:
+                    self.transport.write_output(f"mr-out-{a.task_id}",
+                                                f.read())
+        finally:
+            # the transport may have consumed the spool (a rename)
+            if os.path.exists(spool):
+                os.unlink(spool)

@@ -15,6 +15,7 @@ from distributed_grep_tpu.runtime.job import plan_map_splits as ref_plan
 from distributed_grep_tpu.runtime.job import run_job as ref_run_job
 from distributed_grep_tpu.utils.config import JobConfig as RefJobConfig
 from distributed_grep_tpu_torch.apps import grep_cuda
+from distributed_grep_tpu_torch.apps.loader import from_module
 from distributed_grep_tpu_torch.ops import engine as engine_mod
 from distributed_grep_tpu_torch.ops import layout
 from distributed_grep_tpu_torch.ops.engine import GrepEngine
@@ -252,11 +253,12 @@ def _ref_job(tmp_path, files, opts, n_reduce, batch_bytes):
         n_workers=2)
 
 
-def _port_job(tmp_path, files, opts, n_reduce, batch_bytes, name="port"):
+def _port_job(tmp_path, files, opts, n_reduce, batch_bytes, name="port",
+              app=None):
     return run_job(JobConfig(
         input_files=files, app_options={**opts, **ENGINE_OPTS},
         n_reduce=n_reduce, work_dir=str(tmp_path / name),
-        batch_bytes=batch_bytes), n_workers=2, device="cpu")
+        batch_bytes=batch_bytes), n_workers=2, device="cpu", app=app)
 
 
 JOB_OPTIONS = [
@@ -315,7 +317,10 @@ def test_job_without_map_batch_fn_maps_each_member(tmp_path, small_files,
     want = _outputs(_port_job(tmp_path, small_files, opts, 3, 0,
                               "solo").output_files)
     monkeypatch.delattr(grep_cuda, "map_batch_fn")
-    res = _port_job(tmp_path, small_files, opts, 3, 1 << 20)
+    # the module as patched (run_job would load a fresh instance)
+    res = _port_job(tmp_path, small_files, opts, 3, 1 << 20,
+                    app=from_module(grep_cuda))
+    assert res.metrics["counters"]["map_batches"] > 0
     assert res.metrics["counters"]["map_completed"] < len(small_files)
     assert _outputs(res.output_files) == want
 

@@ -498,6 +498,7 @@ def test_warm_run_job_reads_and_uploads_nothing(tmp_path, monkeypatch):
     second job reads no file, uploads no segment and writes the same
     mr-out bytes."""
     from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.apps.loader import from_module
 
     monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", "20000")
     d = tmp_path / "in"
@@ -514,7 +515,8 @@ def test_warm_run_job_reads_and_uploads_nothing(tmp_path, monkeypatch):
             app_options={"pattern": "hello", "corpus_bytes": BUDGET,
                          **ENGINE_OPTS},
             n_reduce=3, work_dir=str(tmp_path / name),
-            batch_bytes=1 << 20), n_workers=2, device="cpu")
+            batch_bytes=1 << 20), n_workers=2, device="cpu",
+            app=from_module(grep_cuda))  # the module whose engine is read
         t = grep_cuda._engine.totals
         return res, {k: t.get(k, 0)
                      for k in ("file_reads", "uploads", "resident_segments")}

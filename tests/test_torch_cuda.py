@@ -671,6 +671,7 @@ def test_packed_job_on_card_byte_identical_to_cpu(card, tmp_path,
     packed windows of 512 KiB on the card's kernels (every window is past
     the small-input bound of 128 KiB, so none takes the host)."""
     from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.apps.loader import from_module
     from distributed_grep_tpu_torch.ops.device_scan import kernel_launches
 
     monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", str(128 << 10))
@@ -682,7 +683,8 @@ def test_packed_job_on_card_byte_identical_to_cpu(card, tmp_path,
             input_files=files, batch_bytes=512 << 10,
             app_options={"pattern": pattern, "target_lanes": 4096,
                          "min_chunk": 32, "segment_bytes": 1 << 18},
-            work_dir=str(tmp_path / device)), n_workers=2, device=device)
+            work_dir=str(tmp_path / device)), n_workers=2, device=device,
+            app=from_module(grep_cuda))  # its engine is read
         outs[device] = {Path(p).name: Path(p).read_bytes()
                         for p in res.output_files}
         totals = grep_cuda._engine.totals
@@ -703,6 +705,7 @@ def test_warm_corpus_job_on_card_byte_identical_to_cpu(card, tmp_path,
     the second reads no file and uploads nothing, its segments resident
     on the card; both equal the job on the CPU."""
     from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.apps.loader import from_module
     from distributed_grep_tpu_torch.ops import layout as layout_mod
 
     monkeypatch.delenv("DGREP_CORPUS_BYTES", raising=False)
@@ -721,7 +724,9 @@ def test_warm_corpus_job_on_card_byte_identical_to_cpu(card, tmp_path,
         res = run_job(JobConfig(input_files=files, batch_bytes=512 << 10,
                                 app_options=opts,
                                 work_dir=str(tmp_path / name)),
-                      n_workers=2, device=device)
+                      n_workers=2, device=device,
+                      app=from_module(grep_cuda))  # its engine is read
+
         outs[name] = {Path(p).name: Path(p).read_bytes()
                       for p in res.output_files}
         t = grep_cuda._engine.totals

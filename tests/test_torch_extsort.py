@@ -12,7 +12,6 @@ from distributed_grep_tpu.runtime.extsort import ExternalReducer as RefReducer
 from distributed_grep_tpu.runtime.job import run_job as ref_run_job
 from distributed_grep_tpu.utils.config import JobConfig as RefJobConfig
 from distributed_grep_tpu_torch.apps.base import KeyValue
-from distributed_grep_tpu_torch.runtime import worker as worker_mod
 from distributed_grep_tpu_torch.runtime.extsort import ExternalReducer
 from distributed_grep_tpu_torch.runtime.job import run_job
 from distributed_grep_tpu_torch.utils.config import JobConfig
@@ -75,10 +74,9 @@ def test_non_identity_job_equals_reference(tmp_path, monkeypatch,
                                    work_dir=str(tmp_path / "ref"),
                                    reduce_memory_bytes=reduce_memory_bytes),
                       n_workers=2)
-    monkeypatch.setattr(worker_mod, "REDUCE_MEMORY_BYTES",
-                        reduce_memory_bytes)
     port = run_job(JobConfig(input_files=files, application=app,
-                             work_dir=str(tmp_path / "port")),
+                             work_dir=str(tmp_path / "port"),
+                             reduce_memory_bytes=reduce_memory_bytes),
                    n_workers=2, device="cpu")
     out = {p.name: p.read_bytes() for p in port.output_files}
     assert out == {p.name: p.read_bytes() for p in ref.output_files}

@@ -10,7 +10,6 @@ from distributed_grep_tpu.utils.config import JobConfig as RefJobConfig
 from distributed_grep_tpu_torch.apps.base import KeyValue
 from distributed_grep_tpu_torch.ops import engine as engine_mod
 from distributed_grep_tpu_torch.runtime import shuffle
-from distributed_grep_tpu_torch.runtime import worker as worker_mod
 from distributed_grep_tpu_torch.runtime.columnar import LineBatch
 from distributed_grep_tpu_torch.runtime.job import run_job
 from distributed_grep_tpu_torch.utils.config import JobConfig
@@ -129,10 +128,9 @@ def test_dense_output_stays_columnar_end_to_end(tmp_path, corpus,
     assert _outputs(port.output_files) == _outputs(ref.output_files)
     KeyValue("k", "v")
     assert kv_made == [("k", "v")]  # the probe sees a construction
-    monkeypatch.setattr(worker_mod, "REDUCE_MEMORY_BYTES", 4096)
     spilled = run_job(JobConfig(
         input_files=corpus, app_options={"pattern": "the", **ENGINE_OPTS},
-        work_dir=str(tmp_path / "spill")),
+        work_dir=str(tmp_path / "spill"), reduce_memory_bytes=4096),
         n_workers=2, device="cpu")
     assert spilled.metrics["counters"]["reduce_spills"] >= 2
     assert _outputs(spilled.output_files) == _outputs(ref.output_files)

@@ -231,6 +231,21 @@ res = run_job(JobConfig(input_files=[{str(src)!r}],
                         work_dir={str(tmp_path / "w")!r}),
               n_workers=1, device="cpu")
 assert sum(1 for _ in res.iter_results()) == 1
+# the control plane: a coordinator and a worker loop over HTTP, and the
+# host apps through the loader
+from distributed_grep_tpu_torch.apps.loader import load_application
+from distributed_grep_tpu_torch.runtime.http_coordinator import CoordinatorServer
+from distributed_grep_tpu_torch.runtime.http_transport import run_http_worker
+srv = CoordinatorServer(JobConfig(input_files=[{str(src)!r}],
+                                  app_options={{"pattern": "volcano", "device": "cpu"}},
+                                  work_dir={str(tmp_path / "h")!r},
+                                  coordinator_port=0, n_reduce=2))
+srv.start()
+run_http_worker(f"127.0.0.1:{{srv.port}}")
+assert srv.wait_done(5.0)
+srv.shutdown(linger_s=0.0)
+for name in ("grep", "wordcount", "inverted_index"):
+    load_application("distributed_grep_tpu_torch.apps." + name)
 import os
 os.environ["DGREP_SWAR"] = "1"
 res = run_job(JobConfig(input_files=[{str(src)!r}],
