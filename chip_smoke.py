@@ -2,7 +2,8 @@
 """Smoke run of distributed_grep_tpu_torch on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--file-mb 128] [--n-files 8]
-        [--workers 2] [--kernels-only | --warm-only | --control-only]
+        [--workers 2] [--kernels-only | --warm-only | --control-only |
+        --telemetry-only]
 
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
@@ -184,6 +185,27 @@ Phase 3c the control plane, every job's kernels launched in worker
          seconds to its first map, its last map commit, done, and its
          workers' exits), data-plane bytes and seconds, RPCs, re-issues,
          quarantines and shipped launches.
+Phase 3d the telemetry (utils/spans.py, utils/trace.py, utils/metrics.py):
+         (a) 'volcano' over the word files in this process with the span
+         pipeline on and DGREP_TRACE_DIR set, the launch counts zeroed
+         just before: its mr-out bytes equal phase 3's untraced job's,
+         events.jsonl holds a map:task span a map and a reduce:task span
+         a reduce, the scan:* records' bytes add up to the input's, none
+         fell back, and the torch.profiler trace (CPU and CUDA activity)
+         holds as many Shift-And kernels (matched by the substring
+         ``shift_and_kernel``) as the launch counter counted and the
+         worker threads' map_read/map_compute regions; a trace with no
+         kernel fails the phase.  It logs the card's busy share over the
+         traced window (the union of the kernels' intervals over the
+         trace's first-to-last event).  (b) config 3's set through
+         ``coordinator --config`` with ``"spans": true`` and two worker
+         processes (one of two slots): ``status --addr`` read while a map
+         runs, GET /metrics read once the job is done (one map and one
+         reduce phase, an assign poll per answered AssignTask at most, the
+         re-issues), ``trace-export`` of its work dir (a coordinator row
+         and a row per worker), the same mr-out bytes as phase 3's; it
+         logs each worker's first assign_map after the coordinator's
+         start, beside the seconds its processes were started at.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -3102,7 +3124,7 @@ class ControlJob:
     first assigned, every map had committed, and the job was done."""
 
     def __init__(self, name: str, files: list[Path], app_options: dict,
-                 application: str | None = None):
+                 application: str | None = None, spans: bool = False):
         self.port = free_port()
         self.work = WORK / f"control-{name}"
         self.work.mkdir(parents=True, exist_ok=True)
@@ -3112,6 +3134,8 @@ class ControlJob:
                "task_timeout_s": CONTROL_TIMEOUT_S}
         if application:
             cfg["application"] = application
+        if spans:
+            cfg["spans"] = True
         self.cfg = self.work / "job.json"
         self.cfg.write_text(json.dumps(cfg))
         self.procs: list[subprocess.Popen] = []
@@ -3122,6 +3146,7 @@ class ControlJob:
         self.t0 = time.perf_counter()
 
     def coordinator(self, resume: bool = False) -> subprocess.Popen:
+        self.t0_wall = time.time()  # the span log's clock
         self.coord = port_proc(["coordinator", "--config", str(self.cfg),
                                 *(["--resume"] if resume else [])],
                                env={"DGREP_LOG": "INFO"})
@@ -3129,8 +3154,10 @@ class ControlJob:
         return self.coord
 
     def worker(self, slots: int) -> subprocess.Popen:
+        started_at = time.time()
         w = port_proc(["worker", "--addr", f"127.0.0.1:{self.port}",
                        "--slots", str(slots)], env={"DGREP_LOG": "INFO"})
+        w.started_at = started_at
         self.workers.append(w)
         self.procs.append(w)
         return w
@@ -3162,10 +3189,18 @@ class ControlJob:
         proc.wait()
         self.killed.add(id(proc))
 
-    def finish(self) -> dict:
+    def finish(self, on_done=None) -> dict:
         """Wait for the job: the coordinator prints one JSON line naming
-        every output (its workers are checked by ``check_workers``)."""
-        self.poll_until(lambda st: st.get("done"))
+        every output (its workers are checked by ``check_workers``).
+        ``on_done()`` runs at the first poll that reads the job done,
+        while the coordinator still serves."""
+
+        def done(st) -> bool:
+            if st.get("done") and on_done is not None:
+                on_done()
+            return bool(st.get("done"))
+
+        self.poll_until(done)
         out, _ = self.coord.communicate(timeout=120)
         self.t_finish = time.perf_counter()
         self.wall = self.t_finish - self.t0
@@ -3368,6 +3403,280 @@ def phase_control_plane(words: list[Path], set3: list[bytes],
     return result
 
 
+# Phase 3d: the telemetry.  The traced job's Shift-And kernels are found in
+# the profiler's trace by this substring of their (mangled or demangled)
+# names; no symbol is written out.
+TRACED_KERNEL = "shift_and_kernel"
+
+
+def prom_value(text: str, name: str) -> float | None:
+    """The value of an unlabeled sample in Prometheus text, or None."""
+    m = re.search(rf"^{re.escape(name)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+_LOG_LINE = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) \S+ \S+: "
+                       r"(.*)$")
+
+
+def log_lines(proc):
+    """(wall time, message) of each line a port process logged with
+    DGREP_LOG (its asctime is the local time, to the millisecond)."""
+    for line in proc.err_lines:
+        m = _LOG_LINE.match(line.rstrip("\n"))
+        if m:
+            yield (time.mktime(time.strptime(m[1], "%Y-%m-%d %H:%M:%S"))
+                   + int(m[2]) / 1e3, m[3])
+
+
+def worker_start_split(w) -> dict:
+    """A worker process's seconds before its first map, from its log:
+    the interpreter and the CLI's imports (its start to its first line),
+    the legs ``run_http_worker`` times (config, app, device, host
+    library), then its wait for its first map."""
+    out: dict = {}
+    ready = None
+    for ts, msg in log_lines(w):
+        if msg.endswith("fetching the job's config") and "imports_s" not in out:
+            out["imports_s"] = ts - w.started_at
+        elif "; start: " in msg and ready is None:
+            ready = ts
+            for leg in msg.split("; start: ", 1)[1].split(", "):
+                name, _, secs = leg.rpartition(" ")[0].rpartition(" ")
+                out[f"{name.replace(' ', '_')}_s"] = float(secs)
+        elif ready is not None and re.fullmatch(r"worker \d+: map \d+",
+                                                  msg):
+            out["ready_to_first_map_s"] = ts - ready
+            out["first_map_s"] = ts - w.started_at
+            break
+    return out
+
+
+def phase_telemetry(args, words: list[Path], set3: list[bytes], inproc: dict,
+                    card: str, counters: dict) -> dict:
+    """Phase 3d (module docstring): (a) 'volcano' in process with the span
+    pipeline on and under the profiler, its trace's kernels against the
+    launch counter and the card's busy share over the traced window; (b)
+    config 3's set through a coordinator process and two worker processes
+    with ``"spans": true``, read through ``status --addr``, GET /metrics
+    and ``trace-export``.  Returns the phase's one line as a dict."""
+    import collections
+    import urllib.request
+
+    from distributed_grep_tpu_torch.runtime.job import run_job
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+    from distributed_grep_tpu_torch.utils.spans import EventLog
+
+    log(f"== phase 3d: telemetry, card: {card}")
+    t_phase = time.perf_counter()
+    result: dict = {"phase": "3d", "card": card}
+    in_bytes = sum(p.stat().st_size for p in words)
+    segs = sum(-(-p.stat().st_size // (64 << 20)) for p in words)
+
+    # (a) the traced in-process job, the launch counts zeroed just before
+    trace_dir = WORK / "trace"
+    work = WORK / "traced"
+    for m in counters.values():
+        m.reset_launches()
+    os.environ["DGREP_TRACE_DIR"] = str(trace_dir)
+    t0 = time.perf_counter()
+    try:
+        res = run_job(JobConfig(
+            input_files=[str(p) for p in words],
+            app_options={"pattern": "volcano", "ignore_case": False},
+            n_reduce=10, task_timeout_s=60.0, work_dir=str(work),
+            journal=False, durable=False, spans=True, job_id="traced"),
+            n_workers=args.workers, device="cuda")
+    finally:
+        os.environ.pop("DGREP_TRACE_DIR", None)
+    wall = time.perf_counter() - t0
+    launched = {k: m.launches for k, m in counters.items()}
+    if mr_out_hashes(res.output_files) != inproc["volcano"]:
+        raise AssertionError("3d (a): the traced job's mr-out differs from "
+                             "the untraced one")
+    events = EventLog.read(work / EventLog.FILENAME)
+    names = collections.Counter(e.get("name") for e in events)
+    if names["map:task"] != len(words) or names["reduce:task"] != 10:
+        raise AssertionError(f"3d (a): {names['map:task']} map:task and "
+                             f"{names['reduce:task']} reduce:task spans")
+    scans = [e for e in events
+             if str(e.get("name", "")).startswith("scan:")]
+    scanned = sum(e["args"]["bytes"] for e in scans)
+    if scanned != in_bytes or any(e["args"]["device_fallback"]
+                                  for e in scans):
+        raise AssertionError(f"3d (a): scan records hold {scanned} bytes "
+                             f"of {in_bytes}: {scans[:2]}")
+    traces = sorted(trace_dir.glob(f"trace-{os.getpid()}-*.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"3d (a): trace files {traces}")
+    trace_events = json.loads(traces[0].read_text())["traceEvents"]
+    spans_x = [e for e in trace_events
+               if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in spans_x if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("3d (a): the trace of a cuda job holds no "
+                             "kernel: the card's activity was not recorded")
+    sa = [e for e in kernels if TRACED_KERNEL in e.get("name", "")]
+    if len(sa) != launched["shift_and"] or launched["shift_and"] < segs:
+        raise AssertionError(
+            f"3d (a): {len(sa)} Shift-And kernels in the trace, "
+            f"{launched['shift_and']} launches counted, {segs} segments")
+    regions = collections.Counter(
+        str(e.get("name")).split(":")[0] for e in spans_x
+        if e.get("cat") == "user_annotation")
+    if regions["map_read"] != len(words) or regions["map_compute"] != len(
+            words):
+        raise AssertionError(f"3d (a): worker regions in the trace: "
+                             f"{dict(regions)}")
+    t_lo = min(e["ts"] for e in spans_x)
+    window_us = max(e["ts"] + e["dur"] for e in spans_x) - t_lo
+    busy_us = union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    sa_us = sum(e["dur"] for e in sa)
+    result["a traced volcano"] = {
+        "wall_s": wall, "trace_mb": traces[0].stat().st_size / 1e6,
+        "trace_events": len(trace_events), "kernel_events": len(kernels),
+        "shift_and_events": len(sa), "launches": launched,
+        "window_ms": window_us / 1e3, "kernel_busy_ms": busy_us / 1e3,
+        "shift_and_ms": sa_us / 1e3, "busy_share": busy_us / window_us,
+        "spans": sum(names.values()), "scan_bytes": scanned}
+    log(f"3d (a) traced 'volcano' job: {len(sa)} Shift-And kernels in the "
+        f"trace = {launched['shift_and']} launches counted; the card busy "
+        f"{busy_us / 1e3:.3f} ms of the {window_us / 1e3:.3f} ms traced "
+        f"window: busy share {busy_us / window_us:.6f} (idle share "
+        f"{1 - busy_us / window_us:.6f}); Shift-And kernels "
+        f"{sa_us / 1e3:.3f} ms; job wall {wall:.3f} s traced [{card}]")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+
+    # (b) config 3's set through a coordinator and two worker processes
+    job = ControlJob("spans", words,
+                     {"patterns": [m.decode() for m in set3],
+                      "device": "cuda"}, spans=True)
+    scraped: dict = {}
+    try:
+        job.coordinator()
+        starts = [time.time()]
+        job.worker(1)
+        starts.append(time.time())
+        job.worker(2)
+        job.poll_until(lambda st: st.get("done") or any(
+            r["type"] == "map" for r in st["in_flight"]))
+        if job.status.get("done"):
+            raise AssertionError("3d (b): the job was done before status "
+                                 "--addr could read it running")
+        cli = subprocess.run(
+            [sys.executable, "-m", "distributed_grep_tpu_torch", "status",
+             "--addr", f"127.0.0.1:{job.port}"],
+            cwd=ROOT, capture_output=True, timeout=60)
+        live = json.loads(cli.stdout) if cli.returncode == 0 else {}
+        if not {"done", "map", "reduce", "metrics", "workers",
+                "in_flight"} <= set(live) or live["done"]:
+            raise AssertionError(f"3d (b): status --addr exited "
+                                 f"{cli.returncode}: {cli.stdout[:500]!r} "
+                                 f"{cli.stderr[-500:]!r}")
+
+        def scrape() -> None:
+            # /metrics, then /status: an assign poll is counted as an RPC
+            # before its histogram observes it, so the later RPC count
+            # bounds the earlier poll count
+            if "text" not in scraped:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{job.port}/metrics",
+                        timeout=5) as resp:
+                    scraped["text"] = resp.read().decode()
+                after = coordinator_status(job.port) or {}
+                scraped["rpcs"] = after.get("rpcs", {}).get("AssignTask")
+
+        st = job.finish(on_done=scrape)
+        job.check_workers()
+    finally:
+        job.stop()
+    if mr_out_hashes(job.outputs) != inproc["config3 -f"]:
+        raise AssertionError("3d (b): mr-out differs from the in-process "
+                             "job")
+    if not st["launches"].get("fdr"):
+        raise AssertionError(f"3d (b): no fdr launch shipped: "
+                             f"{st['launches']}")
+    text = scraped.get("text", "")
+    polls = prom_value(text, "dgrep_assign_poll_seconds_count")
+    assigned = (st["counters"].get("map_assigned", 0)
+                + st["counters"].get("reduce_assigned", 0))
+    requeued = (st["counters"].get("map_retries", 0)
+                + st["counters"].get("reduce_retries", 0))
+    if (prom_value(text, "dgrep_map_phase_seconds_count") != 1
+            or prom_value(text, "dgrep_reduce_phase_seconds_count") != 1
+            or polls is None or scraped.get("rpcs") is None
+            or not assigned <= polls <= scraped["rpcs"]
+            or prom_value(text, "dgrep_tasks_requeued_total") != requeued):
+        raise AssertionError(f"3d (b): /metrics disagrees with the job "
+                             f"({st['counters']}, {scraped.get('rpcs')} "
+                             f"AssignTask RPCs after it):\n{text}")
+    out = WORK / "spans-trace.json"
+    export = subprocess.run(
+        [sys.executable, "-m", "distributed_grep_tpu_torch", "trace-export",
+         str(job.work), "-o", str(out)],
+        cwd=ROOT, capture_output=True, timeout=120)
+    if export.returncode != 0:
+        raise AssertionError(f"3d (b): trace-export exited "
+                             f"{export.returncode}: {export.stderr[-500:]!r}")
+    exported = json.loads(out.read_text())["traceEvents"]
+    rows = {e["args"]["name"] for e in exported
+            if e["ph"] == "M" and e["name"] == "thread_name"}
+    events = EventLog.read(job.work / EventLog.FILENAME)
+    assigns = [e for e in events if e.get("name") in ("assign_map",
+                                                      "assign_reduce")]
+    wids = sorted({e["args"]["worker"] for e in assigns})
+    worker_rows = {f"worker {w}" for w in wids}
+    if "coordinator" not in rows or not worker_rows <= rows or len(
+            worker_rows) < len(job.workers):
+        raise AssertionError(f"3d (b): trace rows {sorted(rows)} for "
+                             f"workers {wids}")
+    first = {}
+    for w in wids:
+        ts = [e["ts"] for e in assigns
+              if e["name"] == "assign_map" and e["args"]["worker"] == w]
+        if ts:
+            first[w] = min(ts) - job.t0_wall
+    spans_n = collections.Counter(e.get("name") for e in events)
+    result["b config3 spans"] = {
+        "wall_s": job.wall, **job.marks, "rows": sorted(rows),
+        "worker_procs_started_s": [round(t - job.t0_wall, 6)
+                                   for t in starts],
+        "first_assign_map_s": {str(w): first[w] for w in sorted(first)},
+        "map_task_spans": spans_n["map:task"],
+        "reduce_task_spans": spans_n["reduce:task"],
+        "assign_polls": polls, "assign_rpcs": scraped["rpcs"],
+        "launches": st["launches"], "mr_out": "identical"}
+    for w in sorted(first):
+        log(f"3d (b) worker {w}: first assign_map {first[w]:.3f} s after "
+            f"the coordinator's start (worker processes started at "
+            + ", ".join(f"{t - job.t0_wall:.3f}" for t in starts)
+            + f" s) [{card}]")
+    splits = [worker_start_split(w) for w in job.workers]
+    coord_ready = next((ts - job.t0_wall for ts, msg in log_lines(job.coord)
+                        if msg.startswith("coordinator serving on")), None)
+    result["b config3 spans"]["coordinator_ready_s"] = coord_ready
+    result["b config3 spans"]["worker_start"] = splits
+    for i, split in enumerate(splits):
+        log(f"3d (b) worker process {i}: start split "
+            + json.dumps({k: round(v, 3) for k, v in split.items()})
+            + f"; the coordinator served from {coord_ready} s [{card}]")
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 3d: {json.dumps(result, sort_keys=True)}")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3384,6 +3693,10 @@ def main() -> int:
                     help="phase 1, then phase 3's two in-process jobs that "
                          "phase 3c repeats, and phase 3c; prints no result "
                          "lines")
+    ap.add_argument("--telemetry-only", action="store_true",
+                    help="phase 1, then phase 3's two in-process jobs that "
+                         "phase 3d compares with, and phase 3d; prints no "
+                         "result lines")
     args = ap.parse_args()
 
     import torch
@@ -3528,7 +3841,7 @@ def main() -> int:
         log(f"  sass mxu_dot: {func}: {len(ops)} instructions, {len(igmma)} "
             f"warpgroup MMA ({', '.join(sorted(set(igmma)))}), no IMMA")
 
-    if args.control_only:
+    if args.control_only or args.telemetry_only:
         if WORK.exists():
             shutil.rmtree(WORK)
         try:
@@ -3545,7 +3858,10 @@ def main() -> int:
                     journal=False, durable=False),
                     n_workers=args.workers, device="cuda")
                 inproc[label] = mr_out_hashes(res.output_files)
-            phase_control_plane(words, set3, inproc, card)
+            if args.control_only:
+                phase_control_plane(words, set3, inproc, card)
+            if args.telemetry_only:
+                phase_telemetry(args, words, set3, inproc, card, counters)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -3901,6 +4217,7 @@ def main() -> int:
 
         phase_warm_tiers(args, words, pats["config3"], counters, card, torch)
         phase_control_plane(words, set3, inproc, card)
+        phase_telemetry(args, words, set3, inproc, card, counters)
 
         # ------------------------------------------- timings (not counted)
         # the match-dense receipt: 64 MiB, the CLI's wall and the host

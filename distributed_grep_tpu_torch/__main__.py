@@ -130,9 +130,26 @@ journal) and prints its records as ``<key> <value>`` lines, sorted.
 ``coordinator`` serves the job over HTTP (runtime/http_coordinator.py)
 until it completes and prints one JSON line, ``{"outputs": [...]}``, the
 committed ``mr-out-*`` paths; ``worker`` processes (``--slots`` task loops
-each) join it, fetch the config and run its tasks.  Tasks run on the card
-unless the job's app_options say ``"device": "cpu"`` or ``"backend":
-"cpu"``; a worker asked for CUDA where there is none exits nonzero.
+each) join it, fetch the config and run its tasks.  The grep tasks run on
+the card unless the job's app_options say ``"device": "cpu"`` or
+``"backend": "cpu"``; a worker asked for CUDA where there is none exits
+nonzero.  An application that launches no kernel (the word count, the
+inverted index, the host grep) never asks for the card.
+
+Telemetry:
+
+    python -m distributed_grep_tpu_torch status --addr HOST:PORT
+        [--timeout S]
+    python -m distributed_grep_tpu_torch trace-export EVENTS [-o OUT]
+
+``status`` prints a running coordinator's ``GET /status`` (task states,
+counters, in-flight tasks, a row a worker) as indented JSON.
+``trace-export`` renders a job's ``events.jsonl`` (the span pipeline's
+log, written with ``"spans": true`` in the job config or DGREP_SPANS=1;
+EVENTS is the file or the work dir holding it) as Chrome trace JSON for
+Perfetto or chrome://tracing; ``--fleet`` (a service work root) is not
+ported yet.  DGREP_TRACE_DIR=DIR runs each job under torch.profiler and
+writes its trace into DIR.
 """
 
 from __future__ import annotations
@@ -276,6 +293,23 @@ def _parser() -> argparse.ArgumentParser:
                    help="the coordinator's address, host:port")
     w.add_argument("--slots", type=int, default=1,
                    help="task loops in this process")
+
+    st = sub.add_parser("status", help="query a running coordinator's "
+                                       "task and metric state")
+    st.add_argument("--addr", required=True,
+                    help="the coordinator's address, host:port")
+    st.add_argument("--timeout", type=float, default=5.0)
+
+    te = sub.add_parser("trace-export",
+                        help="render a job's events.jsonl span log as "
+                             "Chrome trace JSON")
+    te.add_argument("events", help="path to events.jsonl, or the job's "
+                                   "work dir holding it")
+    te.add_argument("-o", "--out", default="-",
+                    help="output file (default: stdout)")
+    te.add_argument("--fleet", action="store_true",
+                    help="a service work root's fleet timeline (not "
+                         "ported yet)")
     return p
 
 
@@ -829,19 +863,74 @@ def cmd_worker(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_status(args: argparse.Namespace) -> int:
+    """Print a running coordinator's GET /status as indented JSON; exit 2
+    when it cannot be reached or does not answer JSON."""
+    import urllib.error
+
+    from distributed_grep_tpu_torch.runtime.http_transport import client_call
+
+    url = f"http://{args.addr}/status"
+    try:
+        status = client_call(args.addr, "GET", "/status",
+                             timeout=args.timeout)
+    except urllib.error.HTTPError as e:  # reached, but not a coordinator
+        print(f"error: {url} answered {e.code} {e.reason}", file=sys.stderr)
+        return 2
+    except OSError as e:
+        print(f"error: cannot reach coordinator at {args.addr}: {e}",
+              file=sys.stderr)
+        return 2
+    except ValueError:  # 200 with a body that is not JSON
+        print(f"error: {url} did not return JSON: not a coordinator?",
+              file=sys.stderr)
+        return 2
+    print(json.dumps(status, indent=2, sort_keys=True))
+    return 0
+
+
+def cmd_trace_export(args: argparse.Namespace) -> int:
+    """Render a job's events.jsonl as Chrome trace_event JSON (stdout, or
+    ``-o OUT``); exit 2 when there is no event log."""
+    from distributed_grep_tpu_torch.utils.spans import (
+        EventLog,
+        export_chrome_trace,
+    )
+
+    if args.fleet:
+        raise NotImplementedError(
+            "trace-export --fleet is not ported yet: ROADMAP.md 'Slices "
+            "still to port', item 8, slice 3 (the service daemon's "
+            "daemon.jsonl)")
+    path = Path(args.events)
+    if path.is_dir():  # a work dir: the log lives at its root
+        path = path / EventLog.FILENAME
+    if not path.exists():
+        print(f"error: no event log at {path} (run the job with "
+              f"JobConfig.spans=true or DGREP_SPANS=1)", file=sys.stderr)
+        return 2
+    doc = export_chrome_trace(EventLog.read(path))
+    if args.out and args.out != "-":
+        Path(args.out).write_text(json.dumps(doc))
+        print(f"{len(doc['traceEvents'])} trace events -> {args.out}",
+              file=sys.stderr)
+    else:
+        json.dump(doc, sys.stdout)
+        print()
+    return 0
+
+
 COMMANDS = {"grep": cmd_grep, "run": cmd_run, "coordinator": cmd_coordinator,
-            "worker": cmd_worker}
+            "worker": cmd_worker, "status": cmd_status,
+            "trace-export": cmd_trace_export}
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = _parser().parse_args(argv)
-    level = os.environ.get("DGREP_LOG")
-    if level and args.cmd != "grep":  # the runtime's log, on stderr
-        import logging
+    from distributed_grep_tpu_torch.utils import logging as dgrep_logging
 
-        logging.basicConfig(
-            level=level.upper(), stream=sys.stderr,
-            format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    args = _parser().parse_args(argv)
+    if args.cmd != "grep":  # the runtime's log on stderr, at DGREP_LOG
+        dgrep_logging.configure()
     try:
         return COMMANDS[args.cmd](args)
     except (NotImplementedError, RuntimeError, ValueError) as e:

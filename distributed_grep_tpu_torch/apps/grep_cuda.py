@@ -39,6 +39,10 @@ The device mesh and the shard index raise NotImplementedError naming the
 ROADMAP.md item that will port them; the port drives one card, so
 ``devices`` raises too.  A falsy value of such an option
 (``index_dir=None``) is accepted and dropped.
+
+With the span pipeline on (utils/spans.py), each record build (a whole
+input's, or a streamed chunk's) is a ``map:emit`` span, which separates
+record-build time from the engine's ``scan:<mode>`` spans.
 """
 
 from __future__ import annotations
@@ -60,6 +64,11 @@ from distributed_grep_tpu_torch.runtime.columnar import (
     line_spans,
     make_batch_from_lines,
 )
+from distributed_grep_tpu_torch.utils import spans as spans_mod
+
+# this application launches kernels: the runtime checks its device
+# (runtime/job.job_device) before a task runs
+uses_device = True
 
 # keys are unique per (file, line) and Reduce is values[0]: the runtime
 # collates each reduce partition in (file, line) order, batches columnar
@@ -181,7 +190,12 @@ def _confirmed(lines: np.ndarray, spans, data) -> np.ndarray:
 
 def _records_for(filename: str, contents: bytes, result) -> list:
     """Everything after a whole-bytes scan: the -w/-x confirm, -v, the
-    count record, the columnar batch."""
+    count record, the columnar batch (a ``map:emit`` span)."""
+    with spans_mod.span("map:emit", cat="map"):
+        return _records_inner(filename, contents, result)
+
+
+def _records_inner(filename: str, contents: bytes, result) -> list:
     emit = result.matched_lines
     nl = result.nl_index
     if _confirm is not None and emit.size:
@@ -269,6 +283,10 @@ def map_path_fn(filename: str, path: str) -> list:
     file_size = os.path.getsize(path)
 
     def emit_chunk(lines_before: int, buf: bytes, lines, nl) -> None:
+        with spans_mod.span("map:emit", cat="map"):
+            emit_inner(lines_before, buf, lines, nl)
+
+    def emit_inner(lines_before: int, buf: bytes, lines, nl) -> None:
         arr = np.frombuffer(buf, dtype=np.uint8)
         if _confirm_lit is not None:
             lines = lines[np.isin(lines, literal_mode_lines(

@@ -124,6 +124,8 @@ from distributed_grep_tpu_torch.ops.layout import (
     choose_layout,
 )
 from distributed_grep_tpu_torch.ops.scan_torch import sparse_nonzero
+from distributed_grep_tpu_torch.utils import lockdep
+from distributed_grep_tpu_torch.utils import spans as spans_mod
 from distributed_grep_tpu_torch.ops.sparse import (
     offsets_from_sparse_words,
     span_starts_from_packed_words,
@@ -264,7 +266,10 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
                 resident = None
             if resident is None:
                 corpus_put = (cache, sig, budget)
-    lock = threading.Lock()
+            spans_mod.instant(
+                f"corpus:{'hit' if resident is not None else 'miss'}",
+                cat="engine", bytes=n)
+    lock = lockdep.make_lock("device-scan-state")
     # scan-local models, swapped by the defeat guards: the Shift-And
     # filter is dropped, the NFA filter gives way to the exact model
     scan_state = {"filtered": eng._sa_filtered,

@@ -192,7 +192,8 @@ from distributed_grep_tpu_torch.ops.lines import (
     newline_index,
     unique_match_lines,
 )
-from distributed_grep_tpu_torch.utils import native
+from distributed_grep_tpu_torch.utils import lockdep, native
+from distributed_grep_tpu_torch.utils import spans as spans_mod
 from distributed_grep_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger("distributed_grep_tpu_torch.engine")
@@ -225,7 +226,9 @@ BACKENDS = ("device", "cpu")
 # (thread-local stats, a read-ahead thread per scanning thread).
 DEFAULT_MODEL_CACHE_ENTRIES = 32
 
-_model_cache_lock = threading.Lock()
+# io_ok: the lock is held across an engine's build on purpose (two
+# threads asking for one pattern build it once)
+_model_cache_lock = lockdep.make_lock("model-cache", io_ok=True)
 _model_cache: OrderedDict = OrderedDict()
 _model_cache_stats = {"compile_cache_hits": 0, "compile_cache_misses": 0,
                       "compile_cache_evictions": 0}
@@ -842,7 +845,21 @@ class GrepEngine:
     def _scan(self, data: bytes, progress=None,
               corpus_key=None) -> ScanResult:
         """``scan`` without the process counters: the scan of one piece of
-        scan_file, scan_batch and scan_file_suffix."""
+        scan_file, scan_batch and scan_file_suffix.  Inside a span
+        pipeline task context (utils/spans.py) each is one
+        ``scan:<mode>`` record of its bytes, seconds, matches and stats
+        (``device_fallback`` always False: no scan falls back)."""
+        t0 = time.perf_counter() if spans_mod.active() else None
+        res = self._scan_impl(data, progress, corpus_key)
+        if t0 is not None:
+            spans_mod.scan_record(
+                mode=self.mode, n_bytes=len(data),
+                seconds=time.perf_counter() - t0, stats=self.stats,
+                matches=res.n_matches)
+        return res
+
+    def _scan_impl(self, data: bytes, progress=None,
+                   corpus_key=None) -> ScanResult:
         from distributed_grep_tpu_torch.ops.device_scan import scan_device
 
         if not data:
@@ -1225,13 +1242,21 @@ class GrepEngine:
             out.append((name, res))
 
         def scan_packed(batch, names, win_key) -> None:
-            """One packed window: scan, demux, a result a member."""
+            """One packed window: scan, demux, a result a member (and a
+            ``scan:batch`` span inside a span pipeline task context)."""
+            t0_wall, t0 = time.time(), time.perf_counter()
             res = run_scan(batch.data, win_key)
             if cache is not None and win_key is not None:
                 cache.attach_batch(win_key, batch)
             bst["batched_files"] += len(batch)
             bst["batch_dispatches"] += 1
             bst["batch_fill_sum"] += len(batch.data) / cap
+            if spans_mod.active():
+                spans_mod.complete(
+                    "scan:batch", t0_wall, time.perf_counter() - t0,
+                    cat="engine", mode=self.mode, files=len(batch),
+                    bytes=len(batch.data), matches=res.n_matches,
+                    fill_ratio=round(len(batch.data) / cap, 6))
             for name, blob, lines in zip(names, batch.member_blobs(),
                                          batch.demux(res.matched_lines)):
                 handle(name, blob, ScanResult(lines.astype(np.int64),

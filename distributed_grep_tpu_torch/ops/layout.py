@@ -29,11 +29,12 @@ uploaded segments of unchanged inputs on the card (``CorpusCache``).
 from __future__ import annotations
 
 import os
-import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from distributed_grep_tpu_torch.utils import lockdep
 
 NL = 0x0A
 STRIPES = "stripes"  # (lanes, chunk), padded_stripes
@@ -343,7 +344,7 @@ class CorpusCache:
     stats that validate a lookup are taken by the caller, outside it)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("corpus-cache")
         self._entries: OrderedDict = OrderedDict()
         self._bytes = 0
         # a packed window's first member file -> the window's identity:

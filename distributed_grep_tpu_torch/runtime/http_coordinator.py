@@ -1,6 +1,5 @@
 """The coordinator as an HTTP server (the reference's
-runtime/http_coordinator.py, without its Prometheus ``/metrics`` and span
-log).
+runtime/http_coordinator.py).
 
 * control plane: the five verbs of runtime/rpc.py as JSON-over-HTTP
   long-poll endpoints (``POST /rpc/<verb>``); the long polls wait on the
@@ -15,7 +14,16 @@ log).
   options, the device among them);
 * ``GET /status``: task states, the scheduler's counters and seconds, the
   kernel launches the workers shipped, the RPCs and data-plane bytes and
-  seconds served, in-flight tasks and quarantines.
+  seconds served, in-flight tasks, quarantines, and a row a worker (its
+  last contact, its task, the Metrics snapshot it shipped, its clock
+  offset); the reference's keys ``done``, ``map``, ``reduce``,
+  ``metrics``, ``workers`` and ``in_flight`` among them;
+* ``GET /metrics``: the process's typed instruments as Prometheus text
+  (utils/metrics.py: the assign long-poll and the phase histograms, the
+  re-issue and quarantine counters);
+* the span pipeline (``JobConfig.spans`` or DGREP_SPANS=1): the spans the
+  workers ship and the scheduler's decisions go to ``events.jsonl`` in the
+  work dir (a resumed coordinator appends to it).
 
 Workers join by calling AssignTask; ``serve_coordinator`` blocks until
 the job completes.
@@ -24,7 +32,6 @@ the job completes.
 from __future__ import annotations
 
 import json
-import logging
 import shutil
 import threading
 import time
@@ -36,10 +43,14 @@ from distributed_grep_tpu_torch.runtime import rpc
 from distributed_grep_tpu_torch.runtime.journal import TaskJournal
 from distributed_grep_tpu_torch.runtime.scheduler import Scheduler
 from distributed_grep_tpu_torch.runtime.store import make_store
+from distributed_grep_tpu_torch.utils import metrics as metrics_mod
+from distributed_grep_tpu_torch.utils import spans as spans_mod
+from distributed_grep_tpu_torch.utils import trace
 from distributed_grep_tpu_torch.utils.config import JobConfig
 from distributed_grep_tpu_torch.utils.io import WorkDir, resolve_input_path
+from distributed_grep_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("distributed_grep_tpu_torch.http_coordinator")
+log = get_logger("http_coordinator")
 
 # The data plane streams GET and PUT bodies in blocks of this many bytes.
 BLOCK_BYTES = 1 << 20
@@ -70,6 +81,10 @@ class CoordinatorServer:
                    else None)
         # GET /data/input/ serves exactly the job's input files
         self.input_allowlist = frozenset(config.input_files)
+        self.event_log = (
+            spans_mod.EventLog(self.workdir.root / spans_mod.EventLog.FILENAME,
+                               fresh=not resume)
+            if spans_mod.enabled(config.spans) else None)
         self.scheduler = Scheduler(
             files=plan_map_splits(list(config.input_files),
                                   config.effective_batch_bytes()),
@@ -80,6 +95,7 @@ class CoordinatorServer:
             journal=journal,
             resume_entries=resume_entries,
             commit_resolver=self.workdir.resolve_task_commit,
+            event_log=self.event_log,
         )
         self._traffic_lock = threading.Lock()
         self.rpcs: Counter = Counter()
@@ -112,6 +128,8 @@ class CoordinatorServer:
         self._httpd.shutdown()
         self._httpd.server_close()
         self.scheduler.close_journal()
+        if self.event_log is not None:
+            self.event_log.close()
 
     def count(self, table: Counter, **adds: float) -> None:
         with self._traffic_lock:
@@ -136,7 +154,7 @@ class CoordinatorServer:
         elif verb == rpc.Verb.HEARTBEAT:
             args = rpc.HeartbeatArgs(**payload)
             s.heartbeat(args.task_type, args.task_id, grace_s=args.grace_s,
-                        worker_id=args.worker_id)
+                        args=args)
             reply = rpc.HeartbeatReply()
         else:
             raise KeyError(f"unknown RPC verb: {verb}")
@@ -147,12 +165,15 @@ class CoordinatorServer:
         with self._traffic_lock:
             rpcs = dict(self.rpcs)
             data_plane = dict(self.data_plane)
+        snapshot = s.metrics_snapshot()
         return {
             "done": s.done(),
             **s.status_counts(),
-            **s.metrics_snapshot(),
+            **snapshot,
+            "metrics": snapshot,
             "rpcs": rpcs,
             "data_plane": data_plane,
+            "workers": s.worker_status(),
             "in_flight": s.inflight_status(),
             "quarantine": s.worker_health.snapshot(),
         }
@@ -210,6 +231,16 @@ class DataPlaneHandler(BaseHTTPRequestHandler):
         self.server_ref.count(self.server_ref.data_plane,
                               bytes_out=size - start, get_requests=1,
                               get_seconds=time.perf_counter() - t0)
+
+    def _send_text(self, text: str, code: int = 200) -> None:
+        """A plain-text reply: the Prometheus exposition content type."""
+        body = text.encode("utf-8", "strict")
+        self.send_response(code)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
     def _read_body(self) -> bytes:
         length = int(self.headers.get("Content-Length", 0))
@@ -283,6 +314,8 @@ def _make_handler(server: CoordinatorServer):
                     self._send_json(json.loads(server.config.to_json()))
                 elif self.path == "/status":
                     self._send_json(server.status())
+                elif self.path == "/metrics":
+                    self._send_text(metrics_mod.render_prometheus())
                 elif self.path.startswith("/data/input/"):
                     fname = urllib.parse.unquote(
                         self.path[len("/data/input/"):])
@@ -365,8 +398,9 @@ def serve_coordinator(config: JobConfig, resume: bool = False) -> dict:
     """Serve until the job completes, then shut down; the final status
     with the committed output paths under "outputs"."""
     server = CoordinatorServer(config, resume=resume)
-    server.start()
-    server.wait_done()
+    with trace.job_trace():
+        server.start()
+        server.wait_done()
     status = server.status()
     log.info("job complete: %s", json.dumps(
         {k: status[k] for k in ("counters", "seconds", "launches", "rpcs",

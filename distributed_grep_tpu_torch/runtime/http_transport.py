@@ -12,8 +12,11 @@ scheduler absorbs duplicate completions.  An HTTP error status is the
 server's answer and is never retried.
 
 ``run_http_worker`` is the ``worker`` subcommand: it fetches the job
-config, checks the job's device, loads the application and runs
-``n_parallel`` task loops in the process.  A loop that fails with
+config, loads the application, checks the job's device when the
+application uses one (runtime/job.job_device; an application that
+launches no kernel never asks for the card) and runs ``n_parallel`` task
+loops in the process, under the profiler when DGREP_TRACE_DIR is set and
+with the span pipeline when the config switches it on.  A loop that fails with
 anything but CoordinatorGone makes the process exit nonzero with that
 error; the coordinator re-issues its task to a live worker.
 """
@@ -23,7 +26,6 @@ from __future__ import annotations
 import errno
 import http.client
 import json
-import logging
 import os
 import random
 import shutil
@@ -37,8 +39,9 @@ from pathlib import Path
 
 from distributed_grep_tpu_torch.runtime import rpc
 from distributed_grep_tpu_torch.utils.config import JobConfig
+from distributed_grep_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("distributed_grep_tpu_torch.http_transport")
+log = get_logger("http_transport")
 
 DEFAULT_RPC_RETRIES = 6
 DEFAULT_RPC_BACKOFF_S = 0.5
@@ -192,10 +195,14 @@ class HttpTransport:
         """An advisory stamp that never raises; the round trip of the POST
         that landed, or None.  A plain stamp is tried once (a missed one
         costs at most a sweep window); a grace stamp three times, since a
-        lost declaration costs the whole silent phase it covers."""
+        lost declaration costs the whole silent phase it covers.  A retry
+        stamps ``sent_at`` anew (the span batch keeps its number, so the
+        coordinator still persists it once)."""
         attempts = 3 if args.grace_s > 0 else 1
-        body = json.dumps(rpc.to_dict(args)).encode("utf-8")
         for i in range(attempts):
+            if args.sent_at > 0:
+                args.sent_at = time.time()
+            body = json.dumps(rpc.to_dict(args)).encode("utf-8")
             try:
                 req = urllib.request.Request(
                     f"{self.base}/rpc/{rpc.Verb.HEARTBEAT}", data=body,
@@ -303,7 +310,7 @@ class HttpTransport:
 
     # ---------------------------------------------------------- bootstrap
     def fetch_config(self) -> JobConfig:
-        return JobConfig(**json.loads(self._request("GET", "/config")))
+        return JobConfig.from_json(self._request("GET", "/config"))
 
     def fetch_status(self) -> dict:
         return json.loads(self._request("GET", "/status"))
@@ -332,41 +339,47 @@ def client_call(addr: str, method: str, path: str, body: bytes | None = None,
                                          delays=iter(())))
 
 
-def _job_device(config: JobConfig) -> str | None:
-    """The device the job's tasks run on: None for the host backend,
-    else the app options' "device" (default "cuda")."""
-    opts = config.app_options
-    if opts.get("backend", "device") == "cpu":
-        return None
-    return str(opts.get("device", "cuda"))
-
-
 def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     """The ``worker`` subcommand: fetch the job's config from the
-    coordinator, check its device (CUDA asked for where there is none
-    raises, naming it: nothing scans on the host instead), build the
-    host library, load the application and run ``n_parallel`` task loops
-    in this process.  Returns when the job is over or the coordinator is
-    gone; raises the first error of a loop that failed otherwise."""
+    coordinator, load the application, check its device when it uses one
+    (CUDA asked for where there is none raises, naming it: nothing scans
+    on the host instead), build the host library and run ``n_parallel``
+    task loops in this process.  Returns when the job is over or the
+    coordinator is gone; raises the first error of a loop that failed
+    otherwise."""
     from distributed_grep_tpu_torch.apps.loader import load_application
+    from distributed_grep_tpu_torch.runtime.job import job_device
     from distributed_grep_tpu_torch.runtime.worker import WorkerLoop
     from distributed_grep_tpu_torch.utils import native
+    from distributed_grep_tpu_torch.utils import spans as spans_mod
+    from distributed_grep_tpu_torch.utils import trace
 
+    # the start's legs, logged once the worker is ready: where a worker
+    # process's seconds before its first task go
+    marks = [("entry", time.perf_counter())]
+    log.info("worker for %s: fetching the job's config", addr)
     transport = HttpTransport(addr)
     try:
         config = transport.fetch_config()
     except CoordinatorGone:
         log.error("no coordinator at %s", addr)
         raise SystemExit(1)
-    device = _job_device(config)
+    marks.append(("config", time.perf_counter()))
+    app = load_application(config.application)
+    marks.append(("app", time.perf_counter()))
+    device = job_device(app, config.app_options)
     if device is not None:
         from distributed_grep_tpu_torch.utils.device import resolve_device
 
         resolve_device(device)  # raises, naming the device
+    marks.append(("device", time.perf_counter()))
     native.lib()  # before any task: a task's detector never waits on g++
-    app = load_application(config.application)
-    log.info("worker for %s: %d slots on %s", addr, n_parallel,
-             device or "the host backend")
+    marks.append(("host library", time.perf_counter()))
+    spans_on = spans_mod.enabled(config.spans)
+    log.info("worker for %s: %d slots on %s; start: %s", addr, n_parallel,
+             device or "the host backend",
+             ", ".join(f"{name} {t - t_prev:.3f} s" for (_n, t_prev),
+                       (name, t) in zip(marks, marks[1:])))
     errors: list[BaseException] = []
     ended = threading.Event()  # a loop failed, or every loop returned
     live = [n_parallel]
@@ -378,7 +391,10 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
             reduce_memory_bytes=config.reduce_memory_bytes,
             # the coordinator's spill path may not exist here: honoured
             # only when set
-            spill_dir=config.spill_dir)
+            spill_dir=config.spill_dir,
+            # the coordinator's config decides: it is the one that
+            # persists the spans
+            spans_enabled=spans_on, job_id=config.effective_job_id())
         try:
             loop.run()
         except CoordinatorGone:
@@ -395,10 +411,11 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
 
     # daemon threads: a failed loop ends the process without waiting for
     # the others' tasks, which the coordinator re-issues
-    for i in range(n_parallel):
-        threading.Thread(target=run_loop, args=(i,), name=f"slot-{i}",
-                         daemon=True).start()
-    ended.wait()
+    with trace.job_trace(device=device):
+        for i in range(n_parallel):
+            threading.Thread(target=run_loop, args=(i,), name=f"slot-{i}",
+                             daemon=True).start()
+        ended.wait()
     log.info("worker for %s: %s", addr,
              f"failed: {errors[0]!r}" if errors else "every slot ended")
     if errors:

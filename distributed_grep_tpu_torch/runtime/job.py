@@ -7,10 +7,17 @@ own map task through the application named by ``config.application``
 returns the committed ``mr-out-*`` files; with batching on
 (``config.effective_batch_bytes()``) consecutive small files share a map
 task (``plan_map_splits``).  ``resume=True`` replays the work dir's
-journal.  The device defaults to "cuda" and raises when CUDA is absent,
-unless the caller asks for "cpu".  A worker that raises anything but
-WorkerKilled fails the job with that exception: a build, launch or CUDA
-error is never retried on another route.
+journal.  An application that launches kernels declares it
+(``uses_device = True``, the CUDA grep app): its device defaults to
+"cuda" and raises when CUDA is absent, unless the caller asks for "cpu";
+any other application never asks for the card.  A worker that raises
+anything but WorkerKilled fails the job with that exception: a build,
+launch or CUDA error is never retried on another route.
+
+With ``config.spans`` (or DGREP_SPANS=1) the workers ship their spans
+and the scheduler writes ``events.jsonl`` into the work dir
+(utils/spans.py); with DGREP_TRACE_DIR the job runs under the profiler
+(utils/trace.py ``job_trace``), its device's activity included.
 
 ``JobResult`` reads the outputs back as streams: ``(key, value)`` records
 as str (``iter_results``, ``iter_results_sorted``), or, for the grep
@@ -26,7 +33,6 @@ streams.
 from __future__ import annotations
 
 import heapq
-import logging
 import os
 import sys
 import tempfile
@@ -54,11 +60,14 @@ from distributed_grep_tpu_torch.runtime.scheduler import Scheduler
 from distributed_grep_tpu_torch.runtime.transport import LocalTransport
 from distributed_grep_tpu_torch.runtime.worker import WorkerKilled, WorkerLoop
 from distributed_grep_tpu_torch.utils import native
+from distributed_grep_tpu_torch.utils import spans as spans_mod
+from distributed_grep_tpu_torch.utils import trace
 from distributed_grep_tpu_torch.utils.config import JobConfig
 from distributed_grep_tpu_torch.utils.device import resolve_device
 from distributed_grep_tpu_torch.utils.io import WorkDir
+from distributed_grep_tpu_torch.utils.logging import get_logger
 
-log = logging.getLogger("distributed_grep_tpu_torch.job")
+log = get_logger("job")
 
 __all__ = ["GREP_KEY_RE", "JobResult", "grep_key_sort",
            "parse_grep_key_bytes", "plan_map_splits", "run_job"]
@@ -364,6 +373,17 @@ def plan_map_splits(input_files: list[str], batch_bytes: int,
     return out
 
 
+def job_device(app: LoadedApplication, options: dict) -> str | None:
+    """The device an application's tasks run on: None for an application
+    that launches no kernel (it does not declare ``uses_device``) or for
+    the host backend, else the options' "device" (default "cuda")."""
+    if not getattr(app.module, "uses_device", False):
+        return None
+    if options.get("backend", "device") == "cpu":
+        return None
+    return str(options.get("device", "cuda"))
+
+
 def run_job(
     config: JobConfig,
     n_workers: int = 2,
@@ -376,25 +396,33 @@ def run_job(
     """Run the job to completion: a Scheduler, ``n_workers`` worker threads
     each on a LocalTransport, and the application named by the config (a
     fresh module instance, apps/loader.py) unless ``app`` is given.
-    ``device`` overrides the app option of the same name; with neither,
-    the job runs on "cuda".  With the app option ``backend="cpu"`` (the
-    host scanners) the device is never asked for.  ``resume`` replays the
-    work dir's journal and skips the tasks it records; else the work dir
+    For an application that uses the card, ``device`` overrides the app
+    option of the same name; with neither, the job runs on "cuda".  With
+    the app option ``backend="cpu"`` (the host scanners), or an
+    application that launches no kernel, the device is never asked for.
+    ``resume`` replays the work dir's journal and skips the tasks it records; else the work dir
     is cleared.  ``store_faults_per_worker`` wraps each worker's commits
     in a FaultStore (runtime/store.py CrashPoint hooks)."""
     from distributed_grep_tpu_torch.runtime.store import FaultStore, make_store
 
     opts = config.effective_app_options()
-    opts["device"] = str(device if device is not None
-                         else opts.get("device", "cuda"))
-    if opts.get("backend", "device") != "cpu":  # the host backend: no card
-        resolve_device(opts["device"])  # fail before any worker starts
-    # the host library builds before the scheduler hands out a task, so no
-    # task's failure detector waits on g++
-    native.lib()
     loaded = app is None
     if loaded:
         app = load_application(config.application)
+    try:
+        if getattr(app.module, "uses_device", False):
+            opts["device"] = str(device if device is not None
+                                 else opts.get("device", "cuda"))
+        run_device = job_device(app, opts)
+        if run_device is not None:
+            resolve_device(run_device)  # fail before any worker starts
+        # the host library builds before the scheduler hands out a task,
+        # so no task's failure detector waits on g++
+        native.lib()
+    except BaseException:
+        if loaded:
+            sys.modules.pop(app.module.__name__, None)
+        raise
     work_dir = config.work_dir or tempfile.mkdtemp(prefix="dgrep-")
     workdir = WorkDir(work_dir, store=make_store(config.store,
                                                  durable=config.durable))
@@ -405,6 +433,11 @@ def run_job(
     else:
         workdir.clear()  # a reused work dir leaks nothing into this job
     journal = TaskJournal(workdir.journal_path()) if config.journal else None
+    spans_on = spans_mod.enabled(config.spans)
+    event_log = (spans_mod.EventLog(workdir.root / spans_mod.EventLog.FILENAME,
+                                    fresh=not resume)
+                 if spans_on else None)
+    job_id = config.effective_job_id(work_dir)
     scheduler = Scheduler(
         files=plan_map_splits(list(config.input_files),
                               config.effective_batch_bytes()),
@@ -415,6 +448,7 @@ def run_job(
         journal=journal,
         resume_entries=resume_entries,
         commit_resolver=workdir.resolve_task_commit,
+        event_log=event_log,
     )
     spill_dir = config.spill_dir or str(Path(work_dir) / "spill")
     errors: list[BaseException] = []
@@ -428,7 +462,7 @@ def run_job(
                            rpc_timeout_s=config.rpc_timeout_s, store=store),
             app, fault_hooks=hooks,
             reduce_memory_bytes=config.reduce_memory_bytes,
-            spill_dir=spill_dir)
+            spill_dir=spill_dir, spans_enabled=spans_on, job_id=job_id)
         try:
             loop.run()
         except WorkerKilled:
@@ -445,22 +479,25 @@ def run_job(
         for i in range(n_workers)
     ]
     try:
-        for t in threads:
-            t.start()
-        while not scheduler.wait_done(timeout=0.5):
-            if errors:
-                break
-            if all(not t.is_alive() for t in threads):
-                scheduler.stop()
-                raise RuntimeError(
-                    "job aborted: all workers exited with tasks outstanding"
-                )
-        scheduler.stop()
-        for t in threads:
-            t.join()
+        with trace.job_trace(device=run_device):
+            for t in threads:
+                t.start()
+            while not scheduler.wait_done(timeout=0.5):
+                if errors:
+                    break
+                if all(not t.is_alive() for t in threads):
+                    scheduler.stop()
+                    raise RuntimeError(
+                        "job aborted: all workers exited with tasks "
+                        "outstanding")
+            scheduler.stop()
+            for t in threads:
+                t.join()
     finally:
         scheduler.stop()
         scheduler.close_journal()
+        if event_log is not None:
+            event_log.close()
         if loaded:  # the job's own module instance goes with the job
             sys.modules.pop(app.module.__name__, None)
     if errors:

@@ -11,6 +11,12 @@ runtime/rpc.py, without the service's and the peer shuffle's fields).
   Heartbeat       a mid-task liveness stamp, with an optional declared
                   silent phase (``grace_s``: a kernel build).
 
+With the span pipeline on (utils/spans.py) the Heartbeat and the
+finished RPCs carry the worker's buffered span records (``spans``, with
+``spans_seq``, the batch number the coordinator dedups a retry by), and
+the Heartbeat the worker's send time and last round trip (``sent_at``,
+``rtt_s``) for the coordinator's clock-offset estimate.
+
 An explicit JOB_DONE assignment ends a worker's loop.  Messages are plain
 dicts <-> dataclasses for the JSON transport; optional fields are elided
 from the wire at their defaults.
@@ -72,8 +78,12 @@ class TaskFinishedArgs:
     # the reduce partitions this map task produced records for
     produced_parts: list[int] = field(default_factory=list)
     # the worker's counters for this attempt: {"counters": {...},
-    # "seconds": {...}, "launches": {kernel: n}} (None elided)
+    # "seconds": {...}, "launches": {kernel: n}} (None elided); with the
+    # span pipeline on also "piggyback", the loop's Metrics snapshot
     metrics: dict | None = None
+    # the span pipeline's last flush of the attempt (elided when empty)
+    spans: list[dict] = field(default_factory=list)
+    spans_seq: int = -1
 
 
 @dataclass
@@ -111,6 +121,12 @@ class HeartbeatArgs:
     # a declared silent phase: "expect no stamp for up to this many
     # seconds"; 0 is a plain stamp, which also ends an earlier grace
     grace_s: float = 0.0
+    # the span pipeline's piggyback (elided at the defaults)
+    spans: list[dict] = field(default_factory=list)
+    spans_seq: int = -1
+    metrics: dict | None = None  # the loop's Metrics snapshot
+    sent_at: float = 0.0  # the worker's wall clock at send; 0 = off
+    rtt_s: float = -1.0  # the previous heartbeat's round trip; -1 unknown
 
 
 @dataclass
@@ -132,7 +148,8 @@ _TYPES = {
 # Optional fields elided from serialized arguments at their defaults.
 _ELIDE_DEFAULTS: dict[str, Any] = {
     "metrics": None, "filenames": [], "retry_after_s": 0.0, "epoch": "",
-    "abort": False, "worker_id": -1, "lost_file": "",
+    "abort": False, "worker_id": -1, "lost_file": "", "spans": [],
+    "spans_seq": -1, "sent_at": 0.0, "rtt_s": -1.0,
 }
 
 # Reply fields dropped from the wire at their (falsy) defaults; the others

@@ -1,5 +1,5 @@
 """Coordinator task scheduler: the reference's runtime/scheduler.py without
-its span event log, typed histograms and service hooks.
+its service hooks.
 
 * one map task per input file, or per batched split of small files (a
   list among ``files``, runtime/job.plan_map_splits), and reduce
@@ -31,12 +31,25 @@ its span event log, typed histograms and service hooks.
 The counters (assignments, completions, retries, heartbeats, grace
 declarations, and what workers ship with their finished RPCs) and the
 seconds per worker stage are plain dicts that ``JobResult.metrics``,
-``--metrics`` and ``GET /status`` read.
+``--metrics`` and ``GET /status`` read.  The typed instruments of
+utils/metrics.py (the assign long-poll, the map and reduce phases, the
+re-issued tasks and quarantines) feed ``GET /metrics``.  A per-worker
+table (``worker_status``) holds each worker's last contact, its task, the
+Metrics snapshot it shipped and its clock offset.
+
+With an ``event_log`` (the span pipeline on) the scheduler persists the
+span batches workers ship (deduplicated by their batch number, so an RPC
+retry lands once) and its own decisions as coordinator-row instants
+(``assign_map``, ``map_committed``, ``assign_reduce``,
+``reduce_committed``, ``task_timeout``, ``grace_declared``,
+``quarantine``, ``map_lost_output``), staged under the lock and written
+after it; and estimates each worker's clock offset from the heartbeats'
+send times and round trips (``ClockSync``, persisted as ``worker_clock``
+records).
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 import time
@@ -51,8 +64,20 @@ from distributed_grep_tpu_torch.runtime.types import (
     ReduceTask,
     TaskState,
 )
+from distributed_grep_tpu_torch.utils import lockdep
+from distributed_grep_tpu_torch.utils import metrics as metrics_mod
+from distributed_grep_tpu_torch.utils.logging import get_logger
+from distributed_grep_tpu_torch.utils.spans import ClockSync, EventLog
 
-log = logging.getLogger("distributed_grep_tpu_torch.scheduler")
+log = get_logger("scheduler")
+
+# The process's typed instruments (GET /metrics): scheduling latency and
+# the failure detector's activity.
+_H_ASSIGN_POLL = metrics_mod.histogram("dgrep_assign_poll_seconds")
+_H_MAP_PHASE = metrics_mod.histogram("dgrep_map_phase_seconds")
+_H_REDUCE_PHASE = metrics_mod.histogram("dgrep_reduce_phase_seconds")
+_C_REQUEUED = metrics_mod.counter("dgrep_tasks_requeued_total")
+_C_QUARANTINED = metrics_mod.counter("dgrep_workers_quarantined_total")
 
 # Consecutive attributed timeouts before a worker is quarantined, and the
 # base window (doubling per episode up to _QUARANTINE_MAX_FACTOR times).
@@ -87,7 +112,7 @@ class WorkerHealth:
     def __init__(self, base_s: float | None = None):
         self.base_s = (env_worker_quarantine_s() if base_s is None
                        else float(base_s))
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("worker-health")
         self._fails: dict[int, int] = {}
         self._episodes: dict[int, int] = {}
         self._until: dict[int, float] = {}  # monotonic expiry
@@ -155,6 +180,12 @@ class WorkerHealth:
             }
 
 
+def _piggyback(metrics: dict | None) -> dict | None:
+    """The Metrics snapshot a finished RPC's metrics carry with the span
+    pipeline on (utils/spans.py), or None."""
+    return (metrics or {}).get("piggyback")
+
+
 def _split_label(members: tuple[str, ...]) -> str:
     """A batched split's label: the same for the same member list, so a
     replayed journal recognizes its own entries."""
@@ -186,6 +217,7 @@ class Scheduler:
         resume_entries: Optional[list[dict]] = None,
         commit_resolver: Optional[Callable] = None,
         worker_health: Optional[WorkerHealth] = None,
+        event_log: Optional[EventLog] = None,
     ):
         self.n_reduce = n_reduce
         self.task_timeout_s = task_timeout_s
@@ -201,9 +233,19 @@ class Scheduler:
         self.launches: Counter = Counter()  # kernel launches workers shipped
         # completions staged under the lock and journaled (fsync) after it
         self._pending_journal: list[tuple] = []
-        self._journal_flush_lock = threading.Lock()
+        self._journal_flush_lock = lockdep.make_lock("journal-flush",
+                                                     io_ok=True)
         self._journaled: set[tuple[str, int]] = set()
-        self._lock = threading.Lock()
+        # the span pipeline: None is off (no file, no work on any RPC)
+        self.event_log = event_log
+        self._pending_events: list[dict] = []  # staged under the lock
+        self._span_seqs: dict[int, set[int]] = {}  # worker -> batch seqs
+        self._span_seq_lock = lockdep.make_lock("span-seq")
+        self._clock = ClockSync()
+        # worker id -> {"seen": monotonic, "task": "map:3" | None,
+        # "metrics": its last Metrics snapshot, "clock_offset_s", "rtt_s"}
+        self.workers: dict[int, dict] = {}
+        self._lock = lockdep.make_lock("scheduler")
         self._cond = threading.Condition(self._lock)
 
         self.map_tasks: list[MapTask] = []
@@ -224,8 +266,15 @@ class Scheduler:
         # at the transitions replaces sweeps over the task tables
         self._maps_completed = 0
         self._reduces_completed = 0
+        # the phase histograms: construction to the last map commit, then
+        # to the last reduce commit, each observed once
+        self._phase_t0 = time.monotonic()
+        self._reduce_t0: float | None = None
+        self._phase_observed = False
         if resume_entries:
             self._replay(resume_entries)
+            # a resumed map phase that was over is not observed again
+            self._phase_observed = self._map_phase_done_locked()
         self._sweeper = threading.Thread(target=self._sweep_loop,
                                          name="failure-detector", daemon=True)
         self._sweeper.start()
@@ -349,11 +398,14 @@ class Scheduler:
                                 ("reduce", self.reduce_tasks)):
                 for t in table:
                     if t.state is TaskState.IN_PROGRESS:
+                        age = now - t.timestamp
                         row = {"type": kind, "task_id": t.task_id,
                                "attempts": t.attempts, "worker": t.worker,
-                               "heartbeat_age_s": round(now - t.timestamp, 3)}
+                               "heartbeat_age_s": round(age, 3)}
                         if t.grace_s:
                             row["grace_s"] = t.grace_s
+                            row["grace_remaining_s"] = round(
+                                max(0.0, t.grace_s - age), 3)
                         out.append(row)
         return out
 
@@ -379,12 +431,116 @@ class Scheduler:
             for k, v in (metrics.get("counters") or {}).items():
                 self.counters[k] += v
 
+    # ---------------------------------------------------- observability
+    def _event(self, name: str, **args) -> None:
+        """Stage a coordinator-row instant (no worker tag: row 0 of
+        trace-export); callers hold the lock, ``_flush_events`` writes it
+        after.  A no-op without an event log."""
+        if self.event_log is None:
+            return
+        self._pending_events.append({
+            "t": "instant", "name": name, "cat": "sched",
+            "ts": time.time(), **({"args": args} if args else {})})
+
+    def _flush_events(self) -> None:
+        """Write the staged events outside the lock; never raises."""
+        if self.event_log is None:
+            return
+        with self._lock:
+            if not self._pending_events:
+                return
+            pending, self._pending_events = self._pending_events, []
+        self._persist_spans(pending)
+
+    def _persist_spans(self, recs: list[dict], worker_id: int = -1,
+                       seq: int = -1) -> None:
+        """Persist a batch of records; a worker's batch whose (worker, seq)
+        was persisted already (an RPC retry's) is dropped."""
+        if self.event_log is None or not recs:
+            return
+        if seq >= 0 and worker_id >= 0:
+            with self._span_seq_lock:
+                seen = self._span_seqs.setdefault(worker_id, set())
+                if seq in seen:
+                    return
+                seen.add(seq)
+        try:
+            self.event_log.write_many(recs)
+        except Exception:  # noqa: BLE001 -- telemetry never fails the job
+            log.exception("event log write failed")
+
+    def _worker_seen(self, worker_id: int, task: str | None = ...,
+                     metrics: dict | None = None) -> None:
+        """Stamp a worker's row (under the lock); ``task`` left out keeps
+        its task, and the process token of ``metrics`` is dropped."""
+        if worker_id < 0:
+            return
+        info = self.workers.setdefault(worker_id, {"task": None})
+        info["seen"] = time.monotonic()
+        if task is not ...:
+            info["task"] = task
+        if metrics is not None:
+            metrics = dict(metrics)
+            metrics.pop("proc", None)
+            info["metrics"] = metrics
+
+    def _observe_clock(self, args: rpc.HeartbeatArgs,
+                       recv_at: float) -> None:
+        """Fold a heartbeat's clock observation in (under the lock); a
+        ``worker_clock`` record is staged when the estimate moves more
+        than 5 ms (trace-export reads each worker's last)."""
+        prev = self._clock.offsets.get(args.worker_id)
+        off = self._clock.observe(args.worker_id, args.sent_at, recv_at,
+                                  args.rtt_s)
+        if off is None:
+            return
+        info = self.workers.get(args.worker_id)
+        if info is not None:
+            info["clock_offset_s"] = off
+            info["rtt_s"] = self._clock.rtts.get(args.worker_id)
+        if self.event_log is not None and (prev is None
+                                           or abs(off - prev) > 0.005):
+            self._pending_events.append({
+                "t": "worker_clock", "worker": args.worker_id,
+                "offset_s": round(off, 6),
+                "rtt_s": round(self._clock.rtts.get(args.worker_id, 0.0), 6),
+                "ts": time.time()})
+
+    def worker_status(self) -> dict:
+        """Per worker: the age of its last contact, its task, the Metrics
+        snapshot it last shipped, its clock offset and any quarantine."""
+        now = time.monotonic()
+        with self._lock:
+            out = {}
+            for wid, info in sorted(self.workers.items()):
+                row: dict = {
+                    "last_heartbeat_age_s": round(now - info["seen"], 3),
+                    "task": info.get("task")}
+                if info.get("metrics") is not None:
+                    row["metrics"] = info["metrics"]
+                if info.get("clock_offset_s") is not None:
+                    row["clock_offset_s"] = round(info["clock_offset_s"], 6)
+                q = self.worker_health.quarantine_remaining(wid)
+                if q > 0:
+                    row["quarantined_s"] = round(q, 3)
+                out[str(wid)] = row
+            return out
+
     # ------------------------------------------------------------ assign
     def assign_task(self, args: rpc.AssignTaskArgs,
                     timeout: float = 30.0) -> rpc.AssignTaskReply:
         """Long-poll for work: a task, JOB_DONE once the job is over or
         stopped, or after ``timeout`` a retry reply (task_id -2)."""
-        deadline = time.monotonic() + timeout
+        t0 = time.monotonic()
+        try:
+            return self._assign_task(args, t0 + timeout)
+        finally:
+            if timeout > 0:  # a real long poll
+                _H_ASSIGN_POLL.observe(time.monotonic() - t0)
+            self._flush_events()
+
+    def _assign_task(self, args: rpc.AssignTaskArgs,
+                     deadline: float) -> rpc.AssignTaskReply:
         with self._cond:
             worker_id = args.worker_id
             if worker_id < 0:
@@ -450,6 +606,13 @@ class Scheduler:
         task.worker = worker_id
         task.stamped = False  # no evidence from the worker yet
         self.counters[f"{kind}_assigned"] += 1
+        self._worker_seen(worker_id, task=f"{kind}:{task.task_id}")
+        if kind == "map":
+            self._event("assign_map", task=task.task_id, worker=worker_id,
+                        attempt=task.attempts, file=task.file)
+        else:
+            self._event("assign_reduce", task=task.task_id, worker=worker_id,
+                        attempt=task.attempts)
         log.debug("assign %s task %d -> worker %d", kind, task.task_id,
                   worker_id)
 
@@ -457,8 +620,11 @@ class Scheduler:
     def map_finished(self, args: rpc.TaskFinishedArgs) -> rpc.TaskFinishedReply:
         """Idempotent map commit."""
         record = self._resolve_commit("map", args.task_id)
+        self._persist_spans(args.spans, args.worker_id, args.spans_seq)
         try:
             with self._cond:
+                self._worker_seen(args.worker_id, task=None,
+                                  metrics=_piggyback(args.metrics))
                 self.worker_health.record_success(args.worker_id)
                 task = self.map_tasks[args.task_id]
                 if task.state is TaskState.COMPLETED:
@@ -473,18 +639,26 @@ class Scheduler:
                     parts = record["parts"]
                 self._register_map_outputs(args.task_id, parts)
                 self.counters["map_completed"] += 1
+                if self._map_phase_done_locked() and not self._phase_observed:
+                    self._phase_observed = True
+                    self._reduce_t0 = time.monotonic()
+                    _H_MAP_PHASE.observe(self._reduce_t0 - self._phase_t0)
                 self._add_metrics_locked(args.metrics, accepted=True)
                 if self.journal and ("map", args.task_id) not in self._journaled:
                     self._journaled.add(("map", args.task_id))
                     self._pending_journal.append((
                         "map", args.task_id, task.file, parts,
                         record is not None, list(task.files) or None))
+                self._event("map_committed", task=args.task_id,
+                            worker=args.worker_id, parts=len(parts),
+                            has_record=record is not None)
                 log.info("map task %d done (%d/%d)", args.task_id,
                          self._maps_completed, len(self.map_tasks))
                 self._cond.notify_all()
                 return rpc.TaskFinishedReply(ok=True)
         finally:
             self._flush_journal()  # fsync before the reply leaves
+            self._flush_events()
 
     def _register_map_outputs(self, map_task_id: int,
                               produced_parts: list[int]) -> None:
@@ -499,8 +673,11 @@ class Scheduler:
     def reduce_finished(self, args: rpc.TaskFinishedArgs
                         ) -> rpc.TaskFinishedReply:
         record = self._resolve_commit("reduce", args.task_id)
+        self._persist_spans(args.spans, args.worker_id, args.spans_seq)
         try:
             with self._cond:
+                self._worker_seen(args.worker_id, task=None,
+                                  metrics=_piggyback(args.metrics))
                 self.worker_health.record_success(args.worker_id)
                 task = self.reduce_tasks[args.task_id]
                 accepted = task.state is not TaskState.COMPLETED
@@ -508,12 +685,19 @@ class Scheduler:
                     task.state = TaskState.COMPLETED
                     self._reduces_completed += 1
                     self.counters["reduce_completed"] += 1
+                    if self._done_locked():
+                        _H_REDUCE_PHASE.observe(
+                            time.monotonic()
+                            - (self._reduce_t0 or self._phase_t0))
                     if self.journal and (("reduce", args.task_id)
                                          not in self._journaled):
                         self._journaled.add(("reduce", args.task_id))
                         self._pending_journal.append((
                             "reduce", args.task_id, None, None,
                             record is not None, None))
+                    self._event("reduce_committed", task=args.task_id,
+                                worker=args.worker_id,
+                                has_record=record is not None)
                     log.info("reduce task %d done (%d/%d)", args.task_id,
                              self._reduces_completed, self.n_reduce)
                 self._add_metrics_locked(args.metrics, accepted=accepted)
@@ -521,6 +705,7 @@ class Scheduler:
                 return rpc.TaskFinishedReply(ok=True)
         finally:
             self._flush_journal()
+            self._flush_events()
 
     # ------------------------------------------------- streaming shuffle
     def reduce_next_file(self, args: rpc.ReduceNextFileArgs,
@@ -537,9 +722,14 @@ class Scheduler:
                         "(current %s)", args.task_id, args.epoch, self.epoch)
             return rpc.ReduceNextFileReply(abort=True)
         deadline = time.monotonic() + timeout
+        if args.lost_file:
+            try:
+                with self._cond:
+                    if self._report_lost_locked(args):
+                        return rpc.ReduceNextFileReply(abort=True)
+            finally:
+                self._flush_events()
         with self._cond:
-            if args.lost_file and self._report_lost_locked(args):
-                return rpc.ReduceNextFileReply(abort=True)
             task = self.reduce_tasks[args.task_id]
             while True:
                 task.heartbeat()
@@ -583,6 +773,10 @@ class Scheduler:
         self._map_queue.append(tid)
         self.counters["maps_lost_output"] += 1
         self.counters["map_retries"] += 1
+        _C_REQUEUED.inc()
+        metrics_mod.counter("dgrep_maps_lost_output_total").inc()
+        self._event("map_lost_output", task=tid, file=args.lost_file,
+                    reporter=args.worker_id)
         rt = (self.reduce_tasks[args.task_id]
               if 0 <= args.task_id < len(self.reduce_tasks) else None)
         if rt is not None and rt.state is TaskState.IN_PROGRESS and (
@@ -592,30 +786,52 @@ class Scheduler:
             rt.stamped = False
             self._reduce_queue.append(args.task_id)
             self.counters["reduce_retries"] += 1
+            _C_REQUEUED.inc()
         self._cond.notify_all()
         return True
 
     # ---------------------------------------------------------- liveness
     def heartbeat(self, task_type: str, task_id: int, grace_s: float = 0.0,
-                  worker_id: int = -1) -> None:
+                  worker_id: int = -1,
+                  args: rpc.HeartbeatArgs | None = None) -> None:
         """Stamp an IN_PROGRESS task's liveness.  A nonzero ``grace_s``
         declares a silent phase of that many seconds; the next stamp
         without one ends it.  A task the sweeper already re-enqueued takes
-        no stamp (a straggler must not resurrect it)."""
-        with self._cond:
-            table = self.map_tasks if task_type == "map" else self.reduce_tasks
-            if not 0 <= task_id < len(table):
-                return
-            task = table[task_id]
-            if task.state is not TaskState.IN_PROGRESS:
-                return
-            g = max(0.0, float(grace_s))
-            task.heartbeat(grace_s=g)
-            if worker_id < 0 or worker_id == task.worker:
-                task.stamped = True
-            self.counters["heartbeats"] += 1
-            if g > 0:
-                self.counters["grace_declared"] += 1
+        no stamp (a straggler must not resurrect it).  ``args``, the whole
+        HeartbeatArgs, brings the span pipeline's piggyback: its span batch
+        is persisted, its Metrics snapshot lands in the worker's row, and
+        its send time and round trip feed the clock-offset estimate."""
+        # the arrival time first: the estimate prices the transit at rtt/2
+        recv_at = time.time()
+        if args is not None:
+            worker_id = args.worker_id
+            self._persist_spans(args.spans, args.worker_id, args.spans_seq)
+        try:
+            with self._cond:
+                if args is not None:
+                    self._worker_seen(args.worker_id, metrics=args.metrics)
+                    self._observe_clock(args, recv_at)
+                table = (self.map_tasks if task_type == "map"
+                         else self.reduce_tasks)
+                if not 0 <= task_id < len(table):
+                    return
+                task = table[task_id]
+                if task.state is not TaskState.IN_PROGRESS:
+                    return
+                g = max(0.0, float(grace_s))
+                if g > 0 and task.grace_s != g:
+                    # on the transition only: a retried grace stamp
+                    # declares the same window again
+                    self._event("grace_declared", task=task_id,
+                                type=task_type, worker=worker_id, grace_s=g)
+                task.heartbeat(grace_s=g)
+                if worker_id < 0 or worker_id == task.worker:
+                    task.stamped = True
+                self.counters["heartbeats"] += 1
+                if g > 0:
+                    self.counters["grace_declared"] += 1
+        finally:
+            self._flush_events()
 
     def sweep(self) -> bool:
         """One pass of the failure detector: re-enqueue every IN_PROGRESS
@@ -638,12 +854,16 @@ class Scheduler:
                         if task.stamped or not self.worker_health.polled_since(
                                 task.worker, task.timestamp):
                             failed.add(task.worker)
+                        self._event("task_timeout", type=kind,
+                                    task=task.task_id, attempt=task.attempts,
+                                    worker=task.worker)
                         task.state = TaskState.UNASSIGNED
                         task.worker = -1
                         queue.append(task.task_id)
                         requeued = True
                         self.counters[f"{kind}_retries"] += 1
                         self.counters["tasks_requeued"] += 1
+                        _C_REQUEUED.inc()
             for wid in sorted(failed):
                 window = self.worker_health.record_failure(wid)
                 if window > 0:
@@ -651,8 +871,12 @@ class Scheduler:
                                 "consecutive task timeouts", wid, window,
                                 QUARANTINE_AFTER_FAILURES)
                     self.counters["workers_quarantined"] += 1
+                    _C_QUARANTINED.inc()
+                    self._event("quarantine", worker=wid,
+                                window_s=round(window, 3))
             if requeued:
                 self._cond.notify_all()
+        self._flush_events()
         return requeued
 
     def _sweep_loop(self) -> None:

@@ -67,10 +67,13 @@ class LocalTransport:
         return self.scheduler.reduce_next_file(args,
                                                timeout=self.rpc_timeout_s)
 
-    def heartbeat(self, args: rpc.HeartbeatArgs) -> None:
+    def heartbeat(self, args: rpc.HeartbeatArgs) -> float:
+        """The stamp, with the span pipeline's piggyback; its round trip is
+        0.0 (one process, one clock: the call's own duration would shift
+        the worker's trace row by the event log's flush)."""
         self.scheduler.heartbeat(args.task_type, args.task_id,
-                                 grace_s=args.grace_s,
-                                 worker_id=args.worker_id)
+                                 grace_s=args.grace_s, args=args)
+        return 0.0
 
     def read_input(self, filename: str) -> bytes:
         return resolve_input_path(filename, self.workdir).read_bytes()

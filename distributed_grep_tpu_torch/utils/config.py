@@ -1,10 +1,17 @@
 """Job configuration: the fields this package's runtime reads.
 
-The reference's JobConfig (its utils/config.py) without the fields of
-slices still to port: the span pipeline, follow mode, the service's
-submit token and the device mesh.  Loadable from JSON with overrides
-(``JobConfig.load``), which is how the ``run`` and ``coordinator``
-subcommands and the HTTP workers' ``GET /config`` bootstrap read it.
+The reference's JobConfig (its utils/config.py).  Loadable from JSON with
+overrides (``JobConfig.load``), which is how the ``run`` and
+``coordinator`` subcommands and the HTTP workers' ``GET /config``
+bootstrap read it.  A config the reference wrote loads too
+(``from_json``): its ``backend`` and ``chunk_bytes``, which no reader
+uses, are dropped; its follow-mode and submit-token fields are taken at
+their defaults, and otherwise raise NotImplementedError naming ROADMAP.md
+item 8; its ``mesh_shape``/``mesh_axes`` go to the application's options
+(``effective_app_options``), where the CUDA grep app names item 9.
+``to_json`` leaves out ``spans`` and the mesh fields at their defaults,
+so the bootstrap of a job that uses neither is the same bytes as before
+they existed.
 """
 
 from __future__ import annotations
@@ -20,6 +27,13 @@ DEFAULT_APPLICATION = "distributed_grep_tpu_torch.apps.grep_cuda"
 # Valid JobConfig.store names; runtime/store.py STORES holds the same
 # two (a literal here, so a config does not import the runtime).
 STORE_NAMES = frozenset({"posix", "nonatomic"})
+
+# Keys the reference's to_json writes and no reader of a job uses.
+_DROPPED_KEYS = ("backend", "chunk_bytes")
+# The reference's fields of slices still to port, with their defaults.
+_UNPORTED_KEYS = {"follow": False, "follow_poll_s": None, "submit_token": ""}
+# Fields to_json leaves out at these values.
+_ELIDE_DEFAULTS = {"spans": False, "mesh_shape": (), "mesh_axes": ("data",)}
 
 
 @dataclass
@@ -59,7 +73,19 @@ class JobConfig:
     task_timeout_s: float = 10.0
     sweep_interval_s: float = 1.0  # the failure detector's period
     journal: bool = True  # the task-commit journal a restart replays
-    job_id: str = ""  # the job's tag (the span log's, ROADMAP.md item 8)
+
+    # --- observability (utils/spans.py)
+    # The span pipeline: workers ship per-attempt spans on their heartbeat
+    # and finished RPCs, and the coordinator persists them with its own
+    # decisions as events.jsonl in the work dir (``trace-export`` renders
+    # it).  Off: no RPC carries a new field and no file is written.
+    # DGREP_SPANS=1 switches it on whatever this says.
+    spans: bool = False
+    job_id: str = ""  # the span tag; "" is the work dir's basename
+
+    # --- device mesh (ROADMAP.md item 9): merged into the app options
+    mesh_shape: tuple[int, ...] = ()
+    mesh_axes: tuple[str, ...] = ("data",)
 
     # --- worker resources
     # Each reduce sink holds this much before it spills a sorted run.
@@ -80,6 +106,14 @@ class JobConfig:
             raise ValueError(
                 f"store must be one of {sorted(STORE_NAMES)}, got {self.store!r}"
             )
+        self.mesh_shape = tuple(self.mesh_shape)
+        self.mesh_axes = tuple(self.mesh_axes)
+
+    def effective_job_id(self, work_dir: str | None = None) -> str:
+        """The span pipeline's job tag: ``job_id``, else the basename of
+        the work dir (``work_dir`` names the one in use when the config
+        leaves it to the job)."""
+        return self.job_id or Path(work_dir or self.work_dir).name
 
     def effective_batch_bytes(self) -> int:
         """The batching window in force: DGREP_BATCH_BYTES when set (parsed
@@ -89,9 +123,13 @@ class JobConfig:
         return env_batch_bytes(max(0, int(self.batch_bytes or 0)))
 
     def effective_app_options(self) -> dict:
-        """``app_options`` with the batching window added (explicit options
-        win), so the workers' engines pack with the planner's window."""
+        """``app_options`` with the mesh fields (when a mesh is asked for)
+        and the batching window added (explicit options win), so the
+        workers' engines pack with the planner's window."""
         out = dict(self.app_options)
+        if self.mesh_shape:
+            out.setdefault("mesh_shape", list(self.mesh_shape))
+            out.setdefault("mesh_axes", list(self.mesh_axes))
         bb = self.effective_batch_bytes()
         if bb:
             out.setdefault("batch_bytes", bb)
@@ -99,11 +137,24 @@ class JobConfig:
 
     # --- (de)serialization
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        d = dataclasses.asdict(self)
+        for k, default in _ELIDE_DEFAULTS.items():
+            v = d[k]
+            if (tuple(v) if isinstance(v, (list, tuple)) else v) == default:
+                del d[k]
+        return json.dumps(d, indent=2, sort_keys=True)
 
     @classmethod
     def from_json(cls, text: str) -> "JobConfig":
-        return cls(**json.loads(text))
+        d = json.loads(text)
+        for k in _DROPPED_KEYS:
+            d.pop(k, None)
+        for k, default in _UNPORTED_KEYS.items():
+            if k in d and d.pop(k) != default:
+                raise NotImplementedError(
+                    f"JobConfig field {k!r} is not ported yet: ROADMAP.md "
+                    f"'Slices still to port', item 8 (the service runtime)")
+        return cls(**d)
 
     @classmethod
     def load(cls, path: str | Path, **overrides: Any) -> "JobConfig":

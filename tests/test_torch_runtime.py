@@ -532,3 +532,115 @@ def test_read_chunks_equals_reference(tmp_path, chunk, overlap):
     p.write_bytes(bytes(range(256)) * 5 + b"tail")
     assert list(read_chunks(p, chunk, overlap)) == list(
         ref_read_chunks(p, chunk, overlap))
+
+
+# ------------------------------------------- a job config the reference wrote
+_APPS3 = {"wordcount": {}, "inverted_index": {"min_word_len": 2},
+          "grep": {"pattern": "hello"}}
+
+
+@pytest.mark.parametrize("app", sorted(_APPS3))
+def test_run_loads_the_reference_job_json(tmp_path, corpus, capsysbinary,
+                                          app):
+    """ROADMAP C10: the reference's JobConfig.to_json (which always writes
+    backend, chunk_bytes, mesh_shape, mesh_axes and spans) loads in the
+    port's ``run --config``, and the job prints the reference's lines."""
+    from distributed_grep_tpu.__main__ import main as ref_main
+    from distributed_grep_tpu_torch.__main__ import main
+
+    files = [str(p) for p in corpus.values()]
+    ref_cfg = tmp_path / "ref.json"
+    ref_cfg.write_text(RefJobConfig(
+        input_files=files, application=f"distributed_grep_tpu.apps.{app}",
+        app_options=_APPS3[app], n_reduce=2,
+        work_dir=str(tmp_path / "ref")).to_json())
+    assert ref_main(["run", "--config", str(ref_cfg)]) == 0
+    want = capsysbinary.readouterr().out
+    assert want
+    # the reference's writer, naming the port's application
+    port_cfg = tmp_path / "port.json"
+    text = RefJobConfig(
+        input_files=files,
+        application=f"distributed_grep_tpu_torch.apps.{app}",
+        app_options=_APPS3[app], n_reduce=2,
+        work_dir=str(tmp_path / "port")).to_json()
+    assert {"backend", "chunk_bytes", "mesh_shape", "spans"} <= set(
+        json.loads(text))
+    port_cfg.write_text(text)
+    assert main(["run", "--config", str(port_cfg)]) == 0
+    assert capsysbinary.readouterr().out == want
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("follow", True, "item 8"), ("submit_token", "tok", "item 8"),
+    ("mesh_shape", (2,), "item 9"),
+])
+def test_reference_fields_of_unported_slices_name_their_item(
+        tmp_path, corpus, capsys, field, value, item):
+    """A reference config that asks for follow mode or a submit token
+    fails naming ROADMAP item 8; a device mesh reaches the CUDA grep app's
+    options, which name item 9.  At their defaults they load."""
+    from distributed_grep_tpu_torch.__main__ import main
+
+    kw = {"input_files": [str(p) for p in corpus.values()],
+          "application": "distributed_grep_tpu_torch.apps.grep_cuda",
+          "app_options": {"pattern": "hello", "device": "cpu"},
+          "n_reduce": 2, "work_dir": str(tmp_path / "w")}
+    cfg = tmp_path / "job.json"
+    cfg.write_text(RefJobConfig(**kw).to_json())
+    assert JobConfig.load(cfg).effective_app_options() == kw["app_options"]
+    cfg.write_text(RefJobConfig(**kw, **{field: value}).to_json())
+    assert main(["run", "--config", str(cfg)]) == 2
+    assert item in capsys.readouterr().err
+
+
+def test_host_app_job_never_asks_for_the_card(tmp_path, corpus,
+                                              capsysbinary, monkeypatch):
+    """ROADMAP C11: a word-count job with no device option runs and exits
+    0 where CUDA is absent, in process and through a worker of a
+    coordinator, without touching torch.cuda; the CUDA grep app without
+    ``device: cpu`` still fails, naming the device."""
+    import torch
+
+    from distributed_grep_tpu.__main__ import main as ref_main
+    from distributed_grep_tpu_torch.__main__ import main
+    from distributed_grep_tpu_torch.runtime.http_coordinator import (
+        CoordinatorServer,
+    )
+    from distributed_grep_tpu_torch.runtime.http_transport import (
+        run_http_worker,
+    )
+
+    def no_context(*_a, **_k):
+        raise AssertionError("a host-only job asked for a CUDA context")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "current_device", no_context)
+    files = [str(p) for p in corpus.values()]
+    ref_cfg = tmp_path / "ref.json"
+    ref_cfg.write_text(RefJobConfig(
+        input_files=files, application="distributed_grep_tpu.apps.wordcount",
+        n_reduce=2, work_dir=str(tmp_path / "ref")).to_json())
+    assert ref_main(["run", "--config", str(ref_cfg)]) == 0
+    want = capsysbinary.readouterr().out
+    cfg = tmp_path / "wc.json"
+    cfg.write_text(json.dumps({
+        "application": "distributed_grep_tpu_torch.apps.wordcount",
+        "input_files": files, "n_reduce": 2,
+        "work_dir": str(tmp_path / "port")}))
+    assert main(["run", "--config", str(cfg)]) == 0
+    assert capsysbinary.readouterr().out == want
+    server = CoordinatorServer(JobConfig.load(
+        cfg, work_dir=str(tmp_path / "http"), coordinator_port=0))
+    server.start()
+    try:
+        run_http_worker(f"127.0.0.1:{server.port}")
+        assert server.wait_done(10.0)
+        assert server.status()["reduce"]["completed"] == 2
+    finally:
+        server.shutdown(linger_s=0.0)
+    cfg.write_text(json.dumps({
+        "input_files": files, "app_options": {"pattern": "hello"},
+        "n_reduce": 2, "work_dir": str(tmp_path / "grep")}))
+    assert main(["run", "--config", str(cfg)]) == 2
+    assert b"device='cpu'" in capsysbinary.readouterr().err
