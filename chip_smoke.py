@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--file-mb 128] [--n-files 8]
         [--workers 2] [--kernels-only | --warm-only | --control-only |
-        --telemetry-only]
+        --telemetry-only | --tiers-only]
 
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
@@ -55,7 +55,7 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          1-16 checks, both hash families, with and without folding, half
          ORed into a nonzero plane) with members ending at rows 0..m of
          the stripe heads, at chunk 32 and 64 over 32 lanes and at the 64
-         MB segment (10 of the banks, five of the regexes); and of the two
+         MB segment (10 of the banks, two of the regexes); and of the two
          sub-stripe kernels: seeded random Shift-And models of every
          length 1-32 (letters, classes, '.', -i, their rare-class
          filters; both modes) and approx models (k = 1-3, m up to 32, so
@@ -75,11 +75,12 @@ Phase 3  the main path at real size, each query through runtime.job.run_job
          on "cuda" and checked line for line against ``LC_ALL=C grep -na``
          with the query's -F, -E, -i or -f.  Corpora made from --seed: 8
          files of 128 MB of English-word lines with injected needles (and
-         config 3's members, some across stripe starts, and '#'), 8 files
-         of 128 MB of NASA-HTTP-style access-log lines, 8 files of 128 MB
+         config 3's members, some across stripe starts, and '#'), 4 files
+         of 128 MB of NASA-HTTP-style access-log lines, 4 files of 128 MB
          of PCAP-like binary records with config 5's members injected, and
-         one 128 MB file of lines that defeat a relaxed regex filter.
-         Queries:
+         one 128 MB file of lines that defeat a relaxed regex filter; the
+         word queries (and phases 3c and 3d) run over the first 4 word
+         files, phases 3b and 3e over all 8.  Queries:
          'volcano' (sparse, rare-class filter), '-i Volcano', 'the'
          (dense: the on-device dense confirm, 9M columnar records),
          'being it' (its rare-class
@@ -206,6 +207,39 @@ Phase 3d the telemetry (utils/spans.py, utils/trace.py, utils/metrics.py):
          and a row per worker), the same mr-out bytes as phase 3's; it
          logs each worker's first assign_map after the coordinator's
          start, beside the seconds its processes were started at.
+Phase 3e the shared tiers, the launch counts zeroed just before and read
+         just after, the corpus cache off (DGREP_CORPUS_BYTES=0): (a) the
+         shard index over a tree of 2,000 files of 4-64 KiB cut from a
+         word file ('volcano' planted in each that lacks it) and the word
+         files cut in thirds (24 files of about 43 MiB), a seeded rare
+         token planted in 20 small and 2 large files: run_jobs on the card
+         with ``index_dir`` (a split of small files a map task): a cold
+         'volcano' job that publishes every summary, then warm jobs for
+         the token, for 'volcano' and for -v the token (250 small files),
+         each job's mr-out bytes equal to the host engine's job with
+         DGREP_INDEX=0, the token job's also to its DGREP_INDEX=0 twin on
+         the card; the token job prunes what the
+         summaries rule out (at least 1,900 small and 20 large files), no
+         file holding the token among them, and uploads only the unpruned
+         large files' segments and the card's windows; the 'volcano' and
+         -v jobs prune nothing.  Per job: the wall, index_shards_pruned,
+         index_maybe_scans, index_bytes_skipped, uploads, reads, launches.
+         (b) ops/fuse.FusedScanner.scan_batch over the 24 large files in
+         splits of at most MAX_FUSED_SPLIT_BYTES (one packed window a
+         split) in two mixes of K = 4: config 3's 1,000 literals in four
+         quarters (one FDR launch a segment and no other, where the solo
+         scans take four) and 'volcano', -i 'Volcano', '^the (old|new) '
+         and config 2's alternation (a case-folded union, one NFA launch a
+         segment and no other); each
+         query's lines equal its solo scan on the card; the fused wall
+         beside the K solo walls, fused_dispatches and fusion_bytes_saved;
+         then map_fused_fn over one split for three participants (-w, -x,
+         -i) against each one's solo map_batch_fn records.  (c) a seeded
+         sweep of 120 draws of K = 2..8 specs (literals, -F sets, the NFA
+         sweep's regexes, about a third -i) over 4 MiB of word lines with
+         CR, NUL and 0xFF, DGREP_DEVICE_MIN_BYTES=0: every union scan
+         launches, and each query's lines equal its solo scan on the card
+         and the re oracle; draws that raise FuseError are counted.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -360,7 +394,14 @@ _WORDS = (
 ).split()
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header ("== ...") with the seconds since
+    the script started."""
+    if msg.startswith("== "):
+        msg += f" [{time.perf_counter() - _T0:.1f} s in]"
     print(msg, flush=True)
 
 
@@ -910,12 +951,12 @@ def cli_display_runs(words: list[Path], stdin_file: Path) -> list[str]:
     each run's kernel launches (from its --metrics, a process of its own:
     the counts start at 0) must include its route's kernel.  The stdin
     runs pin the small-input bound to 0: a block of the stream, or the
-    live pipe's one line, may be smaller.  Returns a log line a run."""
-    log_lines = []
+    live pipe's one line, may be smaller.  The seven run side by side
+    (for the smoke's time), so a wall holds its neighbours' contention.  Returns a log line a run."""
     mib = [p.stat().st_size >> 20 for p in words[:2]]
     both = f"{mib[0]} + {mib[1]} MiB"
 
-    def checked(label, r, wall, metrics, kernel, got, want, gnu_rc):
+    def checked(label, r, wall, metrics, kernel, got, want, gnu_rc) -> str:
         if got != want or r.returncode != gnu_rc:
             raise AssertionError(
                 f"CLI {label}: exit {r.returncode} vs GNU {gnu_rc}; "
@@ -926,7 +967,7 @@ def cli_display_runs(words: list[Path], stdin_file: Path) -> list[str]:
                                  f"({metrics['launches']})")
         c = metrics["counters"]
         secs = metrics.get("seconds", {})
-        log_lines.append(
+        return (
             f"CLI {label}: exit {r.returncode}, {len(got)} rows equal to "
             f"GNU grep's, wall {wall:.3f} s"
             + (f" (job {secs['cli_job']:.3f} s, print "
@@ -939,25 +980,32 @@ def cli_display_runs(words: list[Path], stdin_file: Path) -> list[str]:
                if "engine" in metrics else ""))
 
     two = words[:2]
-    r, wall, m = port_cli(["-o", "-i", "volcano", *two])
-    g = gnu(["-o", "-n", "-i", "volcano", *two])
-    checked(f"-o -i volcano ({both})", r, wall, m, "shift_and",
+
+    def only_o() -> str:
+        r, wall, m = port_cli(["-o", "-i", "volcano", *two])
+        g = gnu(["-o", "-n", "-i", "volcano", *two])
+        return checked(
+            f"-o -i volcano ({both})", r, wall, m, "shift_and",
             [(p, n, t) for p, n, _c, _b, t in port_tuples(r.stdout)],
             [(p, n, t) for p, n, _c, _b, t in gnu_tuples(g.stdout, two)],
             g.returncode)
-    r, wall, m = port_cli(["-C", "2", "volcano", *two])
-    g = gnu(["-n", "-C", "2", "volcano", *two])
-    checked(f"-C 2 volcano ({both}, '--' separators)", r, wall, m,
-            "shift_and", port_tuples(r.stdout), gnu_tuples(g.stdout, two),
-            g.returncode)
-    r, wall, m = port_cli(["-b", "-w", "volcano", *two])
-    g = gnu(["-b", "-n", "-w", "volcano", *two])
-    checked(f"-b -w volcano ({both})", r, wall, m, "shift_and",
-            port_tuples(r.stdout), gnu_tuples(g.stdout, two, boff=True),
-            g.returncode)
-    # standard input: the stream, through a pipe from cat
-    for args, label in ((["-c", "volcano", "-"], "cat FILE | -c volcano -"),
-                        (["volcano", "-"], "cat FILE | volcano -")):
+
+    def context() -> str:
+        r, wall, m = port_cli(["-C", "2", "volcano", *two])
+        g = gnu(["-n", "-C", "2", "volcano", *two])
+        return checked(f"-C 2 volcano ({both}, '--' separators)", r, wall,
+                       m, "shift_and", port_tuples(r.stdout),
+                       gnu_tuples(g.stdout, two), g.returncode)
+
+    def byte_offsets() -> str:
+        r, wall, m = port_cli(["-b", "-w", "volcano", *two])
+        g = gnu(["-b", "-n", "-w", "volcano", *two])
+        return checked(f"-b -w volcano ({both})", r, wall, m, "shift_and",
+                       port_tuples(r.stdout),
+                       gnu_tuples(g.stdout, two, boff=True), g.returncode)
+
+    def stream(args, label) -> str:
+        # standard input: the stream, through a pipe from cat
         cat = subprocess.Popen(["cat", str(stdin_file)],
                                stdout=subprocess.PIPE)
         try:
@@ -973,41 +1021,52 @@ def cli_display_runs(words: list[Path], stdin_file: Path) -> list[str]:
         else:
             got = port_tuples(r.stdout)
             want = gnu_tuples(g.stdout, [], label=b"(standard input)")
-        checked(f"{label} ({stdin_file.stat().st_size >> 20} MiB, the "
-                f"stream)", r, wall, m, "shift_and",
-                got, want, g.returncode)
-    # the same count on the file, for its wall beside the stream's
-    r, wall, m = port_cli(["-c", "volcano", stdin_file])
-    g = gnu(["-c", "volcano", stdin_file])
-    checked("-c volcano FILE (the same file as a file)", r, wall, m,
-            "shift_and", [r.stdout], [g.stdout], g.returncode)
-    # -q over a live pipe: exits at the first selected line, the pipe
-    # left open
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "distributed_grep_tpu_torch", "grep", "-q",
-         "volcano", "--metrics"], cwd=ROOT, stdin=subprocess.PIPE,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        env={**os.environ, **KERNELS_AT_EVERY_SIZE})
-    try:
-        t0 = time.perf_counter()
-        proc.stdin.write(b"ash\nthe volcano erupts\n")
-        proc.stdin.flush()
-        rc = proc.wait(timeout=120)
-        wall = time.perf_counter() - t0
-        out, err = proc.stdout.read(), proc.stderr.read()
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-        proc.stdin.close()
-        proc.wait()
-        proc.stdout.close()
-        proc.stderr.close()
-    checked("-q volcano on a live pipe, left open (from the write, "
-            "interpreter start included)",
-            subprocess.CompletedProcess(proc.args, rc, out, err), wall,
-            cli_metrics("-q on a live pipe", rc, err), "shift_and", [out],
-            [b""], 0)
-    return log_lines
+        return checked(f"{label} ({stdin_file.stat().st_size >> 20} MiB, "
+                       f"the stream)", r, wall, m, "shift_and", got, want,
+                       g.returncode)
+
+    def count_file() -> str:
+        # the same count on the file, for its wall beside the stream's
+        r, wall, m = port_cli(["-c", "volcano", stdin_file])
+        g = gnu(["-c", "volcano", stdin_file])
+        return checked("-c volcano FILE (the same file as a file)", r, wall,
+                       m, "shift_and", [r.stdout], [g.stdout], g.returncode)
+
+    def live_pipe() -> str:
+        # -q over a live pipe: exits at the first selected line, the pipe
+        # left open
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
+             "-q", "volcano", "--metrics"], cwd=ROOT, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            env={**os.environ, **KERNELS_AT_EVERY_SIZE})
+        try:
+            t0 = time.perf_counter()
+            proc.stdin.write(b"ash\nthe volcano erupts\n")
+            proc.stdin.flush()
+            rc = proc.wait(timeout=120)
+            wall = time.perf_counter() - t0
+            out, err = proc.stdout.read(), proc.stderr.read()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.stdin.close()
+            proc.wait()
+            proc.stdout.close()
+            proc.stderr.close()
+        return checked("-q volcano on a live pipe, left open (from the "
+                       "write, interpreter start included)",
+                       subprocess.CompletedProcess(proc.args, rc, out, err),
+                       wall, cli_metrics("-q on a live pipe", rc, err),
+                       "shift_and", [out], [b""], 0)
+
+    runs = [only_o, context, byte_offsets,
+            lambda: stream(["-c", "volcano", "-"], "cat FILE | -c volcano -"),
+            lambda: stream(["volcano", "-"], "cat FILE | volcano -"),
+            count_file, live_pipe]
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = [pool.submit(fn) for fn in runs]
+        return [f.result() for f in futures]
 
 
 # ------------------------------------------------------- the warm tiers
@@ -1096,6 +1155,24 @@ MANY_SMALL_FILES = 500
 CORPUS_PHASE_BYTES = 2 << 30
 
 
+def cut_in_thirds(words: list[Path], split: Path) -> list[Path]:
+    """The word files each cut in three at newlines, into ``split``: files
+    of at most 64 MiB (one scan_file chunk each)."""
+    pieces = []
+    split.mkdir(parents=True, exist_ok=True)
+    for w in words:
+        data = w.read_bytes()
+        cuts = [0, *(data.rfind(b"\n", 0, len(data) * k // 3) + 1
+                     for k in (1, 2)), len(data)]
+        for a, b in zip(cuts, cuts[1:]):
+            if b - a > 64 << 20:
+                raise AssertionError(f"corpus piece of {b - a} bytes")
+            pieces.append(split / f"{w.stem}-{len(pieces):02d}.txt")
+            pieces[-1].write_bytes(data[a:b])
+        del data
+    return pieces
+
+
 def corpus_cache_runs(words: list[Path], work: Path, workers: int,
                       torch) -> list[str]:
     """Two run_jobs in this process over the word files each cut in three
@@ -1110,19 +1187,8 @@ def corpus_cache_runs(words: list[Path], work: Path, workers: int,
     from distributed_grep_tpu_torch.runtime.job import run_job
     from distributed_grep_tpu_torch.utils.config import JobConfig
 
-    pieces = []
     split = work / "split"
-    split.mkdir(parents=True, exist_ok=True)
-    for w in words:
-        data = w.read_bytes()
-        cuts = [0, *(data.rfind(b"\n", 0, len(data) * k // 3) + 1
-                     for k in (1, 2)), len(data)]
-        for a, b in zip(cuts, cuts[1:]):
-            if b - a > 64 << 20:
-                raise AssertionError(f"corpus piece of {b - a} bytes")
-            pieces.append(split / f"{w.stem}-{len(pieces):02d}.txt")
-            pieces[-1].write_bytes(data[a:b])
-        del data
+    pieces = cut_in_thirds(words, split)
     with ThreadPoolExecutor(len(pieces)) as pool:
         want = sum(pool.map(lambda q: grep_oracle_count(q, ["-F", "volcano"]),
                             pieces))
@@ -1868,14 +1934,13 @@ def sweep_text(rng, chunk: int, lanes: int, samples, fold: bool):
 
 def phase_nfa_sweep(torch, np, nfa_scan, nfa_mod, seed: int) -> tuple[int, int]:
     """The NFA kernel against its plain version on seeded random models of
-    1-4 words with 0-128 specials: every draw at SWEEP_SMALL, one draw per
-    width and the 128-specials model at SWEEP_SEGMENT.  Returns (draws
-    compared, the largest absolute difference)."""
+    1-4 words with 0-128 specials: every draw at SWEEP_SMALL, a 4-word
+    draw and the 128-specials model at SWEEP_SEGMENT (no more, for the
+    smoke's time: phase 2's NFA checks run six models at that shape).  Returns (draws compared, the
+    largest absolute difference)."""
     rng = np.random.default_rng(seed)
     draws = sweep_regexes(nfa_mod, seed, per_words=NFA_SWEEP_PER_WIDTH)
-    on_segment = ({id(d) for d in draws[:4 * NFA_SWEEP_PER_WIDTH
-                                        :NFA_SWEEP_PER_WIDTH]}
-                  | {id(draws[-1])})
+    on_segment = {id(draws[4 * NFA_SWEEP_PER_WIDTH - 1]), id(draws[-1])}
     n = worst = 0
     for d in draws:
         pattern, ic, model, sample = d
@@ -3677,6 +3742,527 @@ def phase_telemetry(args, words: list[Path], set3: list[bytes], inproc: dict,
     return result
 
 
+# Phase 3e: the shared tiers (the shard index and scan fusion)
+TIERS_SMALL_FILES = 2000
+TIERS_TOKEN_SMALL = 20  # small files the rare token is planted in
+TIERS_TOKEN_LARGE = 2  # large files the rare token is planted in
+TIERS_MIN_PRUNED_SMALL = 1900
+TIERS_MIN_PRUNED_LARGE = 20
+TIERS_INVERT_FILES = 250  # the -v jobs' small files (every line a record)
+FUSE_SWEEP_DRAWS = 120
+FUSE_SWEEP_BYTES = 4 << 20
+FUSE_SWEEP_POOL = (8, 6, 14)  # literals, -F sets, regexes drawn once
+
+
+def tiers_job(label: str, files: list, opts: dict, work: Path, workers: int,
+              device: str, index_dir: Path, counters: dict,
+              index_on: bool = True, host: bool = False) -> dict:
+    """One run_job of phase 3e (a) in this process, with ``index_dir``:
+    on the card through the grep_cuda module (its engine's totals read),
+    or with ``host`` on the host engine (backend cpu, a fresh app).  A
+    split of small files is one map task (batch_bytes 32 MiB, as the
+    CLI's).  Returns its wall, mr-out hashes, the job's counters (the
+    index's prunes and maybes the map attempts shipped) and the deltas of
+    its engine's totals and of the kernel launches."""
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.apps.loader import from_module
+    from distributed_grep_tpu_torch.runtime.job import run_job
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    saved = os.environ.pop("DGREP_INDEX", None)
+    if not index_on:
+        os.environ["DGREP_INDEX"] = "0"
+    eng0 = grep_cuda._engine
+    totals0 = dict(eng0.totals) if eng0 is not None else {}
+    launches0 = {k: m.launches for k, m in counters.items()}
+    t0 = time.perf_counter()
+    try:
+        res = run_job(JobConfig(
+            input_files=[str(f) for f in files], batch_bytes=32 << 20,
+            app_options={**opts, "index_dir": str(index_dir),
+                         **({"backend": "cpu"} if host else {})},
+            n_reduce=10, task_timeout_s=60.0,
+            work_dir=str(work / f"job-{label}"), journal=False,
+            durable=False),
+            n_workers=workers, device=device,
+            app=None if host else from_module(grep_cuda))
+    finally:
+        os.environ.pop("DGREP_INDEX", None)
+        if saved is not None:
+            os.environ["DGREP_INDEX"] = saved
+    wall = time.perf_counter() - t0
+    out = {"label": label, "wall": wall,
+           "hashes": mr_out_hashes(res.output_files),
+           "counters": dict(res.metrics["counters"]),
+           "launches": {k: m.launches - launches0[k]
+                        for k, m in counters.items()}}
+    if not host:
+        eng = grep_cuda._engine
+        base = totals0 if eng is eng0 else {}
+        out["totals"] = {k: v - base.get(k, 0) for k, v in eng.totals.items()
+                         if isinstance(v, (int, float))}
+    shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
+    return out
+
+
+def tiers_index(args, large: list[Path], small: list[Path], token: str,
+                root: Path, device: str, counters: dict) -> list[str]:
+    """Phase 3e (a): the shard index over the small tree and the large
+    files, every job's mr-out held to the host engine's job with
+    DGREP_INDEX=0 (the exact answer), the rare-token job's also to its
+    DGREP_INDEX=0 twin on the card; the warm rare-token job's prunes against
+    the summaries' own verdicts, its uploads against the unpruned
+    shards."""
+    from distributed_grep_tpu_torch.index import plan as index_plan
+    from distributed_grep_tpu_torch.index import summary as index_summary
+
+    idx = root / "idx"
+    files = small + large
+    rare = {"pattern": token}
+    jobs = [
+        ("cold volcano", files, {"pattern": "volcano"}),
+        ("warm rare", files, rare),
+        ("warm volcano", files, {"pattern": "volcano"}),
+        # -v selects every other line: a quarter of the small tree
+        ("warm -v rare", small[:TIERS_INVERT_FILES], {**rare,
+                                                      "invert": True}),
+    ]
+    runs = {}
+    for label, fs, opts in jobs:
+        runs[label] = tiers_job(label, fs, opts, root, args.workers, device,
+                                idx, counters)
+    # what the summaries say of each file, before the twins run
+    req = index_plan.requirements_for_query(pattern=token)
+    verdicts = {}
+    for f in files:
+        summ = index_summary.lookup_summary(index_summary.file_key(f))
+        if summ is None:
+            raise AssertionError(f"index: no summary of {f} after the jobs")
+        verdicts[f] = not req.may_match(summ)
+    pruned_small = sum(verdicts[f] for f in small)
+    pruned_large = sum(verdicts[f] for f in large)
+    for f, cut in verdicts.items():
+        if cut and token.encode() in f.read_bytes():
+            raise AssertionError(f"index: {f} holds the token and its "
+                                 f"summary rules it out")
+    # the host engine's index-off jobs decide exactness; the card's own
+    # index-off twin runs for the job that prunes
+    twins = {"rare": tiers_job("off rare", files, rare, root, args.workers,
+                               device, idx, counters, index_on=False)}
+    for label, fs, opts in (("rare", files, rare),
+                            ("volcano", files, {"pattern": "volcano"}),
+                            ("-v rare", small[:TIERS_INVERT_FILES],
+                             {**rare, "invert": True})):
+        twins[f"host {label}"] = tiers_job(f"host {label}", fs, opts, root,
+                                           args.workers, device, idx,
+                                           counters, index_on=False,
+                                           host=True)
+    for label, others in (("cold volcano", ["host volcano"]),
+                          ("warm rare", ["rare", "host rare"]),
+                          ("warm volcano", ["host volcano"]),
+                          ("warm -v rare", ["host -v rare"])):
+        for other in others:
+            if runs[label]["hashes"] != twins[other]["hashes"]:
+                raise AssertionError(f"index: job {label!r}: mr-out differs "
+                                     f"from {other!r}")
+    warm = runs["warm rare"]
+    c = warm["counters"]
+    if (c.get("index_shards_pruned", 0) != pruned_small + pruned_large
+            or pruned_small < min(TIERS_MIN_PRUNED_SMALL, len(small) - 20)
+            or pruned_large < min(TIERS_MIN_PRUNED_LARGE, len(large) - 2)):
+        raise AssertionError(
+            f"index: warm rare job pruned {c.get('index_shards_pruned', 0)}; "
+            f"the summaries rule out {pruned_small} of {len(small)} small and "
+            f"{pruned_large} of {len(large)} large files")
+    for label in ("warm volcano", "warm -v rare"):
+        if runs[label]["counters"].get("index_shards_pruned"):
+            raise AssertionError(f"index: {label} pruned "
+                                 f"{runs[label]['counters']}")
+    if not runs["cold volcano"]["totals"].get("uploads"):
+        raise AssertionError(f"index: the cold job uploaded nothing "
+                             f"{runs['cold volcano']['totals']}")
+    # the warm rare job's uploads: the unpruned large files' segments and
+    # at most one a batch window the card scanned (a window of the few
+    # unpruned small files is under the small-input bound: the host)
+    t = warm["totals"]
+    large_segs = sum(-(-f.stat().st_size // (64 << 20)) for f in large
+                     if not verdicts[f])
+    windows = (t.get("batch_dispatches", 0) + t.get("solo_dispatches", 0)
+               - t.get("small_host_scan", 0))
+    if device == "cuda" and not (large_segs <= t.get("uploads", 0)
+                                 <= large_segs + max(windows, 0)):
+        raise AssertionError(f"index: warm rare job uploads {t} for "
+                             f"{large_segs} unpruned large segments")
+    if device == "cuda" and sum(warm["launches"].values()) > t.get(
+            "uploads", 0) * 2:
+        raise AssertionError(f"index: warm rare job launches "
+                             f"{warm['launches']} for {t} uploads")
+    lines = []
+    for label, r in [*runs.items(), *((f"off {k}" if not k.startswith(
+            "host") else k, v) for k, v in twins.items())]:
+        c, t = r["counters"], r.get("totals", {})
+        lines.append(
+            f"index {label!r}: wall {r['wall']:.3f} s, index_shards_pruned "
+            f"{c.get('index_shards_pruned', 0)}, index_maybe_scans "
+            f"{c.get('index_maybe_scans', 0)}, index_bytes_skipped "
+            f"{c.get('index_bytes_skipped', 0)}, uploads "
+            f"{t.get('uploads', 0)}, file_reads {t.get('file_reads', 0)}, "
+            f"launches {({k: v for k, v in r['launches'].items() if v})}")
+    lines.append(
+        f"index: {len(small)} small files, {len(large)} large; the token "
+        f"{token!r} in {TIERS_TOKEN_SMALL} small and {TIERS_TOKEN_LARGE} "
+        f"large; the warm rare job pruned {pruned_small} small and "
+        f"{pruned_large} large files; every mr-out equal to the host "
+        f"engine's with DGREP_INDEX=0, the rare job's also to its "
+        f"DGREP_INDEX=0 twin on the card; "
+        f"{len(list(idx.glob('*.tgs')))} summaries in the store")
+    return lines
+
+
+def fusion_splits(large: list[Path], max_bytes: int) -> list[list[Path]]:
+    """Consecutive large files grouped into splits whose packed size (a
+    file, and a '\n' where it ends without one) is at most ``max_bytes``
+    (a fused attempt's whole-read bound): one packed window a split."""
+    out, cur, size = [], [], 0
+    for f in large:
+        with open(f, "rb") as fh:
+            fh.seek(-1, os.SEEK_END)
+            n = f.stat().st_size + (fh.read(1) != b"\n")
+        if cur and size + n > max_bytes:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(f)
+        size += n
+    if cur:
+        out.append(cur)
+    return out
+
+
+def tiers_fusion(large: list[Path], device: str, counters: dict
+                 ) -> list[str]:
+    """Phase 3e (b): FusedScanner.scan_batch over the large files, split
+    as a fused attempt splits them and packed into one window a split, in
+    the set mix and the regex mix (K = 4), each query's lines against its
+    solo scan on the card; then map_fused_fn over one split, three
+    participants with different options, against their solo records."""
+    from distributed_grep_tpu_torch.apps.loader import load_application
+    from distributed_grep_tpu_torch.ops import fuse as fuse_mod
+    from distributed_grep_tpu_torch.ops.engine import GrepEngine
+    from distributed_grep_tpu_torch.runtime import fusion as fusion_mod
+
+    set3 = [m.decode() for m in config3_set()]
+    mixes = {
+        "set mix": ([(None, tuple(set3[k * 250:(k + 1) * 250]), False)
+                     for k in range(4)], "fdr"),
+        "regex mix": ([("volcano", None, False), ("Volcano", None, True),
+                       ("^the (old|new) ", None, False),
+                       (CONFIG2, None, False)], "nfa"),
+    }
+    splits = fusion_splits(large, fusion_mod.MAX_FUSED_SPLIT_BYTES)
+    # one packed window a split: every file under the small bound
+    opts = {"device": device, "batch_bytes": fusion_mod.MAX_FUSED_SPLIT_BYTES,
+            "device_min_bytes": 64 << 20}
+    lines = []
+    for label, (specs, kernel) in mixes.items():
+        fuse_mod.fusion_counters_clear()
+        before = {k: m.launches for k, m in counters.items()}
+        t0 = time.perf_counter()
+        fs = fuse_mod.FusedScanner(specs, **opts)
+        fused: list[list] = [[] for _ in specs]
+        segs = 0
+        for split in splits:
+            outs = fs.scan_batch([(f.name, str(f)) for f in split])
+            segs += fs.union.stats.get("segments", 0)
+            for k, per in enumerate(outs):
+                fused[k].extend(per)
+        fused_wall = time.perf_counter() - t0
+        f_launch = {k: m.launches - before[k] for k, m in counters.items()}
+        cc = fuse_mod.fusion_counters()
+        solo_walls, s_total = [], 0
+        for spec, got in zip(specs, fused):
+            pat, pats, ic = spec
+            before = {k: m.launches for k, m in counters.items()}
+            t0 = time.perf_counter()
+            eng = GrepEngine(pat, patterns=list(pats) if pats else None,
+                             ignore_case=ic, **opts)
+            want = [x for split in splits
+                    for x in eng.scan_batch([(f.name, str(f))
+                                             for f in split])]
+            solo_walls.append(time.perf_counter() - t0)
+            s_total += sum(m.launches - before[k]
+                           for k, m in counters.items())
+            if ([(n, r.matched_lines.tolist()) for n, r in got]
+                    != [(n, r.matched_lines.tolist()) for n, r in want]):
+                raise AssertionError(f"fusion {label}: query {spec[:1]} "
+                                     f"differs from its solo scan")
+        n_bytes = sum(f.stat().st_size for f in large)
+        f_total = sum(f_launch.values())
+        # one launch of the union's route a segment, for K queries
+        if (device == "cuda" and (f_launch[kernel] != segs
+                                  or f_total != segs
+                                  or s_total < len(specs) * segs)) \
+                or cc.get("fused_dispatches") != len(splits) \
+                or cc.get("fusion_bytes_saved") != (len(specs) - 1) * n_bytes:
+            raise AssertionError(
+                f"fusion {label}: route {fs.union.route}, fused launches "
+                f"{f_launch} over {segs} segments, solo launches {s_total}, "
+                f"counters {cc}")
+        lines.append(
+            f"fusion {label} (K={len(specs)}, union route {fs.union.route}):"
+            f" {len(splits)} windows, {segs} segments; fused wall "
+            f"{fused_wall:.3f} s against solo walls "
+            f"{', '.join(f'{w:.3f}' for w in solo_walls)} (sum "
+            f"{sum(solo_walls):.3f} s, fused/sum "
+            f"{fused_wall / sum(solo_walls):.3f}); launches fused "
+            f"{({k: v for k, v in f_launch.items() if v})} ({f_total}) "
+            f"against {s_total} solo; fused_dispatches "
+            f"{cc['fused_dispatches']}, fusion_bytes_saved "
+            f"{cc['fusion_bytes_saved']}; every query's lines equal its "
+            f"solo scan's")
+
+    # map_fused_fn: three participants of one split, options that differ
+    split = splits[0][:2]
+    items = [(f.name, str(f)) for f in split]
+    popts = [{"pattern": "volcano", "word_regexp": True, **opts},
+             {"pattern": "[a-z ]*volcano[a-z ]*", "line_regexp": True,
+              **opts},
+             {"pattern": "Volcano", "ignore_case": True, **opts}]
+    parts = [{"job_id": f"p{j}", "app_options": o,
+              "filenames": [f"/p{j}/{n}" for n, _ in items]}
+             for j, o in enumerate(popts)]
+    t0 = time.perf_counter()
+    fused = load_application(
+        "distributed_grep_tpu_torch.apps.grep_cuda").map_fused_fn(items,
+                                                                  parts)
+    fused_wall = time.perf_counter() - t0
+
+    def kvs(records):
+        return [(kv.key, kv.value) for r in records for kv in (
+            r.to_keyvalues() if hasattr(r, "to_keyvalues") else [r])]
+
+    n_rec = []
+    for p, got in zip(parts, fused):
+        solo = load_application("distributed_grep_tpu_torch.apps.grep_cuda",
+                                **p["app_options"])
+        want = kvs(solo.map_batch_fn([(nm, path) for nm, (_n, path)
+                                      in zip(p["filenames"], items)]))
+        if kvs(got) != want:
+            raise AssertionError(f"map_fused_fn: participant "
+                                 f"{p['app_options']} differs from its solo "
+                                 f"records")
+        n_rec.append(len(want))
+    lines.append(f"map_fused_fn over {len(items)} files, 3 participants "
+                 f"(-w, -x, -i): {fused_wall:.3f} s; records {n_rec}, each "
+                 f"equal to its solo map_batch_fn's")
+    return lines
+
+
+def sweep_corpus(rng, n_bytes: int, samples) -> bytes:
+    """``n_bytes`` of word lines over the lower-case letters and
+    SWEEP_ALPHABET's upper case (the specs are drawn over SWEEP_ALPHABET,
+    so most lines hold no match), with CR before some newlines, NUL and
+    0xFF bytes, and each sample function's strings planted 40 times."""
+    import numpy as np
+
+    alphabet = np.frombuffer(
+        ("abcdefghijklmnopqrstuvwxyz" + SWEEP_ALPHABET.upper() + " " * 5
+         + "\n").encode(), np.uint8)
+    buf = rng.choice(alphabet, size=n_bytes)
+    nl = np.flatnonzero(buf == 10)
+    cr = nl[rng.random(nl.size) < 0.05]
+    buf[cr[cr > 0] - 1] = 13
+    odd = rng.integers(0, n_bytes, size=n_bytes // 1000)
+    buf[odd] = rng.choice(np.array([0, 255], np.uint8), size=odd.size)
+    for sample in samples:
+        for pos in rng.integers(0, n_bytes - 64, size=40):
+            s = sample(rng).encode()[:60]
+            buf[pos:pos + len(s)] = np.frombuffer(s, np.uint8)
+    return buf.tobytes()
+
+
+def re_oracle_lines(data: bytes, spec) -> list[int]:
+    """The 1-based lines of ``data`` holding a match of ``spec`` by Python
+    re (a set as escaped alternatives; -i folds ASCII as the engine does).
+    No spec of the sweep matches across a newline, so the matches of one
+    pass over the whole buffer mark every matching line."""
+    import numpy as np
+
+    pat, pats, ic = spec
+    src = (b"|".join(re.escape(p.encode()) for p in pats) if pats
+           else pat.encode())
+    rx = re.compile(src, re.IGNORECASE if ic else 0)
+    starts = np.fromiter((m.start() for m in rx.finditer(data)),
+                         dtype=np.int64)
+    nl = np.flatnonzero(np.frombuffer(data, np.uint8) == 10)
+    return np.unique(np.searchsorted(nl, starts) + 1).tolist()
+
+
+def tiers_sweep(seed: int, device: str, counters: dict) -> list[str]:
+    """Phase 3e (c): FUSE_SWEEP_DRAWS draws of K = 2..8 specs from a seeded
+    pool (literals, -F sets, regexes of the NFA sweep's grammar, about a
+    third -i) over FUSE_SWEEP_BYTES of word lines with CR, NUL and 0xFF;
+    the small-input bound pinned to 0 (ROADMAP C8) so every union scan
+    launches; each query's fused lines against its solo scan on the card
+    and the re oracle.  A draw that raises FuseError is counted, not
+    failed."""
+    import numpy as np
+
+    from distributed_grep_tpu_torch.ops import fuse as fuse_mod
+    from distributed_grep_tpu_torch.ops.engine import GrepEngine
+
+    rng = np.random.default_rng(seed)
+    letters = list(SWEEP_ALPHABET)
+
+    def word(lo, hi):
+        return "".join(rng.choice(letters, size=int(rng.integers(lo, hi + 1))))
+
+    n_lit, n_set, n_rx = FUSE_SWEEP_POOL
+    pool, samples = [], []
+    for _ in range(n_lit):
+        w = word(3, 6)
+        pool.append((w, None, bool(rng.random() < 0.3)))
+        samples.append(lambda r, w=w: w)
+    for _ in range(n_set):
+        members = tuple(sorted({word(1, 5) for _ in range(
+            int(rng.integers(2, 13)))}))
+        pool.append((None, members, bool(rng.random() < 0.3)))
+        samples.append(lambda r, m=members: m[int(r.integers(0, len(m)))])
+    while len(pool) < n_lit + n_set + n_rx:
+        # the grammar from depth 2: no quantifier inside a quantifier,
+        # which keeps the re oracle's backtracking bounded
+        parts = [rand_regex(rng, 2) for _ in range(int(rng.integers(1, 5)))]
+        pat = "".join(p for p, _ in parts)
+        if re.fullmatch(pat, "") is not None:
+            continue  # a spec matching every line: nothing to fuse
+        pool.append((pat, None, bool(rng.random() < 0.3)))
+        samples.append(lambda r, parts=parts: "".join(f(r) for _, f in parts))
+    data = sweep_corpus(rng, FUSE_SWEEP_BYTES, samples)
+    solo = {}
+    for spec in list(pool):
+        pat, pats, ic = spec
+        try:
+            eng = GrepEngine(pat, patterns=list(pats) if pats else None,
+                             ignore_case=ic, device=device)
+        except ValueError:  # a draw the parser refuses: not in the pool
+            pool.remove(spec)
+            continue
+        solo[spec] = eng.scan(data).matched_lines.tolist()
+        if solo[spec] != re_oracle_lines(data, spec):
+            raise AssertionError(f"sweep: solo scan of {spec} differs from "
+                                 f"the re oracle")
+    mismatches = fuse_errors = launched_draws = 0
+    routes: dict = {}
+    build_s = scan_s = 0.0
+    t0 = time.perf_counter()
+    for _ in range(FUSE_SWEEP_DRAWS):
+        k = int(rng.integers(2, 9))
+        specs = [pool[int(i)] for i in rng.choice(len(pool), size=k,
+                                                  replace=False)]
+        before = sum(m.launches for m in counters.values())
+        t1 = time.perf_counter()
+        try:
+            fs = fuse_mod.FusedScanner(specs, device=device)
+        except fuse_mod.FuseError:
+            fuse_errors += 1
+            continue
+        finally:
+            build_s += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res = fs.scan(data)
+        scan_s += time.perf_counter() - t1
+        if sum(m.launches for m in counters.values()) > before:
+            launched_draws += 1
+        elif device == "cuda":
+            raise AssertionError(f"sweep: the union of {specs} (route "
+                                 f"{fs.union.route}) launched no kernel")
+        routes[fs.union.route] = routes.get(fs.union.route, 0) + 1
+        for spec, r in zip(specs, res):
+            if r.matched_lines.tolist() != solo[spec]:
+                mismatches += 1
+    if mismatches:
+        raise AssertionError(f"sweep: {mismatches} fused queries differ from "
+                             f"their solo scans and the re oracle")
+    return [f"fused sweep: {FUSE_SWEEP_DRAWS} draws of K = 2..8 from a pool "
+            f"of {len(pool)} specs over {len(data)} bytes: {mismatches} "
+            f"mismatches, {fuse_errors} FuseError draws skipped, "
+            f"{launched_draws} union scans launched, union routes {routes}; "
+            f"{time.perf_counter() - t0:.1f} s (the unions' builds "
+            f"{build_s:.1f} s, their scans and confirms {scan_s:.1f} s)"]
+
+
+def phase_tiers(args, words: list[Path], card: str, counters: dict,
+                device: str = "cuda") -> None:
+    """Phase 3e (module docstring): the shard index and scan fusion, the
+    launch counts zeroed just before and read just after.  The corpus
+    cache is off for the phase (DGREP_CORPUS_BYTES=0): what the index
+    saves shows as uploads and reads, and the solo passes it compares
+    fusion with read and upload as the fused one does."""
+    import numpy as np
+
+    from distributed_grep_tpu_torch.index import summary as index_summary
+
+    log(f"== phase 3e: the shared tiers (shard index, scan fusion), card: "
+        f"{card}")
+    t_phase = time.perf_counter()
+    root = WORK / "tiers"
+    saved = {k: os.environ.get(k) for k in ("DGREP_CORPUS_BYTES",
+                                            "DGREP_DEVICE_MIN_BYTES")}
+    os.environ["DGREP_CORPUS_BYTES"] = "0"
+    for m in counters.values():
+        m.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        large = cut_in_thirds(words, root / "large")
+        make_small_tree(words[1], root / "tree", TIERS_SMALL_FILES,
+                        seed=args.seed + 17)
+        small = sorted(p for p in (root / "tree").rglob("*") if p.is_file())
+        rng = np.random.default_rng(args.seed + 31)
+        token = "qzj" + "".join(rng.choice(list("xkq0123456789"), size=7))
+        line = f"a line with {token} in it\n".encode()
+        for f in small:  # 'volcano' is in every file
+            data = f.read_bytes()
+            if b"volcano" not in data:
+                f.write_bytes(data + b"the volcano line\n")
+        for f in [*(small[int(i)] for i in rng.choice(
+                len(small), TIERS_TOKEN_SMALL, replace=False)),
+                  *(large[int(i)] for i in rng.choice(
+                      len(large), TIERS_TOKEN_LARGE, replace=False))]:
+            with open(f, "ab") as fh:
+                fh.write(line)
+        log(f"phase 3e corpus: {len(small)} small files, {len(large)} large "
+            f"({sum(f.stat().st_size for f in large)} bytes), "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        for ln in tiers_index(args, large, small, token, root, device,
+                              counters):
+            log(f"{ln} [{card}]")
+        index_summary.clear()  # detach the store: (b) and (c) scan all
+        log(f"phase 3e (a): {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        for ln in tiers_fusion(large, device, counters):
+            log(f"{ln} [{card}]")
+        log(f"phase 3e (b): {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        os.environ["DGREP_DEVICE_MIN_BYTES"] = "0"
+        for ln in tiers_sweep(args.seed + 4949, device, counters):
+            log(f"{ln} [{card}]")
+        log(f"phase 3e (c): {time.perf_counter() - t0:.1f} s [{card}]")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        index_summary.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: m.launches for k, m in counters.items()}
+    if device == "cuda" and not all(launches[k] for k in ("shift_and", "fdr",
+                                                          "nfa")):
+        raise AssertionError(f"phase 3e: launches {launches}")
+    log(f"phase 3e launches in this process: {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3697,6 +4283,9 @@ def main() -> int:
                     help="phase 1, then phase 3's two in-process jobs that "
                          "phase 3d compares with, and phase 3d; prints no "
                          "result lines")
+    ap.add_argument("--tiers-only", action="store_true",
+                    help="phase 1, then phase 3e over the word corpus alone; "
+                         "prints no result lines")
     args = ap.parse_args()
 
     import torch
@@ -3867,6 +4456,17 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_all:.1f} s")
         return 0
 
+    if args.tiers_only:
+        if WORK.exists():
+            shutil.rmtree(WORK)
+        try:
+            words = make_corpus(args.seed, args.n_files, args.file_mb << 20)
+            phase_tiers(args, words, card, counters)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.warm_only:
         if WORK.exists():
             shutil.rmtree(WORK)
@@ -3946,8 +4546,13 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         words = make_corpus(args.seed, args.n_files, args.file_mb << 20)
-        logs = make_log_corpus(args.seed, args.n_files, args.file_mb << 20)
-        pcap = make_pcap_corpus(args.seed, args.n_files, args.file_mb << 20)
+        # the queries run on half the word files, and the log and pcap
+        # corpora hold half as many, for the smoke's time; phases 3b and
+        # 3e take all eight
+        n_half = max(1, args.n_files // 2)
+        half = words[:n_half]
+        logs = make_log_corpus(args.seed, n_half, args.file_mb << 20)
+        pcap = make_pcap_corpus(args.seed, n_half, args.file_mb << 20)
         defeat = [make_defeat_file(args.seed, args.file_mb << 20)]
         set3, set5 = config3_set(), config5_set()
         pats = {}
@@ -3976,44 +4581,44 @@ def main() -> int:
         # arguments} (a count per file), {"approx": ...} (Sellers' DP over
         # grep's prefilter) or {"approx_count": ...}
         queries = [
-            ("volcano", single("volcano"), words, fixed("volcano"),
+            ("volcano", single("volcano"), half, fixed("volcano"),
              ["shift_and"]),
-            ("-i Volcano", single("Volcano", True), words,
+            ("-i Volcano", single("Volcano", True), half,
              fixed("Volcano", True), ["shift_and"]),
-            ("the", single("the"), words, fixed("the"), ["shift_and"]),
-            ("being it", single("being it"), words, fixed("being it"),
+            ("the", single("the"), half, fixed("the"), ["shift_and"]),
+            ("being it", single("being it"), half, fixed("being it"),
              ["shift_and"]),
-            ("config2", single(CONFIG2), words, ere(CONFIG2), ["fdr"]),
+            ("config2", single(CONFIG2), half, ere(CONFIG2), ["fdr"]),
             ("config4 -i", single(CONFIG4, True), logs, ere(CONFIG4, True),
              ["nfa"]),
-            ("^the (old|new) ", single("^the (old|new) "), words,
+            ("^the (old|new) ", single("^the (old|new) "), half,
              ere("^the (old|new) "), ["nfa"]),
-            ("volcano$", single("volcano$"), words, ere("volcano$"), ["nfa"]),
-            (r"\bvolcano\b", single(r"\bvolcano\b"), words,
+            ("volcano$", single("volcano$"), half, ere("volcano$"), ["nfa"]),
+            (r"\bvolcano\b", single(r"\bvolcano\b"), half,
              ere(r"\bvolcano\b"), ["nfa"]),
             ("x[ab]{2,40}y", single("x[ab]{2,40}y"), defeat,
              ere("x[ab]{2,40}y"), ["nfa"]),
-            ("config3 -f", {"patterns": set3}, words, members("config3"),
+            ("config3 -f", {"patterns": set3}, half, members("config3"),
              ["fdr"]),
             ("config5 -f", {"patterns": set5}, pcap, members("config5"),
              ["fdr"]),
             ("2-byte set", {"patterns": PAIR_SET}, pcap, members("pairs"),
              ["pairset"]),
-            ("config3 + '#'", {"patterns": set3 + [b"#"]}, words,
+            ("config3 + '#'", {"patterns": set3 + [b"#"]}, half,
              members("mixed"), ["fdr", "pairset"]),
             # approx: the oracle is Sellers' DP over grep's prefilter lines
             *[(f"--max-errors {k}{' -i' if ic else ''} {p}",
-               {**single(p, ic), "max_errors": k}, words,
+               {**single(p, ic), "max_errors": k}, half,
                {"approx": (p, k, ic, pieces)}, ["approx"])
               for p, k, ic, pieces in APPROX_QUERIES],
             # the selection and count options: -w and -x confirm the
             # kernel's candidate lines on the host, -v takes the complement,
             # -c counts per file
-            ("-w volcano", {**single("volcano"), "word_regexp": True}, words,
+            ("-w volcano", {**single("volcano"), "word_regexp": True}, half,
              ["-w", *fixed("volcano")], ["shift_and"]),
             ("-w -F -f config3", {"patterns": set3, "word_regexp": True},
-             words, ["-w", *members("config3")], ["fdr"]),
-            ("-c the", {**single("the"), "count_only": True}, words,
+             half, ["-w", *members("config3")], ["fdr"]),
+            ("-c the", {**single("the"), "count_only": True}, half,
              {"count": fixed("the")}, ["shift_and"]),
             ("-v volcano", {**single("volcano"), "invert": True}, words[:1],
              ["-v", *fixed("volcano")], ["shift_and"]),
@@ -4021,14 +4626,14 @@ def main() -> int:
              ["-x", *ere(LOG_LINE_X)], ["nfa"]),
             ("-c --max-errors 2 -i volcano",
              {**single("volcano", True), "max_errors": 2, "count_only": True},
-             words, {"approx_count": APPROX_QUERIES[1]}, ["approx"]),
+             half, {"approx_count": APPROX_QUERIES[1]}, ["approx"]),
             # SWAR (DGREP_SWAR=1 for these three only): the Shift-And
             # queries again, on the packed kernel
-            ("SWAR volcano", single("volcano"), words, fixed("volcano"),
+            ("SWAR volcano", single("volcano"), half, fixed("volcano"),
              ["shift_and_swar"]),
-            ("SWAR -i Volcano", single("Volcano", True), words,
+            ("SWAR -i Volcano", single("Volcano", True), half,
              fixed("Volcano", True), ["shift_and_swar"]),
-            ("SWAR being it", single("being it"), words, fixed("being it"),
+            ("SWAR being it", single("being it"), half, fixed("being it"),
              ["shift_and_swar"]),
         ]
 
@@ -4216,10 +4821,13 @@ def main() -> int:
         log(f"host queries: {time.perf_counter() - t0:.1f} s")
 
         phase_warm_tiers(args, words, pats["config3"], counters, card, torch)
-        phase_control_plane(words, set3, inproc, card)
-        phase_telemetry(args, words, set3, inproc, card, counters)
+        # 3c and 3d repeat phase 3's jobs of their CONTROL_QUERIES
+        phase_control_plane(half, set3, inproc, card)
+        phase_telemetry(args, half, set3, inproc, card, counters)
+        phase_tiers(args, words, card, counters)
 
         # ------------------------------------------- timings (not counted)
+        log(f"== the timing block, card: {card}")
         # the match-dense receipt: 64 MiB, the CLI's wall and the host
         # stages of the same job in its own process, its output held to
         # the reference-format oracle
@@ -4302,8 +4910,10 @@ def main() -> int:
                    else dev_bc if name.endswith("bc lines") else dev)
             k_ms = cuda_ms(torch, lambda: nfa_scan.nfa_scan_words(arr, model),
                            20)
-            p_ms = cuda_ms(torch, lambda: nfa_scan.nfa_scan_words_plain(
-                arr, model), 1)
+            # the plain version timed on the kernels line's model only
+            # (the others' took about 25 s of the smoke)
+            p_ms = (cuda_ms(torch, lambda: nfa_scan.nfa_scan_words_plain(
+                arr, model), 1) if name == "config2 alternation" else None)
             live = [0] * model.n_words
             if model.n_specials:  # a second plain pass counts live steps
                 nfa_scan.nfa_scan_words_plain(arr, model, live=live)
@@ -4320,7 +4930,8 @@ def main() -> int:
                 f"{sum(live)} of {n_in * model.n_words}), chunk={lay.chunk} "
                 f"lanes={lay.lanes}: {k_ms:.4f} ms = "
                 f"{n_in / (k_ms / 1e3) / 1e9:.1f} GB/s; plain version on the "
-                f"card {p_ms:.1f} ms; bound {max(bytes_ms, o_ms):.4f} ms "
+                f"card {'not timed' if p_ms is None else f'{p_ms:.1f} ms'}; "
+                f"bound {max(bytes_ms, o_ms):.4f} ms "
                 f"(bytes {bytes_ms:.4f}, ops {o_ms:.4f}) [{card}]")
         del dev_bc, dev_log
 

@@ -143,7 +143,9 @@ Telemetry:
     python -m distributed_grep_tpu_torch trace-export EVENTS [-o OUT]
 
 ``status`` prints a running coordinator's ``GET /status`` (task states,
-counters, in-flight tasks, a row a worker) as indented JSON.
+counters, in-flight tasks, a row a worker) as indented JSON, with
+``index_shards_pruned`` and ``index_bytes_skipped`` at the top once the
+shard index (a job's ``index_dir``) has pruned a shard.
 ``trace-export`` renders a job's ``events.jsonl`` (the span pipeline's
 log, written with ``"spans": true`` in the job config or DGREP_SPANS=1;
 EVENTS is the file or the work dir holding it) as Chrome trace JSON for
@@ -885,6 +887,13 @@ def cmd_status(args: argparse.Namespace) -> int:
         print(f"error: {url} did not return JSON: not a coordinator?",
               file=sys.stderr)
         return 2
+    # the shard index's prunes (shipped by the workers' map attempts), on
+    # lines of their own and only when nonzero, as the reference's submit
+    counters = status.get("counters") or {}
+    if counters.get("index_shards_pruned"):
+        status["index_shards_pruned"] = int(counters["index_shards_pruned"])
+        status["index_bytes_skipped"] = int(
+            counters.get("index_bytes_skipped", 0))
     print(json.dumps(status, indent=2, sort_keys=True))
     return 0
 

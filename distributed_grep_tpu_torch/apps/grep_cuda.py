@@ -35,10 +35,23 @@ literal (a Shift-And pattern of single bytes) selects its lines with
 ``apps/grep.literal_mode_lines`` (one scan of the host library for the
 literal, then byte masks) in place of the regex over each candidate line.
 
-The device mesh and the shard index raise NotImplementedError naming the
-ROADMAP.md item that will port them; the port drives one card, so
-``devices`` raises too.  A falsy value of such an option
-(``index_dir=None``) is accepted and dropped.
+``index_dir`` (the reference's) attaches the shard index's persistent
+store (index/store.py) there: the engine publishes a trigram summary of
+each shard it reads whole, and a later job with the same ``index_dir``
+never opens a shard whose summary proves that no line can match
+(``map_batch_fn`` prunes members unless -v, whose complement needs the
+bytes).  A later configure without it detaches the store.
+
+``map_fused_fn`` answers K participants' queries over one split with one
+union scan a window (ops/fuse.FusedScanner), each participant's records
+built with its own options (``_EmitOpts``), equal to its solo
+``map_batch_fn``'s.  Its caller, the worker's fused map attempt, belongs
+to the service runtime (ROADMAP.md queue B, item 5).
+
+The device mesh raises NotImplementedError naming the ROADMAP.md item
+that will port it; the port drives one card, so ``devices`` raises too.
+A falsy value of such an option (``devices=None``) is accepted and
+dropped.
 
 With the span pipeline on (utils/spans.py), each record build (a whole
 input's, or a streamed chunk's) is a ``map:emit`` span, which separates
@@ -93,7 +106,6 @@ _UNPORTED = {
     "mesh_shape": "item 9 (multi-GPU)",
     "mesh_axes": "item 9 (multi-GPU)",
     "pattern_axis": "item 9 (multi-GPU)",
-    "index_dir": "item 8 (the service runtime)",
 }
 
 
@@ -120,6 +132,7 @@ def configure(
     line_regexp: bool = False,
     count_only: bool = False,
     presence_only: bool = False,
+    index_dir: object = None,
     **options: object,
 ) -> None:
     """Compile the pattern, or the literal set ``patterns`` when given
@@ -130,9 +143,15 @@ def configure(
     device.  ``max_errors=k`` (1..3) matches
     the single pattern within k edit errors.  Engine knobs (target_lanes,
     segment_bytes, min_chunk) pass through ``options``; the grep options
-    are the module docstring's."""
+    and ``index_dir`` are the module docstring's."""
     global _engine, _configured_with, _invert, _confirm, _count_only, \
         _presence, _confirm_lit, _confirm_mode
+    if index_dir is not None or _configured_with is not None:
+        # before the same-config return: the store follows each job, and
+        # a first configure without one never imports the index
+        from distributed_grep_tpu_torch.index import summary as index_summary
+
+        index_summary.attach_store(index_dir if index_dir else None)
     for name, value in options.items():
         if name in _UNPORTED and value:
             raise NotImplementedError(
@@ -172,10 +191,10 @@ def _stamp_every(progress, i: int, stride: int = 16384) -> None:
         progress()
 
 
-def _confirmed(lines: np.ndarray, spans, data) -> np.ndarray:
+def _confirmed(confirm, lines: np.ndarray, spans, data) -> np.ndarray:
     """The candidate ``lines`` whose bytes (``spans`` into ``data``) the
-    -w/-x confirm regex accepts.  Each line is its own memoryview slice,
-    so the regex anchors see the line as the whole string."""
+    -w/-x ``confirm`` regex accepts.  Each line is its own memoryview
+    slice, so the regex anchors see the line as the whole string."""
     progress = _progress_fn()
     mv = memoryview(data)
     starts, ends = (x.tolist() for x in spans)
@@ -183,34 +202,62 @@ def _confirmed(lines: np.ndarray, spans, data) -> np.ndarray:
     def verdicts():
         for i in range(lines.size):
             _stamp_every(progress, i)
-            yield _confirm.search(mv[starts[i]:ends[i]]) is not None
+            yield confirm.search(mv[starts[i]:ends[i]]) is not None
 
     return lines[np.fromiter(verdicts(), dtype=bool, count=lines.size)]
 
 
-def _records_for(filename: str, contents: bytes, result) -> list:
+class _EmitOpts:
+    """A query's options after the scan (what configure() keeps in the
+    module's globals), as an object: map_fused_fn builds K participants'
+    records side by side without configuring the module again."""
+
+    __slots__ = ("confirm", "confirm_lit", "confirm_mode", "invert",
+                 "count_only")
+
+    def __init__(self, confirm, confirm_lit, confirm_mode, invert,
+                 count_only):
+        self.confirm = confirm
+        self.confirm_lit = confirm_lit
+        self.confirm_mode = confirm_mode
+        self.invert = invert
+        self.count_only = count_only
+
+
+def _module_emit_opts() -> _EmitOpts:
+    return _EmitOpts(_confirm, _confirm_lit, _confirm_mode, _invert,
+                     _count_only)
+
+
+def _records_for(filename: str, contents: bytes, result,
+                 opts: _EmitOpts | None = None, nl=None) -> list:
     """Everything after a whole-bytes scan: the -w/-x confirm, -v, the
-    count record, the columnar batch (a ``map:emit`` span)."""
+    count record, the columnar batch (a ``map:emit`` span); with the
+    module's options unless ``opts``.  ``nl``: the newline index of
+    ``contents`` where the caller has one."""
     with spans_mod.span("map:emit", cat="map"):
-        return _records_inner(filename, contents, result)
+        return _records_inner(filename, contents, result,
+                              opts or _module_emit_opts(), nl)
 
 
-def _records_inner(filename: str, contents: bytes, result) -> list:
+def _records_inner(filename: str, contents: bytes, result, o: _EmitOpts,
+                   nl=None) -> list:
     emit = result.matched_lines
-    nl = result.nl_index
-    if _confirm is not None and emit.size:
+    if nl is None:
+        nl = result.nl_index
+    if o.confirm is not None and emit.size:
         if nl is None:
             nl = newline_index(contents)
-        if _confirm_lit is not None:
+        if o.confirm_lit is not None:
             emit = np.intersect1d(emit, literal_mode_lines(
-                contents, _confirm_lit, _confirm_mode, nl))
+                contents, o.confirm_lit, o.confirm_mode, nl))
         else:
-            emit = _confirmed(emit, line_spans(emit, nl, len(contents)),
-                              contents)
-    if _invert:
+            emit = _confirmed(o.confirm, emit,
+                              line_spans(emit, nl, len(contents)), contents)
+    if o.invert:
         emit = np.setdiff1d(np.arange(1, count_lines(contents) + 1,
                                       dtype=np.int64), emit)
-    if _count_only:
+    if o.count_only:
         return [KeyValue(filename, str(int(emit.size)))]
     if not emit.size:
         return []
@@ -244,8 +291,78 @@ def map_batch_fn(items) -> list:
     _check_configured().scan_batch(
         items, progress=_progress_fn(),
         emit=lambda name, data, res: records.extend(
-            _records_for(name, data, res)))
+            _records_for(name, data, res)),
+        # a pruned member emits no bytes and no lines: exact for printed
+        # lines and counts, not for -v, which keeps every read
+        index_prune=not _invert)
     return records
+
+
+# the app options configure() takes itself (and the ones it refuses);
+# every other option is an engine keyword, shared by a fused group
+_APP_OPTION_KEYS = frozenset((
+    "pattern", "patterns", "ignore_case", "invert", "word_regexp",
+    "line_regexp", "count_only", "presence_only", "max_errors", "index_dir",
+    *_UNPORTED,
+))
+
+
+def map_fused_fn(items, participants) -> list:
+    """K participants' queries over one shared split: one union scan a
+    packed window (ops/fuse.FusedScanner), then each participant's own
+    -w/-x confirm, -v and record build over its exact result.
+    ``participants`` are dicts with the participant's ``app_options`` and
+    its names of the split's members (``filenames``, or ``filename`` for
+    a split of one; two participants may name the same content by
+    different paths).  Returns a record list a participant, each equal to
+    its solo ``map_batch_fn`` over the same items.  Raises
+    ops/fuse.FuseError where the union cannot host a query (the caller
+    then runs each participant solo); any other error fails the map."""
+    from distributed_grep_tpu_torch.ops import fuse as fuse_mod
+    from distributed_grep_tpu_torch.runtime.fusion import query_spec
+
+    items = list(items)
+    specs, opt_sets = [], []
+    for p in participants:
+        o = dict(p.get("app_options") or {})
+        spec = query_spec(o)
+        if spec is None:
+            raise fuse_mod.FuseError(
+                f"participant {p.get('job_id')!r} query is not fusable")
+        specs.append(spec)
+        opt_sets.append(o)
+    base = opt_sets[0]
+    engine_kw = {k: v for k, v in base.items() if k not in _APP_OPTION_KEYS}
+    scanner = fuse_mod.FusedScanner(specs, **engine_kw)
+    emit_opts, names_per = [], []
+    for p, o in zip(participants, opt_sets):
+        mode = ("line" if o.get("line_regexp")
+                else "word" if o.get("word_regexp") else "search")
+        confirm = build_confirm(pattern=o.get("pattern"),
+                                patterns=o.get("patterns"),
+                                ignore_case=bool(o.get("ignore_case")),
+                                mode=mode)
+        # the regex confirm (no literal fast path, which needs the
+        # participant's own engine): the same lines
+        emit_opts.append(_EmitOpts(confirm, None, mode, bool(o.get("invert")),
+                                   bool(o.get("count_only"))))
+        nm = list(p.get("filenames") or [])
+        if not nm and p.get("filename"):
+            nm = [p["filename"]]
+        if len(nm) != len(items):
+            raise fuse_mod.FuseError(
+                f"participant {p.get('job_id')!r} has {len(nm)} member names "
+                f"for a {len(items)}-item split")
+        names_per.append(nm)
+    outs: list[list] = [[] for _ in participants]
+
+    def emit(i, _name, data, results, nl) -> None:
+        for k, res in enumerate(results):
+            outs[k].extend(_records_for(names_per[k][i], data, res,
+                                        opts=emit_opts[k], nl=nl))
+
+    scanner.scan_batch(items, progress=_progress_fn(), emit=emit)
+    return outs
 
 
 def map_path_fn(filename: str, path: str) -> list:
@@ -273,8 +390,8 @@ def map_path_fn(filename: str, path: str) -> list:
                 n += literal_mode_lines(buf, _confirm_lit, _confirm_mode,
                                         nl).size
             else:
-                n += _confirmed(lines, line_spans(lines, nl, len(buf)),
-                                buf).size
+                n += _confirmed(_confirm, lines,
+                                line_spans(lines, nl, len(buf)), buf).size
 
         engine.scan_file(path, emit_chunk=count_chunk, progress=progress,
                          stop=(lambda: n > 0) if _presence else None)
@@ -300,7 +417,8 @@ def map_path_fn(filename: str, path: str) -> list:
             batches.append(DeferredBatch(filename, lines, arr, nl, len(buf)))
             return
         if _confirm is not None and _confirm_lit is None:
-            lines = _confirmed(lines, line_spans(lines, nl, len(buf)), buf)
+            lines = _confirmed(_confirm, lines,
+                               line_spans(lines, nl, len(buf)), buf)
             if not lines.size:
                 return
         batches.append(make_batch_from_lines(filename, lines, arr, nl,

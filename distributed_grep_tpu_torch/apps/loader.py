@@ -8,7 +8,8 @@ An application is a Python module, addressed by dotted name
   optionally
 * ``configure(**options)`` (job options, e.g. the grep pattern),
   ``set_progress(fn)``, ``map_path_fn``, ``map_batch_fn`` (with
-  ``map_batch_paths``), ``reduce_stream_fn`` and ``reduce_is_identity``.
+  ``map_batch_paths``), ``map_fused_fn``, ``reduce_stream_fn`` and
+  ``reduce_is_identity``.
 
 Every load executes a fresh instance of the module, so two jobs in one
 process never share an application's module state.  ``from_module`` wraps
@@ -45,8 +46,9 @@ class LoadedApplication:
     map_batch_paths: bool = False
     # streaming reduce over a value iterator; agrees with reduce_fn
     reduce_stream_fn: Callable[[str, Any], str] | None = None
-    # the cross-tenant fused map: none in this package yet (ROADMAP.md
-    # item 6)
+    # the fused map (ops/fuse.py): map_fused_fn(items, participants)
+    # scans the split once for K participants' queries and returns a
+    # record list a participant, each equal to its own map_batch_fn's
     map_fused_fn: Callable[[list, list], list] | None = None
 
     def configure(self, **options: Any) -> None:
@@ -115,7 +117,8 @@ def from_module(module: Any, name: str | None = None) -> LoadedApplication:
         map_path_fn=optional("map_path_fn"), map_batch_fn=map_batch_fn,
         map_batch_paths=bool(getattr(module, "map_batch_paths", False))
         and map_batch_fn is not None,
-        reduce_stream_fn=optional("reduce_stream_fn"))
+        reduce_stream_fn=optional("reduce_stream_fn"),
+        map_fused_fn=optional("map_fused_fn"))
 
 
 def load_application(spec: str, **options: Any) -> LoadedApplication:

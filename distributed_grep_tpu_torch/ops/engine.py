@@ -93,7 +93,13 @@ The warm tiers (the reference's engine.py:332-497, 1217-1390 and
   uploaded segments on the card, and a repeat scan of unchanged files
   reads and uploads nothing;
 * ``scan_file_suffix``, the live-append suffix scan of ``grep --follow``;
-* ``cached_engine``, engines shared by their construction arguments.
+* ``cached_engine``, engines shared by their construction arguments;
+* the shard index (index/, the reference's engine.py:1400-1470): a
+  shard whose trigram summary proves that no line can match is answered
+  with the exact empty result and never opened, uploaded or launched
+  on; ``scan_file`` and ``scan_batch`` publish the summaries of the
+  shards they read whole, where one can be read again (an attached
+  store, or the corpus cache on).  DGREP_INDEX=0 turns it off.
 
 Differences from the reference, none of which changes an output line:
 
@@ -303,13 +309,17 @@ def cached_engine(pattern=None, *, patterns=None, **kw):
 
 
 def _stamp_counters(stats: dict) -> None:
-    """The process-wide counters of the model cache, the corpus cache and
-    the follow tier, into ``stats``, each only once it is nonzero."""
+    """The process-wide counters of the model cache, the corpus cache, the
+    follow tier and the shard index, into ``stats``, each only once it is
+    nonzero (the last two only where their module was imported)."""
     stats.update(model_cache_counters())
     stats.update(corpus_cache_counters())
     follow = sys.modules.get("distributed_grep_tpu_torch.runtime.follow")
     if follow is not None:
         stats.update(follow.follow_counters())
+    index = sys.modules.get("distributed_grep_tpu_torch.index.summary")
+    if index is not None:
+        stats.update(index.index_counters())
 
 
 @dataclass
@@ -715,6 +725,13 @@ class GrepEngine:
         self.target_lanes = target_lanes
         self.segment_bytes = segment_bytes
         self.min_chunk = min_chunk
+        # the shard index's view of the query (index/plan.py derives its
+        # required literals on first use: False until then, None when it
+        # is not eligible)
+        self._index_query = (pattern,
+                             tuple(patterns) if patterns is not None else None,
+                             bool(ignore_case), int(max_errors))
+        self._index_req: object = False
         if patterns is not None:
             self.pattern = f"<set of {len(patterns)}>"
             plan = check_patterns(patterns, ignore_case, backend=backend)
@@ -919,6 +936,61 @@ class GrepEngine:
     def _corpus_opt_in(self) -> bool:
         return self._corpus_budget() > 0
 
+    # ------------------------------------------------------ shard index
+    def _index_requirements(self):
+        """The query's index.plan.QueryRequirements, or None: the index
+        off (DGREP_INDEX, read each call) or the query not eligible.  The
+        derivation runs once an engine; one that raises counts as not
+        eligible (scan everything)."""
+        from distributed_grep_tpu_torch.index import summary as index_summary
+
+        if not index_summary.env_index_enabled():
+            return None
+        if self._index_req is False:
+            from distributed_grep_tpu_torch.index import plan as index_plan
+
+            pat, pats, ic, me = self._index_query
+            try:
+                self._index_req = index_plan.requirements_for_query(
+                    pattern=pat,
+                    patterns=list(pats) if pats is not None else None,
+                    ignore_case=ic, max_errors=me)
+            except Exception:  # noqa: BLE001 -- not eligible
+                self._index_req = None
+        return self._index_req
+
+    def _index_publish_enabled(self) -> bool:
+        """Whether scans build summaries: only where one can be read again
+        (a store attached, or the corpus cache on).  A one-shot job builds
+        none; lookups and prunes need no such gate."""
+        from distributed_grep_tpu_torch.index import summary as index_summary
+
+        return (index_summary.attached_store() is not None
+                or self._corpus_opt_in())
+
+    def _index_pruned(self, key) -> ScanResult:
+        """Count one prune (counters, an ``index:prune`` instant, this
+        thread's stats) and return the exact empty result: the summary
+        proved that no line of the shard can match."""
+        from distributed_grep_tpu_torch.index import summary as index_summary
+
+        index_summary.record_prune(key.n_bytes)
+        spans_mod.instant("index:prune", cat="engine", bytes=key.n_bytes)
+        st = {"file_reads": 0, "read_wait_seconds": 0.0}
+        _stamp_counters(st)
+        self.stats = st
+        return ScanResult(np.zeros(0, dtype=np.int64), 0, 0)
+
+    def _index_publish(self, key, data: bytes) -> None:
+        """Publish ``data``'s summary under ``key`` and attach it to the
+        corpus-cache entry when one is resident; called after the scan of
+        ``data`` succeeded, from the bytes in hand."""
+        from distributed_grep_tpu_torch.index import summary as index_summary
+
+        s = index_summary.publish_summary(key, data)
+        if s is not None:
+            corpus_cache().attach_summary(key, s)
+
     def _with_empty_lines(self, data: bytes, res: ScanResult) -> ScanResult:
         """The fix-up of a pattern nullable at '$' (the reference's
         engine.py scan()): its empty match holds at every line's end,
@@ -1033,6 +1105,12 @@ class GrepEngine:
         agrees, so the scan publishes it.  Files of several chunks stream
         uncached (their chunk cuts depend on the content).
 
+        The shard index: where the query is eligible and a summary of the
+        file exists, one that rules the query out returns the empty
+        result without opening the file (``index_shards_pruned`` in the
+        stats); a file of one chunk read whole publishes its summary
+        where one can be read again (``_index_publish_enabled``).
+
         ``emit(line_no, line_bytes)`` is called per matched line while its
         chunk is in memory.  ``emit_chunk(lines_before, buf,
         matched_lines, nl_index)`` is the columnar alternative, once per
@@ -1087,9 +1165,34 @@ class GrepEngine:
                   else np.zeros(0, dtype=np.int64))
             return ScanResult(ml, n_matches, total)
 
+        # the shard index: a summary that rules the query out returns the
+        # exact empty result before the file is opened; a maybe, or no
+        # summary yet, scans, and a scan of the whole file (one chunk)
+        # publishes its summary where one can be read again
+        idx_req = self._index_requirements()
+        idx_key = None
+        idx_pub = False
+        if idx_req is not None:
+            from distributed_grep_tpu_torch.index import summary as index_summary
+
+            # the stat only where a lookup could answer or a publish land
+            if index_summary.may_route() or self._index_publish_enabled():
+                idx_key = file_content_key(path)
+            if idx_key is not None:
+                summ = index_summary.lookup_summary(idx_key)
+                if summ is not None:
+                    if not idx_req.may_match(summ):
+                        return self._index_pruned(idx_key)
+                    index_summary.record_maybe()
+                    spans_mod.instant("index:maybe", cat="engine")
+                else:
+                    idx_pub = (0 < idx_key.n_bytes <= chunk_target
+                               and self._index_publish_enabled())
+
         corpus_k = None
         if self._corpus_opt_in():
-            k = file_content_key(path)
+            # one stat serves both tiers: the key the index took
+            k = idx_key if idx_key is not None else file_content_key(path)
             if (k is not None and 0 < k.n_bytes <= chunk_target
                     and not self._small_for_device(k.n_bytes)):
                 corpus_k = k
@@ -1098,7 +1201,11 @@ class GrepEngine:
                     # warm: the entry's bytes stand in for the read
                     corpus_cache().count_host_hit()
                     scan_piece(ent.data, k)
+                    if idx_pub:
+                        self._index_publish(k, ent.data)
                     return finish(0)
+        whole_k = corpus_k if corpus_k is not None else (
+            idx_key if idx_pub else None)
 
         pending: Future | None = None
         carry = b""
@@ -1124,13 +1231,17 @@ class GrepEngine:
                     if more:
                         cut = buf.rfind(b"\n")  # -1: the line grows on
                         carry, buf = buf[cut + 1:], buf[: cut + 1]
-                    key = None
-                    if (corpus_k is not None and first and not more
-                            and len(buf) == corpus_k.n_bytes
-                            and file_content_key(path) == corpus_k):
-                        key = corpus_k  # the whole keyed file, unchanged
+                    key = whole = None
+                    if (whole_k is not None and first and not more
+                            and len(buf) == whole_k.n_bytes
+                            and file_content_key(path) == whole_k):
+                        # the whole keyed file, unchanged
+                        key = corpus_k
+                        whole = buf if idx_pub else None
                     if buf:
                         scan_piece(buf, key)
+                        if whole is not None:  # the scan succeeded
+                            self._index_publish(idx_key, whole)
                         if (stop_after_match and n_matches) or (
                                 stop is not None and stop()):
                             break
@@ -1193,9 +1304,10 @@ class GrepEngine:
         _stamp_counters(self.stats)
         return res, len(data), data
 
-    def scan_batch(self, items, progress=None, emit=None):
+    def scan_batch(self, items, progress=None, emit=None,
+                   index_prune: bool = False):
         """Scan many inputs, small ones packed together (the reference's
-        engine.py:1887, without its shard-index branches).
+        engine.py:1887).
 
         ``items`` are ``(name, data)`` pairs, ``data`` bytes or a path
         (read whole: callers stream large files through scan_file).  An
@@ -1214,6 +1326,17 @@ class GrepEngine:
         window is recognized from its first member's path before any
         member is read (fresh stats of every member must match).
 
+        The shard index (path items): a member whose summary rules the
+        query out is, with ``index_prune``, never opened and emitted as
+        ``(name, b"", empty result)`` -- the caller's word that an empty
+        emit means what the real one would (true for printed lines and
+        counts, false for -v, whose app passes False and keeps every
+        read); a warm window whose summary rules the query out emits its
+        cached members with empty results and launches nothing.  Members
+        read cold publish their summaries after their scan succeeded
+        (where a summary can be read again: ``_index_publish_enabled``),
+        and a packed window its own in the corpus cache's regime.
+
         ``stats`` then hold the scans' summed counters and
         ``batched_files``, ``batch_dispatches``, ``solo_dispatches``,
         ``dispatches_saved`` (batched_files - batch_dispatches),
@@ -1223,7 +1346,16 @@ class GrepEngine:
         cap = max(0, int(self.batch_bytes))
         packer = BatchPacker(cap) if cap > 0 else None
         cache = corpus_cache() if self._corpus_opt_in() else None
+        idx_req = self._index_requirements()
+        idx_on = idx_req is not None
+        idx_pub_ok = idx_on and self._index_publish_enabled()
+        if idx_on:
+            from distributed_grep_tpu_torch.index import summary as index_summary
+
+            # no lookup could answer and no publish land: no stats taken
+            idx_on = index_summary.may_route() or idx_pub_ok
         pk_keys: list = []  # member keys, parallel to the packer
+        pk_pub: list = []  # (key, bytes) to publish after the scan, ditto
         out: list = []
         scanned: dict = {}
         bst = {"batched_files": 0, "batch_dispatches": 0,
@@ -1248,6 +1380,10 @@ class GrepEngine:
             res = run_scan(batch.data, win_key)
             if cache is not None and win_key is not None:
                 cache.attach_batch(win_key, batch)
+                if idx_on and index_summary.lookup_summary(win_key) is None:
+                    # the window's own summary, for the warm window's
+                    # prune; trigrams across member edges only add bits
+                    self._index_publish(win_key, batch.data)
             bst["batched_files"] += len(batch)
             bst["batch_dispatches"] += 1
             bst["batch_fill_sum"] += len(batch.data) / cap
@@ -1263,10 +1399,11 @@ class GrepEngine:
                                               int(lines.size), len(blob)))
 
         def flush() -> None:
-            nonlocal pk_keys
+            nonlocal pk_keys, pk_pub
             if packer is None:
                 return
             keys, pk_keys = pk_keys, []
+            pubs, pk_pub = pk_pub, []
             batch = packer.pack()
             if batch is None:
                 return
@@ -1277,6 +1414,9 @@ class GrepEngine:
             else:
                 scan_packed(batch, batch.names,
                             batch_content_key(keys) if cache else None)
+            for ent in pubs:  # the members' scan succeeded
+                if ent is not None:
+                    self._index_publish(*ent)
 
         def match_window(i: int, stored) -> list | None:
             """Fresh keys of items[i:...] when they are the paths of the
@@ -1300,8 +1440,8 @@ class GrepEngine:
             name, data = items[i]
             is_blob = isinstance(data, (bytes, bytearray, memoryview))
             fk = (file_content_key(data)
-                  if cache is not None and not is_blob else None)
-            if fk is not None and packer is not None:
+                  if (cache is not None or idx_on) and not is_blob else None)
+            if cache is not None and fk is not None and packer is not None:
                 stored = cache.window_for(fk)
                 keys = match_window(i, stored) if stored is not None else None
                 if keys is not None:
@@ -1311,16 +1451,62 @@ class GrepEngine:
                     # once batch_bytes shrinks: it is packed anew
                     if (ent is not None and ent.batch is not None
                             and len(ent.batch.data) <= cap):
+                        names = [nm for nm, _ in items[i:i + len(keys)]]
+                        wsum = None
+                        if idx_on:
+                            wsum = (ent.summary if ent.summary is not None
+                                    else index_summary.lookup_summary(wk))
+                        if wsum is not None and not idx_req.may_match(wsum):
+                            # the whole warm window cannot match: its
+                            # members' cached bytes with empty results
+                            # (exact for every caller, -v included)
+                            flush()
+                            index_summary.record_prune(wk.n_bytes)
+                            spans_mod.instant("index:prune", cat="engine",
+                                              bytes=wk.n_bytes)
+                            for nm, blob in zip(names,
+                                                ent.batch.member_blobs()):
+                                handle(nm, blob, ScanResult(
+                                    np.zeros(0, dtype=np.int64), 0,
+                                    len(blob)))
+                            i += len(keys)
+                            continue
+                        if wsum is not None:
+                            index_summary.record_maybe()
                         flush()
                         cache.count_host_hit()
-                        scan_packed(ent.batch,
-                                    [nm for nm, _ in items[i:i + len(keys)]],
-                                    wk)
+                        scan_packed(ent.batch, names, wk)
+                        if idx_pub_ok:
+                            # the members' own summaries, from the cached
+                            # bytes: the planner prunes by member
+                            for mk, blob in zip(keys,
+                                                ent.batch.member_blobs()):
+                                if index_summary.lookup_summary(mk) is None:
+                                    self._index_publish(mk, blob)
                         i += len(keys)
                         continue
             i += 1
+            idx_missing = False  # publish this member after its scan
+            if idx_on and fk is not None:
+                summ = index_summary.lookup_summary(fk)
+                if summ is None:
+                    idx_missing = idx_pub_ok
+                elif not idx_req.may_match(summ):
+                    if index_prune:
+                        # never opened: the caller takes the empty emit
+                        flush()  # the pending window first: order kept
+                        index_summary.record_prune(fk.n_bytes)
+                        spans_mod.instant("index:prune", cat="engine",
+                                          bytes=fk.n_bytes)
+                        handle(name, b"", ScanResult(
+                            np.zeros(0, dtype=np.int64), 0, 0))
+                        continue
+                    # the caller needs the bytes (-v): scanned as usual
+                else:
+                    index_summary.record_maybe()
             if not is_blob:
-                ent = cache.lookup(fk) if fk is not None else None
+                ent = (cache.lookup(fk)
+                       if cache is not None and fk is not None else None)
                 if ent is not None and len(ent.data) == fk.n_bytes:
                     data = ent.data  # warm bytes: no read
                     cache.count_host_hit()
@@ -1339,12 +1525,17 @@ class GrepEngine:
                     or packed_size(data) > cap):
                 flush()  # the pending window first: order kept
                 bst["solo_dispatches"] += 1
-                handle(name, data, run_scan(data, fk))
+                handle(name, data,
+                       run_scan(data, fk if cache is not None else None))
+                if idx_missing and fk is not None:
+                    self._index_publish(fk, data)
                 continue
             if not packer.fits(data):
                 flush()
             packer.add(name, data)
-            pk_keys.append(fk)
+            pk_keys.append(fk if cache is not None else None)
+            pk_pub.append((fk, data) if idx_missing and fk is not None
+                          else None)
         flush()
         counts = {k: bst[k] for k in ("batched_files", "batch_dispatches",
                                       "solo_dispatches")}

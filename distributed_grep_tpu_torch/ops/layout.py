@@ -332,6 +332,9 @@ class ResidentCorpus:
     variants: dict = field(default_factory=dict)
     batch: PackedBatch | None = None
     device_bytes: int = 0
+    # the shard index's trigram summary of ``data`` (index/summary.py),
+    # attached after the scan that built it succeeded
+    summary: bytes | None = None
 
 
 def _segments_nbytes(segments) -> int:
@@ -457,6 +460,17 @@ class CorpusCache:
                 ent.batch = slim
                 if key.identity[0] == "pack":
                     self._windows[key.identity[1][0]] = key.identity
+
+    def attach_summary(self, key: CorpusKey | None, summary: bytes) -> None:
+        """Record the index summary of an entry's bytes; nothing when the
+        entry was not admitted (the summary then lives in the index's
+        own cache and store)."""
+        if key is None:
+            return
+        with self._lock:
+            ent = self._entries.get(key.identity)
+            if ent is not None and ent.key.validators == key.validators:
+                ent.summary = summary
 
     def window_for(self, member_key: CorpusKey | None) -> CorpusKey | None:
         """The stored key of a cached window whose first member is

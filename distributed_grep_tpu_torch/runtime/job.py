@@ -332,16 +332,23 @@ class JobResult:
 
 
 def plan_map_splits(input_files: list[str], batch_bytes: int,
-                    small_bytes: int | None = None) -> list:
+                    small_bytes: int | None = None, pruner=None) -> list:
     """Group consecutive small input files into multi-file map splits
-    (the reference's runtime/job.plan_map_splits, without its shard-index
-    pruner): a file of at least ``small_bytes`` (default the engine's
-    device_min_bytes, DGREP_DEVICE_MIN_BYTES) keeps a task of its own, as
-    does one that cannot be statted (its map reports the error); runs of
-    smaller files become lists whose packed size (a file plus its
-    terminator) fits ``batch_bytes``.  Consecutive grouping keeps the
-    plan deterministic and the members in input order.  ``batch_bytes``
-    <= 0, or fewer than two files, gives the files as they are."""
+    (the reference's runtime/job.plan_map_splits): a file of at least
+    ``small_bytes`` (default the engine's device_min_bytes,
+    DGREP_DEVICE_MIN_BYTES) keeps a task of its own, as does one that
+    cannot be statted (its map reports the error); runs of smaller files
+    become lists whose packed size (a file plus its terminator) fits
+    ``batch_bytes``.  Consecutive grouping keeps the plan deterministic
+    and the members in input order.  ``batch_bytes`` <= 0, or fewer than
+    two files, gives the files as they are.
+
+    ``pruner`` (index/plan.SplitPruner, from ``pruner_for_job``, which
+    declines jobs whose empty shards still give output) drops first each
+    file whose summary proves that the query cannot match: it becomes no
+    map task, and no worker opens it."""
+    if pruner is not None:
+        input_files = [f for f in input_files if not pruner.prune(f)]
     if batch_bytes <= 0 or len(input_files) < 2:
         return list(input_files)
     if small_bytes is None:

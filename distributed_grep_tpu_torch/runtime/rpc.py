@@ -1,5 +1,6 @@
 """Control-plane message schema: the five verbs (the reference's
-runtime/rpc.py, without the service's and the peer shuffle's fields).
+runtime/rpc.py, without the service's and the peer shuffle's fields;
+with ``AssignTaskReply.fused``, the participants of a fused map).
 
   AssignTask      a worker asks for work; long-polls until a map split or
                   a reduce partition is available, or the job is over.
@@ -69,6 +70,13 @@ class AssignTaskReply:
     # fetches, and one from an earlier incarnation (it outlived a
     # coordinator restart, whose task_files order differs) is aborted
     epoch: str = ""
+    # a fused map's other participants, riding this assignment: one scan
+    # serves every one (ops/fuse.py).  Each a dict shaped like a map
+    # assignment ({job_id, task_id, filename, filenames, n_reduce,
+    # app_options, task_timeout_s, epoch}, Scheduler.claim_map_task).
+    # Empty, and then absent from the wire: the payload is the bytes it
+    # was before the field existed.
+    fused: list = field(default_factory=list)
 
 
 @dataclass
@@ -149,12 +157,12 @@ _TYPES = {
 _ELIDE_DEFAULTS: dict[str, Any] = {
     "metrics": None, "filenames": [], "retry_after_s": 0.0, "epoch": "",
     "abort": False, "worker_id": -1, "lost_file": "", "spans": [],
-    "spans_seq": -1, "sent_at": 0.0, "rtt_s": -1.0,
+    "spans_seq": -1, "sent_at": 0.0, "rtt_s": -1.0, "fused": [],
 }
 
 # Reply fields dropped from the wire at their (falsy) defaults; the others
 # are always there.
-_REPLY_ELIDE = ("filenames", "retry_after_s", "epoch", "abort")
+_REPLY_ELIDE = ("filenames", "retry_after_s", "epoch", "fused", "abort")
 
 
 def reply_to_dict(msg: Any) -> dict:

@@ -21,6 +21,12 @@ its service hooks.
   IN_PROGRESS task silent for longer;
 * a worker charged with three timeouts in a row is quarantined
   (``WorkerHealth``);
+* ``claim_map_task`` hands a given idle map task, on its first attempt
+  only, to another task's fused assignment (ops/fuse.py;
+  ``fused_assigned`` counts them).  The reference's rule that such an
+  attempt's timeout charges no worker comes with the worker's fused
+  attempt, which nothing in this package makes yet (ROADMAP.md queue B,
+  item 5);
 * completion is idempotent: a duplicate MapFinished/ReduceFinished is
   absorbed; a task's commit record (runtime/store.py), when one resolves,
   is the unit of truth for the partitions it produced;
@@ -615,6 +621,45 @@ class Scheduler:
                         attempt=task.attempts)
         log.debug("assign %s task %d -> worker %d", kind, task.task_id,
                   worker_id)
+
+    def claim_map_task(self, task_id: int, worker_id: int) -> dict | None:
+        """Claim one given idle map task for a fused attempt (ops/fuse.py):
+        the task joins another task's assignment, so this is the assign
+        loop's map branch without the queue pop (its queue entry is then
+        stale and skipped).  First attempts only: a task that timed out
+        once runs alone again.  Returns the fields of its entry in the
+        reply's ``fused`` list, or None (not idle, retried, bad id, or
+        stopped)."""
+        try:
+            with self._cond:
+                if self._stopped or not 0 <= task_id < len(self.map_tasks):
+                    return None
+                task = self.map_tasks[task_id]
+                if task.state is not TaskState.UNASSIGNED or task.attempts:
+                    return None
+                task.state = TaskState.IN_PROGRESS
+                task.heartbeat()
+                task.attempts += 1
+                task.worker = worker_id
+                task.stamped = False
+                self.counters["map_assigned"] += 1
+                self.counters["fused_assigned"] += 1
+                self._worker_seen(worker_id, task=f"map:{task_id}")
+                self._event("assign_map", task=task_id, worker=worker_id,
+                            attempt=task.attempts, file=task.file, fused=True)
+                log.debug("fuse-claim map task %d (%s) -> worker %d",
+                          task_id, task.file, worker_id)
+                return {
+                    "task_id": task_id,
+                    "filename": task.file,
+                    "filenames": list(task.files),
+                    "n_reduce": self.n_reduce,
+                    "app_options": self.app_options,
+                    "task_timeout_s": self.task_timeout_s,
+                    "epoch": self.epoch,
+                }
+        finally:
+            self._flush_events()
 
     # -------------------------------------------------------- completion
     def map_finished(self, args: rpc.TaskFinishedArgs) -> rpc.TaskFinishedReply:

@@ -1,6 +1,10 @@
 """Worker loop over a Transport (the reference's runtime/worker.py without
 its fused map and peer fetch): ask for work, run it, commit it, report
-it.
+it.  The fused map attempt (the reference's worker.py:656-900: one scan
+for the participants of an assignment's ``fused`` list, each committed
+through its own job's transport) waits for the service runtime it
+commits through (ROADMAP.md queue B, item 5); the engine half it calls,
+``apps/grep_cuda.map_fused_fn``, is here.
 
 Map: run the application over one input file -- ``map_path_fn(filename,
 path)`` when the app defines it and the transport gives a local path (it
@@ -120,9 +124,10 @@ def unshipped_launches() -> dict[str, int]:
 
 
 def _engine_cache_counters() -> dict | None:
-    """This process's model-cache, corpus-cache and follow counters, or
-    None when none was touched; the owning modules are read only when
-    already imported (a word-count worker imports no scan module)."""
+    """This process's model-cache, corpus-cache, fusion, shard-index and
+    follow counters, or None when none was touched; the owning modules are
+    read only when already imported (a word-count worker imports no scan
+    module and neither tier)."""
     counters: dict = {}
     eng = sys.modules.get("distributed_grep_tpu_torch.ops.engine")
     if eng is not None:
@@ -130,6 +135,12 @@ def _engine_cache_counters() -> dict | None:
     lay = sys.modules.get("distributed_grep_tpu_torch.ops.layout")
     if lay is not None:
         counters.update(lay.corpus_cache_counters())
+    fuse = sys.modules.get("distributed_grep_tpu_torch.ops.fuse")
+    if fuse is not None:
+        counters.update(fuse.fusion_counters())
+    idx = sys.modules.get("distributed_grep_tpu_torch.index.summary")
+    if idx is not None:
+        counters.update(idx.index_counters())
     fol = sys.modules.get("distributed_grep_tpu_torch.runtime.follow")
     if fol is not None:
         counters.update(fol.follow_counters())
@@ -374,6 +385,9 @@ class WorkerLoop:
                           spans_mod.span("map:compute", cat="map"),
                           compute_guard())
 
+        index_mod = sys.modules.get("distributed_grep_tpu_torch.index.summary")
+        index_before = (index_mod.thread_counters() if index_mod is not None
+                        else {})
         t0 = time.perf_counter()
         try:
             if a.filenames:
@@ -441,6 +455,13 @@ class WorkerLoop:
         counters = {"map_batches": len(batches),
                     "map_records": len(records) - len(batches)
                     + sum(len(b) for b in batches)}
+        # the shard index's prunes and maybes of this attempt (its scans
+        # ran in this thread); the index is imported by then if it fired
+        index_mod = sys.modules.get("distributed_grep_tpu_torch.index.summary")
+        if index_mod is not None:
+            for k, v in index_mod.thread_counters().items():
+                if v - index_before.get(k, 0):
+                    counters[k] = v - index_before.get(k, 0)
         seconds = {"map_read": t1 - t0, "map_fn": t2 - t1,
                    "map_shuffle": time.perf_counter() - t2}
         return produced, self._metrics(counters, seconds)

@@ -181,12 +181,14 @@ def test_entry_points_raise_without_cuda(tmp_path, corpus, monkeypatch):
 @pytest.mark.parametrize("opt,item", [
     ({"devices": [0]}, "item 9"), ({"devices": "all"}, "item 9"),
     ({"mesh_shape": [2]}, "item 9"), ({"mesh_axes": ("data",)}, "item 9"),
-    ({"pattern_axis": "model"}, "item 9"), ({"index_dir": "x"}, "item 8"),
+    ({"pattern_axis": "model"}, "item 9"),
 ])
-def test_mesh_and_index_options_raise_naming_their_item(opt, item):
+def test_mesh_options_raise_naming_their_item(opt, item):
     """The reference accepts these options; the port names the ROADMAP
     item that ports them instead of passing them on to GrepEngine (which
-    raised TypeError).  A falsy value is accepted and not passed on."""
+    raised TypeError).  A falsy value is accepted and not passed on.
+    (``index_dir`` runs since the shard index was ported:
+    tests/test_torch_index.py.)"""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         grep_cuda.configure("volcano", device="cpu", **opt)
     name = next(iter(opt))
@@ -231,6 +233,20 @@ res = run_job(JobConfig(input_files=[{str(src)!r}],
                         work_dir={str(tmp_path / "w")!r}),
               n_workers=1, device="cpu")
 assert sum(1 for _ in res.iter_results()) == 1
+# the shard index and scan fusion: a job that publishes a summary, and a
+# fused scan of two queries
+import pathlib
+res = run_job(JobConfig(input_files=[{str(src)!r}],
+                        app_options={{"pattern": "volcano",
+                                      "index_dir": {str(tmp_path / "idx")!r}}},
+                        work_dir={str(tmp_path / "wi")!r}),
+              n_workers=1, device="cpu")
+assert sum(1 for _ in res.iter_results()) == 1
+assert len(list(pathlib.Path({str(tmp_path / "idx")!r}).glob("*.tgs"))) == 1
+from distributed_grep_tpu_torch.ops.fuse import FusedScanner
+fused = FusedScanner([("volcano", None, False), ("noth", None, True)],
+                     device="cpu").scan(b"a volcano\\nnothing\\n")
+assert [r.matched_lines.tolist() for r in fused] == [[1], [2]]
 # the control plane: a coordinator and a worker loop over HTTP, and the
 # host apps through the loader
 from distributed_grep_tpu_torch.apps.loader import load_application
