@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--file-mb 128] [--n-files 8]
         [--workers 2] [--kernels-only | --warm-only | --control-only |
-        --telemetry-only | --tiers-only]
+        --telemetry-only | --tiers-only | --service-only]
 
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
@@ -42,7 +42,7 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          straddle lane blocks), and the table-DFA kernel (csrc/dfa.cu, on
          no engine route) at the 64 MB segment shape for 'nee(dle|t)',
          three '$' patterns, '^$' and two Aho-Corasick banks too large for
-         shared memory, then over 12 seeded random regex tables ('$'
+         shared memory, then over 6 seeded random regex tables ('$'
          accepts, '^', nullable bodies) and small Aho-Corasick banks at
          small shapes and, every 8th table, the segment shape; every
          third stripe's last byte is not '\\n' (the stripe-tail rule) and
@@ -50,14 +50,14 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          The Shift-And, approx, pairset and SWAR kernels read the (lanes,
          chunk) stripes as the document lies; the others the (chunk,
          lanes) columns.  Then a differential sweep of the two table-driven
-         kernels: 14 seeded random regexes of 1-4 state words with 0-128
+         kernels: 10 seeded random regexes of 1-4 state words with 0-128
          specials on the NFA kernel, and 48 random FDR banks (m = 1-6,
          1-16 checks, both hash families, with and without folding, half
          ORed into a nonzero plane) with members ending at rows 0..m of
          the stripe heads, at chunk 32 and 64 over 32 lanes and at the 64
          MB segment (10 of the banks, two of the regexes); and of the two
-         sub-stripe kernels: seeded random Shift-And models of every
-         length 1-32 (letters, classes, '.', -i, their rare-class
+         sub-stripe kernels: seeded random Shift-And models of the odd
+         lengths 1-31 and 32 (letters, classes, '.', -i, their rare-class
          filters; both modes) and approx models (k = 1-3, m up to 32, so
          up to two warm-up words), with samples planted to end 0..W + 2
          bytes after every word boundary c0 (where these kernels may
@@ -235,11 +235,30 @@ Phase 3e the shared tiers, the launch counts zeroed just before and read
          beside the K solo walls, fused_dispatches and fusion_bytes_saved;
          then map_fused_fn over one split for three participants (-w, -x,
          -i) against each one's solo map_batch_fn records.  (c) a seeded
-         sweep of 120 draws of K = 2..8 specs (literals, -F sets, the NFA
+         sweep of 40 draws of K = 2..8 specs (literals, -F sets, the NFA
          sweep's regexes, about a third -i) over 4 MiB of word lines with
          CR, NUL and 0xFF, DGREP_DEVICE_MIN_BYTES=0: every union scan
          launches, and each query's lines equal its solo scan on the card
          and the re oracle; draws that raise FuseError are counted.
+Phase 3f the service daemon (runtime/service.py) in this process over the
+         first 4 word files, spans on, the shard index off
+         (DGREP_INDEX=0), the launch counts zeroed just before each part
+         and read just after: (a) four tenants submitted to a daemon with
+         no worker ('volcano', -i 'Volcano', config 3's set and '^the
+         (old|new) '), then two local workers (the second once the first
+         fused assignment is out): the three pattern tenants fuse (one
+         NFA union launch a segment for the three, fused_dispatches one a
+         split), the set runs solo (one FDR launch a segment), no other
+         kernel launches, and each tenant's mr-out equals phase 3's
+         in-process job of the same query; the wall beside the sum of
+         phase 3's four solo walls.  (b) 'volcano' resubmitted, the
+         apps' same-config reuse reset: its log holds cache:hit and no
+         cache:miss, compile_cache_misses does not move (no build), the
+         mr-out is phase 3's.  (c) a second daemon with no local worker
+         and one ``worker --addr`` process, two jobs ('volcano', -i
+         'Volcano') through its one attach over /data/<job>/: the mr-out
+         is phase 3's, the launches the process ships are nonzero, and
+         the line gives its first assign_map after the daemon's start.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -1193,7 +1212,11 @@ def corpus_cache_runs(words: list[Path], work: Path, workers: int,
         want = sum(pool.map(lambda q: grep_oracle_count(q, ["-F", "volcano"]),
                             pieces))
     layout_mod.corpus_cache_clear()
-    grep_cuda._configured_with = None  # a fresh engine, kept for both jobs
+    from distributed_grep_tpu_torch.ops import engine as engine_mod
+
+    # a fresh engine, kept for both jobs
+    grep_cuda._configured_with = None
+    engine_mod.model_cache_clear()
     saved = os.environ.get("DGREP_CORPUS_BYTES")
     os.environ["DGREP_CORPUS_BYTES"] = str(CORPUS_PHASE_BYTES)
     runs = []
@@ -1586,10 +1609,10 @@ def phase_nfa_kernels(torch, np, nfa_scan, nfa_mod) -> int:
 # the specials: about 1400 small launches a step at 128).
 SWEEP_SMALL = [(32, 32), (64, 32)]
 # the depth of two phase-2 sweeps: random NFA models a width (1-4 state
-# words) and random table-DFA regexes (halved from 6 and 24 so
-# that phase 3c fits the smoke's time)
-NFA_SWEEP_PER_WIDTH = 3
-DFA_SWEEP_TABLES = 12
+# words; 6 until phase 3c came, 3 until phase 3f came) and random
+# table-DFA regexes (24 until phase 3c came, 12 until phase 3f came)
+NFA_SWEEP_PER_WIDTH = 2
+DFA_SWEEP_TABLES = 6
 SWEEP_SEGMENT = (1024, 65536)
 SWEEP_ALPHABET = "abcxyz"
 # 'Z' then 127 starred letters: 128 positions over 4 words, all specials
@@ -2184,13 +2207,14 @@ def substripe_shapes(i: int, segment: bool) -> list:
 def phase_shift_and_sweep(torch, np, cuda_scan, sa_mod,
                           seed: int) -> tuple[int, int]:
     """The Shift-And kernel against its plain version on seeded random
-    models of every length 1-32 (a third with -i) and the rare-class
-    filters among them, in both modes, at ``substripe_shapes`` (the 64 MB
-    segment for lengths 32 and 7 and one filter).  Returns (draws
+    models of the odd lengths 1-31 and 32 (a third with -i) and the
+    rare-class filters among them, in both modes, at ``substripe_shapes``
+    (the 64 MB segment for the seventh model, the last and one filter).  Returns (draws
     compared, the largest absolute difference)."""
     rng = np.random.default_rng(seed)
     models = []
-    for m in range(1, 33):
+    # the odd lengths and 32 (every length until phase 3f came)
+    for m in [*range(1, 33, 2), 32]:
         full = sa_mod.try_compile_shift_and(rand_symbols(rng, m),
                                             bool(rng.integers(0, 3) == 0))
         assert full is not None and full.length == m
@@ -2230,7 +2254,7 @@ def phase_shift_and_sweep(torch, np, cuda_scan, sa_mod,
             log(f"  ok shift_and sweep m={model.length} filter="
                 f"{model is not full} warm-up {warm} bytes, shapes {shapes}: "
                 f"{model.pattern!r}")
-    log(f"  shift_and sweep: {len(models)} models (m 1-32, "
+    log(f"  shift_and sweep: {len(models)} models (m 1-31 odd and 32, "
         f"{sum(a is not b for a, b in models)} filters), {n} draws compared "
         f"(both modes) at chunks {SUB_CHUNKS} over {SUB_LANES} lanes, "
         f"contiguous and pitched, {SUB_MID} for every fourth, and "
@@ -3749,7 +3773,7 @@ TIERS_TOKEN_LARGE = 2  # large files the rare token is planted in
 TIERS_MIN_PRUNED_SMALL = 1900
 TIERS_MIN_PRUNED_LARGE = 20
 TIERS_INVERT_FILES = 250  # the -v jobs' small files (every line a record)
-FUSE_SWEEP_DRAWS = 120
+FUSE_SWEEP_DRAWS = 40  # 200 until run 17F, 120 until phase 3f came
 FUSE_SWEEP_BYTES = 4 << 20
 FUSE_SWEEP_POOL = (8, 6, 14)  # literals, -F sets, regexes drawn once
 
@@ -3766,12 +3790,16 @@ def tiers_job(label: str, files: list, opts: dict, work: Path, workers: int,
     its engine's totals and of the kernel launches."""
     from distributed_grep_tpu_torch.apps import grep_cuda
     from distributed_grep_tpu_torch.apps.loader import from_module
+    from distributed_grep_tpu_torch.ops import engine as engine_mod
     from distributed_grep_tpu_torch.runtime.job import run_job
     from distributed_grep_tpu_torch.utils.config import JobConfig
 
     saved = os.environ.pop("DGREP_INDEX", None)
     if not index_on:
         os.environ["DGREP_INDEX"] = "0"
+    # a fresh engine a job: the cross-job cache would hand the warm
+    # 'volcano' job the cold one's engine, totals and all
+    engine_mod.model_cache_clear()
     eng0 = grep_cuda._engine
     totals0 = dict(eng0.totals) if eng0 is not None else {}
     launches0 = {k: m.launches for k, m in counters.items()}
@@ -4263,6 +4291,218 @@ def phase_tiers(args, words: list[Path], card: str, counters: dict,
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# phase 3f's tenants: phase 3's in-process jobs of these labels give
+# their mr-out hashes and their solo walls
+SERVICE_QUERIES = ("volcano", "-i Volcano", "config3 -f", "^the (old|new) ")
+SERVICE_TIMEOUT_S = 60.0  # the 3f jobs' task_timeout_s
+
+
+def service_options(set3: list[bytes]) -> dict:
+    """The app options of phase 3f's tenants: phase 3's, the set's
+    members as str (a job config is JSON)."""
+    return {
+        "volcano": {"pattern": "volcano", "ignore_case": False},
+        "-i Volcano": {"pattern": "Volcano", "ignore_case": True},
+        "config3 -f": {"patterns": [m.decode() for m in set3]},
+        "^the (old|new) ": {"pattern": "^the (old|new) ",
+                            "ignore_case": False},
+    }
+
+
+def service_events(root: Path, job_id: str) -> list[dict]:
+    from distributed_grep_tpu_torch.utils.spans import EventLog
+
+    return EventLog.read(root / job_id / "events.jsonl")
+
+
+def wait_service_jobs(svc, jids, timeout: float = 600.0) -> None:
+    for j in jids:
+        if not svc.wait_job(j, timeout=timeout):
+            raise AssertionError(f"service job {j} did not end: "
+                                 f"{svc.job_status(j)}")
+        st = svc.job_status(j)
+        if st["state"] != "done":
+            raise AssertionError(f"service job {j} ended {st['state']}: "
+                                 f"{st.get('error')}")
+
+
+def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
+                  solo_walls: dict, card: str, counters: dict) -> None:
+    """Phase 3f (module docstring): the service daemon in this process, the
+    launch counts zeroed just before each part and read just after."""
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.ops import engine as engine_mod
+    from distributed_grep_tpu_torch.runtime.service import (
+        GrepService,
+        ServiceServer,
+    )
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    log(f"== phase 3f: the service daemon, card: {card}")
+    t_phase = time.perf_counter()
+    opts = service_options(set3)
+    files = [str(p) for p in words]
+    segs = sum(-(-p.stat().st_size // (64 << 20)) for p in words)
+    # the shard index off: its trigram pass is phase 3e's to measure
+    saved = os.environ.get("DGREP_INDEX")
+    os.environ["DGREP_INDEX"] = "0"
+
+    def job(label: str) -> JobConfig:
+        return JobConfig(input_files=files, app_options=dict(opts[label]),
+                         n_reduce=10, task_timeout_s=SERVICE_TIMEOUT_S,
+                         journal=False, durable=False)
+
+    def check_hashes(part: str, svc, jids: dict) -> None:
+        for label, j in jids.items():
+            got = mr_out_hashes(svc.job_result(j)["outputs"])
+            if got != inproc[label]:
+                raise AssertionError(f"phase 3f {part}: {label!r}'s mr-out "
+                                     f"differs from phase 3's job")
+
+    def launched(before: dict) -> dict:
+        return {k: m.launches - before[k] for k, m in counters.items()
+                if m.launches - before[k]}
+
+    root = WORK / "service"
+    svc = GrepService(work_root=root, spans=True,
+                      task_timeout_s=SERVICE_TIMEOUT_S)
+    server = ServiceServer(svc)
+    server.start()
+    try:
+        # (a) four tenants submitted to a daemon with no worker, then two
+        # local workers (the second once the first fused assignment is out)
+        for m in counters.values():
+            m.reset_launches()
+        before = {k: m.launches for k, m in counters.items()}
+        t0 = time.perf_counter()
+        jids = {label: svc.submit(job(label)) for label in SERVICE_QUERIES}
+        svc.start_local_workers(1)
+        deadline = time.monotonic() + 120
+        while not svc.status().get("fusion", {}).get("fused_dispatches"):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 3f (a): no fused assignment: "
+                                     f"{svc.status()}")
+            time.sleep(0.01)
+        svc.start_local_workers(1)
+        wait_service_jobs(svc, jids.values())
+        wall_a = time.perf_counter() - t0
+        got = launched(before)
+        fusion = svc.status()["fusion"]
+        check_hashes("(a)", svc, jids)
+        # the three pattern tenants fuse (an NFA union, one launch a
+        # segment); the set runs solo on FDR (runtime/fusion.query_family)
+        if (fusion["fused_dispatches"] != len(words)
+                or fusion["fused_jobs"] != 3 * len(words)
+                or got != {"nfa": segs, "fdr": segs}):
+            raise AssertionError(f"phase 3f (a): fusion {fusion}, launches "
+                                 f"{got} for {segs} segments a route")
+        solo = sum(solo_walls[label] for label in SERVICE_QUERIES)
+        fused_solo = sum(solo_walls[label] for label in SERVICE_QUERIES
+                         if label != "config3 -f")
+        log(f"phase 3f (a) four tenants ({', '.join(SERVICE_QUERIES)}) over "
+            f"{len(words)} word files, 2 local workers: {wall_a:.3f} s "
+            f"against {solo:.3f} s of phase 3's four solo jobs "
+            f"({wall_a / solo:.3f}x); fused_dispatches "
+            f"{fusion['fused_dispatches']}, fused_jobs {fusion['fused_jobs']},"
+            f" fusion_bytes_saved {fusion['fusion_bytes_saved']} (the three "
+            f"pattern tenants' solo walls {fused_solo:.3f} s); launches {got}"
+            f" for {segs} segments: one NFA launch a segment for the three "
+            f"fused queries, one FDR launch a segment for the set; every "
+            f"tenant's mr-out equal to phase 3's [{card}]")
+        first_a = min(e["ts"] for j in jids.values()
+                      for e in service_events(root, j)
+                      if e.get("name") == "assign_map") - svc.started_at
+
+        # (b) the warm resubmit: the apps' own same-config reuse reset, so
+        # each map asks the cross-job cache
+        for loop in svc._local_loops:
+            for app in loop._job_apps.values():
+                app.module._configured_with = None
+        cache0 = engine_mod.model_cache_counters()
+        for m in counters.values():
+            m.reset_launches()
+        before = {k: m.launches for k, m in counters.items()}
+        t0 = time.perf_counter()
+        jb = svc.submit(job("volcano"))
+        wait_service_jobs(svc, [jb])
+        wall_b = time.perf_counter() - t0
+        got_b = launched(before)
+        cache1 = engine_mod.model_cache_counters()
+        check_hashes("(b)", svc, {"volcano": jb})
+        names = [e.get("name") for e in service_events(root, jb)]
+        hits = names.count("cache:hit")
+        if (not hits or "cache:miss" in names
+                or cache1["compile_cache_misses"]
+                != cache0["compile_cache_misses"]):
+            raise AssertionError(f"phase 3f (b): cache instants "
+                                 f"{[n for n in names if n.startswith('cache:')]}"
+                                 f", counters {cache0} -> {cache1}")
+        log(f"phase 3f (b) warm resubmit of 'volcano': {wall_b:.3f} s "
+            f"against phase 3's {solo_walls['volcano']:.3f} s; {hits} "
+            f"cache:hit, no cache:miss, compile_cache {cache1} (misses "
+            f"unchanged: no build); launches {got_b}; mr-out equal [{card}]")
+    finally:
+        server.shutdown()
+        svc.stop()
+        grep_cuda._configured_with = None
+
+    # (c) a worker process attached to a daemon with no local worker,
+    # serving two jobs through one attach over /data/<job>/
+    root_c = WORK / "service-c"
+    t_start = time.time()
+    svc = GrepService(work_root=root_c, spans=True,
+                      task_timeout_s=SERVICE_TIMEOUT_S)
+    server = ServiceServer(svc)
+    server.start()
+    worker = None
+    try:
+        t0 = time.perf_counter()
+        worker = port_proc(["worker", "--addr", f"127.0.0.1:{server.port}"])
+        jids = {label: svc.submit(job(label))
+                for label in ("volcano", "-i Volcano")}
+        wait_service_jobs(svc, jids.values())
+        wall_c = time.perf_counter() - t0
+        check_hashes("(c)", svc, jids)
+        status = svc.status()
+        shipped = {}
+        for j in jids.values():
+            for k, v in svc.job_status(j)["metrics"]["launches"].items():
+                shipped[k] = shipped.get(k, 0) + v
+        first_c = min(e["ts"] for j in jids.values()
+                      for e in service_events(root_c, j)
+                      if e.get("name") == "assign_map") - t_start
+        if len(status["workers"]) != 1 or not sum(shipped.values()):
+            raise AssertionError(f"phase 3f (c): workers "
+                                 f"{status['workers']}, shipped launches "
+                                 f"{shipped}")
+        log(f"phase 3f (c) a worker process, one attach, 2 jobs (volcano, "
+            f"-i Volcano) over /data/<job>/: {wall_c:.3f} s from its start; "
+            f"its first assign_map {first_c:.3f} s after the daemon's start "
+            f"(phase (a)'s local workers: {first_a:.3f} s); shipped launches "
+            f"{shipped}; fusion {status.get('fusion', {})}; mr-out equal "
+            f"[{card}]")
+    finally:
+        server.shutdown()
+        svc.stop()
+        if worker is not None:
+            try:
+                worker.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                worker.kill()
+                worker.wait()
+        if saved is None:
+            os.environ.pop("DGREP_INDEX", None)
+        else:
+            os.environ["DGREP_INDEX"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(root_c, ignore_errors=True)
+    if worker.returncode != 0:
+        raise AssertionError(f"phase 3f (c): the worker exited "
+                             f"{worker.returncode}: "
+                             f"{''.join(worker.err_lines)[-2000:]}")
+    log(f"phase 3f: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4286,6 +4526,10 @@ def main() -> int:
     ap.add_argument("--tiers-only", action="store_true",
                     help="phase 1, then phase 3e over the word corpus alone; "
                          "prints no result lines")
+    ap.add_argument("--service-only", action="store_true",
+                    help="phase 1, then phase 3's in-process jobs of the "
+                         "four tenants phase 3f compares with, and phase 3f; "
+                         "prints no result lines")
     args = ap.parse_args()
 
     import torch
@@ -4308,6 +4552,7 @@ def main() -> int:
         from distributed_grep_tpu_torch.models import nfa as nfa_mod
         from distributed_grep_tpu_torch.models import pairset as ps_mod
         from distributed_grep_tpu_torch.models import shift_and as sa_mod
+        from distributed_grep_tpu_torch.ops import engine as engine_mod
         from distributed_grep_tpu_torch.ops import (
             _build,
             approx_scan,
@@ -4451,6 +4696,33 @@ def main() -> int:
                 phase_control_plane(words, set3, inproc, card)
             if args.telemetry_only:
                 phase_telemetry(args, words, set3, inproc, card, counters)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        return 0
+
+    if args.service_only:
+        if WORK.exists():
+            shutil.rmtree(WORK)
+        try:
+            words = make_corpus(args.seed, args.n_files, args.file_mb << 20)
+            half = words[:max(1, args.n_files // 2)]
+            set3 = config3_set()
+            inproc, solo_walls = {}, {}
+            for label, opts in service_options(set3).items():
+                engine_mod.model_cache_clear()
+                t0 = time.perf_counter()
+                res = run_job(JobConfig(
+                    input_files=[str(p) for p in half],
+                    app_options=opts, n_reduce=10, task_timeout_s=60.0,
+                    work_dir=str(WORK / f"inproc-{len(inproc)}"),
+                    journal=False, durable=False),
+                    n_workers=args.workers, device="cuda",
+                    app=from_module(grep_cuda))
+                solo_walls[label] = time.perf_counter() - t0
+                inproc[label] = mr_out_hashes(res.output_files)
+                log(f"in-process job {label!r}: {solo_walls[label]:.3f} s")
+            phase_service(half, set3, inproc, solo_walls, card, counters)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -4657,6 +4929,10 @@ def main() -> int:
                 work_dir=str(WORK / f"job-{len(per_query)}"),
                 journal=False, durable=False,
             )
+            # a fresh engine a query (the cross-job engine cache would
+            # hand "-w volcano" the engine of "volcano", whose totals are
+            # read below)
+            engine_mod.model_cache_clear()
             t0 = time.perf_counter()
             try:
                 # the app module itself: its engine is read below
@@ -4680,7 +4956,8 @@ def main() -> int:
                                  f"{main_launches['dfa']}")
 
         approx_seen: dict = {}  # the DP's lines, shared by -c and print
-        inproc: dict = {}  # mr-out hashes of the CONTROL_QUERIES
+        inproc: dict = {}  # mr-out hashes of the CONTROL_QUERIES and 3f's
+        solo_walls: dict = {}  # job walls of SERVICE_QUERIES (phase 3f)
         for (label, opts, files, oracle, kernels), (
                 res, wall, launched, totals, route, transposed) in zip(
                     queries, per_query):
@@ -4782,8 +5059,10 @@ def main() -> int:
                 f"{totals.get('read_wait_seconds', 0.0):.3f} s")
             log("  engine totals (seconds summed over worker threads): "
                 + json.dumps(totals, sort_keys=True))
-            if label in CONTROL_QUERIES:  # phase 3c's reference bytes
+            if label in CONTROL_QUERIES or label in SERVICE_QUERIES:
+                # phases 3c, 3d and 3f's reference bytes
                 inproc[label] = mr_out_hashes(res.output_files)
+                solo_walls[label] = wall
             shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
 
         # the CLI on one file, against the same oracle's display lines
@@ -4825,6 +5104,7 @@ def main() -> int:
         phase_control_plane(half, set3, inproc, card)
         phase_telemetry(args, half, set3, inproc, card, counters)
         phase_tiers(args, words, card, counters)
+        phase_service(half, set3, inproc, solo_walls, card, counters)
 
         # ------------------------------------------- timings (not counted)
         log(f"== the timing block, card: {card}")

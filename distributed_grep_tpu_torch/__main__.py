@@ -136,6 +136,35 @@ the card unless the job's app_options say ``"device": "cpu"`` or
 nonzero.  An application that launches no kernel (the word count, the
 inverted index, the host grep) never asks for the card.
 
+Grep as a service (runtime/service.py), a daemon serving a stream of jobs
+over persistent workers and engines:
+
+    python -m distributed_grep_tpu_torch serve [--host H] [--port P]
+        [--work-root DIR] [--workers N] [--max-jobs J] [--queue Q]
+        [--spans] [--no-resume]
+    python -m distributed_grep_tpu_torch submit --addr HOST:PORT
+        (--config JOB.json | [PATTERN] FILE... [-i] [-e PATTERN]...
+         [-f FILE] [-F] [-E] [--backend device|cpu])
+        [--n-reduce R] [--no-wait] [--timeout S]
+
+``serve`` runs the daemon until SIGINT or SIGTERM, then prints one JSON
+line, its final ``GET /status``; ``--workers`` in-process worker loops
+serve it (0: none), and ``worker --addr`` processes attach to it as to a
+coordinator.  Its work root keeps the job registry (``jobs.jsonl``: a
+restarted daemon keeps its history and resumes its jobs, unless
+``--no-resume``), a work dir a job, the shard index's store and the
+daemon's own log (``daemon.jsonl``; DGREP_DAEMON_LOG=0 turns it off).
+``submit`` posts a job, waits for it (unless ``--no-wait``) and prints one
+JSON line: ``job_id``, ``state``, the ``outputs`` of a done job or the
+``error`` of a failed one, and ``index_shards_pruned`` and
+``index_bytes_skipped`` once the index pruned a shard; it exits 0 when the
+job is done, 1 otherwise, 2 when the daemon refused it or cannot be
+reached.  Its PATTERN/FILE form builds a ``grep_cuda`` job that runs on
+the card; ``--backend cpu`` asks for the host scanners.  ``serve
+--standby`` (failover, ROADMAP.md item 6) and ``--max-workers`` (the
+elastic pool), and ``submit --follow``, ``--stream``, ``--explain`` and an
+address list raise, naming the item that will port them.
+
 Telemetry:
 
     python -m distributed_grep_tpu_torch status --addr HOST:PORT
@@ -149,8 +178,8 @@ shard index (a job's ``index_dir``) has pruned a shard.
 ``trace-export`` renders a job's ``events.jsonl`` (the span pipeline's
 log, written with ``"spans": true`` in the job config or DGREP_SPANS=1;
 EVENTS is the file or the work dir holding it) as Chrome trace JSON for
-Perfetto or chrome://tracing; ``--fleet`` (a service work root) is not
-ported yet.  DGREP_TRACE_DIR=DIR runs each job under torch.profiler and
+Perfetto or chrome://tracing; ``--fleet`` (a service work root's
+timeline) is not ported yet (item 5b).  DGREP_TRACE_DIR=DIR runs each job under torch.profiler and
 writes its trace into DIR.
 """
 
@@ -301,6 +330,60 @@ def _parser() -> argparse.ArgumentParser:
     st.add_argument("--addr", required=True,
                     help="the coordinator's address, host:port")
     st.add_argument("--timeout", type=float, default=5.0)
+
+    sv = sub.add_parser("serve", help="grep as a service: a multi-tenant "
+                                      "daemon serving a stream of jobs")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=0,
+                    help="listen port (0: any free one, printed on stderr)")
+    sv.add_argument("--work-root", default=None,
+                    help="the daemon's job state (default: a fresh temp dir)")
+    sv.add_argument("--workers", type=int, default=2,
+                    help="in-process worker loops (0: none; worker processes "
+                         "attach with `worker --addr`)")
+    sv.add_argument("--max-jobs", type=int, default=None,
+                    help="running-job cap (DGREP_SERVICE_MAX_JOBS wins)")
+    sv.add_argument("--queue", type=int, default=None,
+                    help="queued-submission cap (DGREP_SERVICE_QUEUE wins)")
+    sv.add_argument("--spans", action="store_true",
+                    help="the span pipeline for every job")
+    sv.add_argument("--no-resume", action="store_true",
+                    help="do not re-admit or resume the registry's jobs "
+                         "(DGREP_SERVICE_RESUME=0)")
+    sv.add_argument("--standby", action="store_true",
+                    help="active/standby failover (not ported yet)")
+    sv.add_argument("--max-workers", type=int, default=None,
+                    help="the elastic pool's ceiling (not ported yet)")
+
+    sb = sub.add_parser("submit", help="submit a job to a service daemon and "
+                                       "print one JSON line")
+    sb.add_argument("--addr", required=True,
+                    help="the daemon's address, host:port")
+    sb.add_argument("--config", default=None,
+                    help="a job config JSON (as `run --config`); otherwise "
+                         "PATTERN and FILE arguments")
+    sb.add_argument("pattern", nargs="?", default=None)
+    sb.add_argument("files", nargs="*")
+    sb.add_argument("-i", "--ignore-case", action="store_true")
+    sb.add_argument("-e", "--regexp", action="append", default=None,
+                    metavar="PATTERN", dest="e_patterns")
+    sb.add_argument("-f", "--patterns-file", default=None)
+    sb.add_argument("-F", "--fixed-strings", action="store_true")
+    sb.add_argument("-E", "--extended-regexp", action="store_true")
+    sb.add_argument("--backend", default=None, choices=["device", "cpu"],
+                    help="the PATTERN/FILE form's engine: the card (the "
+                         "default) or cpu, the host scanners")
+    sb.add_argument("--n-reduce", type=int, default=None)
+    sb.add_argument("--no-wait", dest="wait", action="store_false",
+                    help="return once the job is submitted")
+    sb.add_argument("--timeout", type=float, default=300.0,
+                    help="the wait's budget in seconds")
+    sb.add_argument("--follow", action="store_true",
+                    help="a standing query (not ported yet)")
+    sb.add_argument("--stream", action="store_true",
+                    help="with --follow: stream the records (not ported yet)")
+    sb.add_argument("--explain", action="store_true",
+                    help="the routing report (not ported yet)")
 
     te = sub.add_parser("trace-export",
                         help="render a job's events.jsonl span log as "
@@ -898,6 +981,159 @@ def cmd_status(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_serve(args: argparse.Namespace) -> int:
+    """The service daemon (runtime/service.py) until SIGINT or SIGTERM;
+    then its final status as one JSON line on stdout."""
+    import signal
+    import threading
+
+    from distributed_grep_tpu_torch.runtime.daemon_log import (
+        DaemonLog,
+        env_daemon_log,
+    )
+    from distributed_grep_tpu_torch.runtime.service import (
+        GrepService,
+        ServiceServer,
+    )
+
+    if args.standby:
+        raise NotImplementedError(
+            "serve --standby is not ported yet: ROADMAP.md 'Slices still to "
+            "port', item 6 (failover and the peer data plane)")
+    if args.max_workers is not None:
+        raise NotImplementedError(
+            "serve --max-workers is not ported yet: ROADMAP.md 'Slices still "
+            "to port', item 5b (the elastic pool)")
+    work_root = args.work_root or tempfile.mkdtemp(prefix="dgrep-svc-")
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            signal.signal(sig, lambda *_: stop.set())
+        except ValueError:
+            pass  # not the main thread (a test drives it)
+    service = GrepService(
+        work_root=work_root, max_jobs=args.max_jobs, queue_depth=args.queue,
+        spans=args.spans, resume=False if args.no_resume else None,
+        daemon_log=DaemonLog(work_root) if env_daemon_log() else None)
+    server = ServiceServer(service, host=args.host, port=args.port)
+    server.start()
+    print(f"serving on {args.host}:{server.port} (work root {work_root})",
+          file=sys.stderr, flush=True)
+    if args.workers:
+        service.start_local_workers(args.workers)
+    try:
+        stop.wait()
+    except KeyboardInterrupt:
+        pass
+    server.shutdown()
+    service.stop()
+    # stdout: exactly one JSON line, the final status
+    print(json.dumps(service.status()), flush=True)
+    return 0
+
+
+def _submit_config(args: argparse.Namespace):
+    """The job of a ``submit``: its --config, or a grep_cuda job of the
+    PATTERN/FILE form (on the card unless --backend cpu); or (2, None)
+    after printing the diagnostic."""
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    if args.config:
+        return 0, JobConfig.load(args.config)
+    if args.pattern is None and not args.e_patterns and not args.patterns_file:
+        return _error("need --config, or PATTERN/-e/-f and FILE arguments")
+    if args.fixed_strings and args.extended_regexp:
+        return _error("-E and -F are conflicting matchers")
+    rc, patterns = _resolve_pattern_args(args)
+    if rc:
+        return rc, None
+    if not args.files:
+        return _error("need FILE arguments to submit")
+    opts: dict = {}
+    if args.backend:
+        opts["backend"] = args.backend
+    if args.ignore_case:
+        opts["ignore_case"] = True
+    if patterns:
+        opts["patterns"] = patterns
+    else:
+        opts["pattern"] = args.pattern
+    return 0, JobConfig(input_files=[str(Path(f).resolve())
+                                     for f in args.files],
+                        app_options=opts, n_reduce=args.n_reduce or 10)
+
+
+def cmd_submit(args: argparse.Namespace) -> int:
+    """Post a job to a service daemon, wait for it unless --no-wait, and
+    print exactly one JSON line."""
+    import urllib.error
+
+    from distributed_grep_tpu_torch.runtime.http_transport import client_call
+
+    for flag, item in (("follow", "item 5b (the standing queries)"),
+                       ("stream", "item 5b (the standing queries)"),
+                       ("explain", "item 5b (explain)")):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"submit --{flag} is not ported yet: ROADMAP.md 'Slices "
+                f"still to port', {item}")
+    if "," in args.addr:
+        raise NotImplementedError(
+            "submit to an address list is not ported yet: ROADMAP.md 'Slices "
+            "still to port', item 6 (failover)")
+    rc, cfg = _submit_config(args)
+    if rc:
+        return rc
+
+    def call(method: str, path: str, body: bytes | None = None) -> dict:
+        return client_call(args.addr, method, path, body=body,
+                           timeout=args.timeout)
+
+    try:
+        # single-shot: a submit is not idempotent, and a retried POST whose
+        # first reply was lost would admit the job twice
+        reply = client_call(args.addr, "POST", "/jobs",
+                            cfg.to_json().encode("utf-8", "strict"),
+                            timeout=args.timeout, retry=False)
+    except urllib.error.HTTPError as e:
+        detail = e.read()[:500].decode("utf-8", "replace")
+        print(f"error: submit rejected ({e.code}): {detail}", file=sys.stderr)
+        return 2
+    except OSError as e:
+        print(f"error: cannot reach service at {args.addr}: {e}",
+              file=sys.stderr)
+        return 2
+    job_id = reply["job_id"]
+    if not args.wait:
+        print(json.dumps({"job_id": job_id, "state": "submitted"}))
+        return 0
+    deadline = time.monotonic() + args.timeout
+    status: dict = {}
+    out: dict = {"job_id": job_id, "state": "unknown"}
+    try:
+        # the job is admitted: every outcome from here prints one line
+        while time.monotonic() < deadline:
+            status = call("GET", f"/jobs/{job_id}")
+            if status.get("state") in ("done", "failed", "cancelled"):
+                break
+            time.sleep(0.2)
+        out["state"] = status.get("state", "unknown")
+        if status.get("state") == "done":
+            out["outputs"] = call("GET", f"/jobs/{job_id}/result")["outputs"]
+        elif status.get("error"):
+            out["error"] = status["error"]
+        # the shard index's prunes, only when nonzero
+        counters = (status.get("metrics") or {}).get("counters") or {}
+        if counters.get("index_shards_pruned"):
+            out["index_shards_pruned"] = int(counters["index_shards_pruned"])
+            out["index_bytes_skipped"] = int(
+                counters.get("index_bytes_skipped", 0))
+    except OSError as e:
+        out["error"] = f"lost service at {args.addr}: {e}"
+    print(json.dumps(out))
+    return 0 if out["state"] == "done" else 1
+
+
 def cmd_trace_export(args: argparse.Namespace) -> int:
     """Render a job's events.jsonl as Chrome trace_event JSON (stdout, or
     ``-o OUT``); exit 2 when there is no event log."""
@@ -909,7 +1145,7 @@ def cmd_trace_export(args: argparse.Namespace) -> int:
     if args.fleet:
         raise NotImplementedError(
             "trace-export --fleet is not ported yet: ROADMAP.md 'Slices "
-            "still to port', item 8, slice 3 (the service daemon's "
+            "still to port', item 5b (the service's fleet timeline over "
             "daemon.jsonl)")
     path = Path(args.events)
     if path.is_dir():  # a work dir: the log lives at its root
@@ -930,8 +1166,8 @@ def cmd_trace_export(args: argparse.Namespace) -> int:
 
 
 COMMANDS = {"grep": cmd_grep, "run": cmd_run, "coordinator": cmd_coordinator,
-            "worker": cmd_worker, "status": cmd_status,
-            "trace-export": cmd_trace_export}
+            "worker": cmd_worker, "status": cmd_status, "serve": cmd_serve,
+            "submit": cmd_submit, "trace-export": cmd_trace_export}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -45,8 +45,14 @@ bytes).  A later configure without it detaches the store.
 ``map_fused_fn`` answers K participants' queries over one split with one
 union scan a window (ops/fuse.FusedScanner), each participant's records
 built with its own options (``_EmitOpts``), equal to its solo
-``map_batch_fn``'s.  Its caller, the worker's fused map attempt, belongs
-to the service runtime (ROADMAP.md queue B, item 5).
+``map_batch_fn``'s.  The worker's fused map attempt calls it
+(runtime/worker.py), for the assignments the service daemon's planner
+fuses (runtime/service.py).
+
+``configure`` takes its engine from the cross-job cache
+(ops/engine.cached_engine): a job whose query an earlier job of the
+process compiled reuses that engine and skips the build, and a
+``cache:hit|miss|off`` instant says which.
 
 The device mesh raises NotImplementedError naming the ROADMAP.md item
 that will port it; the port drives one card, so ``devices`` raises too.
@@ -70,7 +76,7 @@ from distributed_grep_tpu_torch.apps.grep import (
     build_confirm,
     literal_mode_lines,
 )
-from distributed_grep_tpu_torch.ops.engine import GrepEngine
+from distributed_grep_tpu_torch.ops.engine import GrepEngine, cached_engine
 from distributed_grep_tpu_torch.ops.lines import count_lines, newline_index
 from distributed_grep_tpu_torch.runtime.columnar import (
     DeferredBatch,
@@ -172,9 +178,16 @@ def configure(
         _presence = bool(presence_only)
         if key == _configured_with:
             return
-        _engine = GrepEngine(pattern, patterns=patterns,
-                             ignore_case=ignore_case, device=device,
-                             backend=backend, **engine_opts)  # type: ignore[arg-type]
+        # the cross-job engine cache (ops/engine.cached_engine): a
+        # repeated query gets the same engine, its models and uploaded
+        # tables, and skips its build; the verdict lands on the task's
+        # trace row when the span pipeline is on
+        _engine, cache_verdict = cached_engine(
+            pattern, patterns=patterns, ignore_case=ignore_case,
+            device=device, backend=backend,
+            **engine_opts)  # type: ignore[arg-type]
+        spans_mod.instant(f"cache:{cache_verdict}", cat="engine",
+                          mode=_engine.mode)
         _confirm = build_confirm(pattern=pattern, patterns=patterns,
                                  ignore_case=ignore_case, mode=mode)
         _confirm_mode = mode

@@ -161,7 +161,12 @@ def run(corpus: Path, tree: Path, label: str, only: set | None,
         os.environ.pop("DGREP_SWAR", None)
         if name.startswith("SWAR "):
             os.environ["DGREP_SWAR"] = "1"
-        grep_cuda._configured_with = None  # a new engine: its own totals
+        # a new engine: its own totals (a tree with the cross-job engine
+        # cache would hand a repeated query its earlier engine)
+        grep_cuda._configured_with = None
+        engine_mod = sys.modules.get("distributed_grep_tpu_torch.ops.engine")
+        if engine_mod is not None:
+            engine_mod.model_cache_clear()
         cfg = JobConfig(input_files=[str(p) for p in inputs],
                         app_options=dict(opts), n_reduce=10,
                         task_timeout_s=60.0, work_dir=str(work), **cfg_kw)

@@ -227,15 +227,20 @@ BACKENDS = ("device", "cpu")
 
 # ------------------------------------------------------------ model cache
 # Engines shared by their construction arguments (the reference's
-# engine.py:236-360): a repeated query reuses the compiled models and the
-# card's uploaded tables.  An engine is safe to share between threads
-# (thread-local stats, a read-ahead thread per scanning thread).
+# engine.py:242-400): a repeated query reuses the compiled models and the
+# card's uploaded tables, so a resubmit of a pattern skips its build.  An
+# engine is safe to share between threads and jobs (thread-local stats, a
+# read-ahead thread per scanning thread).  The key holds the device: an
+# engine built for "cpu" is never served to a "cuda" job.
 DEFAULT_MODEL_CACHE_ENTRIES = 32
 
 # io_ok: the lock is held across an engine's build on purpose (two
 # threads asking for one pattern build it once)
 _model_cache_lock = lockdep.make_lock("model-cache", io_ok=True)
 _model_cache: OrderedDict = OrderedDict()
+# the counters have a lock of their own: every scan stamps them into its
+# stats, and must not wait behind another thread's build
+_model_cache_stats_lock = lockdep.make_lock("model-cache-stats")
 _model_cache_stats = {"compile_cache_hits": 0, "compile_cache_misses": 0,
                       "compile_cache_evictions": 0}
 
@@ -252,9 +257,14 @@ def env_model_cache_entries(default: int = DEFAULT_MODEL_CACHE_ENTRIES) -> int:
         return default
 
 
+def _count_cache(key: str, n: int = 1) -> None:
+    with _model_cache_stats_lock:
+        _model_cache_stats[key] += n
+
+
 def model_cache_counters() -> dict:
     """The cache's counters, or {} while they are all 0."""
-    with _model_cache_lock:
+    with _model_cache_stats_lock:
         if not any(_model_cache_stats.values()):
             return {}
         return dict(_model_cache_stats)
@@ -264,8 +274,20 @@ def model_cache_clear() -> None:
     """Drop every cached engine and zero the counters."""
     with _model_cache_lock:
         _model_cache.clear()
-        for k in _model_cache_stats:
-            _model_cache_stats[k] = 0
+        with _model_cache_stats_lock:
+            for k in _model_cache_stats:
+                _model_cache_stats[k] = 0
+
+
+def invalidate_cached_engine(eng: "GrepEngine") -> None:
+    """Evict ``eng`` under every key it is cached by (an engine whose
+    compiled state no longer answers its key); counted as evictions."""
+    with _model_cache_lock:
+        keys = [k for k, v in _model_cache.items() if v is eng]
+        for k in keys:
+            del _model_cache[k]
+    if keys:
+        _count_cache("compile_cache_evictions", len(keys))
 
 
 def _hashable(v):
@@ -282,29 +304,46 @@ def cached_engine(pattern=None, *, patterns=None, **kw):
     """``(engine, verdict)``: the engine of these construction arguments,
     shared with every earlier call that gave the same ones ("hit"), or
     built and cached ("miss"), or built uncached ("off": DGREP_MODEL_CACHE
-    is 0 or the arguments do not hash).  The build runs under the cache's
-    lock, so two threads asking for one pattern build it once."""
+    is 0, the arguments do not hash, or they name a mesh or a list of
+    devices, whose engine is tied to those devices).  The build runs
+    under the cache's lock, so two threads asking for one pattern build
+    it once.  The knobs an engine would read from the environment at
+    construction (DGREP_DEVICE_MIN_BYTES, DGREP_BATCH_BYTES) are read here
+    and passed on, so they are part of the key: a change of them between
+    jobs builds a new engine rather than serving one built under the old
+    values."""
     cap = env_model_cache_entries()
+    if kw.get("device_min_bytes") is None:
+        kw["device_min_bytes"] = env_device_min_bytes()
+    if kw.get("batch_bytes") is None:
+        kw["batch_bytes"] = env_batch_bytes()
     key = (pattern, _hashable(patterns) if patterns is not None else None,
            _hashable(kw))
-    try:
-        hash(key)
-    except TypeError:
+    dev = kw.get("devices")
+    if kw.get("mesh") is not None or not (dev is None or isinstance(dev, str)):
         key = None
+    else:
+        try:
+            hash(key)
+        except TypeError:
+            key = None
     if cap <= 0 or key is None:
         return GrepEngine(pattern, patterns=patterns, **kw), "off"
     with _model_cache_lock:
         eng = _model_cache.get(key)
         if eng is not None:
             _model_cache.move_to_end(key)
-            _model_cache_stats["compile_cache_hits"] += 1
+            _count_cache("compile_cache_hits")
             return eng, "hit"
         eng = GrepEngine(pattern, patterns=patterns, **kw)
         _model_cache[key] = eng
-        _model_cache_stats["compile_cache_misses"] += 1
+        _count_cache("compile_cache_misses")
+        evicted = 0
         while len(_model_cache) > cap:
             _model_cache.popitem(last=False)
-            _model_cache_stats["compile_cache_evictions"] += 1
+            evicted += 1
+        if evicted:
+            _count_cache("compile_cache_evictions", evicted)
         return eng, "miss"
 
 
@@ -1570,6 +1609,7 @@ __all__ = [
     "check_patterns",
     "FILE_CHUNK_BYTES",
     "HOST_CHUNK",
+    "invalidate_cached_engine",
     "lines_match",
     "model_cache_clear",
     "model_cache_counters",

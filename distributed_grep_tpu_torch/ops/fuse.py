@@ -221,12 +221,12 @@ class FusedScanner:
 
     def scan_suffix(self, path, offset: int = 0, *, final: bool = False,
                     max_bytes: int | None = None):
-        """The fused follow tier's suffix scan belongs to the service
-        runtime (ROADMAP.md queue B, item 5)."""
+        """The fused follow tier's suffix scan: slice 3b of the service
+        runtime (ROADMAP.md queue B, item 5b)."""
         raise NotImplementedError(
             "FusedScanner.scan_suffix (the fused follow tier) is not ported "
-            "yet: ROADMAP.md 'Slices still to port', item 5 (the service "
-            "runtime)")
+            "yet: ROADMAP.md 'Slices still to port', item 5b (the service's "
+            "standing queries)")
 
     def scan_batch(self, items, progress=None, emit=None):
         """Many inputs through the union's packed batching: one scan a

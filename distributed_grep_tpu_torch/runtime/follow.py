@@ -20,8 +20,9 @@ once (``presence_only``: the file is then not scanned again) and
 ``{"file", "reset": True}``.
 
 The service's halves of the reference module -- ``FollowLog``,
-``StreamRing``, ``FollowRunner`` and the fused groups -- belong to the
-service runtime and are not here.
+``StreamRing``, ``FollowRunner`` and the fused groups -- are the standing
+queries of the service daemon (runtime/service.py), its slice 3b
+(ROADMAP.md queue B, item 5b), and are not here.
 """
 
 from __future__ import annotations

@@ -14,16 +14,23 @@ engine half.
   (realpath, size, mtime_ns, inode) a member from a fresh stat (the
   corpus cache's validators).
 
+The service daemon's planner (runtime/service.py) groups jobs by
+``fusion_key`` and ``query_family`` (a set with sets, a pattern with
+patterns; the reference's planner has no family), and reads the knobs:
+``env_service_fuse`` (DGREP_SERVICE_FUSE, on by default; off, no job gets
+a key and no assignment carries participants) and ``env_fuse_max_queries``
+(DGREP_FUSE_MAX_QUERIES, the queries one fused attempt may serve).
+
 Imports nothing of the scan stack: planning runs on the control plane.
-The standing queries' key (the reference's ``follow_fusion_key``), the
-fused map attempt of the worker and the service's fusion planner with
-its knobs (``DGREP_SERVICE_FUSE``, ``DGREP_FUSE_MAX_QUERIES``) belong to
-the service runtime (ROADMAP.md queue B, item 5) and are not here.
+The standing queries' key (the reference's ``follow_fusion_key``) belongs
+to the fused follow tier (ROADMAP.md queue B, item 5b) and is not here.
 """
 
 from __future__ import annotations
 
 import os
+
+DEFAULT_FUSE_MAX_QUERIES = 8
 
 # The one application whose map_fused_fn a fused attempt runs
 FUSABLE_APPLICATION = "distributed_grep_tpu_torch.apps.grep_cuda"
@@ -35,6 +42,29 @@ MAX_FUSED_SPLIT_BYTES = 256 << 20
 # The query keys a fused group may differ on; every other app option must
 # be equal across it.
 _QUERY_KEYS = ("pattern", "patterns", "ignore_case")
+
+
+def env_service_fuse(default: bool = True) -> bool:
+    """DGREP_SERVICE_FUSE, the service's fusion switch: on by default;
+    "0", "false" or "no" turns the planning off (assignments, their wire
+    bytes and the outputs are then the unfused daemon's)."""
+    raw = os.environ.get("DGREP_SERVICE_FUSE")
+    if raw is None or raw == "":
+        return default
+    return raw.strip().lower() not in ("0", "false", "no")
+
+
+def env_fuse_max_queries(default: int = DEFAULT_FUSE_MAX_QUERIES) -> int:
+    """DGREP_FUSE_MAX_QUERIES, the queries one fused attempt may serve
+    (malformed keeps ``default``; below 2 is 2: turning fusion off is
+    DGREP_SERVICE_FUSE's job)."""
+    raw = os.environ.get("DGREP_FUSE_MAX_QUERIES")
+    if raw is None or raw == "":
+        return default
+    try:
+        return max(2, int(raw))
+    except ValueError:
+        return default
 
 
 def has_backref(rx: str) -> bool:
@@ -111,6 +141,17 @@ def fusion_key(config) -> tuple | None:
     except TypeError:
         return None  # an option that does not sort or hash: solo
     return (config.application, frozen, int(config.effective_batch_bytes()))
+
+
+def query_family(options: dict) -> str:
+    """"set" for a literal-set query (``patterns``), else "pattern".  The
+    service's planner fuses a query only with its own family: a union of a
+    set with a pattern is one alternation of every member, which past a
+    few dozen members no kernel hosts (its engine routes to a host
+    scanner, so FusedScanner raises FuseError on the card, after building
+    it); two sets merge into one set, and patterns into one alternation,
+    each on a kernel."""
+    return "set" if options.get("patterns") else "pattern"
 
 
 def split_identity(split) -> tuple | None:

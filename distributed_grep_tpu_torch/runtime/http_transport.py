@@ -1,5 +1,5 @@
 """The worker side of the HTTP control and data planes (the reference's
-runtime/http_transport.py, without the service transport, the peer fetch
+runtime/http_transport.py, without the peer fetch, the standby parking
 and the multi-host init).
 
 ``HttpTransport`` implements the Transport protocol (runtime/transport.py)
@@ -11,8 +11,15 @@ effects commit through idempotent per-task commit records and the
 scheduler absorbs duplicate completions.  An HTTP error status is the
 server's answer and is never retried.
 
+``ServiceHttpTransport`` is the same against the service daemon
+(runtime/service.py): its data plane is scoped by job,
+``/data/<job>/<kind>/<name>``, following the worker's assignment
+(``bind_job``), so one attach serves a stream of jobs.
+
 ``run_http_worker`` is the ``worker`` subcommand: it fetches the job
-config, loads the application, checks the job's device when the
+config, asks ``/status`` once whether the address is a service daemon
+(``"service": true``: its config names a default application, and each
+assignment its own), loads the application, checks the job's device when the
 application uses one (runtime/job.job_device; an application that
 launches no kernel never asks for the card) and runs ``n_parallel`` task
 loops in the process, under the profiler when DGREP_TRACE_DIR is set and
@@ -316,6 +323,25 @@ class HttpTransport:
         return json.loads(self._request("GET", "/status"))
 
 
+class ServiceHttpTransport(HttpTransport):
+    """HttpTransport against the service daemon: the control plane is the
+    same, the data plane is scoped to the job of the worker's assignment
+    (``bind_job``, called by the worker loop)."""
+
+    def __init__(self, addr: str, rpc_timeout_s: float = 60.0):
+        super().__init__(addr, rpc_timeout_s=rpc_timeout_s)
+        self._job = ""
+
+    def bind_job(self, job_id: str) -> None:
+        self._job = job_id
+
+    def _data_path(self, kind: str, name: str) -> str:
+        if not self._job:
+            return super()._data_path(kind, name)
+        return (f"/data/{urllib.parse.quote(self._job, safe='')}"
+                f"/{kind}/{urllib.parse.quote(name, safe='')}")
+
+
 def client_call(addr: str, method: str, path: str, body: bytes | None = None,
                 timeout: float = 30.0, retry: bool = True) -> dict:
     """One JSON-over-HTTP call with the transport's retry policy, bounded
@@ -341,7 +367,8 @@ def client_call(addr: str, method: str, path: str, body: bytes | None = None,
 
 def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     """The ``worker`` subcommand: fetch the job's config from the
-    coordinator, load the application, check its device when it uses one
+    coordinator (a service daemon's bootstrap: each assignment then names
+    its job and application), load the application, check its device when it uses one
     (CUDA asked for where there is none raises, naming it: nothing scans
     on the host instead), build the host library and run ``n_parallel``
     task loops in this process.  Returns when the job is over or the
@@ -364,6 +391,15 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     except CoordinatorGone:
         log.error("no coordinator at %s", addr)
         raise SystemExit(1)
+    # a service daemon answers {"service": true} at /status: its data
+    # plane is scoped by job, and each assignment names its application
+    try:
+        is_service = bool(transport.fetch_status().get("service"))
+    except (OSError, RuntimeError, ValueError):
+        is_service = False  # a coordinator without /status
+    if is_service:
+        log.info("attached to a service daemon at %s", addr)
+    transport_cls = ServiceHttpTransport if is_service else HttpTransport
     marks.append(("config", time.perf_counter()))
     app = load_application(config.application)
     marks.append(("app", time.perf_counter()))
@@ -387,7 +423,7 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
 
     def run_loop(slot: int) -> None:
         loop = WorkerLoop(
-            HttpTransport(addr, rpc_timeout_s=config.rpc_timeout_s), app,
+            transport_cls(addr, rpc_timeout_s=config.rpc_timeout_s), app,
             reduce_memory_bytes=config.reduce_memory_bytes,
             # the coordinator's spill path may not exist here: honoured
             # only when set

@@ -1,6 +1,5 @@
 """Control-plane message schema: the five verbs (the reference's
-runtime/rpc.py, without the service's and the peer shuffle's fields;
-with ``AssignTaskReply.fused``, the participants of a fused map).
+runtime/rpc.py, without the peer shuffle's fields).
 
   AssignTask      a worker asks for work; long-polls until a map split or
                   a reduce partition is available, or the job is over.
@@ -17,6 +16,14 @@ finished RPCs carry the worker's buffered span records (``spans``, with
 ``spans_seq``, the batch number the coordinator dedups a retry by), and
 the Heartbeat the worker's send time and last round trip (``sent_at``,
 ``rtt_s``) for the coordinator's clock-offset estimate.
+
+The service daemon (runtime/service.py) multiplexes many jobs over one
+worker attach: its assignments carry the job's id and application
+(``AssignTaskReply.job_id`` / ``.application``), a fused map's other
+participants (``AssignTaskReply.fused``), and every task RPC echoes the
+``job_id`` back.  A one-shot coordinator leaves them empty, and then they
+are absent from the wire: its payloads are the bytes they were before
+the fields existed.
 
 An explicit JOB_DONE assignment ends a worker's loop.  Messages are plain
 dicts <-> dataclasses for the JSON transport; optional fields are elided
@@ -63,6 +70,11 @@ class AssignTaskReply:
     # the coordinator's failure-detector window for this task; the worker
     # derives its heartbeat cadence from it (about a third)
     task_timeout_s: float = 10.0
+    # the service's job of this task and the application to run it with
+    # (a worker attached to the daemon serves a stream of jobs); empty on
+    # a one-shot coordinator
+    job_id: str = ""
+    application: str = ""
     # "expect no work for this many seconds" on a quarantined worker's
     # retry reply (scheduler.WorkerHealth)
     retry_after_s: float = 0.0
@@ -82,6 +94,7 @@ class AssignTaskReply:
 @dataclass
 class TaskFinishedArgs:
     task_id: int
+    job_id: str = ""  # the service job of the task (the assignment's)
     worker_id: int = -1
     # the reduce partitions this map task produced records for
     produced_parts: list[int] = field(default_factory=list)
@@ -103,6 +116,7 @@ class TaskFinishedReply:
 class ReduceNextFileArgs:
     task_id: int
     files_processed: int  # the resume-safe cursor
+    job_id: str = ""  # the service job of the task (the assignment's)
     epoch: str = ""  # the assignment's (AssignTaskReply.epoch)
     # who fetches: only the current assignee's fetches mark the task as
     # held (quarantine attribution)
@@ -125,6 +139,7 @@ class ReduceNextFileReply:
 class HeartbeatArgs:
     task_type: str  # "map" | "reduce"
     task_id: int
+    job_id: str = ""  # the service job of the task (the assignment's)
     worker_id: int = -1
     # a declared silent phase: "expect no stamp for up to this many
     # seconds"; 0 is a plain stamp, which also ends an earlier grace
@@ -158,11 +173,13 @@ _ELIDE_DEFAULTS: dict[str, Any] = {
     "metrics": None, "filenames": [], "retry_after_s": 0.0, "epoch": "",
     "abort": False, "worker_id": -1, "lost_file": "", "spans": [],
     "spans_seq": -1, "sent_at": 0.0, "rtt_s": -1.0, "fused": [],
+    "job_id": "", "application": "",
 }
 
 # Reply fields dropped from the wire at their (falsy) defaults; the others
 # are always there.
-_REPLY_ELIDE = ("filenames", "retry_after_s", "epoch", "fused", "abort")
+_REPLY_ELIDE = ("job_id", "application", "filenames", "retry_after_s",
+                "epoch", "fused", "abort")
 
 
 def reply_to_dict(msg: Any) -> dict:

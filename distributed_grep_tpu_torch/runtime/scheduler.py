@@ -1,5 +1,4 @@
-"""Coordinator task scheduler: the reference's runtime/scheduler.py without
-its service hooks.
+"""Coordinator task scheduler: the reference's runtime/scheduler.py.
 
 * one map task per input file, or per batched split of small files (a
   list among ``files``, runtime/job.plan_map_splits), and reduce
@@ -22,11 +21,16 @@ its service hooks.
 * a worker charged with three timeouts in a row is quarantined
   (``WorkerHealth``);
 * ``claim_map_task`` hands a given idle map task, on its first attempt
-  only, to another task's fused assignment (ops/fuse.py;
-  ``fused_assigned`` counts them).  The reference's rule that such an
-  attempt's timeout charges no worker comes with the worker's fused
-  attempt, which nothing in this package makes yet (ROADMAP.md queue B,
-  item 5);
+  only, to another task's fused assignment (the service daemon's fusion
+  planner, runtime/service.py; ``fused_assigned`` counts them).  Such an
+  attempt's timeout charges no worker: the K schedulers of one fused
+  attempt share the service's WorkerHealth, and the primary assignment's
+  timeout carries the one charge;
+* ``on_change``, for a layer that multiplexes many schedulers (the
+  service's assign loop, which waits on its own condition): called
+  outside the lock whenever work may have become assignable here (a map
+  commit, a lost output's re-run, a timeout's re-enqueue).  A one-shot
+  coordinator passes none;
 * completion is idempotent: a duplicate MapFinished/ReduceFinished is
   absorbed; a task's commit record (runtime/store.py), when one resolves,
   is the unit of truth for the partitions it produced;
@@ -124,6 +128,19 @@ class WorkerHealth:
         self._until: dict[int, float] = {}  # monotonic expiry
         self._polls: dict[int, float] = {}  # last assign poll
         self.quarantined_total = 0
+        # the service's fleet-timeline stage (runtime/daemon_log.py):
+        # called outside the lock with quarantine, quarantine_expire and
+        # quarantine_clear, once an episode however many schedulers share
+        # this tracker
+        self.on_event: Callable[..., None] | None = None
+
+    def _emit(self, kind: str, **payload) -> None:
+        cb = self.on_event
+        if cb is not None:
+            try:
+                cb(kind, **payload)
+            except Exception:  # noqa: BLE001 -- telemetry, never fatal
+                log.exception("worker-health event hook failed")
 
     def saw(self, worker_id: int) -> None:
         """Record an assign poll: a worker loop is single-threaded, so a
@@ -140,9 +157,12 @@ class WorkerHealth:
         if worker_id < 0:
             return
         with self._lock:
+            had_episode = worker_id in self._episodes
             for d in (self._fails, self._episodes, self._until,
                       self._polls):
                 d.pop(worker_id, None)
+        if had_episode:
+            self._emit("quarantine_clear", worker=worker_id)
 
     def record_failure(self, worker_id: int) -> float:
         """Register an attributed failure; the quarantine window entered,
@@ -163,6 +183,8 @@ class WorkerHealth:
             self._until[worker_id] = now + window
             self._fails[worker_id] = QUARANTINE_AFTER_FAILURES - 1
             self.quarantined_total += 1
+        self._emit("quarantine", worker=worker_id, episode=ep,
+                   window_s=round(window, 3))
         return window
 
     def quarantine_remaining(self, worker_id: int) -> float:
@@ -174,7 +196,8 @@ class WorkerHealth:
             if rem > 0:
                 return rem
             del self._until[worker_id]  # expired: probation
-            return 0.0
+        self._emit("quarantine_expire", worker=worker_id)
+        return 0.0
 
     def snapshot(self) -> dict:
         now = time.monotonic()
@@ -224,6 +247,8 @@ class Scheduler:
         commit_resolver: Optional[Callable] = None,
         worker_health: Optional[WorkerHealth] = None,
         event_log: Optional[EventLog] = None,
+        on_change: Optional[Callable[[], None]] = None,
+        daemon_events: Optional[Callable[..., None]] = None,
     ):
         self.n_reduce = n_reduce
         self.task_timeout_s = task_timeout_s
@@ -234,6 +259,10 @@ class Scheduler:
         # or None (WorkDir.resolve_task_commit)
         self.commit_resolver = commit_resolver
         self.worker_health = worker_health or WorkerHealth()
+        # the multiplexing layer's wake-up (module docstring) and its
+        # fleet-timeline stage (runtime/daemon_log.py); None costs nothing
+        self.on_change = on_change
+        self.daemon_events = daemon_events
         self.counters: Counter = Counter()
         self.seconds: Counter = Counter()  # wall time per worker stage
         self.launches: Counter = Counter()  # kernel launches workers shipped
@@ -605,15 +634,22 @@ class Scheduler:
                                                worker_id=worker_id)
                 self._cond.wait(min(remaining, self.sweep_interval_s))
 
-    def _start_attempt(self, task, worker_id: int, kind: str) -> None:
+    def _start_attempt(self, task, worker_id: int, kind: str,
+                       fused: bool = False) -> None:
         task.state = TaskState.IN_PROGRESS
         task.heartbeat()
         task.attempts += 1
         task.worker = worker_id
         task.stamped = False  # no evidence from the worker yet
+        if kind == "map":
+            task.fused_claim = fused  # a fused participant is not charged
         self.counters[f"{kind}_assigned"] += 1
         self._worker_seen(worker_id, task=f"{kind}:{task.task_id}")
-        if kind == "map":
+        if fused:
+            self.counters["fused_assigned"] += 1
+            self._event("assign_map", task=task.task_id, worker=worker_id,
+                        attempt=task.attempts, file=task.file, fused=True)
+        elif kind == "map":
             self._event("assign_map", task=task.task_id, worker=worker_id,
                         attempt=task.attempts, file=task.file)
         else:
@@ -637,18 +673,7 @@ class Scheduler:
                 task = self.map_tasks[task_id]
                 if task.state is not TaskState.UNASSIGNED or task.attempts:
                     return None
-                task.state = TaskState.IN_PROGRESS
-                task.heartbeat()
-                task.attempts += 1
-                task.worker = worker_id
-                task.stamped = False
-                self.counters["map_assigned"] += 1
-                self.counters["fused_assigned"] += 1
-                self._worker_seen(worker_id, task=f"map:{task_id}")
-                self._event("assign_map", task=task_id, worker=worker_id,
-                            attempt=task.attempts, file=task.file, fused=True)
-                log.debug("fuse-claim map task %d (%s) -> worker %d",
-                          task_id, task.file, worker_id)
+                self._start_attempt(task, worker_id, "map", fused=True)
                 return {
                     "task_id": task_id,
                     "filename": task.file,
@@ -704,6 +729,18 @@ class Scheduler:
         finally:
             self._flush_journal()  # fsync before the reply leaves
             self._flush_events()
+            self._notify_change()  # the last map commit unlocks the reduces
+
+    def _notify_change(self) -> None:
+        """Wake the multiplexing layer's assign loop (``on_change``); never
+        raises: a failing callback must not fail a commit."""
+        cb = self.on_change
+        if cb is None:
+            return
+        try:
+            cb()
+        except Exception:  # noqa: BLE001 -- an advisory wake-up
+            log.exception("scheduler on_change callback failed")
 
     def _register_map_outputs(self, map_task_id: int,
                               produced_parts: list[int]) -> None:
@@ -768,12 +805,16 @@ class Scheduler:
             return rpc.ReduceNextFileReply(abort=True)
         deadline = time.monotonic() + timeout
         if args.lost_file:
+            requeued = False
             try:
                 with self._cond:
-                    if self._report_lost_locked(args):
+                    requeued = self._report_lost_locked(args)
+                    if requeued:
                         return rpc.ReduceNextFileReply(abort=True)
             finally:
                 self._flush_events()
+                if requeued:
+                    self._notify_change()  # the map is assignable again
         with self._cond:
             task = self.reduce_tasks[args.task_id]
             while True:
@@ -822,6 +863,9 @@ class Scheduler:
         metrics_mod.counter("dgrep_maps_lost_output_total").inc()
         self._event("map_lost_output", task=tid, file=args.lost_file,
                     reporter=args.worker_id)
+        if self.daemon_events is not None:
+            # a daemon-level decision: on the fleet timeline too
+            self.daemon_events("map_lost_output", task=tid)
         rt = (self.reduce_tasks[args.task_id]
               if 0 <= args.task_id < len(self.reduce_tasks) else None)
         if rt is not None and rt.state is TaskState.IN_PROGRESS and (
@@ -896,8 +940,13 @@ class Scheduler:
                             >= max(self.task_timeout_s, task.grace_s)):
                         log.warning("%s task %d timed out; re-enqueueing",
                                     kind, task.task_id)
-                        if task.stamped or not self.worker_health.polled_since(
-                                task.worker, task.timestamp):
+                        if (task.stamped
+                                or not self.worker_health.polled_since(
+                                    task.worker, task.timestamp)) and not (
+                                        getattr(task, "fused_claim", False)):
+                            # charged with evidence the worker held the
+                            # task or is gone; a fused participant never
+                            # (the primary's timeout is the one charge)
                             failed.add(task.worker)
                         self._event("task_timeout", type=kind,
                                     task=task.task_id, attempt=task.attempts,
@@ -922,6 +971,8 @@ class Scheduler:
             if requeued:
                 self._cond.notify_all()
         self._flush_events()
+        if requeued:
+            self._notify_change()  # re-enqueued work is assignable again
         return requeued
 
     def _sweep_loop(self) -> None:

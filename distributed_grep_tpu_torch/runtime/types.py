@@ -42,6 +42,9 @@ class MapTask:
     # True once that worker stamped the attempt (a heartbeat, a shuffle
     # fetch): proof it received the assignment
     stamped: bool = False
+    # True while the current attempt is another assignment's fused
+    # participant (Scheduler.claim_map_task): its timeout charges no worker
+    fused_claim: bool = False
 
     def heartbeat(self, grace_s: float = 0.0) -> None:
         """Stamp liveness; a later stamp without a grace clears it."""

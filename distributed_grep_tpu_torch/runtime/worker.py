@@ -1,10 +1,12 @@
 """Worker loop over a Transport (the reference's runtime/worker.py without
-its fused map and peer fetch): ask for work, run it, commit it, report
-it.  The fused map attempt (the reference's worker.py:656-900: one scan
-for the participants of an assignment's ``fused`` list, each committed
-through its own job's transport) waits for the service runtime it
-commits through (ROADMAP.md queue B, item 5); the engine half it calls,
-``apps/grep_cuda.map_fused_fn``, is here.
+its peer fetch): ask for work, run it, commit it, report it.
+
+A loop attached to the service daemon (runtime/service.py) serves a
+stream of jobs: each assignment names its job and application
+(``_bind_assignment``), the transport's data plane follows the job
+(``bind_job``), one loaded application is kept a spec, and every task RPC
+echoes the job id.  On a one-shot coordinator the assignment names
+neither and the loop runs the application it was given.
 
 Map: run the application over one input file -- ``map_path_fn(filename,
 path)`` when the app defines it and the transport gives a local path (it
@@ -48,6 +50,19 @@ and whole onto the finished RPC, with the loop's Metrics snapshot.  The
 read, compute and reduce legs are also profiler regions (utils/trace.py:
 ``map_read:<id>``, ``map_compute:<id>``, ``reduce_compute:<id>``).  Off,
 no buffer exists and no RPC carries a new field.
+
+A fused map (an assignment whose ``fused`` list names the co-tenant
+tasks the service's planner claimed onto it, runtime/fusion.py): the
+split is read once, the app's ``map_fused_fn`` answers every
+participant's query from one union scan (ops/fuse.py), and each
+participant commits through its own job: its data plane, its n_reduce,
+its task id and commit record, its finished RPC.  Only ``FuseError``, the
+union's "these queries cannot share a scan", sends the participants solo,
+each through its own ``map_batch_fn`` over the items already read; any
+other error fails the attempt, as a solo map's error does (ROADMAP.md D5,
+D7).  The heartbeats of a fused attempt stamp every participant's task.
+``attempt_jobs`` names the jobs of the attempt in flight, so a caller
+that catches the loop's error knows whose attempt failed.
 
 ``fault_hooks`` maps a point name ("after_map_read", "before_map_commit",
 "before_map_finished", "after_reduce_file", "before_reduce_commit") to a
@@ -147,6 +162,15 @@ def _engine_cache_counters() -> dict | None:
     return counters or None
 
 
+def _record_counters(records) -> dict:
+    """A map attempt's record counters: its columnar batches, and the
+    records they and the plain records hold."""
+    batches = [rec for rec in records if isinstance(rec, LineBatch)]
+    return {"map_batches": len(batches),
+            "map_records": len(records) - len(batches)
+            + sum(len(b) for b in batches)}
+
+
 @contextlib.contextmanager
 def _stack(*cms):
     """The context managers entered in order, as one ``with``."""
@@ -157,7 +181,7 @@ def _stack(*cms):
 
 
 class WorkerLoop:
-    def __init__(self, transport, app,
+    def __init__(self, transport, app=None,
                  fault_hooks: Optional[dict[str, Callable[[], None]]] = None,
                  reduce_memory_bytes: int | None = None,
                  spill_dir: Optional[str] = None,
@@ -165,7 +189,15 @@ class WorkerLoop:
                  spans_enabled: Optional[bool] = None,
                  job_id: str = ""):
         self.transport = transport
-        self.app = app  # a LoadedApplication (apps/loader.py)
+        # a LoadedApplication (apps/loader.py); None on a service worker,
+        # whose assignments name theirs: one fresh module instance a spec
+        # a loop, kept across jobs (_bind_assignment)
+        self.app = app
+        self._job_apps: dict = {}
+        # the service job of the assignment in flight, echoed on every
+        # task RPC; "" on a one-shot coordinator (absent from the wire)
+        self._rpc_job_id = ""
+        self.attempt_jobs: list[str] = []
         self.fault_hooks = fault_hooks or {}
         self.reduce_memory_bytes = reduce_memory_bytes
         self.spill_dir = spill_dir
@@ -202,16 +234,20 @@ class WorkerLoop:
         return out
 
     def _heartbeat(self, task_type: str, task_id: int,
-                   grace_s: float = 0.0) -> None:
+                   grace_s: float = 0.0, job_id: str | None = None) -> None:
         """An advisory stamp; never raises (the task's own RPCs surface a
-        transport failure).  With the span pipeline on it carries a batch
-        of the buffered spans (lost with the stamp if it fails), the
-        metrics piggyback, and the send time and last round trip."""
+        transport failure).  ``job_id`` names another job than the
+        assignment's (a fused attempt stamps each participant's task).
+        With the span pipeline on it carries a batch of the buffered spans
+        (lost with the stamp if it fails), the metrics piggyback, and the
+        send time and last round trip."""
         hb = getattr(self.transport, "heartbeat", None)
         if hb is None:
             return
-        args = rpc.HeartbeatArgs(task_type=task_type, task_id=task_id,
-                                 worker_id=self.worker_id, grace_s=grace_s)
+        args = rpc.HeartbeatArgs(
+            task_type=task_type, task_id=task_id,
+            job_id=self._rpc_job_id if job_id is None else job_id,
+            worker_id=self.worker_id, grace_s=grace_s)
         if self.spans is not None:
             args.spans_seq, args.spans = self.spans.drain_batch()
             args.metrics = self._piggyback()
@@ -270,6 +306,9 @@ class WorkerLoop:
             # the wait for work, an argument of the task's span
             self._assign_wait_s = time.monotonic() - t_wait
             self.worker_id = reply.worker_id
+            if reply.assignment in (rpc.Assignment.MAP,
+                                    rpc.Assignment.REDUCE):
+                self._bind_assignment(reply)
             if self.spans is not None:
                 # records the buffer makes itself (a drop report) land on
                 # this worker's row
@@ -288,6 +327,38 @@ class WorkerLoop:
                 # quarantined: sleep a bounded slice of the hinted window
                 time.sleep(min(reply.retry_after_s, 5.0))
             # else a retry: the long-poll window expired
+            self.attempt_jobs = []
+
+    def _bind_assignment(self, reply: rpc.AssignTaskReply) -> None:
+        """Adopt an assignment's job: the RPCs' job id, the span tags, the
+        transport's data-plane scope, and the application it names (one
+        loaded instance a spec, kept).  A one-shot coordinator's reply
+        names neither, and the loop keeps its own application."""
+        self.attempt_jobs = [reply.job_id] + [
+            str(p.get("job_id", "")) for p in reply.fused]
+        if reply.job_id:
+            self._bind_job(reply.job_id)
+        if reply.application:
+            app = self._job_apps.get(reply.application)
+            if app is None:
+                from distributed_grep_tpu_torch.apps.loader import (
+                    load_application,
+                )
+
+                app = load_application(reply.application)
+                self._job_apps[reply.application] = app
+            self.app = app
+        elif self.app is None:
+            raise RuntimeError(
+                "worker has no application: the assignment names none and "
+                "none was given at construction")
+
+    def _bind_job(self, job_id: str) -> None:
+        self._rpc_job_id = job_id
+        self.job_id = job_id
+        bind = getattr(self.transport, "bind_job", None)
+        if bind is not None:
+            bind(job_id)
 
     def _publish_commit(self, kind: str, task_id: int, attempt: str,
                         payload: dict) -> None:
@@ -337,6 +408,9 @@ class WorkerLoop:
         return items, sum(len(b) for _n, b in items)
 
     def _run_map(self, a: rpc.AssignTaskReply) -> None:
+        if a.fused:  # co-tenant tasks ride this one: one scan, K commits
+            self._run_map_fused(a)
+            return
         from distributed_grep_tpu_torch.runtime.store import new_attempt_id
 
         t0 = time.perf_counter()
@@ -349,8 +423,9 @@ class WorkerLoop:
                 assign_wait_s=round(self._assign_wait_s, 6))
             self._fault("before_map_finished")
             self.transport.map_finished(self._finished(rpc.TaskFinishedArgs(
-                task_id=a.task_id, worker_id=self.worker_id,
-                produced_parts=produced, metrics=metrics)))
+                task_id=a.task_id, job_id=self._rpc_job_id,
+                worker_id=self.worker_id, produced_parts=produced,
+                metrics=metrics)))
         self.metrics.inc("map_tasks")
         self.metrics.observe("map_task_total", time.perf_counter() - t0)
         _H_MAP_TASK.observe(time.perf_counter() - t0)
@@ -441,20 +516,9 @@ class WorkerLoop:
             return self._pumping("map", a.task_id, pump_s)
 
         with shuffle_guard():
-            with spans_mod.span("map:shuffle", cat="map"):
-                buckets = shuffle.bucketize(records, a.n_reduce)
-                self._fault("before_map_commit")
-                produced = []
-                for r, recs in sorted(buckets.items()):
-                    self.transport.write_intermediate(
-                        f"mr-{a.task_id}-{r}", shuffle.encode_records(recs))
-                    produced.append(r)
-            self._publish_commit("map", a.task_id, attempt,
-                                 {"parts": produced})
-        batches = [rec for rec in records if isinstance(rec, LineBatch)]
-        counters = {"map_batches": len(batches),
-                    "map_records": len(records) - len(batches)
-                    + sum(len(b) for b in batches)}
+            produced = self._shuffle_and_commit(a.task_id, a.n_reduce,
+                                                records, attempt)
+        counters = _record_counters(records)
         # the shard index's prunes and maybes of this attempt (its scans
         # ran in this thread); the index is imported by then if it fired
         index_mod = sys.modules.get("distributed_grep_tpu_torch.index.summary")
@@ -465,6 +529,205 @@ class WorkerLoop:
         seconds = {"map_read": t1 - t0, "map_fn": t2 - t1,
                    "map_shuffle": time.perf_counter() - t2}
         return produced, self._metrics(counters, seconds)
+
+    def _shuffle_and_commit(self, task_id: int, n_reduce: int, records,
+                            attempt: str) -> list[int]:
+        """Bucketize one map task's records, write one intermediate file a
+        partition, publish the task's commit record; the partitions."""
+        with spans_mod.span("map:shuffle", cat="map"):
+            buckets = shuffle.bucketize(records, n_reduce)
+            self._fault("before_map_commit")
+            produced = []
+            for r, recs in sorted(buckets.items()):
+                self.transport.write_intermediate(
+                    f"mr-{task_id}-{r}", shuffle.encode_records(recs))
+                produced.append(r)
+        self._publish_commit("map", task_id, attempt, {"parts": produced})
+        return produced
+
+    # ---------------------------------------------------------- fused map
+    def _run_map_fused(self, a: rpc.AssignTaskReply) -> None:
+        """One scan serving the K participants of a fused assignment (the
+        module docstring): the primary's split read once, the app's
+        ``map_fused_fn`` over it, then each participant's commit through
+        its own job.  ``FuseError`` alone runs the participants solo over
+        the items read."""
+        from distributed_grep_tpu_torch.ops.fuse import FuseError
+        from distributed_grep_tpu_torch.runtime.store import new_attempt_id
+
+        t0 = time.perf_counter()
+        t0_wall = time.time()
+        participants: list[dict] = [{
+            "job_id": a.job_id, "task_id": a.task_id,
+            "filename": a.filename, "filenames": list(a.filenames),
+            "n_reduce": a.n_reduce, "app_options": a.app_options,
+            "epoch": a.epoch, "task_timeout_s": a.task_timeout_s,
+        }] + [dict(p) for p in a.fused]
+        part_ids = [(p["job_id"], p["task_id"]) for p in participants]
+        # every participant's scheduler sees the stamps, on the cadence of
+        # the tightest participant's detector window
+        window_s = min(float(p.get("task_timeout_s", a.task_timeout_s))
+                       for p in participants)
+        min_interval = self._hb_interval(window_s)
+        last = [0.0]
+
+        def stamp_all(grace_s: float = 0.0) -> None:
+            for jid_p, tid_p in part_ids:
+                self._heartbeat("map", tid_p, grace_s=grace_s, job_id=jid_p)
+
+        def progress(grace_s: float = 0.0) -> None:
+            now = time.monotonic()
+            if not grace_s and now - last[0] < min_interval:
+                return
+            last[0] = now
+            stamp_all(grace_s)
+
+        @contextlib.contextmanager
+        def fused_pump(force: bool = False):
+            """The solo guards' stamping thread, fanned out to every
+            participant; a local data plane skips it unless ``force`` (a
+            match-dense commit loop)."""
+            if not force and self.is_local:
+                yield
+                return
+            stop = threading.Event()
+            interval = min(2.0, min_interval)
+
+            def pump() -> None:
+                while not stop.wait(interval):
+                    stamp_all()
+
+            t = threading.Thread(target=pump, name="fused-hb-pump",
+                                 daemon=True)
+            t.start()
+            try:
+                yield
+            finally:
+                stop.set()
+                t.join(timeout=interval + 1.0)
+
+        names = list(a.filenames) or [a.filename]
+        want_paths = bool(self.app.map_batch_paths)
+        attempt0 = new_attempt_id()
+        committed = 0
+        with self._task_ctx("map", a.task_id, attempt0):
+            with fused_pump(), trace.annotate(f"map_read:{a.task_id}"), \
+                    spans_mod.span("map:read", cat="map", file=a.filename,
+                                   files=len(names)):
+                items, n_bytes = self._read_members(names, want_paths)
+            self._fault("after_map_read")
+            t1 = time.perf_counter()
+            records_per: list | None = None
+            if self.app.map_fused_fn is not None:
+                has_progress = self.app.set_progress(progress)
+                try:
+                    with self.metrics.timer("map_compute"), \
+                            trace.annotate(f"map_compute:{a.task_id}"), \
+                            spans_mod.span("map:compute", cat="map",
+                                           fused=len(participants)):
+                        records_per = self.app.map_fused_fn(items,
+                                                            participants)
+                except FuseError as e:
+                    # these queries cannot share one scan: each runs solo
+                    # (a kernel's error is no FuseError, and fails the map)
+                    log.info("fused map of %d queries runs solo: %s",
+                             len(participants), e)
+                    records_per = None
+                finally:
+                    if has_progress:
+                        self.app.set_progress(None)
+            self.metrics.record_scan(n_bytes, time.perf_counter() - t0)
+            t2 = time.perf_counter()
+            dense = records_per is not None and sum(
+                len(r) if isinstance(r, LineBatch) else 1
+                for recs in records_per for r in recs) >= PUMP_RECORDS
+            with fused_pump(force=dense):
+                for k, part in enumerate(participants):
+                    t_part = time.perf_counter()
+                    records = (records_per[k] if records_per is not None
+                               else self._solo_participant_records(
+                                   part, items, progress))
+                    seconds = {"map_shuffle": 0.0}
+                    if k == 0:  # the shared read and scan: the primary's
+                        seconds.update(map_read=t1 - t0, map_fn=t2 - t1)
+                    else:
+                        seconds["map_fn"] = time.perf_counter() - t_part
+                    self._commit_fused_participant(
+                        part, records,
+                        attempt0 if k == 0 else new_attempt_id(),
+                        len(participants), seconds)
+                    committed += 1
+                    progress()  # stamp the participants still pending
+            spans_mod.complete(
+                "map:task", t0_wall, time.time() - t0_wall, cat="map",
+                assign_wait_s=round(self._assign_wait_s, 6),
+                fused=len(participants))
+        self.metrics.inc("fused_map_attempts")
+        self.metrics.observe("map_task_total", time.perf_counter() - t0)
+        _H_MAP_TASK.observe(time.perf_counter() - t0)
+        log.info("fused map attempt served %d/%d tasks (%s:%d + %d)",
+                 committed, len(participants), a.job_id, a.task_id,
+                 len(a.fused))
+
+    def _solo_participant_records(self, part: dict, items: list,
+                                  progress) -> list:
+        """One participant's own map over the items already read (its
+        configure, then its batch or plain map): what a solo attempt of
+        its task computes."""
+        self.app.configure(**part["app_options"])
+        p_items = self._participant_items(items, part)
+        has_progress = self.app.set_progress(progress)
+        try:
+            if self.app.map_batch_fn is not None:
+                return self.app.map_batch_fn(p_items)
+            out = []
+            for name, data in p_items:
+                if not isinstance(data, (bytes, bytearray, memoryview)):
+                    with open(data, "rb") as f:
+                        data = f.read()
+                out.extend(self.app.map_fn(name, bytes(data)))
+            return out
+        finally:
+            if has_progress:
+                self.app.set_progress(None)
+
+    @staticmethod
+    def _participant_items(items: list, part: dict) -> list:
+        """The shared split's items under this participant's own member
+        names (two tenants may name one content by different paths, and
+        each job's records carry its own names)."""
+        p_names = list(part.get("filenames") or []) or [part.get("filename")]
+        if len(p_names) != len(items):
+            raise RuntimeError(
+                f"fused participant {part.get('job_id')!r} has "
+                f"{len(p_names)} member names for a {len(items)}-item split")
+        return [(p_names[i], data) for i, (_nm, data) in enumerate(items)]
+
+    def _commit_fused_participant(self, part: dict, records: list,
+                                  attempt: str, n_queries: int,
+                                  seconds: dict) -> None:
+        """One participant's commit, the solo map's protocol under its own
+        job: its data plane, n_reduce, task id, commit record and finished
+        RPC (with its own record counters)."""
+        jid, tid = part["job_id"], part["task_id"]
+        self._bind_job(jid)
+        if self.spans is not None:
+            # the job tag routes it into the participant's events.jsonl
+            self.spans.add({
+                "t": "instant", "name": "fuse:split", "cat": "fuse",
+                "ts": time.time(), "job": jid, "worker": self.worker_id,
+                "args": {"task": tid, "queries": n_queries}})
+        t_shuffle = time.perf_counter()
+        with self._task_ctx("map", tid, attempt):
+            produced = self._shuffle_and_commit(tid, part["n_reduce"],
+                                                records, attempt)
+            seconds["map_shuffle"] = time.perf_counter() - t_shuffle
+            metrics = self._metrics(_record_counters(records), seconds)
+            self._fault("before_map_finished")
+            self.transport.map_finished(self._finished(rpc.TaskFinishedArgs(
+                task_id=tid, job_id=jid, worker_id=self.worker_id,
+                produced_parts=produced, metrics=metrics)))
+        self.metrics.inc("map_tasks")
 
     # ------------------------------------------------------------ reduce
     def _run_reduce(self, a: rpc.AssignTaskReply) -> None:
@@ -486,6 +749,7 @@ class WorkerLoop:
                 assign_wait_s=round(self._assign_wait_s, 6))
             self.transport.reduce_finished(self._finished(
                 rpc.TaskFinishedArgs(task_id=a.task_id,
+                                     job_id=self._rpc_job_id,
                                      worker_id=self.worker_id,
                                      metrics=metrics)))
         self.metrics.inc("reduce_tasks")
@@ -519,7 +783,8 @@ class WorkerLoop:
             while True:
                 r = self.transport.reduce_next_file(rpc.ReduceNextFileArgs(
                     task_id=a.task_id, files_processed=files_processed,
-                    epoch=a.epoch, worker_id=self.worker_id, lost_file=lost))
+                    job_id=self._rpc_job_id, epoch=a.epoch,
+                    worker_id=self.worker_id, lost_file=lost))
                 lost = ""
                 if r.abort:
                     raise TaskAborted(a.task_id)

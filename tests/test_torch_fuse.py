@@ -8,7 +8,13 @@ fusion keys equal the reference's (but for the application's name, C1);
 the fused records equal each participant's solo records and the
 reference's; a retried task never joins a fusion; and (ROADMAP.md D7)
 only FuseError sends a query solo, while an error in the union's scan
-fails it.
+fails it.  Through the service daemon (runtime/service.py: its planner,
+the worker's fused attempt): K = 4 co-running jobs take one scan a split,
+the fused outputs equal the solo jobs' and the reference daemon's, with
+the fuse:plan and fuse:split instants in each participant's log;
+DGREP_SERVICE_FUSE=0 fuses nothing; ``submit``'s sets equal the local
+jobs'; a FuseError runs the participants solo and a scan error fails
+their attempt, never retried solo.
 
 The ``cuda`` test at the end needs the card and skips without one; the
 reference is imported inside the tests that run it (it imports jax):
@@ -18,6 +24,8 @@ reference is imported inside the tests that run it (it imports jax):
 
 from __future__ import annotations
 
+import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -341,7 +349,7 @@ def test_fuse_error_runs_solo_and_a_scan_error_propagates(tmp_path,
 def test_scan_suffix_names_its_item():
     fs = fuse_mod.FusedScanner([("a", None, False), ("b", None, False)],
                                backend="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 5b"):
         fs.scan_suffix("x")
 
 
@@ -370,8 +378,11 @@ def test_claim_map_task_first_attempts_only():
 
 
 def test_claimed_task_timeout_requeues_solo():
-    """A claimed attempt that times out is swept like any other: charged
-    to its worker, back in the queue, and never claimed again."""
+    """A claimed attempt that times out is swept back into the queue and
+    never claimed again; its timeout charges no worker (the reference's
+    rule: the K schedulers of one fused attempt share the service's
+    WorkerHealth, and the primary assignment's timeout is the one
+    charge)."""
     sched = Scheduler(files=["f1", "f2"], n_reduce=1, task_timeout_s=0.01,
                       sweep_interval_s=3600)
     try:
@@ -381,7 +392,7 @@ def test_claimed_task_timeout_requeues_solo():
 
         time.sleep(0.05)
         assert sched.sweep()
-        assert sched.worker_health._fails.get(5) == 1
+        assert sched.worker_health._fails.get(5) is None
         assert sched.map_tasks[0].state is TaskState.UNASSIGNED
         assert sched.claim_map_task(0, worker_id=6) is None
         reply = sched.assign_task(rpc.AssignTaskArgs(worker_id=6))
@@ -421,6 +432,293 @@ def test_worker_ships_fusion_and_index_counters():
     assert got["fused_queries"] == 2 and got["fused_dispatches"] == 1
 
 
+# ------------------------------------------------------- the service
+
+def _svc_corpus(tmp_path, n_files=2, n_lines=400) -> list[str]:
+    """The reference test's corpus (tests/test_fuse.py _mk_corpus)."""
+    files = []
+    for i in range(n_files):
+        p = tmp_path / f"in{i}.txt"
+        p.write_text("".join(
+            f"line {j} of {i} {'hello' if j % 3 == 0 else ''}"
+            f"{' fox' if j % 5 == 0 else ''}\n" for j in range(n_lines)))
+        files.append(str(p))
+    return files
+
+
+def _svc_cfg(files, pattern, **extra) -> JobConfig:
+    return JobConfig(input_files=files, application=GREP_CUDA,
+                     app_options={"pattern": pattern, "device": "cpu",
+                                  **extra},
+                     n_reduce=2, task_timeout_s=30.0, sweep_interval_s=0.2)
+
+
+def _svc_run(tmp_path, files, pats, spans=False, **extra) -> tuple:
+    """The jobs submitted before the one worker attaches (so their map
+    tasks are idle together), run to the end: (job ids, /status, the
+    service)."""
+    from distributed_grep_tpu_torch.runtime.service import GrepService
+
+    svc = GrepService(work_root=tmp_path / "svc", spans=spans)
+    jids = [svc.submit(_svc_cfg(files, p, **extra)) for p in pats]
+    deadline = time.monotonic() + 30
+    while not all(svc.record(j).scheduler is not None for j in jids):
+        assert time.monotonic() < deadline
+        time.sleep(0.02)
+    svc.start_local_workers(1)
+    for j in jids:
+        assert svc.wait_job(j, timeout=120), svc.job_status(j)
+    return jids, svc.status(), svc
+
+
+def _outs(paths) -> dict:
+    return {Path(p).name: Path(p).read_bytes() for p in paths}
+
+
+def _solo_job(tmp_path, files, pattern, sub, **extra) -> dict:
+    from distributed_grep_tpu_torch.runtime.job import run_job
+
+    cfg = _svc_cfg(files, pattern, **extra)
+    cfg.work_dir = str(tmp_path / sub)
+    return _outs(run_job(cfg, n_workers=2).output_files)
+
+
+def test_service_dispatch_count_k4_one_per_split(tmp_path, monkeypatch):
+    """K = 4 co-running jobs over one corpus: one scan a split, counted
+    where every scan of the kernels' path goes (device_scan.scan_device;
+    DGREP_DEVICE_MIN_BYTES=0, so no small-input host route hides it); the
+    daemon's and the engine's fusion counters agree."""
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", "0")
+    calls: list[int] = []
+    orig = device_scan.scan_device
+
+    def counted(eng, data, progress=None, **kw):
+        calls.append(len(data))
+        return orig(eng, data, progress=progress, **kw)
+
+    monkeypatch.setattr(device_scan, "scan_device", counted)
+    files = _svc_corpus(tmp_path)
+    pats = ["hello", "fox", "line 1", "of 0"]
+    jids, st, svc = _svc_run(tmp_path, files, pats, **ENGINE_OPTS)
+    outs = {j: _outs(svc.record(j).outputs) for j in jids}
+    svc.stop()
+    assert len(calls) == len(files)
+    assert st["fusion"]["fused_dispatches"] == len(files)
+    assert st["fusion"]["fused_jobs"] == len(pats) * len(files)
+    cc = fuse_mod.fusion_counters()
+    assert cc["fused_dispatches"] == len(files)
+    assert cc["fused_queries"] == len(pats) * len(files)
+    for i, (j, p) in enumerate(zip(jids, pats)):
+        assert outs[j] == _solo_job(tmp_path, files, p, f"o{i}",
+                                    **ENGINE_OPTS), p
+
+
+def test_service_fused_outputs_identical_and_spans(tmp_path):
+    """Fused outputs equal the solo jobs' and the reference daemon's (its
+    planner fuses the same pair); fuse:plan and fuse:split land in each
+    participant's events.jsonl."""
+    from distributed_grep_tpu.runtime.service import GrepService as RefService
+    from distributed_grep_tpu.utils.config import JobConfig as RefConfig
+
+    files = _svc_corpus(tmp_path, n_lines=200)
+    pats = ["hello", "fox"]
+    jids, st, svc = _svc_run(tmp_path, files, pats, spans=True)
+    try:
+        assert st["fusion"]["fused_dispatches"] >= 1
+        outs = {j: _outs(svc.record(j).outputs) for j in jids}
+        for j in jids:
+            names = {json.loads(ln).get("name") for ln in
+                     (svc.work_root / j / "events.jsonl").read_text()
+                     .splitlines()}
+            assert {"fuse:plan", "fuse:split"} <= names, (j, sorted(names))
+    finally:
+        svc.stop()
+    ref = RefService(work_root=tmp_path / "ref")
+    try:
+        rj = [ref.submit(RefConfig(
+            input_files=files, application="distributed_grep_tpu.apps.grep_tpu",
+            app_options={"pattern": p, "backend": "cpu"}, n_reduce=2))
+              for p in pats]
+        ref.start_local_workers(1)
+        for j in rj:
+            assert ref.wait_job(j, timeout=60)
+        assert ref.status()["fusion"]["fused_dispatches"] >= 1
+        ref_outs = [_outs(ref.record(j).outputs) for j in rj]
+    finally:
+        ref.stop()
+    for i, (j, p) in enumerate(zip(jids, pats)):
+        assert outs[j] == _solo_job(tmp_path, files, p, f"o{i}"), p
+        assert outs[j] == ref_outs[i], p
+
+
+def test_service_fuses_a_set_only_with_sets(tmp_path):
+    """The port's planner keeps a literal-set tenant out of a pattern
+    tenants' union (fusion.query_family; their union would be one
+    alternation of every member): two patterns and two sets over two
+    splits give two fused groups a split, and every output is the solo
+    job's."""
+    assert fusion_mod.query_family({"patterns": ["a"]}) == "set"
+    assert fusion_mod.query_family({"pattern": "a"}) == "pattern"
+    files = _svc_corpus(tmp_path, n_lines=120)
+    from distributed_grep_tpu_torch.runtime.service import GrepService
+
+    svc = GrepService(work_root=tmp_path / "svc")
+    tenants = [{"pattern": "hello"}, {"pattern": "fox"},
+               {"patterns": ["line 1", "of 0"]}, {"patterns": ["hello"]}]
+    try:
+        jids = []
+        for t in tenants:
+            cfg = _svc_cfg(files, "x")
+            cfg.app_options = {**t, "device": "cpu"}
+            jids.append(svc.submit(cfg))
+        svc.start_local_workers(1)
+        for j in jids:
+            assert svc.wait_job(j, timeout=60), svc.job_status(j)
+        fusion = svc.status()["fusion"]
+        outs = {j: _outs(svc.record(j).outputs) for j in jids}
+        keys = [svc.record(j).fusion_key for j in jids]
+    finally:
+        svc.stop()
+    assert keys[0] == keys[1] != keys[2] == keys[3]
+    assert fusion["fused_dispatches"] == 2 * len(files)
+    assert fusion["fused_jobs"] == 4 * len(files)
+    from distributed_grep_tpu_torch.runtime.job import run_job
+
+    for i, (j, t) in enumerate(zip(jids, tenants)):
+        cfg = _svc_cfg(files, "x")
+        cfg.app_options = {**t, "device": "cpu"}
+        cfg.work_dir = str(tmp_path / f"o{i}")
+        assert outs[j] == _outs(run_job(cfg, n_workers=2).output_files), t
+
+
+def test_fusion_disabled_is_a_noop(tmp_path, monkeypatch):
+    monkeypatch.setenv("DGREP_SERVICE_FUSE", "0")
+    assert "fused" not in rpc.reply_to_dict(rpc.AssignTaskReply())
+    files = _svc_corpus(tmp_path, n_lines=120)
+    pats = ["hello", "fox"]
+    jids, st, svc = _svc_run(tmp_path, files, pats)
+    try:
+        assert all(svc.record(j).fusion_key is None for j in jids)
+        assert "fusion" not in st
+        outs = {j: _outs(svc.record(j).outputs) for j in jids}
+    finally:
+        svc.stop()
+    assert not fuse_mod.fusion_counters()
+    for i, (j, p) in enumerate(zip(jids, pats)):
+        assert outs[j] == _solo_job(tmp_path, files, p, f"o{i}"), p
+
+
+def test_fusion_knobs_parse_as_the_reference(monkeypatch):
+    from distributed_grep_tpu.runtime import fusion as ref_fusion
+
+    for fuse, cap in ((None, None), ("0", "1"), ("no", "bogus"),
+                      ("1", "5"), ("false", "")):
+        for k, v in (("DGREP_SERVICE_FUSE", fuse),
+                     ("DGREP_FUSE_MAX_QUERIES", cap)):
+            if v is None:
+                monkeypatch.delenv(k, raising=False)
+            else:
+                monkeypatch.setenv(k, v)
+        assert fusion_mod.env_service_fuse() is ref_fusion.env_service_fuse()
+        assert (fusion_mod.env_fuse_max_queries()
+                == ref_fusion.env_fuse_max_queries())
+
+
+def test_submit_pattern_set_parity(tmp_path, capsys):
+    """``submit -F -e A -e B`` sends the set the local CLI would; the
+    daemon's outputs equal the port's run_job and the reference's."""
+    from distributed_grep_tpu.runtime.job import run_job as ref_run_job
+    from distributed_grep_tpu.utils.config import JobConfig as RefConfig
+    from distributed_grep_tpu_torch import __main__ as cli
+    from distributed_grep_tpu_torch.runtime.job import run_job
+    from distributed_grep_tpu_torch.runtime.service import (
+        GrepService,
+        ServiceServer,
+    )
+
+    files = _svc_corpus(tmp_path, n_lines=80)
+    svc = GrepService(work_root=tmp_path / "svc")
+    server = ServiceServer(svc)
+    server.start()
+    try:
+        svc.start_local_workers(1)
+        rc = cli.main(["submit", "--addr", f"127.0.0.1:{server.port}",
+                       "--backend", "cpu", "-F", "-e", "hello", "-e", "fox",
+                       *files, "--timeout", "60"])
+        out = capsys.readouterr().out.strip().splitlines()
+        assert rc == 0, out
+        doc = json.loads(out[-1])
+        assert doc["state"] == "done" and doc["outputs"]
+        got = _outs(doc["outputs"])
+    finally:
+        server.shutdown()
+        svc.stop()
+    opts = {"patterns": ["hello", "fox"], "backend": "cpu"}
+    assert got == _outs(run_job(JobConfig(
+        input_files=files, application=GREP_CUDA, app_options=opts,
+        n_reduce=10, work_dir=str(tmp_path / "o")), n_workers=2
+    ).output_files)
+    assert got == _outs(ref_run_job(RefConfig(
+        input_files=files, application="distributed_grep_tpu.apps.grep_tpu",
+        app_options=opts, n_reduce=10, work_dir=str(tmp_path / "r")),
+        n_workers=2).output_files)
+
+
+def test_service_fuse_error_runs_solo_a_scan_error_fails(tmp_path,
+                                                         monkeypatch):
+    """D7 through the daemon: a FuseError (the union cannot host these
+    queries) runs each participant solo, and every output is exact; an
+    error in the union's scan fails the fused attempt's jobs with that
+    error, and no participant is run solo."""
+    from distributed_grep_tpu_torch.runtime import worker as worker_mod
+
+    files = _svc_corpus(tmp_path, n_lines=120)
+    pats = ["hello", "fox"]
+
+    def no_union(*a, **kw):
+        raise fuse_mod.FuseError("injected: no union hosts these queries")
+
+    with monkeypatch.context() as m:
+        m.setattr(fuse_mod, "FusedScanner", no_union)
+        jids, st, svc = _svc_run(tmp_path, files, pats)
+        try:
+            assert st["fusion"]["fused_dispatches"] >= 1
+            outs = {j: _outs(svc.record(j).outputs) for j in jids}
+        finally:
+            svc.stop()
+    for i, (j, p) in enumerate(zip(jids, pats)):
+        assert outs[j] == _solo_job(tmp_path, files, p, f"o{i}"), p
+
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", "0")
+    solo_runs = []
+    monkeypatch.setattr(worker_mod.WorkerLoop, "_solo_participant_records",
+                        lambda *a, **k: solo_runs.append(a))
+
+    def broken(*a, **k):
+        raise RuntimeError("injected: the union's kernel failed to launch")
+
+    monkeypatch.setattr(device_scan, "scan_device", broken)
+    from distributed_grep_tpu_torch.runtime.service import GrepService
+
+    svc = GrepService(work_root=tmp_path / "svc2")
+    try:
+        jids = [svc.submit(_svc_cfg(files, p, **ENGINE_OPTS)) for p in pats]
+        deadline = time.monotonic() + 30
+        while not all(svc.record(j).scheduler is not None for j in jids):
+            assert time.monotonic() < deadline
+            time.sleep(0.02)
+        svc.start_local_workers(1)
+        for j in jids:
+            assert svc.wait_job(j, timeout=60)
+            st = svc.job_status(j)
+            assert st["state"] == "failed", st
+            assert "union's kernel" in st["error"]
+        assert svc.status()["fusion"]["fused_dispatches"] == 1
+    finally:
+        svc.stop()
+    assert not solo_runs
+
+
 # ------------------------------------------------------------- the card
 
 @pytest.mark.cuda
@@ -443,3 +741,46 @@ def test_fused_scan_launches_the_union_kernel_on_card(monkeypatch):
         want = fuse_mod.FusedScanner(specs, device="cpu").scan(data)
         for spec, g, w in zip(specs, got, want):
             assert g.matched_lines.tolist() == w.matched_lines.tolist(), spec
+
+
+@pytest.mark.cuda
+def test_service_k4_fused_assignment_launches_one_union_route_a_window(
+        tmp_path, monkeypatch):
+    """Through the daemon on the card: K = 4 co-running jobs launch one
+    kernel of the union's route a split (one window each), no other
+    kernel, and give the bytes of the same jobs on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from distributed_grep_tpu_torch.runtime.service import GrepService
+
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", "0")
+    files = _svc_corpus(tmp_path)
+    pats = ["hello", "fox", "line 1", "of 0"]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        svc = GrepService(work_root=tmp_path / f"svc-{device}")
+        try:
+            jids = [svc.submit(JobConfig(
+                input_files=files, application=GREP_CUDA, n_reduce=2,
+                app_options={"pattern": p, "device": device}))
+                for p in pats]
+            deadline = time.monotonic() + 60
+            while not all(svc.record(j).scheduler is not None
+                          for j in jids):
+                assert time.monotonic() < deadline
+                time.sleep(0.02)
+            before = device_scan.kernel_launches()
+            svc.start_local_workers(1)
+            for j in jids:
+                assert svc.wait_job(j, timeout=300), svc.job_status(j)
+            launched = {k: v - before.get(k, 0) for k, v in
+                        device_scan.kernel_launches().items()
+                        if v - before.get(k, 0)}
+            assert svc.status()["fusion"]["fused_dispatches"] == len(files)
+            outs[device] = [_outs(svc.record(j).outputs) for j in jids]
+        finally:
+            svc.stop()
+        if device == "cuda":
+            assert len(launched) == 1, launched
+            assert sum(launched.values()) == len(files), launched
+    assert outs["cuda"] == outs["cpu"]

@@ -216,8 +216,9 @@ def test_shuffle_wire_round_trip():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
-    """Every port module (the bench and benchmarks/ included), plus tiny
-    exact, approx and SWAR scans and a tiny run of each probe kernel, in a
+    """Every port module (the bench and benchmarks/ included, the service
+    daemon's among them), plus tiny exact, approx and SWAR scans, a
+    daemon serving two tenants, and a tiny run of each probe kernel, in a
     fresh interpreter."""
     src = tmp_path / "in.txt"
     src.write_bytes(b"a volcano\nnothing\n")
@@ -262,6 +263,22 @@ assert srv.wait_done(5.0)
 srv.shutdown(linger_s=0.0)
 for name in ("grep", "wordcount", "inverted_index"):
     load_application("distributed_grep_tpu_torch.apps." + name)
+# the service daemon: two tenants through one in-process worker (fused),
+# its registry and lifecycle log
+from distributed_grep_tpu_torch.runtime.daemon_log import DaemonLog
+from distributed_grep_tpu_torch.runtime.service import GrepService, ServiceServer
+svc = GrepService(work_root={str(tmp_path / "svc")!r},
+                  daemon_log=DaemonLog({str(tmp_path / "svc")!r}))
+server = ServiceServer(svc)
+server.start()
+jids = [svc.submit(JobConfig(input_files=[{str(src)!r}],
+                             app_options={{"pattern": q, "device": "cpu"}}))
+        for q in ("volcano", "noth")]
+svc.start_local_workers(1)
+assert all(svc.wait_job(j, timeout=60) for j in jids)
+assert [svc.job_status(j)["state"] for j in jids] == ["done", "done"]
+server.shutdown()
+svc.stop()
 import os
 os.environ["DGREP_SWAR"] = "1"
 res = run_job(JobConfig(input_files=[{str(src)!r}],
