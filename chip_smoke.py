@@ -50,14 +50,14 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          The Shift-And, approx, pairset and SWAR kernels read the (lanes,
          chunk) stripes as the document lies; the others the (chunk,
          lanes) columns.  Then a differential sweep of the two table-driven
-         kernels: 10 seeded random regexes of 1-4 state words with 0-128
-         specials on the NFA kernel, and 48 random FDR banks (m = 1-6,
+         kernels: 6 seeded random regexes of 1-4 state words with 0-128
+         specials on the NFA kernel, and 32 random FDR banks (m = 1-6,
          1-16 checks, both hash families, with and without folding, half
          ORed into a nonzero plane) with members ending at rows 0..m of
          the stripe heads, at chunk 32 and 64 over 32 lanes and at the 64
-         MB segment (10 of the banks, two of the regexes); and of the two
-         sub-stripe kernels: seeded random Shift-And models of the odd
-         lengths 1-31 and 32 (letters, classes, '.', -i, their rare-class
+         MB segment (7 of the banks, two of the regexes); and of the two
+         sub-stripe kernels: seeded random Shift-And models of the lengths
+         1, 5, ..., 29 and 32 (letters, classes, '.', -i, their rare-class
          filters; both modes) and approx models (k = 1-3, m up to 32, so
          up to two warm-up words), with samples planted to end 0..W + 2
          bytes after every word boundary c0 (where these kernels may
@@ -248,17 +248,42 @@ Phase 3f the service daemon (runtime/service.py) in this process over the
          (old|new) '), then two local workers (the second once the first
          fused assignment is out): the three pattern tenants fuse (one
          NFA union launch a segment for the three, fused_dispatches one a
-         split), the set runs solo (one FDR launch a segment), no other
-         kernel launches, and each tenant's mr-out equals phase 3's
+         split; a task whose claim lost a race to another worker scans
+         alone, on its own route), the set runs solo (one FDR launch a
+         segment), no other kernel launches, and each tenant's mr-out
+         equals phase 3's
          in-process job of the same query; the wall beside the sum of
-         phase 3's four solo walls.  (b) 'volcano' resubmitted, the
-         apps' same-config reuse reset: its log holds cache:hit and no
-         cache:miss, compile_cache_misses does not move (no build), the
-         mr-out is phase 3's.  (c) a second daemon with no local worker
-         and one ``worker --addr`` process, two jobs ('volcano', -i
-         'Volcano') through its one attach over /data/<job>/: the mr-out
-         is phase 3's, the launches the process ships are nonzero, and
-         the line gives its first assign_map after the daemon's start.
+         phase 3's four solo walls; the daemon's result cache is on, so
+         they publish.  (d) 'volcano' resubmitted: a full result-cache
+         hit, every split reused, no worker assignment, no launch, its
+         records (sorted) equal (a)'s; later, 1 MiB of word lines holding
+         'volcano' appended to one file: a partial hit scans that split
+         alone, its launches its segments', its records equal a cold
+         job's with DGREP_RESULT_CACHE=0 (the file is cut back after).
+         (e) explain: a fused tenant of (a) routed "device" with the
+         union's mode, (d)'s hit reporting its reused splits, and 'a*'
+         (mode all_lines) routed "host" with no launch.  (b) 'volcano'
+         on a second daemon of this process with the result cache off:
+         its log holds cache:hit and no cache:miss, compile_cache_misses
+         does not move (no build), the mr-out is phase 3's.  (f) standing
+         queries over one 16 MiB word file, DGREP_DEVICE_MIN_BYTES=0:
+         'volcano', -i 'Volcano' and '^the (old|new) ' in one fused
+         group, -c 'volcano' solo (its count option keeps it out), while
+         a thread appends eight slices of 1-2 MiB: each stream read over
+         GET /jobs/<id>/stream equals the one-shot host scan of the final
+         file and GNU grep (the count stream's deltas its count); the
+         union's route and Shift-And launch on the wakes; the latency
+         from an append to its record.  (c) a third daemon with no local
+         worker and one ``worker --addr`` process, two jobs ('volcano',
+         -i 'Volcano') through its one attach over /data/<job>/: the
+         mr-out is phase 3's, the launches the process ships are nonzero,
+         the line gives its first assign_map after the daemon's start,
+         and the worker exits at the daemon's stop (C9).  (g) a daemon
+         with 1 local worker and the pool's ceiling at 3 (``serve
+         --max-workers``'s pool thread), 4 jobs of 50 small files: the
+         advice says grow and the pool grows; idle, it drains back to 1;
+         ``top --once`` prints the daemon's view and ``trace-export
+         --fleet`` its daemon.jsonl with the scale events.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -1611,7 +1636,7 @@ SWEEP_SMALL = [(32, 32), (64, 32)]
 # the depth of two phase-2 sweeps: random NFA models a width (1-4 state
 # words; 6 until phase 3c came, 3 until phase 3f came) and random
 # table-DFA regexes (24 until phase 3c came, 12 until phase 3f came)
-NFA_SWEEP_PER_WIDTH = 2
+NFA_SWEEP_PER_WIDTH = 1
 DFA_SWEEP_TABLES = 6
 SWEEP_SEGMENT = (1024, 65536)
 SWEEP_ALPHABET = "abcxyz"
@@ -2039,7 +2064,7 @@ def phase_fdr_sweep(torch, np, fdr_scan, fdr_mod, seed: int) -> tuple[int, int]:
     from distributed_grep_tpu_torch.ops.layout import Layout, to_device_array
 
     rng = np.random.default_rng(seed)
-    banks = sweep_banks(fdr_mod, seed, 48)
+    banks = sweep_banks(fdr_mod, seed, 32)
     n = worst = 0
     alpha = np.frombuffer(b"abcdefghijklmnopqrstuvwxyzABCXYZ \n", np.uint8)
     for chunk, lanes in SWEEP_SMALL + [SWEEP_SEGMENT]:
@@ -2207,14 +2232,15 @@ def substripe_shapes(i: int, segment: bool) -> list:
 def phase_shift_and_sweep(torch, np, cuda_scan, sa_mod,
                           seed: int) -> tuple[int, int]:
     """The Shift-And kernel against its plain version on seeded random
-    models of the odd lengths 1-31 and 32 (a third with -i) and the
+    models of the lengths 1, 5, ..., 29 and 32 (a third with -i) and the
     rare-class filters among them, in both modes, at ``substripe_shapes``
     (the 64 MB segment for the seventh model, the last and one filter).  Returns (draws
     compared, the largest absolute difference)."""
     rng = np.random.default_rng(seed)
     models = []
-    # the odd lengths and 32 (every length until phase 3f came)
-    for m in [*range(1, 33, 2), 32]:
+    # every fourth length and 32 (every odd length until phase 3f (d)-(g)
+    # came, every length before phase 3f)
+    for m in [*range(1, 33, 4), 32]:
         full = sa_mod.try_compile_shift_and(rand_symbols(rng, m),
                                             bool(rng.integers(0, 3) == 0))
         assert full is not None and full.length == m
@@ -2254,7 +2280,8 @@ def phase_shift_and_sweep(torch, np, cuda_scan, sa_mod,
             log(f"  ok shift_and sweep m={model.length} filter="
                 f"{model is not full} warm-up {warm} bytes, shapes {shapes}: "
                 f"{model.pattern!r}")
-    log(f"  shift_and sweep: {len(models)} models (m 1-31 odd and 32, "
+    log(f"  shift_and sweep: {len(models)} models (m 1-29 every fourth "
+        f"and 32, "
         f"{sum(a is not b for a, b in models)} filters), {n} draws compared "
         f"(both modes) at chunks {SUB_CHUNKS} over {SUB_LANES} lanes, "
         f"contiguous and pitched, {SUB_MID} for every fourth, and "
@@ -2265,13 +2292,13 @@ def phase_shift_and_sweep(torch, np, cuda_scan, sa_mod,
 def phase_approx_sweep(torch, np, approx_scan, ax_mod,
                        seed: int) -> tuple[int, int]:
     """The approx kernel against its plain version on seeded random models
-    (k = 1-3 with m from k + 1 to 32, so m + k - 1 up to 34: two warm-up
-    words; a third with -i), samples within k edits, at
-    ``substripe_shapes`` (the 64 MB segment for three of them, one per k,
-    k = 3 at m = 32).  Returns (draws compared, the largest absolute
+    (k = 1-3 with m of k + 1, 20 and 32, and three random draws, so m +
+    k - 1 up to 34: two warm-up words; a third with -i), samples within k
+    edits, at ``substripe_shapes`` (the 64 MB segment for three of them,
+    one per k at m = 32).  Returns (draws compared, the largest absolute
     difference)."""
     rng = np.random.default_rng(seed)
-    specs = [(k, m) for k in (1, 2, 3) for m in (k + 1, 9, 20, 31, 32)]
+    specs = [(k, m) for k in (1, 2, 3) for m in (k + 1, 20, 32)]
     specs += [(int(rng.integers(1, 4)), int(rng.integers(5, 33)))
               for _ in range(3)]
     models = []
@@ -2280,7 +2307,7 @@ def phase_approx_sweep(torch, np, approx_scan, ax_mod,
                                           bool(rng.integers(0, 3) == 0))
         assert model is not None and model.length == m
         models.append(model)
-    on_segment = {3, 9, 14}  # (1, 31), (2, 32), (3, 32)
+    on_segment = {2, 5, 8}  # (1, 32), (2, 32), (3, 32)
     n = worst = 0
     for i, model in enumerate(models):
         warm = 32 * approx_scan.warmup_words(model)
@@ -4326,6 +4353,19 @@ def wait_service_jobs(svc, jids, timeout: float = 600.0) -> None:
                                  f"{st.get('error')}")
 
 
+def collated_hash(paths) -> str:
+    """sha256 of a job's records (its outputs' lines, sorted): a result-cache
+    hit writes its stored blobs, not mr-out-* files, so its records are
+    compared laid out as one sorted stream."""
+    import hashlib
+
+    lines = []
+    for p in paths:
+        lines.extend(ln for ln in Path(p).read_bytes().splitlines(
+            keepends=True) if ln.strip())
+    return hashlib.sha256(b"".join(sorted(lines))).hexdigest()
+
+
 def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
                   solo_walls: dict, card: str, counters: dict) -> None:
     """Phase 3f (module docstring): the service daemon in this process, the
@@ -4344,7 +4384,8 @@ def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
     files = [str(p) for p in words]
     segs = sum(-(-p.stat().st_size // (64 << 20)) for p in words)
     # the shard index off: its trigram pass is phase 3e's to measure
-    saved = os.environ.get("DGREP_INDEX")
+    saved = {k: os.environ.get(k) for k in ("DGREP_INDEX",
+                                             "DGREP_RESULT_CACHE")}
     os.environ["DGREP_INDEX"] = "0"
 
     def job(label: str) -> JobConfig:
@@ -4359,6 +4400,11 @@ def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
                 raise AssertionError(f"phase 3f {part}: {label!r}'s mr-out "
                                      f"differs from phase 3's job")
 
+    def zero() -> dict:
+        for m in counters.values():
+            m.reset_launches()
+        return {k: m.launches for k, m in counters.items()}
+
     def launched(before: dict) -> dict:
         return {k: m.launches - before[k] for k, m in counters.items()
                 if m.launches - before[k]}
@@ -4368,12 +4414,13 @@ def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
                       task_timeout_s=SERVICE_TIMEOUT_S)
     server = ServiceServer(svc)
     server.start()
+    svc_b = None
+    appended = None
     try:
         # (a) four tenants submitted to a daemon with no worker, then two
-        # local workers (the second once the first fused assignment is out)
-        for m in counters.values():
-            m.reset_launches()
-        before = {k: m.launches for k, m in counters.items()}
+        # local workers (the second once the first fused assignment is
+        # out); the result cache is on (the daemon's default): they publish
+        before = zero()
         t0 = time.perf_counter()
         jids = {label: svc.submit(job(label)) for label in SERVICE_QUERIES}
         svc.start_local_workers(1)
@@ -4390,10 +4437,17 @@ def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
         fusion = svc.status()["fusion"]
         check_hashes("(a)", svc, jids)
         # the three pattern tenants fuse (an NFA union, one launch a
-        # segment); the set runs solo on FDR (runtime/fusion.query_family)
-        if (fusion["fused_dispatches"] != len(words)
-                or fusion["fused_jobs"] != 3 * len(words)
-                or got != {"nfa": segs, "fdr": segs}):
+        # segment); the set runs solo on FDR (runtime/fusion.query_family).
+        # A claim that loses a race to another worker's assignment of the
+        # same task leaves that task to scan solo (its own route: Shift-And
+        # or the NFA): each of the three tenants' splits is scanned once,
+        # by a fused dispatch or alone
+        per_file = segs // len(words)
+        alone = 3 * len(words) - fusion["fused_jobs"]
+        if (not fusion["fused_dispatches"] or got.get("fdr") != segs
+                or set(got) - {"nfa", "fdr", "shift_and"}
+                or got.get("nfa", 0) + got.get("shift_and", 0)
+                != (fusion["fused_dispatches"] + alone) * per_file):
             raise AssertionError(f"phase 3f (a): fusion {fusion}, launches "
                                  f"{got} for {segs} segments a route")
         solo = sum(solo_walls[label] for label in SERVICE_QUERIES)
@@ -4406,30 +4460,67 @@ def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
             f"{fusion['fused_dispatches']}, fused_jobs {fusion['fused_jobs']},"
             f" fusion_bytes_saved {fusion['fusion_bytes_saved']} (the three "
             f"pattern tenants' solo walls {fused_solo:.3f} s); launches {got}"
-            f" for {segs} segments: one NFA launch a segment for the three "
-            f"fused queries, one FDR launch a segment for the set; every "
-            f"tenant's mr-out equal to phase 3's [{card}]")
+            f" for {segs} segments: one union launch a segment a fused "
+            f"dispatch, {alone} pattern task(s) alone, one FDR launch a "
+            f"segment for the set; every tenant's mr-out equal to phase "
+            f"3's [{card}]")
         first_a = min(e["ts"] for j in jids.values()
                       for e in service_events(root, j)
                       if e.get("name") == "assign_map") - svc.started_at
+        cold_hash = collated_hash(svc.job_result(jids["volcano"])["outputs"])
 
-        # (b) the warm resubmit: the apps' own same-config reuse reset, so
-        # each map asks the cross-job cache
-        for loop in svc._local_loops:
-            for app in loop._job_apps.values():
-                app.module._configured_with = None
-        cache0 = engine_mod.model_cache_counters()
-        for m in counters.values():
-            m.reset_launches()
-        before = {k: m.launches for k, m in counters.items()}
+        # (d) the result cache: 'volcano' again, every split from the store
+        before = zero()
         t0 = time.perf_counter()
-        jb = svc.submit(job("volcano"))
-        wait_service_jobs(svc, [jb])
+        jd = svc.submit(job("volcano"))
+        wait_service_jobs(svc, [jd])
+        wall_d = time.perf_counter() - t0
+        got_d = launched(before)
+        rec_d = svc.record(jd)
+        assigns = [e for e in service_events(root, jd)
+                   if e.get("name") in ("assign_map", "assign_reduce")]
+        if (got_d or rec_d.scheduler is not None or assigns
+                or rec_d.result_splits_reused != len(words)
+                or collated_hash(svc.job_result(jd)["outputs"])
+                != cold_hash):
+            raise AssertionError(f"phase 3f (d): launches {got_d}, "
+                                 f"scheduler {rec_d.scheduler}, assigns "
+                                 f"{len(assigns)}, reused "
+                                 f"{rec_d.result_splits_reused}")
+
+        # (e) explain: a fused tenant of (a), and (d)'s hit
+        fused_doc = None
+        for label in ("volcano", "-i Volcano", "^the (old|new) "):
+            doc = svc.job_explain(jids[label])
+            if "nfa" in doc["routing"]["engine_modes"]:
+                fused_doc = doc
+                break
+        hit_doc = svc.job_explain(jd)
+        if (fused_doc is None or fused_doc["routing"]["route"] != "device"
+                or not fused_doc["routing"].get("fusion")
+                or hit_doc["routing"]["result_cache"].get(
+                    "planner_splits_reused") != len(words)):
+            raise AssertionError(f"phase 3f (e): fused {fused_doc}, hit "
+                                 f"{hit_doc}")
+
+        # (b) the warm resubmit on a second daemon of this process with the
+        # result cache off (a hit would build nothing either way): its
+        # workers' apps are new, each map asks the cross-job engine cache
+        os.environ["DGREP_RESULT_CACHE"] = "0"
+        svc_b = GrepService(work_root=WORK / "service-b", spans=True,
+                            task_timeout_s=SERVICE_TIMEOUT_S)
+        svc_b.start_local_workers(2)
+        cache0 = engine_mod.model_cache_counters()
+        before = zero()
+        t0 = time.perf_counter()
+        jb = svc_b.submit(job("volcano"))
+        wait_service_jobs(svc_b, [jb])
         wall_b = time.perf_counter() - t0
         got_b = launched(before)
         cache1 = engine_mod.model_cache_counters()
-        check_hashes("(b)", svc, {"volcano": jb})
-        names = [e.get("name") for e in service_events(root, jb)]
+        check_hashes("(b)", svc_b, {"volcano": jb})
+        names = [e.get("name") for e in service_events(WORK / "service-b",
+                                                       jb)]
         hits = names.count("cache:hit")
         if (not hits or "cache:miss" in names
                 or cache1["compile_cache_misses"]
@@ -4441,10 +4532,96 @@ def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
             f"against phase 3's {solo_walls['volcano']:.3f} s; {hits} "
             f"cache:hit, no cache:miss, compile_cache {cache1} (misses "
             f"unchanged: no build); launches {got_b}; mr-out equal [{card}]")
+
+        # (d) continued: 1 MiB of word lines holding 'volcano' (1 in 64)
+        # appended to one file: only its split scans, its segments' launches
+        import numpy as np
+
+        rng = np.random.default_rng(19)
+        extra = bytearray(words_block(rng, 1 << 20).tobytes())
+        lines = bytes(extra).split(b"\n")
+        extra = b"\n".join(ln + (b" volcano" if i % 64 == 0 else b"")
+                           for i, ln in enumerate(lines[:-1])) + b"\n"
+        appended = (words[0], words[0].stat().st_size)
+        with open(words[0], "ab") as f:
+            f.write(extra)
+        before = zero()
+        t0 = time.perf_counter()
+        jp = svc.submit(job("volcano"))
+        wait_service_jobs(svc, [jp])
+        wall_p = time.perf_counter() - t0
+        got_p = launched(before)
+        rec_p = svc.record(jp)
+        # scan_file reads a file in 64 MiB blocks, one scan (one segment,
+        # one Shift-And filter launch) a block
+        want_p = -(-words[0].stat().st_size // (64 << 20))
+        t0 = time.perf_counter()
+        jc = svc_b.submit(job("volcano"))  # the cold job, the cache off
+        wait_service_jobs(svc_b, [jc])
+        wall_cold = time.perf_counter() - t0
+        if (len(rec_p.map_splits) != 1
+                or rec_p.result_splits_reused != len(words) - 1
+                or got_p != {"shift_and": want_p}
+                or collated_hash(svc.job_result(jp)["outputs"])
+                != collated_hash(svc_b.job_result(jc)["outputs"])):
+            raise AssertionError(f"phase 3f (d): partial hit scanned "
+                                 f"{len(rec_p.map_splits)} splits, reused "
+                                 f"{rec_p.result_splits_reused}, launches "
+                                 f"{got_p} (want {want_p} shift_and)")
+        os.truncate(words[0], appended[1])  # phase 3's bytes again
+        appended = None
+        rc = svc.status()["result_cache"]
+        log(f"phase 3f (d) result cache: 'volcano' resubmitted, a full hit "
+            f"in {wall_d:.3f} s: {rec_d.result_splits_reused} splits reused, "
+            f"{rec_d.result_bytes_unscanned} bytes unscanned, no worker "
+            f"assignment, launches {got_d or 0}, records equal (a)'s; then "
+            f"1 MiB appended to {words[0].name}: a partial hit in "
+            f"{wall_p:.3f} s, 1 split scanned, {rec_p.result_splits_reused} "
+            f"reused, launches {got_p} for its {want_p} segments; records "
+            f"equal to a cold job with DGREP_RESULT_CACHE=0 "
+            f"({wall_cold:.3f} s); /status result_cache {rc} [{card}]")
+
+        # (e) continued: an all_lines query ('a*') over 1 MiB: on the host
+        small = WORK / "service-all" / "small.txt"
+        small.parent.mkdir(parents=True, exist_ok=True)
+        small.write_bytes(extra)
+        before = zero()
+        ja = svc.submit(JobConfig(input_files=[str(small)],
+                                  app_options={"pattern": "a*"}, n_reduce=2,
+                                  task_timeout_s=SERVICE_TIMEOUT_S,
+                                  journal=False, durable=False))
+        wait_service_jobs(svc, [ja])
+        got_all = launched(before)
+        all_doc = svc.job_explain(ja)
+        if (got_all or all_doc["routing"]["route"] != "host"
+                or set(all_doc["routing"]["engine_modes"]) != {"all_lines"}):
+            raise AssertionError(f"phase 3f (e): 'a*' launches {got_all}, "
+                                 f"report {all_doc['routing']}")
+        modes = fused_doc["routing"]["engine_modes"]
+        log(f"phase 3f (e) explain: {fused_doc['job_id']} (a fused tenant of "
+            f"(a)) route {fused_doc['routing']['route']}, engine_modes "
+            f"{ {m: r['scans'] for m, r in modes.items()} }, fusion "
+            f"{fused_doc['routing']['fusion']}; (d)'s hit result_cache "
+            f"{hit_doc['routing']['result_cache']}; 'a*' route "
+            f"{all_doc['routing']['route']}, modes "
+            f"{list(all_doc['routing']['engine_modes'])}, launches "
+            f"{got_all or 0} [{card}]")
+
+        # (f) standing queries, the small-input bound at 0
+        follow_line = service_follow(svc, server, words, zero, launched)
+        log(f"phase 3f (f) {follow_line} [{card}]")
     finally:
+        if appended is not None:
+            os.truncate(*appended)
         server.shutdown()
         svc.stop()
+        if svc_b is not None:
+            svc_b.stop()
         grep_cuda._configured_with = None
+        if saved["DGREP_RESULT_CACHE"] is None:
+            os.environ.pop("DGREP_RESULT_CACHE", None)
+        else:
+            os.environ["DGREP_RESULT_CACHE"] = saved["DGREP_RESULT_CACHE"]
 
     # (c) a worker process attached to a daemon with no local worker,
     # serving two jobs through one attach over /data/<job>/
@@ -4482,25 +4659,340 @@ def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
             f"{shipped}; fusion {status.get('fusion', {})}; mr-out equal "
             f"[{card}]")
     finally:
-        server.shutdown()
+        t_stop = time.perf_counter()
         svc.stop()
+        server.shutdown(linger_s=0.5)
         if worker is not None:
             try:
                 worker.wait(timeout=30)
             except subprocess.TimeoutExpired:
                 worker.kill()
                 worker.wait()
-        if saved is None:
+            worker.drainer.join(timeout=5)
+        if saved["DGREP_INDEX"] is None:
             os.environ.pop("DGREP_INDEX", None)
         else:
-            os.environ["DGREP_INDEX"] = saved
+            os.environ["DGREP_INDEX"] = saved["DGREP_INDEX"]
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(root_c, ignore_errors=True)
+        shutil.rmtree(WORK / "service-b", ignore_errors=True)
+        shutil.rmtree(WORK / "service-all", ignore_errors=True)
     if worker.returncode != 0:
         raise AssertionError(f"phase 3f (c): the worker exited "
                              f"{worker.returncode}: "
                              f"{''.join(worker.err_lines)[-2000:]}")
+    log(f"phase 3f (c) the worker process exited "
+        f"{worker.ended_at - t_stop:.3f} s after the daemon's stop (C9)")
+
+    # (g) the elastic pool and the consoles
+    log(f"phase 3f (g) {service_pool(words)} [{card}]")
     log(f"phase 3f: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+FOLLOW_QUERIES = (("volcano", {"pattern": "volcano"}),
+                  ("-i Volcano", {"pattern": "Volcano", "ignore_case": True}),
+                  ("^the (old|new) ", {"pattern": "^the (old|new) "}),
+                  ("-c volcano", {"pattern": "volcano", "count_only": True}))
+
+
+def service_follow(svc, server, words: list[Path], zero, launched) -> str:
+    """Phase 3f (f): four standing queries over one 16 MiB word file on the
+    card ('volcano', -i 'Volcano' and '^the (old|new) ' in one fused group;
+    -c 'volcano', whose count option keeps it out, solo), while a thread
+    appends eight slices of 1-2 MiB, each ending in a marker line; each
+    stream, read over GET /jobs/<id>/stream, equals the one-shot scan of
+    the final file (host engine) and GNU grep."""
+    import urllib.request
+
+    import numpy as np
+
+    from distributed_grep_tpu_torch.ops.engine import GrepEngine
+    from distributed_grep_tpu_torch.ops import lines as lines_mod
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    work = WORK / "service-follow"
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "grow.log"
+    base = words[0].read_bytes()[: 16 << 20]
+    path.write_bytes(base[: base.rfind(b"\n") + 1])
+    src = words[1].read_bytes()[: 24 << 20]
+    rng = np.random.default_rng(23)
+    appends, pos = [], 0
+    for k in range(8):
+        end = src.find(b"\n", pos + int(rng.integers(1 << 20, 2 << 20))) + 1
+        marker = b"volcano follow marker %d" % k
+        appends.append((marker, src[pos:end] + marker + b"\n"))
+        pos = end
+
+    def oracle(opts: dict, data: bytes) -> list[tuple[int, str]]:
+        eng = GrepEngine(opts["pattern"], backend="cpu",
+                         ignore_case=bool(opts.get("ignore_case")))
+        res = eng.scan(data)
+        nl = lines_mod.newline_index(data)
+        starts, ends = lines_mod.line_spans(res.matched_lines, nl, len(data))
+        return [(int(n), data[s:e].decode("utf-8", "surrogateescape"))
+                for n, s, e in zip(res.matched_lines.tolist(),
+                                   starts.tolist(), ends.tolist())]
+
+    def count_of(recs) -> int:
+        return sum(int(r.get("count", 0)) for r in recs)
+
+    def size_of(label: str, recs) -> int:
+        return count_of(recs) if "count_only" in dict(
+            FOLLOW_QUERIES)[label] else len(recs)
+
+    saved = os.environ.get("DGREP_DEVICE_MIN_BYTES")
+    os.environ.update(KERNELS_AT_EVERY_SIZE)
+    base_data = path.read_bytes()
+    want0 = {label: len(oracle(o, base_data))
+             for label, o in FOLLOW_QUERIES}
+    streams: dict[str, list] = {label: [] for label, _ in FOLLOW_QUERIES}
+    arrivals: dict[str, list] = {label: [] for label, _ in FOLLOW_QUERIES}
+    stop = threading.Event()
+    url = f"http://127.0.0.1:{server.port}"
+    jids = {}
+
+    def reader(label: str, jid: str) -> None:
+        cursor = 0
+        while not stop.is_set():
+            with urllib.request.urlopen(
+                    f"{url}/jobs/{jid}/stream?cursor={cursor}&timeout=1",
+                    timeout=30) as r:
+                page = json.loads(r.read())
+            now = time.perf_counter()
+            for rec in page["records"]:
+                streams[label].append(rec)
+                arrivals[label].append((now, rec))
+            cursor = page["next"]
+
+    def wait_for(want: dict, what: str, timeout: float = 120.0) -> None:
+        deadline = time.monotonic() + timeout
+        while any(size_of(label, streams[label]) < n
+                  for label, n in want.items()):
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"phase 3f (f): {what}: streams "
+                    f"{ {k: size_of(k, v) for k, v in streams.items()} } of "
+                    f"{want}; status {svc.status().get('follow')}")
+            time.sleep(0.02)
+
+    readers = []
+    try:
+        t0 = time.perf_counter()
+        for label, o in FOLLOW_QUERIES:
+            jids[label] = svc.submit(JobConfig(
+                input_files=[str(path)], app_options=dict(o), follow=True,
+                follow_poll_s=0.1))
+        for label, jid in jids.items():
+            t = threading.Thread(target=reader, args=(label, jid),
+                                 daemon=True)
+            t.start()
+            readers.append(t)
+        wait_for(want0, "the catch-up of the 16 MiB file")
+        deadline = time.monotonic() + 60
+        fused = [jids[label] for label, o in FOLLOW_QUERIES
+                 if not o.get("count_only")]
+        while not all(svc.job_status(j)["follow"].get("fused") for j in fused):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 3f (f): the group never fused: "
+                                     f"{svc.status().get('follow')}")
+            time.sleep(0.02)
+        catch_up = time.perf_counter() - t0
+        groups = svc._follow_groups._groups
+        (group,) = [g for g in groups.values()
+                    if {m.runner.job_id for m in g.members()} == set(fused)]
+        union_mode = group._fused.union.mode
+        solo_jid = jids["-c volcano"]
+        wakes0 = (group.wakes, svc.job_status(solo_jid)["follow"]["wakes"])
+        before = zero()
+        stamps: dict[bytes, float] = {}
+
+        def appender():
+            for marker, chunk in appends:
+                with open(path, "ab") as f:
+                    f.write(chunk)
+                stamps[marker] = time.perf_counter()
+                time.sleep(0.3)
+
+        t_app = time.perf_counter()
+        ta = threading.Thread(target=appender)
+        ta.start()
+        ta.join()
+        final = path.read_bytes()
+        want = {label: oracle(o, final) for label, o in FOLLOW_QUERIES}
+        wait_for({k: len(v) for k, v in want.items()}, "the appends")
+        wall = time.perf_counter() - t_app
+        got = launched(before)
+        wakes = (group.wakes - wakes0[0],
+                 svc.job_status(solo_jid)["follow"]["wakes"] - wakes0[1])
+        stop.set()
+        for t in readers:
+            t.join(timeout=10)
+        for label, o in FOLLOW_QUERIES:
+            if o.get("count_only"):
+                if (count_of(streams[label]) != len(want[label])
+                        or any("text" in r for r in streams[label])):
+                    raise AssertionError(f"phase 3f (f): {label} counted "
+                                         f"{count_of(streams[label])}, want "
+                                         f"{len(want[label])}")
+                continue
+            rows = [(r["line"], r["text"]) for r in streams[label]]
+            argv = ["-n", *(["-i"] if o.get("ignore_case") else []),
+                    *(["-E"] if "(" in o["pattern"] else []),
+                    o["pattern"], path]
+            g = [(n, t_.decode("utf-8", "surrogateescape"))
+                 for _p, n, _c, _b, t_ in gnu_tuples(
+                     gnu(argv).stdout, [], label=str(path).encode())]
+            if rows != want[label] or rows != g:
+                raise AssertionError(f"phase 3f (f): {label}: {len(rows)} "
+                                     f"records, one-shot {len(want[label])},"
+                                     f" GNU grep {len(g)}")
+        union_key = union_mode
+        if (union_key not in got or union_key == "shift_and"
+                or wakes[0] < 1 or wakes[1] < 1 or not got.get("shift_and")):
+            raise AssertionError(f"phase 3f (f): launches {got} (union "
+                                 f"{union_mode}), wakes {wakes}")
+        latency = sorted(
+            next(ts for ts, rec in arrivals["volcano"]
+                 if rec.get("text", "").encode() == marker) - stamps[marker]
+            for marker, _chunk in appends)
+        status = svc.status()["follow"]
+        return (f"standing queries over {path.stat().st_size} bytes (16 MiB, "
+                f"then 8 appends of 1-2 MiB, 0.3 s apart), "
+                f"DGREP_DEVICE_MIN_BYTES=0, poll 0.1 s: one fused group of "
+                f"{len(fused)} (union route {union_mode}), -c volcano solo; "
+                f"catch-up {catch_up:.3f} s; during the appends {wakes[0]} "
+                f"group wakes and {wakes[1]} solo wakes, launches {got}: "
+                f"{got[union_key] / wakes[0]:.2f} {union_key} a group wake, "
+                f"{got['shift_and'] / wakes[1]:.2f} shift_and a solo wake; "
+                f"latency from an append to its record on the stream min "
+                f"{latency[0]:.3f}, median {latency[len(latency) // 2]:.3f}, "
+                f"max {latency[-1]:.3f} s; streams "
+                f"{ {k: size_of(k, v) for k, v in streams.items()} } equal "
+                f"to the one-shot scan and GNU grep; wall {wall:.3f} s; "
+                f"follow view {{'follow_wakes': {status.get('follow_wakes')}, "
+                f"'follow_fused_wakes': {status.get('follow_fused_wakes')}, "
+                f"'follow_suffix_bytes_saved': "
+                f"{status.get('follow_suffix_bytes_saved')}, "
+                f"'stream_dropped_records': "
+                f"{status.get('stream_dropped_records')}}}")
+    finally:
+        stop.set()
+        for jid in jids.values():
+            svc.cancel(jid)
+        if saved is None:
+            os.environ.pop("DGREP_DEVICE_MIN_BYTES", None)
+        else:
+            os.environ["DGREP_DEVICE_MIN_BYTES"] = saved
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def service_pool(words: list[Path]) -> str:
+    """Phase 3f (g): a daemon with 1 local worker and the pool's ceiling at
+    3 (``serve``'s own pool thread), 4 jobs of 50 small files each
+    (batching and fusion off: 200 map tasks): the advice says grow and the
+    pool grows; idle, it drains back to 1; ``top --once`` prints the
+    daemon's view and ``trace-export --fleet`` renders its daemon.jsonl
+    with the scale events."""
+    from distributed_grep_tpu_torch import __main__ as cli
+    from distributed_grep_tpu_torch.runtime.daemon_log import DaemonLog
+    from distributed_grep_tpu_torch.runtime.service import (
+        GrepService,
+        ServiceServer,
+    )
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    root = WORK / "service-g"
+    tree = WORK / "service-g-files"
+    data = words[2].read_bytes()[: 8 << 20]
+    paths, pos = [], 0
+    tree.mkdir(parents=True, exist_ok=True)
+    for i in range(50):
+        end = data.find(b"\n", pos + (64 << 10)) + 1
+        p = tree / f"f{i:03d}.txt"
+        p.write_bytes(data[pos:end])
+        paths.append(str(p))
+        pos = end
+    saved = {k: os.environ.get(k) for k in ("DGREP_BATCH_BYTES",
+                                             "DGREP_SERVICE_FUSE")}
+    os.environ.update({"DGREP_BATCH_BYTES": "0", "DGREP_SERVICE_FUSE": "0"})
+    stop = threading.Event()
+    svc = GrepService(work_root=root, daemon_log=DaemonLog(root), spans=True,
+                      task_timeout_s=SERVICE_TIMEOUT_S)
+    server = ServiceServer(svc)
+    server.start()
+    scaler = None
+    try:
+        t0 = time.perf_counter()
+        scaler = cli._start_worker_pool(
+            argparse.Namespace(workers=1, max_workers=3), svc, stop)
+        jids = [svc.submit(JobConfig(input_files=paths,
+                                     app_options={"pattern": pat},
+                                     n_reduce=2, journal=False,
+                                     durable=False))
+                for pat in ("volcano", "the new", "being it", "ash")]
+        advice = svc.scale_advice()["advice"]
+        peak = 1
+        deadline = time.monotonic() + 120
+        while any(svc.job_status(j)["state"] != "done" for j in jids):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 3f (g): jobs "
+                                     f"{[svc.job_status(j) for j in jids]}")
+            peak = max(peak, svc.local_pool_size())
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        deadline = time.monotonic() + 30
+        while svc.local_pool_size() > 1:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase 3f (g): the pool did not "
+                                     f"drain: {svc.local_pool_size()}")
+            time.sleep(0.05)
+        drained = time.perf_counter() - t0
+        rc, top, _err, _w = port_cli_in_process(
+            ["top", "--once", "--addr", f"127.0.0.1:{server.port}"])
+        svc._flush_daemon_log()
+        rc2, trace, _err2, _w2 = port_cli_in_process(
+            ["trace-export", "--fleet", str(root)])
+        events = DaemonLog.read(root)
+        actions = [(e["payload"]["action"], e["payload"]["workers"])
+                   for e in events if e["kind"] == "scale_action"]
+        advices = [e["payload"]["advice"] for e in events
+                   if e["kind"] == "scale_advice"]
+        doc = json.loads(trace)
+        fleet = {e["name"] for e in doc["traceEvents"]
+                 if e.get("ph") == "i" and e.get("pid") == 1}
+        top_text = top.decode()
+        if (advice != "grow" or "grow" not in advices
+                or not any(a == "grow" for a, _n in actions)
+                or not any(a == "drain" for a, _n in actions) or peak < 2
+                or rc != 0 or "[ACTIVE]" not in top_text
+                or "scale:" not in top_text or rc2 != 0
+                or not {"scale_advice", "scale_action"} <= fleet):
+            raise AssertionError(f"phase 3f (g): advice {advice}, advices "
+                                 f"{advices}, actions {actions}, peak {peak},"
+                                 f" top {rc} {top_text[:300]!r}, fleet "
+                                 f"{rc2} {sorted(fleet)}")
+        return (f"elastic pool: 1 local worker, ceiling 3, 4 jobs of 50 "
+                f"files (200 map tasks): advice {advice} at submit, the pool "
+                f"peaked at {peak} loops, jobs done in {wall:.3f} s, drained "
+                f"back to 1 at {drained:.3f} s; scale actions {actions}, "
+                f"advice changes {advices}; top --once {len(top_text)} "
+                f"bytes ({top_text.splitlines()[0]}); trace-export --fleet "
+                f"{len(doc['traceEvents'])} trace events, the daemon rows' "
+                f"instants {sorted(fleet)}")
+    finally:
+        stop.set()
+        if scaler is not None:
+            scaler.join(timeout=5)
+        svc.stop()
+        server.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(tree, ignore_errors=True)
 
 
 def main() -> int:

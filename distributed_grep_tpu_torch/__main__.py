@@ -140,30 +140,50 @@ Grep as a service (runtime/service.py), a daemon serving a stream of jobs
 over persistent workers and engines:
 
     python -m distributed_grep_tpu_torch serve [--host H] [--port P]
-        [--work-root DIR] [--workers N] [--max-jobs J] [--queue Q]
-        [--spans] [--no-resume]
+        [--work-root DIR] [--workers N] [--max-workers M] [--max-jobs J]
+        [--queue Q] [--spans] [--no-resume]
     python -m distributed_grep_tpu_torch submit --addr HOST:PORT
         (--config JOB.json | [PATTERN] FILE... [-i] [-e PATTERN]...
          [-f FILE] [-F] [-E] [--backend device|cpu])
-        [--n-reduce R] [--no-wait] [--timeout S]
+        [--n-reduce R] [--no-wait] [--timeout S] [--explain]
+        [--follow [--follow-poll-s S] [--stream]]
+    python -m distributed_grep_tpu_torch explain (--addr HOST:PORT JOB_ID
+        | WORK_DIR) [--timeout S]
+    python -m distributed_grep_tpu_torch top --addr HOST:PORT[,HOST:PORT...]
+        [--interval S] [--once] [--timeout S]
 
 ``serve`` runs the daemon until SIGINT or SIGTERM, then prints one JSON
 line, its final ``GET /status``; ``--workers`` in-process worker loops
 serve it (0: none), and ``worker --addr`` processes attach to it as to a
-coordinator.  Its work root keeps the job registry (``jobs.jsonl``: a
+coordinator.  With ``--max-workers M`` above ``--workers`` the in-process
+pool follows the daemon's scale advice every 2 s: one more loop while it
+says grow (up to M), one fewer while it says shrink (down to
+``--workers``).  Its result cache (``<work_root>/results``,
+DGREP_RESULT_CACHE, DGREP_RESULT_BYTES) answers a repeated query over
+unchanged files with no scan.  Its work root keeps the job registry (``jobs.jsonl``: a
 restarted daemon keeps its history and resumes its jobs, unless
 ``--no-resume``), a work dir a job, the shard index's store and the
 daemon's own log (``daemon.jsonl``; DGREP_DAEMON_LOG=0 turns it off).
 ``submit`` posts a job, waits for it (unless ``--no-wait``) and prints one
 JSON line: ``job_id``, ``state``, the ``outputs`` of a done job or the
 ``error`` of a failed one, and ``index_shards_pruned`` and
-``index_bytes_skipped`` once the index pruned a shard; it exits 0 when the
-job is done, 1 otherwise, 2 when the daemon refused it or cannot be
-reached.  Its PATTERN/FILE form builds a ``grep_cuda`` job that runs on
-the card; ``--backend cpu`` asks for the host scanners.  ``serve
---standby`` (failover, ROADMAP.md item 6) and ``--max-workers`` (the
-elastic pool), and ``submit --follow``, ``--stream``, ``--explain`` and an
-address list raise, naming the item that will port them.
+``index_bytes_skipped`` once the index pruned a shard,
+``result_splits_reused`` and ``result_bytes_unscanned`` once the result
+cache served a split, and with ``--explain`` the job's routing report
+under ``explain``; it exits 0 when the job is done, 1 otherwise, 2 when
+the daemon refused it or cannot be reached.  Its PATTERN/FILE form builds
+a ``grep_cuda`` job that runs on the card; ``--backend cpu`` asks for the
+host scanners.  ``--follow`` submits a standing query (the daemon scans
+the files' appended lines as they grow, until the job is cancelled) and
+prints ``{"job_id", "state": "following", "stream"}``; with ``--stream``
+it prints the records as they arrive, as ``grep --follow`` prints them
+(a count record as ``FILE: +N``), until ``--timeout`` or the job's end,
+then one JSON summary line.  ``explain`` prints a job's routing report:
+the daemon's (``--addr``), or one built from a work dir's events.jsonl.
+``top`` polls each daemon of the list and prints its view (``--once``:
+one snapshot, exit 2 when none answers).  ``serve --standby`` and
+``submit`` to an address list (failover, ROADMAP.md item 6) raise, naming
+the item that will port them.
 
 Telemetry:
 
@@ -178,9 +198,10 @@ shard index (a job's ``index_dir``) has pruned a shard.
 ``trace-export`` renders a job's ``events.jsonl`` (the span pipeline's
 log, written with ``"spans": true`` in the job config or DGREP_SPANS=1;
 EVENTS is the file or the work dir holding it) as Chrome trace JSON for
-Perfetto or chrome://tracing; ``--fleet`` (a service work root's
-timeline) is not ported yet (item 5b).  DGREP_TRACE_DIR=DIR runs each job under torch.profiler and
-writes its trace into DIR.
+Perfetto or chrome://tracing; with ``--fleet`` EVENTS is a service work
+root: its daemon.jsonl (every incarnation) merged with every job's
+events.jsonl into one trace.  DGREP_TRACE_DIR=DIR runs each job under
+torch.profiler and writes its trace into DIR.
 """
 
 from __future__ import annotations
@@ -353,7 +374,10 @@ def _parser() -> argparse.ArgumentParser:
     sv.add_argument("--standby", action="store_true",
                     help="active/standby failover (not ported yet)")
     sv.add_argument("--max-workers", type=int, default=None,
-                    help="the elastic pool's ceiling (not ported yet)")
+                    help="the elastic pool's ceiling: the in-process pool "
+                         "grows toward it on the scale advice and shrinks "
+                         "back to --workers when idle (unset: a fixed "
+                         "pool)")
 
     sb = sub.add_parser("submit", help="submit a job to a service daemon and "
                                        "print one JSON line")
@@ -379,11 +403,43 @@ def _parser() -> argparse.ArgumentParser:
     sb.add_argument("--timeout", type=float, default=300.0,
                     help="the wait's budget in seconds")
     sb.add_argument("--follow", action="store_true",
-                    help="a standing query (not ported yet)")
+                    help="a standing query: the daemon scans the files' "
+                         "appended lines as they grow; read it at GET "
+                         "/jobs/<id>/stream or with --stream")
+    sb.add_argument("--follow-poll-s", type=float, default=None,
+                    metavar="S",
+                    help="with --follow: the wake cadence "
+                         "(DGREP_FOLLOW_POLL_S wins; default 0.5 s)")
     sb.add_argument("--stream", action="store_true",
-                    help="with --follow: stream the records (not ported yet)")
+                    help="with --follow: print the records as they arrive "
+                         "until --timeout, then one JSON summary line")
     sb.add_argument("--explain", action="store_true",
-                    help="the routing report (not ported yet)")
+                    help="add the job's routing report (GET "
+                         "/jobs/<id>/explain) to the JSON line")
+
+    ex = sub.add_parser("explain", help="a job's routing report: kernel "
+                                        "family, host or device, prunes, "
+                                        "fusion, cache verdicts")
+    ex.add_argument("target", help="a job id (with --addr), or a work dir "
+                                   "or events.jsonl path")
+    ex.add_argument("--addr", default=None,
+                    help="the daemon's address, host:port (it assembles "
+                         "the report)")
+    ex.add_argument("--timeout", type=float, default=10.0)
+
+    tp = sub.add_parser("top", help="a console of daemons: queue, running "
+                                    "jobs, workers, scale advice, cache "
+                                    "ratios, standing queries")
+    tp.add_argument("--addr", required=True,
+                    help="a daemon's address host:port, or a comma-"
+                         "separated list (each is polled)")
+    tp.add_argument("--interval", type=float, default=None, metavar="S",
+                    help="the refresh cadence (default "
+                         "DGREP_TOP_INTERVAL_S, 2 s)")
+    tp.add_argument("--once", action="store_true",
+                    help="print one snapshot and exit (2 when no daemon "
+                         "answers)")
+    tp.add_argument("--timeout", type=float, default=5.0)
 
     te = sub.add_parser("trace-export",
                         help="render a job's events.jsonl span log as "
@@ -393,8 +449,9 @@ def _parser() -> argparse.ArgumentParser:
     te.add_argument("-o", "--out", default="-",
                     help="output file (default: stdout)")
     te.add_argument("--fleet", action="store_true",
-                    help="a service work root's fleet timeline (not "
-                         "ported yet)")
+                    help="EVENTS is a service work root: its daemon.jsonl "
+                         "fleet timeline merged with every job's "
+                         "events.jsonl")
     return p
 
 
@@ -832,6 +889,23 @@ def _check_follow(args: argparse.Namespace) -> int:
     return 0
 
 
+def _follow_record_line(rec: dict, *, no_filename: bool = False) -> str:
+    """A follow record's text line as the default print prints it, shared
+    by ``grep --follow`` and ``submit --stream``: the text's bytes
+    (surrogateescape) decoded with replacement."""
+    text = rec["text"].encode("utf-8", "surrogateescape").decode(
+        "utf-8", "replace")
+    head = "" if no_filename else f"{rec['file']} "
+    return f"{head}(line number #{rec['line']}) {text}"
+
+
+def _print_follow_reset(rec: dict) -> None:
+    """A truncated or replaced file, on stderr as tail says it: its line
+    numbers start again."""
+    print(f"dgrep: {rec['file']}: file truncated or replaced; following "
+          f"new data", file=sys.stderr)
+
+
 def _grep_follow(args: argparse.Namespace, patterns, had_file_errors: bool,
                  out) -> int:
     """``grep --follow``: one engine (on ``args.device``, or the host with
@@ -862,14 +936,10 @@ def _grep_follow(args: argparse.Namespace, patterns, had_file_errors: bool,
         for _path, records, _cursor in groups:
             for rec in records:
                 if rec.get("reset"):
-                    print(f"dgrep: {rec['file']}: file truncated or "
-                          f"replaced; following new data", file=sys.stderr)
+                    _print_follow_reset(rec)
                 elif "text" in rec:
-                    text = rec["text"].encode("utf-8", "surrogateescape")
-                    head = "" if args.no_filename else f"{rec['file']} "
-                    _write(out, f"{head}(line number #{rec['line']}) ")
-                    out.write(text.decode("utf-8", "replace").encode()
-                              + b"\n")
+                    out.write(_follow_record_line(
+                        rec, no_filename=args.no_filename).encode() + b"\n")
                 elif rec.get("match") and args.files_with_matches:
                     _write(out, f"{rec['file']}\n")
         out.flush()
@@ -1000,10 +1070,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
         raise NotImplementedError(
             "serve --standby is not ported yet: ROADMAP.md 'Slices still to "
             "port', item 6 (failover and the peer data plane)")
-    if args.max_workers is not None:
-        raise NotImplementedError(
-            "serve --max-workers is not ported yet: ROADMAP.md 'Slices still "
-            "to port', item 5b (the elastic pool)")
     work_root = args.work_root or tempfile.mkdtemp(prefix="dgrep-svc-")
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -1019,17 +1085,49 @@ def cmd_serve(args: argparse.Namespace) -> int:
     server.start()
     print(f"serving on {args.host}:{server.port} (work root {work_root})",
           file=sys.stderr, flush=True)
-    if args.workers:
-        service.start_local_workers(args.workers)
+    scaler = _start_worker_pool(args, service, stop)
     try:
         stop.wait()
     except KeyboardInterrupt:
         pass
-    server.shutdown()
+    stop.set()
+    if scaler is not None:
+        scaler.join(timeout=5.0)
+    # the service stops first: the server's last seconds answer the
+    # workers' polls JOB_DONE, so none waits out its retry schedule (C9)
     service.stop()
+    server.shutdown(linger_s=2.0)
     # stdout: exactly one JSON line, the final status
     print(json.dumps(service.status()), flush=True)
     return 0
+
+
+def _start_worker_pool(args: argparse.Namespace, service, stop):
+    """``serve``'s in-process loops, and with ``--max-workers`` above
+    ``--workers`` the thread that follows the daemon's scale advice every
+    2 s (one loop more on grow, one fewer on shrink, between the two
+    bounds; a shrink drains a loop at its next idle poll).  The scaler
+    thread, or None."""
+    import threading
+
+    if args.workers:
+        service.start_local_workers(args.workers)
+    if not (args.max_workers and args.max_workers > args.workers):
+        return None
+
+    def scale_loop() -> None:
+        while not stop.wait(2.0):
+            advice = service.scale_advice()["advice"]
+            cur = service.local_pool_size()
+            if advice == "grow" and cur < args.max_workers:
+                service.scale_local_pool(cur + 1)
+            elif advice == "shrink" and cur > args.workers:
+                service.scale_local_pool(max(args.workers, cur - 1))
+
+    scaler = threading.Thread(target=scale_loop, name="svc-scaler",
+                              daemon=True)
+    scaler.start()
+    return scaler
 
 
 def _submit_config(args: argparse.Namespace):
@@ -1063,6 +1161,18 @@ def _submit_config(args: argparse.Namespace):
                         app_options=opts, n_reduce=args.n_reduce or 10)
 
 
+def _with_follow(args: argparse.Namespace, cfg):
+    """``--follow`` and ``--follow-poll-s`` applied to a submit's job (the
+    cadence also over a --config that asked for follow itself)."""
+    from dataclasses import replace
+
+    if args.follow and not cfg.follow:
+        cfg = replace(cfg, follow=True)
+    if args.follow_poll_s and cfg.follow:
+        cfg = replace(cfg, follow_poll_s=args.follow_poll_s)
+    return cfg
+
+
 def cmd_submit(args: argparse.Namespace) -> int:
     """Post a job to a service daemon, wait for it unless --no-wait, and
     print exactly one JSON line."""
@@ -1070,13 +1180,6 @@ def cmd_submit(args: argparse.Namespace) -> int:
 
     from distributed_grep_tpu_torch.runtime.http_transport import client_call
 
-    for flag, item in (("follow", "item 5b (the standing queries)"),
-                       ("stream", "item 5b (the standing queries)"),
-                       ("explain", "item 5b (explain)")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"submit --{flag} is not ported yet: ROADMAP.md 'Slices "
-                f"still to port', {item}")
     if "," in args.addr:
         raise NotImplementedError(
             "submit to an address list is not ported yet: ROADMAP.md 'Slices "
@@ -1084,6 +1187,7 @@ def cmd_submit(args: argparse.Namespace) -> int:
     rc, cfg = _submit_config(args)
     if rc:
         return rc
+    cfg = _with_follow(args, cfg)
 
     def call(method: str, path: str, body: bytes | None = None) -> dict:
         return client_call(args.addr, method, path, body=body,
@@ -1104,6 +1208,14 @@ def cmd_submit(args: argparse.Namespace) -> int:
               file=sys.stderr)
         return 2
     job_id = reply["job_id"]
+    if cfg.follow:
+        # a standing query has no end to wait for: its records, or the
+        # endpoint that serves them
+        if args.stream:
+            return _stream_follow(call, job_id, args)
+        print(json.dumps({"job_id": job_id, "state": "following",
+                          "stream": f"/jobs/{job_id}/stream"}))
+        return 0
     if not args.wait:
         print(json.dumps({"job_id": job_id, "state": "submitted"}))
         return 0
@@ -1128,10 +1240,69 @@ def cmd_submit(args: argparse.Namespace) -> int:
             out["index_shards_pruned"] = int(counters["index_shards_pruned"])
             out["index_bytes_skipped"] = int(
                 counters.get("index_bytes_skipped", 0))
+        # the result cache's reuse, only when nonzero
+        if counters.get("result_splits_reused"):
+            out["result_splits_reused"] = int(
+                counters["result_splits_reused"])
+            out["result_bytes_unscanned"] = int(
+                counters.get("result_bytes_unscanned", 0))
+        if args.explain and status.get("state") in ("done", "failed"):
+            # the routing report on the same line, best effort
+            try:
+                out["explain"] = call("GET", f"/jobs/{job_id}/explain")
+            except (OSError, ValueError):
+                pass
     except OSError as e:
         out["error"] = f"lost service at {args.addr}: {e}"
     print(json.dumps(out))
     return 0 if out["state"] == "done" else 1
+
+
+def _stream_follow(call, job_id: str, args: argparse.Namespace) -> int:
+    """Read GET /jobs/<id>/stream with a moving cursor and print each
+    record as ``grep --follow`` prints it (a count record as ``FILE:
+    +N``, a presence record as FILE), until --timeout or the job leaves
+    RUNNING; then one JSON summary line."""
+    deadline = time.monotonic() + args.timeout
+    cursor = 0
+    printed = 0
+    dropped = 0
+    state = "running"
+    while time.monotonic() < deadline:
+        # the server's long poll stays well inside the socket's timeout
+        window = min(10.0, max(0.5, deadline - time.monotonic()),
+                     max(0.5, args.timeout - 2.0))
+        try:
+            reply = call("GET", f"/jobs/{job_id}/stream?cursor={cursor}"
+                                f"&timeout={window:.1f}")
+        except OSError as e:
+            print(f"error: lost service mid-stream: {e}", file=sys.stderr)
+            break
+        cursor = int(reply.get("next", cursor))
+        state = reply.get("state", state)
+        dropped += int(reply.get("dropped", 0))
+        records = reply.get("records") or []
+        for rec in records:
+            printed += 1
+            if rec.get("reset"):
+                _print_follow_reset(rec)
+            elif "text" in rec:
+                print(_follow_record_line(rec), flush=True)
+            elif "count" in rec:
+                print(f"{rec['file']}: +{int(rec['count'])}", flush=True)
+            elif rec.get("match"):
+                print(rec["file"], flush=True)
+        if state in ("done", "failed", "cancelled") and not records:
+            break  # terminal and drained; a queued job keeps polling
+        if not records and state != "running":
+            # a queued job's page answers at once: pace the polls
+            time.sleep(min(0.5, max(0.0, deadline - time.monotonic())))
+    out: dict = {"job_id": job_id, "state": state, "records": printed,
+                 "cursor": cursor}
+    if dropped:
+        out["dropped"] = dropped
+    print(json.dumps(out))
+    return 0
 
 
 def cmd_trace_export(args: argparse.Namespace) -> int:
@@ -1143,18 +1314,30 @@ def cmd_trace_export(args: argparse.Namespace) -> int:
     )
 
     if args.fleet:
-        raise NotImplementedError(
-            "trace-export --fleet is not ported yet: ROADMAP.md 'Slices "
-            "still to port', item 5b (the service's fleet timeline over "
-            "daemon.jsonl)")
-    path = Path(args.events)
-    if path.is_dir():  # a work dir: the log lives at its root
-        path = path / EventLog.FILENAME
-    if not path.exists():
-        print(f"error: no event log at {path} (run the job with "
-              f"JobConfig.spans=true or DGREP_SPANS=1)", file=sys.stderr)
-        return 2
-    doc = export_chrome_trace(EventLog.read(path))
+        from distributed_grep_tpu_torch.runtime import (
+            daemon_log as daemon_log_mod,
+        )
+        from distributed_grep_tpu_torch.utils.spans import export_fleet_trace
+
+        root = Path(args.events)
+        if root.is_file():  # a daemon.jsonl path: its dir is the root
+            root = root.parent
+        if not (root / daemon_log_mod.FILENAME).exists():
+            print(f"error: no {daemon_log_mod.FILENAME} under {root} "
+                  f"(serve with DGREP_DAEMON_LOG on)", file=sys.stderr)
+            return 2
+        jobs = {p.parent.name: EventLog.read(p)
+                for p in sorted(root.glob(f"*/{EventLog.FILENAME}"))}
+        doc = export_fleet_trace(daemon_log_mod.DaemonLog.read(root), jobs)
+    else:
+        path = Path(args.events)
+        if path.is_dir():  # a work dir: the log lives at its root
+            path = path / EventLog.FILENAME
+        if not path.exists():
+            print(f"error: no event log at {path} (run the job with "
+                  f"JobConfig.spans=true or DGREP_SPANS=1)", file=sys.stderr)
+            return 2
+        doc = export_chrome_trace(EventLog.read(path))
     if args.out and args.out != "-":
         Path(args.out).write_text(json.dumps(doc))
         print(f"{len(doc['traceEvents'])} trace events -> {args.out}",
@@ -1165,9 +1348,224 @@ def cmd_trace_export(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_explain(args: argparse.Namespace) -> int:
+    """A job's routing report as indented JSON: the daemon's (``--addr``,
+    GET /jobs/<id>/explain), or one built from a work dir's events.jsonl
+    (with the daemon's timeline when daemon.jsonl sits in its parent, a
+    service work root).  Exit 2 when there is no report."""
+    import urllib.error
+
+    if args.addr:
+        from distributed_grep_tpu_torch.runtime.http_transport import (
+            client_call,
+        )
+
+        try:
+            doc = client_call(args.addr, "GET",
+                              f"/jobs/{args.target}/explain",
+                              timeout=args.timeout)
+        except urllib.error.HTTPError as e:
+            detail = e.read()[:200].decode("utf-8", "replace")
+            print(f"error: explain failed ({e.code}): {detail}",
+                  file=sys.stderr)
+            return 2
+        except OSError as e:
+            print(f"error: cannot reach service at {args.addr}: {e}",
+                  file=sys.stderr)
+            return 2
+        print(json.dumps(doc, indent=2, sort_keys=True))
+        return 0
+    from distributed_grep_tpu_torch.runtime import daemon_log as daemon_log_mod
+    from distributed_grep_tpu_torch.runtime import explain as explain_mod
+    from distributed_grep_tpu_torch.utils.spans import EventLog
+
+    path = Path(args.target)
+    if path.is_dir():
+        path = path / EventLog.FILENAME
+    if not path.exists():
+        print(f"error: no event log at {path} (run the job with "
+              f"\"spans\": true or DGREP_SPANS=1, or pass --addr for a "
+              f"service job)", file=sys.stderr)
+        return 2
+    daemon_events = None
+    work_root = path.parent.parent
+    if (work_root / daemon_log_mod.FILENAME).exists():
+        daemon_events = daemon_log_mod.DaemonLog.read(work_root)
+    doc = explain_mod.assemble(
+        job_id=path.parent.name, config=None, state="", submitted_at=None,
+        started_at=None, finished_at=None, metrics_counters={},
+        events=EventLog.read(path), daemon_events=daemon_events)
+    print(json.dumps(doc, indent=2, sort_keys=True))
+    return 0
+
+
+def env_top_interval_s(default: float = 2.0) -> float:
+    """DGREP_TOP_INTERVAL_S, ``top``'s refresh cadence (malformed or <= 0
+    keeps ``default``)."""
+    raw = os.environ.get("DGREP_TOP_INTERVAL_S")
+    if raw is None or raw == "":
+        return default
+    try:
+        v = float(raw)
+    except ValueError:
+        return default
+    return v if v > 0 else default
+
+
+def _parse_metrics_text(text: str) -> dict[str, float]:
+    """Prometheus text to {name: value} for the samples without labels
+    (gauges, counters, a histogram's _sum and _count)."""
+    out: dict[str, float] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split()
+        if len(parts) != 2 or "{" in parts[0]:
+            continue
+        try:
+            out[parts[0]] = float(parts[1])
+        except ValueError:
+            continue
+    return out
+
+
+def _kv_line(d: dict) -> str:
+    return "  ".join(f"{k}={d[k]}" for k in sorted(d))
+
+
+def _render_top(statuses: dict[str, dict | None], active_addr: str | None,
+                metrics: dict[str, float]) -> str:
+    """One screen of ``top``: each address's role, the active daemon's
+    gauges, scale advice, windowed cache-hit ratios (from /metrics),
+    latency, standing queries and groups, the worker table (with the
+    freshness the scale advice reads) and the live jobs."""
+    lines: list[str] = []
+    roles = []
+    for addr, st in statuses.items():
+        role = "down" if st is None else str(st.get("role", "active"))
+        roles.append(f"{addr} [{role.upper()}]")
+    lines.append("dgrep top — " + "   ".join(roles))
+    st = statuses.get(active_addr) if active_addr else None
+    if st is None:
+        standby = next((s for s in statuses.values() if s), None)
+        if standby is None:
+            lines.append("no daemon reachable")
+        else:
+            lines.append("no ACTIVE daemon — parked standby answers; "
+                         f"lease names {standby.get('active', '?')}")
+        return "\n".join(lines)
+    lines.append(
+        f"uptime {st.get('uptime_s', 0.0):8.1f}s   "
+        f"queued {st.get('queued', 0)}/{st.get('queue_depth_cap', '?')}   "
+        f"running {len(st.get('running', []))}/{st.get('max_jobs', '?')}   "
+        f"workers {len(st.get('workers', {}))}   "
+        f"quarantined {st.get('workers_quarantined', 0)}")
+    scale = st.get("scale")
+    if scale:
+        lines.append(f"scale: {_kv_line(scale)}")
+    ratios = {k.replace("dgrep_", "").replace("_hit_ratio", ""): round(v, 3)
+              for k, v in metrics.items() if k.endswith("_hit_ratio")}
+    if ratios:
+        lines.append("cache hit ratios (window): " + _kv_line(ratios))
+    failovers = metrics.get("dgrep_daemon_failover_seconds_count")
+    if failovers:
+        mean = metrics.get("dgrep_daemon_failover_seconds_sum", 0.0) / failovers
+        lines.append(f"failovers: {int(failovers)} "
+                     f"(mean {mean:.2f}s promotion latency)")
+    latency = st.get("latency")
+    if latency:
+        for key, summ in sorted(latency.items()):
+            lines.append(f"latency {key}: {_kv_line(summ)}")
+    follow = st.get("follow")
+    if follow:
+        follow = dict(follow)
+        groups = follow.pop("groups", None)
+        lines.append(f"follow: {_kv_line(follow)}")
+        for g in groups or []:
+            lines.append(
+                f"  group [{','.join(str(j) for j in g.get('jobs', []))}]: "
+                f"members={g.get('members', 0)} files={g.get('files', 0)} "
+                f"poll_s={g.get('poll_s', 0)} wakes={g.get('wakes', 0)} "
+                f"wake_lag_s={g.get('wake_lag_s', 0.0)}")
+    workers = st.get("workers") or {}
+    if workers:
+        lines.append("")
+        lines.append(f"{'WID':>4} {'EVENT AGE':>10} {'JOB':>8} "
+                     f"{'TASK':>6} {'QUAR':>6}  GBPS")
+        for wid in sorted(workers, key=lambda w: int(w)):
+            row = workers[wid]
+            m = row.get("metrics") or {}
+            quar = row.get("quarantined_s")
+            task = row.get("task")
+            lines.append(
+                f"{wid:>4} {row.get('last_event_age_s', 0.0):>9.1f}s "
+                f"{str(row.get('job') or '-'):>8} "
+                f"{str(task if task is not None else '-'):>6} "
+                f"{(f'{quar:.0f}s' if quar else '-'):>6}  "
+                f"{m.get('gbps', 0.0):.3f}")
+    jobs = st.get("jobs") or {}
+    active_jobs = {j: d for j, d in jobs.items()
+                   if d.get("state") in ("running", "queued")}
+    if active_jobs:
+        lines.append("")
+        for jid in sorted(active_jobs):
+            d = active_jobs[jid]
+            prog = ""
+            if "map_total" in d:
+                prog = f"  map {d.get('map_completed', 0)}/{d['map_total']}"
+            lines.append(f"job {jid}: {d.get('state')}{prog}")
+    return "\n".join(lines)
+
+
+def cmd_top(args: argparse.Namespace) -> int:
+    """A console of daemons: each address of the list polled (GET /status
+    once, no retry: a dead one shows "down"), the active one's view with
+    its /metrics ratios; ``--once`` prints one screen, else it redraws
+    every interval until interrupted."""
+    from distributed_grep_tpu_torch.runtime.http_transport import (
+        client_call,
+        client_text,
+        split_addrs,
+    )
+
+    addrs = split_addrs(args.addr)
+    interval = args.interval if args.interval else env_top_interval_s()
+    try:
+        while True:
+            statuses: dict[str, dict | None] = {}
+            for a in addrs:
+                try:
+                    st = client_call(a, "GET", "/status",
+                                     timeout=args.timeout, retry=False)
+                    statuses[a] = st if isinstance(st, dict) else None
+                except Exception:  # noqa: BLE001 -- down, or not a daemon
+                    statuses[a] = None
+            active_addr = next(
+                (a for a, st in statuses.items()
+                 if st and st.get("service")
+                 and st.get("role", "active") == "active"), None)
+            metrics: dict[str, float] = {}
+            if active_addr is not None:
+                try:
+                    metrics = _parse_metrics_text(client_text(
+                        active_addr, "/metrics", timeout=args.timeout))
+                except Exception:  # noqa: BLE001 -- the console stays up
+                    pass
+            screen = _render_top(statuses, active_addr, metrics)
+            if args.once:
+                print(screen)
+                return 0 if any(statuses.values()) else 2
+            sys.stdout.write("\x1b[H\x1b[2J" + screen + "\n")
+            sys.stdout.flush()
+            time.sleep(interval)
+    except KeyboardInterrupt:
+        return 0
+
+
 COMMANDS = {"grep": cmd_grep, "run": cmd_run, "coordinator": cmd_coordinator,
             "worker": cmd_worker, "status": cmd_status, "serve": cmd_serve,
-            "submit": cmd_submit, "trace-export": cmd_trace_export}
+            "submit": cmd_submit, "trace-export": cmd_trace_export,
+            "explain": cmd_explain, "top": cmd_top}
 
 
 def main(argv: list[str] | None = None) -> int:

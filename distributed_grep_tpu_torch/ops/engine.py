@@ -356,6 +356,7 @@ def _stamp_counters(stats: dict) -> None:
     follow = sys.modules.get("distributed_grep_tpu_torch.runtime.follow")
     if follow is not None:
         stats.update(follow.follow_counters())
+        stats.update(follow.follow_fused_counters())
     index = sys.modules.get("distributed_grep_tpu_torch.index.summary")
     if index is not None:
         stats.update(index.index_counters())

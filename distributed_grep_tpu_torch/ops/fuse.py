@@ -40,6 +40,7 @@ from distributed_grep_tpu_torch.ops.engine import (
 )
 from distributed_grep_tpu_torch.ops.lines import newline_index
 from distributed_grep_tpu_torch.utils import lockdep
+from distributed_grep_tpu_torch.utils import spans as spans_mod
 
 
 class FuseError(ValueError):
@@ -203,10 +204,14 @@ class FusedScanner:
         slab, _offsets = gather_ranges(np.frombuffer(data, dtype=np.uint8),
                                        starts, np.minimum(ends + 1, n))
         out: list[ScanResult] = []
-        for eng in self.confirms:
-            sub = eng.scan(slab)
-            ml = cl[sub.matched_lines - 1].astype(np.int64)
-            out.append(ScanResult(ml, int(ml.size), n))
+        # the confirms are part of the union's scan, as a solo scan's host
+        # confirm of its candidates is: they record no scan of their own,
+        # so a fused job's routing report names the union's route
+        with spans_mod.suspended():
+            for eng in self.confirms:
+                sub = eng.scan(slab)
+                ml = cl[sub.matched_lines - 1].astype(np.int64)
+                out.append(ScanResult(ml, int(ml.size), n))
         return out, nl
 
     def scan(self, data: bytes, progress=None, corpus_key=None
@@ -221,12 +226,24 @@ class FusedScanner:
 
     def scan_suffix(self, path, offset: int = 0, *, final: bool = False,
                     max_bytes: int | None = None):
-        """The fused follow tier's suffix scan: slice 3b of the service
-        runtime (ROADMAP.md queue B, item 5b)."""
-        raise NotImplementedError(
-            "FusedScanner.scan_suffix (the fused follow tier) is not ported "
-            "yet: ROADMAP.md 'Slices still to port', item 5b (the service's "
-            "standing queries)")
+        """One live-append suffix, K exact results (the fused follow
+        tier's scan of a grown file): one union suffix scan with
+        ``GrepEngine.scan_file_suffix``'s contract (``offset`` a line
+        start, the read cut at its last newline, a partial tail carried),
+        then the candidate-slab confirm a query.  Returns ``(results,
+        consumed, data)``: a ScanResult a spec with lines 1-based within
+        ``data``, the shared cursor advance and the bytes scanned.  Each
+        result is the member's own solo ``scan_file_suffix`` over the
+        same window, for the reason ``scan``'s are.  The batch fusion
+        counters are not touched: the follow tier counts its own wakes
+        (runtime/follow.follow_fused_counters)."""
+        union_res, consumed, data = self.union.scan_file_suffix(
+            path, offset, final=final, max_bytes=max_bytes)
+        if consumed == 0:
+            return [ScanResult(np.zeros(0, dtype=np.int64), 0, 0)
+                    for _ in self.specs], 0, data
+        results, _nl = self._confirm_all(data, union_res)
+        return results, consumed, data
 
     def scan_batch(self, items, progress=None, emit=None):
         """Many inputs through the union's packed batching: one scan a

@@ -21,9 +21,11 @@ patterns; the reference's planner has no family), and reads the knobs:
 a key and no assignment carries participants) and ``env_fuse_max_queries``
 (DGREP_FUSE_MAX_QUERIES, the queries one fused attempt may serve).
 
+``follow_fusion_key(config)`` groups standing queries (runtime/follow.py
+FollowGroupRegistry): one suffix read and one union scan a grown file
+serve every member of a group.
+
 Imports nothing of the scan stack: planning runs on the control plane.
-The standing queries' key (the reference's ``follow_fusion_key``) belongs
-to the fused follow tier (ROADMAP.md queue B, item 5b) and is not here.
 """
 
 from __future__ import annotations
@@ -141,6 +143,29 @@ def fusion_key(config) -> tuple | None:
     except TypeError:
         return None  # an option that does not sort or hash: solo
     return (config.application, frozen, int(config.effective_batch_bytes()))
+
+
+def follow_fusion_key(config) -> tuple | None:
+    """The fused group of a standing query, or None when it runs its own
+    solo wake loop: ``fusion_key``'s grouping, the query's family (a set
+    with sets, a pattern with patterns, as the batch planner groups them)
+    and the watched files' realpaths (a follow cursor tracks a file's
+    content as it grows, so the corpus cache's size and mtime, which
+    change with every append, are not part of the key).  Stats the
+    inputs: call it with no service lock held."""
+    if not getattr(config, "follow", False):
+        return None
+    base = fusion_key(config)
+    if base is None:
+        return None
+    try:
+        watched = tuple(sorted(os.path.realpath(os.fspath(f))
+                               for f in config.input_files))
+    except (OSError, TypeError):
+        return None
+    if not watched:
+        return None
+    return (base, query_family(config.effective_app_options()), watched)
 
 
 def query_family(options: dict) -> str:

@@ -27,6 +27,15 @@ runtime/http_coordinator.py).
 
 Workers join by calling AssignTask; ``serve_coordinator`` blocks until
 the job completes.
+
+A worker process names itself on every request (``X-Dgrep-Worker``, its
+process token).  When the job is over, the coordinator serves on until
+every worker process that fetched the bootstrap while the job ran has
+polled once (and so been told JOB_DONE), for at most ATTACH_GRACE_S: a
+worker that attaches as the job ends, and then loads its application for
+seconds, is answered instead of finding the port closed and running its
+retry schedule dry (ROADMAP.md C9).  A worker that attaches after the end
+reads ``"done": true`` in ``GET /status`` and exits at once.
 """
 
 from __future__ import annotations
@@ -54,6 +63,46 @@ log = get_logger("http_coordinator")
 
 # The data plane streams GET and PUT bodies in blocks of this many bytes.
 BLOCK_BYTES = 1 << 20
+
+# The request header a worker process names itself with (its process
+# token), and how long a finished job's server waits at most for an
+# attached worker process's first poll.
+WORKER_HEADER = "X-Dgrep-Worker"
+ATTACH_GRACE_S = 30.0
+
+
+class AttachTracker:
+    """The worker processes that fetched the bootstrap (GET /config) while
+    the job or daemon ran and have not polled for a task since.  Any of
+    their requests after the end settles them too (a /status that says
+    done)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._pending: dict[str, float] = {}
+
+    def saw(self, token: str | None, path: str, ended: bool) -> None:
+        if not token:
+            return
+        with self._lock:
+            if path == "/config":
+                if not ended:
+                    self._pending.setdefault(token, time.monotonic())
+            elif ended or path == f"/rpc/{rpc.Verb.ASSIGN_TASK}":
+                self._pending.pop(token, None)
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+    def wait_settled(self, min_s: float, cap_s: float = ATTACH_GRACE_S
+                     ) -> None:
+        """Serve on for ``min_s``, then while an attached worker process
+        has not polled, for ``cap_s`` at most in all."""
+        t0 = time.monotonic()
+        time.sleep(max(0.0, min_s))
+        while self.pending() and time.monotonic() - t0 < cap_s:
+            time.sleep(0.1)
 
 
 def long_poll_window_s(config: JobConfig) -> float:
@@ -97,6 +146,7 @@ class CoordinatorServer:
             commit_resolver=self.workdir.resolve_task_commit,
             event_log=self.event_log,
         )
+        self.attach = AttachTracker()
         self._traffic_lock = threading.Lock()
         self.rpcs: Counter = Counter()
         self.data_plane: Counter = Counter()  # bytes and seconds by direction
@@ -120,11 +170,16 @@ class CoordinatorServer:
     def wait_done(self, timeout: float | None = None) -> bool:
         return self.scheduler.wait_done(timeout=timeout)
 
+    def ended(self) -> bool:
+        """The job is over (done, or the scheduler stopped)."""
+        return self.scheduler.done() or self.scheduler._stopped
+
     def shutdown(self, linger_s: float = 2.0) -> None:
-        """Give long-polling workers a moment to receive JOB_DONE, then
-        stop serving."""
+        """Give long-polling workers a moment to receive JOB_DONE, and the
+        worker processes that attached while the job ran their first poll
+        (AttachTracker), then stop serving."""
         self.scheduler.stop()
-        time.sleep(linger_s)
+        self.attach.wait_settled(linger_s)
         self._httpd.shutdown()
         self._httpd.server_close()
         self.scheduler.close_journal()
@@ -186,6 +241,12 @@ class DataPlaneHandler(BaseHTTPRequestHandler):
 
     protocol_version = "HTTP/1.1"
     server_ref: CoordinatorServer
+
+    def _saw_worker(self) -> None:
+        """A worker process's request, for the server's AttachTracker."""
+        srv = self.server_ref
+        srv.attach.saw(self.headers.get(WORKER_HEADER),
+                       urllib.parse.urlsplit(self.path).path, srv.ended())
 
     def log_message(self, fmt, *args):  # through the logger, DEBUG only
         log.debug("http: " + fmt, *args)
@@ -290,6 +351,7 @@ def _make_handler(server: CoordinatorServer):
         server_ref = server
 
         def do_POST(self):
+            self._saw_worker()
             try:
                 if self.path.startswith("/rpc/"):
                     verb = self.path[len("/rpc/"):]
@@ -309,6 +371,7 @@ def _make_handler(server: CoordinatorServer):
 
         def do_GET(self):
             self._streaming_body = False  # per request (keep-alive)
+            self._saw_worker()
             try:
                 if self.path == "/config":
                     self._send_json(json.loads(server.config.to_json()))

@@ -25,13 +25,23 @@ launches no kernel never asks for the card) and runs ``n_parallel`` task
 loops in the process, under the profiler when DGREP_TRACE_DIR is set and
 with the span pipeline when the config switches it on.  A loop that fails with
 anything but CoordinatorGone makes the process exit nonzero with that
-error; the coordinator re-issues its task to a live worker.
+error; the coordinator re-issues its task to a live worker.  Every
+request names the worker (``X-Dgrep-Worker``: a token a run_http_worker
+call, by default one a process):
+a coordinator whose job ended serves on until each worker process that
+attached while it ran has polled once and been told JOB_DONE.  A worker
+that attaches to a job already done (``"done": true``) or to a stopping
+daemon (``"stopped": true``) exits at once (ROADMAP.md C9).
+
+``split_addrs``, ``client_call`` and ``client_text`` are the CLI's
+clients (``submit``, ``status``, ``explain``, ``top``).
 """
 
 from __future__ import annotations
 
 import errno
 import http.client
+import itertools
 import json
 import os
 import random
@@ -46,6 +56,7 @@ from pathlib import Path
 
 from distributed_grep_tpu_torch.runtime import rpc
 from distributed_grep_tpu_torch.utils.config import JobConfig
+from distributed_grep_tpu_torch.utils.metrics import PROC_TOKEN
 from distributed_grep_tpu_torch.utils.logging import get_logger
 
 log = get_logger("http_transport")
@@ -100,6 +111,16 @@ class CoordinatorGone(OSError):
     """The coordinator stopped answering (the retry schedule ran dry)."""
 
 
+# a worker's name in its requests (http_coordinator.WORKER_HEADER)
+_WORKER_HEADER = "X-Dgrep-Worker"
+_WORKER_TOKEN = str(int(PROC_TOKEN))
+
+
+def split_addrs(addr: str) -> list[str]:
+    """The members of a comma-separated address list."""
+    return [a.strip() for a in str(addr).split(",") if a.strip()]
+
+
 def _base_url(addr: str) -> str:
     addr = addr.strip()
     if not addr:
@@ -140,11 +161,13 @@ def _open_with_retries(build_request, timeout: float, desc: str,
 
 
 class HttpTransport:
-    def __init__(self, addr: str, rpc_timeout_s: float = 60.0):
+    def __init__(self, addr: str, rpc_timeout_s: float = 60.0,
+                 worker_token: str = _WORKER_TOKEN):
         # addr: "host:port" or "http://host:port"; rpc_timeout_s is the
         # client socket timeout (the coordinator long-polls for half of it)
         self.base = _base_url(addr)
         self.rpc_timeout_s = rpc_timeout_s
+        self.worker_token = worker_token
         self.retry_count = 0  # transient retries so far
 
     def _count_retry(self) -> None:
@@ -165,6 +188,7 @@ class HttpTransport:
                                          method=method)
             if body is not None:
                 req.add_header("Content-Type", "application/json")
+            req.add_header(_WORKER_HEADER, self.worker_token)
             return req
 
         try:
@@ -328,8 +352,10 @@ class ServiceHttpTransport(HttpTransport):
     same, the data plane is scoped to the job of the worker's assignment
     (``bind_job``, called by the worker loop)."""
 
-    def __init__(self, addr: str, rpc_timeout_s: float = 60.0):
-        super().__init__(addr, rpc_timeout_s=rpc_timeout_s)
+    def __init__(self, addr: str, rpc_timeout_s: float = 60.0,
+                 worker_token: str = _WORKER_TOKEN):
+        super().__init__(addr, rpc_timeout_s=rpc_timeout_s,
+                         worker_token=worker_token)
         self._job = ""
 
     def bind_job(self, job_id: str) -> None:
@@ -365,6 +391,22 @@ def client_call(addr: str, method: str, path: str, body: bytes | None = None,
                                          delays=iter(())))
 
 
+def client_text(addr: str, path: str, timeout: float = 30.0) -> str:
+    """client_call's sibling for a text body (``/metrics``, which ``top``
+    reads): the same retry policy, the body decoded utf-8."""
+    base = _base_url(addr)
+
+    def build():
+        return urllib.request.Request(f"{base}{path}", method="GET")
+
+    return _open_with_retries(
+        build, timeout, f"GET {addr}{path}",
+        deadline=time.monotonic() + timeout).decode("utf-8", "replace")
+
+
+_ATTACHES = itertools.count()
+
+
 def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     """The ``worker`` subcommand: fetch the job's config from the
     coordinator (a service daemon's bootstrap: each assignment then names
@@ -385,7 +427,10 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     # process's seconds before its first task go
     marks = [("entry", time.perf_counter())]
     log.info("worker for %s: fetching the job's config", addr)
-    transport = HttpTransport(addr)
+    # this attach's name: the coordinator serves on after the job's end
+    # until it has polled once
+    token = f"{_WORKER_TOKEN}-{next(_ATTACHES)}"
+    transport = HttpTransport(addr, worker_token=token)
     try:
         config = transport.fetch_config()
     except CoordinatorGone:
@@ -394,9 +439,15 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     # a service daemon answers {"service": true} at /status: its data
     # plane is scoped by job, and each assignment names its application
     try:
-        is_service = bool(transport.fetch_status().get("service"))
+        status = transport.fetch_status()
     except (OSError, RuntimeError, ValueError):
-        is_service = False  # a coordinator without /status
+        status = {}  # a coordinator without /status
+    if status.get("done") or status.get("stopped"):
+        # the job (or the daemon) is over: nothing to load, nothing to do
+        log.info("worker for %s: the %s is over, exiting", addr,
+                 "daemon" if status.get("stopped") else "job")
+        return
+    is_service = bool(status.get("service"))
     if is_service:
         log.info("attached to a service daemon at %s", addr)
     transport_cls = ServiceHttpTransport if is_service else HttpTransport
@@ -423,7 +474,8 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
 
     def run_loop(slot: int) -> None:
         loop = WorkerLoop(
-            transport_cls(addr, rpc_timeout_s=config.rpc_timeout_s), app,
+            transport_cls(addr, rpc_timeout_s=config.rpc_timeout_s,
+                          worker_token=token), app,
             reduce_memory_bytes=config.reduce_memory_bytes,
             # the coordinator's spill path may not exist here: honoured
             # only when set

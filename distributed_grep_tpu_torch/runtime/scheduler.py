@@ -996,6 +996,28 @@ class Scheduler:
         with self._lock:
             return self._done_locked()
 
+    def backlog(self) -> dict:
+        """The job's demand for the service's scale advice: the tasks that
+        could be handed out now (a reduce only once the map phase is
+        done), the tasks in flight, and the oldest in-flight heartbeat's
+        age (a growing age with idle workers is a stalled recovery)."""
+        now = time.monotonic()
+        with self._lock:
+            unassigned = sum(t.state is TaskState.UNASSIGNED
+                             for t in self.map_tasks)
+            if self._map_phase_done_locked():
+                unassigned += sum(t.state is TaskState.UNASSIGNED
+                                  for t in self.reduce_tasks)
+            in_flight = 0
+            oldest = 0.0
+            for table in (self.map_tasks, self.reduce_tasks):
+                for t in table:
+                    if t.state is TaskState.IN_PROGRESS:
+                        in_flight += 1
+                        oldest = max(oldest, now - t.timestamp)
+            return {"unassigned": unassigned, "in_flight": in_flight,
+                    "oldest_inflight_age_s": round(oldest, 3)}
+
     def wait_done(self, timeout: Optional[float] = None) -> bool:
         with self._cond:
             return self._cond.wait_for(self._done_locked, timeout=timeout)

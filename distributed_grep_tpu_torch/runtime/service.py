@@ -22,11 +22,25 @@ daemon serves a stream of jobs over persistent workers and engines:
   ``Scheduler.claim_map_task``, a literal set only with sets and a
   pattern with patterns; the worker answers all of them from one union
   scan, grep_cuda.map_fused_fn);
+* the result cache (runtime/result_cache.py, ``DGREP_RESULT_CACHE``): a
+  job's splits are looked up at submit; a full hit completes with no
+  scheduler, no worker and no kernel launch, a partial hit scans only the
+  changed splits and merges the stored ones in, byte-identical to a cold
+  job; a finished job publishes its scanned splits;
+* standing queries (a job with ``follow`` set, runtime/follow.py): no map
+  or reduce task; a FollowRunner scans the inputs' appended lines on the
+  daemon, on the job's device, alone or in a fused group, until the job
+  is cancelled; ``GET /jobs/<id>/stream`` pages its records;
+* the elastic pool: ``scale_advice`` (grow, shrink or hold, from the
+  queued jobs, the assignable tasks and the fresh workers) and
+  ``scale_local_pool``, which ``serve --max-workers`` follows;
 * ``ServiceServer``, the HTTP surface: ``POST /jobs`` (429 on
-  admission), ``GET /jobs/<id>``, ``GET /jobs/<id>/result``, ``POST
-  /jobs/<id>/cancel``, ``GET /status`` (queue, running jobs, the worker
-  table with the engine-cache counters each worker ships, the fusion and
-  index views), ``GET /metrics``, ``GET /config``, and the planes the
+  admission), ``GET /jobs/<id>``, ``GET /jobs/<id>/result``, ``GET
+  /jobs/<id>/explain`` (runtime/explain.py), ``GET
+  /jobs/<id>/stream?cursor=N``, ``POST /jobs/<id>/cancel``, ``GET
+  /status`` (queue, running jobs, the worker table with the engine-cache
+  counters each worker ships, the fusion, index, result-cache, follow and
+  scale views), ``GET /metrics``, ``GET /config``, and the planes the
   workers drive (``/rpc/<verb>``, ``/data/<job>/<kind>/<name>``);
 * ``ServiceLocalTransport``, in-process workers of the daemon (``serve
   --workers N``); worker processes attach with ``worker --addr``
@@ -46,14 +60,14 @@ into /status).
 
 On the card, and nowhere else: a job whose application uses the card
 (``uses_device``, runtime/job.job_device) is checked against its device
-when it starts; one that asks for CUDA where there is none ends
-``failed`` naming the device, and never runs on the host.  A task that
-raises in an in-process worker fails its job with that error (ROADMAP.md
-D5, applied per job), and the worker goes on serving the other jobs.
+when it starts, a standing query too; one that asks for CUDA where there
+is none ends ``failed`` naming the device, and never runs on the host.  A
+task that raises in an in-process worker fails its job with that error
+(ROADMAP.md D5, applied per job), and the worker goes on serving the
+other jobs; an error of a standing query's scan fails its job (D9).
 
-Not here (ROADMAP.md queue B): the result cache, ``explain``, the
-standing queries, the elastic pool and ``top`` (item 5b), the lease and
-the standby surface, and the peer shuffle (item 6).
+Not here (ROADMAP.md queue B item 6): the lease and the standby surface,
+and the peer shuffle.
 """
 
 from __future__ import annotations
@@ -71,9 +85,12 @@ from dataclasses import replace as _dc_replace
 from http.server import ThreadingHTTPServer
 from pathlib import Path
 
+from distributed_grep_tpu_torch.runtime import daemon_log as daemon_log_mod
 from distributed_grep_tpu_torch.runtime import fusion as fusion_mod
+from distributed_grep_tpu_torch.runtime import result_cache as result_cache_mod
 from distributed_grep_tpu_torch.runtime import rpc
 from distributed_grep_tpu_torch.runtime.http_coordinator import (
+    AttachTracker,
     DataPlaneHandler,
     long_poll_window_s,
 )
@@ -98,6 +115,10 @@ DEFAULT_QUEUE_DEPTH = 64
 # worker refreshes its row every long-poll).
 _MAX_TERMINAL_RECORDS = 256
 _WORKER_EXPIRE_S = 3600.0
+# A worker row counts as capacity for the scale advice only this long
+# after its last poll (a drained or dead worker stops polling at once; a
+# live one polls every long-poll window)
+_SCALE_FRESH_S = 90.0
 _SPAN_SEQ_WINDOW = 4096
 
 # How long an idle service-level AssignTask waits between sweeps of the
@@ -351,12 +372,30 @@ class JobRecord:
     # when its scheduler is built
     index_shards_pruned: int = 0
     index_bytes_skipped: int = 0
+    # the result cache's plan at submit (runtime/result_cache.ResultPlan):
+    # with one, map_splits holds only the splits to scan (the full list
+    # is result_plan.splits); a full hit completes with no scheduler.
+    # Its tallies are seeded into the job's counters as the index's are.
+    result_plan: object = None
+    result_splits_reused: int = 0
+    result_bytes_unscanned: int = 0
+    result_revalidations: int = 0
+    # a full hit's counters (it has no scheduler to hold them)
+    hit_counters: dict = field(default_factory=dict)
+    # a standing query's runner (runtime/follow.FollowRunner): such a job
+    # has no scheduler and holds its running slot until cancelled
+    follow: object = None
+    # a standing query resumed at a restart keeps its work dir (its
+    # cursors) instead of clearing it
+    resume_follow: bool = False
 
     def metrics(self) -> dict:
         """The job's counters, seconds and kernel launches (its
-        scheduler's); empty counters for a job that never started."""
+        scheduler's; a full hit's counters); empty for a job that never
+        started."""
         if self.scheduler is None:
-            return {"counters": {}, "seconds": {}, "launches": {}}
+            return {"counters": dict(self.hit_counters), "seconds": {},
+                    "launches": {}}
         return self.scheduler.metrics_snapshot()
 
 
@@ -450,6 +489,28 @@ class GrepService:
                              "index_bytes_skipped": 0,
                              "index_maybe_scans": 0}
 
+        # the result cache (GET /status "result_cache"): jobs answered
+        # whole, partial hits, splits and bytes served with no scan, and
+        # publications dropped because a split changed while its job ran.
+        # DGREP_RESULT_CACHE=0 (or a zero budget) leaves the store None:
+        # no results/ dir, no /status key, no instants.
+        self._result_lock = lockdep.make_lock("result-stats")
+        self._result_stats = {"result_hits": 0, "result_partial_hits": 0,
+                              "result_splits_reused": 0,
+                              "result_bytes_unscanned": 0,
+                              "result_revalidations": 0}
+        self._result_store = (
+            result_cache_mod.ResultStore(self.work_root / "results")
+            if result_cache_mod.env_result_cache()
+            and result_cache_mod.env_result_bytes() > 0 else None)
+
+        # the fused follow tier's registry, built by the first standing
+        # query's start (under the start-flush lock) unless
+        # DGREP_FOLLOW_FUSE=0
+        self._follow_groups = None
+        # the last scale advice (a daemon event marks each change)
+        self._last_scale_advice: str | None = None
+
         # the durable registry: state changes decided under the lock are
         # staged and written (fsync) after it; a job is registered before
         # its id reaches the client
@@ -501,6 +562,21 @@ class GrepService:
                 rec.outputs = list(info.get("outputs") or [])
                 self._jobs[jid] = rec
                 continue
+            if cfg.follow:
+                # a standing query: no planning, and a missing input is
+                # allowed (its cursor waits for it).  A running one starts
+                # again through the start flush with its work dir kept: the
+                # runner restores every cursor from follow.jsonl
+                self._jobs[jid] = rec
+                if state == JobState.RUNNING:
+                    rec.started_at = time.time()
+                    rec.resume_follow = True
+                    self._running.append(jid)
+                    self._pending_starts.append(rec)
+                else:
+                    rec.state = JobState.QUEUED
+                    self._queue.append(jid)
+                continue
             # submit's readability check again: a map task over an input
             # deleted meanwhile would be re-issued forever
             missing = [f for f in cfg.input_files if not os.access(f, os.R_OK)]
@@ -516,7 +592,14 @@ class GrepService:
             self._plan(rec)
             self._jobs[jid] = rec
             if state == JobState.RUNNING:
-                self._resume_running_job(rec)
+                if rec.result_plan is not None and rec.result_plan.full:
+                    # every split answers from the store that survived the
+                    # restart: done through the start flush, no scheduler
+                    rec.started_at = time.time()
+                    self._running.append(jid)
+                    self._pending_starts.append(rec)
+                else:
+                    self._resume_running_job(rec)
             else:
                 rec.state = JobState.QUEUED
                 self._queue.append(jid)
@@ -641,19 +724,28 @@ class GrepService:
             self._daemon_event("admission_reject", reason=str(e))
             self._flush_daemon_log()
             raise
-        missing = [f for f in config.input_files if not os.access(f, os.R_OK)]
-        if missing:
-            raise ValueError(f"unreadable input files: {missing}")
-        # the shard index: the daemon's store goes to the grep app before
-        # planning, so the registry, the fusion key and the workers all see
-        # one option set (DGREP_INDEX=0 injects nothing)
-        idx_dir = self._index_app_dir(config)
-        if idx_dir is not None:
-            config = _dc_replace(
-                config, app_options={**config.app_options,
-                                     "index_dir": idx_dir})
-        rec = JobRecord(job_id="", config=config)
-        self._plan(rec)
+        if config.follow:
+            # a standing query: no map or reduce planning, no fusion of
+            # splits, no index (the runner scans the appended lines
+            # itself); its inputs may not exist yet (the cursor waits)
+            self._validate_follow_config(config)
+            rec = JobRecord(job_id="", config=config)
+        else:
+            missing = [f for f in config.input_files
+                       if not os.access(f, os.R_OK)]
+            if missing:
+                raise ValueError(f"unreadable input files: {missing}")
+            # the shard index: the daemon's store goes to the grep app
+            # before planning, so the registry, the fusion key and the
+            # workers all see one option set (DGREP_INDEX=0 injects
+            # nothing)
+            idx_dir = self._index_app_dir(config)
+            if idx_dir is not None:
+                config = _dc_replace(
+                    config, app_options={**config.app_options,
+                                         "index_dir": idx_dir})
+            rec = JobRecord(job_id="", config=config)
+            self._plan(rec)
         with self._cond:
             self._check_admission_locked_or_raise(locked=True)
             job_id = f"job-{next(self._ids)}"
@@ -710,10 +802,13 @@ class GrepService:
         return job_id
 
     def _plan(self, rec: JobRecord) -> None:
-        """A job's map splits (index-pruned), its planning tallies and its
-        fusion plan; stat and summary reads, outside the service lock.  The
-        plan is deterministic for unchanged inputs and summaries, so a
-        resumed job re-plans the splits its journal names."""
+        """A job's map splits (index-pruned), its planning tallies, its
+        result-cache plan and its fusion plan; stat, summary and store
+        reads, outside the service lock.  The plan is deterministic for
+        unchanged inputs, summaries and stored results, so a resumed job
+        re-plans the splits its journal names.  A result-cache hit leaves
+        only the splits to scan before fusion is planned, so the fusion
+        index's task ids are the scheduler's."""
         from distributed_grep_tpu_torch.runtime.job import plan_map_splits
 
         cfg = rec.config
@@ -722,8 +817,29 @@ class GrepService:
                                          cfg.effective_batch_bytes(),
                                          pruner=pruner)
         self._stamp_index_plan(rec, pruner)
+        rec.result_plan = self._result_plan(cfg, rec.map_splits)
+        if rec.result_plan is not None:
+            rec.map_splits = rec.result_plan.remaining
+        self._stamp_result_plan(rec)
         (rec.fusion_key, rec.split_identities,
          rec.fuse_index) = self._fusion_plan(cfg, rec.map_splits)
+
+    @staticmethod
+    def _validate_follow_config(config: JobConfig) -> None:
+        """Refuse at submit a standing query the follow scanner cannot
+        serve (one that could never emit would hold a running slot)."""
+        opts = config.effective_app_options()
+        if opts.get("pattern") is None and not opts.get("patterns"):
+            raise ValueError("follow jobs need a pattern (or patterns) "
+                             "app option")
+        if not config.input_files:
+            raise ValueError("follow jobs need at least one input file")
+        unsupported = [k for k in ("word_regexp", "line_regexp",
+                                   "max_errors", "mesh_shape")
+                       if opts.get(k)]
+        if unsupported:
+            raise ValueError(
+                f"app options unsupported with follow: {unsupported}")
 
     def _check_admission_locked_or_raise(self, locked: bool = False) -> None:
         if not locked:
@@ -808,6 +924,11 @@ class GrepService:
             # engine's (the /jobs/<id> view and submit's line read them)
             scheduler.counters["index_shards_pruned"] += rec.index_shards_pruned
             scheduler.counters["index_bytes_skipped"] += rec.index_bytes_skipped
+        if rec.result_splits_reused:
+            scheduler.counters["result_splits_reused"] += (
+                rec.result_splits_reused)
+            scheduler.counters["result_bytes_unscanned"] += (
+                rec.result_bytes_unscanned)
         return scheduler
 
     def _build_job_runtime(self, rec: JobRecord) -> tuple:
@@ -824,6 +945,17 @@ class GrepService:
             workdir.root / spans_mod.EventLog.FILENAME, fresh=True)
             if spans_mod.enabled(cfg.spans) or self.spans else None)
         rec.input_allowlist = frozenset(cfg.input_files)
+        if rec.result_plan is not None and event_log is not None:
+            # a job with a plan that reaches here is a partial hit (a full
+            # one completes in _flush_starts) or a miss: explain reads it
+            plan = rec.result_plan
+            event_log.write({
+                "t": "instant",
+                "name": "result:partial" if plan.cached else "result:miss",
+                "cat": "service", "ts": time.time(), "job": rec.job_id,
+                "args": {"splits_reused": plan.splits_reused,
+                         "splits_scanned": len(plan.remaining),
+                         "bytes_unscanned": plan.bytes_unscanned}})
         scheduler = self._scheduler(rec, journal, event_log, workdir)
         return workdir, journal, event_log, scheduler
 
@@ -861,6 +993,25 @@ class GrepService:
                     if not self._pending_starts:
                         return
                     rec = self._pending_starts.pop(0)
+                if rec.config.follow:
+                    self._flush_follow_start(rec)
+                    continue
+                if rec.result_plan is not None and rec.result_plan.full:
+                    # every split answers from the store: the job completes
+                    # here with no scheduler, no worker and no launch.  A
+                    # hit that cannot materialize scans every split on the
+                    # workers instead (never the stored blobs on top of a
+                    # rescan: that would repeat records)
+                    if self._flush_result_hit(rec):
+                        continue
+                    rec.map_splits = rec.result_plan.splits
+                    rec.result_splits_reused = 0
+                    rec.result_bytes_unscanned = 0
+                    rec.result_plan = None
+                    # the fusion plan was made for the empty remainder
+                    rec.fusion_key = None
+                    rec.split_identities = []
+                    rec.fuse_index = {}
                 try:
                     parts = self._build_job_runtime(rec)
                 except Exception as e:  # noqa: BLE001 -- recorded as FAILED
@@ -892,6 +1043,60 @@ class GrepService:
                          len(scheduler.map_tasks), rec.config.n_reduce,
                          len(self._running), len(self._queue))
 
+    def _flush_follow_start(self, rec: JobRecord) -> None:
+        """The start of a standing query (no service lock held; under the
+        start-flush lock, so the group registry's lazy build cannot race):
+        the device check, the work dir (kept on a resume: it holds the
+        cursors), the event log and the FollowRunner, published under the
+        lock, then its wake loop started.  A start that fails records
+        FAILED with its error."""
+        from distributed_grep_tpu_torch.runtime import follow as follow_mod
+
+        if self._follow_groups is None and follow_mod.env_follow_fuse():
+            self._follow_groups = follow_mod.FollowGroupRegistry()
+        cfg = rec.config
+        event_log = None
+        try:
+            self._check_device(cfg)
+            workdir = WorkDir(cfg.work_dir,
+                              store=make_store(cfg.store, durable=cfg.durable))
+            if not rec.resume_follow:
+                workdir.clear()
+            if spans_mod.enabled(cfg.spans) or self.spans:
+                event_log = spans_mod.EventLog(
+                    workdir.root / spans_mod.EventLog.FILENAME,
+                    fresh=not rec.resume_follow)
+            # an error of the query's scan fails the job (ROADMAP.md D9)
+            runner = follow_mod.FollowRunner(
+                rec.job_id, cfg, workdir.root, event_log=event_log,
+                on_fail=self.fail_job, groups=self._follow_groups)
+        except Exception as e:  # noqa: BLE001 -- recorded as FAILED
+            log.error("follow job %s failed to start: %s", rec.job_id, e)
+            if event_log is not None:
+                event_log.close()
+            with self._cond:
+                self._fail_start_locked(rec, str(e))
+            return
+        published = False
+        with self._cond:
+            if rec.state is JobState.RUNNING:
+                rec.workdir = workdir
+                rec.event_log = event_log
+                rec.follow = runner
+                published = True
+                self._cond.notify_all()
+        if not published:
+            runner.close()
+            if event_log is not None:
+                event_log.close()
+            return
+        # standing: no completion watcher; the job runs until a cancel, a
+        # stop or an error of its scan
+        runner.start()
+        log.info("follow job %s standing over %d inputs (poll %.3g s%s)",
+                 rec.job_id, len(cfg.input_files), runner.poll_s,
+                 ", resumed" if runner.resumed else "")
+
     def _watch_job(self, rec: JobRecord) -> None:
         """Finalize a running job when its scheduler is done; return when it
         left RUNNING another way (a cancel, a failure)."""
@@ -908,19 +1113,36 @@ class GrepService:
         # lock (the store reads commit records)
         t_fin = time.perf_counter()
         outputs = [str(p) for p in rec.workdir.list_outputs()]
+        cache_error = ""
+        if rec.result_plan is not None:
+            # publish the scanned splits' results (only now, with every
+            # reduce committed: a failed job publishes nothing), then write
+            # the stored splits' blobs beside the scanned outputs
+            self._publish_results(rec, outputs)
+            try:
+                outputs = outputs + self._materialize_cached(rec)
+            except OSError as e:
+                # an incomplete result must not end DONE
+                cache_error = f"result-cache materialization failed: {e}"
         _H_FINALIZE.observe(time.perf_counter() - t_fin)
         with self._cond:
             if rec.state is not JobState.RUNNING:
                 return
-            rec.state = JobState.DONE
             rec.finished_at = time.time()
-            rec.outputs = outputs
-            _C_DONE.inc()
-            if rec.submitted_at:
-                _H_JOB_E2E.observe(rec.finished_at - rec.submitted_at)
-            if rec.started_at:
-                _H_JOB_RUN.observe(rec.finished_at - rec.started_at)
-            self._stage_state(rec, outputs=outputs)
+            if cache_error:
+                rec.state = JobState.FAILED
+                rec.error = cache_error
+                _C_FAILED.inc()
+                self._stage_state(rec)
+            else:
+                rec.state = JobState.DONE
+                rec.outputs = outputs
+                _C_DONE.inc()
+                if rec.submitted_at:
+                    _H_JOB_E2E.observe(rec.finished_at - rec.submitted_at)
+                if rec.started_at:
+                    _H_JOB_RUN.observe(rec.finished_at - rec.started_at)
+                self._stage_state(rec, outputs=outputs)
             self._close_job_locked(rec)
             self._maybe_start_locked()
             self._cond.notify_all()
@@ -931,7 +1153,9 @@ class GrepService:
 
     def fail_job(self, job_id: str, error: str) -> None:
         """End a running job FAILED with ``error`` (a task of it raised in
-        an in-process worker: D5, per job); the other jobs go on."""
+        an in-process worker: D5, per job; or a standing query's scan
+        failed: D9, the runner's on_fail, called with no follow lock
+        held); the other jobs go on."""
         rec = self._jobs.get(job_id)
         if rec is None:
             return
@@ -958,12 +1182,16 @@ class GrepService:
         self._flush_daemon_log()
 
     def _close_job_locked(self, rec: JobRecord) -> None:
-        # stop() is state and a notify; the file closes are staged
+        # stop() and request_stop() are state and a notify; the file
+        # closes (and a runner's join) are staged
         if rec.scheduler is not None:
             rec.scheduler.stop()
-        if rec.journal is not None or rec.event_log is not None:
+        if rec.follow is not None:
+            rec.follow.request_stop()
+        if (rec.journal is not None or rec.event_log is not None
+                or rec.follow is not None):
             self._pending_closes.append(
-                (rec.scheduler, rec.journal, rec.event_log))
+                (rec.scheduler, rec.journal, rec.event_log, rec.follow))
         if rec.job_id in self._running:
             self._running.remove(rec.job_id)
         self._prune_terminal_locked()
@@ -976,8 +1204,12 @@ class GrepService:
             if not self._pending_closes:
                 return
             pending, self._pending_closes = self._pending_closes, []
-        for scheduler, journal, event_log in pending:
+        for scheduler, journal, event_log, follow in pending:
             try:
+                if follow is not None:
+                    # stops the wake loop, wakes the stream's readers,
+                    # closes the wake log
+                    follow.close()
                 if scheduler is not None and journal is not None:
                     scheduler.close_journal()
                 elif journal is not None:
@@ -1049,6 +1281,11 @@ class GrepService:
         with self._cond:
             self._cond.notify_all()
 
+    def stopped(self) -> bool:
+        """stop() ran: every poll answers JOB_DONE."""
+        with self._lock:
+            return self._stopped
+
     def count_shuffle_bytes(self, direction: str, n_bytes: int) -> None:
         """One relay shuffle transfer through the daemon's data plane
         (``relay_puts`` or ``relay_gets``)."""
@@ -1081,21 +1318,25 @@ class GrepService:
                 info["metrics"] = metrics
 
     # --------------------------------------------------- control plane
-    def assign_task(self, args: rpc.AssignTaskArgs,
-                    timeout: float = 30.0) -> rpc.AssignTaskReply:
+    def assign_task(self, args: rpc.AssignTaskArgs, timeout: float = 30.0,
+                    abandon: threading.Event | None = None
+                    ) -> rpc.AssignTaskReply:
         """The service-level long poll: sweep the running jobs' schedulers
         round-robin (fair across tenants) with non-blocking polls, and wait
         on the service's condition between sweeps.  A reply names its job
         and application; JOB_DONE only when the daemon stops (an idle
-        daemon keeps its workers in retry polls)."""
+        daemon keeps its workers in retry polls).  An in-process loop
+        passes its ``drain`` as ``abandon``: once set, the poll answers a
+        retry at the next sweep, so a drained loop ends at once."""
         t0 = time.monotonic()
         try:
-            return self._assign_task_inner(args, timeout)
+            return self._assign_task_inner(args, timeout, abandon)
         finally:
             _H_SVC_ASSIGN_POLL.observe(time.monotonic() - t0)
 
-    def _assign_task_inner(self, args: rpc.AssignTaskArgs,
-                           timeout: float) -> rpc.AssignTaskReply:
+    def _assign_task_inner(self, args: rpc.AssignTaskArgs, timeout: float,
+                           abandon: threading.Event | None = None
+                           ) -> rpc.AssignTaskReply:
         deadline = time.monotonic() + timeout
         with self._lock:
             worker_id = args.worker_id
@@ -1165,7 +1406,8 @@ class GrepService:
                             task=f"{reply.assignment}:{reply.task_id}")
                         return reply
                 remaining = deadline - time.monotonic()
-                if remaining <= 0:
+                if remaining <= 0 or (abandon is not None
+                                      and abandon.is_set()):
                     self._worker_seen(worker_id)
                     return rpc.AssignTaskReply(assignment="retry",
                                                task_id=-2,
@@ -1310,6 +1552,179 @@ class GrepService:
             self._cache_rates.window.add("index_bytes_skipped",
                                          float(pruner.bytes_skipped))
 
+    # -------------------------------------------------- result cache
+    def _result_plan(self, config: JobConfig, splits: list):
+        """The job's ResultPlan, or None: the tier off, a job whose results
+        are never cached, or a lookup that failed (a broken store costs a
+        scan, never a submit).  Stat and store reads: no lock held."""
+        if self._result_store is None or not splits:
+            return None
+        try:
+            key = result_cache_mod.result_key(config)
+            if key is None:
+                return None
+            return result_cache_mod.plan_lookup(self._result_store, key,
+                                                splits)
+        except Exception:  # noqa: BLE001 -- logged; the job scans
+            log.exception("result-cache lookup failed; planning uncached")
+            return None
+
+    def _stamp_result_plan(self, rec: JobRecord) -> None:
+        """A partial hit's tallies into the record (seeded into its
+        counters at start), /status and /metrics.  A full hit stamps in
+        _flush_result_hit once its blobs are written: one that cannot be
+        written scans instead and must not be counted."""
+        plan = rec.result_plan
+        if plan is None or not plan.cached or plan.full:
+            return
+        self._stamp_result_counters(rec, plan)
+
+    def _stamp_result_counters(self, rec: JobRecord, plan) -> None:
+        rec.result_splits_reused += plan.splits_reused
+        rec.result_bytes_unscanned += plan.bytes_unscanned
+        full = plan.full
+        with self._result_lock:
+            self._result_stats["result_hits" if full
+                               else "result_partial_hits"] += 1
+            self._result_stats["result_splits_reused"] += plan.splits_reused
+            self._result_stats["result_bytes_unscanned"] += (
+                plan.bytes_unscanned)
+        if full:
+            metrics_mod.counter("dgrep_result_hits_total").inc()
+        else:
+            metrics_mod.counter("dgrep_result_partial_hits_total").inc()
+        metrics_mod.counter("dgrep_result_splits_reused_total").inc(
+            plan.splits_reused)
+        metrics_mod.counter("dgrep_result_bytes_unscanned_total").inc(
+            plan.bytes_unscanned)
+
+    @staticmethod
+    def _materialize_cached(rec: JobRecord) -> list[str]:
+        """Write the plan's stored blobs under the job's work dir
+        (``out-cached/result-<i>``, not mr-*, which readers resolve
+        through the store) and return their paths.  Each blob is sorted by
+        (file, line), so the merge over the scanned and stored outputs is
+        a full scan's bytes.  Raises OSError."""
+        plan = rec.result_plan
+        if not plan.cached:
+            return []
+        out_dir = rec.workdir.root / "out-cached"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        paths = []
+        for i, blob in plan.cached:
+            p = out_dir / f"result-{i}"
+            with open(p, "wb") as f:
+                f.write(blob)
+            paths.append(str(p))
+        return paths
+
+    def _flush_result_hit(self, rec: JobRecord) -> bool:
+        """Complete a full hit (start-flush context, no service lock): a
+        fresh work dir, the stored blobs written as the job's outputs, DONE
+        published under the lock with _finalize's accounting; no scheduler,
+        no watcher, no worker.  False on any failure: the caller scans the
+        job instead."""
+        cfg = rec.config
+        try:
+            workdir = WorkDir(cfg.work_dir,
+                              store=make_store(cfg.store, durable=cfg.durable))
+            workdir.clear()
+            rec.workdir = workdir  # _materialize_cached writes under it
+            outputs = self._materialize_cached(rec)
+            if spans_mod.enabled(cfg.spans) or self.spans:
+                # one instant: explain's verdict for a job no worker saw
+                event_log = spans_mod.EventLog(
+                    workdir.root / spans_mod.EventLog.FILENAME, fresh=True)
+                try:
+                    event_log.write({
+                        "t": "instant", "name": "result:hit",
+                        "cat": "service", "ts": time.time(),
+                        "job": rec.job_id,
+                        "args": {
+                            "splits_reused": rec.result_plan.splits_reused,
+                            "bytes_unscanned":
+                                rec.result_plan.bytes_unscanned}})
+                finally:
+                    event_log.close()
+        except Exception:  # noqa: BLE001 -- the job scans instead
+            log.exception("job %s result-cache hit failed; scanning",
+                          rec.job_id)
+            rec.workdir = None
+            return False
+        self._stamp_result_counters(rec, rec.result_plan)
+        counters = {"result_splits_reused": rec.result_splits_reused,
+                    "result_bytes_unscanned": rec.result_bytes_unscanned}
+        if rec.index_shards_pruned:
+            counters["index_shards_pruned"] = rec.index_shards_pruned
+            counters["index_bytes_skipped"] = rec.index_bytes_skipped
+        with self._cond:
+            if rec.state is not JobState.RUNNING:
+                return True  # a cancel or stop won: its state stands
+            rec.hit_counters = counters
+            rec.input_allowlist = frozenset(cfg.input_files)
+            rec.state = JobState.DONE
+            rec.finished_at = time.time()
+            rec.outputs = outputs
+            _C_DONE.inc()
+            if rec.submitted_at:
+                _H_JOB_E2E.observe(rec.finished_at - rec.submitted_at)
+            if rec.started_at:
+                _H_JOB_RUN.observe(rec.finished_at - rec.started_at)
+            self._stage_state(rec, outputs=outputs)
+            self._close_job_locked(rec)
+            self._maybe_start_locked()
+            self._cond.notify_all()
+        # the staged registry records are written by every caller of
+        # _flush_starts after it returns
+        log.info("job %s done from the result cache (%d splits, %d bytes "
+                 "unscanned)", rec.job_id, rec.result_plan.splits_reused,
+                 rec.result_plan.bytes_unscanned)
+        return True
+
+    def _publish_results(self, rec: JobRecord,
+                         fresh_outputs: list[str]) -> None:
+        """Publish the scanned splits' results at the job's end.  Each
+        split's identity from submit is checked again with a fresh stat: a
+        split that changed while the job ran is not stored (its entry
+        would be stale at once).  A job whose records cannot all be
+        attributed publishes nothing.  Never raises."""
+        plan = rec.result_plan
+        if self._result_store is None or plan is None or not plan.remaining:
+            return
+        try:
+            buckets = result_cache_mod.bucket_records(fresh_outputs,
+                                                      plan.remaining)
+            if buckets is None:
+                return
+            revalidated = 0
+            for split, ident, blob in zip(plan.remaining,
+                                          plan.remaining_identities, buckets):
+                if ident is None:
+                    continue
+                if fusion_mod.split_identity(split) != ident:
+                    revalidated += 1
+                    if rec.event_log is not None:
+                        members = (split if isinstance(split, (list, tuple))
+                                   else [split])
+                        rec.event_log.write({
+                            "t": "instant", "name": "result:revalidate",
+                            "cat": "service", "ts": time.time(),
+                            "job": rec.job_id,
+                            "args": {"split": [str(m) for m in members]}})
+                    continue
+                self._result_store.save(
+                    result_cache_mod.ResultKey(plan.query_key, split, ident),
+                    blob)
+            if revalidated:
+                rec.result_revalidations += revalidated
+                if rec.scheduler is not None:
+                    rec.scheduler.counters["result_revalidations"] += (
+                        revalidated)
+                with self._result_lock:
+                    self._result_stats["result_revalidations"] += revalidated
+        except Exception:  # noqa: BLE001 -- best effort, see the docstring
+            log.exception("job %s result publication failed", rec.job_id)
+
     # -------------------------------------------------- task RPCs
     def _route_spans(self, args) -> None:
         """Persist a shipped span batch: dedup by (worker, seq) first, then
@@ -1387,9 +1802,74 @@ class GrepService:
         if rec.scheduler is not None:
             out.update(rec.scheduler.status_counts())
             out["metrics"] = rec.metrics()
+        elif rec.hit_counters:
+            # a full hit has no scheduler: its counters still reach the
+            # submit client
+            out["metrics"] = rec.metrics()
+        if rec.follow is not None:
+            out["follow"] = rec.follow.status()
         if rec.state is JobState.DONE:
             out["outputs"] = rec.outputs
         return out
+
+    def job_stream(self, job_id: str, cursor: int = 0,
+                   timeout: float = 25.0) -> dict:
+        """One page of a standing query's records (GET
+        /jobs/<id>/stream?cursor=N), a long poll: the records numbered past
+        ``cursor`` (each with its ``seq``; pass the reply's ``next`` back),
+        and ``dropped`` when the reader fell behind the ring.  RuntimeError
+        for a job that is not a standing query (HTTP 409).  A terminal one
+        drains its ring, then answers empty pages with its state."""
+        rec = self.record(job_id)
+        runner = rec.follow
+        if runner is None:
+            if rec.config.follow:
+                # queued, or its start in flight: an empty page with the
+                # state, paced (there is no ring to wait on yet)
+                if timeout > 0:
+                    time.sleep(min(timeout, 0.5))
+                return {"job_id": job_id, "state": rec.state, "records": [],
+                        "next": max(0, int(cursor))}
+            raise RuntimeError(f"job {job_id} is not a follow job")
+        if rec.state is not JobState.RUNNING:
+            timeout = 0.0  # terminal: drain, never park the reader
+        records, nxt, dropped = runner.ring.read_since(
+            cursor, timeout=max(0.0, min(timeout, 60.0)))
+        out: dict = {"job_id": job_id, "state": rec.state,
+                     "records": records, "next": nxt}
+        if dropped:
+            out["dropped"] = dropped
+            self._daemon_event("stream_shed", job=job_id, dropped=dropped)
+            self._flush_daemon_log()
+        return out
+
+    def job_explain(self, job_id: str) -> dict:
+        """One job's routing report (runtime/explain.assemble over its
+        events.jsonl, its record's planning tallies and, with the daemon
+        log on, the fleet timeline); the files are read with no lock."""
+        from distributed_grep_tpu_torch.runtime import explain as explain_mod
+
+        rec = self.record(job_id)
+        events: list = []
+        if rec.workdir is not None:
+            path = rec.workdir.root / spans_mod.EventLog.FILENAME
+            if path.exists():
+                events = spans_mod.EventLog.read(path)
+        daemon_events = None
+        if self._daemon_log is not None:
+            self._flush_daemon_log()
+            daemon_events = daemon_log_mod.DaemonLog.read(self.work_root)
+        return explain_mod.assemble(
+            job_id=rec.job_id, config=rec.config, state=rec.state,
+            submitted_at=rec.submitted_at, started_at=rec.started_at,
+            finished_at=rec.finished_at,
+            metrics_counters=rec.metrics()["counters"], events=events,
+            index_shards_pruned=rec.index_shards_pruned,
+            index_bytes_skipped=rec.index_bytes_skipped,
+            result_splits_reused=rec.result_splits_reused,
+            result_bytes_unscanned=rec.result_bytes_unscanned,
+            result_revalidations=rec.result_revalidations,
+            daemon_events=daemon_events)
 
     def job_result(self, job_id: str) -> dict:
         """A DONE job's committed outputs and final metrics; RuntimeError
@@ -1423,12 +1903,26 @@ class GrepService:
         with self._index_lock:
             index_stats = (dict(self._index_stats)
                            if any(self._index_stats.values()) else {})
+        with self._result_lock:
+            result_stats = (dict(self._result_stats)
+                            if any(self._result_stats.values()) else {})
+        if self._result_store is not None:
+            # the store's evictions, shown on their own once nonzero
+            if self._result_store.stale_evictions:
+                result_stats["result_stale_evictions"] = (
+                    self._result_store.stale_evictions)
+            if self._result_store.lru_evictions:
+                result_stats["result_lru_evictions"] = (
+                    self._result_store.lru_evictions)
         with self._lock:
             jobs = {jid: {"state": rec.state}
                     for jid, rec in self._jobs.items()}
             queued = len(self._queue)
             running = list(self._running)
             recs = list(self._jobs.values())
+            standing = [rec.job_id for rec in recs
+                        if rec.state is JobState.RUNNING
+                        and rec.follow is not None]
             workers = {}
             for wid, info in sorted(self.workers.items()):
                 age = round(now - info["seen"], 3)
@@ -1455,6 +1949,25 @@ class GrepService:
                 jobs[rec.job_id]["map_total"] = c["total"]
         if maps_lost:
             shuffle_stats["maps_lost_output"] = int(maps_lost)
+        # the scale advice, once the daemon is not idle (it reads the
+        # running schedulers' own locks: no service lock held)
+        scale = self.scale_advice() if (queued or running or workers) else {}
+        # the standing queries (the follow module is looked up, never
+        # imported, by a daemon that has run none)
+        fol = sys.modules.get("distributed_grep_tpu_torch.runtime.follow")
+        follow_view: dict = {}
+        if standing or (fol is not None and fol.follow_counters()):
+            follow_view = {"standing": len(standing)}
+            if standing:
+                follow_view["jobs"] = standing
+            if fol is not None:
+                follow_view.update(fol.follow_counters())
+        if fol is not None and follow_view:
+            follow_view.update(fol.follow_fused_counters())
+            if self._follow_groups is not None:
+                group_rows = self._follow_groups.status_rows()
+                if group_rows:
+                    follow_view["groups"] = group_rows
         latency: dict = {}
         for key, hist in (("queue_wait_s", _H_QUEUE_WAIT),
                           ("job_e2e_s", _H_JOB_E2E)):
@@ -1481,7 +1994,10 @@ class GrepService:
             "corpus_cache": lay.corpus_cache_counters() if lay else {},
             **({"fusion": fusion_stats} if fusion_stats else {}),
             **({"index": index_stats} if index_stats else {}),
+            **({"result_cache": result_stats} if result_stats else {}),
+            **({"follow": follow_view} if follow_view else {}),
             **({"shuffle": shuffle_stats} if shuffle_stats else {}),
+            **({"scale": scale} if scale else {}),
             **({"latency": latency} if latency else {}),
         }
 
@@ -1493,9 +2009,24 @@ class GrepService:
             queued = len(self._queue)
             running = len(self._running)
             workers = len(self.workers)
+            standing = sum(1 for rec in self._jobs.values()
+                           if rec.state is JobState.RUNNING
+                           and rec.follow is not None)
         metrics_mod.gauge("dgrep_queue_depth").set(queued)
         metrics_mod.gauge("dgrep_jobs_running").set(running)
         metrics_mod.gauge("dgrep_workers_attached").set(workers)
+        # the standing queries' gauges, set only once the tier ran (an
+        # untouched instrument is not rendered)
+        fol = sys.modules.get("distributed_grep_tpu_torch.runtime.follow")
+        fc = fol.follow_counters() if fol is not None else {}
+        if standing or fc:
+            metrics_mod.gauge("dgrep_follow_standing").set(standing)
+            metrics_mod.gauge("dgrep_follow_wakes").set(
+                fc.get("follow_wakes", 0))
+            metrics_mod.gauge("dgrep_follow_suffix_bytes").set(
+                fc.get("suffix_bytes_scanned", 0))
+            metrics_mod.gauge("dgrep_stream_dropped_records").set(
+                fc.get("stream_dropped_records", 0))
         counters: dict = {}
         for mod_name, fn in (
                 ("distributed_grep_tpu_torch.ops.engine",
@@ -1559,6 +2090,108 @@ class GrepService:
             w.get("corpus_cache_misses", 0.0)))
         return metrics_mod.render_prometheus()
 
+    # --------------------------------------------------- elastic pool
+    def scale_advice(self) -> dict:
+        """The pool's advice: "grow" when assignable demand exceeds the
+        idle fresh workers, "shrink" when the daemon is idle with workers
+        attached, else "hold", with the inputs it came from.  ``serve
+        --max-workers`` follows it for the local pool; a remote fleet's
+        operator reads it in GET /status.  A change of verdict is a
+        daemon event."""
+        with self._lock:
+            queued = len(self._queue)
+            running = list(self._running)
+            recs = [self._jobs.get(jid) for jid in running]
+            # only fresh rows are capacity: a drained or dead worker stops
+            # polling at once, but its row stays for an hour
+            now = time.monotonic()
+            workers = sum(1 for info in self.workers.values()
+                          if now - info["seen"] <= _SCALE_FRESH_S)
+        pending = 0
+        in_flight = 0
+        oldest_age = 0.0
+        for rec in recs:
+            if rec is not None and rec.config.follow:
+                # a standing query scans on the daemon: a running slot,
+                # never a worker task
+                continue
+            if rec is None or rec.scheduler is None:
+                # its start is in flight: its tasks are coming
+                pending += 1
+                continue
+            b = rec.scheduler.backlog()
+            pending += b["unassigned"]
+            in_flight += b["in_flight"]
+            oldest_age = max(oldest_age, b["oldest_inflight_age_s"])
+        demand = pending + queued
+        if demand > 0 and demand > max(0, workers - in_flight):
+            advice, reason = "grow", "assignable demand exceeds idle workers"
+        elif workers and not running and not queued:
+            advice, reason = "shrink", "no jobs queued or running"
+        else:
+            advice, reason = "hold", ""
+        out = {"advice": advice, "queued_jobs": queued,
+               "running_jobs": len(running), "pending_tasks": pending,
+               "in_flight_tasks": in_flight,
+               "oldest_inflight_age_s": oldest_age,
+               "workers_attached": workers}
+        if reason:
+            out["reason"] = reason
+        if advice != self._last_scale_advice:
+            self._last_scale_advice = advice
+            self._daemon_event("scale_advice", advice=advice,
+                               pending_tasks=pending, workers=workers,
+                               **({"reason": reason} if reason else {}))
+            self._flush_daemon_log()
+        return out
+
+    def local_pool_size(self) -> int:
+        """The in-process worker loops not draining."""
+        return len([lp for lp in getattr(self, "_local_loops", [])
+                    if not lp.drain.is_set()])
+
+    def scale_local_pool(self, target: int) -> int:
+        """Grow or shrink the in-process pool toward ``target``; the change
+        made.  Growing attaches fresh loops (the service allocates their
+        ids); shrinking drains the newest, each ending at its next idle
+        poll, never in a task."""
+        target = max(0, int(target))
+        self._prune_local_pool()
+        loops = [lp for lp in getattr(self, "_local_loops", [])
+                 if not lp.drain.is_set()]
+        if target > len(loops):
+            self.start_local_workers(target - len(loops))
+            self._scale_action("grow", target - len(loops))
+            return target - len(loops)
+        if target < len(loops):
+            for lp in loops[target:]:
+                lp.drain.set()
+            self._wake()  # a draining loop's long poll returns
+            self._scale_action("drain", len(loops) - target)
+            return target - len(loops)
+        return 0
+
+    def _scale_action(self, action: str, n: int) -> None:
+        """One change of the pool: dgrep_scale_actions_total and a daemon
+        event (no lock held)."""
+        metrics_mod.counter("dgrep_scale_actions_total").inc()
+        self._daemon_event("scale_action", action=action, workers=n)
+        self._flush_daemon_log()
+
+    def _prune_local_pool(self) -> None:
+        """Forget the loops that drained and whose thread ended, so grow
+        and shrink cycles do not grow the lists for the daemon's life (the
+        two lists grow in step: loop i is thread i)."""
+        loops = getattr(self, "_local_loops", [])
+        threads = getattr(self, "_local_workers", [])
+        if not loops or len(loops) != len(threads):
+            return
+        kept = [(lp, t) for lp, t in zip(loops, threads)
+                if not (lp.drain.is_set() and not t.is_alive())]
+        if len(kept) != len(loops):
+            self._local_loops = [lp for lp, _ in kept]
+            self._local_workers = [t for _, t in kept]
+
     # ---------------------------------------------------- lifecycle
     def start_local_workers(
         self,
@@ -1590,6 +2223,9 @@ class GrepService:
                 spans_enabled=self.spans)
             for i in range(n)
         ]
+        for lp in loops:
+            # a draining loop's long poll returns at the next sweep
+            lp.transport.drain = lp.drain
 
         def worker_main(idx: int) -> None:
             loop = loops[idx]
@@ -1611,6 +2247,8 @@ class GrepService:
                     with self._lock:
                         if self._stopped:
                             return
+                    if loop.drain.is_set():
+                        return
 
         threads = [threading.Thread(target=worker_main, args=(i,),
                                     name=f"svc-worker-{i}", daemon=True)
@@ -1643,6 +2281,10 @@ class GrepService:
             self._cond.notify_all()
         self._flush_starts()  # drains the cancelled pending starts
         self._flush_closes()
+        if self._follow_groups is not None:
+            # the runners' closes emptied every group; this stops a loop a
+            # raced teardown left
+            self._follow_groups.close()
         self._flush_registry()
         if self._daemon_log is not None:
             self._daemon_event("stop")
@@ -1666,6 +2308,7 @@ class ServiceLocalTransport:
         self.rpc_timeout_s = rpc_timeout_s
         self._job = ""
         self._wd: WorkDir | None = None
+        self.drain: threading.Event | None = None  # the loop's, when pooled
 
     def bind_job(self, job_id: str) -> None:
         if job_id == self._job and self._wd is not None:
@@ -1678,7 +2321,8 @@ class ServiceLocalTransport:
 
     # control plane
     def assign_task(self, args: rpc.AssignTaskArgs) -> rpc.AssignTaskReply:
-        return self.service.assign_task(args, timeout=self.rpc_timeout_s)
+        return self.service.assign_task(args, timeout=self.rpc_timeout_s,
+                                        abandon=self.drain)
 
     def map_finished(self, args: rpc.TaskFinishedArgs) -> rpc.TaskFinishedReply:
         return self.service.map_finished(args)
@@ -1737,6 +2381,8 @@ class ServiceServer:
                                           _make_service_handler(self))
         self._httpd.daemon_threads = True
         self._serve_thread: threading.Thread | None = None
+        # the worker processes attached and not yet polled (ROADMAP.md C9)
+        self.attach = AttachTracker()
         # built once: the long-poll window derives from it, and GET /config
         # serves it as the workers' bootstrap
         self._bootstrap = self.bootstrap_config()
@@ -1759,7 +2405,15 @@ class ServiceServer:
                  "%d)", self.host, self.port, self.service.max_jobs,
                  self.service.queue_depth)
 
-    def shutdown(self) -> None:
+    def ended(self) -> bool:
+        return self.service.stopped()
+
+    def shutdown(self, linger_s: float = 0.0) -> None:
+        """Stop serving; with ``linger_s`` (the daemon stopped first) serve
+        on that long, and while a worker process that attached before the
+        stop has not polled (AttachTracker), so each is told JOB_DONE."""
+        if linger_s > 0:
+            self.attach.wait_settled(linger_s)
         self._httpd.shutdown()
         self._httpd.server_close()
 
@@ -1794,10 +2448,6 @@ class ServiceServer:
         return rpc.reply_to_dict(reply)
 
 
-# the routes of slice 3b (ROADMAP.md queue B item 5b), answered 501
-_SLICE_3B_ROUTES = ("/explain", "/stream")
-
-
 def _safe_segment(name: str) -> str:
     name = urllib.parse.unquote(name)
     if "/" in name or name.startswith("."):
@@ -1812,6 +2462,7 @@ def _make_service_handler(server: ServiceServer):
         server_ref = server
 
         def do_POST(self):
+            self._saw_worker()
             try:
                 if self.path.startswith("/rpc/"):
                     verb = self.path[len("/rpc/"):]
@@ -1856,24 +2507,53 @@ def _make_service_handler(server: ServiceServer):
 
         def do_GET(self):
             self._streaming_body = False  # per request (keep-alive)
+            self._saw_worker()
             try:
                 path = urllib.parse.urlsplit(self.path).path
                 if self.path == "/config":
                     self._send_json(json.loads(server._bootstrap.to_json()))
                 elif self.path == "/status":
-                    self._send_json(service.status())
+                    doc = service.status()
+                    if service.stopped():
+                        # a worker attaching now exits at once (C9)
+                        doc["stopped"] = True
+                    self._send_json(doc)
                 elif self.path == "/metrics":
                     self._send_text(service.metrics_text())
-                elif path.startswith("/jobs/") and path.endswith(
-                        _SLICE_3B_ROUTES):
-                    self._send_json({"error": (
-                        f"{path.rsplit('/', 1)[1]} is not ported yet: "
-                        f"ROADMAP.md 'Slices still to port', item 5b (the "
-                        f"service's result cache, explain and standing "
-                        f"queries)")}, 501)
+                elif path.startswith("/jobs/") and path.endswith("/stream"):
+                    # a page of a standing query's records past ?cursor=N,
+                    # a long poll of ?timeout=S; the reader's cursor is its
+                    # only state
+                    parsed = urllib.parse.urlsplit(self.path)
+                    job_id = _safe_segment(
+                        parsed.path[len("/jobs/"):-len("/stream")])
+                    q = urllib.parse.parse_qs(parsed.query)
+
+                    def _q(name: str, default: float) -> float:
+                        try:
+                            return float(q.get(name, [default])[0])
+                        except (TypeError, ValueError):
+                            return default
+
+                    try:
+                        self._send_json(service.job_stream(
+                            job_id, cursor=int(_q("cursor", 0)),
+                            timeout=_q("timeout", 25.0)))
+                    except KeyError:
+                        self._send_json(
+                            {"error": f"unknown job: {job_id}"}, 404)
+                    except RuntimeError as e:
+                        self._send_json({"error": str(e)}, 409)
                 elif self.path.startswith("/jobs/"):
                     rest = self.path[len("/jobs/"):]
-                    if rest.endswith("/result"):
+                    if rest.endswith("/explain"):
+                        job_id = _safe_segment(rest[:-len("/explain")])
+                        try:
+                            self._send_json(service.job_explain(job_id))
+                        except KeyError:
+                            self._send_json(
+                                {"error": f"unknown job: {job_id}"}, 404)
+                    elif rest.endswith("/result"):
                         job_id = _safe_segment(rest[:-len("/result")])
                         try:
                             self._send_json(service.job_result(job_id))

@@ -159,6 +159,7 @@ def _engine_cache_counters() -> dict | None:
     fol = sys.modules.get("distributed_grep_tpu_torch.runtime.follow")
     if fol is not None:
         counters.update(fol.follow_counters())
+        counters.update(fol.follow_fused_counters())
     return counters or None
 
 
@@ -198,6 +199,9 @@ class WorkerLoop:
         # task RPC; "" on a one-shot coordinator (absent from the wire)
         self._rpc_job_id = ""
         self.attempt_jobs: list[str] = []
+        # the elastic pool's shrink (GrepService.scale_local_pool): the loop
+        # ends at its next idle poll, never in a task
+        self.drain = threading.Event()
         self.fault_hooks = fault_hooks or {}
         self.reduce_memory_bytes = reduce_memory_bytes
         self.spill_dir = spill_dir
@@ -300,6 +304,10 @@ class WorkerLoop:
     # -------------------------------------------------------------- loop
     def run(self) -> None:
         while True:
+            if self.drain.is_set():
+                log.info("worker %d: drained (elastic shrink), exiting",
+                         self.worker_id)
+                return
             t_wait = time.monotonic()
             reply = self.transport.assign_task(
                 rpc.AssignTaskArgs(worker_id=self.worker_id))

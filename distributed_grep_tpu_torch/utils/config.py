@@ -5,13 +5,14 @@ overrides (``JobConfig.load``), which is how the ``run`` and
 ``coordinator`` subcommands and the HTTP workers' ``GET /config``
 bootstrap read it.  A config the reference wrote loads too
 (``from_json``): its ``backend`` and ``chunk_bytes``, which no reader
-uses, are dropped; its follow-mode and submit-token fields are taken at
-their defaults, and otherwise raise NotImplementedError naming ROADMAP.md
-item 8; its ``mesh_shape``/``mesh_axes`` go to the application's options
+uses, are dropped; its submit token is taken at its default, and
+otherwise raises NotImplementedError naming ROADMAP.md item 6; its
+``mesh_shape``/``mesh_axes`` go to the application's options
 (``effective_app_options``), where the CUDA grep app names item 9.
-``to_json`` leaves out ``spans`` and the mesh fields at their defaults,
-so the bootstrap of a job that uses neither is the same bytes as before
-they existed.
+``to_json`` leaves out ``spans``, the mesh fields and the follow fields
+at their defaults (``follow_poll_s`` also while ``follow`` is off), as
+the reference's leaves out its follow fields, so the bootstrap of a job
+that uses none of them is the same bytes as before they existed.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ STORE_NAMES = frozenset({"posix", "nonatomic"})
 # Keys the reference's to_json writes and no reader of a job uses.
 _DROPPED_KEYS = ("backend", "chunk_bytes")
 # The reference's fields of slices still to port, with their defaults.
-_UNPORTED_KEYS = {"follow": False, "follow_poll_s": None, "submit_token": ""}
+_UNPORTED_KEYS = {"submit_token": ""}
 # Fields to_json leaves out at these values.
 _ELIDE_DEFAULTS = {"spans": False, "mesh_shape": (), "mesh_axes": ("data",)}
 
@@ -82,6 +83,14 @@ class JobConfig:
     # DGREP_SPANS=1 switches it on whatever this says.
     spans: bool = False
     job_id: str = ""  # the span tag; "" is the work dir's basename
+
+    # --- standing query (runtime/follow.py): the service daemon scans the
+    # inputs' appended lines as they grow, until the job is cancelled, and
+    # keeps its cursors in the work dir's follow.jsonl; follow_poll_s is
+    # the wake cadence (None: DEFAULT_FOLLOW_POLL_S; DGREP_FOLLOW_POLL_S
+    # wins)
+    follow: bool = False
+    follow_poll_s: float | None = None
 
     # --- device mesh (ROADMAP.md item 9): merged into the app options
     mesh_shape: tuple[int, ...] = ()
@@ -142,6 +151,11 @@ class JobConfig:
             v = d[k]
             if (tuple(v) if isinstance(v, (list, tuple)) else v) == default:
                 del d[k]
+        if not d.get("follow"):
+            d.pop("follow", None)
+            d.pop("follow_poll_s", None)
+        elif d.get("follow_poll_s") is None:
+            d.pop("follow_poll_s", None)
         return json.dumps(d, indent=2, sort_keys=True)
 
     @classmethod
@@ -153,7 +167,8 @@ class JobConfig:
             if k in d and d.pop(k) != default:
                 raise NotImplementedError(
                     f"JobConfig field {k!r} is not ported yet: ROADMAP.md "
-                    f"'Slices still to port', item 8 (the service runtime)")
+                    f"'Slices still to port', item 6 (item 8's failover "
+                    f"slice)")
         return cls(**d)
 
     @classmethod

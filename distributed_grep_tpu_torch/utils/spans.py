@@ -133,6 +133,19 @@ def task_context(buffer: SpanBuffer, **tags):
         _tls.ctx = prev
 
 
+@contextmanager
+def suspended():
+    """No span or instant from the current thread inside (the task context
+    is set aside and restored): for work that is part of a recorded scan,
+    not a scan of its own (ops/fuse.py's per-query confirms)."""
+    prev = getattr(_tls, "ctx", None)
+    _tls.ctx = None
+    try:
+        yield
+    finally:
+        _tls.ctx = prev
+
+
 def active() -> bool:
     """True when the current thread is inside a task_context — the single
     gate every emitter checks, so disabled runs never build record dicts."""

@@ -346,11 +346,52 @@ def test_fuse_error_runs_solo_and_a_scan_error_propagates(tmp_path,
                               device="cpu").scan(_doc() * 1000)
 
 
-def test_scan_suffix_names_its_item():
-    fs = fuse_mod.FusedScanner([("a", None, False), ("b", None, False)],
-                               backend="cpu")
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        fs.scan_suffix("x")
+SUFFIX_SPECS = [
+    [("hello", None, False), ("h[ae]llo+$", None, False),
+     ("^tail", None, False)],
+    [(None, ("hello", "needle"), False), (None, ("ab", "zz"), True)],
+    [("HELLO", None, True), ("volcano", None, False)],
+]
+
+
+def test_scan_suffix_names_its_item(tmp_path, monkeypatch):
+    """FusedScanner.scan_suffix (the fused follow tier's scan of a grown
+    file) gives each spec what its solo engine's scan_file_suffix gives
+    over the same window: the same lines, the same cursor advance and
+    bytes, at every append edge (a line cut mid-byte, an empty append,
+    an unterminated tail taken by the final scan)."""
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", "0")
+    for k, specs in enumerate(SUFFIX_SPECS):
+        _check_scan_suffix(tmp_path / f"grow{k}.log", specs)
+
+
+def _check_scan_suffix(path, specs) -> None:
+    path.write_bytes(b"")
+    fs = fuse_mod.FusedScanner(specs, device="cpu", **ENGINE_OPTS)
+    solos = [GrepEngine(pat, patterns=list(pats) if pats else None,
+                        ignore_case=ic, device="cpu", **ENGINE_OPTS)
+             for pat, pats, ic in specs]
+    offset = 0
+    stages = [b"hello start\nab zz\nmiss\n", b"partial hel", b"",
+              b"lo needle\nHELLO\ntail end hello\n", b"tail no newline"]
+    for i, stage in enumerate(stages):
+        with open(path, "ab") as f:
+            f.write(stage)
+        final = i == len(stages) - 1
+        got, consumed, data = fs.scan_suffix(path, offset, final=final)
+        for res, eng in zip(got, solos):
+            want, w_consumed, w_data = eng.scan_file_suffix(path, offset,
+                                                            final=final)
+            assert (consumed, data) == (w_consumed, w_data)
+            assert res.matched_lines.tolist() == \
+                want.matched_lines.tolist()
+        offset += consumed
+    assert offset == path.stat().st_size
+    # a window with no complete line consumes nothing
+    with open(path, "ab") as f:
+        f.write(b"\nhello no end")
+    got, consumed, _data = fs.scan_suffix(path, offset + 1)
+    assert consumed == 0 and all(r.matched_lines.size == 0 for r in got)
 
 
 # -------------------------------------------------- scheduler and RPC

@@ -572,14 +572,14 @@ def test_run_loads_the_reference_job_json(tmp_path, corpus, capsysbinary,
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("follow", True, "item 8"), ("submit_token", "tok", "item 8"),
-    ("mesh_shape", (2,), "item 9"),
+    ("submit_token", "tok", "item 8"), ("mesh_shape", (2,), "item 9"),
 ])
 def test_reference_fields_of_unported_slices_name_their_item(
         tmp_path, corpus, capsys, field, value, item):
-    """A reference config that asks for follow mode or a submit token
-    fails naming ROADMAP item 8; a device mesh reaches the CUDA grep app's
-    options, which name item 9.  At their defaults they load."""
+    """A reference config that asks for a submit token fails naming
+    ROADMAP item 6 (item 8's failover slice); a device mesh reaches the
+    CUDA grep app's options, which name item 9.  At their defaults they
+    load."""
     from distributed_grep_tpu_torch.__main__ import main
 
     kw = {"input_files": [str(p) for p in corpus.values()],
@@ -592,6 +592,44 @@ def test_reference_fields_of_unported_slices_name_their_item(
     cfg.write_text(RefJobConfig(**kw, **{field: value}).to_json())
     assert main(["run", "--config", str(cfg)]) == 2
     assert item in capsys.readouterr().err
+
+
+def test_reference_follow_config_loads_and_round_trips(tmp_path, corpus,
+                                                        capsysbinary):
+    """The follow fields load from the reference's JSON (a standing query
+    for the daemon), leave the wire at their defaults as the reference's
+    do, and round-trip; ``run --config`` of such a job runs it one-shot,
+    as the reference's ``run`` does, with the reference's lines."""
+    from distributed_grep_tpu.__main__ import main as ref_main
+    from distributed_grep_tpu_torch.__main__ import main
+
+    assert json.loads(JobConfig(input_files=["/x"]).to_json()).keys() == \
+        json.loads(RefJobConfig(input_files=["/x"]).to_json()).keys() - {
+            "backend", "chunk_bytes", "spans", "mesh_shape", "mesh_axes"}
+    for kw in ({"follow": True}, {"follow": True, "follow_poll_s": 0.25},
+               {"follow_poll_s": 0.25}):
+        ref_doc = json.loads(RefJobConfig(input_files=["/x"], **kw).to_json())
+        port = JobConfig.from_json(json.dumps(ref_doc))
+        assert (port.follow, port.follow_poll_s) == (
+            RefJobConfig(**{k: v for k, v in ref_doc.items()}).follow,
+            ref_doc.get("follow_poll_s"))
+        doc = json.loads(port.to_json())
+        assert {k: doc[k] for k in ("follow", "follow_poll_s") if k in doc} \
+            == {k: ref_doc[k] for k in ("follow", "follow_poll_s")
+                if k in ref_doc}
+    files = [str(p) for p in corpus.values()]
+    outs = []
+    for pkg, run in (("distributed_grep_tpu_torch", main),
+                     ("distributed_grep_tpu", ref_main)):
+        cfg = tmp_path / f"{pkg}.json"
+        cfg.write_text(RefJobConfig(
+            input_files=files, application=f"{pkg}.apps.grep",
+            app_options={"pattern": "hello"}, n_reduce=2,
+            work_dir=str(tmp_path / pkg), follow=True,
+            follow_poll_s=0.1).to_json())
+        assert run(["run", "--config", str(cfg)]) == 0
+        outs.append(capsysbinary.readouterr().out)
+    assert outs[0] == outs[1] and b"hello" in outs[0]
 
 
 def test_host_app_job_never_asks_for_the_card(tmp_path, corpus,

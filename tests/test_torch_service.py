@@ -5,9 +5,13 @@ service.py, tests/test_service.py's cases).
 
 The reference's daemon runs ``distributed_grep_tpu.apps.grep_tpu`` with
 ``backend: cpu``, the port's ``grep_cuda`` with ``device: cpu``; both run
-with the result cache and the peer shuffle off (slice 3a has neither
-tier).  The tolerance is zero: the ``mr-out-*`` bytes, the states and the
-exit codes are equal.  Beyond the reference's cases: a ``worker --addr``
+with the result cache and the peer shuffle off here (the result cache has
+tests/test_torch_result_cache.py; the port has no peer shuffle).  The
+tolerance is zero: the ``mr-out-*`` bytes, the states and the exit codes
+are equal.  The elastic pool's advice equals the reference's on the same
+scripted states, ``top``'s screen is the reference's, and a worker that
+joins as its job ends (or as its daemon stops) exits at once (ROADMAP.md
+C9).  Beyond the reference's cases: a ``worker --addr``
 process serves two jobs through one attach, a registry the reference's
 daemon wrote is replayed by the port's ``serve``, a job that asks for a
 card that is not there fails naming it (and never runs on the host), and
@@ -461,11 +465,25 @@ def test_http_api_submit_status_result_and_telemetry(tmp_path, corpus):
         with pytest.raises(urllib.error.HTTPError) as ei:
             _call(base, "GET", "/jobs/job-999")
         assert ei.value.code == 404
-        for route in ("explain", "stream"):  # slice 3b's routes
-            with pytest.raises(urllib.error.HTTPError) as ei:
-                _call(base, "GET", f"/jobs/{jid}/{route}")
-            assert ei.value.code == 501
-            assert "item 5b" in ei.value.read().decode()
+        # the explain route answers 200 with the job's report; the stream
+        # route answers 200 for a standing query and 409 for a batch job
+        doc = _call(base, "GET", f"/jobs/{jid}/explain")
+        assert doc["job_id"] == jid and doc["spans"] is True
+        assert doc["routing"]["route"] == "device"
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _call(base, "GET", f"/jobs/{jid}/stream?cursor=0&timeout=0")
+        assert ei.value.code == 409
+        log = tmp_path / "standing.log"
+        log.write_bytes(b"hello standing\n")
+        fcfg = JobConfig(input_files=[str(log)], application=PORT_GREP,
+                         app_options={"pattern": "hello", "device": "cpu"},
+                         follow=True, follow_poll_s=0.05)
+        fj = _call(base, "POST", "/jobs", fcfg.to_json().encode())["job_id"]
+        page = _call(base, "GET", f"/jobs/{fj}/stream?cursor=0&timeout=10")
+        assert [(r["line"], r["text"]) for r in page["records"]] == [
+            (1, "hello standing")]
+        assert _call(base, "POST", f"/jobs/{fj}/cancel")["state"] == \
+            "cancelled"
         assert _call(base, "POST", f"/jobs/{jid}/cancel")["state"] == "done"
     finally:
         svc.stop()
@@ -1109,18 +1127,340 @@ def test_no_host_fallback(tmp_path, corpus, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--standby"], "item 6"),
-    (["serve", "--max-workers", "4"], "item 5b"),
-    (["submit", "--addr", "h:1", "--follow", "x", "f"], "item 5b"),
-    (["submit", "--addr", "h:1", "--stream", "x", "f"], "item 5b"),
-    (["submit", "--addr", "h:1", "--explain", "x", "f"], "item 5b"),
     (["submit", "--addr", "h:1,h:2", "x", "f"], "item 6"),
-    (["trace-export", "--fleet", "."], "item 5b"),
 ])
 def test_unported_flags_exit_2_naming_their_item(argv, item, capsys):
     from distributed_grep_tpu_torch import __main__ as cli
 
     assert cli.main(argv) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["serve", "--max-workers", "3"],
+    ["submit", "--follow"],
+    ["submit", "--follow", "--stream"],
+    ["submit", "--explain"],
+    ["trace-export", "--fleet"],
+], ids=" ".join)
+def test_ported_flags_run(flags, tmp_path, corpus, capsys):
+    """The flags that raised before the service's tiers were ported now
+    run and exit 0: ``serve --max-workers`` (a process: SIGTERM ends it
+    and its last line is its status), ``submit --follow`` (the endpoint
+    line), ``--follow --stream`` (the records, then the summary),
+    ``--explain`` (the report on the line) and ``trace-export --fleet``
+    (the work root's timeline as a Chrome trace)."""
+    from distributed_grep_tpu_torch import __main__ as cli
+    from distributed_grep_tpu_torch.runtime.daemon_log import DaemonLog
+
+    if flags[0] == "serve":
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_grep_tpu_torch", *flags,
+             "--workers", "1", "--work-root", str(tmp_path / "svc")],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            env={**os.environ, "DGREP_LOG": "INFO"})
+        try:
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                line = proc.stderr.readline().decode()
+                if "serving on" in line:
+                    break
+            proc.send_signal(signal.SIGTERM)
+            out, _err = proc.communicate(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        assert proc.returncode == 0
+        status = json.loads(out.decode().strip().splitlines()[-1])
+        assert status["service"] is True
+        return
+    root = tmp_path / "svc"
+    svc = GrepService(work_root=root, spans=True, task_timeout_s=5.0,
+                      sweep_interval_s=0.1, daemon_log=DaemonLog(root))
+    server = ServiceServer(svc)
+    server.start()
+    addr = f"127.0.0.1:{server.port}"
+    files = [str(p) for p in corpus.values()]
+    try:
+        svc.start_local_workers(1)
+        if flags[0] == "submit":
+            rc = cli.main([*flags, "--addr", addr, "--backend", "cpu",
+                           "--timeout", "3", "hello", *files])
+            lines = capsys.readouterr().out.strip().splitlines()
+            doc = json.loads(lines[-1])
+            assert rc == 0
+            if "--stream" in flags:
+                assert doc["state"] == "running" and doc["records"] == 4
+                assert len(lines) == 5
+            elif "--follow" in flags:
+                assert doc["state"] == "following"
+                assert doc["stream"] == f"/jobs/{doc['job_id']}/stream"
+            else:
+                assert doc["state"] == "done"
+                assert doc["explain"]["routing"]["route"] == "host"
+        else:
+            jid = svc.submit(grep_config(corpus))
+            assert svc.wait_job(jid, timeout=60)
+            svc._flush_daemon_log()
+            assert cli.main([*flags, str(root)]) == 0
+            trace = json.loads(capsys.readouterr().out)
+            names = {e["args"]["name"] for e in trace["traceEvents"]
+                     if e.get("name") == "process_name"}
+            assert "dgrep daemon fleet" in names
+            assert f"dgrep job {jid}" in names
+    finally:
+        svc.stop()
+        server.shutdown()
+
+
+# ------------------------------------------------------- elastic pool
+
+def _scripted_advice(svc_cls, cfg, root):
+    """A daemon's scale advice over one scripted life: idle and empty,
+    demand with no worker, six stale rows, one fresh idle row."""
+    svc = svc_cls(work_root=root, resume=False, rpc_timeout_s=0.5)
+    out = []
+    try:
+        out.append("scale" in svc.status())
+        svc.submit(cfg)
+        out.append(svc.scale_advice())
+        with svc._lock:
+            for wid in range(100, 106):
+                svc.workers[wid] = {"job": None, "task": None,
+                                    "seen": time.monotonic() - 600.0}
+        out.append(svc.scale_advice())
+        with svc._lock:
+            svc.workers[7] = {"job": None, "task": None,
+                              "seen": time.monotonic()}
+        out.append(svc.scale_advice())
+    finally:
+        svc.stop()
+    return out
+
+
+def test_scale_advice_equals_the_references(tmp_path, corpus):
+    """The same scripted states give the reference's advice: grow on
+    demand with no worker, stale rows (silent 10 minutes) not counted as
+    capacity, one fresh row counted."""
+    from distributed_grep_tpu.runtime.service import GrepService as RefService
+    from distributed_grep_tpu.utils.config import JobConfig as RefConfig
+
+    port = _scripted_advice(GrepService, grep_config(corpus),
+                            tmp_path / "p")
+    ref = _scripted_advice(RefService, RefConfig(
+        input_files=[str(p) for p in corpus.values()],
+        application=REF_GREP, app_options={"pattern": "hello",
+                                           "backend": "cpu"}, n_reduce=3),
+        tmp_path / "r")
+    assert port == ref
+    assert port[0] is False
+    assert port[1]["advice"] == port[2]["advice"] == "grow"
+    assert port[2]["workers_attached"] == 0
+    assert port[3]["workers_attached"] == 1
+
+
+def test_local_pool_grows_and_drains(tmp_path, corpus):
+    from distributed_grep_tpu_torch.runtime.daemon_log import DaemonLog
+
+    from distributed_grep_tpu_torch.utils import metrics as metrics_mod
+
+    actions0 = metrics_mod.counter("dgrep_scale_actions_total").value()
+    root = tmp_path / "svc"
+    svc = GrepService(work_root=root, resume=False, rpc_timeout_s=30.0,
+                      daemon_log=DaemonLog(root))
+    try:
+        jid = svc.submit(grep_config(corpus))
+        advice = svc.scale_advice()
+        assert advice["advice"] == "grow" and advice["pending_tasks"] > 0
+        assert svc.status()["scale"]["advice"] == "grow"
+        assert svc.scale_local_pool(2) == 2
+        assert svc.local_pool_size() == 2
+        assert svc.wait_job(jid, timeout=60)
+        deadline = time.monotonic() + 10
+        while svc.scale_advice()["advice"] != "shrink":
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        # a drained loop ends at once, though its long poll is 30 s
+        t0 = time.monotonic()
+        assert svc.scale_local_pool(0) == -2
+        for t in svc._local_workers:
+            t.join(timeout=10)
+        assert not any(t.is_alive() for t in svc._local_workers)
+        assert time.monotonic() - t0 < 5.0
+        assert svc.scale_local_pool(1) == 1
+        assert len(svc._local_loops) == len(svc._local_workers) == 1
+        assert metrics_mod.counter(
+            "dgrep_scale_actions_total").value() == actions0 + 3
+        assert "dgrep_scale_actions_total" in svc.metrics_text()
+    finally:
+        svc.stop()
+    events = DaemonLog.read(root)
+    actions = [(e["payload"]["action"], e["payload"]["workers"])
+               for e in events if e["kind"] == "scale_action"]
+    assert actions == [("grow", 2), ("drain", 2), ("grow", 1)]
+    advice = [e["payload"]["advice"] for e in events
+              if e["kind"] == "scale_advice"]
+    assert advice[0] == "grow" and "shrink" in advice
+
+
+def test_top_once_renders_the_references_screen(tmp_path, corpus, capsys):
+    """``top --once`` over a live daemon and a dead address: the banner
+    names both, the body is the daemon's view; the reference's renderer
+    gives the same screen for the same documents; no daemon at all exits
+    2."""
+    from distributed_grep_tpu.__main__ import _render_top as ref_render
+    from distributed_grep_tpu_torch import __main__ as cli
+
+    svc = GrepService(work_root=tmp_path / "svc", task_timeout_s=5.0,
+                      sweep_interval_s=0.1)
+    server = ServiceServer(svc)
+    server.start()
+    addr = f"127.0.0.1:{server.port}"
+    try:
+        svc.start_local_workers(1)
+        jid = svc.submit(grep_config(corpus))
+        assert svc.wait_job(jid, timeout=60)
+        assert cli.main(["top", "--once", "--addr",
+                         f"{addr},127.0.0.1:1", "--timeout", "2"]) == 0
+        screen = capsys.readouterr().out
+        assert f"{addr} [ACTIVE]" in screen
+        assert "127.0.0.1:1 [DOWN]" in screen
+        assert "WID" in screen and "queued 0/" in screen
+        st = svc.status()
+        metrics = cli._parse_metrics_text(svc.metrics_text())
+        assert "dgrep_jobs_done_total" in metrics
+        assert cli._render_top({addr: st, "b": None}, addr, metrics) == \
+            ref_render({addr: st, "b": None}, addr, metrics)
+    finally:
+        svc.stop()
+        server.shutdown()
+    assert cli.main(["top", "--once", "--addr", "127.0.0.1:1",
+                     "--timeout", "1"]) == 2
+    assert "no daemon reachable" in capsys.readouterr().out
+
+
+def test_top_interval_and_metrics_parse_as_the_references(monkeypatch):
+    from distributed_grep_tpu import __main__ as ref_cli
+    from distributed_grep_tpu_torch import __main__ as cli
+
+    for raw in (None, "", "0.5", "-1", "zap", "3"):
+        if raw is None:
+            monkeypatch.delenv("DGREP_TOP_INTERVAL_S", raising=False)
+        else:
+            monkeypatch.setenv("DGREP_TOP_INTERVAL_S", raw)
+        assert cli.env_top_interval_s() == ref_cli.env_top_interval_s()
+    text = ("# HELP x\n# TYPE x gauge\nx 1\ny{le=\"1\"} 2\nz_sum 3.5\n"
+            "bad line here\nw notanumber\n")
+    assert cli._parse_metrics_text(text) == ref_cli._parse_metrics_text(text)
+
+
+# ------------------------------------------------------------------ C9
+
+def _slow_load(monkeypatch, seconds: float):
+    """The application load of the thread named "late" takes ``seconds``
+    (a worker process's imports, on the card's hosts 7-13 s)."""
+    from distributed_grep_tpu_torch.apps import loader
+
+    real = loader.load_application
+
+    def load(spec, *a, **k):
+        if threading.current_thread().name == "late":
+            time.sleep(seconds)
+        return real(spec, *a, **k)
+
+    monkeypatch.setattr(loader, "load_application", load)
+
+
+def _late_worker(addr: str) -> dict:
+    from distributed_grep_tpu_torch.runtime.http_transport import (
+        run_http_worker,
+    )
+
+    out: dict = {}
+
+    def run():
+        run_http_worker(addr)
+        out["ended"] = time.monotonic()
+
+    t = threading.Thread(target=run, name="late", daemon=True)
+    out["thread"] = t
+    t.start()
+    return out
+
+
+def test_c9_a_worker_joining_as_its_job_ends_exits_at_once(
+        tmp_path, corpus, monkeypatch):
+    """ROADMAP C9 on a coordinator: a worker that attaches while the job
+    runs and loads for longer than the job has left is told JOB_DONE at
+    its first poll (the coordinator serves on until it polls) and exits
+    within 5 s of the job's end; one that attaches to a finished job
+    (``"done": true``) exits at once.  The retry schedule of 10 retries
+    (the smoke's) would take about 40 s."""
+    from distributed_grep_tpu_torch.runtime.http_coordinator import (
+        CoordinatorServer,
+    )
+    from distributed_grep_tpu_torch.runtime.http_transport import (
+        run_http_worker,
+    )
+
+    monkeypatch.setenv("DGREP_RPC_RETRIES", "10")
+    _slow_load(monkeypatch, 2.0)
+    cfg = JobConfig(input_files=[str(p) for p in corpus.values()],
+                    application="distributed_grep_tpu_torch.apps.grep",
+                    app_options={"pattern": "hello"}, n_reduce=2,
+                    work_dir=str(tmp_path / "job"), coordinator_port=0)
+    server = CoordinatorServer(cfg)
+    server.start()
+    addr = f"127.0.0.1:{server.port}"
+    late = _late_worker(addr)
+    time.sleep(0.5)  # it has attached and is loading
+    threading.Thread(target=run_http_worker, args=(addr,),
+                     daemon=True).start()
+    assert server.wait_done(timeout=60)
+    t_done = time.monotonic()
+    # attaching to the finished job: "done", the worker goes at once
+    run_http_worker(addr)
+    assert time.monotonic() - t_done < 5.0
+    stopper = threading.Thread(target=server.shutdown, args=(0.5,))
+    stopper.start()
+    late["thread"].join(timeout=30)
+    assert late["ended"] - t_done < 5.0
+    stopper.join(timeout=30)
+    assert not stopper.is_alive()
+
+
+def test_c9_a_worker_of_a_stopping_daemon_exits_at_once(tmp_path, corpus,
+                                                        monkeypatch):
+    """ROADMAP C9 on the daemon: a worker process still loading when the
+    daemon stops is told JOB_DONE at its first poll (``serve`` stops the
+    service first, then serves on while it has not polled) and exits
+    within 5 s of the stop; one that attaches to the stopping daemon
+    (``"stopped": true``) exits at once."""
+    from distributed_grep_tpu_torch.runtime.http_transport import (
+        run_http_worker,
+    )
+
+    monkeypatch.setenv("DGREP_RPC_RETRIES", "10")
+    _slow_load(monkeypatch, 2.0)
+    svc = GrepService(work_root=tmp_path / "svc", task_timeout_s=5.0,
+                      sweep_interval_s=0.1)
+    server = ServiceServer(svc)
+    server.start()
+    addr = f"127.0.0.1:{server.port}"
+    late = _late_worker(addr)
+    time.sleep(0.5)
+    t_stop = time.monotonic()
+    svc.stop()
+    # attaching to the stopping daemon: "stopped", the worker goes at once
+    run_http_worker(addr)
+    assert time.monotonic() - t_stop < 5.0
+    stopper = threading.Thread(target=server.shutdown,
+                               kwargs={"linger_s": 0.5})
+    stopper.start()
+    late["thread"].join(timeout=30)
+    assert late["ended"] - t_stop < 5.0
+    stopper.join(timeout=30)
+    assert not stopper.is_alive()
 
 
 # ------------------------------------------------------------- the card
@@ -1156,3 +1496,52 @@ def test_service_job_on_card_gives_the_cpus_bytes(tmp_path, monkeypatch):
             outputs_by_name(svc.job_result(jh)["outputs"])
     finally:
         svc.stop()
+
+
+@pytest.mark.cuda
+def test_standing_query_on_card_equals_the_cpus_stream(tmp_path,
+                                                       monkeypatch):
+    """Standing queries with no device option run on the card: a fused
+    pair and a solo count query stream what the same queries stream on
+    ``device: cpu``, and the kernels launch (DGREP_DEVICE_MIN_BYTES=0)."""
+    from distributed_grep_tpu_torch.ops import device_scan
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", "0")
+    monkeypatch.setenv("DGREP_FOLLOW_POLL_S", "0.05")
+
+    def drain(svc, jid, want):
+        out, cursor = [], 0
+        deadline = time.monotonic() + 120
+        while sum(int(r.get("count", 1)) for r in out) < want:
+            assert time.monotonic() < deadline, (out, svc.job_status(jid))
+            page = svc.job_stream(jid, cursor=cursor, timeout=0.5)
+            out.extend(page["records"])
+            cursor = page["next"]
+        return [{k: v for k, v in r.items() if k not in ("seq", "file")}
+                for r in out]
+
+    streams = {}
+    for dev in ("cuda", "cpu"):
+        log = tmp_path / f"{dev}.log"
+        log.write_bytes(b"hello volcano\nmiss\n")
+        svc = GrepService(work_root=tmp_path / f"svc-{dev}")
+        before = sum(device_scan.kernel_launches().values())
+        try:
+            jids = []
+            for q in ({"pattern": "volcano"}, {"pattern": "^hello"},
+                      {"pattern": "volcano", "count_only": True}):
+                opts = {**q, **({"device": "cpu"} if dev == "cpu" else {})}
+                jids.append(svc.submit(JobConfig(
+                    input_files=[str(log)], application=PORT_GREP,
+                    app_options=opts, follow=True)))
+            drain(svc, jids[0], 1)
+            with open(log, "ab") as f:
+                f.write(b"hello again volcano\n" * 3)
+            streams[dev] = [drain(svc, j, n) for j, n in zip(jids, (4, 4, 4))]
+            if dev == "cuda":
+                assert sum(device_scan.kernel_launches().values()) > before
+        finally:
+            svc.stop()
+    assert streams["cuda"] == streams["cpu"]

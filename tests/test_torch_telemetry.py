@@ -616,13 +616,18 @@ def test_trace_export_cli_byte_identical_to_reference(tmp_path, capsys):
     assert main(["trace-export", str(path), "-o",
                  str(tmp_path / "t.json")]) == 0
     assert (tmp_path / "t.json").read_text() + "\n" == want
-    # a missing log exits as the reference's does; --fleet is not ported
+    # a missing log exits as the reference's does, with --fleet (a work
+    # root without daemon.jsonl) too, naming what is missing
     empty = tmp_path / "none"
     empty.mkdir()
     assert main(["trace-export", str(empty)]) == 2
     assert ref_main(["trace-export", str(empty)]) == 2
+    capsys.readouterr()
     assert main(["trace-export", "--fleet", str(empty)]) == 2
-    assert "item 5b" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ref_main(["trace-export", "--fleet", str(empty)]) == 2
+    assert err == capsys.readouterr().err
+    assert "no daemon.jsonl under" in err
 
 
 def test_status_cli_has_the_reference_keys(tmp_path, corpus, capsys):
