@@ -42,7 +42,7 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          straddle lane blocks), and the table-DFA kernel (csrc/dfa.cu, on
          no engine route) at the 64 MB segment shape for 'nee(dle|t)',
          three '$' patterns, '^$' and two Aho-Corasick banks too large for
-         shared memory, then over 6 seeded random regex tables ('$'
+         shared memory, then over 3 seeded random regex tables ('$'
          accepts, '^', nullable bodies) and small Aho-Corasick banks at
          small shapes and, every 8th table, the segment shape; every
          third stripe's last byte is not '\\n' (the stripe-tail rule) and
@@ -57,7 +57,7 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          the stripe heads, at chunk 32 and 64 over 32 lanes and at the 64
          MB segment (7 of the banks, two of the regexes); and of the two
          sub-stripe kernels: seeded random Shift-And models of the lengths
-         1, 5, ..., 29 and 32 (letters, classes, '.', -i, their rare-class
+         1, 9, 17, 25 and 32 (letters, classes, '.', -i, their rare-class
          filters; both modes) and approx models (k = 1-3, m up to 32, so
          up to two warm-up words), with samples planted to end 0..W + 2
          bytes after every word boundary c0 (where these kernels may
@@ -65,10 +65,10 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          at chunks 32, 64, 96, 288 and 1024 over 32-96 lanes (every word
          a sub-stripe start), at 1024 x 8192 (a few), on contiguous and
          pitched windows, and at the 64 MB segment; and of the two
-         stripe kernels of literal sets and packed Shift-And: 24 seeded
+         stripe kernels of literal sets and packed Shift-And: 14 seeded
          random 1-2-byte sets (both orientations, -i; half the draws ORed
          into a nonzero plane) with members ending 0..2 bytes after every
-         word boundary, and SWAR models of every length 1-8 (three each,
+         word boundary, and SWAR models of every length 1-8 (two each,
          and their filters), at the same shapes.  Each draw is held to
          its plain version bit for bit; the count of draws is logged.
 Phase 3  the main path at real size, each query through runtime.job.run_job
@@ -224,7 +224,7 @@ Phase 3e the shared tiers, the launch counts zeroed just before and read
          large files' segments and the card's windows; the 'volcano' and
          -v jobs prune nothing.  Per job: the wall, index_shards_pruned,
          index_maybe_scans, index_bytes_skipped, uploads, reads, launches.
-         (b) ops/fuse.FusedScanner.scan_batch over the 24 large files in
+         (b) ops/fuse.FusedScanner.scan_batch over 8 of the large files in
          splits of at most MAX_FUSED_SPLIT_BYTES (one packed window a
          split) in two mixes of K = 4: config 3's 1,000 literals in four
          quarters (one FDR launch a segment and no other, where the solo
@@ -235,7 +235,7 @@ Phase 3e the shared tiers, the launch counts zeroed just before and read
          beside the K solo walls, fused_dispatches and fusion_bytes_saved;
          then map_fused_fn over one split for three participants (-w, -x,
          -i) against each one's solo map_batch_fn records.  (c) a seeded
-         sweep of 40 draws of K = 2..8 specs (literals, -F sets, the NFA
+         sweep of 24 draws of K = 2..8 specs (literals, -F sets, the NFA
          sweep's regexes, about a third -i) over 4 MiB of word lines with
          CR, NUL and 0xFF, DGREP_DEVICE_MIN_BYTES=0: every union scan
          launches, and each query's lines equal its solo scan on the card
@@ -284,6 +284,25 @@ Phase 3f the service daemon (runtime/service.py) in this process over the
          advice says grow and the pool grows; idle, it drains back to 1;
          ``top --once`` prints the daemon's view and ``trace-export
          --fleet`` its daemon.jsonl with the scale events.
+Phase 3g failover and the peer data plane, over the same 4 word files,
+         the index and the result cache off, every job's mr-out held to
+         phase 3's job of its query: (a) a daemon in this process and two
+         ``worker --addr`` processes on the peer shuffle (runtime/
+         peer.py), 'volcano' and config 3's set: the daemon's relay bytes
+         are 0, the reducers' peer_fetches above 0, each worker row names
+         its data endpoint, and the launches the processes ship hold
+         Shift-And and FDR, one a segment at least.  (b) 'volcano' again;
+         the worker that produced the first committed map is SIGKILLed
+         before the map phase ends (no reducer has fetched its output):
+         maps_lost_output is at least 1 and the Shift-And launches
+         shipped exceed a clean run's by that map's.  (c) a ``serve``
+         and a ``serve --standby`` process on one work root
+         (DGREP_LEASE_TTL_S=2), two ``worker --addr A,B`` processes and a
+         ``submit --addr A,B volcano``; the active SIGKILLed after the
+         job's first map commit: the standby promotes (/status role
+         active, daemon.jsonl lease_steal at epoch 2), the submit prints
+         one line with one job id, done; the seconds from the kill to
+         the promotion and to the job's end.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -1635,9 +1654,10 @@ def phase_nfa_kernels(torch, np, nfa_scan, nfa_mod) -> int:
 SWEEP_SMALL = [(32, 32), (64, 32)]
 # the depth of two phase-2 sweeps: random NFA models a width (1-4 state
 # words; 6 until phase 3c came, 3 until phase 3f came) and random
-# table-DFA regexes (24 until phase 3c came, 12 until phase 3f came)
+# table-DFA regexes (24 until phase 3c came, 12 until phase 3f came, 6
+# until phase 3g came)
 NFA_SWEEP_PER_WIDTH = 1
-DFA_SWEEP_TABLES = 6
+DFA_SWEEP_TABLES = 3
 SWEEP_SEGMENT = (1024, 65536)
 SWEEP_ALPHABET = "abcxyz"
 # 'Z' then 127 starred letters: 128 positions over 4 words, all specials
@@ -2232,15 +2252,15 @@ def substripe_shapes(i: int, segment: bool) -> list:
 def phase_shift_and_sweep(torch, np, cuda_scan, sa_mod,
                           seed: int) -> tuple[int, int]:
     """The Shift-And kernel against its plain version on seeded random
-    models of the lengths 1, 5, ..., 29 and 32 (a third with -i) and the
+    models of the lengths 1, 9, 17, 25 and 32 (a third with -i) and the
     rare-class filters among them, in both modes, at ``substripe_shapes``
     (the 64 MB segment for the seventh model, the last and one filter).  Returns (draws
     compared, the largest absolute difference)."""
     rng = np.random.default_rng(seed)
     models = []
-    # every fourth length and 32 (every odd length until phase 3f (d)-(g)
-    # came, every length before phase 3f)
-    for m in [*range(1, 33, 4), 32]:
+    # every eighth length and 32 (every fourth until phase 3g came, every
+    # odd length until phase 3f (d)-(g) came, every length before 3f)
+    for m in [*range(1, 33, 8), 32]:
         full = sa_mod.try_compile_shift_and(rand_symbols(rng, m),
                                             bool(rng.integers(0, 3) == 0))
         assert full is not None and full.length == m
@@ -2292,15 +2312,14 @@ def phase_shift_and_sweep(torch, np, cuda_scan, sa_mod,
 def phase_approx_sweep(torch, np, approx_scan, ax_mod,
                        seed: int) -> tuple[int, int]:
     """The approx kernel against its plain version on seeded random models
-    (k = 1-3 with m of k + 1, 20 and 32, and three random draws, so m +
-    k - 1 up to 34: two warm-up words; a third with -i), samples within k
+    (k = 1-3 with m of k + 1, 20 and 32, so m + k - 1 up to 34: two
+    warm-up words; a third with -i), samples within k
     edits, at ``substripe_shapes`` (the 64 MB segment for three of them,
     one per k at m = 32).  Returns (draws compared, the largest absolute
     difference)."""
     rng = np.random.default_rng(seed)
+    # (three random draws more until phase 3g came)
     specs = [(k, m) for k in (1, 2, 3) for m in (k + 1, 20, 32)]
-    specs += [(int(rng.integers(1, 4)), int(rng.integers(5, 33)))
-              for _ in range(3)]
     models = []
     for k, m in specs:
         model = ax_mod.try_compile_approx(rand_symbols(rng, m), k,
@@ -2374,7 +2393,7 @@ def phase_pairset_sweep(torch, np, pairset_scan, ps_mod,
     draw ORed into a nonzero plane (out=).  Returns (draws compared, the
     largest absolute difference)."""
     rng = np.random.default_rng(seed)
-    models = sweep_pairsets(rng, ps_mod, 22)
+    models = sweep_pairsets(rng, ps_mod, 12)  # 22 until phase 3g came
     on_segment = {0, len(models) - 2, len(models) - 1}
     n = worst = 0
     for i, model in enumerate(models):
@@ -2433,7 +2452,7 @@ def phase_swar_sweep(torch, np, swar_scan, sa_mod,
     the largest absolute difference)."""
     rng = np.random.default_rng(seed)
     models = []
-    for m in list(range(1, 9)) * 3:
+    for m in list(range(1, 9)) * 2:  # three each until phase 3g came
         full = sa_mod.try_compile_shift_and(rand_symbols(rng, m),
                                             bool(rng.integers(0, 3) == 0))
         assert full is not None and full.length == m
@@ -3800,7 +3819,8 @@ TIERS_TOKEN_LARGE = 2  # large files the rare token is planted in
 TIERS_MIN_PRUNED_SMALL = 1900
 TIERS_MIN_PRUNED_LARGE = 20
 TIERS_INVERT_FILES = 250  # the -v jobs' small files (every line a record)
-FUSE_SWEEP_DRAWS = 40  # 200 until run 17F, 120 until phase 3f came
+# 200 until run 17F, 120 until phase 3f came, 40 until phase 3g came
+FUSE_SWEEP_DRAWS = 24
 FUSE_SWEEP_BYTES = 4 << 20
 FUSE_SWEEP_POOL = (8, 6, 14)  # literals, -F sets, regexes drawn once
 
@@ -4294,7 +4314,9 @@ def phase_tiers(args, words: list[Path], card: str, counters: dict,
         index_summary.clear()  # detach the store: (b) and (c) scan all
         log(f"phase 3e (a): {time.perf_counter() - t0:.1f} s [{card}]")
         t0 = time.perf_counter()
-        for ln in tiers_fusion(large, device, counters):
+        # the fused mixes over a third of the large files (all 24 until
+        # phase 3g came)
+        for ln in tiers_fusion(large[:len(large) // 3], device, counters):
             log(f"{ln} [{card}]")
         log(f"phase 3e (b): {time.perf_counter() - t0:.1f} s [{card}]")
         t0 = time.perf_counter()
@@ -4689,6 +4711,280 @@ def phase_service(words: list[Path], set3: list[bytes], inproc: dict,
     log(f"phase 3f: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+FAILOVER_TIMEOUT_S = 10.0  # the 3g daemons' task_timeout_s
+# phase 3g's worker processes: a dead peer's fetch gives up in about 1.4 s
+# ((a), (b)); over an address list the retries span a promotion ((c))
+PEER_WORKER_ENV = {"DGREP_LOG": "INFO", "DGREP_RPC_RETRIES": "3",
+                   "DGREP_RPC_BACKOFF_S": "0.2"}
+HA_WORKER_ENV = {"DGREP_LOG": "INFO", "DGREP_RPC_RETRIES": "8",
+                 "DGREP_RPC_BACKOFF_S": "0.2"}
+HA_TTL_S = "2"
+
+
+def http_status(addr: str, path: str = "/status") -> dict | None:
+    """One GET of a daemon, None when it does not answer JSON."""
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://{addr}{path}",
+                                    timeout=5) as resp:
+            return json.loads(resp.read())
+    except (OSError, ValueError):
+        return None
+
+
+def wait_for(what: str, pred, timeout: float, poll_s: float = 0.02):
+    """Poll ``pred`` until it returns something truthy; its value."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 3g: {what} not within {timeout} s")
+        time.sleep(poll_s)
+
+
+def peer_endpoint_of(proc) -> str | None:
+    """The peer data server a worker process logged (DGREP_LOG=INFO)."""
+    for line in proc.err_lines:
+        m = re.search(r"peer shuffle data server on (http://\S+)", line)
+        if m:
+            return m.group(1)
+    return None
+
+
+def end_procs(procs, sig=signal.SIGKILL) -> None:
+    for proc in procs:
+        if proc is not None and proc.poll() is None:
+            proc.send_signal(sig)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def phase_failover(words: list[Path], set3: list[bytes], inproc: dict,
+                   card: str) -> None:
+    """Phase 3g (module docstring): the peer shuffle, a lost output and a
+    failover, through worker and daemon processes on the card."""
+    from distributed_grep_tpu_torch.runtime.daemon_log import DaemonLog
+    from distributed_grep_tpu_torch.runtime.service import (
+        GrepService,
+        ServiceServer,
+    )
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    log(f"== phase 3g: failover and the peer data plane, card: {card}")
+    t_phase = time.perf_counter()
+    opts = service_options(set3)
+    files = [str(p) for p in words]
+    per_file = -(-words[0].stat().st_size // (64 << 20))
+    segs = per_file * len(words)
+    saved = {k: os.environ.get(k) for k in ("DGREP_INDEX",
+                                             "DGREP_RESULT_CACHE")}
+    os.environ["DGREP_INDEX"] = "0"
+    os.environ["DGREP_RESULT_CACHE"] = "0"
+
+    def job(label: str) -> JobConfig:
+        return JobConfig(input_files=files, app_options=dict(opts[label]),
+                         n_reduce=10, task_timeout_s=FAILOVER_TIMEOUT_S,
+                         journal=False, durable=False)
+
+    def shipped_of(st: dict) -> dict:
+        return dict(st["metrics"].get("launches") or {})
+
+    root_a = WORK / "failover-a"
+    svc = GrepService(work_root=root_a, task_timeout_s=FAILOVER_TIMEOUT_S)
+    server = ServiceServer(svc)
+    server.start()
+    addr = f"127.0.0.1:{server.port}"
+    workers: list = []
+    try:
+        # (a) two worker processes on the peer shuffle: volcano (Shift-And)
+        # and config 3's set (FDR); the daemon moves metadata only
+        t0 = time.perf_counter()
+        workers = [port_proc(["worker", "--addr", addr], env=PEER_WORKER_ENV)
+                   for _ in range(2)]
+        wait_for("two worker processes attached",
+                 lambda: len(svc.status()["workers"]) == 2, 180)
+        t_attach = time.perf_counter() - t0
+        wait_for("the peer endpoints logged",
+                 lambda: all(peer_endpoint_of(w) for w in workers), 30)
+        endpoints = {peer_endpoint_of(w): w for w in workers}
+        if None in endpoints or len(endpoints) != 2:
+            raise AssertionError(f"phase 3g (a): peer endpoints {endpoints}")
+        t0 = time.perf_counter()
+        jids = {label: svc.submit(job(label))
+                for label in ("volcano", "config3 -f")}
+        wait_service_jobs(svc, jids.values())
+        wall_a = time.perf_counter() - t0
+        shipped, fetches = {}, 0
+        for label, j in jids.items():
+            st = svc.job_status(j)
+            if mr_out_hashes(svc.job_result(j)["outputs"]) != inproc[label]:
+                raise AssertionError(f"phase 3g (a): {label!r}'s mr-out "
+                                     f"differs from phase 3's job")
+            for k, v in shipped_of(st).items():
+                shipped[k] = shipped.get(k, 0) + v
+            fetches += st["metrics"]["counters"].get("peer_fetches", 0)
+        relay = dict(svc._shuffle_stats)
+        rows = svc.status()["workers"]
+        if (relay["daemon_shuffle_bytes"] or not fetches
+                or shipped.get("shift_and", 0) < segs
+                or shipped.get("fdr", 0) < segs
+                or sorted(r.get("data_endpoint") for r in rows.values())
+                != sorted(endpoints)):
+            raise AssertionError(f"phase 3g (a): relay {relay}, "
+                                 f"peer_fetches {fetches}, shipped {shipped}"
+                                 f", rows {rows}")
+        log(f"phase 3g (a) peer shuffle: 2 worker processes attached "
+            f"{t_attach:.3f} s after their start; volcano and config 3's set "
+            f"over {len(words)} word files in {wall_a:.3f} s; daemon relay "
+            f"bytes {relay['daemon_shuffle_bytes']} (puts "
+            f"{relay['relay_puts']}, gets {relay['relay_gets']}); "
+            f"peer_fetches {fetches}; shipped launches {shipped}; both "
+            f"mr-out equal phase 3's [{card}]")
+
+        # (b) one worker SIGKILLed once a map of its own committed and
+        # before the map phase ends (so no reducer has fetched it): the
+        # reducer's fetch fails, the map runs again on the other worker
+        t0 = time.perf_counter()
+        jb = svc.submit(job("volcano"))
+        sched = wait_for("(b)'s scheduler",
+                         lambda: svc.record(jb).scheduler, 60)
+
+        def first_commit():
+            for t in sched.map_tasks:
+                if t.peer and t.state.value == "completed":
+                    return t
+            return None
+
+        task = wait_for("(b)'s first map commit", first_commit, 300, 0.005)
+        victim = endpoints.get(task.peer["endpoint"])
+        done_at_kill = sched.status_counts()["map"]["completed"]
+        end_procs([victim])
+        t_kill = time.perf_counter()
+        if victim is None or done_at_kill >= len(words):
+            raise AssertionError(f"phase 3g (b): producer {task.peer} of "
+                                 f"map {task.task_id}, {done_at_kill} maps "
+                                 f"done at the kill")
+        wait_service_jobs(svc, [jb])
+        wall_b = time.perf_counter() - t_kill
+        st = svc.job_status(jb)
+        lost = st["metrics"]["counters"].get("maps_lost_output", 0)
+        shipped_b = shipped_of(st)
+        if (lost < 1 or shipped_b.get("shift_and", 0) < segs + per_file
+                or mr_out_hashes(svc.job_result(jb)["outputs"])
+                != inproc["volcano"]):
+            raise AssertionError(f"phase 3g (b): maps_lost_output {lost}, "
+                                 f"shipped {shipped_b} (a clean run ships "
+                                 f"{segs})")
+        log(f"phase 3g (b) lost output: the producer of map "
+            f"{task.task_id} SIGKILLed {t_kill - t0:.3f} s after the submit "
+            f"({done_at_kill} of {len(words)} maps committed); "
+            f"maps_lost_output {lost}, shipped shift_and "
+            f"{shipped_b.get('shift_and', 0)} (a clean run's {segs}); the "
+            f"job ended {wall_b:.3f} s after the kill (the dead worker's "
+            f"map in flight re-issued after the {FAILOVER_TIMEOUT_S:.0f} s "
+            f"timeout); mr-out equal phase 3's [{card}]")
+    finally:
+        svc.stop()
+        server.shutdown(linger_s=0.5)
+        end_procs(workers)
+        shutil.rmtree(root_a, ignore_errors=True)
+
+    # (c) an active and a ``serve --standby`` on one work root (lease TTL
+    # 2 s), two workers and the submit on both addresses; the active
+    # SIGKILLed after the first map commit
+    root_c = WORK / "failover-c"
+    ha_env = {"DGREP_LEASE_TTL_S": HA_TTL_S, "DGREP_LOG": "INFO"}
+    port_a, port_b = free_port(), free_port()
+    a_addr, b_addr = f"127.0.0.1:{port_a}", f"127.0.0.1:{port_b}"
+    addrs = f"{a_addr},{b_addr}"
+    procs: list = []
+    active = standby = submit = None
+    try:
+        t0 = time.perf_counter()
+        active = port_proc(["serve", "--port", str(port_a), "--workers", "0",
+                            "--work-root", str(root_c)], env=ha_env)
+        procs.append(active)
+        wait_for("the active", lambda: (http_status(a_addr) or {}).get(
+            "role") == "active", 180, 0.1)
+        standby = port_proc(["serve", "--standby", "--port", str(port_b),
+                             "--workers", "0", "--work-root", str(root_c)],
+                            env=ha_env)
+        procs.append(standby)
+        for _ in range(2):
+            procs.append(port_proc(["worker", "--addr", addrs],
+                                   env=HA_WORKER_ENV))
+        wait_for("the standby", lambda: (http_status(b_addr) or {}).get(
+            "role") == "standby", 180, 0.1)
+        wait_for("two workers on the active", lambda: len(
+            (http_status(a_addr) or {}).get("workers", {})) == 2, 180, 0.1)
+        t_ready = time.perf_counter() - t0
+        submit = port_proc(["submit", "--addr", addrs, "--n-reduce", "10",
+                            "--timeout", "600", "volcano", *files])
+        procs.append(submit)
+
+        def committed():
+            st = http_status(a_addr) or {}
+            return [j for j, row in st.get("jobs", {}).items()
+                    if row.get("map_completed", 0) >= 1]
+
+        jobs_a = wait_for("the first map commit on the active", committed,
+                          300)
+        end_procs([active])
+        t_kill = time.perf_counter()
+        wait_for("the promotion", lambda: (http_status(b_addr) or {}).get(
+            "role") == "active", 120, 0.05)
+        t_promoted = time.perf_counter() - t_kill
+        submit.wait(timeout=600)
+        submit.drainer.join(timeout=5)
+        t_end = submit.ended_at - t_kill
+        out = submit.stdout.read().decode().strip().splitlines()
+        doc = json.loads(out[-1]) if out else {}
+        status_b = http_status(b_addr) or {}
+        steals = [e for e in DaemonLog.read(root_c)
+                  if e["kind"] == "lease_steal"]
+        promoted = [e for e in DaemonLog.read(root_c)
+                    if e["kind"] == "promoted"]
+        job_b = http_status(b_addr, f"/jobs/{doc.get('job_id')}") or {}
+        shipped_c = shipped_of(job_b) if job_b.get("metrics") else {}
+        if (submit.returncode != 0 or doc.get("state") != "done"
+                or len(out) != 1 or jobs_a != [doc["job_id"]]
+                or list(status_b.get("jobs", {})) != [doc["job_id"]]
+                or [e["epoch"] for e in steals] != [2]
+                or mr_out_hashes(doc["outputs"]) != inproc["volcano"]):
+            raise AssertionError(f"phase 3g (c): submit rc "
+                                 f"{submit.returncode} {out[-3:]}, jobs "
+                                 f"{jobs_a} / {list(status_b.get('jobs', {}))}"
+                                 f", steals {steals}, shipped {shipped_c}, "
+                                 f"standby log "
+                                 f"{''.join(standby.err_lines)[-1500:]}")
+        failover_s = (promoted[0]["payload"]["failover_s"] if promoted
+                      else None)
+        log(f"phase 3g (c) failover: the active, the standby and 2 workers "
+            f"ready {t_ready:.3f} s after the active's start; the active "
+            f"SIGKILLed after the first map commit of {doc['job_id']}; the "
+            f"standby promoted (epoch 2, lease_steal in daemon.jsonl) "
+            f"{t_promoted:.3f} s after the kill (its own failover_s "
+            f"{failover_s}), the job done {t_end:.3f} s after the kill; one "
+            f"job id; shipped launches after the promotion {shipped_c}; "
+            f"mr-out equal phase 3's [{card}]")
+    finally:
+        end_procs([standby], signal.SIGTERM)
+        end_procs(procs)
+        shutil.rmtree(root_c, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"phase 3g: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 FOLLOW_QUERIES = (("volcano", {"pattern": "volcano"}),
                   ("-i Volcano", {"pattern": "Volcano", "ignore_case": True}),
                   ("^the (old|new) ", {"pattern": "^the (old|new) "}),
@@ -5020,8 +5316,8 @@ def main() -> int:
                          "prints no result lines")
     ap.add_argument("--service-only", action="store_true",
                     help="phase 1, then phase 3's in-process jobs of the "
-                         "four tenants phase 3f compares with, and phase 3f; "
-                         "prints no result lines")
+                         "four tenants phase 3f compares with, and phases 3f "
+                         "and 3g; prints no result lines")
     args = ap.parse_args()
 
     import torch
@@ -5215,6 +5511,7 @@ def main() -> int:
                 inproc[label] = mr_out_hashes(res.output_files)
                 log(f"in-process job {label!r}: {solo_walls[label]:.3f} s")
             phase_service(half, set3, inproc, solo_walls, card, counters)
+            phase_failover(half, set3, inproc, card)
         finally:
             shutil.rmtree(WORK, ignore_errors=True)
         log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -5597,6 +5894,7 @@ def main() -> int:
         phase_telemetry(args, half, set3, inproc, card, counters)
         phase_tiers(args, words, card, counters)
         phase_service(half, set3, inproc, solo_walls, card, counters)
+        phase_failover(half, set3, inproc, card)
 
         # ------------------------------------------- timings (not counted)
         log(f"== the timing block, card: {card}")

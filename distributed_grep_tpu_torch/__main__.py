@@ -122,7 +122,7 @@ Any application, from a JobConfig JSON file (utils/config.py):
         [--workers N] [--n-reduce R] [--work-dir DIR] [--metrics]
     python -m distributed_grep_tpu_torch coordinator --config JOB.json
         [--resume]
-    python -m distributed_grep_tpu_torch worker --addr HOST:PORT
+    python -m distributed_grep_tpu_torch worker --addr HOST:PORT[,HOST:PORT]
         [--slots N]
 
 ``run`` runs the job in process (``--resume`` replays the work dir's
@@ -141,8 +141,8 @@ over persistent workers and engines:
 
     python -m distributed_grep_tpu_torch serve [--host H] [--port P]
         [--work-root DIR] [--workers N] [--max-workers M] [--max-jobs J]
-        [--queue Q] [--spans] [--no-resume]
-    python -m distributed_grep_tpu_torch submit --addr HOST:PORT
+        [--queue Q] [--spans] [--no-resume] [--standby]
+    python -m distributed_grep_tpu_torch submit --addr HOST:PORT[,HOST:PORT]
         (--config JOB.json | [PATTERN] FILE... [-i] [-e PATTERN]...
          [-f FILE] [-F] [-E] [--backend device|cpu])
         [--n-reduce R] [--no-wait] [--timeout S] [--explain]
@@ -181,9 +181,24 @@ it prints the records as they arrive, as ``grep --follow`` prints them
 then one JSON summary line.  ``explain`` prints a job's routing report:
 the daemon's (``--addr``), or one built from a work dir's events.jsonl.
 ``top`` polls each daemon of the list and prints its view (``--once``:
-one snapshot, exit 2 when none answers).  ``serve --standby`` and
-``submit`` to an address list (failover, ROADMAP.md item 6) raise, naming
-the item that will port them.
+one snapshot, exit 2 when none answers).
+
+Failover (runtime/lease.py): ``serve --standby``, or any ``serve`` with
+DGREP_LEASE_TTL_S set, contends for the work root's lease.  The winner
+serves (``/status`` says ``"role": "active"``) and renews the lease every
+DGREP_LEASE_RENEW_S (a third of the TTL); the others park on their
+address as standbys (``"role": "standby"``) and poll it, and the first to
+find it older than the TTL steals it and promotes through the registry's
+resume, on the same address.  A deposed active (its lease stolen after a
+stall) stops serving at once and stands by again.  ``worker --addr A,B``
+and ``submit --addr A,B`` follow whichever daemon is active: every retry
+dials the next address, a standby's 503 too, and a worker waits while
+every address is a standby.  ``submit`` to a list sends a fresh
+``submit_token``, so a POST repeated after a failover lands on the one
+job; it re-POSTs while a standby answers, and its polls ride out the
+failover.  Worker processes attached to a daemon keep their map output
+on their own spool and serve it to the reducers (the peer shuffle,
+runtime/peer.py; DGREP_PEER_SHUFFLE=0 sends it through the daemon).
 
 Telemetry:
 
@@ -342,7 +357,8 @@ def _parser() -> argparse.ArgumentParser:
     w = sub.add_parser("worker", help="connect to a coordinator and run its "
                                       "tasks")
     w.add_argument("--addr", required=True,
-                   help="the coordinator's address, host:port")
+                   help="the coordinator's address, host:port, or a "
+                        "daemon's and its standbys', comma-separated")
     w.add_argument("--slots", type=int, default=1,
                    help="task loops in this process")
 
@@ -372,7 +388,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="do not re-admit or resume the registry's jobs "
                          "(DGREP_SERVICE_RESUME=0)")
     sv.add_argument("--standby", action="store_true",
-                    help="active/standby failover (not ported yet)")
+                    help="active/standby failover on the work root's lease: "
+                         "serve while holding it, stand by while another "
+                         "daemon does (DGREP_LEASE_TTL_S set does the same)")
     sv.add_argument("--max-workers", type=int, default=None,
                     help="the elastic pool's ceiling: the in-process pool "
                          "grows toward it on the scale advice and shrinks "
@@ -382,7 +400,8 @@ def _parser() -> argparse.ArgumentParser:
     sb = sub.add_parser("submit", help="submit a job to a service daemon and "
                                        "print one JSON line")
     sb.add_argument("--addr", required=True,
-                    help="the daemon's address, host:port")
+                    help="the daemon's address, host:port, or the "
+                         "active's and its standbys', comma-separated")
     sb.add_argument("--config", default=None,
                     help="a job config JSON (as `run --config`); otherwise "
                          "PATTERN and FILE arguments")
@@ -1061,15 +1080,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
         DaemonLog,
         env_daemon_log,
     )
+    from distributed_grep_tpu_torch.runtime.lease import lease_configured
     from distributed_grep_tpu_torch.runtime.service import (
         GrepService,
         ServiceServer,
     )
 
-    if args.standby:
-        raise NotImplementedError(
-            "serve --standby is not ported yet: ROADMAP.md 'Slices still to "
-            "port', item 6 (failover and the peer data plane)")
     work_root = args.work_root or tempfile.mkdtemp(prefix="dgrep-svc-")
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -1077,6 +1093,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
             signal.signal(sig, lambda *_: stop.set())
         except ValueError:
             pass  # not the main thread (a test drives it)
+    if args.standby or lease_configured():
+        return _serve_ha(args, work_root, stop)
     service = GrepService(
         work_root=work_root, max_jobs=args.max_jobs, queue_depth=args.queue,
         spans=args.spans, resume=False if args.no_resume else None,
@@ -1099,6 +1117,146 @@ def cmd_serve(args: argparse.Namespace) -> int:
     server.shutdown(linger_s=2.0)
     # stdout: exactly one JSON line, the final status
     print(json.dumps(service.status()), flush=True)
+    return 0
+
+
+def _serve_ha(args: argparse.Namespace, work_root: str, stop) -> int:
+    """``serve`` on the work root's lease: contend for it; serve while
+    holding it (renewed, every durable write fenced on it); stand by on
+    the same address while another daemon holds it.  A deposed active
+    stops serving at once (no JOB_DONE to its workers: they move on to
+    the new active) and contends again; a standby promotes through the
+    registry's resume.  The last status as one JSON line on stdout."""
+    import threading
+
+    from distributed_grep_tpu_torch.runtime.daemon_log import (
+        DaemonLog,
+        env_daemon_log,
+    )
+    from distributed_grep_tpu_torch.runtime.lease import (
+        WorkRootLease,
+        env_lease_renew_s,
+    )
+    from distributed_grep_tpu_torch.runtime.service import (
+        GrepService,
+        ServiceServer,
+        StandbyServer,
+    )
+    from distributed_grep_tpu_torch.utils import metrics as metrics_mod
+
+    port = args.port
+    standby = None
+    last_status: dict = {"service": True, "role": "standby"}
+    try:
+        while not stop.is_set():
+            if port == 0 and standby is None:
+                # the address is fixed before the lease advertises it: a
+                # daemon keeps one address across its roles
+                standby = StandbyServer(work_root, host=args.host,
+                                        port=0).start()
+                port = standby.port
+            lease = WorkRootLease(work_root, addr=f"{args.host}:{port}")
+            poll_s = env_lease_renew_s()
+            park_t0 = None
+            # the failover clock: from the poll that found the lease stale
+            detect_t = time.monotonic()
+            while not lease.acquire():
+                if standby is None:
+                    standby = StandbyServer(work_root, host=args.host,
+                                            port=port).start()
+                if park_t0 is None:
+                    park_t0 = time.monotonic()
+                    print(f"standby on {args.host}:{port} (work root "
+                          f"{work_root})", file=sys.stderr, flush=True)
+                    last_status = standby.status()
+                if stop.wait(poll_s):
+                    return _emit_status(last_status)
+                detect_t = time.monotonic()
+            stolen = lease.epoch > 1
+            # only the lease holder opens daemon.jsonl (opening truncates a
+            # torn tail, which would cut the active's live file)
+            daemon_log = None
+            if env_daemon_log():
+                daemon_log = DaemonLog(work_root, epoch=lease.epoch,
+                                       role="active")
+                if park_t0 is not None:
+                    daemon_log.stage("standby_park", parked_s=round(
+                        time.monotonic() - park_t0, 3))
+                daemon_log.append_now(
+                    "lease_steal" if stolen else "lease_acquire",
+                    addr=f"{args.host}:{port}",
+                    **({"prev_epoch": lease.epoch - 1} if stolen else {}))
+            # renewed from here: a resume that outlasts the TTL must not
+            # let the lease go stale under it
+            box: list = []
+            lease.start_renewal(
+                on_lost=lambda: box and box[0]._on_lease_lost(),
+                on_renew=lambda: box and box[0].lease_renewed())
+            # a promotion is a resume: the registry re-admits the queued
+            # jobs, resumes the running ones and the follow cursors
+            service = GrepService(
+                work_root=work_root, max_jobs=args.max_jobs,
+                queue_depth=args.queue, spans=args.spans,
+                resume=False if args.no_resume else None, lease=lease,
+                daemon_log=daemon_log)
+            if standby is not None:
+                # the standby answered while the service resumed (a job's
+                # device check may import the CUDA stack, seconds on a
+                # card's host); the real server takes the address now
+                standby.shutdown()
+                standby = None
+            box.append(service)
+            if not service._lease_ok():
+                service._on_lease_lost()  # lost while it resumed
+            server = ServiceServer(service, host=args.host, port=port)
+            server.start()
+            port = server.port
+            print(f"serving on {args.host}:{port} (work root {work_root}, "
+                  f"epoch {lease.epoch})", file=sys.stderr, flush=True)
+            if daemon_log is not None and (stolen or park_t0 is not None):
+                failover_s = time.monotonic() - detect_t
+                metrics_mod.histogram(
+                    "dgrep_daemon_failover_seconds").observe(failover_s)
+                daemon_log.append_now(
+                    "promoted", addr=f"{args.host}:{port}",
+                    failover_s=round(failover_s, 6),
+                    running=len(service._running),
+                    queued=len(service._queue))
+            # a deposed service's scaler stops with it
+            pool_stop = threading.Event()
+            scaler = _start_worker_pool(args, service, pool_stop)
+            try:
+                while not stop.wait(0.5):
+                    if service.deposed_event.is_set():
+                        break
+            except KeyboardInterrupt:
+                stop.set()
+            pool_stop.set()
+            if scaler is not None:
+                scaler.join(timeout=5.0)
+            # the server goes first: the workers' next requests fail and
+            # their address lists find the standby that takes over
+            server.shutdown()
+            lease.stop_renewal()
+            # a deposed service's stop stages cancellations the fence
+            # drops; an owner's stop flushes them and releases the lease
+            service.stop()
+            if daemon_log is not None:
+                daemon_log.discard()  # a deposed daemon's staged events
+            last_status = service.status()
+            if stop.is_set():
+                return _emit_status(last_status)
+            print(f"deposed on {args.host}:{port}: standing by",
+                  file=sys.stderr, flush=True)
+    finally:
+        if standby is not None:
+            standby.shutdown()
+    return _emit_status(last_status)
+
+
+def _emit_status(status: dict) -> int:
+    # stdout: exactly one JSON line, the last status
+    print(json.dumps(status), flush=True)
     return 0
 
 
@@ -1176,37 +1334,63 @@ def _with_follow(args: argparse.Namespace, cfg):
 def cmd_submit(args: argparse.Namespace) -> int:
     """Post a job to a service daemon, wait for it unless --no-wait, and
     print exactly one JSON line."""
+    import secrets
     import urllib.error
+    from dataclasses import replace
 
-    from distributed_grep_tpu_torch.runtime.http_transport import client_call
+    from distributed_grep_tpu_torch.runtime.http_transport import (
+        client_call,
+        split_addrs,
+    )
 
-    if "," in args.addr:
-        raise NotImplementedError(
-            "submit to an address list is not ported yet: ROADMAP.md 'Slices "
-            "still to port', item 6 (failover)")
     rc, cfg = _submit_config(args)
     if rc:
         return rc
     cfg = _with_follow(args, cfg)
 
+    # an address list: a request's bound is at most 30 s, so one that a
+    # daemon's death leaves hanging is retried on the next address
+    multi_addr = len(split_addrs(args.addr)) > 1
+    call_timeout = min(args.timeout, 30.0) if multi_addr else args.timeout
+
     def call(method: str, path: str, body: bytes | None = None) -> dict:
         return client_call(args.addr, method, path, body=body,
-                           timeout=args.timeout)
+                           timeout=call_timeout)
 
-    try:
-        # single-shot: a submit is not idempotent, and a retried POST whose
-        # first reply was lost would admit the job twice
-        reply = client_call(args.addr, "POST", "/jobs",
-                            cfg.to_json().encode("utf-8", "strict"),
-                            timeout=args.timeout, retry=False)
-    except urllib.error.HTTPError as e:
-        detail = e.read()[:500].decode("utf-8", "replace")
-        print(f"error: submit rejected ({e.code}): {detail}", file=sys.stderr)
-        return 2
-    except OSError as e:
-        print(f"error: cannot reach service at {args.addr}: {e}",
-              file=sys.stderr)
-        return 2
+    # an address list: the submit carries a token, so a POST repeated
+    # after a failover (its first reply lost, or a standby's 503) lands on
+    # the job the first made; one address: the single-shot, token-free
+    # submit
+    if multi_addr and not cfg.submit_token:
+        cfg = replace(cfg, submit_token=secrets.token_hex(16))
+    submit_deadline = time.monotonic() + args.timeout
+    while True:
+        try:
+            # single-shot with one address: a submit is not idempotent
+            # without its token, and a retried POST whose first reply was
+            # lost would admit the job twice
+            reply = client_call(args.addr, "POST", "/jobs",
+                                cfg.to_json().encode("utf-8", "strict"),
+                                timeout=call_timeout, retry=multi_addr)
+            break
+        except urllib.error.HTTPError as e:
+            if (multi_addr and e.code == 503
+                    and time.monotonic() < submit_deadline):
+                # every daemon answered standby: one promotes within the
+                # TTL, and the token makes the re-POST safe
+                time.sleep(0.5)
+                continue
+            detail = e.read()[:500].decode("utf-8", "replace")
+            print(f"error: submit rejected ({e.code}): {detail}",
+                  file=sys.stderr)
+            return 2
+        except OSError as e:
+            if multi_addr and time.monotonic() < submit_deadline:
+                time.sleep(0.5)  # the token makes the re-POST safe
+                continue
+            print(f"error: cannot reach service at {args.addr}: {e}",
+                  file=sys.stderr)
+            return 2
     job_id = reply["job_id"]
     if cfg.follow:
         # a standing query has no end to wait for: its records, or the
@@ -1225,7 +1409,16 @@ def cmd_submit(args: argparse.Namespace) -> int:
     try:
         # the job is admitted: every outcome from here prints one line
         while time.monotonic() < deadline:
-            status = call("GET", f"/jobs/{job_id}")
+            try:
+                status = call("GET", f"/jobs/{job_id}")
+            except OSError:
+                # a failover (a standby answers 503 until it promotes, and
+                # the promoted daemon resumes the job): with an address
+                # list, poll on within the budget
+                if not multi_addr:
+                    raise
+                time.sleep(0.5)
+                continue
             if status.get("state") in ("done", "failed", "cancelled"):
                 break
             time.sleep(0.2)

@@ -8,9 +8,10 @@ ends, lost-output re-runs.  ``DaemonLog`` writes each as one JSON line to
 ``<work_root>/daemon.jsonl`` (the task journal's mechanics: fsync a line,
 a torn tail truncated at reopen), shared by every daemon incarnation over
 the work root.  Each line is ``{"ts", "epoch", "pid", "role", "kind",
-"payload"}`` (payload left out when empty).  With no work-root lease
-(failover is ROADMAP.md queue B item 6) the identity is epoch 0, role
-"active".
+"payload"}`` (payload left out when empty).  The epoch and role are the
+work-root lease's (runtime/lease.py) when the daemon holds one, epoch 0
+and role "active" when it runs without one; a flush given the lease's
+write gate drops a deposed daemon's batch.
 
 Event sites run under the service's and the schedulers' locks, so
 ``stage()`` only appends to a list under a leaf lock of its own;

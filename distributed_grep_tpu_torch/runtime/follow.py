@@ -534,11 +534,17 @@ class FollowRunner:
     tail instead of losing them."""
 
     def __init__(self, job_id: str, config, work_root: str | Path, *,
-                 event_log=None, on_fail=None, groups=None):
+                 event_log=None, on_fail=None, write_gate=None, groups=None):
         self.job_id = job_id
         self.config = config
         self.event_log = event_log
         self.on_fail = on_fail
+        # the daemon's write fence (runtime/lease.py), asked before each
+        # wake's journal writes: False means the daemon was deposed, and
+        # the wake is dropped before a cursor moves or a record publishes
+        # (the promoted daemon resumed the query from follow.jsonl) and
+        # the loop stops.  None: no lease, no check
+        self.write_gate = write_gate
         # the daemon's FollowGroupRegistry, or None (DGREP_FOLLOW_FUSE=0):
         # then start() runs the solo thread
         self.groups = groups
@@ -693,6 +699,10 @@ class FollowRunner:
         FollowLogError when the log's write failed (the cursors of the
         files not yet journaled rolled back), and any error of the scan
         as it came."""
+        if self.write_gate is not None and not self.write_gate():
+            # deposed: no scan, no log line, no publish, no more wakes
+            self.request_stop()
+            return 0
         if self._scanner is None:
             self._scanner = self._build_scanner()
         elif self._scanner.engine is None:
@@ -868,6 +878,14 @@ class FollowGroup:
                 self._fail_member(m, error)
 
     def _wake_under_lock(self, failed: list) -> int:
+        gate = self._reg.write_gate
+        if gate is not None and not gate():
+            # deposed: every member stops before any log write (the
+            # promoted daemon owns the cursors)
+            for m in self.members():
+                m.runner.request_stop()
+            self._stop.set()
+            return 0
         self.last_wake = time.monotonic()
         emitted = 0
         for m in self.members():
@@ -1095,13 +1113,17 @@ class FollowGroupRegistry:
     state only: the key's stats and every scan and write run outside it,
     and a group's wake lock is taken before it."""
 
-    def __init__(self, *, start_threads: bool = True, auto_solo: bool = True):
+    def __init__(self, *, write_gate=None, start_threads: bool = True,
+                 auto_solo: bool = True):
         from distributed_grep_tpu_torch.runtime.fusion import (
             env_fuse_max_queries,
         )
 
         self._lock = lockdep.make_lock("follow-groups")
         self._groups: dict[tuple, FollowGroup] = {}
+        # the daemon's write fence, asked before each group wake
+        # (FollowRunner.write_gate)
+        self.write_gate = write_gate
         # tests: start_threads=False drives group.wake_once by hand;
         # auto_solo=False leaves a demoted runner unstarted
         self.start_threads = start_threads

@@ -1,6 +1,5 @@
 """The worker side of the HTTP control and data planes (the reference's
-runtime/http_transport.py, without the peer fetch, the standby parking
-and the multi-host init).
+runtime/http_transport.py, without its multi-host JAX init).
 
 ``HttpTransport`` implements the Transport protocol (runtime/transport.py)
 over urllib.  Transient errors (a refused or reset connection, a body cut
@@ -11,13 +10,30 @@ effects commit through idempotent per-task commit records and the
 scheduler absorbs duplicate completions.  An HTTP error status is the
 server's answer and is never retried.
 
+An address may be a comma-separated list (the active daemon and its
+standbys, runtime/lease.py): every retry moves to the next address, and
+so does a 503, the parked standby's answer (it registered nothing, and
+the real daemon never sends one), so a worker or client whose active
+died follows the promoted standby inside its retry schedule.  A single
+address keeps the strict rule.
+
+``fetch_peer_data`` (and ``HttpTransport.fetch_peer``) reads a peer-held
+shuffle file from the worker that produced it (runtime/peer.py) through
+the same retry loop: the peer gone after the schedule raises
+CoordinatorGone, an HTTP error status RuntimeError, the reducer's
+declared failures.
+
 ``ServiceHttpTransport`` is the same against the service daemon
 (runtime/service.py): its data plane is scoped by job,
 ``/data/<job>/<kind>/<name>``, following the worker's assignment
 (``bind_job``), so one attach serves a stream of jobs.
 
-``run_http_worker`` is the ``worker`` subcommand: it fetches the job
-config, asks ``/status`` once whether the address is a service daemon
+``run_http_worker`` is the ``worker`` subcommand: it asks each address's
+``/status`` once; when every one that answers is a parked standby
+(``"role": "standby"``) it waits and asks again, until one promotes (a
+worker process may take longer to start than a lease's TTL, so it
+attaches whenever the active is).  It fetches the job config from the
+active, asks its ``/status`` whether the address is a service daemon
 (``"service": true``: its config names a default application, and each
 assignment its own), loads the application, checks the job's device when the
 application uses one (runtime/job.job_device; an application that
@@ -25,13 +41,18 @@ launches no kernel never asks for the card) and runs ``n_parallel`` task
 loops in the process, under the profiler when DGREP_TRACE_DIR is set and
 with the span pipeline when the config switches it on.  A loop that fails with
 anything but CoordinatorGone makes the process exit nonzero with that
-error; the coordinator re-issues its task to a live worker.  Every
+error; the coordinator re-issues its task to a live worker.  Attached to
+a service daemon whose ``/status`` says ``"peer": true``, the process
+starts one ``PeerDataServer`` its loops share (DGREP_PEER_SHUFFLE=0: none;
+a server that cannot bind leaves the loops on the relay data plane,
+logged).  Every
 request names the worker (``X-Dgrep-Worker``: a token a run_http_worker
 call, by default one a process):
 a coordinator whose job ended serves on until each worker process that
 attached while it ran has polled once and been told JOB_DONE.  A worker
 that attaches to a job already done (``"done": true``) or to a stopping
-daemon (``"stopped": true``) exits at once (ROADMAP.md C9).
+daemon (``"stopped": true``) exits at once (ROADMAP.md C9); a standby's
+park answer is neither.
 
 ``split_addrs``, ``client_call`` and ``client_text`` are the CLI's
 clients (``submit``, ``status``, ``explain``, ``top``).
@@ -121,21 +142,25 @@ def split_addrs(addr: str) -> list[str]:
     return [a.strip() for a in str(addr).split(",") if a.strip()]
 
 
-def _base_url(addr: str) -> str:
-    addr = addr.strip()
-    if not addr:
-        raise ValueError("no coordinator address")
-    return (addr if addr.startswith("http") else f"http://{addr}").rstrip("/")
+def _base_urls(addr: str) -> list[str]:
+    bases = [(a if a.startswith("http") else f"http://{a}").rstrip("/")
+             for a in split_addrs(addr)]
+    if not bases:
+        raise ValueError(f"no coordinator address in {addr!r}")
+    return bases
 
 
 def _open_with_retries(build_request, timeout: float, desc: str,
                        on_retry=None, deadline: float | None = None,
-                       delays=None) -> bytes:
+                       delays=None, rotate_on_503: bool = False) -> bytes:
     """The one transient-retry loop of every JSON-over-HTTP call: urlopen
     a freshly built request, retry TRANSIENT_ERRORS on the jittered
     schedule, raise CoordinatorGone when it runs dry.  HTTPError passes
-    through.  ``deadline`` (monotonic) bounds the whole call, retries
-    included."""
+    through, except a 503 with ``rotate_on_503`` (an address list: a
+    parked standby's answer), which steps through the same schedule and
+    re-raises when it runs dry.  ``on_retry`` runs before each retry's
+    sleep (the address rotation rides it).  ``deadline`` (monotonic)
+    bounds the whole call, retries included."""
     if delays is None:
         delays = retry_delays()
     while True:
@@ -147,8 +172,16 @@ def _open_with_retries(build_request, timeout: float, desc: str,
             with urllib.request.urlopen(build_request(),
                                         timeout=attempt_timeout) as resp:
                 return resp.read()
-        except urllib.error.HTTPError:
-            raise
+        except urllib.error.HTTPError as e:
+            if not (rotate_on_503 and e.code == 503):
+                raise
+            delay = next(delays, None)
+            if delay is None or (deadline is not None
+                                 and time.monotonic() + delay >= deadline):
+                raise
+            if on_retry is not None:
+                on_retry()
+            time.sleep(delay)
         except TRANSIENT_ERRORS as e:
             delay = next(delays, None)
             if delay is None or (deadline is not None
@@ -160,18 +193,47 @@ def _open_with_retries(build_request, timeout: float, desc: str,
             time.sleep(delay)
 
 
+def fetch_peer_data(endpoint: str, job_id: str, name: str,
+                    timeout: float = 30.0, on_retry=None) -> bytes:
+    """One peer-held shuffle file, ``GET <endpoint>/shuffle/<job>/<name>``
+    from a worker's PeerDataServer, through the retry loop.  Raises
+    CoordinatorGone when the schedule runs dry (the peer is gone) and
+    RuntimeError on an HTTP error status (the peer answered: a 404 is a
+    spool entry gone, not a worker)."""
+    base = endpoint if endpoint.startswith("http") else f"http://{endpoint}"
+    url = (f"{base.rstrip('/')}/shuffle/"
+           f"{urllib.parse.quote(job_id or '_', safe='')}/"
+           f"{urllib.parse.quote(name, safe='')}")
+    try:
+        return _open_with_retries(lambda: urllib.request.Request(url),
+                                  timeout, f"GET {url}", on_retry)
+    except urllib.error.HTTPError as e:
+        raise RuntimeError(f"GET {url} -> {e.code}") from e
+
+
 class HttpTransport:
     def __init__(self, addr: str, rpc_timeout_s: float = 60.0,
                  worker_token: str = _WORKER_TOKEN):
-        # addr: "host:port" or "http://host:port"; rpc_timeout_s is the
-        # client socket timeout (the coordinator long-polls for half of it)
-        self.base = _base_url(addr)
+        # addr: "host:port", "http://host:port", or a comma-separated list
+        # of them (the module docstring); rpc_timeout_s is the client
+        # socket timeout (the coordinator long-polls for half of it)
+        self._bases = _base_urls(addr)
+        self._base_i = 0
         self.rpc_timeout_s = rpc_timeout_s
         self.worker_token = worker_token
         self.retry_count = 0  # transient retries so far
 
+    @property
+    def base(self) -> str:
+        """The address in rotation; every request reads it an attempt."""
+        return self._bases[self._base_i]
+
     def _count_retry(self) -> None:
         self.retry_count += 1
+        if len(self._bases) > 1:
+            # before the backoff's sleep: the next attempt dials the next
+            # address
+            self._base_i = (self._base_i + 1) % len(self._bases)
 
     def _sleep_or_give_up(self, delays, desc: str, err: Exception) -> None:
         delay = next(delays, None)
@@ -180,6 +242,20 @@ class HttpTransport:
         log.info("%s: %s; retrying in %.2f s", desc, err, delay)
         self._count_retry()
         time.sleep(delay)
+
+    def _standby_or_raise(self, delays, err, desc: str) -> None:
+        """A streamed leg's HTTP error: over an address list a 503 (a parked
+        standby) moves to the next address on the retry schedule, as
+        _request's legs do; anything else, or a dry schedule, raises
+        RuntimeError."""
+        if len(self._bases) > 1 and err.code == 503:
+            delay = next(delays, None)
+            if delay is not None:
+                self._count_retry()
+                time.sleep(delay)
+                return
+        raise RuntimeError(
+            f"{desc} -> {err.code}: {err.read()[:200]!r}") from err
 
     def _request(self, method: str, path: str,
                  body: bytes | None = None) -> bytes:
@@ -193,7 +269,8 @@ class HttpTransport:
 
         try:
             return _open_with_retries(build, self.rpc_timeout_s,
-                                      f"{method} {path}", self._count_retry)
+                                      f"{method} {path}", self._count_retry,
+                                      rotate_on_503=len(self._bases) > 1)
         except urllib.error.HTTPError as e:
             raise RuntimeError(
                 f"{method} {path} -> {e.code}: {e.read()[:200]!r}") from e
@@ -266,9 +343,9 @@ class HttpTransport:
         tmp = tempfile.NamedTemporaryFile(
             prefix="dgrep-in-", dir=os.environ.get("DGREP_SPOOL_DIR") or None,
             delete=False)
-        url = f"{self.base}{self._data_path('input', filename)}"
         try:
             while True:
+                url = f"{self.base}{self._data_path('input', filename)}"
                 try:
                     req = urllib.request.Request(url)
                     got = tmp.tell()
@@ -290,7 +367,7 @@ class HttpTransport:
                     tmp.close()
                     return Path(tmp.name), True
                 except urllib.error.HTTPError as e:
-                    raise RuntimeError(f"GET {url} -> {e.code}") from e
+                    self._standby_or_raise(delays, e, f"GET {url}")
                 except TRANSIENT_ERRORS as e:
                     # a full or read-only spool disk is no liveness failure
                     if isinstance(e, OSError) and e.errno in (
@@ -308,6 +385,13 @@ class HttpTransport:
     def read_intermediate(self, name: str) -> bytes:
         return self._request("GET", self._data_path("intermediate", name))
 
+    def fetch_peer(self, endpoint: str, job_id: str, name: str) -> bytes:
+        """A peer-held shuffle file (fetch_peer_data), as a transport
+        method so FaultTransport can inject on this leg."""
+        return fetch_peer_data(endpoint, job_id, name,
+                               timeout=self.rpc_timeout_s,
+                               on_retry=self._count_retry)
+
     def write_output(self, name: str, data: bytes) -> None:
         self._request("PUT", self._data_path("out", name), data)
 
@@ -324,8 +408,8 @@ class HttpTransport:
         commits without being held); each retry reopens the file."""
         size = os.path.getsize(path)
         delays = retry_delays()
-        url = f"{self.base}{self._data_path('out', name)}"
         while True:
+            url = f"{self.base}{self._data_path('out', name)}"
             try:
                 with open(path, "rb") as f:
                     req = urllib.request.Request(url, data=f, method="PUT")
@@ -334,8 +418,7 @@ class HttpTransport:
                                                 timeout=self.rpc_timeout_s):
                         return
             except urllib.error.HTTPError as e:
-                raise RuntimeError(
-                    f"PUT {url} -> {e.code}: {e.read()[:200]!r}") from e
+                self._standby_or_raise(delays, e, f"PUT {url}")
             except TRANSIENT_ERRORS as e:
                 self._sleep_or_give_up(delays, f"PUT {url}", e)
 
@@ -368,40 +451,47 @@ class ServiceHttpTransport(HttpTransport):
                 f"/{kind}/{urllib.parse.quote(name, safe='')}")
 
 
-def client_call(addr: str, method: str, path: str, body: bytes | None = None,
-                timeout: float = 30.0, retry: bool = True) -> dict:
-    """One JSON-over-HTTP call with the transport's retry policy, bounded
-    by ``timeout`` in all; ``retry=False`` makes it single-shot (for a
-    request a duplicate delivery could change).  An HTTP error status
-    raises HTTPError at once."""
-    base = _base_url(addr)
+def _client_open(addr: str, method: str, path: str, body: bytes | None,
+                 timeout: float, retry: bool) -> bytes:
+    """client_call's and client_text's request: over an address list each
+    retry (a transient failure, or a standby's 503) dials the next
+    address."""
+    bases = _base_urls(addr)
+    state = {"i": 0}
 
     def build():
-        req = urllib.request.Request(f"{base}{path}", data=body,
+        req = urllib.request.Request(f"{bases[state['i']]}{path}", data=body,
                                      method=method)
         if body is not None:
             req.add_header("Content-Type", "application/json")
         return req
 
+    def rotate():
+        state["i"] = (state["i"] + 1) % len(bases)
+
     desc = f"{method} {addr}{path}"
     if retry:
-        return json.loads(_open_with_retries(
-            build, timeout, desc, deadline=time.monotonic() + timeout))
-    return json.loads(_open_with_retries(build, timeout, desc,
-                                         delays=iter(())))
+        return _open_with_retries(build, timeout, desc, on_retry=rotate,
+                                  deadline=time.monotonic() + timeout,
+                                  rotate_on_503=len(bases) > 1)
+    return _open_with_retries(build, timeout, desc, delays=iter(()))
+
+
+def client_call(addr: str, method: str, path: str, body: bytes | None = None,
+                timeout: float = 30.0, retry: bool = True) -> dict:
+    """One JSON-over-HTTP call with the transport's retry policy, bounded
+    by ``timeout`` in all; ``retry=False`` makes it single-shot (for a
+    request a duplicate delivery could change).  An HTTP error status
+    raises HTTPError at once, but a 503 over an address list moves to the
+    next address (the module docstring)."""
+    return json.loads(_client_open(addr, method, path, body, timeout, retry))
 
 
 def client_text(addr: str, path: str, timeout: float = 30.0) -> str:
     """client_call's sibling for a text body (``/metrics``, which ``top``
-    reads): the same retry policy, the body decoded utf-8."""
-    base = _base_url(addr)
-
-    def build():
-        return urllib.request.Request(f"{base}{path}", method="GET")
-
-    return _open_with_retries(
-        build, timeout, f"GET {addr}{path}",
-        deadline=time.monotonic() + timeout).decode("utf-8", "replace")
+    reads): the same retry policy and rotation, the body decoded utf-8."""
+    return _client_open(addr, "GET", path, None, timeout, True).decode(
+        "utf-8", "replace")
 
 
 _ATTACHES = itertools.count()
@@ -426,6 +516,7 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     # the start's legs, logged once the worker is ready: where a worker
     # process's seconds before its first task go
     marks = [("entry", time.perf_counter())]
+    addr = _find_active(addr)
     log.info("worker for %s: fetching the job's config", addr)
     # this attach's name: the coordinator serves on after the job's end
     # until it has polled once
@@ -463,6 +554,7 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     native.lib()  # before any task: a task's detector never waits on g++
     marks.append(("host library", time.perf_counter()))
     spans_on = spans_mod.enabled(config.spans)
+    peer = _start_peer(status) if is_service else None
     log.info("worker for %s: %d slots on %s; start: %s", addr, n_parallel,
              device or "the host backend",
              ", ".join(f"{name} {t - t_prev:.3f} s" for (_n, t_prev),
@@ -482,7 +574,8 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
             spill_dir=config.spill_dir,
             # the coordinator's config decides: it is the one that
             # persists the spans
-            spans_enabled=spans_on, job_id=config.effective_job_id())
+            spans_enabled=spans_on, job_id=config.effective_job_id(),
+            peer=peer)
         try:
             loop.run()
         except CoordinatorGone:
@@ -499,12 +592,62 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
 
     # daemon threads: a failed loop ends the process without waiting for
     # the others' tasks, which the coordinator re-issues
-    with trace.job_trace(device=device):
-        for i in range(n_parallel):
-            threading.Thread(target=run_loop, args=(i,), name=f"slot-{i}",
-                             daemon=True).start()
-        ended.wait()
+    try:
+        with trace.job_trace(device=device):
+            for i in range(n_parallel):
+                threading.Thread(target=run_loop, args=(i,),
+                                 name=f"slot-{i}", daemon=True).start()
+            ended.wait()
+    finally:
+        if peer is not None:
+            peer.close()
     log.info("worker for %s: %s", addr,
              f"failed: {errors[0]!r}" if errors else "every slot ended")
     if errors:
         raise errors[0]
+
+
+def _find_active(addr: str, park_s: float = 2.0) -> str:
+    """The address list reordered with the first daemon that is not a
+    parked standby first (each address's /status asked once,
+    single-shot).  While every address that answers is a standby, wait
+    ``park_s`` and ask again: one promotes within its lease's TTL.  When
+    none answers, the list as it was (fetching the config then runs the
+    retry schedule dry)."""
+    bases = split_addrs(addr)
+    while True:
+        saw_standby = False
+        for b in bases:
+            try:
+                st = client_call(b, "GET", "/status", timeout=5.0,
+                                 retry=False)
+            except (OSError, ValueError):
+                continue
+            if st.get("role") == "standby":
+                saw_standby = True
+                continue
+            return ",".join([b] + [o for o in bases if o != b])
+        if not saw_standby:
+            return addr
+        log.info("every daemon of %s answers standby; waiting for one to "
+                 "promote", addr)
+        time.sleep(park_s)
+
+
+def _start_peer(status: dict):
+    """The process's PeerDataServer (runtime/peer.py) when the daemon
+    offers the peer shuffle (``"peer": true``) and DGREP_PEER_SHUFFLE is
+    on, else None; a server that cannot bind leaves the relay data plane
+    (logged)."""
+    from distributed_grep_tpu_torch.runtime.peer import (
+        PeerDataServer,
+        env_peer_shuffle,
+    )
+
+    if not (status.get("peer") and env_peer_shuffle()):
+        return None
+    try:
+        return PeerDataServer().start()
+    except OSError:
+        log.exception("peer data server failed to start; relay shuffle")
+        return None

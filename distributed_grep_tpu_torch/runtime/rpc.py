@@ -1,5 +1,5 @@
 """Control-plane message schema: the five verbs (the reference's
-runtime/rpc.py, without the peer shuffle's fields).
+runtime/rpc.py).
 
   AssignTask      a worker asks for work; long-polls until a map split or
                   a reduce partition is available, or the job is over.
@@ -24,6 +24,16 @@ participants (``AssignTaskReply.fused``), and every task RPC echoes the
 ``job_id`` back.  A one-shot coordinator leaves them empty, and then they
 are absent from the wire: its payloads are the bytes they were before
 the fields existed.
+
+The peer shuffle (runtime/peer.py) adds riders that stay off the wire at
+their defaults, so a payload with the peer shuffle off is the relay
+protocol's bytes: the worker's shuffle endpoint on each assign poll
+(``AssignTaskArgs.peer_endpoint``), a map commit's endpoint and
+per-partition ``[size, crc32]`` (``TaskFinishedArgs.peer_endpoint`` /
+``.peer_parts``), where a reduce's next file lives
+(``ReduceNextFileReply.peer_endpoint`` / ``.peer_size`` /
+``.peer_checksum``), and a file the reducer could not fetch
+(``ReduceNextFileArgs.lost_file``).
 
 An explicit JOB_DONE assignment ends a worker's loop.  Messages are plain
 dicts <-> dataclasses for the JSON transport; optional fields are elided
@@ -54,6 +64,10 @@ class Assignment:
 @dataclass
 class AssignTaskArgs:
     worker_id: int = -1  # -1 = not yet registered; the coordinator allocates
+    # the worker's peer-shuffle data endpoint ("http://host:port"), on
+    # every poll, so the service's worker table shows who holds spool
+    # state; "" (off the wire) with the peer shuffle off
+    peer_endpoint: str = ""
 
 
 @dataclass
@@ -105,6 +119,12 @@ class TaskFinishedArgs:
     # the span pipeline's last flush of the attempt (elided when empty)
     spans: list[dict] = field(default_factory=list)
     spans_seq: int = -1
+    # a map commit that kept its output on the producing worker's spool:
+    # its endpoint and {partition: [size, crc32-hex]}.  The commit record
+    # carries the same; these are the live attempt's truth when a re-run
+    # map replaces a vanished producer.  Off the wire on a relay commit.
+    peer_endpoint: str = ""
+    peer_parts: dict | None = None
 
 
 @dataclass
@@ -133,6 +153,12 @@ class ReduceNextFileReply:
     # abandon the attempt (no commit, no finished RPC): its cursor belongs
     # to an earlier scheduler incarnation
     abort: bool = False
+    # where next_file lives when its map kept it on the producer's spool:
+    # the reducer fetches GET <peer_endpoint>/shuffle/<job>/<name> and
+    # checks size and crc32 against these
+    peer_endpoint: str = ""
+    peer_size: int = 0
+    peer_checksum: str = ""
 
 
 @dataclass
@@ -174,12 +200,14 @@ _ELIDE_DEFAULTS: dict[str, Any] = {
     "abort": False, "worker_id": -1, "lost_file": "", "spans": [],
     "spans_seq": -1, "sent_at": 0.0, "rtt_s": -1.0, "fused": [],
     "job_id": "", "application": "",
+    "peer_endpoint": "", "peer_parts": None,
 }
 
 # Reply fields dropped from the wire at their (falsy) defaults; the others
 # are always there.
 _REPLY_ELIDE = ("job_id", "application", "filenames", "retry_after_s",
-                "epoch", "fused", "abort")
+                "epoch", "fused", "abort",
+                "peer_endpoint", "peer_size", "peer_checksum")
 
 
 def reply_to_dict(msg: Any) -> dict:

@@ -13,6 +13,13 @@
   maps' commits; an attempt from an earlier scheduler incarnation (its
   ``epoch``) is aborted; a reducer that cannot read a registered file
   reports it (``lost_file``) and the producing map task runs again;
+* the peer shuffle (runtime/peer.py): a map commit that kept its output
+  on its worker's spool registers the endpoint and each partition's size
+  and crc32 (the finished RPC's, else the commit record's), and a reduce's
+  next-file reply for such a file carries them; a lost-file report walks
+  the COMPLETED map back to UNASSIGNED and charges the vanished producer
+  (its WorkerHealth), and the stale-epoch check runs before it, so a
+  zombie's report never re-runs this incarnation's maps;
 * heartbeats stamped at assignment, mid-task and on every next-file
   fetch; a ``grace_s`` declares a silent phase (a kernel build) during
   which the task is re-issued only after max(task_timeout_s, grace_s),
@@ -36,7 +43,11 @@
   is the unit of truth for the partitions it produced;
 * the journal (runtime/journal.py) appends every completion, fsync'd
   outside the lock before the reply leaves; a restarted coordinator
-  replays it (``resume_entries``) and skips the committed work.
+  replays it (``resume_entries``) and skips the committed work.  A map
+  re-completed after a lost output is journaled once.  A ``journal_gate``
+  (the service's work-root lease, runtime/lease.py) is asked before each
+  flush batch, in flush context: False drops the batch (the daemon was
+  deposed and the promoted one owns the journal).
 
 The counters (assignments, completions, retries, heartbeats, grace
 declarations, and what workers ship with their finished RPCs) and the
@@ -249,6 +260,7 @@ class Scheduler:
         event_log: Optional[EventLog] = None,
         on_change: Optional[Callable[[], None]] = None,
         daemon_events: Optional[Callable[..., None]] = None,
+        journal_gate: Optional[Callable[[], bool]] = None,
     ):
         self.n_reduce = n_reduce
         self.task_timeout_s = task_timeout_s
@@ -263,6 +275,8 @@ class Scheduler:
         # fleet-timeline stage (runtime/daemon_log.py); None costs nothing
         self.on_change = on_change
         self.daemon_events = daemon_events
+        # the daemon's write fence (None: no lease, no check)
+        self.journal_gate = journal_gate
         self.counters: Counter = Counter()
         self.seconds: Counter = Counter()  # wall time per worker stage
         self.launches: Counter = Counter()  # kernel launches workers shipped
@@ -344,6 +358,7 @@ class Scheduler:
                                 t.file)
                     continue
                 parts = e.get("parts", [])
+                peer = None
                 if e.get("has_record"):
                     record = self._resolve_commit("map", tid)
                     if record is None:
@@ -352,8 +367,14 @@ class Scheduler:
                                     tid)
                         continue
                     parts = record.get("parts", parts)
+                    # peer-held output: the record's metadata outlives the
+                    # coordinator (a producer dead too fails the first
+                    # fetch, and the lost-output path re-runs the task)
+                    if isinstance(record.get("peer"), dict):
+                        peer = record["peer"]
                 if t.state is not TaskState.COMPLETED:
                     t.state = TaskState.COMPLETED
+                    t.peer = peer
                     self._journaled.add(("map", tid))
                     self._register_map_outputs(tid, parts)
             elif (e.get("kind") == "reduce_done"
@@ -395,7 +416,15 @@ class Scheduler:
 
     def _write_staged_journal(self) -> None:
         with self._lock:
+            if not self._pending_journal:
+                return
             pending, self._pending_journal = self._pending_journal, []
+        if self.journal_gate is not None and not self.journal_gate():
+            # deposed: the commit records keep the tasks' truth, and the
+            # promoted daemon's replay never sees a stale line
+            log.warning("journal flush fenced: lease lost, %d staged entries "
+                        "dropped", len(pending))
+            return
         for kind, task_id, file, parts, has_record, files in pending:
             try:
                 if kind == "map":
@@ -707,6 +736,20 @@ class Scheduler:
                 parts = args.produced_parts
                 if record is not None and "parts" in record:
                     parts = record["parts"]
+                # peer-held output: the live attempt's args win over the
+                # record (the resolved record can still be a dead
+                # producer's after a lost-output re-run; a wrong endpoint
+                # costs one more lost round, never wrong bytes: the crc);
+                # a relay commit clears it
+                peer = None
+                if record is not None and isinstance(record.get("peer"),
+                                                     dict):
+                    peer = record["peer"]
+                if args.peer_endpoint:
+                    peer = {"endpoint": args.peer_endpoint,
+                            "worker": args.worker_id,
+                            "parts": dict(args.peer_parts or {})}
+                task.peer = peer
                 self._register_map_outputs(args.task_id, parts)
                 self.counters["map_completed"] += 1
                 if self._map_phase_done_locked() and not self._phase_observed:
@@ -822,11 +865,10 @@ class Scheduler:
                 if args.worker_id < 0 or args.worker_id == task.worker:
                     task.stamped = True
                 if args.files_processed < len(task.task_files):
-                    name = task.task_files[args.files_processed]
-                    producer = _producer_task_of(name)
-                    if (producer is None or self.map_tasks[producer].state
-                            is TaskState.COMPLETED):
-                        return rpc.ReduceNextFileReply(next_file=name)
+                    reply = self._serve_file_locked(
+                        task.task_files[args.files_processed])
+                    if reply is not None:
+                        return reply
                     # its producer runs again (a lost file): wait as for a
                     # file that has not arrived
                 elif self._map_phase_done_locked():
@@ -836,11 +878,30 @@ class Scheduler:
                     return rpc.ReduceNextFileReply()  # the client re-polls
                 self._cond.wait(min(remaining, self.sweep_interval_s))
 
+    def _serve_file_locked(self, name: str) -> rpc.ReduceNextFileReply | None:
+        """The reply for one registered file, or None while its producing
+        map runs again (a lost output).  A peer-held file's reply says
+        where it lives and its size and crc32."""
+        tid = _producer_task_of(name)
+        mt = (self.map_tasks[tid]
+              if tid is not None and 0 <= tid < len(self.map_tasks) else None)
+        if mt is not None and mt.state is not TaskState.COMPLETED:
+            return None
+        reply = rpc.ReduceNextFileReply(next_file=name)
+        if mt is not None and mt.peer:
+            meta = mt.peer.get("parts", {}).get(name.rsplit("-", 1)[1])
+            if meta:
+                reply.peer_endpoint = str(mt.peer.get("endpoint", ""))
+                reply.peer_size = int(meta[0])
+                reply.peer_checksum = str(meta[1])
+        return reply
+
     def _report_lost_locked(self, args: rpc.ReduceNextFileArgs) -> bool:
         """A reducer could not read a registered intermediate file: the
-        producing map task is re-enqueued (first report wins), and the
-        reporter's reduce task too, so the pool can run the map.  True
-        when the map was re-enqueued."""
+        producing map task is re-enqueued (first report wins), the worker
+        that kept it on its spool (a peer-held output) is charged, and
+        the reporter's reduce task is re-enqueued too, so the pool can run
+        the map.  True when the map was re-enqueued."""
         tid = _producer_task_of(args.lost_file)
         if tid is None or not 0 <= tid < len(self.map_tasks):
             log.warning("ignoring a lost-file report for %r: not an "
@@ -849,23 +910,36 @@ class Scheduler:
         task = self.map_tasks[tid]
         if task.state is not TaskState.COMPLETED:
             return False  # already running again: the cursor waits
-        log.warning("map task %d's file %s was lost (reported by worker %d);"
-                    " re-running the task", tid, args.lost_file,
-                    args.worker_id)
+        producer = int((task.peer or {}).get("worker", -1))
+        log.warning("map task %d's file %s was lost (producer worker %d, "
+                    "reported by worker %d); re-running the task", tid,
+                    args.lost_file, producer, args.worker_id)
         task.state = TaskState.UNASSIGNED
+        task.peer = None
         task.worker = -1
         task.stamped = False
         self._maps_completed -= 1
         self._map_queue.append(tid)
         self.counters["maps_lost_output"] += 1
         self.counters["map_retries"] += 1
+        self.counters["tasks_requeued"] += 1
         _C_REQUEUED.inc()
         metrics_mod.counter("dgrep_maps_lost_output_total").inc()
         self._event("map_lost_output", task=tid, file=args.lost_file,
-                    reporter=args.worker_id)
+                    producer=producer, reporter=args.worker_id)
         if self.daemon_events is not None:
             # a daemon-level decision: on the fleet timeline too
-            self.daemon_events("map_lost_output", task=tid)
+            self.daemon_events("map_lost_output", task=tid,
+                               producer=producer)
+        if producer >= 0:
+            # the producer held committed output and vanished: the
+            # sweeper's attributed timeout, charged here
+            window = self.worker_health.record_failure(producer)
+            if window > 0:
+                self.counters["workers_quarantined"] += 1
+                _C_QUARANTINED.inc()
+                self._event("quarantine", worker=producer,
+                            window_s=round(window, 3))
         rt = (self.reduce_tasks[args.task_id]
               if 0 <= args.task_id < len(self.reduce_tasks) else None)
         if rt is not None and rt.state is TaskState.IN_PROGRESS and (
@@ -875,6 +949,7 @@ class Scheduler:
             rt.stamped = False
             self._reduce_queue.append(args.task_id)
             self.counters["reduce_retries"] += 1
+            self.counters["tasks_requeued"] += 1
             _C_REQUEUED.inc()
         self._cond.notify_all()
         return True

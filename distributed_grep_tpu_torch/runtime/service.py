@@ -66,8 +66,30 @@ task that raises in an in-process worker fails its job with that error
 (ROADMAP.md D5, applied per job), and the worker goes on serving the
 other jobs; an error of a standing query's scan fails its job (D9).
 
-Not here (ROADMAP.md queue B item 6): the lease and the standby surface,
-and the peer shuffle.
+Failover (runtime/lease.py): a daemon given a ``WorkRootLease``
+(``serve --standby``, or DGREP_LEASE_TTL_S set) asks it before every
+durable write batch (the registry, each job's journal, the follow logs,
+the timeline), in flush context and never under the service lock; a
+batch staged when the lease was stolen is dropped whole, and the daemon
+is deposed: admission closes, its workers are answered with retries (not
+JOB_DONE, so they rotate to the new active) and the ``serve`` loop
+demotes it to a standby.  A deposed daemon refuses a submit before any
+durable record.  A submit's ``submit_token`` is answered with the job the
+token first made, across a promotion too (the registry's submit lines
+carry it).  Each renewal snapshots the worker table into the registry,
+and a promoted daemon seeds its table from the last snapshot.  /status
+says ``"role": "active"`` (or ``"deposed"``) with a lease and nothing
+without one.  ``StandbyServer`` is a standby's surface: /status names the
+active, assign polls get a retry with ``retry_after_s``, reduce fetches
+an abort, and every other request a 503, the answer an address list
+rotates past.
+
+The peer shuffle (runtime/peer.py): /status says ``"peer": true`` unless
+DGREP_PEER_SHUFFLE=0, and a worker process then keeps its map output on
+its own spool; the service's worker rows show each worker's
+``data_endpoint``, and the ``shuffle`` view counts the relay bytes that
+still pass through the daemon's data plane (0 with every worker on the
+peer shuffle) and the maps re-run for a lost output.
 """
 
 from __future__ import annotations
@@ -413,6 +435,7 @@ class GrepService:
         sweep_interval_s: float | None = None,
         rpc_timeout_s: float = 60.0,
         resume: bool | None = None,
+        lease=None,
         daemon_log=None,
     ):
         self.work_root = Path(work_root)
@@ -433,6 +456,14 @@ class GrepService:
         # the lifecycle log (runtime/daemon_log.py); None: every event
         # site is a no-op
         self._daemon_log = daemon_log
+        # the work-root lease (runtime/lease.py): None, no lease file, no
+        # fence read, no "role" in /status
+        self._lease = lease
+        self._deposed = False
+        self.deposed_event = threading.Event()
+        self._last_worker_snapshot: dict[str, dict] | None = None
+        # submit_token -> job id, rebuilt from the registry at resume
+        self._tokens: dict[str, str] = {}
 
         self._lock = lockdep.make_lock("service")
         self._cond = threading.Condition(self._lock)
@@ -515,6 +546,11 @@ class GrepService:
         # staged and written (fsync) after it; a job is registered before
         # its id reaches the client
         replayed, id_floor = ServiceRegistry.replay(self.work_root)
+        if self._lease is not None:
+            # a promotion: the deposed active's last worker snapshot,
+            # read before compaction drops it, so the scale advice sees
+            # the attached fleet before each worker's next poll
+            self._seed_workers(ServiceRegistry.replay_workers(self.work_root))
         replayed = ServiceRegistry.trim(replayed)
         ServiceRegistry.compact(self.work_root, replayed, id_floor)
         self._registry = ServiceRegistry(self.work_root)
@@ -554,6 +590,9 @@ class GrepService:
                 log.warning("registry job %s has an unknown state %r; "
                             "dropping it", jid, info["state"])
                 continue
+            if cfg.submit_token:
+                # a client re-POSTing its token to this daemon lands here
+                self._tokens[cfg.submit_token] = jid
             rec = JobRecord(job_id=jid, config=cfg, state=state,
                             submitted_at=info.get("t", 0.0))
             if state in _TERMINAL:
@@ -678,6 +717,14 @@ class GrepService:
                 if not self._registry_pending:
                     return
                 pending, self._registry_pending = self._registry_pending, []
+            if not self._lease_ok():
+                # the fence: a standby stole the lease while this batch
+                # sat staged; it is dropped (the promoted daemon owns the
+                # records) and the daemon deposed
+                log.warning("registry flush fenced: lease lost, %d staged "
+                            "records dropped", len(pending))
+                self._on_lease_lost()
+                return
             for job_id, state, error, outputs in pending:
                 try:
                     self._registry.record_state(job_id, state, error=error,
@@ -705,16 +752,108 @@ class GrepService:
         return stage
 
     def _flush_daemon_log(self) -> None:
+        """Write the staged timeline events, through the lease's fence."""
         dl = self._daemon_log
         if dl is not None:
-            dl.flush()
+            dl.flush(self._write_gate())
+
+    # ------------------------------------------------------------ lease
+    def _lease_ok(self) -> bool:
+        """The write fence: True without a lease; with one, the lease file
+        must still name this incarnation.  A file read: called in flush
+        context or unlocked, never under the service lock."""
+        lease = self._lease
+        if lease is None:
+            return True
+        return not self._deposed and lease.verify()
+
+    def _on_lease_lost(self) -> None:
+        """A standby stole the lease: the daemon is deposed (idempotent,
+        no I/O).  Admission closes, and ``deposed_event`` tells the serve
+        loop to demote this process to a standby; the jobs' state stays on
+        disk for the promoted daemon."""
+        with self._cond:
+            if self._deposed:
+                return
+            self._deposed = True
+            self._stopped = True
+            self._cond.notify_all()
+        log.warning("daemon deposed: durable writes fenced, admission closed "
+                    "(work root %s)", self.work_root)
+        # the fence drops it: the thief's lease_steal line is the record
+        self._daemon_event("lease_lost")
+        self.deposed_event.set()
+
+    def _write_gate(self):
+        """The fence the schedulers' journals and the follow logs ask
+        before each write batch: None without a lease, else a callable
+        whose False drops the batch and deposes the daemon."""
+        if self._lease is None:
+            return None
+
+        def gate() -> bool:
+            if self._lease_ok():
+                return True
+            self._on_lease_lost()
+            return False
+
+        return gate
+
+    def lease_renewed(self) -> None:
+        """The lease renewal's hook (no service lock held): a snapshot of
+        the worker table into the registry when it changed, which a
+        promoted daemon seeds its own table from."""
+        with self._lock:
+            rows = {str(wid): {k: info[k]
+                               for k in ("job", "task", "metrics",
+                                         "data_endpoint")
+                               if info.get(k) is not None}
+                    for wid, info in self.workers.items()}
+        if rows == self._last_worker_snapshot:
+            return
+        try:
+            self._registry.record_workers(rows)
+        except Exception:  # noqa: BLE001 -- telemetry, never fatal
+            log.exception("worker-table snapshot append failed")
+            return
+        self._last_worker_snapshot = rows
+
+    def _seed_workers(self, rows: dict[str, dict]) -> None:
+        """Adopt a replayed worker snapshot at promotion: fresh seen stamps
+        (a monotonic clock is the process's), the id allocator past every
+        seeded id (a worker that keeps its id must not meet a new one)."""
+        if not rows:
+            return
+        now = time.monotonic()
+        for wid_str, row in rows.items():
+            try:
+                wid = int(wid_str)
+            except (TypeError, ValueError):
+                continue
+            info: dict = {"job": None, "task": None, "seen": now}
+            if isinstance(row, dict):
+                for k in ("job", "task", "metrics", "data_endpoint"):
+                    if row.get(k) is not None:
+                        info[k] = row[k]
+            self.workers[wid] = info
+            self._next_worker_id = max(self._next_worker_id, wid + 1)
+        self._last_worker_snapshot = dict(rows)
+        log.info("promotion seeded %d worker rows from the registry's "
+                 "snapshot", len(self.workers))
 
     # ---------------------------------------------------------- submit
     def submit(self, config: JobConfig) -> str:
         """Admit a job: check it, queue it, start it if a slot is free.
         Raises AdmissionError when the queue is full or the daemon stops,
         ValueError for a config that could never complete (an unreadable
-        input's map task would be re-issued forever)."""
+        input's map task would be re-issued forever).  A ``submit_token``
+        seen before answers the job it made."""
+        token = config.submit_token
+        if token:
+            with self._lock:
+                dup = self._tokens.get(token)
+            if dup is not None:
+                return dup
         # admission first: a submit the overload will reject pays no walk
         # of its inputs (checked again under the lock at enqueue)
         try:
@@ -747,8 +886,16 @@ class GrepService:
             rec = JobRecord(job_id="", config=config)
             self._plan(rec)
         with self._cond:
+            if token:
+                # the planning above is unlocked: a duplicate may have
+                # claimed the token meanwhile
+                dup = self._tokens.get(token)
+                if dup is not None:
+                    return dup
             self._check_admission_locked_or_raise(locked=True)
             job_id = f"job-{next(self._ids)}"
+            if token:
+                self._tokens[token] = job_id
             # the service places every job: its work dir is always
             # <work_root>/<job_id>, and its span tag the job id
             rec.job_id = job_id
@@ -760,10 +907,18 @@ class GrepService:
                    if self._sweep_interval_s is not None else {}))
             rec.submitted_at = time.time()
         # durable before visible: from here a daemon crash re-admits the
-        # job at restart
+        # job at restart.  A deposed daemon registers nothing the promoted
+        # one would never learn of (the client re-POSTs to it; the token
+        # makes that safe)
+        if not self._lease_ok():
+            self._on_lease_lost()
+            self._drop_token(token)
+            _C_REJECTED.inc()
+            raise AdmissionError("daemon deposed: lease lost")
         try:
             self._registry.record_submit(job_id, rec.config)
         except (OSError, ValueError) as e:
+            self._drop_token(token)
             _C_REJECTED.inc()
             self._daemon_event("admission_reject", job=job_id,
                                reason=f"cannot register job: {e}")
@@ -800,6 +955,11 @@ class GrepService:
             raise rejected
         _C_SUBMITTED.inc()
         return job_id
+
+    def _drop_token(self, token: str) -> None:
+        if token:
+            with self._lock:
+                self._tokens.pop(token, None)
 
     def _plan(self, rec: JobRecord) -> None:
         """A job's map splits (index-pruned), its planning tallies, its
@@ -918,6 +1078,7 @@ class GrepService:
             event_log=event_log,
             on_change=self._wake,
             daemon_events=self._job_daemon_events(rec.job_id),
+            journal_gate=self._write_gate(),
         )
         if rec.index_shards_pruned:
             # the planner's prunes, in the job's counters beside the
@@ -1053,7 +1214,8 @@ class GrepService:
         from distributed_grep_tpu_torch.runtime import follow as follow_mod
 
         if self._follow_groups is None and follow_mod.env_follow_fuse():
-            self._follow_groups = follow_mod.FollowGroupRegistry()
+            self._follow_groups = follow_mod.FollowGroupRegistry(
+                write_gate=self._write_gate())
         cfg = rec.config
         event_log = None
         try:
@@ -1069,7 +1231,8 @@ class GrepService:
             # an error of the query's scan fails the job (ROADMAP.md D9)
             runner = follow_mod.FollowRunner(
                 rec.job_id, cfg, workdir.root, event_log=event_log,
-                on_fail=self.fail_job, groups=self._follow_groups)
+                on_fail=self.fail_job, write_gate=self._write_gate(),
+                groups=self._follow_groups)
         except Exception as e:  # noqa: BLE001 -- recorded as FAILED
             log.error("follow job %s failed to start: %s", rec.job_id, e)
             if event_log is not None:
@@ -1229,6 +1392,11 @@ class GrepService:
         terminal.sort(key=lambda r: r.finished_at or 0.0)
         for rec in terminal[:excess]:
             del self._jobs[rec.job_id]
+        if self._tokens:
+            # bounded with the table: an evicted job's token answers as a
+            # fresh submit would
+            self._tokens = {t: j for t, j in self._tokens.items()
+                            if j in self._jobs}
 
     # ---------------------------------------------------------- cancel
     def cancel(self, job_id: str) -> str:
@@ -1282,9 +1450,11 @@ class GrepService:
             self._cond.notify_all()
 
     def stopped(self) -> bool:
-        """stop() ran: every poll answers JOB_DONE."""
+        """stop() ran on a daemon that was not deposed: every poll answers
+        JOB_DONE.  A deposed daemon's workers are answered with retries,
+        so they move on to the new active."""
         with self._lock:
-            return self._stopped
+            return self._stopped and not self._deposed
 
     def count_shuffle_bytes(self, direction: str, n_bytes: int) -> None:
         """One relay shuffle transfer through the daemon's data plane
@@ -1295,8 +1465,8 @@ class GrepService:
                 self._shuffle_stats[direction] += 1
 
     def _worker_seen(self, worker_id: int, job: str | None = ...,
-                     task: str | None = ...,
-                     metrics: dict | None = None) -> None:
+                     task: str | None = ..., metrics: dict | None = None,
+                     data_endpoint: str | None = None) -> None:
         if worker_id < 0:
             return
         if metrics is not None:
@@ -1316,6 +1486,9 @@ class GrepService:
                 info["task"] = task
             if metrics is not None:
                 info["metrics"] = metrics
+            if data_endpoint:
+                # the worker's peer-shuffle endpoint: who holds spool state
+                info["data_endpoint"] = data_endpoint
 
     # --------------------------------------------------- control plane
     def assign_task(self, args: rpc.AssignTaskArgs, timeout: float = 30.0,
@@ -1362,6 +1535,9 @@ class GrepService:
                             self._span_seqs.pop(wid, None)
         # a poll proves the worker alive and not running a task
         self._health.saw(worker_id)
+        if args.peer_endpoint:
+            # re-advertised every poll (a reconnect under a new id too)
+            self._worker_seen(worker_id, data_endpoint=args.peer_endpoint)
         try:
             while True:
                 quarantine_s = self._health.quarantine_remaining(worker_id)
@@ -1378,6 +1554,13 @@ class GrepService:
                             self._cond.wait(min(remaining, quarantine_s,
                                                 _ASSIGN_SWEEP_S))
                 with self._lock:
+                    if self._deposed:
+                        # not JOB_DONE: the worker keeps polling, and its
+                        # address list finds the promoted daemon
+                        return rpc.AssignTaskReply(
+                            assignment="retry", task_id=-2,
+                            worker_id=worker_id,
+                            retry_after_s=StandbyServer.PARK_RETRY_S)
                     if self._stopped:
                         return rpc.AssignTaskReply(
                             assignment=rpc.Assignment.JOB_DONE,
@@ -1932,6 +2115,8 @@ class GrepService:
                              "task": info.get("task")}
                 if info.get("metrics") is not None:
                     row["metrics"] = info["metrics"]
+                if info.get("data_endpoint"):
+                    row["data_endpoint"] = info["data_endpoint"]
                 if str(wid) in quarantine["active"]:
                     row["quarantined_s"] = quarantine["active"][str(wid)]
                 workers[str(wid)] = row
@@ -1978,8 +2163,17 @@ class GrepService:
             latency[key] = {"p50": round(p50, 6),
                             "p95": round(p95 if p95 is not None else p50, 6),
                             "count": hist.snapshot()[2]}
+        from distributed_grep_tpu_torch.runtime.peer import env_peer_shuffle
+
         return {
             "service": True,
+            # with a lease only: workers and clients tell an active from a
+            # standby by it
+            **({"role": "deposed" if self._deposed else "active"}
+               if self._lease is not None else {}),
+            # the peer shuffle on offer: a worker starts its data server
+            # only against a daemon that says so
+            **({"peer": True} if env_peer_shuffle() else {}),
             "uptime_s": round(time.time() - self.started_at, 3),
             "max_jobs": self.max_jobs,
             "queue_depth_cap": self.queue_depth,
@@ -2088,6 +2282,11 @@ class GrepService:
         metrics_mod.gauge("dgrep_corpus_cache_hit_ratio").set(_ratio(
             w.get("corpus_cache_hits", 0.0),
             w.get("corpus_cache_misses", 0.0)))
+        if self._lease is not None:
+            # touched with a lease only (an untouched gauge is not
+            # rendered): 1 active, 0 deposed
+            metrics_mod.gauge("dgrep_daemon_role").set(
+                0 if self._deposed else 1)
         return metrics_mod.render_prometheus()
 
     # --------------------------------------------------- elastic pool
@@ -2287,12 +2486,20 @@ class GrepService:
             self._follow_groups.close()
         self._flush_registry()
         if self._daemon_log is not None:
+            # a deposed daemon's stop is fenced at the flush (the promoted
+            # daemon owns the file), and its log stays for discard()
             self._daemon_event("stop")
             self._flush_daemon_log()
-            self._daemon_log.close()
+            if self._lease_ok():
+                self._daemon_log.close()
         for t in getattr(self, "_local_workers", []):
             t.join(timeout=join_timeout_s)
         self._registry.close()
+        if self._lease is not None:
+            # the graceful handoff: the lease deleted when still ours, so
+            # a standby promotes at its next poll (a deposed daemon's
+            # release touches nothing)
+            self._lease.release()
 
 
 # ---------------------------------------------------------- transports
@@ -2657,5 +2864,123 @@ def _make_service_handler(server: ServiceServer):
             name = (urllib.parse.unquote(parts[2]) if kind == "input"
                     else _safe_segment(parts[2]))
             return job_id, kind, name
+
+    return Handler
+
+
+# ---------------------------------------------------------- standby
+class StandbyServer:
+    """The surface of a daemon waiting on the work-root lease
+    (runtime/lease.py), with no service state behind it: ``/status`` names
+    the role and the active's address from the lease file
+    (run_http_worker waits on it), an assign poll is answered with a retry
+    and ``retry_after_s`` (the worker loop sleeps and polls again), a
+    reduce fetch with an abort (the attempt ends with no commit, as a
+    zombie's does), a finished RPC or a heartbeat with a plain reply, and
+    every other request with a 503, which an address list rotates past.
+    A promotion shuts it down and binds the ServiceServer on the same
+    address."""
+
+    PARK_RETRY_S = 2.0
+
+    def __init__(self, work_root: str | Path, host: str = "127.0.0.1",
+                 port: int = 0):
+        self.work_root = Path(work_root)
+        self.host = host
+        self._httpd = ThreadingHTTPServer((host, port),
+                                          _make_standby_handler(self))
+        self._httpd.daemon_threads = True
+        self._serve_thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self) -> "StandbyServer":
+        self._serve_thread = threading.Thread(
+            target=self._httpd.serve_forever, name="http-standby",
+            daemon=True)
+        self._serve_thread.start()
+        log.info("standby on %s:%d (watching %s)", self.host, self.port,
+                 self.work_root)
+        return self
+
+    def shutdown(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+    def status(self) -> dict:
+        from distributed_grep_tpu_torch.runtime.lease import WorkRootLease
+
+        rec = WorkRootLease.read(self.work_root) or {}
+        # "service": true keeps the readiness probes working; "role" tells
+        # a standby from the active
+        return {"service": True, "role": "standby",
+                "active": rec.get("addr", "")}
+
+    def rpc_reply(self, verb: str, payload: dict):
+        if verb == rpc.Verb.ASSIGN_TASK:
+            # the caller's worker id echoed: a loop adopts reply.worker_id
+            return rpc.AssignTaskReply(
+                assignment="retry", task_id=-2,
+                worker_id=int(payload.get("worker_id", -1)),
+                retry_after_s=self.PARK_RETRY_S)
+        if verb == rpc.Verb.REDUCE_NEXT_FILE:
+            return rpc.ReduceNextFileReply(abort=True)
+        if verb in (rpc.Verb.MAP_FINISHED, rpc.Verb.REDUCE_FINISHED):
+            return rpc.TaskFinishedReply()
+        if verb == rpc.Verb.HEARTBEAT:
+            return rpc.HeartbeatReply()
+        raise KeyError(f"unknown RPC verb: {verb}")
+
+
+_STANDBY_ERROR = {"error": "standby: no lease held here"}
+
+
+def _make_standby_handler(server: StandbyServer):
+    class Handler(DataPlaneHandler):
+        def do_POST(self):
+            try:
+                if self.path.startswith("/rpc/"):
+                    verb = self.path[len("/rpc/"):]
+                    payload = json.loads(self._read_body() or b"{}")
+                    self._send_json(rpc.reply_to_dict(
+                        server.rpc_reply(verb, payload)))
+                else:
+                    self._drain_body()
+                    self._send_json(_STANDBY_ERROR, 503)
+            except BrokenPipeError:
+                pass
+            except KeyError as e:
+                self._send_json({"error": str(e)}, 404)
+            except Exception as e:  # noqa: BLE001 -- answered 500
+                log.exception("standby rpc error on %s", self.path)
+                try:
+                    self._send_json({"error": str(e)}, 500)
+                except OSError:
+                    pass
+
+        def do_GET(self):
+            self._streaming_body = False
+            try:
+                if self.path == "/status":
+                    self._send_json(server.status())
+                else:
+                    self._send_json(_STANDBY_ERROR, 503)
+            except BrokenPipeError:
+                self.close_connection = True
+            except Exception as e:  # noqa: BLE001 -- answered 500
+                self.close_connection = True
+                try:
+                    self._send_json({"error": str(e)}, 500)
+                except OSError:
+                    pass
+
+        def do_PUT(self):
+            try:
+                self._drain_body()
+                self._send_json(_STANDBY_ERROR, 503)
+            except OSError:
+                pass
 
     return Handler

@@ -45,6 +45,10 @@ class MapTask:
     # True while the current attempt is another assignment's fused
     # participant (Scheduler.claim_map_task): its timeout charges no worker
     fused_claim: bool = False
+    # where a committed attempt kept its output (the peer shuffle):
+    # {"endpoint", "worker", "parts": {partition: [size, crc32]}}; None on
+    # a relay commit (the bytes are in the coordinator's store)
+    peer: dict | None = None
 
     def heartbeat(self, grace_s: float = 0.0) -> None:
         """Stamp liveness; a later stamp without a grace clears it."""

@@ -1,5 +1,5 @@
-"""Worker loop over a Transport (the reference's runtime/worker.py without
-its peer fetch): ask for work, run it, commit it, report it.
+"""Worker loop over a Transport (the reference's runtime/worker.py): ask
+for work, run it, commit it, report it.
 
 A loop attached to the service daemon (runtime/service.py) serves a
 stream of jobs: each assignment names its job and application
@@ -30,6 +30,23 @@ preferred to ``reduce_fn``); spool ``mr-out-<r>`` as ``key<TAB>value``
 lines and commit it, publish the commit record, report it.  A registered
 file that cannot be read is reported (``lost_file``) and its map task
 runs again.
+
+The peer shuffle (runtime/peer.py): a loop given a ``PeerDataServer``
+(``peer=``, one a process, shared by its loops) and bound to a service
+job writes a map's partition files into that server's spool instead of
+PUTting them to the daemon, and only their endpoint, sizes and crc32s
+travel, on the commit record and the finished RPC (a fused attempt's
+participants too); each assign poll advertises the endpoint.  A reduce's
+next file that lives on a peer is fetched from it (from the loop's own
+spool when it is the producer) and checked against its size and crc32;
+on the declared failures (the peer gone after the retry schedule, an
+HTTP error, a checksum mismatch) the loop tries the daemon's relay copy,
+and reports the file lost when that fails too.  The loop counts
+``peer_fetches``, ``peer_fetch_failures`` and ``relay_fallbacks`` (in
+the reduce attempt's counters and, when nonzero, with the spool's
+``peer_spool_bytes`` in every heartbeat's metrics) and records a
+``shuffle:peer`` instant a fetch (``shuffle:relay`` for a relay read
+beside a peer server).
 
 Liveness: the app's progress callback stamps heartbeats (plain stamps at
 most every third of the task timeout; a ``grace_s`` stamp, the engine's
@@ -104,6 +121,9 @@ REDUCE_MEMORY_BYTES = 128 << 20
 
 # A local shuffle leg of fewer records than this runs without a pump.
 PUMP_RECORDS = 50_000
+
+# The peer shuffle's fetch counters, a reduce attempt's deltas shipped.
+_PEER_COUNTERS = ("peer_fetches", "peer_fetch_failures", "relay_fallbacks")
 
 
 class WorkerKilled(Exception):
@@ -188,8 +208,11 @@ class WorkerLoop:
                  spill_dir: Optional[str] = None,
                  metrics: Optional[Metrics] = None,
                  spans_enabled: Optional[bool] = None,
-                 job_id: str = ""):
+                 job_id: str = "", peer=None):
         self.transport = transport
+        # the process's PeerDataServer (runtime/peer.py), or None: the
+        # relay data plane exactly
+        self.peer = peer
         # a LoadedApplication (apps/loader.py); None on a service worker,
         # whose assignments name theirs: one fresh module instance a spec
         # a loop, kept across jobs (_bind_assignment)
@@ -257,6 +280,11 @@ class WorkerLoop:
             args.metrics = self._piggyback()
             args.sent_at = time.time()
             args.rtt_s = self._hb_rtt
+        peer_stats = self._peer_stats()
+        if peer_stats:
+            # with spans off too: who holds spool state and whose fetches
+            # fail is what an operator draining a worker reads
+            args.metrics = {**(args.metrics or {}), **peer_stats}
         try:
             rtt = hb(args)
             # a measured round trip only: a failed stamp's None (or a
@@ -265,6 +293,15 @@ class WorkerLoop:
                 self._hb_rtt = rtt
         except Exception:  # noqa: BLE001 -- advisory by contract
             pass
+
+    def _peer_stats(self) -> dict:
+        """The peer shuffle's counters, nonzero only (a relay loop's
+        payloads stay as they were)."""
+        stats = {k: self.metrics.counters[k] for k in _PEER_COUNTERS
+                 if self.metrics.counters.get(k)}
+        if self.peer is not None and self.peer.spool_bytes():
+            stats["peer_spool_bytes"] = float(self.peer.spool_bytes())
+        return stats
 
     def _progress_fn(self, task_type: str, task_id: int,
                      window_s: float) -> Callable:
@@ -309,8 +346,12 @@ class WorkerLoop:
                          self.worker_id)
                 return
             t_wait = time.monotonic()
-            reply = self.transport.assign_task(
-                rpc.AssignTaskArgs(worker_id=self.worker_id))
+            args = rpc.AssignTaskArgs(worker_id=self.worker_id)
+            if self.peer is not None:
+                # the shuffle endpoint, on every poll (the service's
+                # worker table shows who holds spool state)
+                args.peer_endpoint = self.peer.endpoint
+            reply = self.transport.assign_task(args)
             # the wait for work, an argument of the task's span
             self._assign_wait_s = time.monotonic() - t_wait
             self.worker_id = reply.worker_id
@@ -425,21 +466,32 @@ class WorkerLoop:
         t0_wall = time.time()
         attempt = new_attempt_id()
         with self._task_ctx("map", a.task_id, attempt):
-            produced, metrics = self._map_attempt(a, attempt)
+            produced, peer_meta, metrics = self._map_attempt(a, attempt)
             spans_mod.complete(
                 "map:task", t0_wall, time.time() - t0_wall, cat="map",
                 assign_wait_s=round(self._assign_wait_s, 6))
             self._fault("before_map_finished")
-            self.transport.map_finished(self._finished(rpc.TaskFinishedArgs(
-                task_id=a.task_id, job_id=self._rpc_job_id,
-                worker_id=self.worker_id, produced_parts=produced,
-                metrics=metrics)))
+            self.transport.map_finished(self._finished(self._finished_args(
+                a.task_id, self._rpc_job_id, produced, peer_meta, metrics)))
         self.metrics.inc("map_tasks")
         self.metrics.observe("map_task_total", time.perf_counter() - t0)
         _H_MAP_TASK.observe(time.perf_counter() - t0)
 
-    def _map_attempt(self, a: rpc.AssignTaskReply,
-                     attempt: str) -> tuple[list[int], dict]:
+    def _finished_args(self, task_id: int, job_id: str, produced: list[int],
+                       peer_meta: dict | None,
+                       metrics: dict) -> rpc.TaskFinishedArgs:
+        """A map's finished RPC, with the peer metadata of a spooled
+        commit."""
+        args = rpc.TaskFinishedArgs(
+            task_id=task_id, job_id=job_id, worker_id=self.worker_id,
+            produced_parts=produced, metrics=metrics)
+        if peer_meta is not None:
+            args.peer_endpoint = peer_meta["endpoint"]
+            args.peer_parts = peer_meta["parts"]
+        return args
+
+    def _map_attempt(self, a: rpc.AssignTaskReply, attempt: str
+                     ) -> tuple[list[int], dict | None, dict]:
         self.app.configure(**a.app_options)
         use_path = (self.app.map_path_fn is not None
                     and hasattr(self.transport, "read_input_path"))
@@ -524,8 +576,8 @@ class WorkerLoop:
             return self._pumping("map", a.task_id, pump_s)
 
         with shuffle_guard():
-            produced = self._shuffle_and_commit(a.task_id, a.n_reduce,
-                                                records, attempt)
+            produced, peer_meta = self._shuffle_and_commit(
+                a.task_id, a.n_reduce, records, attempt)
         counters = _record_counters(records)
         # the shard index's prunes and maybes of this attempt (its scans
         # ran in this thread); the index is imported by then if it fired
@@ -536,22 +588,39 @@ class WorkerLoop:
                     counters[k] = v - index_before.get(k, 0)
         seconds = {"map_read": t1 - t0, "map_fn": t2 - t1,
                    "map_shuffle": time.perf_counter() - t2}
-        return produced, self._metrics(counters, seconds)
+        return produced, peer_meta, self._metrics(counters, seconds)
 
     def _shuffle_and_commit(self, task_id: int, n_reduce: int, records,
-                            attempt: str) -> list[int]:
+                            attempt: str) -> tuple[list[int], dict | None]:
         """Bucketize one map task's records, write one intermediate file a
-        partition, publish the task's commit record; the partitions."""
+        partition (to the peer spool when the peer shuffle is on for this
+        job, else through the transport), publish the task's commit
+        record; the partitions and the peer metadata (None: relay)."""
+        peer_active = self.peer is not None and bool(self._rpc_job_id)
+        parts_meta: dict[str, list] = {}
         with spans_mod.span("map:shuffle", cat="map"):
             buckets = shuffle.bucketize(records, n_reduce)
             self._fault("before_map_commit")
             produced = []
             for r, recs in sorted(buckets.items()):
-                self.transport.write_intermediate(
-                    f"mr-{task_id}-{r}", shuffle.encode_records(recs))
+                name = f"mr-{task_id}-{r}"
+                data = shuffle.encode_records(recs)
+                if peer_active:
+                    parts_meta[str(r)] = list(
+                        self.peer.put(self._rpc_job_id, name, data))
+                else:
+                    self.transport.write_intermediate(name, data)
                 produced.append(r)
-        self._publish_commit("map", task_id, attempt, {"parts": produced})
-        return produced
+        payload: dict = {"parts": produced}
+        peer_meta = None
+        if peer_active:
+            # on the commit record too: the durable copy a restarted
+            # daemon registers from
+            peer_meta = {"endpoint": self.peer.endpoint,
+                         "worker": self.worker_id, "parts": parts_meta}
+            payload["peer"] = peer_meta
+        self._publish_commit("map", task_id, attempt, payload)
+        return produced, peer_meta
 
     # ---------------------------------------------------------- fused map
     def _run_map_fused(self, a: rpc.AssignTaskReply) -> None:
@@ -727,14 +796,13 @@ class WorkerLoop:
                 "args": {"task": tid, "queries": n_queries}})
         t_shuffle = time.perf_counter()
         with self._task_ctx("map", tid, attempt):
-            produced = self._shuffle_and_commit(tid, part["n_reduce"],
-                                                records, attempt)
+            produced, peer_meta = self._shuffle_and_commit(
+                tid, part["n_reduce"], records, attempt)
             seconds["map_shuffle"] = time.perf_counter() - t_shuffle
             metrics = self._metrics(_record_counters(records), seconds)
             self._fault("before_map_finished")
-            self.transport.map_finished(self._finished(rpc.TaskFinishedArgs(
-                task_id=tid, job_id=jid, worker_id=self.worker_id,
-                produced_parts=produced, metrics=metrics)))
+            self.transport.map_finished(self._finished(self._finished_args(
+                tid, jid, produced, peer_meta, metrics)))
         self.metrics.inc("map_tasks")
 
     # ------------------------------------------------------------ reduce
@@ -784,6 +852,8 @@ class WorkerLoop:
                     yield f"{k}\t{v}\n"
 
             progress_stride = 4096
+        before = {k: self.metrics.counters.get(k, 0)
+                  for k in _PEER_COUNTERS}
         try:
             files_processed = 0
             lost = ""
@@ -800,13 +870,11 @@ class WorkerLoop:
                     break
                 if not r.next_file:
                     continue  # the long-poll window expired: poll again
-                try:
-                    data = self.transport.read_intermediate(r.next_file)
-                except (OSError, RuntimeError) as e:
-                    # a registered file gone from the store: report it on
-                    # the next poll, the cursor unmoved
-                    log.warning("intermediate file %s unreadable (%s); "
-                                "reporting it lost", r.next_file, e)
+                data = self._fetch_shuffle(r)
+                if data is None:
+                    # gone from its peer and from the store: report it on
+                    # the next poll, the cursor unmoved (the map runs
+                    # again and the cursor waits for it)
                     lost = r.next_file
                     continue
                 sink.add_many(shuffle.decode_records(data))
@@ -825,8 +893,69 @@ class WorkerLoop:
             sink.close()
         self._publish_commit("reduce", a.task_id, attempt,
                              {"output": f"mr-out-{a.task_id}"})
-        return self._metrics({"reduce_spills": spills},
-                             {"reduce": time.perf_counter() - t0})
+        counters = {"reduce_spills": spills}
+        for k, v in before.items():
+            if self.metrics.counters.get(k, 0) - v:
+                counters[k] = int(self.metrics.counters[k] - v)
+        return self._metrics(counters, {"reduce": time.perf_counter() - t0})
+
+    def _fetch_shuffle(self, r: rpc.ReduceNextFileReply) -> bytes | None:
+        """One shuffle file's bytes, or None when it is lost.  No peer on
+        the reply: the relay read.  A peer-held file: from the producer
+        (the loop's own spool when it is one), checked against its size
+        and crc32, and on the declared failures (OSError: the peer gone
+        after the retry schedule; RuntimeError: an HTTP error status; a
+        checksum mismatch) from the daemon's relay copy instead."""
+        name = r.next_file
+        endpoint = r.peer_endpoint
+        if not endpoint:
+            try:
+                data = self.transport.read_intermediate(name)
+            except (OSError, RuntimeError) as e:
+                log.warning("intermediate file %s unreadable (%s); reporting "
+                            "it lost", name, e)
+                return None
+            if self.peer is not None:
+                # a relay file in a peer-shuffle deployment (a relay
+                # co-worker produced it): the route's record
+                spans_mod.instant("shuffle:relay", cat="reduce", file=name)
+            return data
+        from distributed_grep_tpu_torch.runtime.peer import checksum
+
+        try:
+            if self.peer is not None and endpoint == self.peer.endpoint:
+                data = self.peer.get_local(self._rpc_job_id, name)
+            elif hasattr(self.transport, "fetch_peer"):
+                data = self.transport.fetch_peer(endpoint, self._rpc_job_id,
+                                                 name)
+            else:
+                from distributed_grep_tpu_torch.runtime import http_transport
+
+                data = http_transport.fetch_peer_data(
+                    endpoint, self._rpc_job_id, name)
+            if (r.peer_size and len(data) != r.peer_size) or (
+                    r.peer_checksum and checksum(data) != r.peer_checksum):
+                raise OSError(
+                    f"peer shuffle integrity failure for {name}: got "
+                    f"{len(data)} bytes, crc {checksum(data)} (expected "
+                    f"{r.peer_size}, {r.peer_checksum})")
+            self.metrics.inc("peer_fetches")
+            spans_mod.instant("shuffle:peer", cat="reduce", file=name,
+                              bytes=len(data))
+            return data
+        except (OSError, RuntimeError) as e:
+            self.metrics.inc("peer_fetch_failures")
+            log.warning("peer fetch of %s from %s failed (%s); trying the "
+                        "daemon's relay copy", name, endpoint, e)
+        try:
+            data = self.transport.read_intermediate(name)
+        except (OSError, RuntimeError):
+            # no relay copy either: the bytes died with their producer
+            return None
+        self.metrics.inc("relay_fallbacks")
+        spans_mod.instant("shuffle:relay", cat="reduce", file=name,
+                          fallback=True)
+        return data
 
     def _write_reduce_output(self, a: rpc.AssignTaskReply, chunks,
                              progress_stride: int) -> None:

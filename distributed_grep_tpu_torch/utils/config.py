@@ -5,14 +5,13 @@ overrides (``JobConfig.load``), which is how the ``run`` and
 ``coordinator`` subcommands and the HTTP workers' ``GET /config``
 bootstrap read it.  A config the reference wrote loads too
 (``from_json``): its ``backend`` and ``chunk_bytes``, which no reader
-uses, are dropped; its submit token is taken at its default, and
-otherwise raises NotImplementedError naming ROADMAP.md item 6; its
-``mesh_shape``/``mesh_axes`` go to the application's options
-(``effective_app_options``), where the CUDA grep app names item 9.
-``to_json`` leaves out ``spans``, the mesh fields and the follow fields
-at their defaults (``follow_poll_s`` also while ``follow`` is off), as
-the reference's leaves out its follow fields, so the bootstrap of a job
-that uses none of them is the same bytes as before they existed.
+uses, are dropped; its ``mesh_shape``/``mesh_axes`` go to the
+application's options (``effective_app_options``), where the CUDA grep
+app names item 9.  ``to_json`` leaves out ``spans``, the mesh fields, the
+follow fields and ``submit_token`` at their defaults (``follow_poll_s``
+also while ``follow`` is off), as the reference's leaves out its follow
+fields and its token, so the bootstrap of a job that uses none of them is
+the same bytes as before they existed.
 """
 
 from __future__ import annotations
@@ -31,10 +30,9 @@ STORE_NAMES = frozenset({"posix", "nonatomic"})
 
 # Keys the reference's to_json writes and no reader of a job uses.
 _DROPPED_KEYS = ("backend", "chunk_bytes")
-# The reference's fields of slices still to port, with their defaults.
-_UNPORTED_KEYS = {"submit_token": ""}
 # Fields to_json leaves out at these values.
-_ELIDE_DEFAULTS = {"spans": False, "mesh_shape": (), "mesh_axes": ("data",)}
+_ELIDE_DEFAULTS = {"spans": False, "mesh_shape": (), "mesh_axes": ("data",),
+                   "submit_token": ""}
 
 
 @dataclass
@@ -91,6 +89,12 @@ class JobConfig:
     # wins)
     follow: bool = False
     follow_poll_s: float | None = None
+
+    # --- failover (runtime/lease.py): a token the client makes for a
+    # submit to an address list; the daemon answers a second POST of the
+    # same token with the first one's job, so a submit whose reply a
+    # failover lost lands on one job
+    submit_token: str = ""
 
     # --- device mesh (ROADMAP.md item 9): merged into the app options
     mesh_shape: tuple[int, ...] = ()
@@ -163,12 +167,6 @@ class JobConfig:
         d = json.loads(text)
         for k in _DROPPED_KEYS:
             d.pop(k, None)
-        for k, default in _UNPORTED_KEYS.items():
-            if k in d and d.pop(k) != default:
-                raise NotImplementedError(
-                    f"JobConfig field {k!r} is not ported yet: ROADMAP.md "
-                    f"'Slices still to port', item 6 (item 8's failover "
-                    f"slice)")
         return cls(**d)
 
     @classmethod

@@ -148,10 +148,8 @@ def env_metrics_window_s(default: float = DEFAULT_WINDOW_S) -> float:
 # The exported-series registry: every series name a `counter()`/
 # `gauge()`/`histogram()` call site may create, declared exactly once with
 # its kind and help line (the /metrics HELP text).  The table is the
-# reference's whole, the series of the tiers this package has not ported
-# yet (the service daemon, the follow tier, failover, the result cache)
-# included: an instrument renders only once it is created, so a series
-# nobody creates costs nothing.
+# reference's whole: an instrument renders only once it is created, so a
+# series nobody creates costs nothing.
 SERIES: dict[str, tuple[str, str]] = {
     # job lifecycle (runtime/service.py)
     "dgrep_jobs_submitted_total": ("counter", "Jobs admitted by submit()."),

@@ -802,3 +802,71 @@ def test_stripe_kernels_launch_from_a_fresh_thread(card):
     for name, (_fn, plain) in runs.items():
         assert isinstance(got[name], torch.Tensor), got[name]
         assert torch.equal(got[name], plain()), name
+
+
+def test_peer_shuffle_daemon_job_on_card_equals_cpu(card, tmp_path,
+                                                    monkeypatch):
+    """A daemon job of ``volcano`` on the card over two HTTP worker loops
+    with the peer shuffle on: the records equal the CPU job's, the
+    reducers fetched every file from the peers (the daemon's relay bytes
+    0), and the maps launched Shift-And."""
+    import threading
+    import time
+
+    from distributed_grep_tpu_torch.ops.device_scan import kernel_launches
+    from distributed_grep_tpu_torch.runtime.http_transport import (
+        ServiceHttpTransport,
+    )
+    from distributed_grep_tpu_torch.runtime.peer import PeerDataServer
+    from distributed_grep_tpu_torch.runtime.service import (
+        GrepService,
+        ServiceServer,
+    )
+    from distributed_grep_tpu_torch.runtime.worker import WorkerLoop
+
+    monkeypatch.setenv("DGREP_RESULT_CACHE", "0")
+    monkeypatch.delenv("DGREP_PEER_SHUFFLE", raising=False)
+    files = []
+    for i in range(3):
+        p = tmp_path / f"w{i}.txt"
+        p.write_bytes(_text(40 + i, 1 << 20).tobytes())
+        files.append(str(p))
+    cpu = run_job(JobConfig(input_files=files,
+                            app_options={"pattern": "volcano",
+                                         "device": "cpu"},
+                            n_reduce=2, work_dir=str(tmp_path / "cpu")),
+                  n_workers=2, device="cpu")
+    want = sorted(line for p in cpu.output_files
+                  for line in Path(p).read_bytes().splitlines())
+    svc = GrepService(work_root=tmp_path / "svc", resume=False)
+    server = ServiceServer(svc)
+    server.start()
+    addr = f"127.0.0.1:{server.port}"
+    peers = [PeerDataServer().start() for _ in range(2)]
+    for peer in peers:
+        loop = WorkerLoop(ServiceHttpTransport(addr, rpc_timeout_s=30.0),
+                          app=None, peer=peer)
+        threading.Thread(target=loop.run, daemon=True).start()
+    before = kernel_launches()
+    try:
+        jid = svc.submit(JobConfig(input_files=files,
+                                   app_options={"pattern": "volcano"},
+                                   n_reduce=2))
+        assert svc.wait_job(jid, timeout=300), svc.job_status(jid)
+        st = svc.job_status(jid)
+        assert st["state"] == "done", st
+        got = sorted(line for p in svc.job_result(jid)["outputs"]
+                     for line in Path(p).read_bytes().splitlines())
+        launched = kernel_launches()["shift_and"] - before.get("shift_and", 0)
+        shipped = svc.record(jid).scheduler.metrics_snapshot()["launches"]
+        counters = st["metrics"]["counters"]
+    finally:
+        svc.stop()
+        server.shutdown()
+        time.sleep(0.2)
+        for peer in peers:
+            peer.close()
+    assert got == want and got
+    assert launched > 0 and shipped.get("shift_and", 0) > 0
+    assert counters["peer_fetches"] > 0
+    assert svc._shuffle_stats["daemon_shuffle_bytes"] == 0

@@ -572,14 +572,15 @@ def test_run_loads_the_reference_job_json(tmp_path, corpus, capsysbinary,
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("submit_token", "tok", "item 8"), ("mesh_shape", (2,), "item 9"),
+    ("submit_token", "tok", None), ("mesh_shape", (2,), "item 9"),
 ])
 def test_reference_fields_of_unported_slices_name_their_item(
         tmp_path, corpus, capsys, field, value, item):
-    """A reference config that asks for a submit token fails naming
-    ROADMAP item 6 (item 8's failover slice); a device mesh reaches the
-    CUDA grep app's options, which name item 9.  At their defaults they
-    load."""
+    """A reference config with a submit token (the failover slice) loads,
+    runs with the reference's lines and round-trips, the token kept; a
+    device mesh reaches the CUDA grep app's options, which name item 9.
+    At their defaults they load."""
+    from distributed_grep_tpu.__main__ import main as ref_main
     from distributed_grep_tpu_torch.__main__ import main
 
     kw = {"input_files": [str(p) for p in corpus.values()],
@@ -590,8 +591,24 @@ def test_reference_fields_of_unported_slices_name_their_item(
     cfg.write_text(RefJobConfig(**kw).to_json())
     assert JobConfig.load(cfg).effective_app_options() == kw["app_options"]
     cfg.write_text(RefJobConfig(**kw, **{field: value}).to_json())
-    assert main(["run", "--config", str(cfg)]) == 2
-    assert item in capsys.readouterr().err
+    if item is not None:
+        assert main(["run", "--config", str(cfg)]) == 2
+        assert item in capsys.readouterr().err
+        return
+    loaded = JobConfig.load(cfg)
+    assert getattr(loaded, field) == value
+    doc = json.loads(loaded.to_json())
+    assert doc[field] == json.loads(cfg.read_text())[field]
+    assert JobConfig.from_json(loaded.to_json()) == loaded
+    assert main(["run", "--config", str(cfg)]) == 0
+    got = capsys.readouterr().out
+    ref_cfg = tmp_path / "ref.json"
+    ref_cfg.write_text(RefJobConfig(**{
+        **kw, "application": "distributed_grep_tpu.apps.grep",
+        "app_options": {"pattern": "hello"}, "work_dir": str(tmp_path / "r"),
+        field: value}).to_json())
+    assert ref_main(["run", "--config", str(ref_cfg)]) == 0
+    assert got == capsys.readouterr().out and "hello" in got
 
 
 def test_reference_follow_config_loads_and_round_trips(tmp_path, corpus,

@@ -6,7 +6,8 @@ service.py, tests/test_service.py's cases).
 The reference's daemon runs ``distributed_grep_tpu.apps.grep_tpu`` with
 ``backend: cpu``, the port's ``grep_cuda`` with ``device: cpu``; both run
 with the result cache and the peer shuffle off here (the result cache has
-tests/test_torch_result_cache.py; the port has no peer shuffle).  The
+tests/test_torch_result_cache.py, the peer shuffle
+tests/test_torch_peer_shuffle.py).  The
 tolerance is zero: the ``mr-out-*`` bytes, the states and the exit codes
 are equal.  The elastic pool's advice equals the reference's on the same
 scripted states, ``top``'s screen is the reference's, and a worker that
@@ -1125,15 +1126,92 @@ def test_no_host_fallback(tmp_path, corpus, monkeypatch, capsys):
         server.shutdown()
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["serve", "--standby"], "item 6"),
-    (["submit", "--addr", "h:1,h:2", "x", "f"], "item 6"),
-])
-def test_unported_flags_exit_2_naming_their_item(argv, item, capsys):
+def _serve_proc(root: Path, *args: str, env: dict | None = None
+                ) -> tuple[subprocess.Popen, str]:
+    """A ``serve`` process on a free port; (process, address) once its
+    stderr names the address (serving or standing by)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_grep_tpu_torch", "serve",
+         "--port", "0", "--workers", "0", "--work-root", str(root), *args],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, **(env or {})})
+    line = proc.stderr.readline().decode()
+    m = re.search(r"(?:serving|standby) on (\S+:\d+)", line)
+    assert m, line
+    return proc, m.group(1)
+
+
+def test_serve_standby_parks_then_promotes(tmp_path):
+    """``serve --standby`` beside an active on one work root parks (its
+    /status says standby and names the active), and promotes on the same
+    address when the active goes: its /status then says active at epoch 2
+    and daemon.jsonl has the steal.  SIGTERM prints its final status."""
+    from distributed_grep_tpu_torch.runtime.daemon_log import DaemonLog
+    from distributed_grep_tpu_torch.runtime.http_transport import client_call
+
+    env = {"DGREP_LEASE_TTL_S": "1", "DGREP_RESULT_CACHE": "0"}
+    root = tmp_path / "svc"
+    active, a_addr = _serve_proc(root, env=env)
+    standby = None
+    try:
+        assert client_call(a_addr, "GET", "/status")["role"] == "active"
+        standby, b_addr = _serve_proc(root, "--standby", env=env)
+        st = client_call(b_addr, "GET", "/status", retry=False)
+        assert st == {"service": True, "role": "standby", "active": a_addr}
+        active.send_signal(signal.SIGKILL)
+        active.wait(timeout=30)
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                st = client_call(b_addr, "GET", "/status", retry=False)
+                if st.get("role") == "active":
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, st
+            time.sleep(0.1)
+        steals = [e for e in DaemonLog.read(root)
+                  if e["kind"] == "lease_steal"]
+        assert [e["epoch"] for e in steals] == [2]
+        standby.send_signal(signal.SIGTERM)
+        out, _err = standby.communicate(timeout=30)
+        assert standby.returncode == 0
+        final = json.loads(out.decode().strip().splitlines()[-1])
+        assert final["service"] is True and final["role"] == "active"
+    finally:
+        for proc in (active, standby):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def test_submit_addr_list_rotates_to_the_live_daemon(tmp_path, corpus,
+                                                      capsys, monkeypatch):
+    """``submit --addr DEAD,LIVE`` lands on the live daemon: one job,
+    minted with a submit token, done, one JSON line; a second address
+    that refuses is skipped by the retry loop."""
     from distributed_grep_tpu_torch import __main__ as cli
 
-    assert cli.main(argv) == 2
-    assert item in capsys.readouterr().err
+    monkeypatch.setenv("DGREP_RPC_BACKOFF_S", "0.05")
+    svc = GrepService(work_root=tmp_path / "svc", task_timeout_s=5.0,
+                      sweep_interval_s=0.1)
+    server = ServiceServer(svc)
+    server.start()
+    svc.start_local_workers(1)
+    try:
+        rc = cli.main(["submit", "--addr", f"127.0.0.1:9,127.0.0.1:"
+                       f"{server.port}", "--backend", "cpu", "hello",
+                       *[str(p) for p in corpus.values()],
+                       "--timeout", "60"])
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert rc == 0 and len(lines) == 1
+        doc = json.loads(lines[0])
+        assert doc["state"] == "done" and doc["outputs"]
+        assert list(svc._jobs) == [doc["job_id"]]
+        assert svc.record(doc["job_id"]).config.submit_token
+    finally:
+        svc.stop()
+        server.shutdown()
 
 
 @pytest.mark.parametrize("flags", [
