@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--file-mb 128] [--n-files 8]
         [--workers 2] [--kernels-only | --warm-only | --control-only |
-        --telemetry-only | --tiers-only | --service-only]
+        --telemetry-only | --tiers-only | --service-only | --multi-only]
 
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
@@ -39,8 +39,12 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          register, 544 lanes), and the one-hot wgmma product (1, 2 and 16
          lane blocks, the probe's member and a full-range int8 one, one
          block per SM, one block, more blocks than rows and ranges that
-         straddle lane blocks), and the table-DFA kernel (csrc/dfa.cu, on
-         no engine route) at the 64 MB segment shape for 'nee(dle|t)',
+         straddle lane blocks), and the table-DFA kernel K1 (csrc/dfa.cu,
+         with its exit states) and the stride kernel K2 (its stride_kernel
+         at k = 2 and 4 on every table without '$' accepts whose composed
+         table fits choose_stride's caps, against its plain version and
+         K1's words; both table branches) at the 64 MB segment shape for
+         'nee(dle|t)',
          three '$' patterns, '^$' and two Aho-Corasick banks too large for
          shared memory, then over 3 seeded random regex tables ('$'
          accepts, '^', nullable bodies) and small Aho-Corasick banks at
@@ -303,11 +307,25 @@ Phase 3g failover and the peer data plane, over the same 4 word files,
          active, daemon.jsonl lease_steal at epoch 2), the submit prints
          one line with one job id, done; the seconds from the kill to
          the promotion and to the job's end.
+Phase 3h multi-GPU on one host (parallel/, the engine's devices and mesh)
+         over the first word file: a mesh over every card when the host
+         has two or more, else four entries of cuda:0; 'volcano', '^the
+         (old|new) ', config 2, config 3's set, a 2-byte set and
+         '--max-errors 1 volcano' on a mesh engine give the single-device
+         engine's lines, the entries times its launches and a one-entry
+         mesh's psum_candidates; each sharded kernel's words on a 64 MB
+         segment equal one device's bit for bit; '^$' on a mesh engine
+         routes dfa (K1 launched) with GNU grep's lines; run_job of
+         'volcano' with a two-entry devices list and with mesh_shape [4]
+         give the one-card job's mr-out; sharded_grep_step on needle
+         matches K1's plain words and exit states.  Every line prints
+         ``cards`` beside ``mesh_entries``: no run spans two cards unless
+         the host has them.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
-         pallas, nfa, nfa_alt8, pairset, mxu_dot, dfa, aho256 and
-         native_mt engines at 64 MiB,
+         pallas, nfa, nfa_alt8, pairset, mxu_dot, dfa, stride2, stride4,
+         aho256 and native_mt engines at 64 MiB,
          probe_narrow's i32 / i16 slope, and the BASELINE config suite
          (configs 1-5 at 64 MB) end to end with --check (any MISMATCH
          fails) and with slope timing.  Then the two probe kernels
@@ -317,9 +335,9 @@ Phase 4  the measuring path, in this process with the launch counts zeroed
          scaled to 64 MiB) are timed.
 
 The last three lines of standard output are one JSON object with the host
-library's checks, one with every kernel's numbers (nine kernels; the
-table DFA's launches are the measuring path's, 0 on the main path) and
-one with the device.  Any failure raises
+library's checks, one with every kernel's numbers (ten kernels; the
+table DFA's and K2's launches are the measuring path's, 0 on the main
+path; K1 runs on phase 3h's mesh route too) and one with the device.  Any failure raises
 (exit status 1); without CUDA, or without the package beside this file,
 the script prints no result and exits 2.
 """
@@ -1558,19 +1576,20 @@ def phase_kernels(torch, np, cuda_scan, sa_mod) -> int:
         if chunk == 160:
             # a match ending across a word edge: bytes 29..35 of stripe 3
             arr[29:36, 3] = np.frombuffer(b"volcano", np.uint8)
-        cpu = torch.from_numpy(np.ascontiguousarray(arr.T))  # the stripes
-        dev = cpu.cuda()
+        # the stripes; the plain version runs on the card beside the kernel
+        # (on the CPU it took most of these checks' time)
+        dev = torch.from_numpy(np.ascontiguousarray(arr.T)).cuda()
         for name, model in models.items():
             for coarse in (True, False):
                 got = cuda_scan.shift_and_scan_words(dev, model, coarse)
                 torch.cuda.synchronize()
-                want = cuda_scan.shift_and_scan_words_plain(cpu, model, coarse)
-                g = got.cpu().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+                want = cuda_scan.shift_and_scan_words_plain(dev, model, coarse)
+                g = got.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
                 w = want.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
                 err = int((g - w).abs().max())
                 worst = max(worst, err)
                 nz = int(torch.count_nonzero(w))
-                if not torch.equal(got.cpu(), want) or err:
+                if not torch.equal(got, want) or err:
                     raise AssertionError(
                         f"kernel != plain: {name} coarse={coarse} "
                         f"chunk={chunk} lanes={lanes} max_abs_err={err}")
@@ -1714,9 +1733,11 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
 
     rng = np.random.default_rng(seed)
     branches = {"shared": 0, "global": 0}
-    worst = draws = 0
+    stride_branches = {"shared": 0, "global": 0}
+    worst = draws = stride_worst = stride_draws = 0
 
-    def check(label: str, table, arr, pitched: bool) -> int:
+    def check(label: str, table, arr, pitched: bool,
+              stride: bool = True) -> int:
         nonlocal worst, draws
         chunk, lanes = arr.shape
         arr = arr.copy()
@@ -1727,9 +1748,10 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
                               device=st.device)
             wide[:, :chunk] = st
             st = wide[:, :chunk]
-        got = dfa_scan.dfa_scan_words(st, table)
+        got, got_exits = dfa_scan.dfa_scan_words(st, table, with_exits=True)
         torch.cuda.synchronize()
-        want = dfa_scan.dfa_scan_words_plain(st, table)
+        want, want_exits = dfa_scan.dfa_scan_words_plain(st, table,
+                                                         with_exits=True)
         err = words_err(torch, got, want)
         worst = max(worst, err)
         draws += 1
@@ -1739,7 +1761,37 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
             raise AssertionError(
                 f"dfa kernel != plain: {label} chunk={chunk} lanes={lanes} "
                 f"pitched={pitched} max_abs_err={err}")
+        if not torch.equal(got_exits, want_exits):
+            raise AssertionError(f"dfa kernel exit states != plain: {label} "
+                                 f"chunk={chunk} lanes={lanes}")
+        if stride:
+            check_stride(label, table, st, want)
         return int(torch.count_nonzero(want.view(torch.int32)))
+
+    def check_stride(label: str, table, st, k1_words) -> None:
+        """K2 at k = 2 and 4 where choose_stride's caps allow the stride,
+        against its plain version and K1's words, bit for bit."""
+        nonlocal stride_worst, stride_draws
+        if table.accept_eol.any():
+            return
+        for k in (2, 4):
+            cols = table.n_classes ** k
+            if cols > 1 << 13 or table.n_states * cols > 1 << 23:
+                continue
+            stt = dfa_mod.build_stride_table(table, k)
+            got = dfa_scan.dfa_stride_words(st, stt)
+            torch.cuda.synchronize()
+            want = dfa_scan.dfa_stride_words_plain(st, stt)
+            err = max(words_err(torch, got, want),
+                      words_err(torch, got, k1_words))
+            stride_worst = max(stride_worst, err)
+            stride_draws += 1
+            stride_branches["shared" if dfa_scan.stride_uses_shared_memory(
+                stt) else "global"] += 1
+            if err or not torch.equal(got, want):
+                raise AssertionError(
+                    f"dfa stride kernel (k={k}) != plain or K1: {label} "
+                    f"shape={tuple(st.shape)} max_abs_err={err}")
 
     chunk, lanes = SWEEP_SEGMENT
     text = words_block(rng, chunk * lanes)
@@ -1780,12 +1832,20 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
         samples = [sample(rng)[:100] for _ in range(8)] + ["a"]
         shapes = SWEEP_SMALL + ([SWEEP_SEGMENT] if i % 8 == 0 else [])
         for ch, ln in shapes:
+            # K2 at the small shapes (the fixed tables hold it at the
+            # segment's)
             check(name, table, sweep_text(rng, ch, ln, samples, False),
-                  pitched=bool(i % 2))
+                  pitched=bool(i % 2), stride=(ch, ln) != SWEEP_SEGMENT)
     log(f"  dfa sweep: {len(tables)} random tables, {draws} draws in all "
         f"(table in shared memory {branches['shared']}, read through the "
-        f"L2 {branches['global']})")
-    return draws, worst
+        f"L2 {branches['global']}), each with its exit states; K2 (k = 2, "
+        f"4 where the caps allow) {stride_draws} draws (composed table in "
+        f"shared memory {stride_branches['shared']}, through the L2 "
+        f"{stride_branches['global']})")
+    if not (stride_branches["shared"] and stride_branches["global"]):
+        raise AssertionError(f"dfa stride: a table branch not exercised "
+                             f"{stride_branches}")
+    return draws, worst, stride_draws, stride_worst
 
 
 def host_block(rng, n_bytes: int):
@@ -2813,15 +2873,19 @@ def phase_mxu_kernels(torch, np, mxu_probe) -> int:
         "full-range": torch.from_numpy(rng.integers(
             -128, 128, size=(256, 128), dtype=np.int8)).cuda()}
     worst = 0
+    texts: dict = {}  # one text a shape, shared by its cases
     for chunk, lanes, blocks, which in [
             (1024, 65536, None, "probe"), (1024, 65536, None, "full-range"),
             (1024, 65536, 7, "full-range"), (512, 4096, None, "probe"),
             (512, 4096, 1, "full-range"), (512, 4096, 600, "probe"),
             (512, 8192, 3, "full-range")]:
-        text = words_block(rng, chunk * lanes)
-        text[-text.size // 8:] = rng.integers(0, 256, size=text.size // 8,
-                                              dtype=np.uint8)
-        dev = torch.from_numpy(text.reshape(chunk, lanes)).cuda()
+        if (chunk, lanes) not in texts:
+            text = words_block(rng, chunk * lanes)
+            text[-text.size // 8:] = rng.integers(
+                0, 256, size=text.size // 8, dtype=np.uint8)
+            texts[(chunk, lanes)] = torch.from_numpy(
+                text.reshape(chunk, lanes)).cuda()
+        dev = texts[(chunk, lanes)]
         member = members[which]
         got = mxu_probe.mxu_dot(dev, member, blocks=blocks)
         torch.cuda.synchronize()
@@ -2928,7 +2992,7 @@ def drive_measuring(counters: dict, bench, kernel_compare, probe_narrow,
 
     t0 = time.perf_counter()
     engines = ["pallas", "nfa", "nfa_alt8", "pairset", "mxu_dot", "dfa",
-               "aho256", "native_mt"]
+               "stride2", "stride4", "aho256", "native_mt"]
     kc = run_main(kernel_compare.main, ["--size-mb", "64", "--engines",
                                         ",".join(engines)])
     if [ln["engine"] for ln in kc] != engines or any(
@@ -2964,7 +3028,7 @@ def drive_measuring(counters: dict, bench, kernel_compare, probe_narrow,
     launched = {k: m.launches for k, m in counters.items()}
     log(f"measuring path launches: {launched}")
     for k in ("shift_and", "nfa", "fdr", "pairset", "narrow_probe", "mxu_dot",
-              "dfa"):
+              "dfa", "dfa_stride"):
         if not launched[k]:
             raise AssertionError(f"measuring path: no {k} launch")
     return {"launches": launched, "bench": head, "kernel_compare": kc,
@@ -4985,6 +5049,237 @@ def phase_failover(words: list[Path], set3: list[bytes], inproc: dict,
     log(f"phase 3g: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# Phase 3h's engine queries: (label, engine arguments, the kernel whose
+# launches the mesh multiplies, the kernel table's row)
+MULTI_QUERIES = (
+    ("volcano", {"pattern": "volcano"}, "shift_and", 1),
+    ("^the (old|new) ", {"pattern": "^the (old|new) "}, "nfa", 3),
+    ("config2", {"pattern": CONFIG2}, "fdr", 4),
+    ("config3 -f", {"patterns": "config3"}, "fdr", 4),
+    ("zq set", {"patterns": PAIR_SET}, "pairset", 5),
+    ("--max-errors 1 volcano", {"pattern": "volcano", "max_errors": 1},
+     "approx", 6),
+)
+
+
+def phase_multi_gpu(path: Path, set3: list[bytes], card: str,
+                    counters: dict) -> None:
+    """Phase 3h: multi-GPU on one host (parallel/, the engine's
+    ``devices`` and ``mesh``), over one 128 MiB word file.  The mesh spans
+    every card when the host has two or more, else four entries of
+    cuda:0 (the counterpart of the reference's forced host device count:
+    the lane split, the launches a block and the reassembly run on the
+    real kernels, on one card).  Each engine query (rows 1 and 3-6) on the
+    mesh gives the single-device engine's lines; its kernel launches are
+    the entries times the single-device engine's; its
+    ``psum_candidates`` equals a one-entry mesh's, the single-device
+    nonzero-word count; and on the file's first 64 MiB segment each
+    sharded kernel's words equal the single-device kernel's bit for bit.
+    '^$' on a mesh engine routes "dfa" (K1 on the first entry, launched)
+    with GNU grep's lines; ``run_job`` of volcano with a two-entry
+    ``devices`` list and with ``mesh_shape: [4]`` give the one-card job's
+    mr-out bytes; ``sharded_grep_step`` on needle counts at least one
+    match, with K1's plain exit states and words."""
+    import numpy as np
+    import torch
+
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.apps.loader import from_module
+    from distributed_grep_tpu_torch.models import dfa as dfa_mod
+    from distributed_grep_tpu_torch.ops import (
+        approx_scan,
+        cuda_scan,
+        dfa_scan,
+        engine as engine_mod,
+        fdr_scan,
+        nfa_scan,
+        pairset_scan,
+        swar_scan,
+    )
+    from distributed_grep_tpu_torch.ops.engine import GrepEngine
+    from distributed_grep_tpu_torch.ops.layout import (
+        choose_layout,
+        padded_stripes,
+    )
+    from distributed_grep_tpu_torch.parallel import sharded_kernels as shk
+    from distributed_grep_tpu_torch.parallel import (
+        make_mesh,
+        sharded_grep_step,
+    )
+    from distributed_grep_tpu_torch.runtime.job import run_job
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
+    t_phase = time.perf_counter()
+    log(f"== phase 3h: multi-GPU on one host, card: {card}")
+    n_cards = torch.cuda.device_count()
+    entries = ([f"cuda:{i}" for i in range(n_cards)] if n_cards >= 2
+               else ["cuda:0"] * 4)
+    mesh = make_mesh((len(entries),), ("data",), devices=entries)
+    one = make_mesh((1,), ("data",), devices=["cuda:0"])
+    tag = f"cards {mesh.cards}, mesh_entries {mesh.size}"
+    log(f"mesh: {tag} ({', '.join(entries)})")
+    data = path.read_bytes()
+    n_segs = -(-len(data) // (64 << 20))
+    for label, kw, kern, row in MULTI_QUERIES:
+        kw = dict(kw)
+        if kw.get("patterns") == "config3":
+            kw["patterns"] = set3
+        t0 = time.perf_counter()
+        single = GrepEngine(**kw)
+        before = counters[kern].launches
+        t1 = time.perf_counter()
+        want = single.scan(data)
+        one_s = time.perf_counter() - t1
+        one_launches = counters[kern].launches - before
+        one_eng = GrepEngine(mesh=one, **kw)
+        one_eng.scan(data)
+        eng = GrepEngine(mesh=mesh, **kw)
+        before = counters[kern].launches
+        t1 = time.perf_counter()
+        got = eng.scan(data)
+        mesh_s = time.perf_counter() - t1
+        launched = counters[kern].launches - before
+        if eng.mode != single.mode or not np.array_equal(
+                got.matched_lines, want.matched_lines):
+            raise AssertionError(
+                f"3h {label}: mesh engine (mode {eng.mode}) lines differ "
+                f"from the single-device engine's ({got.n_matches} vs "
+                f"{want.n_matches})")
+        if one_launches < n_segs or launched != mesh.size * one_launches:
+            raise AssertionError(
+                f"3h {label}: {launched} {kern} launches on the mesh, "
+                f"{one_launches} on one device, {n_segs} segments")
+        psum = eng.stats.get("psum_candidates")
+        if psum is None or psum != one_eng.stats.get("psum_candidates"):
+            raise AssertionError(
+                f"3h {label}: psum_candidates {psum} != the one-entry "
+                f"mesh's {one_eng.stats.get('psum_candidates')}")
+        log(f"3h {label!r} (row {row}, mode {eng.mode}): {got.n_matches} "
+            f"lines = the single-device engine's; {kern} launches "
+            f"{launched} = {mesh.size} x {one_launches}; psum_candidates "
+            f"{psum} = the single-device nonzero words; scan walls one "
+            f"card {one_s:.3f} s, mesh {mesh_s:.3f} s (host clock); "
+            f"{time.perf_counter() - t0:.1f} s [{tag}] [{card}]")
+
+    # the sharded kernels' words against one device's, bit for bit, on
+    # the first 64 MiB segment
+    t0 = time.perf_counter()
+    seg = data[: 64 << 20]
+    lay = choose_layout(len(seg), **GrepEngine("volcano").layout_kwargs())
+    st = torch.from_numpy(padded_stripes(seg, lay).copy()).cuda()
+    cols = st.t().contiguous()
+    sa = engine_mod.check_pattern("volcano").sa_filtered
+    nfa = engine_mod.check_pattern("^the (old|new) ").glushkov
+    fdr = engine_mod.check_patterns(set3).fdr
+    ps = engine_mod.check_patterns(PAIR_SET).pairset
+    ax = engine_mod.check_approx("volcano", 1).approx
+    fdr_one = None
+    for bank in fdr.banks:
+        fdr_one = fdr_scan.fdr_scan_words(cols, bank, out=fdr_one)
+    checks = {
+        "shift_and": (shk.sharded_shift_and_words(st, sa, mesh),
+                      cuda_scan.shift_and_scan_words(st, sa, True)),
+        "shift_and_swar": (shk.sharded_shift_and_words(st, sa, mesh,
+                                                       swar=True),
+                           swar_scan.swar_scan_words(st, sa)),
+        "nfa": (shk.sharded_nfa_words(st, nfa, mesh),
+                nfa_scan.nfa_scan_words(cols, nfa)),
+        "fdr": (shk.sharded_fdr_words(st, fdr, mesh), fdr_one),
+        "pairset": (shk.sharded_pairset_words(st, ps, mesh),
+                    pairset_scan.pairset_scan_words(st, ps)),
+        "approx": (shk.sharded_approx_words(st, ax, mesh),
+                   approx_scan.approx_scan_words(st, ax)),
+    }
+    torch.cuda.synchronize()
+    for name, ((words, total), ref) in checks.items():
+        nz = int(torch.count_nonzero(ref.view(torch.int32)))
+        if not torch.equal(words, ref) or int(total) != nz:
+            raise AssertionError(f"3h sharded {name} words differ from one "
+                                 f"device's (total {int(total)} vs {nz})")
+    log("3h sharded words = one device's, bit for bit, on a 64 MiB segment "
+        f"({lay.lanes} x {lay.chunk}): " + ", ".join(
+            f"{name} {int(total)}" for name, ((_w, total), _r)
+            in checks.items()) + f" nonzero words; "
+        f"{time.perf_counter() - t0:.1f} s [{tag}] [{card}]")
+
+    # '^$' on a mesh engine: mode "dfa", K1 on the first entry
+    t0 = time.perf_counter()
+    arr = np.frombuffer(data[: 16 << 20], np.uint8).copy()
+    at = np.random.default_rng(8).choice(arr.size - 2, size=2000,
+                                         replace=False)
+    arr[at] = arr[at + 1] = ord("\n")  # empty lines
+    empty = WORK / "multi-empty-lines.txt"
+    empty.write_bytes(arr.tobytes())
+    before = counters["dfa"].launches
+    eng = GrepEngine("^$", mesh=mesh)
+    got = eng.scan(empty.read_bytes())
+    k1 = counters["dfa"].launches - before
+    want = [n for n, _t in grep_oracle_lines(empty, ["-e", "^$"])]
+    if (eng.route != "dfa" or k1 <= 0 or not eng.stats.get("mesh_unsharded")
+            or got.matched_lines.tolist() != want):
+        raise AssertionError(
+            f"3h '^$': route {eng.route}, K1 launches {k1}, "
+            f"{got.n_matches} lines vs GNU grep's {len(want)}")
+    log(f"3h '^$' on the mesh engine: route dfa (mesh_unsharded), K1 "
+        f"launches {k1}, {len(want)} lines = GNU grep's; "
+        f"{time.perf_counter() - t0:.1f} s [{tag}] [{card}]")
+
+    # jobs: the one-card job against a device list and a mesh
+    t0 = time.perf_counter()
+    hashes, walls, job_launches = {}, {}, {}
+    two = ([f"cuda:{i}" for i in range(2)] if n_cards >= 2
+           else ["cuda:0", "cuda:0"])
+    for label, extra in (("one card", {}), ("devices x2", {"devices": two}),
+                         ("mesh_shape [4]", {
+                             "mesh_shape": [4],
+                             "devices": [f"cuda:{i % n_cards}"
+                                         for i in range(4)]})):
+        engine_mod.model_cache_clear()
+        before = counters["shift_and"].launches
+        t1 = time.perf_counter()
+        res = run_job(JobConfig(
+            input_files=[str(path)],
+            app_options={"pattern": "volcano", **extra}, n_reduce=10,
+            task_timeout_s=60.0, work_dir=str(WORK / f"multi-{len(hashes)}"),
+            journal=False, durable=False), n_workers=2, device="cuda",
+            app=from_module(grep_cuda))
+        walls[label] = time.perf_counter() - t1
+        job_launches[label] = counters["shift_and"].launches - before
+        hashes[label] = mr_out_hashes(res.output_files)
+        shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
+    if not (hashes["devices x2"] == hashes["one card"]
+            == hashes["mesh_shape [4]"]):
+        raise AssertionError("3h: a job's mr-out differs from the one-card "
+                             "job's")
+    if job_launches["mesh_shape [4]"] != 4 * job_launches["one card"]:
+        raise AssertionError(f"3h: job launches {job_launches}")
+    log(f"3h run_job volcano: mr-out of the devices list and of mesh_shape "
+        f"[4] = the one-card job's; walls " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in walls.items())
+        + f"; shift_and launches {job_launches} [{tag}] [{card}]")
+
+    # the table-DFA step with its collectives
+    t0 = time.perf_counter()
+    st2 = st.clone()
+    st2[:: 97, 100:106] = torch.frombuffer(bytearray(b"needle"),
+                                           dtype=torch.uint8).cuda()
+    table = dfa_mod.compile_dfa("needle")
+    words, total, exits, neigh = sharded_grep_step(st2, table, mesh)
+    want_words, want_exits = dfa_scan.dfa_scan_words_plain(st2, table,
+                                                           with_exits=True)
+    torch.cuda.synchronize()
+    if (int(total) < 1 or not torch.equal(exits, want_exits)
+            or not torch.equal(words, want_words)
+            or neigh.shape != (mesh.size,)):
+        raise AssertionError(f"3h sharded_grep_step: total {int(total)}, "
+                             f"exit states or words differ")
+    log(f"3h sharded_grep_step needle: total {int(total)} matched positions, "
+        f"exit states and words = K1's plain version's, ring "
+        f"{neigh.tolist()} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase 3h: {time.perf_counter() - t_phase:.1f} s; {tag}; no run "
+        f"spans two cards unless cards >= 2 [{card}]")
+
+
 FOLLOW_QUERIES = (("volcano", {"pattern": "volcano"}),
                   ("-i Volcano", {"pattern": "Volcano", "ignore_case": True}),
                   ("^the (old|new) ", {"pattern": "^the (old|new) "}),
@@ -5314,6 +5609,9 @@ def main() -> int:
     ap.add_argument("--tiers-only", action="store_true",
                     help="phase 1, then phase 3e over the word corpus alone; "
                          "prints no result lines")
+    ap.add_argument("--multi-only", action="store_true",
+                    help="phase 1, then phase 3h over one word file; prints "
+                         "no result lines")
     ap.add_argument("--service-only", action="store_true",
                     help="phase 1, then phase 3's in-process jobs of the "
                          "four tenants phase 3f compares with, and phases 3f "
@@ -5379,7 +5677,8 @@ def main() -> int:
     counters = {"shift_and": cuda_scan, "nfa": nfa_scan, "fdr": fdr_scan,
                 "pairset": pairset_scan, "approx": approx_scan,
                 "shift_and_swar": swar_scan, "narrow_probe": narrow_probe,
-                "mxu_dot": mxu_probe, "dfa": dfa_scan}
+                "mxu_dot": mxu_probe, "dfa": dfa_scan,
+                "dfa_stride": dfa_scan.stride}
     t_all = time.perf_counter()
     # ---------------------------------------------------------- phase 1
     card = card_line()
@@ -5489,6 +5788,17 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_all:.1f} s")
         return 0
 
+    if args.multi_only:
+        if WORK.exists():
+            shutil.rmtree(WORK)
+        try:
+            words = make_corpus(args.seed, 1, args.file_mb << 20)
+            phase_multi_gpu(words[0], config3_set(), card, counters)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        return 0
+
     if args.service_only:
         if WORK.exists():
             shutil.rmtree(WORK)
@@ -5591,8 +5901,8 @@ def main() -> int:
     mxu_err = phase_mxu_kernels(torch, np, mxu_probe)
     log(f"mxu_dot checks: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    _n, dfa_err = phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
-                                    4848)
+    _n, dfa_err, _n, stride_err = phase_dfa_kernels(
+        torch, np, dfa_scan, dfa_mod, aho_mod, 4848)
     log(f"dfa checks and sweep: {time.perf_counter() - t0:.1f} s")
     log("phase 2 launches (comparisons, not counted): "
         + ", ".join(f"{k} {m.launches}" for k, m in counters.items()))
@@ -5612,8 +5922,10 @@ def main() -> int:
         # 3e take all eight
         n_half = max(1, args.n_files // 2)
         half = words[:n_half]
-        logs = make_log_corpus(args.seed, n_half, args.file_mb << 20)
-        pcap = make_pcap_corpus(args.seed, n_half, args.file_mb << 20)
+        # the log and pcap corpora one file fewer still, for the smoke's time
+        n_other = max(1, n_half - 1)
+        logs = make_log_corpus(args.seed, n_other, args.file_mb << 20)
+        pcap = make_pcap_corpus(args.seed, n_other, args.file_mb << 20)
         defeat = [make_defeat_file(args.seed, args.file_mb << 20)]
         set3, set5 = config3_set(), config5_set()
         pats = {}
@@ -5854,21 +6166,28 @@ def main() -> int:
                 solo_walls[label] = wall
             shutil.rmtree(res.metrics["work_dir"], ignore_errors=True)
 
-        # the CLI on one file, against the same oracle's display lines
+        # the CLI on one file, against the same oracle's display lines,
+        # side by side with the five runs of cli_runs
         t0 = time.perf_counter()
-        cli = subprocess.run(
-            [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
-             "volcano", str(words[0]), "--work-dir", str(WORK / "cli")],
-            cwd=ROOT, capture_output=True, check=True, timeout=600,
-        )
+        with ThreadPoolExecutor(2) as pool:
+            five = pool.submit(cli_runs, [*words[:2], defeat[0]],
+                               WORK / "cli")
+            cli = subprocess.run(
+                [sys.executable, "-m", "distributed_grep_tpu_torch", "grep",
+                 "volcano", str(words[0]), "--work-dir",
+                 str(WORK / "cli-one")],
+                cwd=ROOT, capture_output=True, check=True, timeout=600,
+            )
+            five_lines = five.result()
         want_lines = grep_oracle_lines(words[0], fixed("volcano"))
         want = "".join(f"{words[0].resolve()} (line number #{n}) {v}\n"
                        for n, v in want_lines)
         if cli.stdout != want.encode("utf-8", "surrogateescape"):
             raise AssertionError("CLI output differs from the oracle")
         log(f"CLI grep volcano {words[0].name}: {len(want_lines)} lines "
-            f"identical to the oracle ({time.perf_counter() - t0:.1f} s)")
-        for line in cli_runs([*words[:2], defeat[0]], WORK / "cli"):
+            f"identical to the oracle ({time.perf_counter() - t0:.1f} s, "
+            f"beside the five below)")
+        for line in five_lines:
             log(line)
         t0 = time.perf_counter()
         tree_bytes = make_small_tree(words[1], WORK / "tree")
@@ -5895,6 +6214,7 @@ def main() -> int:
         phase_tiers(args, words, card, counters)
         phase_service(half, set3, inproc, solo_walls, card, counters)
         phase_failover(half, set3, inproc, card)
+        phase_multi_gpu(words[0], set3, card, counters)
 
         # ------------------------------------------- timings (not counted)
         log(f"== the timing block, card: {card}")
@@ -6148,6 +6468,50 @@ def main() -> int:
                 f"{dfa_rows[name][3]}; every entry read from the L2 would "
                 f"take {l2_ms:.4f} [{card}]")
 
+        # K2, the k-byte-stride walk (kernel_compare's stride<k> engines
+        # run it): 'nee(dle|t)' and config 3's bank on the words stripes,
+        # at k = 2 and 4 where the composed table fits choose_stride's
+        # caps; eagerly and on the card's clock.  Its bound: the bytes
+        # (with the composed table), or a class lookup a byte and a table
+        # read a stride at the shared-memory / L1 lookup rate
+        stride_rows = {}
+        for name, table in (("nee(dle|t)", dfa_mod.compile_dfa("nee(dle|t)")),
+                            ("config 3 bank",
+                             aho_mod.compile_aho_corasick(set3))):
+            for k in (2, 4):
+                cols = table.n_classes ** k
+                if cols > 1 << 13 or table.n_states * cols > 1 << 23:
+                    log(f"kernel dfa_stride {name} k={k}: composed table of "
+                        f"{table.n_states} x {cols} past choose_stride's "
+                        f"caps, not run")
+                    continue
+                stt = dfa_mod.build_stride_table(table, k)
+                k_ms = cuda_ms(torch, lambda: dfa_scan.dfa_stride_words(
+                    dev_st, stt), 20)
+                g_ms = graph_ms(lambda: dfa_scan.dfa_stride_words(dev_st,
+                                                                  stt))
+                p_ms = cuda_ms(torch, lambda: dfa_scan.dfa_stride_words_plain(
+                    dev_st, stt), 1)
+                table_bytes = 4 * stt.trans_k.size + 256
+                b_ms = (n_in + n_out + table_bytes) / H100_BYTES_PER_S * 1e3
+                l_ms = ((1 + 1 / k) * n_in / H100_SMEM_LOOKUPS_PER_S * 1e3)
+                stride_rows[(name, k)] = (k_ms, p_ms, max(b_ms, l_ms),
+                                          "bytes" if b_ms >= l_ms
+                                          else "operations")
+                k1_ms = dfa_rows[name][0] if name in dfa_rows else None
+                log(f"kernel dfa_stride {name} k={k}: states={stt.n_states} "
+                    f"columns={cols} table {table_bytes} bytes in "
+                    f"{'shared memory' if dfa_scan.stride_uses_shared_memory(stt) else 'global memory'}"
+                    f", stripes chunk={lay.chunk} lanes={lay.lanes}: "
+                    f"{k_ms:.4f} ms = {n_in / (k_ms / 1e3) / 1e9:.1f} GB/s "
+                    f"({g_ms:.4f} ms on the card's clock, in a CUDA graph); "
+                    f"K1 on the same table {k1_ms:.4f} ms; plain version on "
+                    f"the card {p_ms:.1f} ms; bound {max(b_ms, l_ms):.4f} ms "
+                    f"(bytes {b_ms:.4f} with the table, lookups {l_ms:.4f}), "
+                    f"bound by {stride_rows[(name, k)][3]} [{card}]")
+        if ("nee(dle|t)", 4) not in stride_rows:
+            raise AssertionError("dfa_stride: 'nee(dle|t)' at k = 4 not timed")
+
         # the confirm set on config 5's real candidates of one segment
         words5 = fdr_scan.fdr_scan_words(dev_pc, banks["config5"])
         c_idx, c_vals = sparse_nonzero(words5)
@@ -6378,6 +6742,18 @@ def main() -> int:
         "plain_ms": dfa_rows["nee(dle|t)"][1],
         "bound_ms": dfa_rows["nee(dle|t)"][2],
         "bound_by": dfa_rows["nee(dle|t)"][3],
+        "library_ms": None,
+    }, {
+        "name": "dfa_stride",
+        "route": "cuda",
+        "source": "distributed_grep_tpu_torch/csrc/dfa.cu",
+        "replaces": "distributed_grep_tpu/ops/scan_jnp.py:99",
+        "launches": measured["launches"]["dfa_stride"],
+        "max_abs_err": stride_err,
+        "ms": stride_rows[("nee(dle|t)", 4)][0],
+        "plain_ms": stride_rows[("nee(dle|t)", 4)][1],
+        "bound_ms": stride_rows[("nee(dle|t)", 4)][2],
+        "bound_by": stride_rows[("nee(dle|t)", 4)][3],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ approximate matches (Wu-Manber), optionally -i, through
 ``runtime.job.run_job`` and the ``grep`` CLI; and the measuring path
 (``bench``, ``benchmarks/``, ``utils/slope``) with its two probe kernels.
 Entry points run on the card (``device="cuda"``) unless the caller asks
-for the CPU, where the kernels' plain PyTorch versions run instead.
+for the CPU, where the kernels' plain PyTorch versions run instead; the
+grep app drives every local card (``devices="all"``), or a mesh of them
+(``parallel/``: each segment's lanes sharded over the entries).
 
 This package imports torch and numpy, never jax, and nothing of the
 reference package ``distributed_grep_tpu``.

@@ -54,9 +54,16 @@ fuses (runtime/service.py).
 process compiled reuses that engine and skips the build, and a
 ``cache:hit|miss|off`` instant says which.
 
-The device mesh raises NotImplementedError naming the ROADMAP.md item
-that will port it; the port drives one card, so ``devices`` raises too.
-A falsy value of such an option (``devices=None``) is accepted and
+The cards, as the reference's: ``devices`` (default "all", every local
+card; None the one ``device``; or a list, an int i naming card i)
+round-robins a scan's segments over them; ``mesh_shape`` (e.g. [4] or
+[2, 2]) with ``mesh_axes`` (default ["data"]) builds a mesh
+(parallel/mesh.py) and shards each segment's lanes over it instead.  A
+``devices`` list given beside ``mesh_shape`` names the mesh's entries (a
+card may repeat: four entries of cuda:0 on a host of one card); without
+it the mesh spans every local card, or on ``device="cpu"`` as many host
+entries as the shape needs.  ``pattern_axis`` raises NotImplementedError
+naming ROADMAP.md item 9's second half; a falsy value is accepted and
 dropped.
 
 With the span pipeline on (utils/spans.py), each record build (a whole
@@ -70,6 +77,7 @@ import os
 import threading
 
 import numpy as np
+import torch
 
 from distributed_grep_tpu_torch.apps.base import KeyValue
 from distributed_grep_tpu_torch.apps.grep import (
@@ -108,11 +116,11 @@ _presence = False  # -q/-l/-L: per-file truthiness only
 _progress = threading.local()
 
 _UNPORTED = {
-    "devices": "item 9 (multi-GPU)",
-    "mesh_shape": "item 9 (multi-GPU)",
-    "mesh_axes": "item 9 (multi-GPU)",
-    "pattern_axis": "item 9 (multi-GPU)",
+    "pattern_axis": "item 9 (multi-GPU), its second half (the pattern axis)",
 }
+# the options that pick the cards (module docstring): configure turns
+# them into the engine's devices or mesh
+_CARD_OPTIONS = ("devices", "mesh_shape", "mesh_axes")
 
 
 def set_progress(fn) -> bool:
@@ -139,6 +147,9 @@ def configure(
     count_only: bool = False,
     presence_only: bool = False,
     index_dir: object = None,
+    devices: object = "all",
+    mesh_shape: object = None,
+    mesh_axes: object = ("data",),
     **options: object,
 ) -> None:
     """Compile the pattern, or the literal set ``patterns`` when given
@@ -148,8 +159,9 @@ def configure(
     plan with the host scanners (ops/engine.py) and never asks for the
     device.  ``max_errors=k`` (1..3) matches
     the single pattern within k edit errors.  Engine knobs (target_lanes,
-    segment_bytes, min_chunk) pass through ``options``; the grep options
-    and ``index_dir`` are the module docstring's."""
+    segment_bytes, min_chunk) pass through ``options``; the grep options,
+    ``index_dir`` and the cards (``devices``, ``mesh_shape``,
+    ``mesh_axes``) are the module docstring's."""
     global _engine, _configured_with, _invert, _confirm, _count_only, \
         _presence, _confirm_lit, _confirm_mode
     if index_dir is not None or _configured_with is not None:
@@ -171,7 +183,8 @@ def configure(
         pattern, patterns = None, list(patterns)
     mode = "line" if line_regexp else ("word" if word_regexp else "search")
     key = (pattern, tuple(patterns or ()), bool(ignore_case), str(device),
-           backend, bool(invert), mode, tuple(sorted(engine_opts.items())))
+           backend, bool(invert), mode, tuple(sorted(engine_opts.items())),
+           (devices, mesh_shape, mesh_axes) if backend == "device" else None)
     with _lock:
         _invert = bool(invert)
         _count_only = bool(count_only)
@@ -182,6 +195,9 @@ def configure(
         # repeated query gets the same engine, its models and uploaded
         # tables, and skips its build; the verdict lands on the task's
         # trace row when the span pipeline is on
+        if backend == "device":
+            engine_opts.update(card_options(device, devices, mesh_shape,
+                                            mesh_axes))
         _engine, cache_verdict = cached_engine(
             pattern, patterns=patterns, ignore_case=ignore_case,
             device=device, backend=backend,
@@ -194,6 +210,29 @@ def configure(
         _confirm_lit = (_engine.literal() if _confirm is not None
                         and patterns is None and not ignore_case else None)
         _configured_with = key
+
+
+def card_options(device, devices, mesh_shape, mesh_axes) -> dict:
+    """The engine's ``devices`` or ``mesh`` for these app options (the
+    module docstring)."""
+    if not mesh_shape:
+        return {"devices": devices}
+    from distributed_grep_tpu_torch.parallel.mesh import (
+        make_mesh,
+        resolve_devices,
+    )
+
+    shape = tuple(int(x) for x in mesh_shape)
+    axes = tuple(mesh_axes)
+    if isinstance(devices, (list, tuple)):
+        entries = resolve_devices(devices, device)
+    elif torch.device(device).type == "cpu":
+        entries = ["cpu"] * int(np.prod(shape))
+    else:
+        entries = None  # every local card
+    # lanes shard over every axis (the pattern axis is not ported)
+    return {"mesh": make_mesh(shape, axes, devices=entries),
+            "mesh_axis": axes[0] if len(axes) == 1 else axes}
 
 
 def _stamp_every(progress, i: int, stride: int = 16384) -> None:
@@ -316,7 +355,7 @@ def map_batch_fn(items) -> list:
 _APP_OPTION_KEYS = frozenset((
     "pattern", "patterns", "ignore_case", "invert", "word_regexp",
     "line_regexp", "count_only", "presence_only", "max_errors", "index_dir",
-    *_UNPORTED,
+    *_UNPORTED, *_CARD_OPTIONS,
 ))
 
 
@@ -346,6 +385,9 @@ def map_fused_fn(items, participants) -> list:
         opt_sets.append(o)
     base = opt_sets[0]
     engine_kw = {k: v for k, v in base.items() if k not in _APP_OPTION_KEYS}
+    if engine_kw.get("backend", "device") == "device":
+        # the reference's default: every local card (apps/grep_tpu.py:300)
+        engine_kw["devices"] = base.get("devices", "all")
     scanner = fuse_mod.FusedScanner(specs, **engine_kw)
     emit_opts, names_per = [], []
     for p, o in zip(participants, opt_sets):

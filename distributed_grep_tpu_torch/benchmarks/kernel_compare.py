@@ -6,7 +6,7 @@ engine on the same synthetic corpus and prints one JSON line per engine,
 
     python -m distributed_grep_tpu_torch.benchmarks.kernel_compare \\
         [--size-mb 64] [--engines pallas,nfa,nfa_alt8,pairset,mxu_dot,dfa,
-        aho256,native_mt] [--device cuda|cpu]
+        stride2,stride4,aho256,native_mt] [--device cuda|cpu]
 
 The engines keep the reference's names, so their lines can be matched:
 
@@ -21,6 +21,10 @@ The engines keep the reference's names, so their lines can be matched:
   membership engine; its scan semantics are elided, as in the reference;
 * ``dfa``      -- the table-DFA kernel (csrc/dfa.cu) on the DFA of
   'nee(dle|t)', on stripe windows (``utils/slope.dfa_setup``);
+* ``stride<k>`` -- K2, the k-byte-stride table-DFA kernel (csrc/dfa.cu
+  stride_kernel), on the k-byte composition of the DFA of 'nee(dle|t)'
+  (``models/dfa.build_stride_table``), on stripe windows
+  (``utils/slope.stride_setup``); k is the engine name's number;
 * ``aho<n>``   -- the same kernel on the Aho-Corasick banks of n seeded
   members ('needle' and n - 1 random words of 5-11 letters), one slope a
   bank, summed; the line also gives ``banks``;
@@ -30,9 +34,8 @@ The engines keep the reference's names, so their lines can be matched:
 
 ``xla_sa`` (the reference's XLA Shift-And, its fallback past the Pallas
 kernel's budgets, which the CUDA Shift-And does not have: ROADMAP.md
-accepted difference D1) and ``stride<k>`` (the reference's k-byte-stride
-XLA DFA, ROADMAP.md queue K item K2) are not ported: each prints an
-error line saying so.  A kernel that fails prints its error line too;
+accepted difference D1) is not ported: it prints an error line saying
+so.  A kernel that fails prints its error line too;
 nothing falls back.  GB/s are the bytes one pass scans
 (``utils/slope.pass_bytes``) over its time.
 Without a card and without --device cpu the script exits 2 and prints
@@ -51,8 +54,6 @@ NOT_PORTED = {
     "xla_sa": "the reference's XLA Shift-And, its fallback past the Pallas "
               "kernel's budgets, which the CUDA Shift-And does not have "
               "(ROADMAP.md accepted difference D1)",
-    "stride": "the reference's k-byte-stride XLA DFA scan, ROADMAP.md queue "
-              "K item K2 (to be ported only if K1 measures latency-bound)",
 }
 NFA_ALT8 = "(volcano|anarchy|physics|quantum|needle|breadth|journal|mineral)"
 PAIRSET_MEMBERS = [b"ne", b"ed", b"zq", b"9!", b"x"]
@@ -111,6 +112,19 @@ def bench_dfa(data: bytes, device, pattern: str = "nee(dle|t)") -> float:
     from distributed_grep_tpu_torch.utils.slope import dfa_setup
 
     return _gbs(*dfa_setup(data, [compile_dfa(pattern)], device=device), 2, 6)
+
+
+def bench_stride(data: bytes, device, k: int,
+                 pattern: str = "nee(dle|t)") -> float:
+    """K2 on the k-byte-stride composition of one compiled pattern."""
+    from distributed_grep_tpu_torch.models.dfa import (
+        build_stride_table,
+        compile_dfa,
+    )
+    from distributed_grep_tpu_torch.utils.slope import stride_setup
+
+    st = build_stride_table(compile_dfa(pattern), k)
+    return _gbs(*stride_setup(data, st, device=device), 2, 6)
 
 
 def aho_members(n: int) -> list[str]:
@@ -188,7 +202,7 @@ def run_engine(eng: str, data: bytes, device) -> dict:
     """One engine's JSON line as a dict (an error line on any failure)."""
     try:
         extra = {}
-        why = NOT_PORTED.get("stride" if eng.startswith("stride") else eng)
+        why = NOT_PORTED.get(eng)
         if why is not None:
             raise NotImplementedError(f"engine {eng!r} is not ported: {why}")
         if eng == "pallas":
@@ -203,6 +217,8 @@ def run_engine(eng: str, data: bytes, device) -> dict:
             v = bench_mxu_dot(data, device)
         elif eng == "dfa":
             v = bench_dfa(data, device)
+        elif eng.startswith("stride") and eng[6:].isdigit():
+            v = bench_stride(data, device, int(eng[6:]))
         elif eng.startswith("aho") and eng[3:].isdigit():
             v, extra["banks"] = bench_aho(data, device, int(eng[3:]))
         elif eng == "native_mt":

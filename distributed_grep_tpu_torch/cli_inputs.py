@@ -251,10 +251,14 @@ def grep_stdin_stream(args: argparse.Namespace, patterns, out) -> int:
     from distributed_grep_tpu_torch.ops.lines import count_lines, line_spans
     from distributed_grep_tpu_torch.ops.lines import newline_index
 
+    # every local card, as the reference's stdin engine
+    # (distributed_grep_tpu/__main__.py:83)
     eng = GrepEngine(args.pattern if patterns is None else None,
                      patterns=patterns, ignore_case=args.ignore_case,
                      max_errors=args.max_errors or 0, device=args.device,
-                     backend=args.backend)
+                     backend=args.backend,
+                     **({"devices": "all"} if args.backend == "device"
+                        else {}))
     confirm = build_confirm(
         pattern=args.pattern, patterns=patterns,
         ignore_case=args.ignore_case,

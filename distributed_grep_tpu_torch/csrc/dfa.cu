@@ -44,6 +44,28 @@
 // in shared memory), 0.1007 for config 3's 0.8 MB Aho-Corasick bank and
 // 0.4533 for config 5's 57 MB bank, past the L2 (PERF.md section 6, run
 // 13A, an H100 80GB HBM3 at 700 W).
+//
+// K2, stride_kernel: the k-byte-stride walk.  Replaces the reference's
+// XLA device scan distributed_grep_tpu/ops/scan_jnp.py:99
+// _dfa_stride_core over models/dfa.StrideTable (k = 2 or 4, a table with
+// no '$' accepts).  Same data and words; its table holds n_states *
+// n_classes**k entries, each the state after the k bytes of a stride
+// (its row offset, premultiplied as above) shifted up by k above a k-bit
+// bitmap, bit i the accept after byte i of the stride.  A step combines
+// the stride's k classes into one column (the first byte the most
+// significant digit) and makes ONE table read.  Design as dfa_kernel: a
+// thread a stripe, 16-byte loads (16 is a multiple of k), the class table
+// and, where it fits kSmemTableBytes, the composed table in shared
+// memory, else read through the L1/L2 (models/dfa.choose_stride caps it at
+// 2**23 entries, 32 MiB); the word built in registers, 32 / k strides a
+// word, so no stride straddles two words.
+//
+// Bound of K2: the same bytes at 3.35 TB/s, and one dependent table read
+// every k bytes where dfa_kernel makes one a byte.  dfa_kernel measured
+// 3.0x its bytes bound on 'nee(dle|t)' and 11x on config 5's 57 MB bank
+// (PERF.md section 6, row 9): its time is the chain of dependent reads,
+// which the stride cuts by k (at k more class lookups a step, which do
+// not depend on the state).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -86,7 +108,8 @@ __global__ void __launch_bounds__(kThreads)
 dfa_kernel(const uint8_t* __restrict__ data, uint32_t* __restrict__ out,
            const uint32_t* __restrict__ table,
            const uint8_t* __restrict__ cls_global, int n_entries, int n_words,
-           int lanes, long long pitch, uint32_t start) {
+           int lanes, long long pitch, uint32_t start,
+           int32_t* __restrict__ exits, uint32_t n_classes) {
   extern __shared__ uint32_t smem[];  // 256 classes, then the table
   uint32_t* cls = smem;
   for (int i = threadIdx.x; i < 256; i += kThreads) cls[i] = cls_global[i];
@@ -118,11 +141,75 @@ dfa_kernel(const uint8_t* __restrict__ data, uint32_t* __restrict__ out,
     out[static_cast<size_t>(w) * lanes + lane] =
         acc | (eol & ((nl >> 1) | (next_nl << 31)));
   }
+  // the state after the stripe's last byte, where the caller asks for it
+  if (exits != nullptr) exits[lane] = static_cast<int32_t>(state / n_classes);
 }
 
-// Opt the shared-memory instance in to kSmemTableBytes of dynamic shared
+// Step the 16 bytes of v as 16 / K strides of K bytes, bits t0 .. t0 + 15
+// of the current word.  The stride's classes combine into one column
+// index, its first byte the most significant digit; the entry holds the
+// next state's row offset above K accept bits, one a byte of the stride.
+template <int K>
+__device__ __forceinline__ void stride16(const uint4 v, const int t0,
+                                         const uint32_t* __restrict__ tab,
+                                         const uint32_t* __restrict__ cls,
+                                         const uint32_t n_classes,
+                                         uint32_t& state, uint32_t& acc) {
+  const uint32_t q[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 16 / K; ++j) {
+    uint32_t idx = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int b = K * j + i;  // byte b of the 16
+      idx = idx * n_classes + cls[(q[b / 4] >> (8 * (b % 4))) & 0xFFu];
+    }
+    const uint32_t e = tab[state + idx];
+    state = e >> K;
+    acc |= (e & ((1u << K) - 1u)) << (t0 + K * j);
+  }
+}
+
+// K2: the k-byte-stride walk.  One thread a stripe, as dfa_kernel; the
+// words come out the same (a stride never straddles a word: 32 / K
+// strides fill one exactly).
+template <int K, bool kSmem>
+__global__ void __launch_bounds__(kThreads)
+stride_kernel(const uint8_t* __restrict__ data, uint32_t* __restrict__ out,
+              const uint32_t* __restrict__ table,
+              const uint8_t* __restrict__ cls_global, int n_entries,
+              int n_words, int lanes, long long pitch, uint32_t start,
+              uint32_t n_classes) {
+  extern __shared__ uint32_t smem[];  // 256 classes, then the table
+  uint32_t* cls = smem;
+  for (int i = threadIdx.x; i < 256; i += kThreads) cls[i] = cls_global[i];
+  const uint32_t* tab = table;
+  if (kSmem) {
+    uint32_t* t = smem + 256;
+    for (int i = threadIdx.x; i < n_entries; i += kThreads) t[i] = table[i];
+    tab = t;
+  }
+  __syncthreads();
+
+  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  if (lane >= lanes) return;
+  const uint4* p = reinterpret_cast<const uint4*>(data + lane * pitch);
+  uint32_t state = start;
+  uint4 lo = __ldg(p);
+  for (int w = 0; w < n_words; ++w, p += 2) {
+    const uint4 hi = __ldg(p + 1);
+    uint32_t acc = 0;
+    stride16<K>(lo, 0, tab, cls, n_classes, state, acc);
+    lo = __ldg(p + (w + 1 < n_words ? 2 : 0));  // the next word's first half
+    stride16<K>(hi, 16, tab, cls, n_classes, state, acc);
+    out[static_cast<size_t>(w) * lanes + lane] = acc;
+  }
+}
+
+// Opt a shared-memory instance in to kSmemTableBytes of dynamic shared
 // memory, once per device (so never while a CUDA graph is captured after
 // a first launch).
+template <auto Kernel>
 int allow_smem_table() {
   static bool done[kMaxDevices] = {};
   int dev = 0;
@@ -132,7 +219,7 @@ int allow_smem_table() {
     return static_cast<int>(cudaErrorInvalidDevice);
   }
   if (!done[dev]) {
-    err = cudaFuncSetAttribute(dfa_kernel<true>,
+    err = cudaFuncSetAttribute(Kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                4 * 256 + kSmemTableBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -145,16 +232,20 @@ int allow_smem_table() {
 
 // Launch on `stream` (a cudaStream_t, or null for the legacy default
 // stream).  `table` and `cls` are device pointers (n_entries uint32 and
-// 256 uint8); `start` is the start state's row offset.  Returns a
-// cudaError_t: cudaGetLastError() after the launch, 0 on success.
+// 256 uint8); `start` is the start state's row offset.  `exits`, a device
+// pointer to `lanes` int32 or null, receives each stripe's state after its
+// last byte (the state, not its row offset: n_classes divides it out).
+// Returns a cudaError_t: cudaGetLastError() after the launch, 0 on
+// success.
 extern "C" int dgrep_dfa_scan(const void* data, void* out, const void* table,
                               const void* cls, int n_entries, int chunk,
                               int lanes, long long pitch, unsigned int start,
-                              void* stream) {
+                              void* exits, int n_classes, void* stream) {
   if (chunk <= 0 || lanes <= 0 || chunk % 32 != 0 || lanes % 32 != 0 ||
       pitch < chunk || pitch % 16 != 0 ||
       reinterpret_cast<uintptr_t>(data) % 16 != 0 || n_entries <= 0 ||
-      static_cast<long long>(start) >= n_entries ||
+      static_cast<long long>(start) >= n_entries || n_classes <= 0 ||
+      n_entries % n_classes != 0 ||
       static_cast<unsigned long long>(n_entries) > kNextMask + 1ull) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -165,18 +256,76 @@ extern "C" int dgrep_dfa_scan(const void* data, void* out, const void* table,
   uint32_t* o = static_cast<uint32_t*>(out);
   const uint32_t* t = static_cast<const uint32_t*>(table);
   const uint8_t* c = static_cast<const uint8_t*>(cls);
+  int32_t* x = static_cast<int32_t*>(exits);
+  const uint32_t nc = static_cast<uint32_t>(n_classes);
   const long long table_bytes = 4ll * n_entries;
   if (table_bytes <= kSmemTableBytes) {
     const int smem = static_cast<int>(4 * 256 + table_bytes);
-    const int err = allow_smem_table();
+    const int err = allow_smem_table<dfa_kernel<true>>();
     if (err != 0) return err;
     dfa_kernel<true><<<grid, block, smem, st>>>(d, o, t, c, n_entries,
                                                 chunk / 32, lanes, pitch,
-                                                start);
+                                                start, x, nc);
   } else {
     dfa_kernel<false><<<grid, block, 4 * 256, st>>>(d, o, t, c, n_entries,
                                                     chunk / 32, lanes, pitch,
-                                                    start);
+                                                    start, x, nc);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+
+namespace {
+
+template <int K>
+int launch_stride(const uint8_t* d, uint32_t* o, const uint32_t* t,
+                  const uint8_t* c, int n_entries, int chunk, int lanes,
+                  long long pitch, uint32_t start, uint32_t n_classes,
+                  cudaStream_t st) {
+  const dim3 grid((lanes + kThreads - 1) / kThreads);
+  const dim3 block(kThreads);
+  const long long table_bytes = 4ll * n_entries;
+  if (table_bytes <= kSmemTableBytes) {
+    const int err = allow_smem_table<stride_kernel<K, true>>();
+    if (err != 0) return err;
+    stride_kernel<K, true><<<grid, block, 4 * 256 + table_bytes, st>>>(
+        d, o, t, c, n_entries, chunk / 32, lanes, pitch, start, n_classes);
+  } else {
+    stride_kernel<K, false><<<grid, block, 4 * 256, st>>>(
+        d, o, t, c, n_entries, chunk / 32, lanes, pitch, start, n_classes);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2 on `stream`: `table` holds n_entries = n_states * n_classes**k uint32
+// entries, each the next state's row offset (state * n_classes**k) shifted
+// up by k above the k accept bits (ops/dfa_scan.packed_stride_table);
+// `start` is the start state's row offset; k is 2 or 4.  The words are
+// dgrep_dfa_scan's for a table without '$' accepts.  Returns a
+// cudaError_t: cudaGetLastError() after the launch, 0 on success.
+extern "C" int dgrep_dfa_stride_scan(const void* data, void* out,
+                                     const void* table, const void* cls,
+                                     int n_entries, int chunk, int lanes,
+                                     long long pitch, unsigned int start,
+                                     int k, int n_classes, void* stream) {
+  if (chunk <= 0 || lanes <= 0 || chunk % 32 != 0 || lanes % 32 != 0 ||
+      pitch < chunk || pitch % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(data) % 16 != 0 || n_entries <= 0 ||
+      static_cast<long long>(start) >= n_entries || n_classes <= 0 ||
+      (k != 2 && k != 4) ||
+      static_cast<unsigned long long>(n_entries) > (0xFFFFFFFFull >> k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint8_t* d = static_cast<const uint8_t*>(data);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  const uint32_t* t = static_cast<const uint32_t*>(table);
+  const uint8_t* c = static_cast<const uint8_t*>(cls);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t nc = static_cast<uint32_t>(n_classes);
+  return k == 2 ? launch_stride<2>(d, o, t, c, n_entries, chunk, lanes, pitch,
+                                   start, nc, st)
+                : launch_stride<4>(d, o, t, c, n_entries, chunk, lanes, pitch,
+                                   start, nc, st);
 }

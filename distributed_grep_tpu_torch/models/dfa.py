@@ -1042,6 +1042,74 @@ def compile_dfa(
     )
 
 
+@dataclass
+class StrideTable:
+    """k-byte-stride composition of a DfaTable (the reference's
+    models/dfa.py StrideTable): the scan takes chunk / k steps of ONE read
+    from an [n_states, n_classes**k] table whose int32 entries pack the
+    state after the k bytes with a k-bit accept bitmap:
+
+        entry = (state_after_k_bytes << k) | accept_bitmap
+        bit t of accept_bitmap = accept[state after byte t of the stride]
+
+    The combined class index takes the stride's first byte as its most
+    significant base-n_classes digit.  The bitmap keeps every match's
+    exact byte, so a '\\n' inside a stride resets as in the per-byte
+    walk.  '$' accepts need the next byte, so such tables keep stride 1.
+    """
+
+    trans_k: np.ndarray  # [n_states, n_classes**k] int32 packed entries
+    byte_to_cls: np.ndarray  # [256], the base table's
+    k: int
+    n_classes: int  # the base (1-byte) class count
+    start: int
+
+    @property
+    def n_states(self) -> int:
+        return self.trans_k.shape[0]
+
+
+def choose_stride(table: DfaTable, max_entries: int = 1 << 23,
+                  max_cols: int = 1 << 13) -> int:
+    """The largest k in (4, 2, 1) whose composed table fits the budget
+    (``max_entries`` bounds its size, ``max_cols`` the combined class
+    index); 1 for a table with '$' accepts.  Powers of two only: the
+    layouts' chunks are multiples of 32, which k must divide."""
+    if table.accept_eol.any():
+        return 1
+    for k in (4, 2):
+        cols = table.n_classes ** k
+        if cols <= max_cols and table.n_states * cols <= max_entries:
+            return k
+    return 1
+
+
+def build_stride_table(table: DfaTable, k: int) -> StrideTable:
+    """Compose ``table`` over k-byte strides (vectorized over states).
+    Raises ValueError for k < 1, and for k > 1 on a table with '$'
+    accepts."""
+    if k < 1:
+        raise ValueError(f"stride must be >= 1, got {k}")
+    if k > 1 and table.accept_eol.any():
+        raise ValueError("'$' accepts need next-byte context; stride must "
+                         "be 1")
+    n_states, n_classes = table.n_states, table.n_classes
+    trans = table.trans.astype(np.int64)
+    # states[s, j]: the state after the class sequence j (base-n_classes
+    # digits, the first byte most significant) from s; bitmap the accepts
+    states = np.arange(n_states, dtype=np.int64)[:, None]
+    bitmap = np.zeros((n_states, 1), dtype=np.int64)
+    for t in range(k):
+        states = trans[states].reshape(n_states, -1)
+        bitmap = (np.repeat(bitmap[:, :, None], n_classes, axis=2)
+                  .reshape(n_states, -1)
+                  | (table.accept[states].astype(np.int64) << t))
+    packed = (states << k) | bitmap
+    return StrideTable(trans_k=np.ascontiguousarray(packed.astype(np.int32)),
+                       byte_to_cls=table.byte_to_cls, k=k,
+                       n_classes=n_classes, start=table.start)
+
+
 def reference_scan(table: DfaTable, data) -> np.ndarray:
     """Host scan of ``data``: the int64 end offsets (index + 1) of every
     match, sorted and unique.  The accept plane runs in the host library

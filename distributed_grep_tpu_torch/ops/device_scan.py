@@ -86,8 +86,27 @@ once the whole scan has succeeded.  An input whose padded segments exceed
 the budget is not cached at all.  ``uploads`` counts the segments a scan
 uploaded, ``resident_segments`` those it took from the cache.
 
+Table DFA (mode "dfa", a mesh engine's pattern outside the kernel
+subset): each table's exact words, K1's or, where the engine's
+``dfa_plans`` composed a stride table, K2's, OR'd; collected and stitched
+as the NFA's exact words (the replacing stitch, since a '$' accept at a
+stripe's end counts the stripe's last byte as followed by '\n').
+
+The cards: off a mesh, segment i goes to the engine's device i mod n
+(``devices``), each card with a prepare slot of its own (its side stream
+for the copy), two segments a card in flight, and collect threads as the
+reference sizes them (its device_scan.py:776; the port's two at the
+least).  On a mesh, each segment's stripes split into one contiguous
+block of rows an entry, copied on that entry's card's side stream (and
+transposed there for the NFA and FDR kernels, one transpose a segment in
+``transposes``); the route's kernel runs on every block, the words come
+back in lane order, and ``psum_candidates`` sums the blocks' nonzero-word
+counts over the scan (parallel/sharded_kernels.py).  The dense confirms
+run sharded too.  Mode "dfa" has no sharded kernel: it scans on the
+mesh's first entry (``mesh_unsharded``).
+
 Segments can be collected in any order.  A build, launch or CUDA failure
-raises: nothing falls back to another route.  Before its first segment a
+raises: nothing falls back to another route, entry or card.  Before its first segment a
 scan on the card builds the route's libraries that have no build yet
 (ops/_build.py), and first declares that silent time to the progress
 callback as a grace of BUILD_GRACE_S, so a task's failure detector does
@@ -96,6 +115,7 @@ not re-issue a task that is compiling.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from collections import deque
@@ -104,6 +124,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from distributed_grep_tpu_torch.models.dfa import StrideTable
 from distributed_grep_tpu_torch.models.shift_and import swar_values
 from distributed_grep_tpu_torch.ops import (
     _build,
@@ -123,7 +144,9 @@ from distributed_grep_tpu_torch.ops.layout import (
     STRIPES,
     choose_layout,
 )
+from distributed_grep_tpu_torch.ops.fdr_scan import or_into
 from distributed_grep_tpu_torch.ops.scan_torch import sparse_nonzero
+from distributed_grep_tpu_torch.parallel import sharded_kernels as shk
 from distributed_grep_tpu_torch.utils import lockdep
 from distributed_grep_tpu_torch.utils import spans as spans_mod
 from distributed_grep_tpu_torch.ops.sparse import (
@@ -132,7 +155,9 @@ from distributed_grep_tpu_torch.ops.sparse import (
     span_starts_from_sparse_words,
 )
 
-MAX_INFLIGHT = 2  # segments dispatched but not yet collected
+log = logging.getLogger("distributed_grep_tpu_torch.device_scan")
+
+MAX_INFLIGHT = 2  # segments a card dispatched but not yet collected
 
 # The silent time a scan declares before it builds its route's libraries
 # (nvcc takes about a minute for csrc/nfa.cu, seconds for the others).
@@ -159,11 +184,13 @@ def _count_transpose() -> None:
 
 
 def kernel_launches() -> dict[str, int]:
-    """Each scan kernel's launch count in this process, by library (the
-    table-DFA kernel runs on no engine route: its count stays 0 here)."""
-    return {m.LIBRARY: m.launches for m in (
+    """Each scan kernel's launch count in this process, by library; K2
+    (csrc/dfa.cu's stride kernel) as "dfa_stride"."""
+    out = {m.LIBRARY: m.launches for m in (
         cuda_scan, nfa_scan, fdr_scan, pairset_scan, approx_scan, swar_scan,
         dfa_scan)}
+    out["dfa_stride"] = dfa_scan.stride.launches
+    return out
 
 # The SWAR route's lane multiple: 4 stripes per packed uint32 element and
 # 32 elements per warp (the kernel's blocks own 256 lanes and take a
@@ -192,12 +219,27 @@ def _expand_line_ranges(l0: np.ndarray, l1: np.ndarray) -> np.ndarray:
 def scan_device(eng, data: bytes, progress=None, corpus_key=None):
     t_wall0 = time.perf_counter()
     nfa = eng.mode == "nfa"
+    dfa = eng.mode == "dfa"
     lit_set = eng.mode in ("fdr", "pairset")
     approx = eng.mode == "approx"
     swar = use_swar(eng)
+    # the cards: a mesh shards each segment's lanes over its entries
+    # (parallel/sharded_kernels.py); else segments round-robin over the
+    # engine's devices.  The table DFA has no sharded kernel: on a mesh
+    # it scans on the first entry, as the reference's scans on its
+    # default device, logged and counted (``mesh_unsharded``)
+    mesh = eng.mesh
+    if mesh is not None and dfa:
+        log.warning("mesh requested but mode %r has no sharded kernel -- "
+                    "scanning on the mesh's first entry %s", eng.mode,
+                    eng.device)
+        mesh = None
+    devs = [eng.device] if eng.mesh is not None else list(eng.devices)
     # the kernel modules this route launches, its dense confirm included;
     # each segment is prepared in the layouts they read (their LAYOUT)
-    if eng.mode == "fdr":
+    if dfa:
+        kernels = [dfa_scan]
+    elif eng.mode == "fdr":
         kernels = [fdr_scan] + ([pairset_scan] if eng.fdr_pairset is not None
                                 else [])
     elif eng.mode == "pairset":
@@ -215,6 +257,8 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
           "stitch_seconds": 0.0}
     if lit_set:
         st.update(stitch_offsets=0)
+    elif dfa:
+        st.update(stitch_lines=0, mesh_unsharded=eng.mesh is not None)
     elif nfa:
         st.update(dense_confirms=0, stitch_lines=0, nfa_filter_defeated=False)
     elif approx:
@@ -237,6 +281,12 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
     lay_kwargs = eng.layout_kwargs()
     if swar:
         lay_kwargs["lane_multiple"] = SWAR_LANE_MULTIPLE
+    if mesh is not None:
+        # whole lane tiles an entry; the lanes the engine asks for at least
+        mult = shk.mesh_lane_multiple(mesh, eng.mesh_axis, swar)
+        lay_kwargs["lane_multiple"] = mult
+        lay_kwargs["target_lanes"] = max(lay_kwargs["target_lanes"], mult)
+        psum: list = []  # each segment's summed nonzero-word count
     # bytes a match missed at a boundary b can reach past it on either
     # side: m - 1 for Shift-And, m + k - 1 for approx (module docstring)
     reach = (eng.approx.length + eng.approx.k - 1 if approx
@@ -254,7 +304,7 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
     resident = None
     corpus_put = None
     built: list = []  # (seg_start, Layout, stripes tensor), a segment each
-    if corpus_key is not None and n > 0:
+    if corpus_key is not None and n > 0 and mesh is None:
         budget = eng._corpus_budget()
         padded = sum(choose_layout(e - s_, **lay_kwargs).padded
                      for s_, e in zip(seg_starts, seg_ends))
@@ -288,11 +338,15 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
                 st["prepare_seconds"] += time.perf_counter() - t0
 
     def _prepare(i: int):
+        """Segment i as (start, length, layout, views, ready, stripes):
+        ``views`` one dict layout -> tensor an entry (one, off a mesh),
+        ``ready`` the (device, copy event) pairs the scan waits for,
+        ``stripes`` the uploaded segment (None on a mesh)."""
         seg_start = seg_starts[i]
         seg_len = seg_ends[i] - seg_start
         if resident is not None:  # warm: on the card already
             _start, lay, stripes = resident[i]
-            return (seg_start, seg_len, lay, segment_views(stripes), None,
+            return (seg_start, seg_len, lay, [segment_views(stripes)], [],
                     stripes)
         seg_view = view[seg_start : seg_ends[i]]
         lay = choose_layout(seg_len, **lay_kwargs)
@@ -301,18 +355,31 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
         if not on_cuda:
             stripes = torch.from_numpy(layout_mod.padded_stripes(seg_view,
                                                                  lay))
-            return (seg_start, seg_len, lay, segment_views(stripes), None,
+            if mesh is not None:
+                return (seg_start, seg_len, lay, mesh_views(stripes), [],
+                        None)
+            return (seg_start, seg_len, lay, [segment_views(stripes)], [],
                     stripes)
         host = torch.empty((lay.lanes, lay.chunk), dtype=torch.uint8,
                            pin_memory=True)
         layout_mod.padded_stripes(seg_view, lay, out=host.numpy())
-        side = eng.copy_stream()
+        if mesh is not None:
+            entries = mesh_views(host)
+            ready = []
+            for dev in {str(d): d for d in shk.lane_sharding(
+                    mesh, eng.mesh_axis).devices}.values():
+                ev = torch.cuda.Event()
+                ev.record(eng.copy_stream(dev))
+                ready.append((dev, ev))
+            return seg_start, seg_len, lay, entries, ready, None
+        dev = devs[i % len(devs)]
+        side = eng.copy_stream(dev)
         with torch.cuda.stream(side):
-            stripes = host.to(device, non_blocking=True)
+            stripes = host.to(dev, non_blocking=True)
             views = segment_views(stripes)
             ready = torch.cuda.Event()
             ready.record(side)
-        return seg_start, seg_len, lay, views, ready, stripes
+        return seg_start, seg_len, lay, [views], [(dev, ready)], stripes
 
     def segment_views(stripes: torch.Tensor) -> dict:
         """Layout -> the segment in it, for the layouts of ``kernels``."""
@@ -322,9 +389,49 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
             _count_transpose()
         return views
 
+    def mesh_views(stripes: torch.Tensor) -> list[dict]:
+        """The segment's entries on the mesh (``shk.prepare_tiles``: each
+        entry's rows copied to its card on that card's side stream, and
+        transposed there for the NFA and FDR kernels: one transpose a
+        segment in the count)."""
+        entries = shk.prepare_tiles(
+            stripes, mesh, eng.mesh_axis, tuple(layouts),
+            stream_for=eng.copy_stream if on_cuda else None, swar=swar)
+        if COLUMNS in layouts:
+            _count_transpose()
+        return entries
+
+    def on_views(views: list[dict], fn, count: bool = False):
+        """``fn(views)`` on the segment: on its one device, or on each
+        mesh entry and reassembled in lane order (``count``: the
+        entries' nonzero-word counts join ``psum``)."""
+        if mesh is None:
+            return fn(views[0])
+        words, total = shk.sharded_words(views, fn)
+        if count:
+            with lock:
+                psum.append(total)
+        return words
+
+    confirm_active = [0]  # live confirm legs; the peak goes to the stats
+
+    def confirming(fn, *args):
+        """``fn(*args)``, a confirm leg, counted while it runs: legs of
+        different segments overlap on the collect pool
+        (``confirm_concurrency_peak``)."""
+        with lock:
+            confirm_active[0] += 1
+            if confirm_active[0] > st.get("confirm_concurrency_peak", 0):
+                st["confirm_concurrency_peak"] = confirm_active[0]
+        try:
+            return fn(*args)
+        finally:
+            with lock:
+                confirm_active[0] -= 1
+
     def confirm(cand: np.ndarray) -> np.ndarray:
         starts, ends = lines_mod.line_spans(cand, nl, n)
-        return cand[eng.host_line_matcher(data, starts, ends)]
+        return cand[confirming(eng.host_line_matcher, data, starts, ends)]
 
     def stitch(bounds: np.ndarray) -> np.ndarray:
         at = np.searchsorted(nl, bounds, side="right") + 1
@@ -338,7 +445,7 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
         try:
             if lit_set:
                 _collect_set(kind, *job)
-            elif nfa:
+            elif nfa or dfa:
                 _collect_nfa(kind, *job)
             elif approx:
                 _collect_approx(*job)
@@ -377,8 +484,8 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
             if n_cand > engine_mod.SPAN_CONFIRM_LINE_LIMIT:
                 # dense confirm: exact end bits of the FULL model, on device
                 dense = True
-                exact = cuda_scan.shift_and_scan_words(
-                    views[cuda_scan.LAYOUT], full, coarse=False)
+                exact = on_views(views, lambda v: cuda_scan.shift_and_scan_words(
+                    v[cuda_scan.LAYOUT], full, coarse=False))
                 e_idx, e_vals = sparse_nonzero(exact)
                 offs = offsets_from_sparse_words(e_idx, e_vals, lay)
                 true_lines = lines_mod.unique_match_lines(offs + seg_start, nl)
@@ -428,7 +535,7 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
         t0 = time.perf_counter()
         if kind == "cand_words":  # FDR: confirm every candidate end
             n_cand = int(offs.size)
-            offs = offs[eng.confirm.confirm(data, offs)]
+            offs = offs[confirming(eng.confirm.confirm, data, offs)]
         lines = lines_mod.unique_match_lines(offs, nl)
         t1 = time.perf_counter()
         bounds = segment_bounds(seg_start, seg_len, lay)
@@ -462,8 +569,9 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
             if n_cand > engine_mod.SPAN_CONFIRM_LINE_LIMIT and exact is not None:
                 # dense confirm: exact end bits of the exact model, on device
                 dense = True
-                e_idx, e_vals = sparse_nonzero(nfa_scan.nfa_scan_words(
-                    views[nfa_scan.LAYOUT], exact))
+                e_idx, e_vals = sparse_nonzero(on_views(
+                    views, lambda v: nfa_scan.nfa_scan_words(
+                        v[nfa_scan.LAYOUT], exact)))
                 lines = lines_mod.unique_match_lines(
                     offsets_from_sparse_words(e_idx, e_vals, lay) + seg_start,
                     nl)
@@ -492,22 +600,32 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
                     scan_state["nfa"] = (eng.glushkov_exact, False)
                     st["nfa_filter_defeated"] = True
 
-    with ThreadPoolExecutor(1, thread_name_prefix="dgrep-feed") as feed, \
-            ThreadPoolExecutor(2, thread_name_prefix="dgrep-collect") as pool:
-        nxt = feed.submit(prepare, 0)
+    # one prepare slot a card (one on a mesh: its segments go to every
+    # entry), collect threads as the reference sizes them (two on a mesh,
+    # the card count up to 4 otherwise; the port's two at the least), and
+    # two segments a card in flight
+    n_cards = len({str(d) for d in devs}) if mesh is None else 1
+    n_collect = 2 if mesh is not None else min(4, max(2, n_cards))
+    max_inflight = MAX_INFLIGHT * n_cards
+    with ThreadPoolExecutor(n_cards, thread_name_prefix="dgrep-feed") as feed, \
+            ThreadPoolExecutor(n_collect,
+                               thread_name_prefix="dgrep-collect") as pool:
+        ahead = deque(feed.submit(prepare, j)
+                      for j in range(min(n_cards, len(seg_starts))))
         pending: deque = deque()
         for i in range(len(seg_starts)):
             t0 = time.perf_counter()
-            seg_start, seg_len, lay, views, ready, stripes = nxt.result()
+            seg_start, seg_len, lay, views, ready, stripes = (
+                ahead.popleft().result())
             st["feed_wait_seconds"] += time.perf_counter() - t0
-            if i + 1 < len(seg_starts):
-                nxt = feed.submit(prepare, i + 1)
+            if i + n_cards < len(seg_starts):
+                ahead.append(feed.submit(prepare, i + n_cards))
             if on_cuda:
-                cur = torch.cuda.current_stream(device)
-                if ready is not None:
-                    cur.wait_event(ready)
-                for t in (stripes, *views.values()):
-                    t.record_stream(cur)
+                for dev, ev in ready:
+                    torch.cuda.current_stream(dev).wait_event(ev)
+                for t in [stripes] + [t for v in views for t in v.values()]:
+                    if t is not None:
+                        t.record_stream(torch.cuda.current_stream(t.device))
             if resident is not None:
                 st["resident_segments"] += 1
             elif corpus_put is not None:
@@ -515,38 +633,60 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
             with lock:  # the model and its kind together
                 model, is_filter = scan_state["nfa"]
                 sa_model = scan_state["filtered"] or full
-            if eng.mode == "fdr":
-                words = None
-                for bank in eng.fdr.banks:
-                    words = fdr_scan.fdr_scan_words(
-                        views[fdr_scan.LAYOUT], bank, fold_case=eng.ignore_case, out=words)
-                if eng.fdr_pairset is not None:
-                    words = pairset_scan.pairset_scan_words(
-                        views[pairset_scan.LAYOUT], eng.fdr_pairset, out=words)
+            if dfa:
+                def fn(v):
+                    words = None
+                    for plan in eng.dfa_plans():
+                        words = or_into(words, (
+                            dfa_scan.dfa_stride_words(v[dfa_scan.LAYOUT],
+                                                      plan)
+                            if isinstance(plan, StrideTable)
+                            else dfa_scan.dfa_scan_words(v[dfa_scan.LAYOUT],
+                                                         plan)))
+                    return words
+                kind = "words"
+            elif eng.mode == "fdr":
+                def fn(v):
+                    words = None
+                    for bank in eng.fdr.banks:
+                        words = fdr_scan.fdr_scan_words(
+                            v[fdr_scan.LAYOUT], bank,
+                            fold_case=eng.ignore_case, out=words)
+                    if eng.fdr_pairset is not None:
+                        words = pairset_scan.pairset_scan_words(
+                            v[pairset_scan.LAYOUT], eng.fdr_pairset,
+                            out=words)
+                    return words
                 kind = "cand_words"
             elif eng.mode == "pairset":
-                words = pairset_scan.pairset_scan_words(
-                    views[pairset_scan.LAYOUT], eng.pairset)
+                def fn(v):
+                    return pairset_scan.pairset_scan_words(
+                        v[pairset_scan.LAYOUT], eng.pairset)
                 kind = "words"
             elif nfa:
-                words = nfa_scan.nfa_scan_words(views[nfa_scan.LAYOUT], model)
+                def fn(v, model=model):
+                    return nfa_scan.nfa_scan_words(v[nfa_scan.LAYOUT], model)
                 kind = "cand_words" if is_filter else "words"
             elif approx:
-                words = approx_scan.approx_scan_words(
-                    views[approx_scan.LAYOUT], eng.approx)
+                def fn(v):
+                    return approx_scan.approx_scan_words(
+                        v[approx_scan.LAYOUT], eng.approx)
                 kind = "words"
             elif swar:
-                words = swar_scan.swar_scan_words(views[swar_scan.LAYOUT],
-                                                  sa_model)
+                def fn(v, sa_model=sa_model):
+                    return swar_scan.swar_scan_words(v[swar_scan.LAYOUT],
+                                                     sa_model)
                 kind = "span_words_packed"
             else:
-                words = cuda_scan.shift_and_scan_words(
-                    views[cuda_scan.LAYOUT], sa_model, coarse=True)
+                def fn(v, sa_model=sa_model):
+                    return cuda_scan.shift_and_scan_words(
+                        v[cuda_scan.LAYOUT], sa_model, coarse=True)
                 kind = "span_words"
+            words = on_views(views, fn, count=True)
             st["segments"] += 1
             pending.append(pool.submit(collect, kind, seg_start, seg_len, lay,
                                        views, words))
-            while len(pending) > MAX_INFLIGHT:
+            while len(pending) > max_inflight:
                 pending.popleft().result()
             if progress is not None:
                 progress()
@@ -558,9 +698,13 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
     if corpus_put is not None:  # the whole scan succeeded: publish
         cache, sig, budget = corpus_put
         cache.put_segments(corpus_key, sig, data, built, budget)
+    if mesh is not None:
+        # the candidate tally over every segment: the sum of each
+        # entry's nonzero-word count (the reference's psum)
+        st["psum_candidates"] = sum(int(t) for t in psum)
     lines_arr = (np.unique(np.concatenate(found)).astype(np.int64)
                  if found else np.zeros(0, dtype=np.int64))
-    if nfa and suspects:
+    if (nfa or dfa) and suspects:
         sus, ver = np.concatenate(suspects), np.concatenate(verdicts)
         stitched = lines_mod.stitch_lines(lines_arr, sus, ver).astype(np.int64)
         # device verdicts the stitch overturned, in each direction

@@ -114,10 +114,26 @@ Differences from the reference, none of which changes an output line:
   H100 is later work);
 * no kernel-failure fallback: the reference flips a failed FDR kernel to
   its DFA banks; the port raises;
-* no XLA DFA device path: the reference runs its table DFA on the device
-  only without its native library, on mesh engines and in its
-  kernel_compare; the port's library always builds, so its table-DFA
-  kernel (csrc/dfa.cu, ops/dfa_scan.py) runs on no engine route.
+* the table DFA on the card only on a mesh engine: the reference runs its
+  device DFA banks without its native library, on mesh engines and in its
+  kernel_compare; the port's library always builds, so a single pattern
+  outside the kernel subset takes the host scanner (route 4 above) except
+  on a mesh engine, where it keeps mode and route "dfa" as in the
+  reference: K1 (csrc/dfa.cu, ops/dfa_scan.py) scans each table on the
+  mesh's first entry, K2 where ``choose_stride`` finds a stride
+  (``dfa_plans``), and the scan logs and counts (``mesh_unsharded``) that
+  no sharded kernel ran.
+
+The cards (the reference's engine.py:414-475): ``devices`` None is
+``device`` alone, "all" every local card (raising without one, never
+falling back to the CPU), a list each entry (a card may repeat); a scan's
+segments round-robin over them (ops/device_scan.py).  ``mesh``
+(parallel/mesh.py) with ``mesh_axis`` shards each segment's lanes over
+the mesh's entries instead (parallel/sharded_kernels.py, rows 1 and 3-6;
+``stats["psum_candidates"]`` sums their nonzero-word counts).  ``mesh``
+and ``devices`` exclude each other; a bad axis name raises ValueError at
+construction; ``pattern_axis`` raises NotImplementedError (ROADMAP.md
+item 9's second half).  A mesh engine does not use the corpus cache.
 """
 
 from __future__ import annotations
@@ -148,6 +164,8 @@ from distributed_grep_tpu_torch.models.dfa import (
     NL,
     DfaTable,
     RegexError,
+    build_stride_table,
+    choose_stride,
     compile_dfa,
     enumerate_literal_set,
     expand_posix_classes,
@@ -198,9 +216,14 @@ from distributed_grep_tpu_torch.ops.lines import (
     newline_index,
     unique_match_lines,
 )
+from distributed_grep_tpu_torch.parallel.mesh import (
+    Mesh,
+    axes_tuple,
+    lane_sharding,
+    resolve_devices,
+)
 from distributed_grep_tpu_torch.utils import lockdep, native
 from distributed_grep_tpu_torch.utils import spans as spans_mod
-from distributed_grep_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger("distributed_grep_tpu_torch.engine")
 
@@ -305,7 +328,8 @@ def cached_engine(pattern=None, *, patterns=None, **kw):
     shared with every earlier call that gave the same ones ("hit"), or
     built and cached ("miss"), or built uncached ("off": DGREP_MODEL_CACHE
     is 0, the arguments do not hash, or they name a mesh or a list of
-    devices, whose engine is tied to those devices).  The build runs
+    devices, whose engine is tied to those devices; ``devices="all"`` is
+    keyed by the cards it resolves to).  The build runs
     under the cache's lock, so two threads asking for one pattern build
     it once.  The knobs an engine would read from the environment at
     construction (DGREP_DEVICE_MIN_BYTES, DGREP_BATCH_BYTES) are read here
@@ -317,9 +341,19 @@ def cached_engine(pattern=None, *, patterns=None, **kw):
         kw["device_min_bytes"] = env_device_min_bytes()
     if kw.get("batch_bytes") is None:
         kw["batch_bytes"] = env_batch_bytes()
-    key = (pattern, _hashable(patterns) if patterns is not None else None,
-           _hashable(kw))
     dev = kw.get("devices")
+    key_kw = kw
+    if dev == "all" and kw.get("backend", "device") == "device":
+        # keyed by the cards "all" names now (by the name where it names
+        # none: the engine's build then raises)
+        try:
+            key_kw = dict(kw, devices=tuple(
+                str(d) for d in resolve_devices(dev, kw.get("device",
+                                                            "cuda"))))
+        except RuntimeError:
+            pass
+    key = (pattern, _hashable(patterns) if patterns is not None else None,
+           _hashable(key_kw))
     if kw.get("mesh") is not None or not (dev is None or isinstance(dev, str)):
         key = None
     else:
@@ -376,7 +410,8 @@ class PatternPlan:
     or ``check_patterns``.
 
     mode            "shift_and", "nfa", "fdr", "pairset", "approx",
-                    "all_lines", or on the host "native" or "re"
+                    "all_lines", or on the host "native" or "re"; a mesh
+                    engine turns a single pattern's "native" into "dfa"
     route           the routing step that chose it (module docstring):
                     "shift_and", "fdr_literal_set", "nfa", "dfa_filter",
                     "re_filter", "native", "re", "all_lines"; for a set
@@ -718,8 +753,9 @@ def lines_match(
 
 class GrepEngine:
     """Scan documents for one compiled pattern, or one literal set, on one
-    device, or on the host where its plan says so (``backend="cpu"``: every
-    plan).  Exactly one of ``pattern`` and ``patterns`` is given."""
+    device, its ``devices`` or its ``mesh`` (module docstring), or on the
+    host where its plan says so (``backend="cpu"``: every plan).  Exactly
+    one of ``pattern`` and ``patterns`` is given."""
 
     def __init__(
         self,
@@ -736,6 +772,10 @@ class GrepEngine:
         device_min_bytes: int | None = None,
         batch_bytes: int | None = None,
         corpus_bytes: int | None = None,
+        devices: object = None,
+        mesh: Mesh | None = None,
+        mesh_axis: object = "data",
+        pattern_axis: object = None,
     ):
         if (pattern is None) == (patterns is None):
             raise ValueError("exactly one of pattern / patterns is required")
@@ -743,9 +783,38 @@ class GrepEngine:
             raise ValueError("max_errors applies to a single pattern, not a set")
         _check_backend(backend)
         self.backend = backend
-        # the host backend runs no kernel: its device is never asked for
-        self.device = (torch.device("cpu") if backend == "cpu"
-                       else resolve_device(device))
+        if mesh is not None and devices is not None:
+            raise ValueError("mesh and devices are mutually exclusive")
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None:
+            # fail at construction, with the reference's words
+            known = set(mesh.axis_names)
+            lane_axes = axes_tuple(mesh_axis)
+            if not lane_axes or not set(lane_axes) <= known:
+                raise ValueError(f"mesh_axis {mesh_axis!r} not in mesh axes "
+                                 f"{sorted(known)}")
+            if pattern_axis is not None and (pattern_axis not in known
+                                             or pattern_axis in lane_axes):
+                raise ValueError(
+                    f"pattern_axis {pattern_axis!r} must name a mesh axis "
+                    f"outside mesh_axis {lane_axes}")
+        if pattern_axis is not None:
+            raise NotImplementedError(
+                "pattern_axis is not ported yet: ROADMAP.md 'Slices still "
+                "to port', item 9 (multi-GPU), its second half (the pattern "
+                "axis)")
+        # the cards the scans run on: the host backend runs no kernel and
+        # asks for none; a mesh's lane entries; else ``devices`` (None:
+        # ``device`` alone; "all": every local card) -- segments
+        # round-robin over them.  ``device`` is the first.
+        if backend == "cpu":
+            self.devices = [torch.device("cpu")]
+        elif mesh is not None:
+            self.devices = list(lane_sharding(mesh, mesh_axis).devices)
+        else:
+            self.devices = resolve_devices(devices, device)
+        self.device = self.devices[0]
         if isinstance(pattern, bytes):
             pattern = pattern.decode("utf-8", "surrogateescape")
         if segment_bytes <= 0 or target_lanes < 32 or target_lanes % 32:
@@ -782,6 +851,13 @@ class GrepEngine:
         else:
             self.pattern = pattern
             plan = check_pattern(pattern, ignore_case, backend=backend)
+        if (mesh is not None and plan.route == "native"
+                and patterns is None and not max_errors):
+            # the reference keeps a single pattern outside the kernel
+            # subset on its device DFA path on a mesh engine ("mesh/
+            # interpret engines ... exist to run the device path"):
+            # mode and route "dfa", K1 (or K2) on the mesh's first entry
+            plan.mode = plan.route = "dfa"
         self.mode = plan.mode
         self.route = plan.route
         self.shift_and = plan.shift_and
@@ -804,7 +880,8 @@ class GrepEngine:
         self.confirm = plan.confirm
         self.approx = plan.approx
         self._stats_local = threading.local()
-        self._copy_stream = None
+        self._copy_streams: dict = {}
+        self._dfa_plans: list | None = None
         self._copy_lock = threading.Lock()
         # numeric stats summed over every scan of this engine (all threads)
         self.totals: dict = {}
@@ -830,12 +907,30 @@ class GrepEngine:
             lane_multiple=32, chunk_multiple=32,
         )
 
-    def copy_stream(self):
-        """This engine's side stream for host-to-device copies."""
+    def dfa_plans(self) -> list:
+        """Mode "dfa"'s scan plan, a table at a time (the reference's
+        ``_device_tables`` choice): a ``StrideTable`` (K2) where
+        ``choose_stride`` finds k > 1, else the ``DfaTable`` (K1).  Built
+        once; each kernel uploads its table once a device."""
+        plans = self._dfa_plans
+        if plans is None:
+            plans = []
+            for t in self.tables:
+                k = choose_stride(t)
+                plans.append(build_stride_table(t, k) if k > 1 else t)
+            self._dfa_plans = plans
+        return plans
+
+    def copy_stream(self, device: torch.device | None = None):
+        """This engine's side stream for host-to-device copies to
+        ``device`` (default the engine's first), one a card."""
+        dev = self.device if device is None else device
         with self._copy_lock:
-            if self._copy_stream is None:
-                self._copy_stream = torch.cuda.Stream(device=self.device)
-            return self._copy_stream
+            stream = self._copy_streams.get(str(dev))
+            if stream is None:
+                stream = self._copy_streams[str(dev)] = torch.cuda.Stream(
+                    device=dev)
+            return stream
 
     @property
     def stitch_window(self) -> int:

@@ -321,9 +321,12 @@ def bucket_records(output_paths, splits) -> list[bytes] | None:
                 data = f.read()
         except OSError:
             return None
-        for line in data.splitlines(keepends=True):
-            if not line.rstrip(b"\n"):
+        # split at '\n' only, the records' terminator: splitlines would
+        # also end a record at a bare '\r' inside a matched line (C12)
+        for line in data.split(b"\n"):
+            if not line:
                 continue
+            line += b"\n"
             parsed = parse_grep_key_bytes(line.split(b"\t", 1)[0])
             if parsed is None:
                 return None

@@ -7,7 +7,7 @@ bootstrap read it.  A config the reference wrote loads too
 (``from_json``): its ``backend`` and ``chunk_bytes``, which no reader
 uses, are dropped; its ``mesh_shape``/``mesh_axes`` go to the
 application's options (``effective_app_options``), where the CUDA grep
-app names item 9.  ``to_json`` leaves out ``spans``, the mesh fields, the
+app builds its mesh from them.  ``to_json`` leaves out ``spans``, the mesh fields, the
 follow fields and ``submit_token`` at their defaults (``follow_poll_s``
 also while ``follow`` is off), as the reference's leaves out its follow
 fields and its token, so the bootstrap of a job that uses none of them is
@@ -96,7 +96,7 @@ class JobConfig:
     # failover lost lands on one job
     submit_token: str = ""
 
-    # --- device mesh (ROADMAP.md item 9): merged into the app options
+    # --- device mesh (apps/grep_cuda.py): merged into the app options
     mesh_shape: tuple[int, ...] = ()
     mesh_axes: tuple[str, ...] = ("data",)
 

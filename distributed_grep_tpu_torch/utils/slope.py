@@ -299,6 +299,20 @@ def dfa_setup(data: bytes, tables, *, device="cuda"):
     return stripes.t(), lay.chunk, pad_rows, scan
 
 
+def stride_setup(data: bytes, stride_table, *, device="cuda"):
+    """Device tensor + scan closure for slope-timing K2, the k-byte-stride
+    table-DFA kernel (csrc/dfa.cu stride_kernel), on stripe windows, as
+    ``dfa_setup``."""
+    from distributed_grep_tpu_torch.ops import dfa_scan
+
+    stripes, lay, pad_rows = stripe_setup(data, device)
+
+    def scan(win):  # a row window of stripes.t(): a pitched stripe window
+        return dfa_scan.dfa_stride_words(win.t(), stride_table)
+
+    return stripes.t(), lay.chunk, pad_rows, scan
+
+
 def pairset_setup(data: bytes, model, *, device="cuda"):
     """Device tensor + scan closure for slope-timing the exact 1-2-byte set
     kernel (csrc/pairset.cu) on stripe windows, as ``shift_and_setup``."""

@@ -628,6 +628,90 @@ def test_dfa_kernel_matches_plain_on_card(card, chunk, lanes):
             assert torch.equal(got.cpu(), want), t.pattern
 
 
+@pytest.mark.parametrize("chunk,lanes", [(1024, 65536), (160, 64), (96, 4128)])
+def test_dfa_stride_kernel_matches_plain_on_card(card, chunk, lanes):
+    """K2 (csrc/dfa.cu stride_kernel) against its plain version and K1's
+    words, bit for bit, at k = 2 and 4: a table in shared memory and an
+    Aho-Corasick bank read through the L2, on contiguous and pitched
+    stripes; and K1's exit states against its plain version."""
+    from distributed_grep_tpu_torch.models import aho as port_aho
+    from distributed_grep_tpu_torch.models import dfa as port_dfa
+    from distributed_grep_tpu_torch.ops import dfa_scan
+
+    text = _text(62, chunk * lanes)
+    lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
+    cpu = torch.from_numpy(np.ascontiguousarray(
+        layout.to_device_array(text.tobytes(), lay).T))
+    wide = torch.zeros((lanes, chunk + 32), dtype=torch.uint8, device=card)
+    wide[:, :chunk] = cpu.to(card)
+    rng = np.random.default_rng(6)
+    bank = port_aho.compile_aho_corasick(
+        ["volcano", "hallo"] + [bytes(rng.integers(97, 105, size=6))
+                                for _ in range(60)])
+    for t in (port_dfa.compile_dfa("nee(dle|t)"),
+              port_dfa.compile_dfa("h[ae]llo"), bank):
+        k1, k1_exits = dfa_scan.dfa_scan_words_plain(cpu.to(card), t,
+                                                     with_exits=True)
+        got_words, got_exits = dfa_scan.dfa_scan_words(cpu.to(card), t,
+                                                       with_exits=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got_words, k1) and torch.equal(got_exits,
+                                                          k1_exits)
+        for k in (2, 4):
+            if port_dfa.choose_stride(t) < k and t is not bank:
+                continue
+            st = port_dfa.build_stride_table(t, k)
+            if st.trans_k.size > 1 << 23:
+                continue
+            want = dfa_scan.dfa_stride_words_plain(cpu.to(card), st)
+            assert torch.equal(want, k1)
+            for dev in (cpu.to(card), wide[:, :chunk]):
+                before = dfa_scan.stride.launches
+                got = dfa_scan.dfa_stride_words(dev, st)
+                torch.cuda.synchronize()
+                assert dfa_scan.stride.launches == before + 1
+                assert torch.equal(got, want), (t.pattern, k)
+
+
+@pytest.mark.parametrize("kw,kernel", [
+    ({"pattern": "volcano"}, "shift_and"), ({"pattern": "h[ae]l+o"}, "nfa"),
+    ({"patterns": ["volcano", "hallo", "ash"]}, "fdr"),
+    ({"patterns": ["zq", "qz"]}, "pairset"),
+    ({"pattern": "volcano", "max_errors": 1}, "approx"),
+])
+def test_mesh_engine_of_two_entries_equals_one_card(card, kw, kernel):
+    """A mesh of two cuda:0 entries (parallel/mesh.py) against the
+    one-card engine: the same lines, twice the kernel's launches, and the
+    one-entry mesh's psum_candidates."""
+    from distributed_grep_tpu_torch.ops.device_scan import kernel_launches
+    from distributed_grep_tpu_torch.parallel import make_mesh
+
+    data = _text(71, 3 << 20).tobytes()
+    opts = dict(segment_bytes=1 << 20, **kw)
+    one = GrepEngine(**opts)
+    before = kernel_launches()[kernel]
+    want = one.scan(data)
+    one_launches = kernel_launches()[kernel] - before
+    ref = GrepEngine(mesh=make_mesh((1,), devices=["cuda:0"]), **opts)
+    ref.scan(data)
+    mesh = make_mesh((2,), devices=["cuda:0", "cuda:0"])
+    eng = GrepEngine(mesh=mesh, **opts)
+    before = kernel_launches()[kernel]
+    got = eng.scan(data)
+    assert kernel_launches()[kernel] - before == 2 * one_launches > 0
+    assert np.array_equal(got.matched_lines, want.matched_lines)
+    assert want.n_matches > 0
+    assert eng.stats["psum_candidates"] == ref.stats["psum_candidates"] > 0
+    # '^$' keeps mode "dfa" on the mesh: K1 on the first entry
+    dfa = GrepEngine("^$", mesh=mesh, segment_bytes=1 << 20)
+    before = kernel_launches()["dfa"]
+    lines = dfa.scan(data).matched_lines
+    assert dfa.route == "dfa" and kernel_launches()["dfa"] > before
+    host = GrepEngine("^$", segment_bytes=1 << 20)
+    assert host.route == "native"
+    assert np.array_equal(lines, host.scan(data).matched_lines)
+
+
 def test_nullable_eol_job_on_card_byte_identical_to_cpu(card, tmp_path):
     """A '^$' job on device="cuda" (the engine routes it to the host DFA
     scanner, as the reference does) equals the job on the CPU."""

@@ -183,17 +183,45 @@ def test_entry_points_raise_without_cuda(tmp_path, corpus, monkeypatch):
     ({"mesh_shape": [2]}, "item 9"), ({"mesh_axes": ("data",)}, "item 9"),
     ({"pattern_axis": "model"}, "item 9"),
 ])
-def test_mesh_options_raise_naming_their_item(opt, item):
-    """The reference accepts these options; the port names the ROADMAP
-    item that ports them instead of passing them on to GrepEngine (which
-    raised TypeError).  A falsy value is accepted and not passed on.
-    (``index_dir`` runs since the shard index was ported:
-    tests/test_torch_index.py.)"""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        grep_cuda.configure("volcano", device="cpu", **opt)
+def test_mesh_options_raise_naming_their_item(tmp_path, corpus, opt, item):
+    """The card options of ROADMAP item 9's first half run: a job on
+    device "cpu" with ``devices``, ``mesh_shape`` (a mesh of two host
+    entries) or ``mesh_axes`` gives mr-out files byte-identical to the
+    single-device job's.  ``pattern_axis``, the item's second half, still
+    raises naming it (the port used to pass such options on to GrepEngine,
+    which raised TypeError); a falsy value is accepted and not passed
+    on."""
     name = next(iter(opt))
-    grep_cuda.configure("volcano", device="cpu", **{name: None})
-    assert grep_cuda._engine is not None
+    if name == "pattern_axis":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md.*{item}.*second half"):
+            grep_cuda.configure("volcano", device="cpu", **opt)
+        grep_cuda.configure("volcano", device="cpu", **{name: None})
+        assert grep_cuda._engine is not None
+        return
+    single = _port_job(tmp_path / "one", corpus, "volcano", False)
+    cfg = JobConfig(
+        input_files=corpus,
+        app_options={"pattern": "volcano", "device": "cpu", **ENGINE_OPTS,
+                     **opt},
+        work_dir=str(tmp_path / "opt"))
+    res = run_job(cfg, n_workers=2, device="cpu",
+                  app=grep_cuda_module())
+    got = _outputs(res.output_files)
+    assert got == _outputs(single.output_files)
+    assert sum(len(v) for v in got.values()) > 0
+    eng = grep_cuda._engine
+    if name == "mesh_shape":
+        assert eng.mesh is not None and eng.mesh.size == 2
+        assert eng.totals.get("psum_candidates", 0) > 0
+    else:
+        assert eng.mesh is None and [d.type for d in eng.devices] == ["cpu"]
+
+
+def grep_cuda_module():
+    from distributed_grep_tpu_torch.apps.loader import from_module
+
+    return from_module(grep_cuda)
 
 
 def test_partition_bit_compatible_with_reference():

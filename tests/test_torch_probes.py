@@ -161,13 +161,15 @@ def test_kernel_compare_prints_one_line_per_engine(capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["engine"] for ln in lines] == engines
     ported = {"pallas", "nfa", "nfa_alt8", "pairset", "mxu_dot", "dfa",
-              "aho256", "native_mt"}
+              "stride2", "aho256", "native_mt"}
     for ln in lines[:10]:
         if ln["engine"] in ported:
             assert ln["unit"] == "GB/s" and ln["value"] > 0, ln
     assert lines[8]["banks"] == 1  # 256 members fit one bank
     assert "D1" in lines[5]["error"], lines[5]  # xla_sa
-    assert "K2" in lines[7]["error"], lines[7]  # stride2
+    # K2 runs (stride2): its line has the dfa engine's keys
+    assert set(lines[7]) == set(lines[6]) == {"engine", "value", "unit"}
+    assert set(port_kc.NOT_PORTED) == {"xla_sa"}
     assert lines[10]["error"] == "ValueError: unknown engine bogus"
 
 

@@ -172,6 +172,87 @@ def test_hit_partial_miss_byte_identity_against_the_reference(tmp_path,
     assert _collate(rc["outputs"]) == _collate(rpart["outputs"])
 
 
+def _records(paths) -> list[bytes]:
+    """The outputs' records, split at '\n' only (a matched line may hold
+    a bare CR), sorted."""
+    out = []
+    for p in paths:
+        out.extend(r + b"\n" for r in Path(p).read_bytes().split(b"\n") if r)
+    return sorted(out)
+
+
+def _cr_files(root: Path) -> dict:
+    """ROADMAP.md C12's input: a.txt's first matched line holds a bare CR
+    and, after it, bytes that parse as a record key of b.txt."""
+    root.mkdir()
+    b = root / "b.txt"
+    b.write_bytes(b"x\n" * 3 + b"hello b\n")
+    a = root / "a.txt"
+    a.write_bytes(b"hello a\r" + str(b).encode()
+                  + b" (line number #1)\tforged\n" + b"hello plain\n")
+    return {"a.txt": a, "b.txt": b}
+
+
+def test_c12_bare_cr_records_survive_full_and_partial_hits(tmp_path):
+    """C12: the hit's and a partial hit's records equal the cold job's
+    and a DGREP_RESULT_CACHE=0 job's; the record holding a bare CR stays
+    whole and under its own file (the reference's bucket_records split it
+    at the CR, R7)."""
+    files = _cr_files(tmp_path / "data")
+    a_key = str(files["a.txt"]).encode()
+    svc = _service(tmp_path / "svc")
+    svc.start_local_workers(1)
+    try:
+        cfg = _port_cfg(files)
+        cfg.n_reduce = 1
+        _j, cold = _run(svc, cfg)
+        j2, hit = _run(svc, cfg)
+        assert svc.record(j2).result_splits_reused == 2
+        assert svc.record(j2).scheduler is None
+        assert _records(hit["outputs"]) == _records(cold["outputs"])
+        assert any(r.startswith(a_key + b" (line number #1)\thello a\r")
+                   and r.endswith(b"forged\n")
+                   for r in _records(hit["outputs"]))
+        with open(files["b.txt"], "ab") as f:
+            f.write(b"hello appended\n")
+        j3, partial = _run(svc, cfg)
+        assert svc.record(j3).result_splits_reused == 1
+    finally:
+        svc.stop()
+    os.environ["DGREP_RESULT_CACHE"] = "0"
+    try:
+        off = _service(tmp_path / "off")
+        off.start_local_workers(1)
+        try:
+            _j, want = _run(off, cfg)
+        finally:
+            off.stop()
+    finally:
+        del os.environ["DGREP_RESULT_CACHE"]
+    assert _records(partial["outputs"]) == _records(want["outputs"])
+    assert b"appended" in b"".join(_records(want["outputs"]))
+
+
+def test_c12_a_bare_cr_file_resubmit_is_a_hit(tmp_path):
+    """Bytes after the CR that parse as no key: the job still publishes
+    (bucket_records no longer returns None), so the resubmit hits."""
+    root = tmp_path / "data"
+    root.mkdir()
+    f = root / "cr.txt"
+    f.write_bytes(b"hello a\rtail\nhello b\r\nnothing\n")
+    svc = _service(tmp_path / "svc")
+    svc.start_local_workers(1)
+    try:
+        cfg = _port_cfg({"cr.txt": f})
+        _j, cold = _run(svc, cfg)
+        j2, hit = _run(svc, cfg)
+        assert svc.record(j2).result_splits_reused == 1
+        assert _records(hit["outputs"]) == _records(cold["outputs"])
+        assert len(_records(cold["outputs"])) == 2
+    finally:
+        svc.stop()
+
+
 def test_full_hit_needs_no_worker_and_survives_a_restart(tmp_path, files):
     work_root = tmp_path / "svc"
     svc = _service(work_root)
