@@ -40,7 +40,7 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          lane blocks, the probe's member and a full-range int8 one, one
          block per SM, one block, more blocks than rows and ranges that
          straddle lane blocks), and the table-DFA kernel K1 (csrc/dfa.cu,
-         with its exit states) and the stride kernel K2 (its stride_kernel
+         with its exit states) and the stride kernel K2 (its stride walker
          at k = 2 and 4 on every table without '$' accepts whose composed
          table fits choose_stride's caps, against its plain version and
          K1's words; both table branches) at the 64 MB segment shape for
@@ -50,7 +50,10 @@ Phase 2  every kernel against its plain PyTorch version on the same inputs
          accepts, '^', nullable bodies) and small Aho-Corasick banks at
          small shapes and, every 8th table, the segment shape; every
          third stripe's last byte is not '\\n' (the stripe-tail rule) and
-         half the draws read pitched stripes (``phase_dfa_kernels``).
+         half the draws read pitched stripes; then one draw at each forced
+         sub-stripe count and draws whose fix-ups never meet ('^a*b' over
+         stripes with no '\\n', every K1 branch, K2 on 'a*b' too)
+         (``phase_dfa_kernels``).
          The Shift-And, approx, pairset and SWAR kernels read the (lanes,
          chunk) stripes as the document lies; the others the (chunk,
          lanes) columns.  Then a differential sweep of the two table-driven
@@ -427,6 +430,15 @@ H100_INT8_MACS_PER_SM_CLOCK = 4096
 # 3's 0.8 MB bank ran 0.1007 ms against that 0.3905).
 DFA_LOOKUPS_PER_BYTE = 2
 H100_L2_SECTORS_PER_S = 5.5e12 / 32
+# The eager times of the table-DFA kernels' first design (one thread a
+# stripe) on the timing block's tables, as PERF.md section 6 rows 9-10
+# give them (an H100 80GB HBM3 at 700 W), printed beside this run's
+FIRST_DFA_MS = {("dfa", "nee(dle|t)"): 0.0683,
+                ("dfa", "config 3 bank"): 0.0954,
+                ("dfa", "config 5 bank 0"): 0.4536,
+                ("dfa_stride", "nee(dle|t)", 2): 0.0467,
+                ("dfa_stride", "nee(dle|t)", 4): 0.0563,
+                ("dfa_stride", "config 3 bank", 2): 0.0714}
 # The host-route queries' file (MB): the smoke's 900 s aim.  At 128 MB
 # (run 13A) the nine queries took 58.6 s, 9.9 of them the record merge
 # of the -F query's 267 MB output, past the CLI's vectorized display cap.
@@ -533,7 +545,12 @@ def ptxas_usage(log: str) -> list[tuple[str, str]]:
 
 def template_label(func: str) -> str:
     """The integer and bool template arguments of a mangled kernel name:
-    'nfa_kernel<2, 1>' for _Z..10nfa_kernelILi2ELb1EEv..."""
+    'nfa_kernel<2, 1>' for _Z..10nfa_kernelILi2ELb1EEv..., and
+    'scan_kernel<StrideWalker<2, 1>>' for csrc/dfa.cu's walkers."""
+    w = re.search(r"\d([A-Z][A-Za-z]*Walker)I((?:L[ib]\d+E)+)E", func)
+    if w:
+        args = re.findall(r"L[ib](\d+)E", w.group(2))
+        return f"scan_kernel<{w.group(1)}<{', '.join(args)}>>"
     m = re.search(r"([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", func)
     if not m:  # not a template: its name alone
         plain = re.search(r"\d([a-z][a-z_]*_kernel)E", func)
@@ -1677,6 +1694,9 @@ SWEEP_SMALL = [(32, 32), (64, 32)]
 # until phase 3g came)
 NFA_SWEEP_PER_WIDTH = 1
 DFA_SWEEP_TABLES = 3
+# (chunk, lanes) of the table DFA's forced sub-stripe and no-meeting draws:
+# 8 words, so every count up to 8 applies
+DFA_FIXUP_SHAPE = (256, 64)
 SWEEP_SEGMENT = (1024, 65536)
 SWEEP_ALPHABET = "abcxyz"
 # 'Z' then 127 starred letters: 128 positions over 4 words, all specials
@@ -1718,14 +1738,17 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
     for bit: at the main path's 64 MB segment shape (65536 x 1024
     stripes, words text with 'needle', 'net' and config 3's members
     planted) for 'nee(dle|t)', three '$' patterns, '^$' and two
-    Aho-Corasick banks past the shared-memory budget (config 3's 1,000
-    members; 256 kernel_compare members); then a seeded sweep of random
+    Aho-Corasick banks (config 3's 1,000 members, past the shared-memory
+    budget; 256 kernel_compare members, its class map and entries in
+    shared memory); then a seeded sweep of random
     regex tables ('$' accepts, '^', nullable bodies) and small
     Aho-Corasick banks at 32 x 32 and 64 x 32 and, every 8th table, at the
     segment shape; every third stripe's last byte is not '\\n' (the
     stripe-tail rule), and half the draws read pitched stripes; both table
-    branches must run.  Returns (draws, the largest absolute
-    difference)."""
+    branches must run (shared memory, byte-indexed or not, and the L2).
+    Then one draw at each forced sub-stripe count and the draws whose
+    fix-ups never meet (DFA_FIXUP_SHAPE).  Returns (K1 draws, the largest
+    absolute difference, K2 draws, its largest)."""
     from distributed_grep_tpu_torch.benchmarks.kernel_compare import (
         aho_members,
     )
@@ -1755,8 +1778,8 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
         err = words_err(torch, got, want)
         worst = max(worst, err)
         draws += 1
-        branches["shared" if dfa_scan.uses_shared_memory(table)
-                 else "global"] += 1
+        branches["global" if dfa_scan.launch_plan(table, lanes, chunk)[1]
+                 == "global" else "shared"] += 1
         if not torch.equal(got, want) or err:
             raise AssertionError(
                 f"dfa kernel != plain: {label} chunk={chunk} lanes={lanes} "
@@ -1786,8 +1809,8 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
                       words_err(torch, got, k1_words))
             stride_worst = max(stride_worst, err)
             stride_draws += 1
-            stride_branches["shared" if dfa_scan.stride_uses_shared_memory(
-                stt) else "global"] += 1
+            stride_branches[dfa_scan.stride_launch_plan(
+                stt, st.shape[0], st.shape[1])[1]] += 1
             if err or not torch.equal(got, want):
                 raise AssertionError(
                     f"dfa stride kernel (k={k}) != plain or K1: {label} "
@@ -1813,9 +1836,9 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
     for i, (name, table) in enumerate(fixed.items()):
         nz = check(name, table, seg, pitched=bool(i % 2))
         log(f"  ok dfa {name:20s} chunk={chunk} lanes={lanes} states="
-            f"{table.n_states} classes={table.n_classes} table "
-            f"{'shared' if dfa_scan.uses_shared_memory(table) else 'global'}"
-            f" nonzero words={nz}")
+            f"{table.n_states} classes={table.n_classes} plan "
+            f"{dfa_scan.launch_plan(table, lanes, chunk)} nonzero "
+            f"words={nz}")
     if not (branches["shared"] and branches["global"]):
         raise AssertionError(f"dfa: a table branch not exercised {branches}")
     tables = dfa_regexes(dfa_mod, seed, DFA_SWEEP_TABLES)
@@ -1845,6 +1868,61 @@ def phase_dfa_kernels(torch, np, dfa_scan, dfa_mod, aho_mod,
     if not (stride_branches["shared"] and stride_branches["global"]):
         raise AssertionError(f"dfa stride: a table branch not exercised "
                              f"{stride_branches}")
+    # one draw at each forced sub-stripe count, then draws whose fix-ups
+    # never meet their speculative walk: '^a*b' over stripes of 'x' and
+    # 'a's with no '\n', on every K1 branch and K2 (on 'a*b'); each held
+    # to the plain version, its fix-up rounds counted
+    chunk, lanes = DFA_FIXUP_SHAPE
+    rounds_seen = []
+    for i, n_sub in enumerate((1, 2, 4, 8)):
+        name, table, sample = tables[i % len(tables)]
+        arr = sweep_text(rng, chunk, lanes, [sample(rng)[:100] for _ in
+                                             range(8)] + ["a"], False)
+        st = torch.from_numpy(np.ascontiguousarray(arr.T)).cuda()
+        got = dfa_scan.dfa_scan_words(st, table, True, n_sub=n_sub)
+        want = dfa_scan.dfa_scan_words_plain(st, table, True)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"dfa kernel != plain at n_sub={n_sub}: "
+                                 f"{name}")
+        draws += 1
+    never = np.full((lanes, chunk), ord("a"), dtype=np.uint8)
+    never[:, 0] = ord("x")
+    never[5, 100] = ord("b")
+    st = torch.from_numpy(never).cuda()
+    anchored = dfa_mod.compile_dfa("^a*b")
+    want = dfa_scan.dfa_scan_words_plain(st, anchored, True)
+    for n_sub in (2, 4, 8):
+        for branch in dfa_scan.BRANCHES:
+            fx = torch.zeros(2, dtype=torch.int64, device=st.device)
+            got = dfa_scan.dfa_scan_words(st, anchored, True, n_sub=n_sub,
+                                          branch=branch, fixups=fx)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"dfa kernel != plain on stripes that "
+                                     f"never meet: n_sub={n_sub} {branch}")
+            if int(fx[1]) != n_sub - 1:
+                raise AssertionError(f"dfa fix-up rounds {fx.tolist()} at "
+                                     f"n_sub={n_sub} {branch}: want "
+                                     f"{n_sub - 1}")
+            rounds_seen.append(int(fx[1]))
+            draws += 1
+    unanchored = dfa_mod.build_stride_table(dfa_mod.compile_dfa("a*b"), 2)
+    want = dfa_scan.dfa_stride_words_plain(st, unanchored)
+    for n_sub in (2, 8):
+        for branch in ("shared", "global"):
+            got = dfa_scan.dfa_stride_words(st, unanchored, n_sub=n_sub,
+                                            branch=branch)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"dfa stride kernel != plain on 'a*b': "
+                                     f"n_sub={n_sub} {branch}")
+            stride_draws += 1
+    log(f"  dfa forced sub-stripe counts 1, 2, 4, 8 and no-meeting draws "
+        f"(fix-up rounds {rounds_seen}) at chunk={chunk} lanes={lanes}: "
+        f"exact")
     return draws, worst, stride_draws, stride_worst
 
 
@@ -5725,12 +5803,22 @@ def main() -> int:
     body = {"shift_and": (128, 1), "pairset": (128, 1),
             "shift_and_swar": (swar_box, 4)}
     for name in ("shift_and", "pairset", "approx", "shift_and_swar", "nfa",
-                 "fdr", "dfa"):
+                 "fdr"):
         steps, per = body.get(name, (32, 1))
         for func, n in sass_counts(_build, name).items():
             log(f"  sass {name} {template_label(func)}: {n} instructions "
                 f"({n / steps:.1f} per step of {steps}, "
                 f"{n / steps / per:.1f} a byte)")
+    # the table DFA's walkers: the instructions of each word loop (32
+    # bytes), apart from the fix-up and the set-up around it
+    from distributed_grep_tpu_torch.benchmarks.substripe_sweep import (
+        sass_word_loops,
+    )
+    for func, loop in sass_word_loops(_build._target("dfa")).items():
+        log(f"  sass dfa {template_label(func)}: word loop of "
+            f"{loop['loop_instructions']} instructions, "
+            f"{loop['per_byte']:.2f} a byte; most used: "
+            + ", ".join(f"{o} {n}" for o, n in loop["top"]))
     # the narrow probe: one word of 32 steps and a warm-up of WARM steps
     # unrolled, each over LANES_PER_THREAD lanes
     n_lanes, n_warm = narrow_probe.LANES_PER_THREAD, narrow_probe.WARM
@@ -6449,7 +6537,10 @@ def main() -> int:
             g_ms = graph_ms(lambda: dfa_scan.dfa_scan_words(arr, table))
             p_ms = cuda_ms(torch, lambda: dfa_scan.dfa_scan_words_plain(
                 arr, table), 1)
-            shared = dfa_scan.uses_shared_memory(table)
+            plan = dfa_scan.launch_plan(table, lay.lanes, lay.chunk)
+            fx = torch.zeros(2, dtype=torch.int64, device=arr.device)
+            dfa_scan.dfa_scan_words(arr, table, fixups=fx)
+            shared = plan[1] != "global"
             table_bytes = 4 * table.n_states * table.n_classes + 256
             b_ms = (n_in + n_out + table_bytes) / H100_BYTES_PER_S * 1e3
             l_ms = DFA_LOOKUPS_PER_BYTE * n_in / H100_SMEM_LOOKUPS_PER_S * 1e3
@@ -6458,10 +6549,13 @@ def main() -> int:
                               "bytes" if b_ms >= l_ms else "operations")
             log(f"kernel dfa {name}: states={table.n_states} classes="
                 f"{table.n_classes} table {table_bytes} bytes in "
-                f"{'shared memory' if shared else 'global memory'}, stripes "
-                f"chunk={lay.chunk} lanes={lay.lanes}: {k_ms:.4f} ms = "
-                f"{n_in / (k_ms / 1e3) / 1e9:.1f} GB/s ({g_ms:.4f} ms on the "
-                f"card's clock, in a CUDA graph); plain version on the card "
+                f"{'shared memory' if shared else 'global memory'}, plan "
+                f"n_sub={plan[0]} branch={plan[1]}, fix-ups "
+                f"{int(fx[0])} bytes re-walked in {int(fx[1])} rounds, "
+                f"stripes chunk={lay.chunk} lanes={lay.lanes}: {k_ms:.4f} "
+                f"ms = {n_in / (k_ms / 1e3) / 1e9:.1f} GB/s ({g_ms:.4f} ms "
+                f"on the card's clock, in a CUDA graph; first design: "
+                f"{FIRST_DFA_MS[('dfa', name)]} ms); plain version on the card "
                 f"{p_ms:.1f} ms; bound {max(b_ms, l_ms):.4f} ms (bytes "
                 f"{b_ms:.4f} with the table, table reads {l_ms:.4f} at the "
                 f"shared-memory / L1 lookup rate), bound by "
@@ -6492,6 +6586,9 @@ def main() -> int:
                                                                   stt))
                 p_ms = cuda_ms(torch, lambda: dfa_scan.dfa_stride_words_plain(
                     dev_st, stt), 1)
+                plan = dfa_scan.stride_launch_plan(stt, lay.lanes, lay.chunk)
+                fx = torch.zeros(2, dtype=torch.int64, device=dev_st.device)
+                dfa_scan.dfa_stride_words(dev_st, stt, fixups=fx)
                 table_bytes = 4 * stt.trans_k.size + 256
                 b_ms = (n_in + n_out + table_bytes) / H100_BYTES_PER_S * 1e3
                 l_ms = ((1 + 1 / k) * n_in / H100_SMEM_LOOKUPS_PER_S * 1e3)
@@ -6501,10 +6598,14 @@ def main() -> int:
                 k1_ms = dfa_rows[name][0] if name in dfa_rows else None
                 log(f"kernel dfa_stride {name} k={k}: states={stt.n_states} "
                     f"columns={cols} table {table_bytes} bytes in "
-                    f"{'shared memory' if dfa_scan.stride_uses_shared_memory(stt) else 'global memory'}"
-                    f", stripes chunk={lay.chunk} lanes={lay.lanes}: "
+                    f"{'global memory' if plan[1] == 'global' else 'shared memory'}"
+                    f", plan n_sub={plan[0]} branch={plan[1]}, fix-ups "
+                    f"{int(fx[0])} bytes re-walked in {int(fx[1])} rounds, "
+                    f"stripes chunk={lay.chunk} lanes={lay.lanes}: "
                     f"{k_ms:.4f} ms = {n_in / (k_ms / 1e3) / 1e9:.1f} GB/s "
-                    f"({g_ms:.4f} ms on the card's clock, in a CUDA graph); "
+                    f"({g_ms:.4f} ms on the card's clock, in a CUDA graph; "
+                    f"first design: "
+                    f"{FIRST_DFA_MS[('dfa_stride', name, k)]} ms); "
                     f"K1 on the same table {k1_ms:.4f} ms; plain version on "
                     f"the card {p_ms:.1f} ms; bound {max(b_ms, l_ms):.4f} ms "
                     f"(bytes {b_ms:.4f} with the table, lookups {l_ms:.4f}), "

@@ -1,7 +1,9 @@
-"""Sub-stripe sweep of the four stripe kernels, on the card.
+"""Sub-stripe sweep of the four stripe kernels and the table DFA, on the card.
 
     python -m distributed_grep_tpu_torch.benchmarks.substripe_sweep \\
-        [--sizes-mb 64,8,4] [--n-sub 1,2,4,8]
+        [--sizes-mb 64,8,4] [--n-sub 1,2,4,8] \\
+        [--kernels shift_and,approx,pairset,shift_and_swar,dfa,dfa_stride]
+        [--dfa-variants FILE]
 
 csrc/shift_and.cu, csrc/approx.cu, csrc/pairset.cu and
 csrc/shift_and_swar.cu cut each stripe into sub-stripes, one thread
@@ -21,6 +23,27 @@ line per segment and model, then one with torch's int64 sum of the largest
 segment, the card's practical floor for reading it once; each line names
 the card and its power limit.  Without a card it prints nothing and exits
 2.
+
+``dfa`` and ``dfa_stride`` (csrc/dfa.cu, K1 and K2) take their sub-stripe
+count and table branch as launch arguments, so no variant is built: on
+one 64 MiB segment (65536 x 1024) each of six tables -- K1 on
+'nee(dle|t)' and config 3's 1,000-member Aho-Corasick bank over English
+words with the members planted, K1 on config 5's first bank over
+PCAP-like bytes with its members planted, K2 on 'nee(dle|t)' at k = 2 and
+4 and on config 3's bank at k = 2 -- runs as the launcher chooses, at
+each forced count of ``--n-sub`` and on each other branch the table
+fits, each held to the plain version bit for bit (K1's exit states too)
+and then timed in turns as above; its line gives the launcher's plan,
+each variant's fix-up steps and rounds, the eager call's time on 32
+stripes of 32 bytes (the host's issue time, an eager call's floor), and
+the card.  A first line gives
+each kernel instance's registers, shared memory and spills (ptxas) and
+the instructions of its word loop (cuobjdump, ``sass_word_loops``).
+``--dfa-variants benchmarks/dfa_variants.json`` also builds copies of
+csrc/dfa.cu with the file's text replacements (the shared-memory head's
+budget on the global branch; probes that drop the data loads or the
+chain of dependent reads) and times each beside the launcher, in the
+same turns.
 """
 
 from __future__ import annotations
@@ -238,11 +261,270 @@ def _runs():
     return runs
 
 
+DFA_KERNELS = ("dfa", "dfa_stride")
+
+
+def sass_word_loops(lib_path) -> dict[str, dict]:
+    """Each kernel function's word loop in ``cuobjdump -sass`` of a built
+    library: the innermost loop (a backward branch with no other inside
+    it) of the most instructions, its instruction count and its most used
+    opcodes; {} where cuobjdump is missing."""
+    import re
+    from pathlib import Path
+
+    from distributed_grep_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        return {}
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120).stdout
+    funcs: dict[str, list] = {}
+    func = None
+    labels: dict[str, int] = {}
+    for line in text.splitlines():
+        t = line.strip()
+        if t.startswith("Function : "):
+            func = t[len("Function : "):]
+            funcs[func] = []
+            labels = {}
+            funcs[func].append(labels)
+        elif func is None:
+            continue
+        elif re.match(r"^\.L_x_\d+:$", t):
+            labels[t[:-1]] = len(funcs[func]) - 1  # the next instruction's
+        else:
+            m = re.match(r"^/\*([0-9a-f]+)\*/\s+(.*?);", t)
+            if m:
+                words = m.group(2).split()
+                if words and words[0].startswith("@"):
+                    words = words[1:]
+                target = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b",
+                                   m.group(2))
+                funcs[func].append((int(m.group(1), 16),
+                                    words[0] if words else "?", target))
+    out = {}
+    for func, items in funcs.items():
+        labels, ins = items[0], items[1:]
+        addr = [a for a, _op, _t in ins]
+        loops = []  # (first index, branch index)
+        for i, (a, op, target) in enumerate(ins):
+            if not op.startswith("BRA") or target is None:
+                continue
+            if target.group(1):
+                j = labels.get(target.group(1))
+            else:
+                dest = int(target.group(2), 16)
+                j = addr.index(dest) if dest in addr else None
+            if j is not None and j <= i:
+                loops.append((j, i))
+        inner = [(j, i) for j, i in loops
+                 if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
+                            for j2, i2 in loops)]
+        if not inner:
+            continue
+        j, i = max(inner, key=lambda ji: ji[1] - ji[0])
+        ops = [op for _a, op, _t in ins[j:i + 1]]
+        top = sorted({o: ops.count(o) for o in ops}.items(),
+                     key=lambda kv: -kv[1])[:6]
+        out[func] = {"loop_instructions": len(ops),
+                     "per_byte": len(ops) / 32, "top": top}
+    return out
+
+
+def dfa_tables(n: int):
+    """(kernel, label, table, corpus) of the six timed tables and the two
+    corpora of n bytes: English words with config 3's members planted, and
+    PCAP-like bytes with config 5's (benchmarks/baseline_configs.py's
+    sets and payload)."""
+    from distributed_grep_tpu_torch.benchmarks import baseline_configs as bc
+    from distributed_grep_tpu_torch.models import aho as aho_mod
+    from distributed_grep_tpu_torch.models import dfa as dfa_mod
+
+    alphabet = np.arange(1, 256)
+    alphabet = alphabet[alphabet != 0x0A]
+    set3 = [p.encode() for p in bc._rand_literals(1000, 6, 12, seed=3)]
+    set5 = [p.encode("latin-1")
+            for p in bc._rand_literals(10_000, 5, 9, seed=5,
+                                       alphabet=alphabet)]
+    texts = {
+        "words": bc._inject(words_text(n), set3[:200] + [b"needle", b"net"],
+                            n // 2000, 31),
+        "pcap": bc._inject(bc._binary_payload(n, 50), set5[:100],
+                           n // 65536, 51),
+    }
+    nee = dfa_mod.compile_dfa("nee(dle|t)")
+    bank3 = aho_mod.compile_aho_corasick(set3)
+    bank5 = aho_mod.compile_aho_corasick_banks(set5)[0]
+    runs = [("dfa", "nee(dle|t)", nee, "words"),
+            ("dfa", "config 3 bank", bank3, "words"),
+            ("dfa", "config 5 bank 0", bank5, "pcap"),
+            ("dfa_stride", "nee(dle|t) k=2",
+             dfa_mod.build_stride_table(nee, 2), "words"),
+            ("dfa_stride", "nee(dle|t) k=4",
+             dfa_mod.build_stride_table(nee, 4), "words"),
+            ("dfa_stride", "config 3 bank k=2",
+             dfa_mod.build_stride_table(bank3, 2), "words")]
+    return runs, texts
+
+
+def build_dfa_variants(variants: dict) -> dict:
+    """One library per variant of csrc/dfa.cu (``variants`` maps a name to
+    [old, new] text replacements, each old text present), nvcc processes
+    started together, built under the package's git-ignored _build
+    directory: name -> (K1 entry, K2 entry), argtypes set."""
+    from distributed_grep_tpu_torch.ops import _build, dfa_scan
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / "dfa.cu").read_text()
+    jobs = {}
+    for name, subs in variants.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise ValueError(f"dfa variant {name}: {old!r} not in "
+                                 f"csrc/dfa.cu")
+            text = text.replace(old, new)
+        cu = _build.BUILD_DIR / f"dfa_{name}-{_build.source_hash(text.encode())}.cu"
+        so = cu.with_suffix(".so")
+        proc = None
+        if not so.exists():
+            cu.write_text(text)
+            proc = subprocess.Popen(_build.nvcc_command(cu, so),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (so, proc)
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for dfa {name}:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        k1, k2 = lib.dgrep_dfa_scan, lib.dgrep_dfa_stride_scan
+        k1.argtypes, k2.argtypes = dfa_scan.K1_ARGTYPES, dfa_scan.K2_ARGTYPES
+        k1.restype = k2.restype = ctypes.c_int
+        libs[name] = (k1, k2)
+    return libs
+
+
+def dfa_sweep(kernels, counts, card: str, variants: dict | None = None
+              ) -> None:
+    """K1 and K2 on the six tables (``dfa_tables``) at each forced count
+    and branch beside the launcher's plan, and each variant of the source
+    (``build_dfa_variants``) at its launcher's plan, all in turns; one
+    JSON line a table.  A variant named probe_* may change the words (a
+    probe of where the time goes, such as a walk without its data loads)
+    and is not held to the plain version."""
+    from distributed_grep_tpu_torch.ops import _build, dfa_scan
+    from distributed_grep_tpu_torch.ops.layout import Layout, padded_stripes
+
+    variant_libs = build_dfa_variants(variants or {})
+
+    _build.load(dfa_scan.LIBRARY)
+    usage = [line.strip() for line in
+             _build.saved_log(dfa_scan.LIBRARY).splitlines()
+             if "registers" in line or "Compiling entry" in line
+             or "spill" in line]
+    print(json.dumps({"kernel": "dfa", "ptxas": usage,
+                      "sass_word_loops": sass_word_loops(
+                          _build._target(dfa_scan.LIBRARY)),
+                      "card": card}), flush=True)
+    lanes, chunk = 65536, 1024
+    runs, texts = dfa_tables(lanes * chunk)
+    lay = Layout(lanes=lanes, chunk=chunk, n_real=lanes * chunk)
+    devs = {k: torch.from_numpy(padded_stripes(t, lay)).cuda()
+            for k, t in texts.items()}
+    for kernel, label, table, corpus in runs:
+        if kernel not in kernels:
+            continue
+        dev = devs[corpus]
+        k1 = kernel == "dfa"
+        plan_fn = dfa_scan.launch_plan if k1 else dfa_scan.stride_launch_plan
+        plan = plan_fn(table, lanes, chunk)
+
+        def call(n_sub=0, branch=None, fixups=None, t=table, d=dev, k1=k1):
+            if k1:
+                return dfa_scan.dfa_scan_words(d, t, True, n_sub=n_sub,
+                                               branch=branch, fixups=fixups)
+            return dfa_scan.dfa_stride_words(d, t, n_sub=n_sub,
+                                             branch=branch, fixups=fixups)
+
+        variants_sb = {"launcher": (0, None)}
+        for s in counts:
+            variants_sb[f"n_sub={s}"] = (s, None)
+        for b in dfa_scan.BRANCHES:
+            if b != plan[1]:
+                variants_sb[f"branch={b}"] = (0, b)
+        want = (dfa_scan.dfa_scan_words_plain(dev, table, True) if k1
+                else dfa_scan.dfa_stride_words_plain(dev, table))
+        fns, fixups = {}, {}
+        for name, (k1_fn, k2_fn) in variant_libs.items():
+            def run(k1_fn=k1_fn, k2_fn=k2_fn, t=table, d=dev, k1=k1,
+                    plan=plan):
+                stream = torch.cuda.current_stream().cuda_stream
+                if k1:
+                    return dfa_scan.launch_k1(k1_fn, d, t, True, 0, None,
+                                              None, plan, stream)
+                return dfa_scan.launch_k2(k2_fn, d, t, 0, None, None, plan,
+                                          stream)
+            got = run()
+            torch.cuda.synchronize()
+            same = (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+                    if k1 else torch.equal(got, want))
+            if not same and not name.startswith("probe_"):
+                raise AssertionError(f"{kernel} {label}: variant {name} != "
+                                     f"plain")
+            fns[f"variant {name}"] = run
+        for name, (s, b) in variants_sb.items():
+            try:
+                plan_fn(table, lanes, chunk, n_sub=s, branch=b)
+            except ValueError:
+                continue  # the kernel refuses it: not run
+            fx = torch.zeros(2, dtype=torch.int64, device=dev.device)
+            got = call(s, b, fx)
+            torch.cuda.synchronize()
+            same = (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                 want[1])
+                    if k1 else torch.equal(got, want))
+            if not same:
+                raise AssertionError(f"{kernel} {label}: {name} != plain")
+            fixups[name] = fx.tolist()
+            fns[name] = (lambda s=s, b=b: call(s, b))
+        turns: dict[str, list[float]] = {k: [] for k in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            turns[name].append(graph_ms(fns[name]))
+        # an eager call's floor: the same call on 32 stripes of 32 bytes,
+        # where the card's work is nothing and the host's issue is all
+        tiny = dev[:32, :32]
+        print(json.dumps({
+            "kernel": kernel, "table": label, "corpus": corpus,
+            "states": table.n_states, "lanes": lanes, "chunk": chunk,
+            "plan": list(plan),
+            "ms": {k: sum(v) / len(v) for k, v in turns.items()},
+            "turns": turns, "fixups": fixups,
+            "launcher_eager_ms": cuda_ms(fns["launcher"]),
+            "tiny_eager_ms": cuda_ms(lambda: call(d=tiny), 200),
+            "card": card}), flush=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sizes-mb", default="64,8,4")
     ap.add_argument("--n-sub", default="1,2,4,8")
+    ap.add_argument("--kernels",
+                    default="shift_and,approx,pairset,shift_and_swar",
+                    help="any of " + ",".join([*LAUNCH_LINE, *DFA_KERNELS]))
+    ap.add_argument("--dfa-variants", default=None,
+                    help="a JSON file of csrc/dfa.cu variants to time beside "
+                         "the launcher: {name: [[old, new], ...]} "
+                         "(benchmarks/dfa_variants.json)")
     args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
+    unknown = set(kernels) - {*LAUNCH_LINE, *DFA_KERNELS}
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is False: the sweep needs "
               "an NVIDIA card", file=sys.stderr)
@@ -276,10 +558,13 @@ def main(argv: list[str] | None = None) -> int:
     }
     card = card_line()
     counts = [int(x) for x in args.n_sub.split(",")]
-    libs = {k: build_variants(k, counts) for k in LAUNCH_LINE}
-    runs = _runs()
+    stripe_kernels = [k for k in LAUNCH_LINE if k in kernels]
+    libs = {k: build_variants(k, counts) for k in stripe_kernels}
+    runs = [r for r in _runs() if r[0] in stripe_kernels]
     largest = None
     for size_mb in (float(x) for x in args.sizes_mb.split(",")):
+        if not runs:
+            break
         n = int(size_mb * (1 << 20))
         texts = {"words": words_text(n), "random": random_text(n)}
         lay = choose_layout(n, target_lanes=DEFAULT_TARGET_LANES,
@@ -317,6 +602,15 @@ def main(argv: list[str] | None = None) -> int:
                 "ms": {k: sum(v) / len(v) for k, v in turns.items()},
                 "turns": turns, "launcher_eager_ms": cuda_ms(kept),
                 "card": card}), flush=True)
+    if set(kernels) & set(DFA_KERNELS):
+        variants = None
+        if args.dfa_variants:
+            with open(args.dfa_variants) as f:
+                variants = json.load(f)
+        dfa_sweep(kernels, counts, card, variants)
+        if largest is None:
+            largest = torch.from_numpy(np.frombuffer(
+                words_text(64 << 20), np.uint8).copy()).cuda()
     flat = largest.view(torch.int64)
     print(json.dumps({"read_floor": "torch int64 sum of the segment",
                       "bytes": largest.numel(),

@@ -591,12 +591,34 @@ def test_cli_display_and_stdin_on_card_equal_cpu(card, tmp_path, capsysbinary,
     assert got["cuda"][0] == 0 and got["cuda"][1]
 
 
+def _dfa_variants(plan_fn, table, lanes, chunk, card):
+    """(n_sub, branch) of the launcher's plan, then of every forced
+    sub-stripe count up to the chunk's words on every branch the kernel
+    takes for ``table`` (ops/dfa_scan.launch_plan's refusals skipped)."""
+    from distributed_grep_tpu_torch.ops import dfa_scan
+
+    sms = dfa_scan.device_sms(card)
+    out = [(0, None)]
+    for s in (1, 2, 4, 8):
+        for b in dfa_scan.BRANCHES:
+            try:
+                plan_fn(table, lanes, chunk, sms=sms, n_sub=s, branch=b)
+            except ValueError:
+                continue
+            out.append((s, b))
+    return out
+
+
 @pytest.mark.parametrize("chunk,lanes", [(1024, 65536), (160, 64), (96, 4128)])
 def test_dfa_kernel_matches_plain_on_card(card, chunk, lanes):
-    """csrc/dfa.cu against its plain version, bit for bit: DFAs with '$'
-    accepts (the table in shared memory) and an Aho-Corasick bank too
-    large for it (read through the L2), on contiguous and pitched
-    stripes, stripes whose last byte is not '\\n' among them."""
+    """csrc/dfa.cu K1 against its plain version, bit for bit, words and
+    exit states: DFAs with '$' accepts, an Aho-Corasick bank too large for
+    shared memory and a '^' table, on contiguous and pitched stripes,
+    stripes whose last byte is not '\\n' and stripes with no '\\n' at
+    all (where '^a*b''s fix-ups never meet their speculative walk), at
+    the launcher's plan and at every forced sub-stripe count on every
+    branch the table fits (byte-indexed or class map in shared memory,
+    entries through the L2)."""
     from distributed_grep_tpu_torch.models import aho as port_aho
     from distributed_grep_tpu_torch.models import dfa as port_dfa
     from distributed_grep_tpu_torch.ops import dfa_scan
@@ -606,6 +628,8 @@ def test_dfa_kernel_matches_plain_on_card(card, chunk, lanes):
     stripes = np.ascontiguousarray(layout.to_device_array(text.tobytes(),
                                                           lay).T)
     stripes[::3, -1] = ord("e")
+    stripes[1::5] = ord("a")  # no '\n' in the stripe
+    stripes[1::5, 0] = ord("x")
     cpu = torch.from_numpy(stripes)
     wide = torch.zeros((lanes, chunk + 32), dtype=torch.uint8, device=card)
     wide[:, :chunk] = cpu.to(card)
@@ -614,40 +638,99 @@ def test_dfa_kernel_matches_plain_on_card(card, chunk, lanes):
         ["volcano", "hallo"] + [bytes(rng.integers(97, 123, size=8))
                                 for _ in range(400)])
     tables = [port_dfa.compile_dfa(p) for p in ("vol(cano)?$", "^$", "e$",
-                                                "h[ae]llo", "x?o$")] + [bank]
-    assert not dfa_scan.uses_shared_memory(bank)
-    for t in tables:
+                                                "h[ae]llo", "x?o$", "^a*b")]
+    assert not dfa_scan.uses_shared_memory(bank, lanes, chunk)
+    seen = set()
+    for t in tables + [bank]:
         # the plain version on the card: the CPU would take minutes at the
         # 64 MiB shape
-        want = dfa_scan.dfa_scan_words_plain(cpu.to(card), t).cpu()
-        for dev in (cpu.to(card), wide[:, :chunk]):
-            before = dfa_scan.launches
-            got = dfa_scan.dfa_scan_words(dev, t)
-            torch.cuda.synchronize()
-            assert dfa_scan.launches == before + 1
-            assert torch.equal(got.cpu(), want), t.pattern
+        want, want_exits = dfa_scan.dfa_scan_words_plain(cpu.to(card), t,
+                                                         with_exits=True)
+        for n_sub, branch in _dfa_variants(dfa_scan.launch_plan, t, lanes,
+                                           chunk, card):
+            seen.add(branch or dfa_scan.launch_plan(
+                t, lanes, chunk, sms=dfa_scan.device_sms(card))[1])
+            for dev in (cpu.to(card), wide[:, :chunk]):
+                before = dfa_scan.launches
+                got, exits = dfa_scan.dfa_scan_words(
+                    dev, t, True, n_sub=n_sub, branch=branch)
+                torch.cuda.synchronize()
+                assert dfa_scan.launches == before + 1
+                assert torch.equal(got, want), (t.pattern, n_sub, branch)
+                assert torch.equal(exits, want_exits), (t.pattern, n_sub,
+                                                        branch)
+    assert seen == set(dfa_scan.BRANCHES)
+
+
+def test_dfa_launches_refused_on_card(card):
+    """A forced sub-stripe count or branch the kernel cannot take raises
+    before a launch, and csrc/dfa.cu's launcher refuses it too; a tensor
+    on neither the CPU nor the card raises."""
+    import ctypes
+
+    from distributed_grep_tpu_torch.models import aho as port_aho
+    from distributed_grep_tpu_torch.models import dfa as port_dfa
+    from distributed_grep_tpu_torch.ops import dfa_scan
+
+    t = port_dfa.compile_dfa("nee(dle|t)")
+    dev = torch.zeros((64, 96), dtype=torch.uint8, device=card)
+    rng = np.random.default_rng(5)
+    bank = port_aho.compile_aho_corasick(
+        [bytes(rng.integers(97, 123, size=8)) for _ in range(400)])
+    before = dfa_scan.launches
+    for kw, table in (({"n_sub": 3}, t), ({"n_sub": 4}, t),
+                      ({"n_sub": 64}, t), ({"branch": "bytes"}, bank),
+                      ({"branch": "tiles"}, t)):
+        with pytest.raises(ValueError):
+            dfa_scan.dfa_scan_words(dev, table, **kw)
+    st = port_dfa.build_stride_table(t, 2)
+    with pytest.raises(ValueError):
+        dfa_scan.dfa_stride_words(dev, st, branch="bytes")
+    with pytest.raises(ValueError, match="unsupported device"):
+        dfa_scan.dfa_scan_words(dev.to("meta"), t)
+    assert dfa_scan.launches == before
+    # the launcher itself: n_sub 3 and 4 (past the chunk's 3 words)
+    entries, cls, byte, slot_state, row_state = dfa_scan.device_table(
+        t, card)
+    bt = dfa_scan.packed_byte_table(t)
+    out = torch.empty((3, 64), dtype=torch.uint32, device=card)
+    report = (ctypes.c_int * 4)()
+    for n_sub, branch in ((3, 0), (4, 0), (2, 9)):
+        err = dfa_scan._lib()(
+            dev.data_ptr(), out.data_ptr(), entries.data_ptr(),
+            cls.data_ptr(), entries.numel(), 96, 64, 96,
+            t.start * t.n_classes, None, t.n_classes, byte.data_ptr(),
+            bt.state_of_slot.size, int(bt.slot_of_state[t.start]),
+            slot_state.data_ptr(), row_state.data_ptr(), 0, n_sub, branch,
+            None, report, None)
+        assert err != 0, (n_sub, branch)
 
 
 @pytest.mark.parametrize("chunk,lanes", [(1024, 65536), (160, 64), (96, 4128)])
 def test_dfa_stride_kernel_matches_plain_on_card(card, chunk, lanes):
-    """K2 (csrc/dfa.cu stride_kernel) against its plain version and K1's
-    words, bit for bit, at k = 2 and 4: a table in shared memory and an
-    Aho-Corasick bank read through the L2, on contiguous and pitched
-    stripes; and K1's exit states against its plain version."""
+    """K2 (csrc/dfa.cu's stride walker) against its plain version and K1's
+    words, bit for bit, at k = 2 and 4: tables whose composed table sits
+    in shared memory and an Aho-Corasick bank read through the L2 (and
+    each on the other branch where it fits), at every forced sub-stripe
+    count, on contiguous and pitched stripes with no-'\\n' stripes among
+    them; and K1's exit states against its plain version."""
     from distributed_grep_tpu_torch.models import aho as port_aho
     from distributed_grep_tpu_torch.models import dfa as port_dfa
     from distributed_grep_tpu_torch.ops import dfa_scan
 
     text = _text(62, chunk * lanes)
     lay = layout.Layout(lanes=lanes, chunk=chunk, n_real=text.size)
-    cpu = torch.from_numpy(np.ascontiguousarray(
-        layout.to_device_array(text.tobytes(), lay).T))
+    stripes = np.ascontiguousarray(layout.to_device_array(text.tobytes(),
+                                                          lay).T)
+    stripes[2::7] = ord("h")  # no '\n' in the stripe
+    cpu = torch.from_numpy(stripes)
     wide = torch.zeros((lanes, chunk + 32), dtype=torch.uint8, device=card)
     wide[:, :chunk] = cpu.to(card)
     rng = np.random.default_rng(6)
     bank = port_aho.compile_aho_corasick(
         ["volcano", "hallo"] + [bytes(rng.integers(97, 105, size=6))
                                 for _ in range(60)])
+    seen = set()
     for t in (port_dfa.compile_dfa("nee(dle|t)"),
               port_dfa.compile_dfa("h[ae]llo"), bank):
         k1, k1_exits = dfa_scan.dfa_scan_words_plain(cpu.to(card), t,
@@ -665,12 +748,19 @@ def test_dfa_stride_kernel_matches_plain_on_card(card, chunk, lanes):
                 continue
             want = dfa_scan.dfa_stride_words_plain(cpu.to(card), st)
             assert torch.equal(want, k1)
-            for dev in (cpu.to(card), wide[:, :chunk]):
-                before = dfa_scan.stride.launches
-                got = dfa_scan.dfa_stride_words(dev, st)
-                torch.cuda.synchronize()
-                assert dfa_scan.stride.launches == before + 1
-                assert torch.equal(got, want), (t.pattern, k)
+            for n_sub, branch in _dfa_variants(dfa_scan.stride_launch_plan,
+                                               st, lanes, chunk, card):
+                seen.add(branch or dfa_scan.stride_launch_plan(
+                    st, lanes, chunk, sms=dfa_scan.device_sms(card))[1])
+                for dev in (cpu.to(card), wide[:, :chunk]):
+                    before = dfa_scan.stride.launches
+                    got = dfa_scan.dfa_stride_words(dev, st, n_sub=n_sub,
+                                                    branch=branch)
+                    torch.cuda.synchronize()
+                    assert dfa_scan.stride.launches == before + 1
+                    assert torch.equal(got, want), (t.pattern, k, n_sub,
+                                                    branch)
+    assert seen == {"shared", "global"}
 
 
 @pytest.mark.parametrize("kw,kernel", [
@@ -790,11 +880,15 @@ def test_warm_corpus_job_on_card_byte_identical_to_cpu(card, tmp_path,
     on the card; both equal the job on the CPU."""
     from distributed_grep_tpu_torch.apps import grep_cuda
     from distributed_grep_tpu_torch.apps.loader import from_module
+    from distributed_grep_tpu_torch.ops import engine as engine_mod
     from distributed_grep_tpu_torch.ops import layout as layout_mod
 
     monkeypatch.delenv("DGREP_CORPUS_BYTES", raising=False)
     monkeypatch.setenv("DGREP_DEVICE_MIN_BYTES", str(128 << 10))
     layout_mod.corpus_cache_clear()
+    # a fresh engine: the totals read below are this test's jobs' alone
+    # (the engine cache keeps an earlier test's engine and its totals)
+    engine_mod.model_cache_clear()
     files = _small_tree(tmp_path, 12)
     for i in range(2):
         p = tmp_path / f"big{i}.txt"

@@ -170,25 +170,25 @@ def test_stride_preserves_midstride_newline_attribution():
 
 
 def _stride_kernel_walk(data_cl: np.ndarray, st) -> np.ndarray:
-    """csrc/dfa.cu stride_kernel's arithmetic in numpy: the premultiplied
-    packed entries, the combined class index, 32 / k strides a word."""
+    """csrc/dfa.cu StrideWalker's arithmetic in numpy: the column the sum
+    of k lookups in the premultiplied class maps (``stride_class_maps``),
+    the packed entries (the next row offset above the k accept bits), the
+    accept bits gathered by a funnel shift of k to the right, 32 / k
+    strides a word."""
     k = st.k
-    entries = dfa_scan.packed_stride_table(st).astype(np.uint64)
-    cls = st.byte_to_cls.astype(np.uint64)
+    entries = dfa_scan.packed_stride_table(st).astype(np.int64)
+    maps = dfa_scan.stride_class_maps(st).astype(np.int64).reshape(k, 256)
     chunk, lanes = data_cl.shape
-    cols = st.n_classes ** k
-    state = np.full(lanes, st.start * cols, dtype=np.uint64)
-    out = np.zeros((chunk // 32, lanes), dtype=np.uint64)
+    row = int(np.flatnonzero(dfa_scan.bfs_order(st) == st.start)[0])
+    state = np.full(lanes, row * st.n_classes ** k, dtype=np.int64)
+    out = np.zeros((chunk // 32, lanes), dtype=np.int64)
     for w in range(chunk // 32):
-        acc = np.zeros(lanes, np.uint64)
+        acc = np.zeros(lanes, np.int64)
         for j in range(32 // k):
-            idx = np.zeros(lanes, np.uint64)
-            for i in range(k):
-                idx = idx * np.uint64(st.n_classes) + cls[
-                    data_cl[32 * w + k * j + i]]
-            e = entries[state + idx]
-            state = e >> np.uint64(k)
-            acc |= (e & np.uint64((1 << k) - 1)) << np.uint64(k * j)
+            col = sum(maps[i][data_cl[32 * w + k * j + i]] for i in range(k))
+            e = entries[state + col]
+            state = e >> k
+            acc = (acc >> k) | ((e & ((1 << k) - 1)) << (32 - k))
         out[w] = acc
     return out.astype(np.uint32)
 
@@ -226,6 +226,64 @@ def test_packed_stride_table_and_wrapper_checks():
     before = dfa_scan.stride.launches
     dfa_scan.dfa_stride_words(stripes, st)
     assert dfa_scan.stride.launches == before  # the plain version
+
+
+def test_stride_class_maps_and_plan():
+    """Map i of ``stride_class_maps`` is each byte's class times
+    n_classes**(k - 1 - i), so a stride's column is their sum; the launch
+    plan keeps the composed table in shared memory where it fits."""
+    t = port_dfa.compile_dfa("nee(dle|t)")
+    for k in (2, 4):
+        st = port_dfa.build_stride_table(t, k)
+        maps = dfa_scan.stride_class_maps(st).reshape(k, 256).astype(np.int64)
+        cls = st.byte_to_cls.astype(np.int64)
+        rng = np.random.default_rng(k)
+        for b in rng.integers(0, 256, size=(50, k)):
+            want = 0
+            for i in range(k):  # the first byte the most significant digit
+                want = want * st.n_classes + cls[b[i]]
+            assert sum(maps[i][b[i]] for i in range(k)) == want
+        assert dfa_scan.stride_launch_plan(st, 65536, 1024) == (2, "shared")
+        assert dfa_scan.stride_launch_plan(st, 65536, 1024,
+                                           branch="global") == (2, "global")
+        with pytest.raises(ValueError, match="byte-indexed"):
+            dfa_scan.stride_launch_plan(st, 65536, 1024, branch="bytes")
+    rng = np.random.default_rng(6)
+    bank = port_aho.compile_aho_corasick(
+        [bytes(rng.integers(97, 105, size=6)) for _ in range(60)])
+    st = port_dfa.build_stride_table(bank, 2)
+    assert 4 * st.trans_k.size > dfa_scan.SMEM_TABLE_BYTES
+    assert dfa_scan.stride_launch_plan(st, 65536, 1024) == (2, "global")
+    assert not dfa_scan.stride_uses_shared_memory(st)
+
+
+@pytest.mark.parametrize("n_sub", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [2, 4])
+def test_stride_speculative_walk_equals_reference(k, n_sub):
+    """K2 in the speculative scheme (tests/test_torch_dfa.py's
+    ``speculative_walk`` with K2's unit: a stride, the meeting stride's
+    bits the new walk's) equals the plain version and the reference's
+    ``dfa_scan_stride``, including stripes with no '\\n'."""
+    from tests.test_torch_dfa import _StrideModel, speculative_walk
+
+    data = _text_columns(20 + k, 256, 32)
+    data[:, 3] = ord("a")  # no '\n'
+    for label, ref_t, t in _random_tables(740 + k):
+        if t.accept_eol.any():
+            continue
+        cols = t.n_classes ** k
+        if cols > 1 << 13 or t.n_states * cols > 1 << 23:
+            continue
+        st = port_dfa.build_stride_table(t, k)
+        want = _as_words(scan_jnp.dfa_scan_stride(
+            data, ref_dfa.build_stride_table(ref_t, k)))
+        assert torch.equal(dfa_scan.dfa_stride_words(_stripes(data), st),
+                           want)
+        words, _exits, steps, rounds = speculative_walk(
+            data, _StrideModel(st), n_sub)
+        assert np.array_equal(words, want.numpy()), (label, k, n_sub)
+        if n_sub == 1:
+            assert steps == rounds == 0
 
 
 def test_k1_exit_states_equal_reference_final_states():
