@@ -231,7 +231,7 @@ Phase 3e the shared tiers, the launch counts zeroed just before and read
          large files' segments and the card's windows; the 'volcano' and
          -v jobs prune nothing.  Per job: the wall, index_shards_pruned,
          index_maybe_scans, index_bytes_skipped, uploads, reads, launches.
-         (b) ops/fuse.FusedScanner.scan_batch over 8 of the large files in
+         (b) ops/fuse.FusedScanner.scan_batch over 4 of the large files in
          splits of at most MAX_FUSED_SPLIT_BYTES (one packed window a
          split) in two mixes of K = 4: config 3's 1,000 literals in four
          quarters (one FDR launch a segment and no other, where the solo
@@ -323,7 +323,26 @@ Phase 3h multi-GPU on one host (parallel/, the engine's devices and mesh)
          give the one-card job's mr-out; sharded_grep_step on needle
          matches K1's plain words and exit states.  Every line prints
          ``cards`` beside ``mesh_entries``: no run spans two cards unless
-         the host has them.
+         the host has them.  Then, with the launch counts zeroed just
+         before and read just after, the pattern axis and several
+         processes: (a) config 3's set, with -i and with '#' (a pairset
+         sidecar) on a (2, 2) mesh over ("data", "seq") with
+         pattern_axis "seq" give the one-card engine's lines; (b)
+         sharded_fdr_pattern_step on a 64 MiB segment with config 3's set
+         in four quarters (four same-plan banks) equals one device's OR
+         of the four banks bit for bit, and a mixed-plan set (40,000
+         config-5-recipe members, two plans) logs the reference's line
+         and shards lanes alone, with the one-card lines; (c)
+         sharded_pattern_set_step with config 3's quarters as four
+         Aho-Corasick banks on K1 equals the banks' K1 words OR'd on one
+         device and K1's plain version; (d) two ranks (this script with
+         --mesh-rank, a gloo group on 127.0.0.1, two entries of cuda:0
+         each: NCCL refuses two ranks on one card) give the one-card
+         lines of 'volcano' and of config 3's set over the pattern axis,
+         and sharded_grep_step's one-process words, total and exit
+         states, in both ranks; (e) dryrun_multichip over four entries of
+         cuda:0 prints its OK line.  Each line prints its ranks and
+         cards.
 Phase 4  the measuring path, in this process with the launch counts zeroed
          just before it and read just after: the port's headline bench
          (its JSON line parsed, its count band held), kernel_compare's
@@ -349,6 +368,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import re
 import shutil
@@ -488,13 +508,17 @@ _WORDS = (
 
 
 _T0 = time.perf_counter()
+_LAST_HEADER = [_T0]  # when the last phase header was printed
 
 
 def log(msg: str) -> None:
     """Print a line; a phase's header ("== ...") with the seconds since
-    the script started."""
+    the script started and the seconds the phase before it took."""
     if msg.startswith("== "):
-        msg += f" [{time.perf_counter() - _T0:.1f} s in]"
+        now = time.perf_counter()
+        msg += (f" [{now - _T0:.1f} s in; the phase before "
+                f"{now - _LAST_HEADER[0]:.1f} s]")
+        _LAST_HEADER[0] = now
     print(msg, flush=True)
 
 
@@ -4456,9 +4480,9 @@ def phase_tiers(args, words: list[Path], card: str, counters: dict,
         index_summary.clear()  # detach the store: (b) and (c) scan all
         log(f"phase 3e (a): {time.perf_counter() - t0:.1f} s [{card}]")
         t0 = time.perf_counter()
-        # the fused mixes over a third of the large files (all 24 until
-        # phase 3g came)
-        for ln in tiers_fusion(large[:len(large) // 3], device, counters):
+        # the fused mixes over a sixth of the large files (all 24 until
+        # phase 3g came, a third until phase 3h's pattern axis)
+        for ln in tiers_fusion(large[:len(large) // 6], device, counters):
             log(f"{ln} [{card}]")
         log(f"phase 3e (b): {time.perf_counter() - t0:.1f} s [{card}]")
         t0 = time.perf_counter()
@@ -5175,10 +5199,6 @@ def phase_multi_gpu(path: Path, set3: list[bytes], card: str,
         swar_scan,
     )
     from distributed_grep_tpu_torch.ops.engine import GrepEngine
-    from distributed_grep_tpu_torch.ops.layout import (
-        choose_layout,
-        padded_stripes,
-    )
     from distributed_grep_tpu_torch.parallel import sharded_kernels as shk
     from distributed_grep_tpu_torch.parallel import (
         make_mesh,
@@ -5242,9 +5262,7 @@ def phase_multi_gpu(path: Path, set3: list[bytes], card: str,
     # the sharded kernels' words against one device's, bit for bit, on
     # the first 64 MiB segment
     t0 = time.perf_counter()
-    seg = data[: 64 << 20]
-    lay = choose_layout(len(seg), **GrepEngine("volcano").layout_kwargs())
-    st = torch.from_numpy(padded_stripes(seg, lay).copy()).cuda()
+    st = segment_stripes(torch, data)
     cols = st.t().contiguous()
     sa = engine_mod.check_pattern("volcano").sa_filtered
     nfa = engine_mod.check_pattern("^the (old|new) ").glushkov
@@ -5275,7 +5293,7 @@ def phase_multi_gpu(path: Path, set3: list[bytes], card: str,
             raise AssertionError(f"3h sharded {name} words differ from one "
                                  f"device's (total {int(total)} vs {nz})")
     log("3h sharded words = one device's, bit for bit, on a 64 MiB segment "
-        f"({lay.lanes} x {lay.chunk}): " + ", ".join(
+        f"({st.shape[0]} x {st.shape[1]}): " + ", ".join(
             f"{name} {int(total)}" for name, ((_w, total), _r)
             in checks.items()) + f" nonzero words; "
         f"{time.perf_counter() - t0:.1f} s [{tag}] [{card}]")
@@ -5338,9 +5356,7 @@ def phase_multi_gpu(path: Path, set3: list[bytes], card: str,
 
     # the table-DFA step with its collectives
     t0 = time.perf_counter()
-    st2 = st.clone()
-    st2[:: 97, 100:106] = torch.frombuffer(bytearray(b"needle"),
-                                           dtype=torch.uint8).cuda()
+    st2 = needle_stripes(torch, st)
     table = dfa_mod.compile_dfa("needle")
     words, total, exits, neigh = sharded_grep_step(st2, table, mesh)
     want_words, want_exits = dfa_scan.dfa_scan_words_plain(st2, table,
@@ -5354,8 +5370,330 @@ def phase_multi_gpu(path: Path, set3: list[bytes], card: str,
     log(f"3h sharded_grep_step needle: total {int(total)} matched positions, "
         f"exit states and words = K1's plain version's, ring "
         f"{neigh.tolist()} ({time.perf_counter() - t0:.1f} s)")
+    one_step = (int(total), exits, want_words)
+    del st2, words, want_words, cols, checks, fdr_one
+    multi_pattern_axis(path, data, st, set3, card, counters, one_step)
     log(f"phase 3h: {time.perf_counter() - t_phase:.1f} s; {tag}; no run "
         f"spans two cards unless cards >= 2 [{card}]")
+
+
+def needle_stripes(torch, st):
+    """The 64 MiB segment's stripes with 'needle' planted every 97th
+    stripe: phase 3h's table-DFA step, in this process and in each rank."""
+    st2 = st.clone()
+    st2[:: 97, 100:106] = torch.frombuffer(bytearray(b"needle"),
+                                           dtype=torch.uint8).to(st.device)
+    return st2
+
+
+def segment_stripes(torch, data: bytes):
+    """The first 64 MiB segment of ``data`` as the engine lays it out
+    (65536 x 1024), on cuda:0."""
+    from distributed_grep_tpu_torch.ops.engine import GrepEngine
+    from distributed_grep_tpu_torch.ops.layout import (
+        choose_layout,
+        padded_stripes,
+    )
+
+    seg = data[: 64 << 20]
+    lay = choose_layout(len(seg), **GrepEngine("volcano").layout_kwargs())
+    return torch.from_numpy(padded_stripes(seg, lay).copy()).cuda()
+
+
+def mixed_plan_set() -> list[bytes]:
+    """40,000 members of config 5's recipe: compile_fdr makes two banks of
+    two plans (m 4 and 6)."""
+    import numpy as np
+
+    alphabet = np.arange(1, 256)
+    alphabet = alphabet[alphabet != 0x0A]
+    return [p.encode("latin-1")
+            for p in rand_literals(40_000, 5, 9, seed=5, alphabet=alphabet)]
+
+
+class _Lines(logging.Handler):
+    """The messages of one logger, kept while attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+# Phase 3h (d)'s ranks: each holds two entries of cuda:0 in a gloo group
+# (NCCL refuses two ranks on one card); a collective waits this long at
+# most on a rank that died
+RANK_TIMEOUT_S = 300.0
+
+
+def multi_pattern_axis(path: Path, data: bytes, st, set3: list[bytes],
+                       card: str, counters: dict, one_step) -> None:
+    """Phase 3h (a)-(e): the pattern axis and several processes (the
+    module docstring), the launch counts zeroed just before and read just
+    after."""
+    import numpy as np
+    import torch
+
+    from distributed_grep_tpu_torch.entry import dryrun_multichip
+    from distributed_grep_tpu_torch.models import aho as aho_mod
+    from distributed_grep_tpu_torch.models import fdr as fdr_mod
+    from distributed_grep_tpu_torch.ops import dfa_scan, fdr_scan
+    from distributed_grep_tpu_torch.ops.engine import GrepEngine
+    from distributed_grep_tpu_torch.ops.fdr_scan import or_into
+    from distributed_grep_tpu_torch.parallel import sharded_kernels as shk
+    from distributed_grep_tpu_torch.parallel.mesh import make_mesh
+    from distributed_grep_tpu_torch.parallel.sharded_scan import (
+        sharded_pattern_set_step,
+    )
+
+    n_cards = torch.cuda.device_count()
+    entries = [f"cuda:{i % n_cards}" for i in range(4)]
+    mesh = make_mesh((2, 2), ("data", "seq"), devices=entries)
+    tag = (f"ranks {mesh.n_ranks}, cards {mesh.cards}, mesh_entries "
+           f"{mesh.size}")
+    ep_kw = dict(mesh=mesh, mesh_axis="data", pattern_axis="seq")
+    for m in counters.values():
+        m.reset_launches()
+    t_all = time.perf_counter()
+
+    # (a) the pattern axis in the engine
+    t0 = time.perf_counter()
+    for label, kw in (("config3 -f", {"patterns": set3}),
+                      ("-i config3 -f", {"patterns": set3,
+                                         "ignore_case": True}),
+                      ("config3 + # -f", {"patterns": set3 + [b"#"]})):
+        want = GrepEngine(**kw).scan(data)
+        eng = GrepEngine(**ep_kw, **kw)
+        before = {k: counters[k].launches for k in ("fdr", "pairset")}
+        t1 = time.perf_counter()
+        got = eng.scan(data)
+        ep_s = time.perf_counter() - t1
+        launched = {k: counters[k].launches - v for k, v in before.items()}
+        psum = eng.stats.get("psum_candidates", 0)
+        sidecar = eng.fdr_pairset is not None
+        if (not np.array_equal(got.matched_lines, want.matched_lines)
+                or eng._fdr_ep_dev_tables is None or psum < 1
+                or launched["fdr"] < 1
+                or (launched["pairset"] >= 1) != sidecar):
+            raise AssertionError(
+                f"3h (a) {label}: {got.n_matches} lines vs the one-card "
+                f"engine's {want.n_matches}, launches {launched}, "
+                f"psum_candidates {psum}")
+        log(f"3h (a) {label!r} over the pattern axis: {got.n_matches} lines "
+            f"= the one-card engine's; {len(eng.fdr.banks)} bank(s) over "
+            f"seq {mesh.shape['seq']}, launches {launched}"
+            f"{' (the pairset sidecar lane-sharded)' if sidecar else ''}; "
+            f"psum_candidates {psum}; scan {ep_s:.3f} s (host clock) "
+            f"[{tag}] [{card}]")
+    log(f"3h (a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) the FDR step: four same-plan banks, then a mixed-plan set
+    t0 = time.perf_counter()
+    quarters = [fdr_mod.compile_fdr(set3[i::4]) for i in range(4)]
+    model = fdr_mod.FdrModel(banks=[b for q in quarters for b in q.banks],
+                             ignore_case=False, n_patterns=len(set3))
+    plans = {shk.bank_plan(b) for b in model.banks}
+    if len(model.banks) != 4 or len(plans) != 1:
+        raise AssertionError(f"3h (b): {len(model.banks)} banks of "
+                             f"{len(plans)} plans from config 3's quarters")
+    tabs = shk.fdr_pattern_tables(model, mesh, "seq")
+    words, total = shk.sharded_fdr_pattern_step(st, model, mesh, "data",
+                                                "seq", tabs_dev=tabs)
+    cols = st.t().contiguous()
+    ref = None
+    for bank in model.banks:
+        ref = or_into(ref, fdr_scan.fdr_scan_words(cols, bank))
+    torch.cuda.synchronize()
+    nz = int(torch.count_nonzero(ref.view(torch.int32)))
+    if not torch.equal(words, ref) or int(total) != nz or nz < 1:
+        raise AssertionError(f"3h (b): pattern-axis FDR words differ from "
+                             f"one device's OR of the four banks (total "
+                             f"{int(total)} vs {nz})")
+    log(f"3h (b) sharded_fdr_pattern_step, config 3 in four quarters (4 "
+        f"banks, 1 plan, runs {[len(r) for r in tabs]}): words = one "
+        f"device's OR of the four banks, bit for bit; total {int(total)} "
+        f"nonzero words ({st.shape[0]} x {st.shape[1]}) [{tag}] [{card}]")
+    del words, ref, cols
+    mixed = mixed_plan_set()
+    # 16 MiB of the word file with 200 of the members planted
+    part = bytearray(data[: 16 << 20])
+    rng = np.random.default_rng(12)
+    for i, at in enumerate(rng.choice(len(part) - 16, 200, replace=False)):
+        member = mixed[i * 197 % len(mixed)]
+        part[at: at + len(member)] = member
+    part = bytes(part)
+    handler = _Lines()
+    scan_log = logging.getLogger("distributed_grep_tpu_torch.device_scan")
+    scan_log.addHandler(handler)
+    old_level = scan_log.level
+    scan_log.setLevel(logging.INFO)
+    try:
+        eng = GrepEngine(patterns=mixed, **ep_kw)
+        got = eng.scan(part)
+    finally:
+        scan_log.removeHandler(handler)
+        scan_log.setLevel(old_level)
+    want = GrepEngine(patterns=mixed).scan(part)
+    n_plans = len({shk.bank_plan(b) for b in eng.fdr.banks})
+    said = [m for m in handler.messages if m.startswith("mixed-plan FDR")]
+    if (n_plans < 2 or not said or eng._fdr_ep_dev_tables is not None
+            or not np.array_equal(got.matched_lines, want.matched_lines)):
+        raise AssertionError(f"3h (b) mixed plans: {n_plans} plans, log "
+                             f"{said}, {got.n_matches} lines vs "
+                             f"{want.n_matches}")
+    log(f"3h (b) a mixed-plan set ({len(mixed)} members, "
+        f"{len(eng.fdr.banks)} banks of {n_plans} plans) on 16 MiB: "
+        f"logged {said[0]!r}; lanes sharded alone; {got.n_matches} lines = "
+        f"the one-card engine's [{tag}] [{card}]")
+    log(f"3h (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) the DFA banks over the pattern axis on K1
+    t0 = time.perf_counter()
+    tables = [aho_mod.compile_aho_corasick(set3[i::4]) for i in range(4)]
+    words, total = sharded_pattern_set_step(st, tables, mesh, "data", "seq")
+    one_dev = plain = None
+    for t in tables:
+        one_dev = or_into(one_dev, dfa_scan.dfa_scan_words(st, t))
+        plain = or_into(plain, dfa_scan.dfa_scan_words_plain(st, t))
+    torch.cuda.synchronize()
+    if (not torch.equal(words, one_dev) or not torch.equal(words, plain)
+            or int(total) < 1):
+        raise AssertionError("3h (c): sharded_pattern_set_step's words "
+                             "differ from the banks' K1 words OR'd")
+    log(f"3h (c) sharded_pattern_set_step, config 3's quarters as 4 "
+        f"Aho-Corasick banks ({', '.join(str(t.trans.shape[0]) for t in tables)} "
+        f"states) on K1: words = one device's OR and K1's plain version's; "
+        f"{int(total)} matched positions [{tag}] [{card}]")
+    del words, one_dev, plain
+    log(f"3h (c): {time.perf_counter() - t0:.1f} s")
+
+    # (d) two ranks of a gloo group on this host
+    t0 = time.perf_counter()
+    rank_lines(path, data, set3, card, one_step)
+    log(f"3h (d): {time.perf_counter() - t0:.1f} s")
+
+    # (e) the dry run
+    t0 = time.perf_counter()
+    line = dryrun_multichip(4, devices=entries)
+    if "dryrun_multichip OK" not in line:
+        raise AssertionError(f"3h (e): {line}")
+    log(f"3h (e) {line} ({time.perf_counter() - t0:.1f} s) [{card}]")
+
+    launches = {k: m.launches for k, m in counters.items()}
+    if not all(launches[k] for k in ("fdr", "pairset", "dfa")):
+        raise AssertionError(f"3h (a)-(e): launches {launches}")
+    log(f"3h (a)-(e) launches in this process (rows 4, 5, 9 on their new "
+        f"routes): {launches}; {time.perf_counter() - t_all:.1f} s "
+        f"[{card}]")
+
+
+def rank_lines(path: Path, data: bytes, set3: list[bytes], card: str,
+               one_step) -> None:
+    """Phase 3h (d): this script twice with --mesh-rank, each rank two
+    entries of cuda:0 in a gloo group; both ranks' lines, words, totals
+    and exit states against this process's."""
+    import numpy as np
+    import torch
+
+    from distributed_grep_tpu_torch.ops.engine import GrepEngine
+
+    want = {"volcano": GrepEngine("volcano").scan(data).matched_lines,
+            "config3": GrepEngine(patterns=set3).scan(data).matched_lines}
+    port = free_port()
+    outs = [WORK / f"rank{r}.pt" for r in (0, 1)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         "--mesh-port", str(port), "--mesh-out", str(outs[r]),
+         "--mesh-file", str(path)],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        for r in (0, 1)]
+    errs = []
+    try:
+        for p in procs:
+            _o, err = p.communicate(timeout=RANK_TIMEOUT_S + 120)
+            errs.append(err.decode(errors="replace")[-3000:])
+    finally:
+        end_procs(procs)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"3h (d): ranks exited "
+                             f"{[p.returncode for p in procs]}:\n"
+                             + "\n".join(errs))
+    total, exits, words = one_step
+    for r, out in enumerate(outs):
+        got = torch.load(out, weights_only=False)
+        tag = f"ranks {got['n_ranks']}, cards {got['cards']}"
+        w, t, x, neigh = got["step"]
+        local = x.shape[0] // neigh.shape[0]
+        ring = np.roll(x.numpy()[local - 1::local], 1)
+        bad = [k for k in ("volcano", "config3")
+               if not np.array_equal(got[k], want[k])]
+        if (bad or t != total or not torch.equal(x, exits.cpu())
+                or not torch.equal(w, words.cpu())
+                or not np.array_equal(neigh.numpy(), ring)
+                or got["n_ranks"] != 2 or got["cards"] != 1):
+            raise AssertionError(f"3h (d) rank {r}: {bad or 'step'} differ "
+                                 f"from one process's [{tag}]")
+        log(f"3h (d) rank {r} of 2: 'volcano' {len(want['volcano'])} lines "
+            f"and config 3 over the pattern axis {len(want['config3'])} "
+            f"lines = the one-card engine's; sharded_grep_step needle total "
+            f"{t}, exit states and words = one process's, ring "
+            f"{neigh.tolist()}; walls {got['walls']}; launches "
+            f"{got['launches']} [{tag}] [{card}]")
+        out.unlink()
+
+
+def mesh_rank_main(args) -> int:
+    """One rank of phase 3h (d): joins the gloo group, builds the global
+    (2, 2) mesh from two entries of cuda:0, scans the word file and runs
+    the table-DFA step, and saves what it got to --mesh-out."""
+    import torch
+
+    from distributed_grep_tpu_torch.models.dfa import compile_dfa
+    from distributed_grep_tpu_torch.ops import (
+        cuda_scan,
+        dfa_scan,
+        fdr_scan,
+        pairset_scan,
+    )
+    from distributed_grep_tpu_torch.ops.engine import GrepEngine
+    from distributed_grep_tpu_torch.parallel import multihost
+    from distributed_grep_tpu_torch.parallel.mesh import make_mesh
+    from distributed_grep_tpu_torch.parallel.sharded_scan import (
+        sharded_grep_step,
+    )
+
+    multihost.init_distributed(f"127.0.0.1:{args.mesh_port}", 2,
+                               args.mesh_rank, backend="gloo",
+                               timeout_s=RANK_TIMEOUT_S)
+    try:
+        mesh = make_mesh((2, 2), ("data", "seq"),
+                         devices=["cuda:0", "cuda:0"])
+        data = Path(args.mesh_file).read_bytes()
+        mods = (cuda_scan, fdr_scan, pairset_scan, dfa_scan)
+        for m in mods:
+            m.reset_launches()
+        out = {"n_ranks": mesh.n_ranks, "cards": len({
+            str(d) for d in mesh.devices.flat}), "walls": {}}
+        for key, eng in (
+                ("volcano", GrepEngine("volcano", mesh=mesh,
+                                       mesh_axis="data")),
+                ("config3", GrepEngine(patterns=config3_set(), mesh=mesh,
+                                       mesh_axis="data",
+                                       pattern_axis="seq"))):
+            t0 = time.perf_counter()
+            out[key] = eng.scan(data).matched_lines
+            out["walls"][key] = round(time.perf_counter() - t0, 3)
+        st2 = needle_stripes(torch, segment_stripes(torch, data))
+        words, total, exits, neigh = sharded_grep_step(
+            st2, compile_dfa("needle"), mesh)
+        out["step"] = (words.cpu(), int(total), exits.cpu(), neigh.cpu())
+        out["launches"] = {m.LIBRARY: m.launches for m in mods}
+        torch.save(out, args.mesh_out)
+    finally:
+        multihost._dist().destroy_process_group()
+    return 0
 
 
 FOLLOW_QUERIES = (("volcano", {"pattern": "volcano"}),
@@ -5694,6 +6032,13 @@ def main() -> int:
                     help="phase 1, then phase 3's in-process jobs of the "
                          "four tenants phase 3f compares with, and phases 3f "
                          "and 3g; prints no result lines")
+    # phase 3h (d) starts this script twice as the ranks of a gloo group
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-file", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -5751,6 +6096,9 @@ def main() -> int:
               f"this script ({e})", file=sys.stderr)
         return 2
     import numpy as np
+
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args)
 
     counters = {"shift_and": cuda_scan, "nfa": nfa_scan, "fdr": fdr_scan,
                 "pairset": pairset_scan, "approx": approx_scan,

@@ -62,9 +62,11 @@ round-robins a scan's segments over them; ``mesh_shape`` (e.g. [4] or
 ``devices`` list given beside ``mesh_shape`` names the mesh's entries (a
 card may repeat: four entries of cuda:0 on a host of one card); without
 it the mesh spans every local card, or on ``device="cpu"`` as many host
-entries as the shape needs.  ``pattern_axis`` raises NotImplementedError
-naming ROADMAP.md item 9's second half; a falsy value is accepted and
-dropped.
+entries as the shape needs (under a process group, each rank's share of
+them).  ``pattern_axis`` (with ``mesh_shape``) names the axis a literal
+set's FDR banks shard over: lanes shard over every other axis, and a
+``pattern_axis`` that leaves none raises ValueError (the reference's
+apps/grep_tpu.py:118-134).
 
 With the span pipeline on (utils/spans.py), each record build (a whole
 input's, or a streamed chunk's) is a ``map:emit`` span, which separates
@@ -115,12 +117,11 @@ _presence = False  # -q/-l/-L: per-file truthiness only
 # threads share this module); the engine calls it once per segment.
 _progress = threading.local()
 
-_UNPORTED = {
-    "pattern_axis": "item 9 (multi-GPU), its second half (the pattern axis)",
-}
+# options not ported yet, each naming its ROADMAP.md item (none now)
+_UNPORTED: dict[str, str] = {}
 # the options that pick the cards (module docstring): configure turns
 # them into the engine's devices or mesh
-_CARD_OPTIONS = ("devices", "mesh_shape", "mesh_axes")
+_CARD_OPTIONS = ("devices", "mesh_shape", "mesh_axes", "pattern_axis")
 
 
 def set_progress(fn) -> bool:
@@ -150,6 +151,7 @@ def configure(
     devices: object = "all",
     mesh_shape: object = None,
     mesh_axes: object = ("data",),
+    pattern_axis: object = None,
     **options: object,
 ) -> None:
     """Compile the pattern, or the literal set ``patterns`` when given
@@ -161,7 +163,7 @@ def configure(
     the single pattern within k edit errors.  Engine knobs (target_lanes,
     segment_bytes, min_chunk) pass through ``options``; the grep options,
     ``index_dir`` and the cards (``devices``, ``mesh_shape``,
-    ``mesh_axes``) are the module docstring's."""
+    ``mesh_axes``, ``pattern_axis``) are the module docstring's."""
     global _engine, _configured_with, _invert, _confirm, _count_only, \
         _presence, _confirm_lit, _confirm_mode
     if index_dir is not None or _configured_with is not None:
@@ -184,7 +186,8 @@ def configure(
     mode = "line" if line_regexp else ("word" if word_regexp else "search")
     key = (pattern, tuple(patterns or ()), bool(ignore_case), str(device),
            backend, bool(invert), mode, tuple(sorted(engine_opts.items())),
-           (devices, mesh_shape, mesh_axes) if backend == "device" else None)
+           ((devices, mesh_shape, mesh_axes, pattern_axis)
+            if backend == "device" else None))
     with _lock:
         _invert = bool(invert)
         _count_only = bool(count_only)
@@ -197,7 +200,7 @@ def configure(
         # trace row when the span pipeline is on
         if backend == "device":
             engine_opts.update(card_options(device, devices, mesh_shape,
-                                            mesh_axes))
+                                            mesh_axes, pattern_axis))
         _engine, cache_verdict = cached_engine(
             pattern, patterns=patterns, ignore_case=ignore_case,
             device=device, backend=backend,
@@ -212,7 +215,8 @@ def configure(
         _configured_with = key
 
 
-def card_options(device, devices, mesh_shape, mesh_axes) -> dict:
+def card_options(device, devices, mesh_shape, mesh_axes,
+                 pattern_axis=None) -> dict:
     """The engine's ``devices`` or ``mesh`` for these app options (the
     module docstring)."""
     if not mesh_shape:
@@ -221,18 +225,27 @@ def card_options(device, devices, mesh_shape, mesh_axes) -> dict:
         make_mesh,
         resolve_devices,
     )
+    from distributed_grep_tpu_torch.parallel.multihost import process_count
 
     shape = tuple(int(x) for x in mesh_shape)
     axes = tuple(mesh_axes)
     if isinstance(devices, (list, tuple)):
         entries = resolve_devices(devices, device)
     elif torch.device(device).type == "cpu":
-        entries = ["cpu"] * int(np.prod(shape))
+        entries = ["cpu"] * -(-int(np.prod(shape)) // process_count())
     else:
         entries = None  # every local card
-    # lanes shard over every axis (the pattern axis is not ported)
-    return {"mesh": make_mesh(shape, axes, devices=entries),
-            "mesh_axis": axes[0] if len(axes) == 1 else axes}
+    # lanes shard over every axis not reserved for the pattern banks
+    lane_axes = tuple(a for a in axes if a != pattern_axis)
+    if not lane_axes:
+        raise ValueError(f"pattern_axis {pattern_axis!r} consumes every "
+                         f"mesh axis {axes}: no axis left for document "
+                         f"lanes")
+    opts = {"mesh": make_mesh(shape, axes, devices=entries),
+            "mesh_axis": lane_axes[0] if len(lane_axes) == 1 else lane_axes}
+    if pattern_axis:
+        opts["pattern_axis"] = pattern_axis
+    return opts
 
 
 def _stamp_every(progress, i: int, stride: int = 16384) -> None:

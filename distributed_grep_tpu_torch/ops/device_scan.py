@@ -103,7 +103,14 @@ transposed there for the NFA and FDR kernels, one transpose a segment in
 back in lane order, and ``psum_candidates`` sums the blocks' nonzero-word
 counts over the scan (parallel/sharded_kernels.py).  The dense confirms
 run sharded too.  Mode "dfa" has no sharded kernel: it scans on the
-mesh's first entry (``mesh_unsharded``).
+mesh's first entry (``mesh_unsharded``).  With the engine's
+``pattern_axis``, an FDR set of same-plan banks copies each lane block
+to every entry along that axis, entry (i, j) runs bank run j, and the
+words are OR'd across the axis (``sharded_fdr_pattern_step``); a mixed
+set's pairset sidecar runs lane-sharded beside it and is OR'd in.  On a
+mesh spanning processes every rank runs this pipeline over the same
+input and each segment is collected before the next dispatches, so the
+ranks' collectives come in one order.
 
 Segments can be collected in any order.  A build, launch or CUDA failure
 raises: nothing falls back to another route, entry or card.  Before its first segment a
@@ -235,6 +242,16 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
                     eng.device)
         mesh = None
     devs = [eng.device] if eng.mesh is not None else list(eng.devices)
+    # the pattern axis: a set's same-plan FDR banks shard over it, lanes
+    # over ``mesh_axis``; mixed-plan banks shard lanes alone (the
+    # reference's device_scan.py:401-410)
+    ep_axis = None
+    if mesh is not None and eng.mode == "fdr" and eng.pattern_axis:
+        if not shk.same_plan(eng.fdr.banks):
+            log.info("mixed-plan FDR banks: pattern-parallel sharding "
+                     "unavailable — lanes shard over the full mesh instead")
+        else:
+            ep_axis = eng.pattern_axis
     # the kernel modules this route launches, its dense confirm included;
     # each segment is prepared in the layouts they read (their LAYOUT)
     if dfa:
@@ -366,8 +383,7 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
         if mesh is not None:
             entries = mesh_views(host)
             ready = []
-            for dev in {str(d): d for d in shk.lane_sharding(
-                    mesh, eng.mesh_axis).devices}.values():
+            for dev in entries.local_devices():
                 ev = torch.cuda.Event()
                 ev.record(eng.copy_stream(dev))
                 ready.append((dev, ev))
@@ -396,7 +412,8 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
         segment in the count)."""
         entries = shk.prepare_tiles(
             stripes, mesh, eng.mesh_axis, tuple(layouts),
-            stream_for=eng.copy_stream if on_cuda else None, swar=swar)
+            stream_for=eng.copy_stream if on_cuda else None, swar=swar,
+            pattern_axis=ep_axis)
         if COLUMNS in layouts:
             _count_transpose()
         return entries
@@ -411,6 +428,24 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
         if count:
             with lock:
                 psum.append(total)
+        return words
+
+    def pattern_words(views):
+        """The pattern axis's candidate words: the banks' runs over
+        ``ep_axis`` (``shk.sharded_fdr_pattern_step``), a mixed set's
+        pairset sidecar OR'd in lane-sharded (the reference's
+        device_scan.py:863-878); the union's nonzero words join
+        ``psum``."""
+        words, _total = shk.sharded_fdr_pattern_step(
+            views, eng.fdr, mesh, eng.mesh_axis, ep_axis,
+            fold_case=eng.ignore_case, tabs_dev=eng._fdr_ep_tables(ep_axis))
+        if eng.fdr_pairset is not None:
+            pw, _ = shk.sharded_pairset_words(views.lanes_only(),
+                                              eng.fdr_pairset, mesh,
+                                              eng.mesh_axis)
+            or_into(words, pw)
+        with lock:
+            psum.append(torch.count_nonzero(words.view(torch.int32)))
         return words
 
     confirm_active = [0]  # live confirm legs; the peak goes to the stats
@@ -607,6 +642,11 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
     n_cards = len({str(d) for d in devs}) if mesh is None else 1
     n_collect = 2 if mesh is not None else min(4, max(2, n_cards))
     max_inflight = MAX_INFLIGHT * n_cards
+    if mesh is not None and mesh.n_ranks > 1:
+        # a mesh over processes: every rank issues its collectives in one
+        # order, so a segment's collect (a dense confirm gathers too)
+        # ends before the next segment dispatches
+        max_inflight = 0
     with ThreadPoolExecutor(n_cards, thread_name_prefix="dgrep-feed") as feed, \
             ThreadPoolExecutor(n_collect,
                                thread_name_prefix="dgrep-collect") as pool:
@@ -623,7 +663,8 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
             if on_cuda:
                 for dev, ev in ready:
                     torch.cuda.current_stream(dev).wait_event(ev)
-                for t in [stripes] + [t for v in views for t in v.values()]:
+                for t in [stripes] + [t for v in views if v is not None
+                                      for t in v.values()]:
                     if t is not None:
                         t.record_stream(torch.cuda.current_stream(t.device))
             if resident is not None:
@@ -645,6 +686,9 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
                                                          plan)))
                     return words
                 kind = "words"
+            elif ep_axis is not None:
+                fn = None
+                kind = "cand_words"
             elif eng.mode == "fdr":
                 def fn(v):
                     words = None
@@ -682,7 +726,10 @@ def scan_device(eng, data: bytes, progress=None, corpus_key=None):
                     return cuda_scan.shift_and_scan_words(
                         v[cuda_scan.LAYOUT], sa_model, coarse=True)
                 kind = "span_words"
-            words = on_views(views, fn, count=True)
+            if fn is None:
+                words = pattern_words(views)
+            else:
+                words = on_views(views, fn, count=True)
             st["segments"] += 1
             pending.append(pool.submit(collect, kind, seg_start, seg_len, lay,
                                        views, words))

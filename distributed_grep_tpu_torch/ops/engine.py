@@ -130,10 +130,17 @@ falling back to the CPU), a list each entry (a card may repeat); a scan's
 segments round-robin over them (ops/device_scan.py).  ``mesh``
 (parallel/mesh.py) with ``mesh_axis`` shards each segment's lanes over
 the mesh's entries instead (parallel/sharded_kernels.py, rows 1 and 3-6;
-``stats["psum_candidates"]`` sums their nonzero-word counts).  ``mesh``
-and ``devices`` exclude each other; a bad axis name raises ValueError at
-construction; ``pattern_axis`` raises NotImplementedError (ROADMAP.md
-item 9's second half).  A mesh engine does not use the corpus cache.
+``stats["psum_candidates"]`` sums their nonzero-word counts).  With
+``pattern_axis`` a literal set's same-plan FDR banks also shard over that
+axis (``sharded_fdr_pattern_step``: entry (i, j) runs bank run j on lane
+block i, the words OR'd across the axis; the runs' tables are built once,
+``_fdr_ep_tables``); every other mode, and mixed-plan banks, shard lanes
+over ``mesh_axis`` alone.  A mesh may span processes
+(parallel/multihost.py): every rank builds the same engine and scans the
+same input, each launching its own entries' kernels, and gets the lines
+one process would.  ``mesh`` and ``devices`` exclude each other; a bad
+axis name raises ValueError at construction.  A mesh engine does not use
+the corpus cache.
 """
 
 from __future__ import annotations
@@ -219,9 +226,11 @@ from distributed_grep_tpu_torch.ops.lines import (
 from distributed_grep_tpu_torch.parallel.mesh import (
     Mesh,
     axes_tuple,
+    home_device,
     lane_sharding,
     resolve_devices,
 )
+from distributed_grep_tpu_torch.parallel.multihost import process_index
 from distributed_grep_tpu_torch.utils import lockdep, native
 from distributed_grep_tpu_torch.utils import spans as spans_mod
 
@@ -799,22 +808,22 @@ class GrepEngine:
                 raise ValueError(
                     f"pattern_axis {pattern_axis!r} must name a mesh axis "
                     f"outside mesh_axis {lane_axes}")
-        if pattern_axis is not None:
-            raise NotImplementedError(
-                "pattern_axis is not ported yet: ROADMAP.md 'Slices still "
-                "to port', item 9 (multi-GPU), its second half (the pattern "
-                "axis)")
+        self.pattern_axis = pattern_axis
         # the cards the scans run on: the host backend runs no kernel and
-        # asks for none; a mesh's lane entries; else ``devices`` (None:
-        # ``device`` alone; "all": every local card) -- segments
-        # round-robin over them.  ``device`` is the first.
+        # asks for none; a mesh's lane entries (``device``: this rank's
+        # first); else ``devices`` (None: ``device`` alone; "all": every
+        # local card) -- segments round-robin over them.  ``device`` is
+        # the first.
         if backend == "cpu":
             self.devices = [torch.device("cpu")]
+            self.device = self.devices[0]
         elif mesh is not None:
-            self.devices = list(lane_sharding(mesh, mesh_axis).devices)
+            lanes = lane_sharding(mesh, mesh_axis)
+            self.devices = list(lanes.devices)
+            self.device = home_device(mesh, lanes, process_index())
         else:
             self.devices = resolve_devices(devices, device)
-        self.device = self.devices[0]
+            self.device = self.devices[0]
         if isinstance(pattern, bytes):
             pattern = pattern.decode("utf-8", "surrogateescape")
         if segment_bytes <= 0 or target_lanes < 32 or target_lanes % 32:
@@ -882,6 +891,7 @@ class GrepEngine:
         self._stats_local = threading.local()
         self._copy_streams: dict = {}
         self._dfa_plans: list | None = None
+        self._fdr_ep_dev_tables = None  # the banks' runs, pattern axis
         self._copy_lock = threading.Lock()
         # numeric stats summed over every scan of this engine (all threads)
         self.totals: dict = {}
@@ -920,6 +930,18 @@ class GrepEngine:
                 plans.append(build_stride_table(t, k) if k > 1 else t)
             self._dfa_plans = plans
         return plans
+
+    def _fdr_ep_tables(self, pattern_axis):
+        """The FDR banks' runs over ``pattern_axis``, built and uploaded
+        once (the reference's ``_fdr_ep_tables``)."""
+        if self._fdr_ep_dev_tables is None:
+            from distributed_grep_tpu_torch.parallel import (
+                sharded_kernels as shk,
+            )
+
+            self._fdr_ep_dev_tables = shk.fdr_pattern_tables(
+                self.fdr, self.mesh, pattern_axis)
+        return self._fdr_ep_dev_tables
 
     def copy_stream(self, device: torch.device | None = None):
         """This engine's side stream for host-to-device copies to

@@ -500,13 +500,16 @@ _ATTACHES = itertools.count()
 def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     """The ``worker`` subcommand: fetch the job's config from the
     coordinator (a service daemon's bootstrap: each assignment then names
-    its job and application), load the application, check its device when it uses one
+    its job and application), load the application, join the process
+    group when ``MASTER_ADDR`` names one (parallel/multihost.py), check
+    its device when it uses one
     (CUDA asked for where there is none raises, naming it: nothing scans
     on the host instead), build the host library and run ``n_parallel``
     task loops in this process.  Returns when the job is over or the
     coordinator is gone; raises the first error of a loop that failed
     otherwise."""
     from distributed_grep_tpu_torch.apps.loader import load_application
+    from distributed_grep_tpu_torch.parallel import multihost
     from distributed_grep_tpu_torch.runtime.job import job_device
     from distributed_grep_tpu_torch.runtime.worker import WorkerLoop
     from distributed_grep_tpu_torch.utils import native
@@ -546,6 +549,10 @@ def run_http_worker(addr: str, n_parallel: int = 1) -> None:
     app = load_application(config.application)
     marks.append(("app", time.perf_counter()))
     device = job_device(app, config.app_options)
+    # a mesh spanning processes: join the process group (MASTER_ADDR and
+    # the rest; none is one process) before anything touches CUDA, as the
+    # reference's runtime/http_transport.py:579-582 does
+    multihost.init_distributed(device=device or "cpu")
     if device is not None:
         from distributed_grep_tpu_torch.utils.device import resolve_device
 

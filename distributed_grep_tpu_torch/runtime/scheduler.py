@@ -288,6 +288,7 @@ class Scheduler:
         # the span pipeline: None is off (no file, no work on any RPC)
         self.event_log = event_log
         self._pending_events: list[dict] = []  # staged under the lock
+        self._events_writing = 0  # staged batches being written
         self._span_seqs: dict[int, set[int]] = {}  # worker -> batch seqs
         self._span_seq_lock = lockdep.make_lock("span-seq")
         self._clock = ClockSync()
@@ -514,7 +515,13 @@ class Scheduler:
             if not self._pending_events:
                 return
             pending, self._pending_events = self._pending_events, []
-        self._persist_spans(pending)
+            self._events_writing += 1
+        try:
+            self._persist_spans(pending)
+        finally:
+            with self._cond:
+                self._events_writing -= 1
+                self._cond.notify_all()
 
     def _persist_spans(self, recs: list[dict], worker_id: int = -1,
                        seq: int = -1) -> None:
@@ -1093,9 +1100,19 @@ class Scheduler:
             return {"unassigned": unassigned, "in_flight": in_flight,
                     "oldest_inflight_age_s": round(oldest, 3)}
 
+    def _ended_locked(self) -> bool:
+        """Done, and every event staged so far is in the event log: the
+        last commit's ``reduce_committed`` is staged under the lock and
+        written after it, so a reader woken by ``_done_locked`` alone
+        could read the log without it."""
+        return (self._done_locked() and not self._pending_events
+                and not self._events_writing)
+
     def wait_done(self, timeout: Optional[float] = None) -> bool:
+        """Block until the job is done and its staged events are written
+        (``_ended_locked``); False on the timeout."""
         with self._cond:
-            return self._cond.wait_for(self._done_locked, timeout=timeout)
+            return self._cond.wait_for(self._ended_locked, timeout=timeout)
 
     def stop(self) -> None:
         with self._cond:

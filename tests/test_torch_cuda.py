@@ -802,6 +802,51 @@ def test_mesh_engine_of_two_entries_equals_one_card(card, kw, kernel):
     assert np.array_equal(lines, host.scan(data).matched_lines)
 
 
+@pytest.mark.parametrize("pats,ignore_case", [
+    (["volcano", "hallo", "ash"], False), (["Volcano", "hallo"], True),
+    (["volcano", "hallo", "q"], False),
+])
+def test_pattern_axis_engine_on_card_equals_one_card(card, pats,
+                                                     ignore_case):
+    """A set's FDR banks over the pattern axis of a (2, 2) mesh of cuda:0
+    entries (a 1-byte member adds the pairset sidecar): the one-card
+    engine's lines and the CPU engine's; and ``sharded_fdr_pattern_step``
+    over two same-plan banks is bit for bit one card's OR of both."""
+    from distributed_grep_tpu_torch.models.fdr import FdrModel, compile_fdr
+    from distributed_grep_tpu_torch.ops import fdr_scan
+    from distributed_grep_tpu_torch.ops.device_scan import kernel_launches
+    from distributed_grep_tpu_torch.parallel import make_mesh
+    from distributed_grep_tpu_torch.parallel import sharded_kernels as shk
+
+    data = _text(73, 3 << 20).tobytes()
+    opts = dict(patterns=pats, ignore_case=ignore_case,
+                segment_bytes=1 << 20)
+    want = GrepEngine(**opts).scan(data).matched_lines
+    mesh = make_mesh((2, 2), ("data", "seq"), devices=["cuda:0"] * 4)
+    eng = GrepEngine(mesh=mesh, mesh_axis="data", pattern_axis="seq",
+                     **opts)
+    before = kernel_launches()["fdr"]
+    got = eng.scan(data).matched_lines
+    assert kernel_launches()["fdr"] > before
+    assert np.array_equal(got, want) and len(want) > 0
+    cpu = GrepEngine(device="cpu", **opts).scan(data).matched_lines
+    assert np.array_equal(got, cpu)
+    model = FdrModel(banks=[*compile_fdr(["volcano", "hallos"]).banks,
+                            *compile_fdr(["ashes", "zebra"]).banks],
+                     ignore_case=False, n_patterns=4)
+    if not shk.same_plan(model.banks):
+        pytest.skip("the two banks compiled to two plans")
+    st = torch.from_numpy(_text(74, 512 * 4096).reshape(4096, 512)).to(card)
+    words, total = shk.sharded_fdr_pattern_step(st, model, mesh, "data",
+                                                "seq")
+    cols = st.t().contiguous()
+    ref = None
+    for bank in model.banks:
+        ref = fdr_scan.or_into(ref, fdr_scan.fdr_scan_words(cols, bank))
+    assert torch.equal(words, ref)
+    assert int(total) == int(torch.count_nonzero(ref.view(torch.int32))) > 0
+
+
 def test_nullable_eol_job_on_card_byte_identical_to_cpu(card, tmp_path):
     """A '^$' job on device="cuda" (the engine routes it to the host DFA
     scanner, as the reference does) equals the job on the CPU."""

@@ -16,6 +16,7 @@ The tolerance is zero.
 from __future__ import annotations
 
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -258,10 +259,26 @@ def test_get_explain_over_http_and_submit_explain(tmp_path, capsys):
         server.shutdown()
 
 
+def _ref_explain_with_every_commit(svc, jid: str, n_reduce: int,
+                                   bound_s: float = 5.0) -> dict:
+    """The reference's document once it holds the job's last commit: its
+    scheduler writes the last ``reduce_committed`` after ``wait_job``
+    can return (ROADMAP.md R8), so it is polled, at most ``bound_s``."""
+    deadline = time.monotonic() + bound_s
+    doc = svc.job_explain(jid)
+    while (doc["tasks"]["reduce_commits"] < n_reduce
+           and time.monotonic() < deadline):
+        time.sleep(0.02)
+        doc = svc.job_explain(jid)
+    return doc
+
+
 def test_service_explain_equals_the_references_on_a_host_job(tmp_path):
     """The same host-routed job (``--backend cpu``, the reference's
     default) through both daemons: the routing reports agree on the route,
-    the modes' scans, bytes and matches, the tasks and the query."""
+    the modes' scans, bytes and matches, the tasks and the query.  The
+    port's document is read at once after ``wait_job`` (C14); the
+    reference's once its last commit is written (R8)."""
     from distributed_grep_tpu.runtime.service import GrepService as RefService
     from distributed_grep_tpu.utils.config import JobConfig as RefConfig
 
@@ -278,9 +295,11 @@ def test_service_explain_equals_the_references_on_a_host_job(tmp_path):
                 input_files=files, application=app, n_reduce=2,
                 app_options={"pattern": "lava", "backend": "cpu"}))
             assert svc.wait_job(jid, timeout=60)
-            docs.append(svc.job_explain(jid))
+            docs.append(svc.job_explain(jid) if cls is GrepService
+                        else _ref_explain_with_every_commit(svc, jid, 2))
         finally:
             svc.stop()
+    assert docs[0]["tasks"]["reduce_commits"] == 2
 
     def shape(doc):
         modes = {m: {k: v for k, v in row.items() if k != "seconds"}
@@ -290,6 +309,39 @@ def test_service_explain_equals_the_references_on_a_host_job(tmp_path):
 
     assert shape(docs[0]) == shape(docs[1])
     assert docs[0]["routing"]["route"] == "host"
+
+
+def test_c14_explain_right_after_wait_job_holds_every_commit(tmp_path,
+                                                            monkeypatch):
+    """C14: the scheduler stages the last commit's ``reduce_committed``
+    under its lock and writes it after; a job must not read as terminal
+    before that write.  The event write is slowed here, and the document
+    read right after ``wait_job`` still counts every commit."""
+    from distributed_grep_tpu_torch.runtime import scheduler as sched_mod
+
+    real = sched_mod.Scheduler._persist_spans
+
+    def slow(self, recs, worker_id=-1, seq=-1):
+        if any(r.get("name") == "reduce_committed" for r in recs):
+            time.sleep(0.4)
+        return real(self, recs, worker_id, seq)
+
+    monkeypatch.setattr(sched_mod.Scheduler, "_persist_spans", slow)
+    files = [str(p) for p in _corpus(tmp_path).values()]
+    svc = GrepService(work_root=tmp_path / "svc", spans=True,
+                      task_timeout_s=5.0, sweep_interval_s=0.1)
+    try:
+        svc.start_local_workers(1)
+        jid = svc.submit(JobConfig(
+            input_files=files, application=PORT_GREP, n_reduce=3,
+            app_options={"pattern": "lava", "backend": "cpu"}))
+        assert svc.wait_job(jid, timeout=60)
+        doc = svc.job_explain(jid)
+    finally:
+        svc.stop()
+    assert doc["state"] == "done"
+    assert doc["tasks"]["reduce_commits"] == 3
+    assert doc["tasks"]["map_commits"] == len(files)
 
 
 def test_a_fused_tenants_route_is_its_unions(tmp_path, monkeypatch):

@@ -184,26 +184,25 @@ def test_entry_points_raise_without_cuda(tmp_path, corpus, monkeypatch):
     ({"pattern_axis": "model"}, "item 9"),
 ])
 def test_mesh_options_raise_naming_their_item(tmp_path, corpus, opt, item):
-    """The card options of ROADMAP item 9's first half run: a job on
-    device "cpu" with ``devices``, ``mesh_shape`` (a mesh of two host
-    entries) or ``mesh_axes`` gives mr-out files byte-identical to the
-    single-device job's.  ``pattern_axis``, the item's second half, still
-    raises naming it (the port used to pass such options on to GrepEngine,
-    which raised TypeError); a falsy value is accepted and not passed
-    on."""
+    """The card options of ROADMAP item 9 run: a job on device "cpu" with
+    ``devices``, ``mesh_shape`` (a mesh of two host entries),
+    ``mesh_axes`` or ``pattern_axis`` (a literal set over a 2 x 2 mesh
+    whose second axis it names) gives mr-out files byte-identical to the
+    single-device job's."""
     name = next(iter(opt))
+    query = {"pattern": "volcano"}
     if name == "pattern_axis":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md.*{item}.*second half"):
-            grep_cuda.configure("volcano", device="cpu", **opt)
-        grep_cuda.configure("volcano", device="cpu", **{name: None})
-        assert grep_cuda._engine is not None
-        return
-    single = _port_job(tmp_path / "one", corpus, "volcano", False)
+        opt = {"mesh_shape": [2, 2], "mesh_axes": ["data", opt[name]],
+               **opt}
+        query = {"patterns": ["volcano", "hello", "the", "x"]}
+    single = run_job(JobConfig(
+        input_files=corpus,
+        app_options={**query, "device": "cpu", **ENGINE_OPTS},
+        work_dir=str(tmp_path / "one")), n_workers=2, device="cpu",
+        app=grep_cuda_module())
     cfg = JobConfig(
         input_files=corpus,
-        app_options={"pattern": "volcano", "device": "cpu", **ENGINE_OPTS,
-                     **opt},
+        app_options={**query, "device": "cpu", **ENGINE_OPTS, **opt},
         work_dir=str(tmp_path / "opt"))
     res = run_job(cfg, n_workers=2, device="cpu",
                   app=grep_cuda_module())
@@ -211,9 +210,16 @@ def test_mesh_options_raise_naming_their_item(tmp_path, corpus, opt, item):
     assert got == _outputs(single.output_files)
     assert sum(len(v) for v in got.values()) > 0
     eng = grep_cuda._engine
-    if name == "mesh_shape":
-        assert eng.mesh is not None and eng.mesh.size == 2
+    if name in ("mesh_shape", "pattern_axis"):
+        assert eng.mesh is not None and eng.mesh.size == int(
+            np.prod(opt["mesh_shape"]))
         assert eng.totals.get("psum_candidates", 0) > 0
+        assert eng.pattern_axis == (opt[name] if name == "pattern_axis"
+                                    else None)
+        if name == "pattern_axis":
+            # a falsy pattern axis is accepted and shards nothing
+            grep_cuda.configure("volcano", device="cpu", **{name: None})
+            assert grep_cuda._engine.pattern_axis is None
     else:
         assert eng.mesh is None and [d.type for d in eng.devices] == ["cpu"]
 
@@ -246,8 +252,8 @@ def test_shuffle_wire_round_trip():
 def test_port_imports_no_jax_and_nothing_of_the_reference(tmp_path):
     """Every port module (the bench and benchmarks/ included, the service
     daemon's among them), plus tiny exact, approx and SWAR scans, a
-    daemon serving two tenants, and a tiny run of each probe kernel, in a
-    fresh interpreter."""
+    daemon serving two tenants, a tiny run of each probe kernel and the
+    mesh's dry run, in a fresh interpreter."""
     src = tmp_path / "in.txt"
     src.write_bytes(b"a volcano\nnothing\n")
     code = f"""
@@ -325,6 +331,12 @@ x[0:7, 3] = torch.tensor(list(b"volcano"), dtype=torch.uint8)
 assert int(narrow_probe.narrow_probe_words(x, "i16")[0, 3]) == 64
 m = torch.from_numpy(mxu_probe.probe_member())
 assert int(mxu_probe.mxu_dot(x, m).sum()) == int(m.sum(1).to(torch.int64)[x.long().flatten()].sum())
+# the mesh's dry run: every family, the pattern axis, four host entries
+import contextlib, io
+from distributed_grep_tpu_torch.entry import dryrun_multichip
+with contextlib.redirect_stdout(io.StringIO()) as printed:
+    line = dryrun_multichip(4, devices=["cpu"] * 4)
+assert line.startswith("dryrun_multichip OK") and line in printed.getvalue()
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "distributed_grep_tpu"
        or m.startswith("distributed_grep_tpu.")]

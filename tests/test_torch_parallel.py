@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_grep_tpu.models import aho as ref_aho
 from distributed_grep_tpu.models import approx as ref_ax
 from distributed_grep_tpu.models import dfa as ref_dfa
 from distributed_grep_tpu.models import fdr as ref_fdr
@@ -31,6 +32,7 @@ from distributed_grep_tpu.models import pairset as ref_ps
 from distributed_grep_tpu.models import shift_and as ref_sa
 from distributed_grep_tpu.ops import scan_jnp
 from distributed_grep_tpu.ops.engine import GrepEngine as RefEngine
+from distributed_grep_tpu_torch.models import aho as port_aho
 from distributed_grep_tpu_torch.models import approx as port_ax
 from distributed_grep_tpu_torch.models import dfa as port_dfa
 from distributed_grep_tpu_torch.models import fdr as port_fdr
@@ -365,20 +367,48 @@ def test_engine_mesh_multi_segment(mesh8):
     assert eng.stats.get("psum_candidates", 0) >= 2
 
 
-def test_engine_mesh_axis_validation(mesh8):
-    """Bad axis names fail at construction; the pattern axis (item 9's
-    second half) raises naming it."""
+def test_engine_mesh_axis_validation(mesh8, tmp_path):
+    """Bad axis names fail at construction; a good pattern axis runs: the
+    app option's job gives the single-device job's mr-out files."""
+    from distributed_grep_tpu_torch.apps import grep_cuda
+    from distributed_grep_tpu_torch.apps.loader import from_module
+    from distributed_grep_tpu_torch.runtime.job import run_job
+    from distributed_grep_tpu_torch.utils.config import JobConfig
+
     with pytest.raises(ValueError, match="mesh_axis"):
         GrepEngine("needle", mesh=mesh8, mesh_axis="bogus", device="cpu")
     mesh2d = make_mesh((4, 2), ("data", "seq"), devices=CPU8)
     with pytest.raises(ValueError, match="pattern_axis"):
         GrepEngine(patterns=["aa", "bb"], mesh=mesh2d, mesh_axis="data",
                    pattern_axis="typo", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="pattern_axis"):
         GrepEngine(patterns=["aa", "bb"], mesh=mesh2d, mesh_axis="data",
-                   pattern_axis="seq", device="cpu")
+                   pattern_axis="data", device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         GrepEngine("needle", mesh=mesh8, devices=["cpu"], device="cpu")
+    eng = GrepEngine(patterns=SET8, mesh=mesh2d, mesh_axis="data",
+                     pattern_axis="seq", **SMALL)
+    assert eng.pattern_axis == "seq" and eng.mode == "fdr"
+    f = tmp_path / "a.txt"
+    f.write_bytes(_engine_text())
+    outs = {}
+    for label, extra in (("one", {}),
+                         ("ep", {"mesh_shape": [4, 2],
+                                 "mesh_axes": ["data", "seq"],
+                                 "pattern_axis": "seq"})):
+        res = run_job(JobConfig(
+            input_files=[str(f)], n_reduce=3,
+            app_options={"patterns": SET8, "device": "cpu",
+                         "target_lanes": 256, "min_chunk": 32, **extra},
+            work_dir=str(tmp_path / label)), n_workers=1, device="cpu",
+            app=from_module(grep_cuda))
+        outs[label] = {Path(p).name: Path(p).read_bytes()
+                       for p in res.output_files}
+    assert outs["one"] == outs["ep"] and any(outs["one"].values())
+    assert grep_cuda._engine.pattern_axis == "seq"
+    assert grep_cuda._engine.totals.get("psum_candidates", 0) > 0
+    with pytest.raises(ValueError, match="no axis left"):
+        grep_cuda.card_options("cpu", "all", [2], ["seq"], "seq")
 
 
 @pytest.mark.parametrize("pattern", ["^$", "x?$", "(ab)*$"])
@@ -538,3 +568,193 @@ def test_job_config_mesh_fields_reach_the_engine(tmp_path):
     assert outs["one"] == outs["mesh"] and any(outs["one"].values())
     doc = json.loads(JobConfig(input_files=[str(f)]).to_json())
     assert "mesh_shape" not in doc and "mesh_axes" not in doc
+
+
+# ------------------------------------------------------- the pattern axis
+
+def _quarters_model(pats, ref: bool, ignore_case: bool = False):
+    """``pats`` in four quarters (members i::4) compiled apart, their banks
+    in one model: same-plan banks, as config 3's quarters give."""
+    mod = ref_fdr if ref else port_fdr
+    banks = [b for i in range(4) for b in mod.compile_fdr(
+        pats[i::4], ignore_case=ignore_case).banks]
+    return mod.FdrModel(banks=banks, ignore_case=ignore_case,
+                        n_patterns=len(pats))
+
+
+def _set_pats(seed=17, n=40):
+    rng = np.random.default_rng(seed)
+    return [b"needle", b"zebra", b"volcano"] + [
+        bytes(rng.choice(list(b"abcdefgh"), size=6).tolist())
+        for _ in range(n)]
+
+
+def test_stack_bank_tables_equals_the_references():
+    from distributed_grep_tpu.parallel.sharded_scan import (
+        stack_bank_tables as ref_stack,
+    )
+    from distributed_grep_tpu_torch.parallel.sharded_scan import (
+        stack_bank_tables,
+    )
+
+    members = [[b"needle"], [b"xx", b"zebra"], [b"volcano", b"ash", b"a"]]
+    ref_t = [ref_aho.compile_aho_corasick(m) for m in members]
+    port_t = [port_aho.compile_aho_corasick(m) for m in members]
+    for n_shards in (1, 2, 4):
+        want = ref_stack(ref_t, n_shards)
+        got = stack_bank_tables(port_t, n_shards)
+        assert got[-1] == want[-1]
+        for g, w in zip(got[:-1], want[:-1]):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    eol = port_dfa.compile_dfa("x$")
+    assert eol.accept_eol.any()
+    with pytest.raises(ValueError, match="accept_eol"):
+        stack_bank_tables([eol], 2)
+    with pytest.raises(ValueError, match="accept_eol"):
+        ref_stack([ref_dfa.compile_dfa("x$")], 2)
+
+
+@pytest.mark.parametrize("shape,axes", [((4, 2), ("data", "seq")),
+                                        ((2, 4), ("data", "seq")),
+                                        ((2, 2, 2), ("data", "seq", "x"))])
+def test_sharded_fdr_pattern_step_bit_identical(shape, axes):
+    """Four same-plan banks over a pattern axis of 2 or 4 (and a mesh with
+    a third axis, at its index 0): the words are the reference's
+    single-device OR of every bank, bit for bit, the total the nonzero
+    words of that plane; one bank over the same axis leaves entries with
+    no bank."""
+    from distributed_grep_tpu.ops import pallas_fdr
+
+    mesh = make_mesh(shape, axes, devices=CPU8)
+    pats = _set_pats()
+    arr = _columns(3, inject=(b"needle", pats[5], pats[9]))
+    ref_model, port_model = _quarters_model(pats, True), _quarters_model(
+        pats, False)
+    assert len(port_model.banks) == 4
+    assert len({sk.bank_plan(b) for b in port_model.banks}) == 1
+    ref = None
+    for bank in ref_model.banks:
+        w = np.asarray(pallas_fdr.fdr_scan_words(arr, bank, interpret=True)
+                       ).reshape(512 // 32, 4096)
+        ref = w if ref is None else ref | w
+    words, total = sk.sharded_fdr_pattern_step(
+        _st(arr), port_model, mesh, data_axis="data", pattern_axis="seq")
+    _check(words, total, ref)
+    tabs = sk.fdr_pattern_tables(port_model, mesh, "seq")
+    assert [len(r) for r in tabs] == (
+        [2, 2] if mesh.shape["seq"] == 2 else [1, 1, 1, 1])
+    one = port_fdr.FdrModel(banks=port_model.banks[:1], ignore_case=False,
+                            n_patterns=1)
+    words1, _ = sk.sharded_fdr_pattern_step(_st(arr), one, mesh, "data",
+                                            "seq")
+    want1 = np.asarray(pallas_fdr.fdr_scan_words(
+        arr, ref_model.banks[0], interpret=True)).reshape(512 // 32, 4096)
+    np.testing.assert_array_equal(words1.numpy(), want1)
+
+
+def test_sharded_fdr_pattern_step_refuses_mixed_plans():
+    mesh = make_mesh((4, 2), ("data", "seq"), devices=CPU8)
+    model = port_fdr.compile_fdr(_mixed_pats())
+    assert len({sk.bank_plan(b) for b in model.banks}) == 2
+    with pytest.raises(ValueError, match="same-plan banks"):
+        sk.sharded_fdr_pattern_step(_st(_columns(3)), model, mesh)
+
+
+def test_sharded_pattern_set_step_equals_the_references_banks():
+    """Three Aho-Corasick banks over the pattern axis on K1: the matched
+    positions are the reference's ``dfa_scan_body`` per bank, OR'd (its
+    mesh path cannot be the oracle here: C3); the count is their
+    number."""
+    from distributed_grep_tpu_torch.parallel.sharded_scan import (
+        sharded_pattern_set_step,
+    )
+
+    members = [[b"needle"], [b"zq", b"abc"], [b"hgf", b"dd"]]
+    arr = _columns(6)
+    want = None
+    for m in members:
+        t = ref_aho.compile_aho_corasick(m)
+        init = jnp.full((arr.shape[1],), t.start, dtype=jnp.int32)
+        _f, match = scan_jnp.dfa_scan_body(
+            jnp.asarray(arr),
+            jnp.asarray(t.trans.astype(np.int32).reshape(-1)),
+            jnp.asarray(t.byte_to_cls.astype(np.int32)),
+            jnp.asarray(t.accept), jnp.asarray(t.accept_eol), init,
+            t.n_classes)
+        match = np.asarray(match)
+        want = match if want is None else want | match
+    tables = [port_aho.compile_aho_corasick(m) for m in members]
+    for shape in ((4, 2), (2, 4)):
+        mesh = make_mesh(shape, ("data", "seq"), devices=CPU8)
+        words, total = sharded_pattern_set_step(_st(arr), tables, mesh)
+        np.testing.assert_array_equal(words.numpy(),
+                                      pack_bits(torch.from_numpy(want)).numpy())
+        assert int(total) == int(want.sum()) > 0
+
+
+def _mixed_pats():
+    """400 members of 2-15 bytes: two banks of two plans (m 1 and 3)."""
+    rng = np.random.default_rng(1)
+    al = list(b"abcdefghijklmnopqrstuvwxyz")
+    return sorted({bytes(rng.choice(al, size=int(rng.integers(2, 16)))
+                         .tolist()) for _ in range(400)})
+
+
+def _ep_text(pats, seed=41):
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(1500):
+        n = int(rng.integers(0, 50))
+        lines.append(bytes(rng.choice(list(b"abcdefghij klmnopq"),
+                                      size=n).tolist()))
+        if i % 29 == 3:
+            lines[-1] = b"xx " + pats[int(rng.integers(0, len(pats)))] + b" y"
+        if i % 71 == 8:
+            lines[-1] = b"#"
+    return b"\n".join(lines) + b"\n"
+
+
+@pytest.mark.parametrize("case", ["quarters", "sidecar", "mixed", "fold"])
+def test_engine_pattern_axis_lines(case, caplog):
+    """GrepEngine(mesh 4 x 2, mesh_axis="data", pattern_axis="seq"): same-
+    plan banks (a set's quarters) over the pattern axis; a set with a
+    1-byte member, whose pairset sidecar is OR'd in lane-sharded; a
+    mixed-plan set, which logs the reference's line and shards lanes
+    alone; and -i.  The lines are the reference host engine's, re's and
+    the one-device engine's."""
+    mesh = make_mesh((4, 2), ("data", "seq"), devices=CPU8)
+    pats = _set_pats(23, 60)
+    ignore_case = case == "fold"
+    if case == "mixed":
+        pats = _mixed_pats()
+    elif case == "sidecar":
+        pats = pats + [b"#"]
+    data = _ep_text(pats)
+    if ignore_case:
+        data = data.replace(b"needle", b"NeEdLe")
+    members = [p.decode() for p in pats]
+    kw = dict(segment_bytes=16 * 1024, ignore_case=ignore_case, **SMALL)
+    eng = GrepEngine(patterns=members, mesh=mesh, mesh_axis="data",
+                     pattern_axis="seq", **kw)
+    assert eng.mode == "fdr"
+    assert (eng.fdr_pairset is not None) == (case == "sidecar")
+    if case in ("quarters", "fold"):
+        eng.fdr = _quarters_model(pats, False, ignore_case)
+        assert len({sk.bank_plan(b) for b in eng.fdr.banks}) == 1
+    with caplog.at_level("INFO", "distributed_grep_tpu_torch.device_scan"):
+        res = eng.scan(data)
+    mixed_line = "mixed-plan FDR banks: pattern-parallel sharding unavailable"
+    assert (mixed_line in caplog.text) == (case == "mixed")
+    got = res.matched_lines.tolist()
+    ref = RefEngine(patterns=members, ignore_case=ignore_case,
+                    backend="cpu").scan(data)
+    assert got == ref.matched_lines.tolist() and got
+    flags = re.I if ignore_case else 0
+    rx = re.compile(b"|".join(re.escape(p) for p in pats), flags)
+    assert set(got) == {i for i, ln in enumerate(data.split(b"\n")[:-1], 1)
+                        if rx.search(ln)}
+    one = GrepEngine(patterns=members, **kw).scan(data)
+    assert got == one.matched_lines.tolist()
+    assert eng.stats["psum_candidates"] >= 1 and eng.stats["segments"] >= 2
+    assert eng._fdr_ep_dev_tables is not None or case == "mixed"

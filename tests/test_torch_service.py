@@ -235,6 +235,39 @@ def test_late_reduce_attempt_on_terminal_job_aborts_not_done(
         assert reply.abort and not reply.done
 
 
+def test_c14_events_read_after_wait_job_hold_every_commit(tmp_path, corpus,
+                                                         monkeypatch):
+    """C14: the job reads as terminal only once the scheduler has written
+    the events it staged for the last commit.  With the event write
+    slowed, the job's events.jsonl and its trace-export, read right after
+    ``wait_job``, hold one ``reduce_committed`` a reduce task."""
+    from distributed_grep_tpu_torch.runtime import scheduler as sched_mod
+    from distributed_grep_tpu_torch.utils import spans as spans_mod
+
+    real = sched_mod.Scheduler._persist_spans
+
+    def slow(self, recs, worker_id=-1, seq=-1):
+        if any(r.get("name") == "reduce_committed" for r in recs):
+            time.sleep(0.4)
+        return real(self, recs, worker_id, seq)
+
+    monkeypatch.setattr(sched_mod.Scheduler, "_persist_spans", slow)
+    svc = GrepService(work_root=tmp_path / "svc", spans=True,
+                      task_timeout_s=5.0, sweep_interval_s=0.1)
+    try:
+        svc.start_local_workers(2)
+        jid = svc.submit(grep_config(corpus, n_reduce=4))
+        assert svc.wait_job(jid, timeout=60)
+        events = tmp_path / "svc" / jid / spans_mod.EventLog.FILENAME
+        recs = [json.loads(ln) for ln in events.read_text().splitlines()]
+        trace = spans_mod.export_chrome_trace(spans_mod.EventLog.read(events))
+    finally:
+        svc.stop()
+    assert sum(r.get("name") == "reduce_committed" for r in recs) == 4
+    assert sum(e.get("name") == "reduce_committed"
+               for e in trace["traceEvents"]) == 4
+
+
 def test_service_single_job_matches_run_job_and_the_reference(
         tmp_path, corpus, service):
     service.start_local_workers(2)
