@@ -5,6 +5,13 @@
         [--workers 2] [--kernels-only | --warm-only | --control-only |
         --telemetry-only | --tiers-only | --service-only | --multi-only]
 
+Phase 0  the package's invariant checker (analysis/: ``run_analysis()``,
+         every rule, no baseline) before any build: its ``cuda-abi`` rule
+         holds each ctypes binding to its csrc/ ``extern "C"`` signature,
+         the build's source lists and the shared-memory budget on the
+         machine that builds the kernels.  Prints the violation count and
+         the seconds on a line of their own; any violation fails the run
+         before the first launch, in every mode.
 Phase 1  environment: the card's name and power limit, torch/CUDA versions,
          the build of every CUDA source of the package (one nvcc per
          source, all started together, timed), ptxas's registers and
@@ -6099,6 +6106,18 @@ def main() -> int:
 
     if args.mesh_rank is not None:
         return mesh_rank_main(args)
+
+    # ---------------------------------------------------------- phase 0
+    from distributed_grep_tpu_torch.analysis import run_analysis
+
+    log("== phase 0: the invariant checker (every rule, no baseline)")
+    t0 = time.perf_counter()
+    violations = run_analysis()
+    log(f"analysis: {len(violations)} violations in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if violations:
+        raise RuntimeError("the invariant checker failed:\n" + "\n".join(
+            v.render() for v in violations))
 
     counters = {"shift_and": cuda_scan, "nfa": nfa_scan, "fdr": fdr_scan,
                 "pairset": pairset_scan, "approx": approx_scan,

@@ -13,3 +13,7 @@ grep app drives every local card (``devices="all"``), or a mesh of them
 This package imports torch and numpy, never jax, and nothing of the
 reference package ``distributed_grep_tpu``.
 """
+
+from distributed_grep_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

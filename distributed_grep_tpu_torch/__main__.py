@@ -217,6 +217,18 @@ Perfetto or chrome://tracing; with ``--fleet`` EVENTS is a service work
 root: its daemon.jsonl (every incarnation) merged with every job's
 events.jsonl into one trace.  DGREP_TRACE_DIR=DIR runs each job under
 torch.profiler and writes its trace into DIR.
+
+Static analysis:
+
+    python -m distributed_grep_tpu_torch analyze [--json | --sarif]
+        [--rule NAME]... [--baseline FILE] [--write-baseline FILE]
+        [--root DIR] [--list-rules] [--knobs] [--events]
+
+``analyze`` runs the package's invariant rules (analysis/rules.py) over
+its own source and prints ``path:line: [rule] message`` for each
+violation; it exits 0 when there is none, 1 when there is one, 2 on a
+usage error.  ``--knobs`` and ``--events`` print the DGREP_* knob and
+telemetry event registries as markdown.
 """
 
 from __future__ import annotations
@@ -471,6 +483,13 @@ def _parser() -> argparse.ArgumentParser:
                     help="EVENTS is a service work root: its daemon.jsonl "
                          "fleet timeline merged with every job's "
                          "events.jsonl")
+
+    # listed for --help; main() dispatches it before this parser runs, so
+    # analysis/checker.py owns the checker's flags
+    sub.add_parser("analyze",
+                   help="the package's invariant checker (exit 1 on "
+                        "violations; see `analyze --help` for rules, "
+                        "baseline, knobs and events)")
     return p
 
 
@@ -958,7 +977,8 @@ def _grep_follow(args: argparse.Namespace, patterns, had_file_errors: bool,
                     _print_follow_reset(rec)
                 elif "text" in rec:
                     out.write(_follow_record_line(
-                        rec, no_filename=args.no_filename).encode() + b"\n")
+                        rec, no_filename=args.no_filename).encode(
+                        "utf-8", "surrogateescape") + b"\n")
                 elif rec.get("match") and args.files_with_matches:
                     _write(out, f"{rec['file']}\n")
         out.flush()
@@ -1764,6 +1784,13 @@ COMMANDS = {"grep": cmd_grep, "run": cmd_run, "coordinator": cmd_coordinator,
 def main(argv: list[str] | None = None) -> int:
     from distributed_grep_tpu_torch.utils import logging as dgrep_logging
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "analyze":
+        from distributed_grep_tpu_torch.analysis.checker import (
+            main as analyze_main,
+        )
+
+        return analyze_main(argv[1:])
     args = _parser().parse_args(argv)
     if args.cmd != "grep":  # the runtime's log on stderr, at DGREP_LOG
         dgrep_logging.configure()

@@ -2,13 +2,21 @@
 reference's analysis/events.py): span, instant and daemon-event
 vocabulary, declared once.
 
-utils/event_audit.py checks emitted names against it.  A family key holds
-one ``*`` and enumerates the ``members`` that may replace it (``scan:*``
-covers ``scan:shift_and``, ``scan:fdr``, ...).  The table is the
-reference's, names of tiers this package has not ported yet included;
-``owners`` name the reference's modules (``apps/grep_tpu.py`` is this
-package's ``apps/grep_cuda.py``).  One member is this package's own:
-``scan:all_lines``, the engine mode of a pattern every line matches.
+utils/event_audit.py checks emitted names against it at run time, and
+the ``event-registry`` rule (analysis/rules.py) holds every emit site and
+name-matching consumer to it at check time: a declared name no emitter
+produces is stale.  A family key holds one ``*`` and enumerates the
+``members`` that may replace it (``scan:*`` covers ``scan:shift_and``,
+``scan:fdr``, ...).  The table is the reference's, less
+``device_demoted``/``device_recovered``: the port has no host fallback
+to demote to (ROADMAP D6).  ``owners`` name the reference's modules
+(``apps/grep_tpu.py`` is this package's ``apps/grep_cuda.py``).  One
+member is this package's own: ``scan:all_lines``, the engine mode of a
+pattern every line matches.
+
+The registry doubles as generated operator docs: ``python -m
+distributed_grep_tpu_torch analyze --events`` renders it as a markdown
+table (``event_docs``).
 """
 
 from __future__ import annotations
@@ -120,15 +128,6 @@ EVENTS: dict[str, Event] = {
         ("runtime/explain.py",),
         "Stored result declined at publish: split re-stat drifted during "
         "the scan (e.g. live append).",
-    ),
-    # -------------------------------------------------------- engine health
-    "device_demoted": Event(
-        ("instant",), "engine", ("ops/engine.py",), ("runtime/explain.py",),
-        "Accelerator transport demoted to the exact host engines.",
-    ),
-    "device_recovered": Event(
-        ("instant",), "engine", ("ops/engine.py",), ("runtime/explain.py",),
-        "A degraded engine's re-probe found the device responsive again.",
     ),
     # ------------------------------------------------------ shuffle instants
     "shuffle:peer": Event(
@@ -310,3 +309,26 @@ def lookup(name: str):
             return key, fam
     return None
 
+
+def event_docs() -> str:
+    """Markdown table of the whole vocabulary (``analyze --events``)."""
+    lines = [
+        "# Telemetry event vocabulary",
+        "",
+        "| name | kind | cat | owner | consumers | doc |",
+        "|------|------|-----|-------|-----------|-----|",
+    ]
+    for key in sorted(EVENTS):
+        ev = EVENTS[key]
+        name = key
+        if is_family(key):
+            name = f"{key} ({'|'.join(ev.members)})"
+        lines.append(
+            "| `{}` | {} | {} | {} | {} | {} |".format(
+                name, "/".join(ev.kinds), ev.cat or "-",
+                ", ".join(ev.owners), ", ".join(ev.consumers) or "-",
+                ev.doc,
+            )
+        )
+    lines.append("")
+    return "\n".join(lines)

@@ -246,8 +246,10 @@ def _oracle_lines(spec, data: bytes) -> set[int]:
         return {
             int(line.split(b":", 1)[0]) for line in out.stdout.split(b"\n") if line
         }
+    from distributed_grep_tpu_torch.models.dfa import expand_posix_classes
+
     flags = re.IGNORECASE if spec["engine_kw"].get("ignore_case") else 0
-    rx = re.compile(spec["pattern"].encode(), flags)
+    rx = re.compile(expand_posix_classes(spec["pattern"].encode()), flags)
     return {i for i, line in enumerate(data.split(b"\n"), 1) if rx.search(line)}
 
 

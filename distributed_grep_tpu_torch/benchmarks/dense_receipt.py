@@ -169,7 +169,10 @@ def cli_run(corpus: Path, pattern: str, device: str, out: Path
 
 def oracle(corpus: Path, pattern: str) -> bytes:
     """The reference-format output of a Python re search, line by line."""
-    rx = re.compile(pattern.encode("utf-8", "surrogateescape"))
+    from distributed_grep_tpu_torch.models.dfa import expand_posix_classes
+
+    rx = re.compile(expand_posix_classes(
+        pattern.encode("utf-8", "surrogateescape")))
     head = f"{corpus.resolve()} (line number #"
     data = corpus.read_bytes()
     lines = data.split(b"\n")

@@ -79,7 +79,10 @@ def dryrun_multichip(n_devices: int, devices: list | None = None) -> str:
         line_matches,
         try_compile_approx,
     )
-    from distributed_grep_tpu_torch.models.dfa import compile_dfa
+    from distributed_grep_tpu_torch.models.dfa import (
+        compile_dfa,
+        expand_posix_classes,
+    )
     from distributed_grep_tpu_torch.models.fdr import FdrModel, compile_fdr
     from distributed_grep_tpu_torch.ops import fdr_scan
     from distributed_grep_tpu_torch.ops.engine import GrepEngine
@@ -123,7 +126,8 @@ def dryrun_multichip(n_devices: int, devices: list | None = None) -> str:
     doc_lines = data.split(b"\n")[:-1]
 
     def oracle(rx: bytes) -> set[int]:
-        return {i for i, ln in enumerate(doc_lines, 1) if re.search(rx, ln)}
+        pat = re.compile(expand_posix_classes(rx))
+        return {i for i, ln in enumerate(doc_lines, 1) if pat.search(ln)}
 
     # the engine's mesh route on every kernel family, held to the host
     # oracle; device_min_bytes 0 keeps the small document on the kernels

@@ -66,6 +66,7 @@ from distributed_grep_tpu_torch.ops import _build
 from distributed_grep_tpu_torch.ops.cuda_scan import check_stripes
 from distributed_grep_tpu_torch.ops.fdr_scan import or_into, pack_bits
 from distributed_grep_tpu_torch.ops.layout import STRIPES
+from distributed_grep_tpu_torch.utils import lockdep
 
 LAYOUT = STRIPES  # the layout the kernel reads (ops/layout.py)
 # the csrc/ source this module builds and launches
@@ -288,7 +289,7 @@ def uses_shared_memory(table: DfaTable, lanes: int = 65536,
     return launch_plan(table, lanes, chunk)[1] != "global"
 
 
-_upload_lock = threading.Lock()
+_upload_lock = lockdep.make_lock("dfa-upload", io_ok=True)
 
 
 def _padded(arr: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -30,6 +30,7 @@ from distributed_grep_tpu_torch.models.fdr import HASHES, MAX_DEPTHS, FdrBank
 from distributed_grep_tpu_torch.ops import _build
 from distributed_grep_tpu_torch.ops.cuda_scan import _check
 from distributed_grep_tpu_torch.ops.layout import COLUMNS
+from distributed_grep_tpu_torch.utils import lockdep
 
 # The plan buffer's layout in uint32 words; csrc/fdr.cu reads the same.
 _M, _N_CHECKS, _N_TABLE, _SLOT_START = 0, 1, 2, 8
@@ -46,7 +47,7 @@ LIBRARY = "fdr"
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
 _count_lock = threading.Lock()
 launches = 0
-_plan_lock = threading.Lock()
+_plan_lock = lockdep.make_lock("fdr-plans", io_ok=True)
 
 
 def reset_launches() -> None:

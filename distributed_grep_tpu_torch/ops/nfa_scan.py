@@ -30,6 +30,7 @@ from distributed_grep_tpu_torch.models.nfa import GlushkovModel
 from distributed_grep_tpu_torch.ops import _build
 from distributed_grep_tpu_torch.ops.cuda_scan import _check
 from distributed_grep_tpu_torch.ops.layout import COLUMNS
+from distributed_grep_tpu_torch.utils import lockdep
 
 NL = 0x0A
 MAX_WORDS = 4
@@ -46,7 +47,7 @@ LIBRARY = "nfa"
 # else.  chip_smoke.py zeroes it before the main path and reads it after.
 _count_lock = threading.Lock()
 launches = 0
-_plan_lock = threading.Lock()
+_plan_lock = lockdep.make_lock("nfa-plans", io_ok=True)
 
 
 def reset_launches() -> None:

@@ -31,14 +31,15 @@ where the reference passes what it has and jax infers the rest.
 
 from __future__ import annotations
 
-import logging
 import math
 import os
 from datetime import timedelta
 
 import torch
 
-log = logging.getLogger("distributed_grep_tpu_torch.multihost")
+from distributed_grep_tpu_torch.utils.logging import get_logger
+
+log = get_logger("multihost")
 
 # The process group's timeout: a collective waiting on a rank that died
 # fails after this long at most (gloo often fails at once, on the closed

@@ -169,7 +169,7 @@ class LineBatch:
         batch whose lines are all strict UTF-8 (their decode is then the
         identity); any other batch takes ``format_lines_bytes_numpy``."""
         out = native.format_batch(_key_prefix(self.filename), self.linenos,
-                                  self.offsets, self.slab, sep.encode())
+                                  self.offsets, self.slab, sep.encode("ascii"))
         return self.format_lines_bytes_numpy(sep) if out is None else out
 
     def format_lines_bytes_numpy(self, sep: str = "\t") -> bytes:

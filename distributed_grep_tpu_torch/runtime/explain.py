@@ -133,7 +133,9 @@ def summarize_events(events: list[dict]) -> dict:
                     shuffle["relay_fetches"] += 1
             elif name == "map_lost_output":
                 shuffle["lost_outputs"] += 1
-            elif name in ("device_demoted", "device_recovered"):
+            # never emitted by this package (no host fallback to demote
+            # to); counted as the reference's assemble counts them
+            elif name in ("device_demoted", "device_recovered"):  # analyze-ok: event-registry  # D6
                 degrades += 1
             elif name == "assign_map":
                 tasks["map_assigns"] += 1

@@ -17,11 +17,12 @@ starts clean instead of gluing onto half a record.
 from __future__ import annotations
 
 import json
-import logging
 import os
 from pathlib import Path
 
-log = logging.getLogger("distributed_grep_tpu_torch.journal")
+from distributed_grep_tpu_torch.utils.logging import get_logger
+
+log = get_logger("journal")
 
 
 def _scan_valid_prefix(path: Path) -> tuple[list[dict], int, int | None]:

@@ -203,8 +203,14 @@ _ELIDE_DEFAULTS: dict[str, Any] = {
     "peer_endpoint": "", "peer_parts": None,
 }
 
-# Reply fields dropped from the wire at their (falsy) defaults; the others
-# are always there.
+# Every *Reply field declares its side of the wire.  _REPLY_BASE fields
+# are always on the wire (the historical asdict shape old workers' parsers
+# expect); _REPLY_ELIDE fields drop from the payload at their (falsy)
+# defaults, so a daemon with the owning feature off answers byte-identical
+# to the protocol that predates the field.
+_REPLY_BASE = ("assignment", "filename", "task_id", "n_reduce",
+               "worker_id", "app_options", "task_timeout_s", "ok",
+               "next_file", "done")
 _REPLY_ELIDE = ("job_id", "application", "filenames", "retry_after_s",
                 "epoch", "fused", "abort",
                 "peer_endpoint", "peer_size", "peer_checksum")

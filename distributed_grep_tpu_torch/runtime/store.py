@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import fnmatch
 import json
-import logging
 import os
 import shutil
 import tempfile
@@ -53,7 +52,9 @@ import zlib
 from pathlib import Path
 from typing import Callable, Optional, Protocol
 
-log = logging.getLogger("distributed_grep_tpu_torch.store")
+from distributed_grep_tpu_torch.utils.logging import get_logger
+
+log = get_logger("store")
 
 
 class CrashPoint:
